@@ -1,48 +1,90 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``elektronn2_tpu_torch``).
 
-Drives the port's main path once, dense MFP inference of the flagship
-neuro3d-class net at full widths (20/30/40/40 channels) with the tail-conv
-kernel K1 (``elektronn2_tpu_torch/csrc/tailconv.cu``), and checks it:
+Drives the port's two paths once each, at full width, and checks them:
+dense MFP inference of the flagship neuro3d-class net (20/30/40/40 channels)
+with the tail-conv kernel K1 (``csrc/tailconv.cu``), and fused agent tracing
+of the tracing deployment's recurrent model (16^3 patch, Perceptron 64 →
+GRU 64 via ScanN → 3-vector step) with the patch kernels K2
+(``csrc/extract.cu``, translation) and K3 (``csrc/extract_rot.cu``,
+frame-aligned). Phases:
 
 1. device: the card's name, capability, ``nvidia-smi`` name and power limit,
-   and the float32 flags (cuDNN TF32 off, checked against float64);
-2. build: K1 is compiled with ``nvcc`` from the checkout's sources;
-3. kernel: K1 against its plain PyTorch version at the main path's conv2 and
-   conv3 shapes and at ragged shapes (``assert_close`` rtol=atol=1e-4: float32
-   sums of up to 1080 products, taken in another order), both timed with
-   CUDA events;
+   and the float32 flags (cuDNN and cuBLAS TF32 off, a conv and a matmul
+   checked against float64);
+2. build: K1, K2 and K3 compiled with ``nvcc`` from the checkout's sources,
+   one nvcc per source, all started together; ptxas registers and spills;
+3. kernel: each kernel against its plain PyTorch version on the same
+   inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
+   kernel, plain) and at ragged and border shapes. K1: ``assert_close``
+   rtol=atol=1e-4 (float32 sums of up to 1080 products in another order).
+   K2: atol 1e-5 (values in [0, 1), 8 products per output in another order).
+   K3: atol 1e-4 on a 256^3 volume (coordinates near 256 carry an ulp of
+   1.5e-5, which moves a sample by about that much) and ``ok`` equal except
+   for agents with a box corner within 1e-4 of a bound (counted);
 4. slice: the MFP route (``predict`` + ``fragments2dense``) against
    ``predict_dense_device`` on a patch-sized volume (atol 1e-5), then three
    requests of distinct random 120x496x496 volumes through
    ``predict_dense_device(vol, pad_raw=True)``: shape, finite values, channel
    sums of 1 (within 1e-5), two K1 launches per request, and one request
-   against the plain cuDNN route (``pallas_tail=False``, atol 1e-5).
+   against the plain cuDNN route (``pallas_tail=False``, atol 1e-5);
+5. trace_rollout: ``DeviceTracer.trace_batch`` of B=1024 seeds for K=256
+   steps over a 256^3 volume (``min_step=0``), one rollout under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the loop),
+   then timed rollouts: agent-steps/s (B*K / wall), alive fraction, K2
+   launches (K per rollout), peak memory, the ``trace_batch`` wall with its
+   host-side decode; against the
+   plain route (``use_pallas_extract=False``): (a) teacher-forced, the plain
+   rollout's positions fed to the kernel at every step (atol 1e-5), (b) K=8
+   rollouts (``traj`` within 1e-4, ``alive`` equal), (c) the full horizon,
+   reported (first step over 1e-3, share of agents within 1e-3 at the end);
+6. trace_rot_rollout: the same with ``rotate_to_heading=True``, B=512, K=64,
+   K3 (atol 1e-4 in (a));
+7. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
+   the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds.
 
-Each phase prints one JSON line; then the kernels line, the ``nvidia-smi``
+Each phase prints JSON lines; then the kernels line, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the
 exit code is not 0. Without a CUDA device it exits non-zero before any
 result. Usage, from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from elektronn2_tpu_torch.ops import tailconv
-from elektronn2_tpu_torch.ops.conv import f32_convs
+from elektronn2_tpu_torch.data.skeleton import read_nml_file
+from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
+                                                     ShotgunRegistry,
+                                                     flight_frame)
+from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
+from elektronn2_tpu_torch.ops.conv import f32_convs, f32_matmuls
 from elektronn2_tpu_torch.ops.mfp import fragments2dense
-from elektronn2_tpu_torch.utils.convert import flagship_model
+from elektronn2_tpu_torch.utils.convert import flagship_model, tracer_model
 
 SEED = 0
 REQ_SHAPE = (1, 120, 496, 496)          # (f, Z, X, Y) of one request
 N_REQUESTS = 3
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 SLICE_ATOL = 1e-5
+K2_ATOL = 1e-5
+K3_ATOL = 1e-4
+TRACE_VOL = (1, 256, 256, 256)          # the tracing deployment's volume
+TRACE_PATCH = (16, 16, 16)
+TRACE_B, TRACE_K = 1024, 256            # translation rollout
+TRACE_SEEDS = (10, 246)                 # seeds uniform in this range
+ROT_B, ROT_K = 512, 64                  # rotated rollout
+ROT_SEEDS = (24, 232)
+SHORT_K = 8                             # check (b)
+ROLLOUT_ATOL = 1e-4                     # check (b)
+HORIZON_TOL = 1e-3                      # check (c), reported
 
 
 def emit(phase, **fields):
@@ -81,25 +123,46 @@ def phase_device():
     y64 = torch.nn.functional.conv3d(x.double(), w.double(),
                                      dilation=(1, 2, 2))
     f32_err = (y.double() - y64).abs().max().item()
+    # the tracer encoder's matmul shape: (B, 16^3) @ (16^3, 64)
+    a = torch.rand(1024, 4096, device="cuda") - 0.5
+    b = torch.rand(4096, 64, device="cuda") - 0.5
+    mm = torch.backends.cuda.matmul
+    with f32_matmuls():
+        c = a @ b
+        try:
+            flags["cuda.matmul.fp32_precision"] = mm.fp32_precision
+        except AttributeError:
+            flags["cuda.matmul.allow_tf32"] = mm.allow_tf32
+    mm_err = (c.double() - a.double() @ b.double()).abs().max().item()
     emit("device", name=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         f32_flags=flags, cudnn_vs_f64_max_abs=f32_err)
+         f32_flags=flags, cudnn_vs_f64_max_abs=f32_err,
+         cublas_vs_f64_max_abs=mm_err)
     # TF32 keeps ~3 decimal digits: its error here would be ~1e-3
     if f32_err > 1e-5:
         raise AssertionError(f"cuDNN conv is not full float32: {f32_err}")
+    # sums of 4096 products, of magnitude ~5: float32 errs ~1e-5, TF32 ~1e-2
+    if mm_err > 1e-4:
+        raise AssertionError(f"cuBLAS matmul is not full float32: {mm_err}")
     return smi
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
+    mods = {"conv3x3_dilated": tailconv, "trilinear_patches": extract,
+            "rotated_patches": extract_rot}
     t0 = time.perf_counter()
-    lib = tailconv.build()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", kernel="conv3x3_dilated", library=lib.path,
-         nvcc_seconds=lib.build_seconds,
-         seconds=time.perf_counter() - t0, ptxas=ptxas)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = {k: ex.submit(m.build) for k, m in mods.items()}
+        libs = {k: f.result() for k, f in futs.items()}
+    wall = time.perf_counter() - t0
+    for k, lib in libs.items():
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", kernel=k, library=lib.path,
+             nvcc_seconds=lib.build_seconds, wall_seconds=wall, ptxas=ptxas)
 
 
 def phase_kernel():
@@ -145,6 +208,141 @@ def phase_kernel():
         del x, w, b
     torch.cuda.empty_cache()
     return max_err, ms_sum, plain_sum
+
+
+def k2_cases(rng):
+    """(name, vol, pos, patch, timed) for K2: the tracer's shape, a ragged
+    patch with two channels, and positions on every border (inside, on and
+    past each bound, so the clip and the fraction taken before it are
+    hit)."""
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    pos = rng.uniform(*TRACE_SEEDS, (TRACE_B, 3))
+    yield "tracer", vol, pos, TRACE_PATCH, True
+    dims = np.asarray(TRACE_VOL[1:], np.float64)
+    border = []
+    for d in range(3):
+        edge = (TRACE_PATCH[d] - 1) / 2.0
+        for v in (-2.4, 0.0, 0.3, edge, edge + 0.25, dims[d] - edge - 2.0,
+                  dims[d] - edge - 1.5, dims[d] - 1.25, dims[d],
+                  dims[d] + 1.7):
+            p = dims / 2.0 + 0.37
+            p[d] = v
+            border.append(p)
+    yield "borders", vol, np.asarray(border), TRACE_PATCH, False
+    vol2 = torch.from_numpy(rng.rand(2, 30, 40, 50).astype(np.float32)).cuda()
+    yield "ragged_f2", vol2, rng.uniform(-3, 53, (3, 3)), (5, 7, 9), False
+
+
+def k3_cases(rng):
+    """(name, vol, pos, frames, patch, timed) for K3: the rotated tracer's
+    shape with random unit headings, an anisotropic patch with two
+    channels, and agents whose lowest box corner sits at the ok bound."""
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    h = rng.randn(ROT_B, 3)
+    h /= np.linalg.norm(h, axis=1, keepdims=True)
+    yield ("tracer", vol, rng.uniform(*ROT_SEEDS, (ROT_B, 3)), h,
+           TRACE_PATCH, True)
+    vol2 = torch.from_numpy(rng.rand(2, 40, 48, 56).astype(np.float32)).cuda()
+    yield ("aniso_f2", vol2, rng.uniform(4, 36, (64, 3)), rng.randn(64, 3),
+           (4, 8, 6), False)
+    # ok boundary: shift each agent so that its lowest corner along one axis
+    # lands at 0 + delta
+    hb = rng.randn(96, 3)
+    F = flight_frame(torch.from_numpy(hb.astype(np.float32))).numpy()
+    half = (np.asarray(TRACE_PATCH) - 1) / 2.0
+    signs = np.asarray([[a, b, c] for a in (-1, 1) for b in (-1, 1)
+                        for c in (-1, 1)])
+    low = np.einsum("bji,kj->bki", F, signs * half).min(axis=1)   # (B, 3)
+    pos = np.tile(np.asarray(TRACE_VOL[1:], np.float64) / 2.0, (96, 1))
+    deltas = (-1e-3, -1e-4, -1e-5, 0.0, 1e-5, 1e-4, 1e-3, 0.1)
+    for i in range(96):
+        d = i % 3
+        pos[i, d] = -low[i, d] + deltas[i % len(deltas)]
+    yield "ok_boundary", vol, pos, hb, TRACE_PATCH, False
+
+
+def near_bound_agents(vol_shape, pos, F, patch, tol=1e-4):
+    """(B,) agents with a patch-box corner within ``tol`` of a bound (0 or
+    dims-2), in float64."""
+    half = (np.asarray(patch) - 1) / 2.0
+    signs = np.asarray([[a, b, c] for a in (-1, 1) for b in (-1, 1)
+                        for c in (-1, 1)])
+    c = (pos.double().cpu().numpy()[:, None, :]
+         + np.einsum("bji,kj->bki", F.double().cpu().numpy(), signs * half))
+    hi = np.asarray(vol_shape[1:], np.float64) - 2.0
+    return (np.abs(c).min(axis=(1, 2)) < tol) \
+        | (np.abs(c - hi).min(axis=(1, 2)) < tol)
+
+
+def timed_pair(kern, plain, n=20):
+    """(kernel ms, plain ms) per call, in turns: plain, kernel, kernel,
+    plain."""
+    t = [time_ms(plain, n), time_ms(kern, n), time_ms(kern, n),
+         time_ms(plain, n)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def phase_kernel_k2():
+    """K2 against its plain version; returns (max_abs_err, ms, plain_ms)
+    at the tracer's shape."""
+    rng = np.random.RandomState(SEED + 2)
+    max_err, ms, pms = 0.0, None, None
+    for name, vol, pos, patch, timed in k2_cases(rng):
+        pos = torch.from_numpy(pos.astype(np.float32)).cuda()
+        got = extract.trilinear_patches(vol, pos, patch)
+        ref = extract.trilinear_patches_reference(vol, pos, patch)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=K2_ATOL, rtol=0)
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        rec = dict(kernel="trilinear_patches", case=name,
+                   vol=list(vol.shape), B=pos.shape[0], patch=list(patch),
+                   max_abs_err=err, bit_exact=bool(torch.equal(got, ref)))
+        if timed:
+            ms, pms = timed_pair(
+                lambda: extract.trilinear_patches(vol, pos, patch),
+                lambda: extract.trilinear_patches_reference(vol, pos, patch))
+            rec.update(ms=ms, plain_ms=pms)
+        emit("kernel", **rec)
+    return max_err, ms, pms
+
+
+def phase_kernel_k3():
+    """K3 against its plain version; returns (max_abs_err, ms, plain_ms)
+    at the rotated tracer's shape."""
+    rng = np.random.RandomState(SEED + 3)
+    max_err, ms, pms = 0.0, None, None
+    for name, vol, pos, heads, patch, timed in k3_cases(rng):
+        pos = torch.from_numpy(pos.astype(np.float32)).cuda()
+        F = flight_frame(torch.from_numpy(heads.astype(np.float32)).cuda())
+        got, ok = extract_rot.rotated_patches(vol, pos, F, patch)
+        ref, ok_ref = extract_rot.rotated_patches_reference(vol, pos, F,
+                                                            patch)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=K3_ATOL, rtol=0)
+        near = near_bound_agents(vol.shape, pos, F, patch)
+        differ = (ok != ok_ref).cpu().numpy()
+        if (differ & ~near).any():
+            raise AssertionError(f"K3 {name}: ok differs from the plain "
+                                 f"version for {int(differ.sum())} agents, "
+                                 f"{int((differ & ~near).sum())} of them "
+                                 "not near a bound")
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        rec = dict(kernel="rotated_patches", case=name, vol=list(vol.shape),
+                   B=pos.shape[0], patch=list(patch), max_abs_err=err,
+                   bit_exact=bool(torch.equal(got, ref)),
+                   ok_fraction=ok.float().mean().item(),
+                   ok_differ=int(differ.sum()),
+                   near_bound_agents=int(near.sum()))
+        if timed:
+            ms, pms = timed_pair(
+                lambda: extract_rot.rotated_patches(vol, pos, F, patch),
+                lambda: extract_rot.rotated_patches_reference(vol, pos, F,
+                                                              patch))
+            rec.update(ms=ms, plain_ms=pms)
+        emit("kernel", **rec)
+    return max_err, ms, pms
 
 
 def seeded_params(model, rng):
@@ -244,20 +442,229 @@ def phase_slice():
     return launches
 
 
+def seeded_tracer_params(model, rng):
+    """Random tracer weights from a numpy seed: matrices normal with std
+    sqrt(1/fan_in), biases and the initial state uniform in [-0.1, 0.1]."""
+    params = {}
+    for nname, d in model.params.items():
+        params[nname] = {}
+        for k, v in d.items():
+            shape = tuple(v.shape)
+            if len(shape) == 2 and k != "state0":
+                val = rng.standard_normal(shape) / np.sqrt(shape[0])
+            else:
+                val = rng.uniform(-0.1, 0.1, size=shape)
+            params[nname][k] = val
+    return params
+
+
+def make_tracer(model, vol, **kw):
+    return DeviceTracer(model, vol, min_step=0.0, **kw)
+
+
+def record_plain_inputs(tracer):
+    """Make a plain-route tracer record the inputs of its patch cuts: a list
+    of (pos, headings or None) per step."""
+    log = []
+    if tracer.rotate_to_heading:
+        cut = tracer._extract_rot_batch
+        tracer._extract_rot_batch = lambda v, p, h: (
+            log.append((p.clone(), h.clone())) or cut(v, p, h))
+    else:
+        cut = tracer._extract
+        tracer._extract = lambda v, p: log.append((p.clone(), None)) \
+            or cut(v, p)
+    return log
+
+
+def teacher_forced_err(log, vol, rotate):
+    """Max |kernel - plain| over every step's recorded positions."""
+    err = 0.0
+    for pos, heads in log:
+        if rotate:
+            F = flight_frame(heads)
+            got, ok = extract_rot.rotated_patches(vol, pos, F, TRACE_PATCH)
+            ref, ok_ref = extract_rot.rotated_patches_reference(
+                vol, pos, F, TRACE_PATCH)
+            near = near_bound_agents(vol.shape, pos, F, TRACE_PATCH)
+            if ((ok != ok_ref).cpu().numpy() & ~near).any():
+                raise AssertionError("teacher-forced: K3 ok differs")
+        else:
+            got = extract.trilinear_patches(vol, pos, TRACE_PATCH)
+            ref = extract.trilinear_patches_reference(vol, pos, TRACE_PATCH)
+        err = max(err, (got - ref).abs().max().item())
+    return err
+
+
+def phase_trace(rotate):
+    """One fused-tracing path at full width: the main path through
+    ``trace_batch`` (kernel launches counted there), timed rollouts, and the
+    rollout checks (a), (b), (c) against the plain route. Returns the
+    kernel's launch count of the main path's run."""
+    name = "trace_rot_rollout" if rotate else "trace_rollout"
+    mod = extract_rot if rotate else extract
+    B, K = (ROT_B, ROT_K) if rotate else (TRACE_B, TRACE_K)
+    lo, hi = ROT_SEEDS if rotate else TRACE_SEEDS
+    atol_a = K3_ATOL if rotate else K2_ATOL
+    rng = np.random.RandomState(SEED + 4)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    model.to("cuda")
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    seeds = rng.uniform(lo, hi, (B, 3)).astype(np.float32)
+    kw = dict(rotate_to_heading=rotate)
+    tracer = make_tracer(model, vol, max_steps=K, **kw)
+    if not (tracer._rot_kernel if rotate else tracer._extract_kernel):
+        raise AssertionError(f"{name}: the tracer did not pick the kernel")
+    seeds_d = torch.from_numpy(seeds).cuda()
+    heads_d = seeds_d.new_tensor([[0.0, 0.0, 1.0]]).expand(B, 3)
+
+    def rollout():
+        return tracer._rollout(model.params, vol, seeds_d, heads_d)
+
+    rollout()                                   # warm
+    torch.cuda.synchronize()
+    # no host sync inside the rollout loop: PyTorch raises on any
+    # synchronising call (a copy to or from the host, .item(), ...)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rollout()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    # the main path, through the user's entry point
+    mod.launches = 0
+    t0 = time.perf_counter()
+    traces = tracer.trace_batch(seeds)
+    batch_wall = time.perf_counter() - t0
+    launches = mod.launches
+    if launches != K:
+        raise AssertionError(f"{name}: {launches} kernel launches in "
+                             f"trace_batch, expected {K}")
+    n_pts = sum(len(t.coords) for t in traces)
+    if len(traces) != B or not all(np.isfinite(t.coords).all()
+                                   for t in traces):
+        raise AssertionError(f"{name}: bad traces from trace_batch")
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        before = mod.launches
+        t0 = time.perf_counter()
+        traj, moved = rollout()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if mod.launches - before != K:
+            raise AssertionError(f"{name}: {mod.launches - before} launches "
+                                 f"in a rollout, expected {K}")
+    if tuple(traj.shape) != (K, B, 3) or not bool(torch.isfinite(traj).all()):
+        raise AssertionError(f"{name}: bad trajectory {tuple(traj.shape)}")
+    wall = min(walls)
+    emit(name, B=B, K=K, vol=list(TRACE_VOL), patch=list(TRACE_PATCH),
+         rollout_seconds=walls, agent_steps_s=B * K / wall,
+         alive_fraction=moved.float().mean().item(), launches_per_rollout=K,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         trace_batch_seconds=batch_wall, trace_batch_points=n_pts,
+         main_path_launches=launches, host_syncs_in_rollout=0)
+
+    # (a) teacher-forced and (c) full horizon, from one plain rollout
+    plain = make_tracer(model, vol, max_steps=K, use_pallas_extract=False,
+                        use_pallas_rot=False, **kw)
+    log = record_plain_inputs(plain)
+    before = mod.launches
+    ptraj, pmoved = plain._rollout(model.params, vol, seeds_d, heads_d)
+    if mod.launches != before:
+        raise AssertionError(f"{name}: the plain route launched the kernel")
+    err_a = teacher_forced_err(log, vol, rotate)
+    if err_a > atol_a:
+        raise AssertionError(f"{name}: teacher-forced patches differ by "
+                             f"{err_a} > {atol_a}")
+    d = (traj - ptraj).abs().amax(dim=2)               # (K, B)
+    over = torch.nonzero((d > HORIZON_TOL).any(dim=1))
+    first = int(over[0]) if len(over) else None
+
+    # (b) short horizon
+    short = [make_tracer(model, vol, max_steps=SHORT_K, **kw),
+             make_tracer(model, vol, max_steps=SHORT_K,
+                         use_pallas_extract=False, use_pallas_rot=False,
+                         **kw)]
+    (kt, km), (pt, pm) = [t._rollout(model.params, vol, seeds_d, heads_d)
+                          for t in short]
+    err_b = (kt - pt).abs().max().item()
+    if err_b > ROLLOUT_ATOL or not torch.equal(km, pm):
+        raise AssertionError(f"{name}: K={SHORT_K} rollouts differ: traj "
+                             f"{err_b}, alive equal {torch.equal(km, pm)}")
+    emit(name + "_checks", teacher_forced_max_abs=err_a,
+         short_horizon_k=SHORT_K, short_horizon_max_abs=err_b,
+         short_horizon_alive_equal=True,
+         full_horizon_max_abs=d.max().item(),
+         full_horizon_first_step_over_1e_3=first,
+         full_horizon_share_within_1e_3=(d[-1] <= HORIZON_TOL).float()
+         .mean().item(),
+         full_horizon_alive_equal=bool(torch.equal(moved, pmoved)),
+         bit_exact=bool(torch.equal(traj, ptraj)))
+    return launches
+
+
+def phase_trace_kzip():
+    """``trace_batch(save_kzip=...)`` read back by the port's NML parser,
+    then a ShotgunRegistry drain of 2*B seeds."""
+    rng = np.random.RandomState(SEED + 5)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    model.to("cuda")
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    tracer = make_tracer(model, vol, max_steps=64)
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "traces.k.zip")
+        traces = tracer.trace_batch(rng.uniform(*TRACE_SEEDS, (8, 3)),
+                                    save_kzip=out)
+        nodes, edges, _ = read_nml_file(out)
+    pts = np.asarray([nodes[i] for i in sorted(nodes)])
+    want = np.concatenate([t.coords for t in traces])
+    if pts.shape != want.shape or not np.array_equal(pts, want) \
+            or len(edges) != len(pts) - len(traces):
+        raise AssertionError("trace_kzip: the annotation read back differs")
+    tracer = make_tracer(model, vol, max_steps=TRACE_K)
+    reg = ShotgunRegistry(rng.uniform(*TRACE_SEEDS, (2 * TRACE_B, 3)),
+                          radius=2.0)
+    t0 = time.perf_counter()
+    reg_traces = reg.run(tracer, batch_size=TRACE_B)
+    dt = time.perf_counter() - t0
+    if reg.next_seed() is not None or not reg_traces:
+        raise AssertionError("trace_kzip: the registry did not drain")
+    emit("trace_kzip", kzip_nodes=len(pts), kzip_traces=len(traces),
+         registry_seeds=2 * TRACE_B, registry_traces=len(reg_traces),
+         registry_points=int(sum(len(t) for t in reg_traces)),
+         registry_seconds=dt)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
                  "is false); this script runs only on the card")
     smi = phase_device()
     phase_build()
-    max_err, ms, plain_ms = phase_kernel()
-    launches = phase_slice()
+    k1 = phase_kernel()
+    k2 = phase_kernel_k2()
+    k3 = phase_kernel_k3()
+    k1_launches = phase_slice()
+    k2_launches = phase_trace(rotate=False)
+    k3_launches = phase_trace(rotate=True)
+    phase_trace_kzip()
+    rows = [("conv3x3_dilated", "tailconv.cu",
+             "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),
+            ("trilinear_patches", "extract.cu",
+             "elektronn2_tpu/ops/pallas_extract.py:75", k2_launches, k2),
+            ("rotated_patches", "extract_rot.cu",
+             "elektronn2_tpu/ops/pallas_extract_rot.py:106", k3_launches, k3)]
     print(json.dumps({"kernels": [{
-        "name": "conv3x3_dilated", "route": "cuda",
-        "source": "elektronn2_tpu_torch/csrc/tailconv.cu",
-        "replaces": "elektronn2_tpu/ops/pallas_tailconv.py:318",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+        "name": n, "route": "cuda",
+        "source": f"elektronn2_tpu_torch/csrc/{src}", "replaces": rep,
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": pms} for n, src, rep, launches, (err, ms, pms) in rows]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,12 @@ modelload``, ``Model.predict_dense_device``, ``ops.mfp.fragments2dense``, …)
 so a reader finds each counterpart. It imports ``torch`` and never ``jax``,
 and never the JAX package: jax-free host code is copied.
 
-Ported so far: the dense MFP inference slice of the flagship net, with the
-tail-conv kernel K1 (``ops/tailconv.py`` + ``csrc/tailconv.cu``) hand-written
-in CUDA for Hopper. ROADMAP.md lists what is still to come.
+Ported so far, with their kernels hand-written in CUDA for Hopper: the dense
+MFP inference slice of the flagship net, with the tail-conv kernel K1
+(``ops/tailconv.py`` + ``csrc/tailconv.cu``), and fused agent tracing
+(``data/tracing_utils.py``), with the patch kernels K2 (``ops/extract.py`` +
+``csrc/extract.cu``) and K3 (``ops/extract_rot.py`` +
+``csrc/extract_rot.cu``). ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

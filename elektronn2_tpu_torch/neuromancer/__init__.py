@@ -7,13 +7,16 @@ construction computes shapes (``TaggedShape``) and initial parameters;
 
 from .graphutils import TaggedShape, floatX, as_floatX
 from .graphmanager import GraphManager, model_manager
-from .node_basic import Node, Input, Concat
-from .neural import Conv, Pool, FragmentsToDense
-from .loss import Softmax, MultinoulliNLL, AggregateLoss
+from .node_basic import Node, Input, Concat, InitialState_like, Split, split
+from .neural import Perceptron, Dot, Conv, Pool, FragmentsToDense, GRU, LSTM
+from .various import ScanN
+from .loss import Softmax, MultinoulliNLL, SquaredLoss, AggregateLoss
 from .model import Model, modelload
 
 __all__ = [
     "TaggedShape", "floatX", "as_floatX", "GraphManager", "model_manager",
-    "Node", "Input", "Concat", "Conv", "Pool", "FragmentsToDense",
-    "Softmax", "MultinoulliNLL", "AggregateLoss", "Model", "modelload",
+    "Node", "Input", "Concat", "InitialState_like", "Split", "split",
+    "Perceptron", "Dot", "Conv", "Pool", "FragmentsToDense", "GRU", "LSTM",
+    "ScanN", "Softmax", "MultinoulliNLL", "SquaredLoss", "AggregateLoss",
+    "Model", "modelload",
 ]

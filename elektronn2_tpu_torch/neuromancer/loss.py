@@ -1,6 +1,7 @@
 """Loss nodes, forward only.
 
-Port of ``Softmax``, ``MultinoulliNLL`` and ``AggregateLoss`` in
+Port of ``Softmax``, ``MultinoulliNLL``, ``SquaredLoss`` and
+``AggregateLoss`` in
 ``elektronn2_tpu/neuromancer/loss.py`` (reference:
 ``elektronn2/neuromancer/loss.py``). This slice serves dense inference and
 does not train; the loss nodes exist so that a model's graph and its saved
@@ -129,6 +130,28 @@ class MultinoulliNLL(Node):
                 ew = ew.reshape(tuple(ew.shape) + (1,) * (nll.ndim - ew.ndim))
             nll = nll * ew
         return nll
+
+
+@register_node_class
+class SquaredLoss(Node):
+    """Squared error summed over features, per position; ``margin`` zeroes
+    residuals smaller than it.
+
+    Reference: ``loss.py::SquaredLoss`` (the tracing models' step loss).
+    """
+
+    def __init__(self, pred, target, margin=None, name="squared_loss",
+                 print_repr=True):
+        super().__init__([pred, target], name, print_repr)
+        self.margin = margin
+        self.shape = _loss_map_shape(pred.shape)
+
+    def _compute(self, ctx, pred, target):
+        r = pred - target
+        if self.margin is not None:
+            r = torch.where(torch.abs(r) < self.margin, 0.0, r)
+        return torch.sum(torch.square(r),
+                         dim=self.parents[0].shape.tag2index("f"))
 
 
 @register_node_class

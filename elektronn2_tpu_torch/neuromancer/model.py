@@ -8,7 +8,8 @@ designation, the forward ``_apply``, ``predict``, ``predict_dense_device``,
 PyTorch idiom: parameters are a ``{node: {name: tensor}}`` dict on one
 device, moved explicitly with :meth:`Model.to`; calls that get data on
 another device raise instead of moving it. Evaluation is eager, under
-``torch.no_grad()``, with cuDNN's TF32 off (``ops.conv.f32_convs``).
+``torch.no_grad()``, with TF32 off in cuDNN and cuBLAS
+(``ops.conv.f32_convs``, ``ops.conv.f32_matmuls``).
 
 Not in this slice (``NotImplementedError`` naming the ROADMAP.md item):
 training (§1 item 6), compute dtypes other than float32, the host-tiled
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..log import logger
-from ..ops.conv import f32_convs
+from ..ops.conv import f32_convs, f32_matmuls
 from .graphmanager import GraphManager
 from .node_basic import TraceCtx
 
@@ -159,7 +160,7 @@ class Model:
             raise NotImplementedError(
                 "training is not ported yet (ROADMAP.md §1 item 6)")
         ctx = TraceCtx(params, feed)
-        with torch.no_grad(), f32_convs():
+        with torch.no_grad(), f32_convs(), f32_matmuls():
             outs = [ctx.get(n) for n in out_nodes]
         return outs, dict(state)
 

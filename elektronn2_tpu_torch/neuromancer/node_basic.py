@@ -1,8 +1,8 @@
 """Node base class and basic graph nodes (forward only).
 
-Port of ``Node``, ``Input`` and ``Concat`` in
-``elektronn2_tpu/neuromancer/node_basic.py`` and its module-global
-``model_manager``. A Node eagerly computes only static things (TaggedShape,
+Port of ``Node``, ``Input``, ``Concat``, ``InitialState_like``, ``Split``
+and ``split`` in ``elektronn2_tpu/neuromancer/node_basic.py`` and its
+module-global ``model_manager``. A Node eagerly computes only static things (TaggedShape,
 initial parameter values) and defines ``_compute(ctx, *parent_values)`` on
 torch tensors; ``Model`` walks the graph eagerly. Construction args are
 captured so graphs are replayable (the GraphManager contract).
@@ -35,10 +35,15 @@ class TraceCtx:
         self.values = {}
 
     def get(self, node):
-        """Memoised evaluation of ``node`` (and, recursively, its parents)."""
+        """Memoised evaluation of ``node`` (and, recursively, its parents).
+        A lazy node (``ScanN``, ``InitialState_like``) evaluates its own
+        parents, if any, through ``_compute_lazy``."""
         v = self.values.get(node.name)
         if v is None:
-            v = node._compute(self, *[self.get(p) for p in node.parents])
+            if node._lazy:
+                v = node._compute_lazy(self)
+            else:
+                v = node._compute(self, *[self.get(p) for p in node.parents])
             self.values[node.name] = v
         return v
 
@@ -56,6 +61,8 @@ class Node:
     Subclasses must set ``self.shape`` (a TaggedShape) in ``__init__`` and
     implement ``_compute(ctx, *parent_values) -> tensor``.
     """
+
+    _lazy = False  # lazy nodes implement _compute_lazy(ctx) instead
 
     def __new__(cls, *args, **kwargs):
         obj = object.__new__(cls)
@@ -182,6 +189,89 @@ class Concat(Node):
 
     def _compute(self, ctx, *parent_values):
         return torch.cat(parent_values, dim=self.axis)
+
+
+@register_node_class
+class InitialState_like(Node):
+    """Learnable initial recurrent state, broadcast to the parent's batch.
+
+    Reference: ``node_basic.py::InitialState_like``, the seed of the GRU/LSTM
+    hidden state in the tracing models. Lazy: it never evaluates its parent
+    (often a per-step placeholder inside a ``ScanN`` sub-graph). A value fed
+    under the node's name overrides ``state0`` (state carried across calls).
+    """
+
+    _lazy = True
+
+    def __init__(self, parent, override_f, init_kwargs=None,
+                 name="initial_state", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        init_kwargs = init_kwargs or {}
+        self.shape = parent.shape.updateshape("f", override_f)
+        scale = float(init_kwargs.get("scale", 0.0))
+        mode = init_kwargs.get("mode", "const")
+        per_f = [1] * self.shape.ndim
+        per_f[self.shape.tag2index("f")] = override_f
+        if mode == "const":
+            val = torch.full(per_f, scale)
+        else:
+            val = torch.randn(per_f, generator=self._gm.init_rng()) * scale
+        self.register_param("state0", val)
+
+    def _compute_lazy(self, ctx):
+        if self.name in ctx.feed:
+            return torch.as_tensor(ctx.feed[self.name])
+        return ctx.param(self, "state0").expand(tuple(self.shape))
+
+
+@register_node_class
+class Split(Node):
+    """One output slice of :func:`split`. With ``strip_singleton_dims``, a
+    size-1 slice drops its axis.
+
+    Reference: ``node_basic.py::Split``.
+    """
+
+    def __init__(self, parent, axis, start, stop, name="split",
+                 print_repr=True, strip_singleton_dims=False):
+        super().__init__(parent, name, print_repr)
+        ax = parent.shape.tag2index(axis) if isinstance(axis, str) else axis
+        self.axis, self.start, self.stop = ax, int(start), int(stop)
+        self.strip_singleton_dims = bool(strip_singleton_dims)
+        self._strip = (self.strip_singleton_dims
+                       and self.stop - self.start == 1)
+        if self._strip:
+            self.shape = parent.shape.delaxis(ax)
+        else:
+            self.shape = parent.shape.updateshape(parent.shape.tags[ax],
+                                                  self.stop - self.start)
+
+    def _compute(self, ctx, x):
+        y = x.narrow(self.axis, self.start, self.stop - self.start)
+        return y.squeeze(self.axis) if self._strip else y
+
+
+def split(node, axis="f", index=None, n_out=None, strip_singleton_dims=False,
+          name="split"):
+    """Split a node along a tagged axis into several nodes: ``n_out`` equal
+    parts, or at the boundaries in ``index``.
+
+    Reference: ``node_basic.py::split``.
+    """
+    ax = node.shape.tag2index(axis) if isinstance(axis, str) else axis
+    size = node.shape.shape[ax]
+    if index is None:
+        if n_out is None or size % n_out:
+            raise ValueError(f"cannot split axis of size {size} into "
+                             f"{n_out} parts")
+        step = size // n_out
+        bounds = [(i * step, (i + 1) * step) for i in range(n_out)]
+    else:
+        edges = [0] + list(index) + [size]
+        bounds = list(zip(edges[:-1], edges[1:]))
+    return [Split(node, axis, a, b, name=f"{name}{i}",
+                  strip_singleton_dims=strip_singleton_dims)
+            for i, (a, b) in enumerate(bounds)]
 
 
 # make the module-global manager importable from here, as in the reference

@@ -2,7 +2,7 @@
 
 Port of ``elektronn2_tpu/ops``: the ops the JAX package leaves to XLA are
 PyTorch's own here; the ones it wrote as Pallas TPU kernels are hand-written
-CUDA kernels (``tailconv`` so far).
+CUDA kernels (``tailconv``, ``extract``, ``extract_rot`` so far).
 """
 
 from .activations import get_activation, ACTIVATIONS

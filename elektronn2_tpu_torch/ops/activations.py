@@ -3,7 +3,8 @@
 Port of ``elektronn2_tpu/ops/activations.py``: the same names (the
 reference's lin, relu, tanh, sig, abs, plus the modern extras) on torch
 tensors, with the same validation. ``maxout`` and ``prelu`` pass validation
-as there, but no layer of this port takes them yet.
+as there; ``Perceptron`` takes ``maxout``, and no layer of this port takes
+``prelu`` yet.
 """
 
 import torch

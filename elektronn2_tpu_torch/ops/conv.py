@@ -1,6 +1,6 @@
-"""Convolution / pooling / softmax primitives.
+"""Convolution / pooling / dense / softmax primitives.
 
-Port of ``conv``, ``pooling``, ``maxout``, ``softmax`` and
+Port of ``conv``, ``dot``, ``pooling``, ``maxout``, ``softmax`` and
 ``apply_activation`` in ``elektronn2_tpu/ops/conv.py``. The JAX package
 leaves these ops to XLA; here they are PyTorch's own (cuDNN on the card).
 The array layout ``(b, f, *spatial)`` is torch's NCDHW / NCHW / NCL, so
@@ -10,7 +10,10 @@ Float32 convolutions on the card go through cuDNN, which runs them in TF32
 unless ``torch.backends.cudnn.allow_tf32`` is off; the dense path of
 ``neuromancer/inference.py`` and ``Model.predict`` switch it off, because
 TF32 keeps about three decimal digits and breaks parity with the JAX
-package at about 1e-3.
+package at about 1e-3. Float32 matmuls go through cuBLAS, whose default is
+full float32, but a process may have switched TF32 on
+(``torch.backends.cuda.matmul``); the model paths pin it off with
+:func:`f32_matmuls`.
 """
 
 from __future__ import annotations
@@ -43,6 +46,29 @@ def f32_convs():
         kw["fp32_precision"] = "ieee"
     with cudnn.flags(**kw):
         yield
+
+
+@contextlib.contextmanager
+def f32_matmuls():
+    """Run cuBLAS float32 matmuls in full float32 (no TF32) inside this
+    context, restoring the previous setting after it.
+
+    On PyTorch versions with the ``fp32_precision`` setting it is set to
+    ``'ieee'``; older versions take ``allow_tf32=False``. Only one of the two
+    APIs is touched: PyTorch refuses to read a precision set through both.
+    """
+    mm = torch.backends.cuda.matmul
+    try:
+        attr, full, prev = "fp32_precision", "ieee", mm.fp32_precision
+    except AttributeError:
+        attr, full, prev = "allow_tf32", False, mm.allow_tf32
+    setattr(mm, attr, full)
+    try:
+        yield
+    finally:
+        setattr(mm, attr, prev)
+
+
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVGPOOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
@@ -77,6 +103,17 @@ def conv(x, w, b=None, border_mode="valid", stride=None, dilation=None):
         raise ValueError(f"border_mode={border_mode!r}: expected 'valid', "
                          "'same' or 'full'")
     return _CONV[nsp](x, w, b, stride=stride, padding=pad, dilation=dilation)
+
+
+def dot(x, w, axis=1):
+    """Feature-axis dense transform: ``(b, f_in, *sp) @ (f_in, f_out)``,
+    applied at every remaining position (a 1x1 conv when spatial axes are
+    present); ``axis`` is the feature axis of ``x``.
+
+    Reference: ``computations.py::dot``.
+    """
+    y = torch.matmul(torch.movedim(x, axis, -1), w.to(x.dtype))
+    return torch.movedim(y, -1, axis)
 
 
 def pooling(x, pool_shape, mode="max", stride=None):

@@ -1,0 +1,167 @@
+"""K3: frame-aligned (rotated) trilinear patch extraction, a CUDA kernel for
+Hopper.
+
+Port of the Pallas TPU kernel ``elektronn2_tpu/ops/pallas_extract_rot.py::
+rotated_patches_pallas`` in its float32 mode, the patch cut of every step of
+the rotated tracing rollout (``DeviceTracer(rotate_to_heading=True)``).
+Semantics are those of the JAX package's XLA oracle
+``DeviceTracer._extract_rot_batch``: the sample of output voxel i lies at
+``pos + F^T (i - (p-1)/2)``, where F holds the agent's flight-frame rows;
+``c0 = floor(coord)``, ``frac`` taken before ``c0`` is clipped to
+``[0, dims-2]``; the 8-corner sum; and ``ok``, true when every sample has
+``0 <= coord <= dims-2`` (the host ``WarpingOOBError`` criterion).
+
+The kernel is ``csrc/extract_rot.cu`` (its head note says what bounds it and
+how). It computes the coordinates in the plain version's order without FMA
+contraction, so both agree bit for bit. The TPU kernel's hat-weight MXU
+contraction, its window geometry, eligibility and call split have no
+counterpart; its ``precision="high"`` (bf16x3) rung is an MXU workaround and
+maps to float32 here. :func:`rotated_ok` is the TPU kernel's 8-box-corner
+form of the ``ok`` test, kept in plain PyTorch.
+
+Dispatch: a CPU tensor runs :func:`rotated_patches_reference`, the plain
+PyTorch version; a CUDA tensor launches the kernel or raises. ``launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.cuda_build import load_cuda_library
+from .extract import check_patch, check_tensor
+
+#: kernel launches made by :func:`rotated_patches` in this process
+launches = 0
+
+_fn = None
+_WHAT = "rotated patch extraction"
+
+
+def build():
+    """Build (on first use) and load the kernel library; returns the
+    ``CudaLibrary`` (build time and nvcc's report included)."""
+    global _fn
+    lib = load_cuda_library("extract_rot")
+    if _fn is None:
+        fn = lib.cdll.e2t_rotated_patches_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return lib
+
+
+def _check_args(vol, pos, frames, patch):
+    patch = check_patch(patch, _WHAT)
+    check_tensor(vol, "vol", 4, what=_WHAT)
+    check_tensor(pos, "pos", 2, like=vol, what=_WHAT)
+    check_tensor(frames, "frames", 3, like=vol, what=_WHAT)
+    B = pos.shape[0]
+    if pos.shape[1] != 3 or tuple(frames.shape) != (B, 3, 3):
+        raise ValueError(f"{_WHAT}: pos must be (B, 3) and frames (B, 3, 3), "
+                         f"got {tuple(pos.shape)} and {tuple(frames.shape)}")
+    if min(vol.shape[1:]) < 2:
+        raise ValueError(f"{_WHAT}: volume {tuple(vol.shape[1:])} needs "
+                         "every edge >= 2 (one interpolation cell)")
+    return patch
+
+
+def rotated_patches(vol, pos, frames, patch):
+    """Frame-aligned trilinear patches and their in-bounds flags.
+
+    vol: (f, Z, X, Y) float32, contiguous; pos: (B, 3) and frames (B, 3, 3)
+    float32 on the same device. Returns ``(patches (B, f, pz, px, py)
+    float32, ok (B,) bool)``; the patch values of an agent with ``ok``
+    false are clipped samples, to be masked by the caller.
+    """
+    global launches
+    patch = _check_args(vol, pos, frames, patch)
+    if vol.device.type == "cpu":
+        return rotated_patches_reference(vol, pos, frames, patch)
+    if vol.device.type != "cuda":
+        raise ValueError(f"{_WHAT}: no kernel for device {vol.device}")
+    build()
+    B = pos.shape[0]
+    f, Z, X, Y = vol.shape
+    out = torch.empty((B, f, *patch), dtype=torch.float32, device=vol.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=vol.device)
+    if B == 0:
+        return out, ok
+    with torch.cuda.device(vol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(vol.data_ptr(), pos.data_ptr(), frames.data_ptr(),
+                  out.data_ptr(), ok.data_ptr(), B, f, Z, X, Y, *patch,
+                  stream)
+    if err != 0:
+        raise RuntimeError(f"rotated patch kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return out, ok
+
+
+def _offsets(patch, device):
+    """(3, P) sample offsets ``i - (p-1)/2`` of the patch lattice, z slowest."""
+    grids = torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=device) - (n - 1) / 2.0
+          for n in patch], indexing="ij")
+    return torch.stack([g.reshape(-1) for g in grids])
+
+
+def rotated_coords(pos, frames, patch):
+    """(B, 3, P) world coordinates of every sample: ``pos + F^T o``, summed
+    as ``(F0i*o0 + F1i*o1) + F2i*o2`` (the kernel's order)."""
+    o = _offsets(patch, pos.device)
+    t = frames[:, 0, :, None] * o[0] + frames[:, 1, :, None] * o[1]
+    t = t + frames[:, 2, :, None] * o[2]
+    return pos[:, :, None] + t
+
+
+def rotated_patches_reference(vol, pos, frames, patch):
+    """The plain PyTorch version of :func:`rotated_patches`: the 8-corner
+    sum as gathers from the flattened volume, vectorised over the agents.
+    Constants stay Python scalars, so nothing is copied from the host."""
+    f, Z, X, Y = vol.shape
+    B = pos.shape[0]
+    coords = rotated_coords(pos, frames, patch)
+    ok = None
+    c0, fr = [], []
+    for d, dim in enumerate((Z, X, Y)):
+        c = coords[:, d]
+        inside = torch.all((c >= 0.0) & (c <= dim - 2.0), dim=1)
+        ok = inside if ok is None else ok & inside
+        fl = torch.floor(c)
+        fr.append(c - fl)
+        c0.append(torch.clamp(fl, 0.0, float(dim - 2)).long())
+    flat_vol = vol.reshape(f, -1)
+    acc = torch.zeros((f, B, coords.shape[2]), dtype=vol.dtype,
+                      device=vol.device)
+    for dz in (0, 1):
+        wz = fr[0] if dz else 1.0 - fr[0]
+        for dx in (0, 1):
+            wx = fr[1] if dx else 1.0 - fr[1]
+            for dy in (0, 1):
+                wy = fr[2] if dy else 1.0 - fr[2]
+                idx = ((c0[0] + dz) * X + (c0[1] + dx)) * Y + (c0[2] + dy)
+                acc = acc + (wz * wx * wy)[None] * flat_vol[:, idx]
+    return acc.transpose(0, 1).reshape(B, f, *patch), ok
+
+
+def rotated_ok(vol_shape, pos, frames, patch):
+    """(B,) in-bounds flags by the 8-box-corner test: the extreme sample
+    coordinates of the rotated lattice lie at the 8 corners of the patch
+    box (a linear map of a box), so checking them equals checking every
+    sample, up to rounding at a bound. Reference:
+    ``pallas_extract_rot.py::rotated_ok``."""
+    half = torch.tensor([(p - 1) / 2.0 for p in patch], dtype=torch.float32,
+                        device=pos.device)
+    signs = torch.tensor([[sz, sx, sy] for sz in (-1, 1) for sx in (-1, 1)
+                          for sy in (-1, 1)], dtype=torch.float32,
+                         device=pos.device)
+    corners = signs * half                                       # (8, 3)
+    c = pos[:, None, :] + torch.einsum("bji,kj->bki", frames, corners)
+    hi = torch.tensor([d - 2.0 for d in vol_shape[1:]], dtype=torch.float32,
+                      device=pos.device)
+    return torch.all((c >= 0.0) & (c <= hi), dim=2).all(dim=1)

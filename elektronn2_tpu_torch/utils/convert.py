@@ -1,13 +1,18 @@
-"""Bridges from the JAX package: parameters and the flagship net.
+"""Bridges from the JAX package: parameters, the flagship net and the
+tracing model.
 
 ``params_from_jax`` turns the JAX package's ``{node: {name: array}}``
-parameters into the port's tensors. Conv weights are
-``(Cout, Cin, kz, kx, ky)`` and biases ``(Cout,)`` in both packages, so for
-the nodes of this slice the conversion is an exact copy.
+parameters into the port's tensors. Every ported node keeps the JAX
+package's parameter layout (conv ``w`` ``(Cout, Cin, kz, kx, ky)``,
+Perceptron ``w`` ``(f_in, n_f)``, GRU ``w_gates``/``b_gates``/``w_cand``/
+``b_cand``, ``InitialState_like`` ``state0``), so the conversion is an exact
+copy.
 
 ``flagship_model`` is the port's counterpart of
 ``__graft_entry__._flagship_model``: the neuro3d-class net with the same
-arguments, node names and geometry.
+arguments, node names and geometry. ``tracer_model`` is the counterpart of
+``scripts/exp_tracer_rollout.py::build_model``, the tracing deployment's
+recurrent model.
 """
 
 from __future__ import annotations
@@ -84,4 +89,33 @@ def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0):
     model = nm.model_manager.getmodel("flagship")
     model.designate_nodes(input_node=inp, target_node=tgt, loss_node=loss,
                           prediction_node=probs)
+    return model
+
+
+def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4):
+    """The recurrent tracing model of the tracing deployment, with the JAX
+    package's node names: ``x_t`` (one step's patch) →
+    ``Perceptron(enc_w, flatten=True)`` ``enc`` → ``GRU(gru_w)`` ``gru``
+    seeded by ``InitialState_like`` ``h0``, iterated over the ``seq`` input
+    by ``ScanN`` ``scan`` → ``Perceptron(3, 'lin')`` ``step``, with
+    ``SquaredLoss`` + ``AggregateLoss`` against ``target``. ``batch`` and
+    ``t`` size the designated inputs; a rollout runs any batch. Weights come
+    from ``model_manager.reset()``'s generator.
+    """
+    from .. import neuromancer as nm
+
+    nm.model_manager.reset()
+    seq = nm.Input([t, batch, 1, *patch], "s,b,f,z,x,y", name="seq")
+    x_t = nm.Input([batch, 1, *patch], "b,f,z,x,y", name="x_t")
+    enc = nm.Perceptron(x_t, enc_w, flatten=True, name="enc")
+    h0 = nm.InitialState_like(enc, override_f=gru_w, name="h0")
+    gru = nm.GRU(enc, h0, n_f=gru_w, name="gru")
+    scan = nm.ScanN(gru, in_memory=h0, in_iterate=x_t, in_iterate_0=seq,
+                    n_steps=t, name="scan")
+    step_vec = nm.Perceptron(scan, 3, activation_func="lin", name="step")
+    tgt = nm.Input([t, batch, 3], "s,b,f", name="target")
+    loss = nm.AggregateLoss(nm.SquaredLoss(step_vec, tgt), name="loss")
+    model = nm.model_manager.getmodel("tracer_bench")
+    model.designate_nodes(input_node=seq, target_node=tgt, loss_node=loss,
+                          prediction_node=step_vec)
     return model

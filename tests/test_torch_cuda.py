@@ -5,15 +5,21 @@ that has only PyTorch with CUDA: ``python -m pytest tests/test_torch_cuda.py
 --noconftest -q`` (``--noconftest``: ``tests/conftest.py`` imports jax).
 Each test holds a kernel against its plain PyTorch version on the same
 inputs; tolerance 1e-4 for K1 (float32 sums of up to 1080 products in
-another order), 1e-5 on the flagship's probabilities.
+another order), 1e-5 on the flagship's probabilities, 1e-5 for K2 (values in
+[0, 1), 8 products per output) and 1e-4 for K3 (coordinates near 256 carry
+an ulp of 1.5e-5, which moves a sample by about that much); K3's ``ok``
+flags must be equal. Both patch kernels avoid FMA contraction and are
+expected to agree with their plain versions bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from elektronn2_tpu_torch.ops import tailconv
-from elektronn2_tpu_torch.utils.convert import flagship_model
+from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
+                                                     flight_frame)
+from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
+from elektronn2_tpu_torch.utils.convert import flagship_model, tracer_model
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -71,3 +77,68 @@ def test_flagship_k1_route_matches_cudnn_route(cuda_device):
     torch.cuda.synchronize()
     assert tuple(a.shape) == (2, 12, 80, 72)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, shape, patch, B", [
+    (1, (64, 64, 64), (16, 16, 16), 300),     # the tracer's patch
+    (2, (20, 24, 28), (5, 7, 9), 3),          # ragged patch, two channels
+    (1, (40, 40, 40), (36, 36, 36), 2),       # a window past 48 KB
+])
+def test_k2_matches_plain(cuda_device, f, shape, patch, B):
+    rng = np.random.RandomState(21)
+    vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
+        cuda_device)
+    dims = np.asarray(shape, np.float32)
+    pos = rng.uniform(-2.0, dims + 2.0, (B, 3)).astype(np.float32)
+    pos = torch.from_numpy(pos).to(cuda_device)
+    before = extract.launches
+    got = extract.trilinear_patches(vol, pos, patch)
+    ref = extract.trilinear_patches_reference(vol, pos, patch)
+    torch.cuda.synchronize()
+    assert extract.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, shape, patch, B", [
+    (1, (96, 96, 96), (16, 16, 16), 200),
+    (2, (30, 34, 40), (4, 8, 6), 17),
+])
+def test_k3_matches_plain(cuda_device, f, shape, patch, B):
+    rng = np.random.RandomState(22)
+    vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
+        cuda_device)
+    dims = np.asarray(shape, np.float32)
+    pos = torch.from_numpy(rng.uniform(2.0, dims - 2.0, (B, 3)).astype(
+        np.float32)).to(cuda_device)
+    F = flight_frame(torch.from_numpy(rng.randn(B, 3).astype(
+        np.float32)).to(cuda_device))
+    before = extract_rot.launches
+    got, ok = extract_rot.rotated_patches(vol, pos, F, patch)
+    ref, ok_ref = extract_rot.rotated_patches_reference(vol, pos, F, patch)
+    torch.cuda.synchronize()
+    assert extract_rot.launches == before + 1
+    assert torch.equal(ok, ok_ref) and bool(ok.any()) and not bool(ok.all())
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rotate", [False, True])
+def test_tracer_kernel_route_matches_plain_route(cuda_device, rotate):
+    m = tracer_model((8, 8, 8), enc_w=16, gru_w=16).to(cuda_device)
+    rng = np.random.RandomState(23)
+    vol = torch.from_numpy(rng.rand(1, 48, 48, 48).astype(np.float32)).to(
+        cuda_device)
+    seeds = rng.uniform(8, 40, (64, 3)).astype(np.float32)
+    kw = dict(max_steps=8, min_step=0.0, rotate_to_heading=rotate)
+    counter = extract_rot if rotate else extract
+    before = counter.launches
+    got = DeviceTracer(m, vol, **kw).trace_batch(seeds)
+    assert counter.launches == before + 8
+    ref = DeviceTracer(m, vol, use_pallas_extract=False, use_pallas_rot=False,
+                       **kw).trace_batch(seeds)
+    assert counter.launches == before + 8
+    for g, r in zip(got, ref):
+        assert len(g.coords) == len(r.coords)
+        np.testing.assert_allclose(g.coords, r.coords, atol=1e-4)

@@ -17,11 +17,14 @@ MODULES = [
     "elektronn2_tpu_torch.utils.cnncalculator",
     "elektronn2_tpu_torch.utils.cuda_build",
     "elektronn2_tpu_torch.utils.convert",
+    "elektronn2_tpu_torch.utils.basic",
     "elektronn2_tpu_torch.ops",
     "elektronn2_tpu_torch.ops.activations",
     "elektronn2_tpu_torch.ops.conv",
     "elektronn2_tpu_torch.ops.mfp",
     "elektronn2_tpu_torch.ops.tailconv",
+    "elektronn2_tpu_torch.ops.extract",
+    "elektronn2_tpu_torch.ops.extract_rot",
     "elektronn2_tpu_torch.neuromancer",
     "elektronn2_tpu_torch.neuromancer.graphutils",
     "elektronn2_tpu_torch.neuromancer.graphmanager",
@@ -31,6 +34,10 @@ MODULES = [
     "elektronn2_tpu_torch.neuromancer.loss",
     "elektronn2_tpu_torch.neuromancer.model",
     "elektronn2_tpu_torch.neuromancer.inference",
+    "elektronn2_tpu_torch.neuromancer.various",
+    "elektronn2_tpu_torch.data",
+    "elektronn2_tpu_torch.data.skeleton",
+    "elektronn2_tpu_torch.data.tracing_utils",
 ]
 
 
@@ -65,6 +72,28 @@ def test_flagship_builds_and_runs_without_jax():
             "m.set_dilated_impl('direct', zfold=True, pallas_tail=True)\n"
             "y = m.predict_dense_device(torch.rand(1, 7, 30, 30), pad_raw=True)\n"
             "assert tuple(y.shape) == (2, 7, 30, 30), y.shape\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_tracing_rollout_runs_without_jax():
+    # the tracing slice (graph, rollout, both patch cuts, KNOSSOS export)
+    # stays jax-free when it runs
+    code = ("import os, sys, tempfile, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import tracer_model\n"
+            "from elektronn2_tpu_torch.data.tracing_utils import DeviceTracer\n"
+            "m = tracer_model((4, 4, 4), enc_w=8, gru_w=8)\n"
+            "vol = torch.rand(1, 16, 16, 16)\n"
+            "d = tempfile.mkdtemp()\n"
+            "for rot in (False, True):\n"
+            "    t = DeviceTracer(m, vol, max_steps=3, rotate_to_heading=rot)\n"
+            "    tr = t.trace_batch([[8.0, 8.0, 8.0]],\n"
+            "                       save_kzip=os.path.join(d, 'a.k.zip'))\n"
+            "    assert len(tr) == 1 and len(tr[0].coords) >= 1\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code)
