@@ -1,34 +1,53 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``elektronn2_tpu_torch``).
 
-Drives the port's two paths once each, at full width, and checks them:
-dense MFP inference of the flagship neuro3d-class net (20/30/40/40 channels)
-with the tail-conv kernel K1 (``csrc/tailconv.cu``), and fused agent tracing
-of the tracing deployment's recurrent model (16^3 patch, Perceptron 64 →
-GRU 64 via ScanN → 3-vector step) with the patch kernels K2
-(``csrc/extract.cu``, translation) and K3 (``csrc/extract_rot.cu``,
-frame-aligned). Phases:
+Drives the port's paths at full width and checks them: dense MFP inference
+of the flagship neuro3d-class net (20/30/40/40 channels) with the tail-conv
+kernel K1 (``csrc/tailconv.cu``); the same request with the flagship's
+head units in the head-unit kernel K4 (``csrc/headconv.cu``); U-Net
+conv-dense serving of the wide U-Net (``examples/unet3d_wide.py``, widths
+64/128/256) with K1 on its (3,3,3) convs; fused agent tracing of the
+tracing deployment's recurrent model (16^3 patch, Perceptron 64 -> GRU 64
+via ScanN -> 3-vector step) with the patch kernels K2 (``csrc/extract.cu``,
+translation) and K3 (``csrc/extract_rot.cu``, frame-aligned); and the K4
+probe at the conv-dense path's kz=1 shapes. Phases:
 
 1. device: the card's name, capability, ``nvidia-smi`` name and power limit,
    and the float32 flags (cuDNN and cuBLAS TF32 off, a conv and a matmul
    checked against float64);
-2. build: K1, K2 and K3 compiled with ``nvcc`` from the checkout's sources,
-   one nvcc per source, all started together; ptxas registers and spills;
+2. build: K1, K4, K2 and K3 compiled with ``nvcc`` from the checkout's
+   sources, one nvcc per source, all started together; ptxas registers and
+   spills;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
-   kernel, plain) and at ragged and border shapes. K1: ``assert_close``
-   rtol=atol=1e-4 (float32 sums of up to 1080 products in another order).
-   K2: atol 1e-5 (values in [0, 1), 8 products per output in another order).
-   K3: atol 1e-4 on a 256^3 volume (coordinates near 256 carry an ulp of
-   1.5e-5, which moves a sample by about that much) and ``ok`` equal except
-   for agents with a box corner within 1e-4 of a bound (counted);
+   kernel, plain) and at ragged and border shapes, with each timed case's
+   bound on an H100 (bytes at 3.35 TB/s or FLOPs at 67 TFLOP/s FP32,
+   whichever is larger). K1 and K4: ``assert_close`` rtol=atol=1e-4
+   (float32 sums of up to 27*Cin or 9*Cin products in another order); K1
+   also times one ``F.conv3d`` with the bias (its library call; no ReLU).
+   K4 covers the flagship's head units, ragged Y, d=3 and the probe's
+   shapes; its plain version is the flagship route's own cuDNN sequence.
+   K2: atol 1e-5 (values in [0, 1), 8 products per output in another
+   order). K3: atol 1e-4 on a 256^3 volume (coordinates near 256 carry an
+   ulp of 1.5e-5, which moves a sample by about that much) and ``ok`` equal
+   except for agents with a box corner within 1e-4 of a bound (counted);
 4. slice: the MFP route (``predict`` + ``fragments2dense``) against
    ``predict_dense_device`` on a patch-sized volume (atol 1e-5), then three
    requests of distinct random 120x496x496 volumes through
    ``predict_dense_device(vol, pad_raw=True)``: shape, finite values, channel
    sums of 1 (within 1e-5), two K1 launches per request, and one request
    against the plain cuDNN route (``pallas_tail=False``, atol 1e-5);
-5. trace_rollout: ``DeviceTracer.trace_batch`` of B=1024 seeds for K=256
+5. head_chain: one request through K4 (conv0) -> K4 (conv1) -> K1 (conv2,
+   conv3) -> barrier -> softmax against ``predict_dense_device`` (atol
+   1e-5), two K4 and two K1 launches, timed against the request;
+6. convdense_request: three distinct random 128x448x448 slabs of the
+   full-width wide U-Net through ``predict_dense_device(pad_raw=True)``
+   under ``set_convdense_impl(zfold=True, skipsum=True, ptail=True)``:
+   shape (2, 128, 448, 448), finite values, channel sums of 1 (within
+   1e-5), four K1 launches per slab, time, Mvox/s and peak memory; one slab
+   against the cuDNN route (``ptail=False``, the bench's configuration;
+   atol 1e-4, ``CONVDENSE_ATOL``);
+7. trace_rollout: ``DeviceTracer.trace_batch`` of B=1024 seeds for K=256
    steps over a 256^3 volume (``min_step=0``), one rollout under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the loop),
    then timed rollouts: agent-steps/s (B*K / wall), alive fraction, K2
@@ -38,15 +57,19 @@ frame-aligned). Phases:
    rollout's positions fed to the kernel at every step (atol 1e-5), (b) K=8
    rollouts (``traj`` within 1e-4, ``alive`` equal), (c) the full horizon,
    reported (first step over 1e-3, share of agents within 1e-3 at the end);
-6. trace_rot_rollout: the same with ``rotate_to_heading=True``, B=512, K=64,
+8. trace_rot_rollout: the same with ``rotate_to_heading=True``, B=512, K=64,
    K3 (atol 1e-4 in (a));
-7. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
-   the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds.
+9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
+   the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds;
+10. headk_probe: the rows of ``elektronn2_tpu_torch.scripts.
+    exp_convdense_headk.main()`` (K4 against the zfold cuDNN conv).
 
-Each phase prints JSON lines; then the kernels line, the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the
-exit code is not 0. Without a CUDA device it exits non-zero before any
-result. Usage, from the repository root: ``python3 chip_smoke.py``.
+Each phase prints JSON lines; then the kernels line (per kernel: launches
+on the main paths, the largest error against its plain version, ms,
+plain_ms, bound_ms, bound_by, library_ms), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
+is not 0. Without a CUDA device it exits non-zero before any result.
+Usage, from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
@@ -67,11 +90,20 @@ from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
 from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
 from elektronn2_tpu_torch.ops.conv import f32_convs, f32_matmuls
 from elektronn2_tpu_torch.ops.mfp import fragments2dense
-from elektronn2_tpu_torch.utils.convert import flagship_model, tracer_model
+from elektronn2_tpu_torch.scripts import exp_convdense_headk
+from elektronn2_tpu_torch.scripts.exp_convdense_headk import (FP32_FLOP_S,
+                                                             HBM_BYTES_S)
+from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
+                                                wide_unet_model)
 
 SEED = 0
 REQ_SHAPE = (1, 120, 496, 496)          # (f, Z, X, Y) of one request
 N_REQUESTS = 3
+SLAB_SHAPE = (1, 128, 448, 448)         # one conv-dense slab of the U-Net
+N_SLABS = 3
+# K1 route vs cuDNN route on the wide U-Net: float32 sums of up to 6912
+# products (d1: 27 taps x 256 channels) in another order, through 9 layers
+CONVDENSE_ATOL = 1e-4
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 SLICE_ATOL = 1e-5
 K2_ATOL = 1e-5
@@ -151,11 +183,13 @@ def phase_device():
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    mods = {"conv3x3_dilated": tailconv, "trilinear_patches": extract,
-            "rotated_patches": extract_rot}
+    builds = {"conv3x3_dilated": tailconv.build,
+              "conv1x3x3_pool_dilated": tailconv.build_head,
+              "trilinear_patches": extract.build,
+              "rotated_patches": extract_rot.build}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as ex:
-        futs = {k: ex.submit(m.build) for k, m in mods.items()}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futs = {k: ex.submit(b) for k, b in builds.items()}
         libs = {k: f.result() for k, f in futs.items()}
     wall = time.perf_counter() - t0
     for k, lib in libs.items():
@@ -165,18 +199,37 @@ def phase_build():
              nvcc_seconds=lib.build_seconds, wall_seconds=wall, ptxas=ptxas)
 
 
+def conv_bound(cin, cout, x_numel, out_numel):
+    """(bound ms, 'bytes' or 'operations') of K1 on an H100: each input
+    read once and the output (``out_numel`` elements, channels included)
+    written once over the memory rate, against its multiply-adds over the
+    FP32 rate."""
+    flop = 2.0 * cin * 27 * out_numel
+    nbytes = 4.0 * (x_numel + out_numel + cout * (cin * 27 + 1))
+    t_b, t_f = nbytes / HBM_BYTES_S, flop / FP32_FLOP_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b > t_f else "operations")
+
+
 def phase_kernel():
-    """K1 against its plain version; returns (max_abs_err, ms, plain_ms)
-    with the times summed over the main path's conv2 + conv3 shapes."""
+    """K1 against its plain version; returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms) with the times summed over the main
+    path's conv2 + conv3 shapes; the library call is one ``F.conv3d`` with
+    the bias (no ReLU), in full float32."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # name, N, Cin, Cout, (Z, X, Y), dil
         ("conv2", 1, 30, 40, (124, 512, 512), (1, 4, 4)),
         ("conv3", 1, 40, 40, (122, 504, 504), (1, 4, 4)),
+        # the wide U-Net's K1 convs at one 128x448x448 slab (pad_raw)
+        ("wide_e1a", 1, 64, 128, (136, 238, 238), (1, 1, 1)),
+        ("wide_e1b", 1, 128, 128, (134, 236, 236), (1, 1, 1)),
+        ("wide_bott", 1, 128, 256, (132, 117, 117), (1, 1, 1)),
+        ("wide_d1", 1, 256, 128, (130, 230, 230), (1, 1, 1)),
         ("ragged_d1", 2, 3, 5, (6, 14, 20), (1, 1, 1)),
         ("ragged_d23", 2, 3, 5, (5, 20, 30), (1, 2, 3)),
         ("ragged_cout45", 1, 30, 45, (5, 40, 300), (1, 4, 4)),
     ]
-    max_err, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    max_err, ms_sum, plain_sum, bound_sum, lib_sum = 0.0, 0.0, 0.0, 0.0, 0.0
+    by = None
     for name, N, cin, cout, sp, dil in cases:
         x = torch.rand((N, cin) + sp, device="cuda", generator=g) - 0.5
         w = (torch.rand(cout, cin, 3, 3, 3, device="cuda", generator=g)
@@ -191,23 +244,85 @@ def phase_kernel():
         del got, ref
         rec = dict(case=name, x=[N, cin, *sp], cout=cout, dil=list(dil),
                    max_abs_err=err)
-        if name in ("conv2", "conv3"):
+        if name in ("conv2", "conv3") or name.startswith("wide"):
             kern = lambda: tailconv.conv3x3_dilated(x, w, b, dil)  # noqa: E731
             plain = lambda: tailconv.conv3x3_dilated_reference(  # noqa: E731
                 x, w, b, dil)
             # in turns: plain, kernel, kernel, plain
             t = [time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)]
             ms, pms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            with f32_convs():
+                lms = time_ms(lambda: torch.nn.functional.conv3d(
+                    x, w, b, dilation=dil))
             zo, xo, yo = sp[0] - 2, sp[1] - 2 * dil[1], sp[2] - 2 * dil[2]
             flop = 2.0 * N * cout * cin * 27 * zo * xo * yo
-            rec.update(ms=ms, plain_ms=pms, kernel_tflop_s=flop / ms / 1e9,
+            bound, by = conv_bound(cin, cout, x.numel(),
+                                   N * cout * zo * xo * yo)
+            rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
+                       bound_by=by, kernel_tflop_s=flop / ms / 1e9,
                        plain_tflop_s=flop / pms / 1e9)
-            ms_sum += ms
-            plain_sum += pms
+            if name in ("conv2", "conv3"):      # the flagship's main path
+                ms_sum += ms
+                plain_sum += pms
+                bound_sum += bound
+                lib_sum += lms
         emit("kernel", **rec)
         del x, w, b
     torch.cuda.empty_cache()
-    return max_err, ms_sum, plain_sum
+    return max_err, ms_sum, plain_sum, bound_sum, by, lib_sum
+
+
+K4_CASES = [  # name, N, Cin, Cout, (Z, X, Y), d, pool, timed (N=1)
+    # the flagship's head units at one 120x496x496 request (pad_raw)
+    ("conv0", 1, 1, 20, (124, 521, 521), 1, 2, True),
+    ("conv1", 1, 20, 30, (124, 518, 518), 2, 2, True),
+    ("ragged_y", 1, 20, 30, (4, 60, 301), 2, 2, False),
+    ("d3_pool2", 2, 3, 5, (3, 40, 45), 3, 2, False),
+]
+
+
+def phase_kernel_k4():
+    """K4 against its plain version (``assert_close`` 1e-4) at the
+    flagship's head shapes, ragged Y, d=3 and the probe's shapes; returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by) summed over conv0 and
+    conv1. The plain version is the flagship route's own cuDNN sequence
+    (conv3d + bias, max_pool3d, ReLU), so its time is that route's."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    probe = [(n, 1, ci, co, sp, 1, 1, False)
+             for n, ci, co, sp in exp_convdense_headk.cases()]
+    max_err, ms_sum, plain_sum, bound_sum, parts = 0.0, 0.0, 0.0, 0.0, []
+    for name, N, cin, cout, sp, d, pool, timed in K4_CASES + probe:
+        x = torch.rand((N, cin) + sp, device="cuda", generator=g) - 0.5
+        w = (torch.rand(cout, cin, 1, 3, 3, device="cuda", generator=g)
+             - 0.5) * (2.0 / (9 * cin)) ** 0.5
+        b = torch.rand(cout, device="cuda", generator=g) * 0.2 - 0.1
+        got = tailconv.conv1x3x3_pool_dilated(x, w, b, (d, d), pool)
+        ref = tailconv.conv1x3x3_pool_reference(x, w, b, (d, d), pool)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, **KERNEL_TOL)
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        rec = dict(kernel="conv1x3x3_pool_dilated", case=name,
+                   x=[N, cin, *sp], cout=cout, d=d, pool=pool,
+                   max_abs_err=err)
+        if timed:
+            ms, pms = timed_pair(
+                lambda: tailconv.conv1x3x3_pool_dilated(x, w, b, (d, d),
+                                                        pool),
+                lambda: tailconv.conv1x3x3_pool_reference(x, w, b, (d, d),
+                                                          pool), n=3)
+            bound, by = exp_convdense_headk.head_bound_ms(cin, cout, sp, d,
+                                                          pool)
+            rec.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                       library_ms=None)
+            ms_sum += ms
+            plain_sum += pms
+            bound_sum += bound
+            parts.append((bound, by))
+        emit("kernel", **rec)
+        del x, w, b, got, ref
+        torch.cuda.empty_cache()
+    return max_err, ms_sum, plain_sum, bound_sum, max(parts)[1]
 
 
 def k2_cases(rng):
@@ -282,9 +397,23 @@ def timed_pair(kern, plain, n=20):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
 
 
+def patch_bound(B, f, patch, in_bytes, flop_per_sample):
+    """(bound ms, 'bytes' or 'operations') of a batched patch cut on an
+    H100: each agent's (p+1)^3 window of the volume read once (the voxels
+    its samples touch), its other inputs (``in_bytes``) read once and the
+    patches written once, against its arithmetic over the FP32 rate."""
+    samples = B * f * int(np.prod(patch))
+    window = B * f * int(np.prod([p + 1 for p in patch]))
+    t_b = (4.0 * (window + samples) + in_bytes) / HBM_BYTES_S
+    t_f = flop_per_sample * samples / FP32_FLOP_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b > t_f else "operations")
+
+
 def phase_kernel_k2():
-    """K2 against its plain version; returns (max_abs_err, ms, plain_ms)
-    at the tracer's shape."""
+    """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms) at the tracer's shape. No single
+    PyTorch call computes K2: ``grid_sample`` clamps its samples, where K2
+    takes the fraction before it clips the window's base."""
     rng = np.random.RandomState(SEED + 2)
     max_err, ms, pms = 0.0, None, None
     for name, vol, pos, patch, timed in k2_cases(rng):
@@ -302,14 +431,18 @@ def phase_kernel_k2():
             ms, pms = timed_pair(
                 lambda: extract.trilinear_patches(vol, pos, patch),
                 lambda: extract.trilinear_patches_reference(vol, pos, patch))
-            rec.update(ms=ms, plain_ms=pms)
+            bound = patch_bound(pos.shape[0], vol.shape[0], patch,
+                                4.0 * pos.numel(), 21)
+            rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
+                       bound_by=bound[1], library_ms=None)
         emit("kernel", **rec)
-    return max_err, ms, pms
+    return (max_err, ms, pms) + bound + (None,)
 
 
 def phase_kernel_k3():
-    """K3 against its plain version; returns (max_abs_err, ms, plain_ms)
-    at the rotated tracer's shape."""
+    """K3 against its plain version; returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms) at the rotated tracer's shape. No
+    single PyTorch call computes K3: ``grid_sample`` has no ``ok`` flag."""
     rng = np.random.RandomState(SEED + 3)
     max_err, ms, pms = 0.0, None, None
     for name, vol, pos, heads, patch, timed in k3_cases(rng):
@@ -340,9 +473,13 @@ def phase_kernel_k3():
                 lambda: extract_rot.rotated_patches(vol, pos, F, patch),
                 lambda: extract_rot.rotated_patches_reference(vol, pos, F,
                                                               patch))
-            rec.update(ms=ms, plain_ms=pms)
+            # per sample: the frame rotation (9 multiply-adds), the blend
+            bound = patch_bound(pos.shape[0], vol.shape[0], patch,
+                                4.0 * (pos.numel() + F.numel()), 39)
+            rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
+                       bound_by=bound[1], library_ms=None)
         emit("kernel", **rec)
-    return max_err, ms, pms
+    return (max_err, ms, pms) + bound + (None,)
 
 
 def seeded_params(model, rng):
@@ -375,7 +512,6 @@ def phase_slice():
     rng = np.random.RandomState(SEED)
     model = flagship_model(mfp=True, patch=[23, 103, 103])
     model.set_params(seeded_params(model, rng))
-    model.to("cuda")
     model.set_dilated_impl("direct", zfold=True, pallas_tail=True)
 
     # MFP route (fragments + restitch, cuDNN convs) vs the dilated path (K1)
@@ -440,6 +576,132 @@ def phase_slice():
     if tailconv.launches != launches:
         raise AssertionError("the plain route launched K1")
     return launches
+
+
+def head_chain(model, vol):
+    """The flagship's dense path of one request with its head units in K4:
+    K4 (conv0, d=1, pool) -> K4 (conv1, d=2, pool) -> K1 (conv2, conv3 at
+    dilation (1,4,4)) -> the 1x1 barrier -> softmax, on the volume
+    reflect-padded by the fov as ``predict_dense_device(pad_raw=True)``
+    pads it. NCDHW throughout: no transposes between the kernels."""
+    p = model.params
+    pads = []
+    for f in reversed(model.prediction_node.shape.fov):
+        pads += [(f - 1) // 2, f - 1 - (f - 1) // 2]
+    with torch.no_grad(), f32_convs():
+        h = torch.nn.functional.pad(vol[None], pads, mode="reflect")
+        h = tailconv.conv1x3x3_pool_dilated(h, p["conv0"]["w"],
+                                            p["conv0"]["b"], (1, 1), 2)
+        h = tailconv.conv1x3x3_pool_dilated(h, p["conv1"]["w"],
+                                            p["conv1"]["b"], (2, 2), 2)
+        for name in ("conv2", "conv3"):
+            h = tailconv.conv3x3_dilated(h, p[name]["w"], p[name]["b"],
+                                         (1, 4, 4))
+        y = torch.nn.functional.conv3d(h, p["barrier"]["w"],
+                                       p["barrier"]["b"])
+        return torch.softmax(y, dim=1)[0]
+
+
+def phase_head_chain():
+    """One 120x496x496 request of the flagship through ``head_chain``
+    against ``predict_dense_device(pad_raw=True)`` (K1 route, cuDNN head)
+    on the same weights (atol 1e-5); returns the K4 and K1 launches of the
+    chain's run."""
+    rng = np.random.RandomState(SEED + 8)
+    model = flagship_model(mfp=True, patch=[23, 103, 103])
+    model.set_params(seeded_params(model, rng))
+    model.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    vol = torch.from_numpy(rng.rand(*REQ_SHAPE).astype(np.float32)).cuda()
+    out_shape = (2,) + REQ_SHAPE[1:]
+    check_probs(head_chain(model, vol), out_shape)         # warm
+    ref = model.predict_dense_device(vol, pad_raw=True)
+    torch.cuda.synchronize()
+    tailconv.launches, tailconv.head_launches = 0, 0
+    t0 = time.perf_counter()
+    got = head_chain(model, vol)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k4, k1 = tailconv.head_launches, tailconv.launches
+    dev = check_probs(got, out_shape)
+    if k4 != 2 or k1 != 2:
+        raise AssertionError(f"head chain: {k4} K4 and {k1} K1 launches, "
+                             "expected 2 and 2")
+    err = (got - ref).abs().max().item()
+    t0 = time.perf_counter()
+    model.predict_dense_device(vol, pad_raw=True)
+    torch.cuda.synchronize()
+    ref_dt = time.perf_counter() - t0
+    emit("head_chain", seconds=dt, request_seconds=ref_dt,
+         mvox_s=np.prod(REQ_SHAPE[1:]) / 1e6 / dt, k4_launches=k4,
+         k1_launches=k1, channel_sum_dev=dev, max_abs_err_vs_request=err)
+    if err > SLICE_ATOL:
+        raise AssertionError(f"head chain vs request: {err} > {SLICE_ATOL}")
+    return k4, k1
+
+
+def phase_convdense():
+    """U-Net conv-dense serving: three distinct 128x448x448 slabs of the
+    full-width wide U-Net through ``predict_dense_device(pad_raw=True)``
+    with K1 on its (3,3,3) convs, then one slab through the cuDNN route;
+    returns the K1 launches of the three slabs."""
+    rng = np.random.RandomState(SEED + 7)
+    model = wide_unet_model()
+    model.set_params(seeded_params(model, rng))
+    model.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    vols = [torch.from_numpy(rng.rand(*SLAB_SHAPE).astype(np.float32)).cuda()
+            for _ in range(N_SLABS)]
+    warm = torch.from_numpy(rng.rand(*SLAB_SHAPE).astype(np.float32)).cuda()
+    out_shape = (2,) + SLAB_SHAPE[1:]
+    check_probs(model.predict_dense_device(warm, pad_raw=True), out_shape)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mvox = np.prod(SLAB_SHAPE[1:]) / 1e6
+    tailconv.launches = 0
+    first = None
+    for i, v in enumerate(vols):
+        before = tailconv.launches
+        t0 = time.perf_counter()
+        out = model.predict_dense_device(v, pad_raw=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = tailconv.launches - before
+        dev = check_probs(out, out_shape)
+        if n != 4:
+            raise AssertionError(f"slab {i}: {n} K1 launches, expected 4")
+        emit("convdense_request", slab=i, seconds=dt, mvox_s=mvox / dt,
+             k1_launches=n, channel_sum_dev=dev, out=list(out.shape),
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if first is None:
+            first = out
+    launches = tailconv.launches
+    # the bench's configuration: the same slab with every conv in cuDNN
+    model.set_convdense_impl(zfold=True, skipsum=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = model.predict_dense_device(vols[0], pad_raw=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    err = (first - plain).abs().max().item()
+    emit("convdense_vs_cudnn_route", slab=0, max_abs_err=err,
+         tolerance=CONVDENSE_ATOL, cudnn_seconds=dt, cudnn_mvox_s=mvox / dt,
+         cudnn_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         k1_launches=tailconv.launches - launches)
+    if err > CONVDENSE_ATOL:
+        raise AssertionError(f"conv-dense K1 route vs cuDNN route: {err} > "
+                             f"{CONVDENSE_ATOL}")
+    if tailconv.launches != launches:
+        raise AssertionError("the cuDNN route launched K1")
+    return launches
+
+
+def phase_headk_probe():
+    """The ported probe ``exp_convdense_headk``: K4 (pool=1) against the
+    zfold cuDNN conv at the conv-dense path's kz=1 shapes."""
+    before = tailconv.head_launches
+    for row in exp_convdense_headk.main():
+        emit("headk_probe", **row)
+    return tailconv.head_launches - before
 
 
 def seeded_tracer_params(model, rng):
@@ -509,7 +771,6 @@ def phase_trace(rotate):
     rng = np.random.RandomState(SEED + 4)
     model = tracer_model(TRACE_PATCH)
     model.set_params(seeded_tracer_params(model, rng))
-    model.to("cuda")
     vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
     seeds = rng.uniform(lo, hi, (B, 3)).astype(np.float32)
     kw = dict(rotate_to_heading=rotate)
@@ -613,7 +874,6 @@ def phase_trace_kzip():
     rng = np.random.RandomState(SEED + 5)
     model = tracer_model(TRACE_PATCH)
     model.set_params(seeded_tracer_params(model, rng))
-    model.to("cuda")
     vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
     tracer = make_tracer(model, vol, max_steps=64)
     with tempfile.TemporaryDirectory() as d:
@@ -644,17 +904,26 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
                  "is false); this script runs only on the card")
+    t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     k1 = phase_kernel()
+    k4 = phase_kernel_k4()
     k2 = phase_kernel_k2()
     k3 = phase_kernel_k3()
     k1_launches = phase_slice()
+    k4_launches, k1_chain = phase_head_chain()
+    k1_launches += k1_chain + phase_convdense()
     k2_launches = phase_trace(rotate=False)
     k3_launches = phase_trace(rotate=True)
     phase_trace_kzip()
+    phase_headk_probe()
+    emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),
+            ("conv1x3x3_pool_dilated", "headconv.cu",
+             "elektronn2_tpu/ops/pallas_tailconv.py:547", k4_launches,
+             k4 + (None,)),
             ("trilinear_patches", "extract.cu",
              "elektronn2_tpu/ops/pallas_extract.py:75", k2_launches, k2),
             ("rotated_patches", "extract_rot.cu",
@@ -663,7 +932,9 @@ def main():
         "name": n, "route": "cuda",
         "source": f"elektronn2_tpu_torch/csrc/{src}", "replaces": rep,
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": pms} for n, src, rep, launches, (err, ms, pms) in rows]}),
+        "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+        "library_ms": lib}
+        for n, src, rep, launches, (err, ms, pms, bound, by, lib) in rows]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

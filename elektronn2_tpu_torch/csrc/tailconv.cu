@@ -13,12 +13,16 @@
 // the JAX package (about 1e-3), so this first version stays on the FP32 pipe.
 //
 // What the design does about it: keep the FFMA pipe fed from registers.
-//  * A block of 256 threads owns one (n, z, x) output row and a run of
-//    2 x 256 = 512 y outputs (the whole 504- or 496-wide row of the main
+//  * A block of up to 256 threads owns one (n, z, x) output row and a run
+//    of 2 x 256 = 512 y outputs (the whole 504- or 496-wide row of the main
 //    path, so its weights are staged once per row); each thread keeps
 //    2 x 40 accumulators (40 output channels = one channel group) in
 //    registers. 128 registers a thread, two blocks an SM; on the card this
 //    measured 12% faster than 128-thread blocks with 256-wide y runs.
+//    A shorter row gets a block sized to it (a multiple of 32 threads): the
+//    wide U-Net's 228- to 236-wide rows take 128 threads and its 115-wide
+//    bottleneck rows 64, where a 256-thread block left 55% and 78% of its
+//    lanes without an output.
 //  * Weights are staged in shared memory in chunks of 8 input channels
 //    (8*27*40*4 = 34,560 bytes, under the 48 KB static limit), laid out
 //    [ci][kz][kx][ky][co] so that every thread reads the same float4
@@ -39,9 +43,8 @@
 namespace {
 
 constexpr int COT = 40;            // output channels per block (one group)
-constexpr int THREADS = 256;       // threads per block, one y lane each
+constexpr int THREADS = 256;       // threads per block at most
 constexpr int YPT = 2;             // y outputs per thread
-constexpr int YT = THREADS * YPT;  // y outputs per block
 constexpr int CI_CHUNK = 8;        // input channels of weights staged at once
 constexpr int TAPS = 27;
 
@@ -63,7 +66,7 @@ tailconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   bool ok[YPT];
 #pragma unroll
   for (int j = 0; j < YPT; ++j) {
-    yo[j] = blockIdx.y * YT + j * THREADS + threadIdx.x;
+    yo[j] = (blockIdx.y * YPT + j) * blockDim.x + threadIdx.x;
     ok[j] = yo[j] < Yo;
   }
 
@@ -87,7 +90,7 @@ tailconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
           wt + (static_cast<int64_t>(g) * Cin + ci0) * TAPS * COT);
       float4* dst = reinterpret_cast<float4*>(w_s);
       const int n4 = cc * TAPS * COT / 4;
-      for (int i = threadIdx.x; i < n4; i += THREADS) dst[i] = src[i];
+      for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
     }
     __syncthreads();
 
@@ -159,10 +162,13 @@ extern "C" int e2t_tailconv_f32(const float* x, const float* wt,
   if (N < 1 || Cin < 1 || Cout < 1 || Zo < 1 || Xo < 1 || Yo < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = (Cout + COT - 1) / COT;
+  // threads: enough for the row's y outputs, a multiple of 32, at most 256
+  const int threads = min(THREADS, ((Yo + YPT - 1) / YPT + 31) / 32 * 32);
+  const int yt = threads * YPT;
   const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(N) * Zo * Xo),
-                  static_cast<unsigned>((Yo + YT - 1) / YT),
+                  static_cast<unsigned>((Yo + yt - 1) / yt),
                   static_cast<unsigned>(G));
-  tailconv_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  tailconv_f32_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, wt, bias, y, Cin, Z, X, Y, Cout, Zo, Xo, Yo, dx, dy);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,15 +8,17 @@ construction computes shapes (``TaggedShape``) and initial parameters;
 from .graphutils import TaggedShape, floatX, as_floatX
 from .graphmanager import GraphManager, model_manager
 from .node_basic import Node, Input, Concat, InitialState_like, Split, split
-from .neural import Perceptron, Dot, Conv, Pool, FragmentsToDense, GRU, LSTM
+from .neural import (Perceptron, Dot, Conv, Pool, UpConv, Crop,
+                     FaithlessMerge, FragmentsToDense, GRU, LSTM)
 from .various import ScanN
-from .loss import Softmax, MultinoulliNLL, SquaredLoss, AggregateLoss
+from .loss import (Softmax, MultinoulliNLL, SquaredLoss, Errors,
+                   AggregateLoss)
 from .model import Model, modelload
 
 __all__ = [
     "TaggedShape", "floatX", "as_floatX", "GraphManager", "model_manager",
     "Node", "Input", "Concat", "InitialState_like", "Split", "split",
-    "Perceptron", "Dot", "Conv", "Pool", "FragmentsToDense", "GRU", "LSTM",
-    "ScanN", "Softmax", "MultinoulliNLL", "SquaredLoss", "AggregateLoss",
-    "Model", "modelload",
+    "Perceptron", "Dot", "Conv", "Pool", "UpConv", "Crop", "FaithlessMerge",
+    "FragmentsToDense", "GRU", "LSTM", "ScanN", "Softmax", "MultinoulliNLL",
+    "SquaredLoss", "Errors", "AggregateLoss", "Model", "modelload",
 ]

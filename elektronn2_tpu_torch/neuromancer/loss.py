@@ -1,6 +1,6 @@
 """Loss nodes, forward only.
 
-Port of ``Softmax``, ``MultinoulliNLL``, ``SquaredLoss`` and
+Port of ``Softmax``, ``MultinoulliNLL``, ``SquaredLoss``, ``Errors`` and
 ``AggregateLoss`` in
 ``elektronn2_tpu/neuromancer/loss.py`` (reference:
 ``elektronn2/neuromancer/loss.py``). This slice serves dense inference and
@@ -152,6 +152,28 @@ class SquaredLoss(Node):
             r = torch.where(torch.abs(r) < self.margin, 0.0, r)
         return torch.sum(torch.square(r),
                          dim=self.parents[0].shape.tag2index("f"))
+
+
+@register_node_class
+class Errors(Node):
+    """Classification error rate (argmax mismatch fraction), as a (1,)
+    tensor.
+
+    Reference: ``loss.py::Errors``.
+    """
+
+    def __init__(self, pred, target, target_is_sparse=False, name="errors",
+                 print_repr=True):
+        super().__init__([pred, target], name, print_repr)
+        self.target_is_sparse = bool(target_is_sparse)
+        self.shape = TaggedShape((1,), ("f",))
+
+    def _compute(self, ctx, pred, target):
+        f_ax = self.parents[0].shape.tag2index("f")
+        cls = torch.argmax(pred, dim=f_ax)
+        t = target.long() if self.target_is_sparse \
+            else torch.argmax(target, dim=f_ax)
+        return torch.mean((cls != t).float()).reshape(1)
 
 
 @register_node_class

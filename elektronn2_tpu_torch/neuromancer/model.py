@@ -3,7 +3,8 @@
 Port of ``Model`` and ``modelload`` in ``elektronn2_tpu/neuromancer/model.py``
 (reference: ``elektronn2/neuromancer/model.py``), for inference: node
 designation, the forward ``_apply``, ``predict``, ``predict_dense_device``,
-``set_dilated_impl`` and the npz ``save``/``modelload`` format.
+``set_dilated_impl``, ``set_convdense_impl`` and the npz
+``save``/``modelload`` format.
 
 PyTorch idiom: parameters are a ``{node: {name: tensor}}`` dict on one
 device, moved explicitly with :meth:`Model.to`; calls that get data on
@@ -37,7 +38,7 @@ class Model:
     Usage (mirrors the reference):
         model = model_manager.getmodel()
         model.designate_nodes(input_node=inp, prediction_node=pred, ...)
-        model.to("cuda")
+        model.to("cuda")                  # modelload puts it there itself
         probs = model.predict(raw)
         dense = model.predict_dense_device(vol, pad_raw=True)
     """
@@ -59,6 +60,11 @@ class Model:
         self.state = {}                       # aux state (BN: not ported)
         self._dilated_impl = "direct"
         self._dilated_ptail = False
+        self._convdense_upconv = "dilate"
+        self._convdense_zfold = False
+        self._convdense_ptail = False
+        self._convdense_poolslice = False
+        self._convdense_skipsum = False
 
     # ------------------------------------------------------------ designation
     def designate_nodes(self, input_node=None, target_node=None,
@@ -141,6 +147,44 @@ class Model:
                 "'Left out of the dense slice')")
         self._dilated_impl = impl
         self._dilated_ptail = bool(pallas_tail)
+        return self
+
+    def set_convdense_impl(self, upconv="dilate", zfold=False, ptail=False,
+                           poolslice=False, skipsum=False):
+        """Choose the lowerings of the convolutional dense path (decoder /
+        U-Net graphs, ``neuromancer/inference.py::
+        convolutional_dense_forward``); each computes the same function.
+
+        ``upconv``: 'dilate' (``ops.conv.upconv``, a transposed conv) or
+        'd2s' (1x1 conv + depth-to-space, ``ops.conv.upconv_d2s``).
+        ``zfold``: kz=1 3D convs as 2D convs with z folded into the batch
+        (``ops.conv.conv_zfold2d``); 3D graphs only.
+        ``ptail``: every (3,3,3) ReLU Conv without MFP, pooled ones included,
+        runs through the CUDA kernel ``ops.tailconv.conv3x3_dilated`` (K1;
+        bias and ReLU fused, the max pool after it).
+        ``poolslice``: non-overlapping pools as maxima of strided slices
+        (``ops.conv.pooling_slices``).
+        ``skipsum``: a Conv fed by a FaithlessMerge sums the convs of the
+        merge's two pieces instead of building their concat (unless K1 takes
+        that Conv).
+
+        The knobs touch the conv-dense path only; ``predict`` and the
+        dilated path keep their lowerings. ``ptail`` as a dict of TPU kernel
+        knobs is not ported.
+        """
+        if upconv not in ("dilate", "d2s"):
+            raise ValueError(f"upconv={upconv!r}: expected 'dilate' "
+                             "or 'd2s'")
+        if isinstance(ptail, dict):
+            raise NotImplementedError(
+                "set_convdense_impl: ptail knobs not ported to "
+                "elektronn2_tpu_torch (TPU kernel variants; ROADMAP.md §1, "
+                "'Left out of the dense slice')")
+        self._convdense_upconv = upconv
+        self._convdense_zfold = bool(zfold)
+        self._convdense_ptail = bool(ptail)
+        self._convdense_poolslice = bool(poolslice)
+        self._convdense_skipsum = bool(skipsum)
         return self
 
     def set_compute_dtype(self, dtype, activations=False):
@@ -258,10 +302,24 @@ class Model:
                 f"{self.param_count} params>")
 
 
+def target_device(device):
+    """``torch.device(device)`` for an entry point's ``device`` argument.
+    A CUDA device without a card raises: the entry points run on the card
+    unless the caller asks for the CPU, and never fall back to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is false): the port's "
+            "entry points run on the card by default; pass device='cpu' to "
+            "run on the CPU")
+    return dev
+
+
 def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
-              **kwargs):
+              device="cuda", **kwargs):
     """Load a model file (the npz format of ``Model.save``, written by this
-    package or by the JAX package) by replaying its node spec.
+    package or by the JAX package) by replaying its node spec; the
+    parameters land on ``device`` (see :func:`target_device`).
 
     Optimiser slots (``opt/…``, ``__opt__``) are training state and are not
     read. ``override_mfp_to_active`` / ``imposed_patch_size``
@@ -271,6 +329,7 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
         raise NotImplementedError(
             "modelload: rebuild_model (override_mfp_to_active / "
             "imposed_patch_size) is not ported yet (ROADMAP.md §1 item 9)")
+    device = target_device(device)
     with np.load(fname, allow_pickle=False) as z:
         spec = json.loads(bytes(z["__spec__"].tobytes()).decode())
         arg_arrays = {k: z[k] for k in z.files if k.startswith("__spec__/")}
@@ -299,6 +358,7 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
         debug_outputs=[gm.nodes[n] for n in d.get("debug_outputs", [])],
         extra_inputs=[gm.nodes[n] for n in d.get("extra_inputs", [])])
     model.set_params(params)
+    model.to(device)
     model.state = state
     logger.info(f"loaded model from {fname}: {model!r}")
     return model

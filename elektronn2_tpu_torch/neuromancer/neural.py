@@ -1,16 +1,21 @@
-"""Neural layer nodes: dense, convolution, pooling, fragment restitching,
-recurrent cells.
+"""Neural layer nodes: dense, convolution, pooling, decoder nodes, fragment
+restitching, recurrent cells.
 
-Port of ``Perceptron``, ``Conv``, ``Pool``, ``FragmentsToDense``, ``GRU``
-and ``LSTM`` in ``elektronn2_tpu/neuromancer/neural.py`` (reference:
+Port of ``Perceptron``, ``Conv``, ``Pool``, ``UpConv``, ``Crop``,
+``FaithlessMerge``, ``FragmentsToDense``, ``GRU`` and ``LSTM`` in
+``elektronn2_tpu/neuromancer/neural.py`` (reference:
 ``elektronn2/neuromancer/neural.py``), forward only. Semantics are the JAX
 package's: valid-mode convs, pooling applied *before* the activation, MFP
 valid-size arithmetic (see ops/mfp.py and utils/cnncalculator.py).
 
+The conv-dense serving lowerings of ``Model.set_convdense_impl`` (zfold,
+d2s, poolslice, skipsum and K1 on eligible convs) are chosen per node from
+the flags of the ``TraceCtx``; every other evaluation leaves them off.
+
 The dense and recurrent matmuls are ``torch.matmul`` (cuBLAS on the card),
 as the JAX package leaves them to XLA. Not in this slice, raising
 ``NotImplementedError``: batch normalisation, dropout and prelu (ROADMAP.md
-§1 item 6, training path), the conv-dense serving lowerings (item 8).
+§1 item 6, training path).
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ from .graphutils import TaggedShape
 from .node_basic import Node
 from .variables import init_bias, init_weight
 from ..ops.activations import get_activation, validate_activation
-from ..ops.conv import (apply_activation, conv as ops_conv, dot as ops_dot,
-                        pooling as ops_pooling)
+from ..ops.conv import (apply_activation, conv as ops_conv, conv_zfold2d,
+                        dot as ops_dot, pooling as ops_pooling,
+                        pooling_slices, upconv, upconv_d2s)
 from ..ops.mfp import fragmentpool, fragments2dense, mfp_offsets_product
+from ..ops.tailconv import conv3x3_dilated
 
 
 def _maxout_factor(activation_func):
@@ -209,15 +216,74 @@ class Conv(Node):
         self.register_param("b", b)
         self._parent_offsets = np.asarray(ps.mfp_offsets)
 
+    def _serving_conv_fn(self, ctx):
+        """The conv lowering of this evaluation: ``conv_zfold2d`` for a kz=1
+        3D conv under ``Model.set_convdense_impl(zfold=True)`` (the same
+        contraction), else the plain conv. Both add the bias."""
+        if (ctx.convdense_zfold and len(self.filter_shape) == 3
+                and self.filter_shape[0] == 1):
+            return conv_zfold2d
+        return ops_conv
+
+    def _ptail_eligible(self, ctx):
+        """Whether the conv-dense path runs this Conv through K1
+        (``Model.set_convdense_impl(ptail=True)``): a (3,3,3) ReLU conv
+        without MFP. Max pooling is allowed: K1's fused ReLU commutes with a
+        max, ``max(relu(z)) == relu(max(z))``."""
+        return (ctx.convdense_ptail and tuple(self.filter_shape) == (3, 3, 3)
+                and self.activation_func == "relu" and not self.mfp)
+
     def _compute(self, ctx, x):
-        y = ops_conv(x, ctx.param(self, "w"), ctx.param(self, "b"))
+        w, b = ctx.param(self, "w"), ctx.param(self, "b")
+        if self._ptail_eligible(ctx):
+            y = conv3x3_dilated(x.contiguous(), w, b)    # bias + ReLU fused
+            if any(p > 1 for p in self.pool_shape):
+                y = self._pool(ctx, y)
+            return y
+        return self._conv_epilogue(ctx, self._serving_conv_fn(ctx)(x, w, b))
+
+    def _pool(self, ctx, y):
+        if ctx.convdense_poolslice:
+            return pooling_slices(y, self.pool_shape)
+        return ops_pooling(y, self.pool_shape)
+
+    def _conv_epilogue(self, ctx, y):
+        """Pool (plain or MFP fragment pool), then the activation: the tail
+        shared by every conv lowering."""
         if any(p > 1 for p in self.pool_shape):
             if self.mfp:
                 y, _ = fragmentpool(y, self.pool_shape, self._parent_offsets,
                                     self._pre_pool_strides)
             else:
-                y = ops_pooling(y, self.pool_shape)
+                y = self._pool(ctx, y)
         return apply_activation(y, self.activation_func)
+
+    def _fuses_merge(self, ctx):
+        """Whether this Conv consumes its FaithlessMerge parent's pieces
+        (``set_convdense_impl(skipsum=True)``) instead of their concat."""
+        return (ctx.convdense_skipsum and not self.mfp
+                and isinstance(self.parents[0], FaithlessMerge)
+                and not self._ptail_eligible(ctx))
+
+    def _compute_fused(self, ctx):
+        """Fused-evaluation hook (``TraceCtx.get``): under ``skipsum``,
+        ``conv(concat(a, b)) == conv(a, w[:, :Ca]) + conv(b, w[:, Ca:])``
+        (a conv is linear in its channels) on the merge's cropped pieces,
+        so the skip concat is never built. Returns None to decline.
+
+        Reference: ``neural.py::Conv._compute_fused``.
+        """
+        if not self._fuses_merge(ctx):
+            return None
+        p = self.parents[0]
+        a, bb = p._cropped_pieces(ctx.get(p.parents[0]),
+                                  ctx.get(p.parents[1]))
+        w, bias = ctx.param(self, "w"), ctx.param(self, "b")
+        ca = int(p.parents[0].shape["f"])
+        cfn = self._serving_conv_fn(ctx)
+        y = cfn(a, w[:, :ca], bias)
+        y += cfn(bb, w[:, ca:])             # in place: one full map less
+        return self._conv_epilogue(ctx, y)
 
 
 @register_node_class
@@ -277,6 +343,138 @@ class Pool(Node):
                                 self._pre_pool_strides, mode=self.mode)
             return y
         return ops_pooling(x, self.pool_shape, mode=self.mode)
+
+
+@register_node_class
+class UpConv(Node):
+    """Transposed convolution with kernel = stride = pool_shape.
+
+    Reference: ``neural.py::UpConv``; it inverts a pooling in decoder paths
+    (U-Net style). The spatial size multiplies by the pool, the output
+    stride divides by it (it must divide).
+    """
+
+    def __init__(self, parent, n_f, pool_shape, activation_func="lin",
+                 w=None, b=None, name="upconv", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        ps = parent.shape
+        if ps.n_frag > 1:
+            raise ValueError("UpConv after MFP pooling is unsupported; "
+                             "restitch with FragmentsToDense first")
+        self.n_f = int(n_f)
+        self.pool_shape = _norm_spatial(pool_shape, len(ps.spatial_axes),
+                                        "pool_shape")
+        self.activation_func = validate_activation(activation_func)
+        strides = []
+        for s, p in zip(ps.strides, self.pool_shape):
+            if s % p:
+                raise ValueError(f"{self.name}: upconv pool {p} does not "
+                                 f"divide stride {s}")
+            strides.append(s // p)
+        shape = list(ps.shape)
+        shape[ps.tag2index("f")] = self.n_f
+        for ax, s, p in zip(ps.spatial_axes, ps.spatial_shape,
+                            self.pool_shape):
+            shape[ax] = s * p
+        self.shape = TaggedShape(shape, ps.tags, strides, ps.fov,
+                                 ps.mfp_offsets)
+        rng = self._gm.init_rng()
+        wshape = (self.n_f, ps["f"]) + self.pool_shape
+        w = w if w is not None else init_weight(rng, wshape, activation_func)
+        b = b if b is not None else init_bias(self.n_f, activation_func)
+        self.register_param("w", w)
+        self.register_param("b", b)
+
+    def _compute(self, ctx, x):
+        fn = upconv_d2s if ctx.convdense_upconv_d2s else upconv
+        y = fn(x, ctx.param(self, "w"), self.pool_shape)
+        y += ctx.param(self, "b").reshape((1, -1) + (1,) * (x.ndim - 2))
+        return apply_activation(y, self.activation_func)
+
+
+@register_node_class
+class Crop(Node):
+    """Crop spatial borders: ``crop`` per spatial dim, an int (both sides)
+    or a (lo, hi) pair. The amounts are fixed, so it crops any input size.
+
+    Reference: ``neural.py::Crop``.
+    """
+
+    def __init__(self, parent, crop, name="crop", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        ps = parent.shape
+        nsp = len(ps.spatial_axes)
+        if np.isscalar(crop):
+            crop = [(int(crop), int(crop))] * nsp
+        else:
+            crop = [(int(c), int(c)) if np.isscalar(c)
+                    else (int(c[0]), int(c[1])) for c in crop]
+        if len(crop) != nsp:
+            raise ValueError("crop spec rank mismatch")
+        self.crop = crop
+        sp = [s - lo - hi for s, (lo, hi) in zip(ps.spatial_shape, crop)]
+        if any(s < 1 for s in sp):
+            raise ValueError(f"crop {crop} exceeds spatial shape "
+                             f"{ps.spatial_shape}")
+        # symmetric crops keep the centred-fov bookkeeping exact
+        fov = [f + (lo + hi) * st
+               for f, (lo, hi), st in zip(ps.fov, crop, ps.strides)]
+        shape = list(ps.shape)
+        for ax, s in zip(ps.spatial_axes, sp):
+            shape[ax] = s
+        self.shape = TaggedShape(shape, ps.tags, ps.strides, fov,
+                                 ps.mfp_offsets)
+
+    def _compute(self, ctx, x):
+        idx = [slice(None)] * x.ndim
+        for ax, (lo, hi) in zip(self.parents[0].shape.spatial_axes, self.crop):
+            idx[ax] = slice(lo, x.shape[ax] - hi)
+        return x[tuple(idx)]
+
+
+@register_node_class
+class FaithlessMerge(Node):
+    """Concat features after centre-cropping both parents to their common
+    spatial shape ("faithless" about alignment).
+
+    Reference: ``neural.py::FaithlessMerge``. The crop is taken from the
+    shapes of the values at run time, never from the construction-time
+    patch: the conv-dense path runs the graph on whole volumes.
+    """
+
+    def __init__(self, hard_features, soft_features, name="faithless_merge",
+                 print_repr=True):
+        super().__init__([hard_features, soft_features], name, print_repr)
+        s1, s2 = hard_features.shape, soft_features.shape
+        if s1.tags != s2.tags:
+            raise ValueError("FaithlessMerge parents must share tags")
+        shape = list(s1.shape)
+        shape[s1.tag2index("f")] = s1["f"] + s2["f"]
+        for ax, a, b in zip(s1.spatial_axes, s1.spatial_shape,
+                            s2.spatial_shape):
+            shape[ax] = min(a, b)
+        self.shape = TaggedShape(shape, s1.tags, s1.strides, s1.fov,
+                                 s1.mfp_offsets)
+
+    def _cropped_pieces(self, a, b):
+        """Both parents' values centre-cropped to their common run-time
+        spatial shape (views). Shared by ``_compute`` and the ``skipsum``
+        lowering (``Conv._compute_fused``)."""
+        ax_a = self.parents[0].shape.spatial_axes
+        ax_b = self.parents[1].shape.spatial_axes
+        common = [min(a.shape[i], b.shape[j]) for i, j in zip(ax_a, ax_b)]
+
+        def crop_to(x, sp_axes):
+            idx = [slice(None)] * x.ndim
+            for ax, c in zip(sp_axes, common):
+                lo = (x.shape[ax] - c) // 2
+                idx[ax] = slice(lo, lo + c)
+            return x[tuple(idx)]
+        return crop_to(a, ax_a), crop_to(b, ax_b)
+
+    def _compute(self, ctx, a, b):
+        return torch.cat(self._cropped_pieces(a, b),
+                         dim=self.shape.tag2index("f"))
 
 
 @register_node_class

@@ -27,7 +27,17 @@ class TraceCtx:
       params : {node_name: {param_name: tensor}} — current parameters
       feed   : {input_node_name: tensor}
       values : memoised node outputs of this evaluation
+
+    The ``convdense_*`` flags select the conv-dense serving lowerings
+    (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
+    sets them on its own context, every other evaluation leaves them off.
     """
+
+    convdense_zfold = False
+    convdense_upconv_d2s = False
+    convdense_poolslice = False
+    convdense_skipsum = False
+    convdense_ptail = False
 
     def __init__(self, params, feed):
         self.params = params or {}
@@ -37,13 +47,20 @@ class TraceCtx:
     def get(self, node):
         """Memoised evaluation of ``node`` (and, recursively, its parents).
         A lazy node (``ScanN``, ``InitialState_like``) evaluates its own
-        parents, if any, through ``_compute_lazy``."""
+        parents, if any, through ``_compute_lazy``. A node with a
+        ``_compute_fused`` hook may claim the evaluation of its parents
+        (the conv-dense ``skipsum`` lowering, where a Conv consumes its
+        FaithlessMerge parent's pieces); the hook returns None to decline."""
         v = self.values.get(node.name)
         if v is None:
             if node._lazy:
                 v = node._compute_lazy(self)
             else:
-                v = node._compute(self, *[self.get(p) for p in node.parents])
+                fused = getattr(node, "_compute_fused", None)
+                v = fused(self) if fused is not None else None
+                if v is None:
+                    v = node._compute(self,
+                                      *[self.get(p) for p in node.parents])
             self.values[node.name] = v
         return v
 

@@ -1,6 +1,7 @@
 """Convolution / pooling / dense / softmax primitives.
 
-Port of ``conv``, ``dot``, ``pooling``, ``maxout``, ``softmax`` and
+Port of ``conv``, ``upconv``, ``upconv_d2s``, ``conv_zfold2d``, ``dot``,
+``pooling``, ``pooling_slices``, ``unpooling``, ``maxout``, ``softmax`` and
 ``apply_activation`` in ``elektronn2_tpu/ops/conv.py``. The JAX package
 leaves these ops to XLA; here they are PyTorch's own (cuDNN on the card).
 The array layout ``(b, f, *spatial)`` is torch's NCDHW / NCHW / NCL, so
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import itertools
 import math
 
 import torch
@@ -105,6 +107,59 @@ def conv(x, w, b=None, border_mode="valid", stride=None, dilation=None):
     return _CONV[nsp](x, w, b, stride=stride, padding=pad, dilation=dilation)
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def upconv(x, w, pool_shape):
+    """Transposed convolution ("upconv") with stride = kernel = pool_shape.
+
+    Reference: ``ops/conv.py::upconv``; it inverts a pooling in decoder
+    paths (output spatial size = input * pool). w: (f_out, f_in, *pool).
+    The JAX package runs it as an input-dilated correlation with the kernel
+    flipped; torch's transposed conv takes the weight as (f_in, f_out,
+    *pool) unflipped, and the two are the same function.
+    """
+    nsp = _nsp(x)
+    pool_shape = tuple(int(p) for p in pool_shape)
+    return _CONV_T[nsp](x, w.transpose(0, 1), stride=pool_shape)
+
+
+def upconv_d2s(x, w, pool_shape):
+    """``upconv`` as a 1x1 conv to ``f_out * prod(pool)`` channels followed
+    by depth-to-space: with kernel == stride every output position receives
+    exactly one tap, so the two are the same function.
+
+    Reference: ``ops/conv.py::upconv_d2s``.
+    """
+    nsp = _nsp(x)
+    p = tuple(int(v) for v in pool_shape)
+    co, ci = int(w.shape[0]), int(w.shape[1])
+    P = math.prod(p)
+    # tap (i1..in) of output channel o becomes channel o*P + row-major(i)
+    wm = w.reshape(co, ci, P).transpose(1, 2).reshape((co * P, ci) + (1,) * nsp)
+    y = conv(x, wm)
+    b, sp = y.shape[0], y.shape[2:]
+    y = y.reshape((b, co) + p + tuple(sp))
+    perm = [0, 1]
+    for i in range(nsp):                    # b co p1..pn s1..sn ->
+        perm += [2 + nsp + i, 2 + i]        # b co s1 p1 s2 p2 ...
+    return y.permute(perm).reshape((b, co) + tuple(s * v for s, v in zip(sp, p)))
+
+
+def conv_zfold2d(x, w, b=None):
+    """A kz=1 3D conv as a 2D conv with z folded into the batch axis: the
+    same contraction. x (b, c, Z, X, Y); w (f_out, c, 1, kx, ky).
+
+    Reference: ``ops/conv.py::conv_zfold2d``. Returns a (b, f_out, Z, X',
+    Y') view of the 2D conv's (b*Z, f_out, X', Y') output.
+    """
+    n, c, z = x.shape[:3]
+    x2 = x.transpose(1, 2).reshape(n * z, c, x.shape[3], x.shape[4])
+    y = F.conv2d(x2, w[:, :, 0], b)
+    return y.reshape(n, z, w.shape[0], y.shape[2], y.shape[3]).transpose(1, 2)
+
+
 def dot(x, w, axis=1):
     """Feature-axis dense transform: ``(b, f_in, *sp) @ (f_in, f_out)``,
     applied at every remaining position (a 1x1 conv when spatial axes are
@@ -134,6 +189,45 @@ def pooling(x, pool_shape, mode="max", stride=None):
     if mode == "sum":
         return _AVGPOOL[nsp](x, pool_shape, stride) * math.prod(pool_shape)
     raise ValueError(f"unknown pooling mode {mode!r}")
+
+
+def pooling_slices(x, pool_shape, mode="max"):
+    """``pooling`` as the elementwise max (or sum) of the window's strided
+    slices: the same function for non-overlapping windows, trailing
+    elements that fill no window dropped.
+
+    Reference: ``ops/conv.py::pooling_slices``.
+    """
+    nsp = _nsp(x)
+    pool_shape = tuple(int(p) for p in pool_shape)
+    if len(pool_shape) != nsp:
+        raise ValueError("pool_shape rank mismatch")
+    if mode not in ("max", "sum", "avg", "mean"):
+        raise ValueError(f"unknown pooling mode {mode!r}")
+    out = None
+    for offs in itertools.product(*(range(p) for p in pool_shape)):
+        piece = x[(slice(None), slice(None)) + tuple(
+            slice(o, (x.shape[2 + d] // p) * p, p)
+            for d, (o, p) in enumerate(zip(offs, pool_shape)))]
+        if out is None:
+            out = piece
+        elif mode == "max":
+            out = torch.maximum(out, piece)
+        else:
+            out = out + piece
+    if mode in ("avg", "mean"):
+        out = out / math.prod(pool_shape)
+    return out
+
+
+def unpooling(x, pool_shape):
+    """Nearest-neighbour unpooling (repeat each voxel pool times).
+
+    Reference: ``ops/conv.py::unpooling``.
+    """
+    for i, p in enumerate(pool_shape):
+        x = torch.repeat_interleave(x, int(p), dim=2 + i)
+    return x
 
 
 def maxout(x, factor, axis=1):

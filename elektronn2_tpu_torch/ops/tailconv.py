@@ -1,19 +1,29 @@
-"""K1: the dense-sweep tail conv, a CUDA kernel for Hopper.
+"""K1 and K4: the dense sweep's tail conv and head unit, CUDA kernels for
+Hopper.
 
-Port of the Pallas TPU kernel ``elektronn2_tpu/ops/pallas_tailconv.py::
+K1 ports the Pallas TPU kernel ``elektronn2_tpu/ops/pallas_tailconv.py::
 conv3x3_dilated``: a valid-mode (3,3,3) convolution with z-dilation 1 and
 xy-dilation (dx, dy), bias and ReLU fused, summed in float32. On the dense
 MFP path (``neuromancer/inference.py``) it runs the flagship's conv2 and
-conv3, which hold 93% of the multiply-adds per output voxel.
+conv3, which hold 93% of the multiply-adds per output voxel; on the
+conv-dense path, the U-Net's (3,3,3) ReLU convs. Kernel:
+``csrc/tailconv.cu``.
 
-The kernel is ``csrc/tailconv.cu`` (exact float32 FFMA; its head note says
-what bounds it and how). It reads and writes NCDHW with a batch dimension,
-so the TPU kernel's chained ``xzcy`` layout and its per-slab loop have no
-counterpart here, and neither do its TPU variants and knobs.
+K4 ports ``conv1x3x3_pool_dilated`` of the same module: a valid (1,3,3)
+conv with isotropic xy-dilation d, bias, an optional stride-1 (2,2) max
+window dilated by d, and ReLU, fused; the flagship's head units conv0+pool0
+and conv1+pool1. As in the JAX package no entry point's default route calls
+it. Kernel: ``csrc/headconv.cu``.
 
-Dispatch: a CPU tensor runs :func:`conv3x3_dilated_reference`, the plain
-PyTorch version; a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches.
+Both read and write NCDHW with a batch dimension, so a K4 output chains into
+K1 as it is; the TPU kernels' ``xzcy`` layout, ``z_block``, ``valid_y`` and
+per-slab loop have no counterpart here, and neither do their TPU variants.
+Each source's head note says what bounds it on the card and how.
+
+Dispatch: a CPU tensor runs the plain PyTorch version
+(:func:`conv3x3_dilated_reference`, :func:`conv1x3x3_pool_reference`); a
+CUDA tensor launches the kernel or raises. ``launches`` counts K1's kernel
+launches and ``head_launches`` K4's.
 """
 
 from __future__ import annotations
@@ -28,9 +38,13 @@ from .conv import f32_convs
 
 #: kernel launches made by :func:`conv3x3_dilated` in this process
 launches = 0
+#: kernel launches made by :func:`conv1x3x3_pool_dilated` in this process
+head_launches = 0
 
 _fn = None
 _cout_tile = None
+_head_fn = None
+_head_cout_tile = None
 
 
 def build():
@@ -51,6 +65,43 @@ def build():
     return lib
 
 
+def build_head():
+    """Build (on first use) and load K4's library; returns the
+    ``CudaLibrary``."""
+    global _head_fn, _head_cout_tile
+    lib = load_cuda_library("headconv")
+    if _head_fn is None:
+        fn = lib.cdll.e2t_headconv_f32
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        tile = lib.cdll.e2t_headconv_cout_tile
+        tile.argtypes = []
+        tile.restype = ctypes.c_int
+        _head_cout_tile = int(tile())
+        _head_fn = fn
+    return lib
+
+
+def _check_tensors(what, x, w, b):
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{what}: {name} must be a torch.Tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, "
+                             f"x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if x.ndim != 5:
+        raise ValueError(f"{what}: x must be (N, Cin, Z, X, Y), "
+                         f"got shape {tuple(x.shape)}")
+    if tuple(b.shape) != (w.shape[0],):
+        raise ValueError(f"{what}: b must be ({w.shape[0]},), "
+                         f"got {tuple(b.shape)}")
+
+
 def _check_args(x, w, b, dil, relu):
     """Validate the call; returns (dx, dy). The messages for z-dilation,
     ReLU and a too-small volume are the JAX kernel's."""
@@ -62,26 +113,11 @@ def _check_args(x, w, b, dil, relu):
                          "fuses bias + ReLU)")
     if dx < 1 or dy < 1:
         raise ValueError(f"tail conv: dilation must be positive, got {dil}")
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"tail conv: {name} must be a torch.Tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"tail conv: {name} must be float32, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"tail conv: {name} is on {t.device}, "
-                             f"x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"tail conv: {name} must be contiguous")
-    if x.ndim != 5:
-        raise ValueError(f"tail conv: x must be (N, Cin, Z, X, Y), "
-                         f"got shape {tuple(x.shape)}")
+    _check_tensors("tail conv", x, w, b)
     cin = x.shape[1]
     if w.ndim != 5 or tuple(w.shape[1:]) != (cin, 3, 3, 3):
         raise ValueError(f"tail conv: w must be (Cout, {cin}, 3, 3, 3), "
                          f"got {tuple(w.shape)}")
-    if tuple(b.shape) != (w.shape[0],):
-        raise ValueError(f"tail conv: b must be ({w.shape[0]},), "
-                         f"got {tuple(b.shape)}")
     Z, X, Y = x.shape[2:]
     if min(Z - 2, X - 2 * dx, Y - 2 * dy) < 1:
         raise ValueError(f"volume too small for fov: {(Z, X, Y)} dil {dil}")
@@ -129,3 +165,88 @@ def conv3x3_dilated_reference(x, w, b, dil=(1, 1, 1)):
     in full float32 (cuDNN's TF32 off) on the card."""
     with f32_convs():
         return torch.relu(F.conv3d(x, w, b, dilation=tuple(int(d) for d in dil)))
+
+
+def _check_head_args(x, w, b, dil, pool, relu):
+    """Validate a head-unit call; returns (d, w as (Cout, Cin, 3, 3)). The
+    messages are the JAX kernel's."""
+    if len(dil) == 3:
+        if int(dil[0]) != 1:
+            raise ValueError("head kernel: z-dilation must be 1")
+        dil = dil[1:]
+    dxy = tuple(int(v) for v in dil)
+    if len(dxy) != 2 or dxy[0] != dxy[1]:
+        raise ValueError(f"head kernel: anisotropic xy dilation {dxy}")
+    d = dxy[0]
+    if d < 1:
+        raise ValueError(f"head kernel: dilation must be positive, got {d}")
+    if pool not in (1, 2):
+        raise ValueError(f"head kernel: pool must be 1 or 2, got {pool}")
+    if not relu:
+        raise ValueError("head kernel: relu=False not supported")
+    _check_tensors("head kernel", x, w, b)
+    cin = x.shape[1]
+    if w.ndim == 5:
+        if tuple(w.shape[2:]) != (1, 3, 3):
+            raise ValueError(f"head kernel needs (1,3,3), got {tuple(w.shape)}")
+        w = w[:, :, 0]
+    if w.ndim != 4 or tuple(w.shape[1:]) != (cin, 3, 3):
+        raise ValueError(f"head kernel needs (1,3,3), got {tuple(w.shape)}")
+    Z, X, Y = x.shape[2:]
+    dp = d * (pool - 1)
+    if min(Z, X - 2 * d - dp, Y - 2 * d - dp) < 1:
+        raise ValueError(f"volume too small: {(Z, X, Y)} dil {d} "
+                         f"pool {pool}")
+    return d, w
+
+
+def conv1x3x3_pool_dilated(x, w, b, dil=(1, 1), pool=2, relu=True):
+    """Head unit: valid (1,3,3) conv with xy-dilation ``dil`` (isotropic),
+    + bias, then with ``pool=2`` a stride-1 (2,2) max window dilated by d,
+    then ReLU.
+
+    x: (N, Cin, Z, X, Y) float32, contiguous; w: (Cout, Cin, 1, 3, 3) or
+    (Cout, Cin, 3, 3); b: (Cout,). Returns (N, Cout, Z, X-2d-d(pool-1),
+    Y-2d-d(pool-1)) float32.
+    """
+    global head_launches
+    d, w4 = _check_head_args(x, w, b, dil, pool, relu)
+    if x.device.type == "cpu":
+        return conv1x3x3_pool_reference(x, w, b, (d, d), pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"head kernel: no kernel for device {x.device}")
+    build_head()
+    N, Cin, Z, X, Y = x.shape
+    Cout = w4.shape[0]
+    T = _head_cout_tile
+    G = -(-Cout // T)
+    # (Cout, Cin, 3, 3) -> (G, Cin, 9, T): per channel group, per input
+    # channel, the 9 taps with the group's T output channels innermost
+    wt = F.pad(w4.permute(1, 2, 3, 0).reshape(Cin, 9, Cout),
+               (0, G * T - Cout))
+    wt = wt.reshape(Cin, 9, G, T).permute(2, 0, 1, 3).contiguous()
+    bp = F.pad(b, (0, G * T - Cout)).contiguous()
+    dp = d * (pool - 1)
+    y = torch.empty((N, Cout, Z, X - 2 * d - dp, Y - 2 * d - dp),
+                    dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _head_fn(x.data_ptr(), wt.data_ptr(), bp.data_ptr(),
+                       y.data_ptr(), N, Cin, Z, X, Y, Cout, d, pool, stream)
+    if err != 0:
+        raise RuntimeError(f"head kernel launch failed: CUDA error {err}")
+    head_launches += 1
+    return y
+
+
+def conv1x3x3_pool_reference(x, w, b, dil=(1, 1), pool=2):
+    """The plain PyTorch version: ``conv3d`` (dilation (1, d, d)) + bias,
+    then with ``pool=2`` ``max_pool3d`` over a (1,2,2) window of stride 1
+    dilated by (1, d, d), then ReLU, in full float32 on the card."""
+    d = int(dil[-1])
+    w5 = w if w.ndim == 5 else w[:, :, None]
+    with f32_convs():
+        y = F.conv3d(x, w5, b, dilation=(1, d, d))
+    if pool == 2:
+        y = F.max_pool3d(y, (1, 2, 2), stride=1, dilation=(1, d, d))
+    return torch.relu(y)

@@ -1,18 +1,22 @@
-"""Bridges from the JAX package: parameters, the flagship net and the
-tracing model.
+"""Bridges from the JAX package: parameters, and the port's own copies of
+the repo's model builders.
 
 ``params_from_jax`` turns the JAX package's ``{node: {name: array}}``
 parameters into the port's tensors. Every ported node keeps the JAX
-package's parameter layout (conv ``w`` ``(Cout, Cin, kz, kx, ky)``,
-Perceptron ``w`` ``(f_in, n_f)``, GRU ``w_gates``/``b_gates``/``w_cand``/
-``b_cand``, ``InitialState_like`` ``state0``), so the conversion is an exact
-copy.
+package's parameter layout (conv ``w`` ``(Cout, Cin, kz, kx, ky)``, UpConv
+``w`` ``(f_out, f_in, *pool)``, Perceptron ``w`` ``(f_in, n_f)``, GRU
+``w_gates``/``b_gates``/``w_cand``/``b_cand``, ``InitialState_like``
+``state0``), so the conversion is an exact copy.
 
-``flagship_model`` is the port's counterpart of
-``__graft_entry__._flagship_model``: the neuro3d-class net with the same
-arguments, node names and geometry. ``tracer_model`` is the counterpart of
-``scripts/exp_tracer_rollout.py::build_model``, the tracing deployment's
-recurrent model.
+The builders have the arguments, node names and geometry of their
+counterparts: ``flagship_model`` of ``__graft_entry__._flagship_model`` (the
+neuro3d-class net), ``tracer_model`` of
+``scripts/exp_tracer_rollout.py::build_model`` (the tracing deployment's
+recurrent model), ``wide_unet_model`` of ``examples/unet3d_wide.py::
+create_model`` and ``unet3d_model`` of ``examples/unet3d.py::create_model``
+(the decoder graphs of U-Net serving). Each puts its parameters on
+``device``, the card unless the caller asks for the CPU; without a card the
+default raises (``neuromancer.model.target_device``).
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def params_from_jax(params, model=None):
     return out
 
 
-def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0):
+def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0,
+                   device="cuda"):
     """neuro3d-style 3D EM segmentation net (the flagship workload).
 
     conv0 (1,3,3) 1→20 + pool (1,2,2); conv1 (1,3,3) 20→30 + pool (1,2,2);
@@ -64,8 +69,10 @@ def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0):
     ``model_manager.reset(seed=0)``'s generator.
     """
     from .. import neuromancer as nm
+    from ..neuromancer.model import target_device
     from .cnncalculator import cnncalculator
 
+    device = target_device(device)
     filters = [(1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3)] \
         + [(3, 3, 3)] * extra_convs
     pools = [(1, 2, 2), (1, 2, 2), (1, 1, 1), (1, 1, 1)] \
@@ -89,10 +96,10 @@ def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0):
     model = nm.model_manager.getmodel("flagship")
     model.designate_nodes(input_node=inp, target_node=tgt, loss_node=loss,
                           prediction_node=probs)
-    return model
+    return model.to(device)
 
 
-def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4):
+def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4, device="cuda"):
     """The recurrent tracing model of the tracing deployment, with the JAX
     package's node names: ``x_t`` (one step's patch) →
     ``Perceptron(enc_w, flatten=True)`` ``enc`` → ``GRU(gru_w)`` ``gru``
@@ -103,7 +110,9 @@ def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4):
     from ``model_manager.reset()``'s generator.
     """
     from .. import neuromancer as nm
+    from ..neuromancer.model import target_device
 
+    device = target_device(device)
     nm.model_manager.reset()
     seq = nm.Input([t, batch, 1, *patch], "s,b,f,z,x,y", name="seq")
     x_t = nm.Input([batch, 1, *patch], "b,f,z,x,y", name="x_t")
@@ -118,4 +127,77 @@ def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4):
     model = nm.model_manager.getmodel("tracer_bench")
     model.designate_nodes(input_node=seq, target_node=tgt, loss_node=loss,
                           prediction_node=step_vec)
+    return model.to(device)
+
+
+#: ``examples/unet3d_wide.py``: design patch and encoder widths
+WIDE_UNET_PATCH = (16, 64, 64)
+WIDE_UNET_WIDTHS = (64, 128, 256)
+
+
+def _unet_head(nm, name, inp, dec):
+    """The U-Net examples' common tail: a 1x1 ``cls`` conv to 2 classes,
+    Softmax ``probs``, NLL, loss and error rate against ``target``."""
+    probs = nm.Softmax(nm.Conv(dec, 2, 1, 1, activation_func="lin",
+                               name="cls"), name="probs")
+    tgt = nm.Input([probs.shape["b"], *probs.shape.spatial_shape],
+                   "b,z,x,y", dtype="int32", name="target")
+    nll = nm.MultinoulliNLL(probs, tgt, target_is_sparse=True, name="nll")
+    loss = nm.AggregateLoss(nll, name="loss")
+    err = nm.Errors(probs, tgt, target_is_sparse=True)
+    model = nm.model_manager.getmodel(name)
+    model.designate_nodes(input_node=inp, target_node=tgt, loss_node=loss,
+                          prediction_node=probs, error_node=err)
     return model
+
+
+def wide_unet_model(batch=None, patch=None, widths=None, device="cuda"):
+    """The width-realistic 3D U-Net of ``examples/unet3d_wide.py``.
+
+    e0a (1,3,3) →w0; e0b (1,3,3) →w0 + pool (1,2,2); e1a (3,3,3) →w1; e1b
+    (3,3,3) →w1 + pool (1,2,2); bott (3,3,3) →w2; u1 UpConv →w1 (ReLU); m1
+    FaithlessMerge(u1, e1a); d1 (3,3,3) →w1; u0 UpConv →w0 (ReLU); m0
+    FaithlessMerge(u0, e0a); d0 (1,3,3) →w0; ``cls`` 1x1 to 2 classes;
+    Softmax. Widths (w0, w1, w2) default to (64, 128, 256), the patch to
+    (16, 64, 64). Weights come from ``model_manager.reset()``'s generator.
+    """
+    from .. import neuromancer as nm
+    from ..neuromancer.model import target_device
+
+    device = target_device(device)
+    p = tuple(patch or WIDE_UNET_PATCH)
+    w0, w1, w2 = widths or WIDE_UNET_WIDTHS
+    nm.model_manager.reset()
+    inp = nm.Input([batch or 1, 1, *p], "b,f,z,x,y", name="raw")
+    e0a = nm.Conv(inp, w0, (1, 3, 3), (1, 1, 1), name="e0a")
+    e0b = nm.Conv(e0a, w0, (1, 3, 3), (1, 2, 2), name="e0b")
+    e1a = nm.Conv(e0b, w1, (3, 3, 3), (1, 1, 1), name="e1a")
+    e1b = nm.Conv(e1a, w1, (3, 3, 3), (1, 2, 2), name="e1b")
+    bott = nm.Conv(e1b, w2, (3, 3, 3), (1, 1, 1), name="bott")
+    u1 = nm.UpConv(bott, w1, (1, 2, 2), activation_func="relu", name="u1")
+    m1 = nm.FaithlessMerge(u1, e1a, name="m1")
+    d1 = nm.Conv(m1, w1, (3, 3, 3), (1, 1, 1), name="d1")
+    u0 = nm.UpConv(d1, w0, (1, 2, 2), activation_func="relu", name="u0")
+    m0 = nm.FaithlessMerge(u0, e0a, name="m0")
+    d0 = nm.Conv(m0, w0, (1, 3, 3), (1, 1, 1), name="d0")
+    return _unet_head(nm, "unet3d_wide", inp, d0).to(device)
+
+
+def unet3d_model(device="cuda"):
+    """The encoder/decoder example of ``examples/unet3d.py``: enc0 (1,3,3)
+    →12; enc1 (3,3,3) →24 + pool (1,2,2); enc2 (3,3,3) →24; up UpConv →12
+    (ReLU); merge FaithlessMerge(up, enc0); dec (1,3,3) →16; ``cls``;
+    Softmax. Patch (16, 32, 32), batch 1."""
+    from .. import neuromancer as nm
+    from ..neuromancer.model import target_device
+
+    device = target_device(device)
+    nm.model_manager.reset()
+    inp = nm.Input([1, 1, 16, 32, 32], "b,f,z,x,y", name="raw")
+    enc0 = nm.Conv(inp, 12, (1, 3, 3), (1, 1, 1), name="enc0")
+    enc1 = nm.Conv(enc0, 24, (3, 3, 3), (1, 2, 2), name="enc1")
+    enc2 = nm.Conv(enc1, 24, (3, 3, 3), (1, 1, 1), name="enc2")
+    up = nm.UpConv(enc2, 12, (1, 2, 2), activation_func="relu", name="up")
+    merged = nm.FaithlessMerge(up, enc0, name="merge")
+    dec = nm.Conv(merged, 16, (1, 3, 3), (1, 1, 1), name="dec")
+    return _unet_head(nm, "unet3d", inp, dec).to(device)

@@ -4,8 +4,8 @@ This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA: ``python -m pytest tests/test_torch_cuda.py
 --noconftest -q`` (``--noconftest``: ``tests/conftest.py`` imports jax).
 Each test holds a kernel against its plain PyTorch version on the same
-inputs; tolerance 1e-4 for K1 (float32 sums of up to 1080 products in
-another order), 1e-5 on the flagship's probabilities, 1e-5 for K2 (values in
+inputs; tolerance 1e-4 for K1 and K4 (float32 sums of up to 27*Cin and
+9*Cin products in another order), 1e-5 on the flagship's probabilities, 1e-5 for K2 (values in
 [0, 1), 8 products per output) and 1e-4 for K3 (coordinates near 256 carry
 an ulp of 1.5e-5, which moves a sample by about that much); K3's ``ok``
 flags must be equal. Both patch kernels avoid FMA contraction and are
@@ -19,7 +19,8 @@ import torch
 from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
                                                      flight_frame)
 from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
-from elektronn2_tpu_torch.utils.convert import flagship_model, tracer_model
+from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
+                                                wide_unet_model)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -57,6 +58,59 @@ def test_k1_matches_plain(cuda_device, n, cin, cout, sp, dil):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, cin, cout, sp", [
+    (1, 64, 128, (6, 40, 61)),    # e1a, scaled down
+    (2, 256, 128, (5, 23, 30)),   # d1: Cin past the weight chunk, a batch
+])
+def test_k1_matches_plain_at_wide_unet_shapes(cuda_device, n, cin, cout, sp):
+    x, w, b = _inputs(14, n, cin, cout, sp, cuda_device)
+    w = w * (2.0 / (27 * cin)) ** 0.5
+    got = tailconv.conv3x3_dilated(x, w, b)
+    ref = tailconv.conv3x3_dilated_reference(x, w, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, cin, cout, sp, d, pool", [
+    (1, 1, 20, (3, 40, 45), 1, 2),     # flagship conv0, ragged Y
+    (1, 20, 30, (2, 37, 300), 2, 2),   # flagship conv1, two channel groups
+    (2, 3, 5, (3, 20, 21), 3, 2),      # batch, d=3
+    (1, 24, 16, (2, 33, 600), 1, 1),   # probe dec, Y past one block's run
+    (1, 40, 7, (2, 12, 13), 2, 1),     # Cin past the weight chunk
+])
+def test_k4_matches_plain(cuda_device, n, cin, cout, sp, d, pool):
+    rng = np.random.RandomState(15)
+    x, w, b = (torch.from_numpy(a).to(cuda_device) for a in (
+        (rng.rand(n, cin, *sp) - 0.5).astype(np.float32),
+        (rng.rand(cout, cin, 1, 3, 3) - 0.5).astype(np.float32),
+        (rng.rand(cout) - 0.5).astype(np.float32)))
+    before = tailconv.head_launches
+    got = tailconv.conv1x3x3_pool_dilated(x, w, b, (d, d), pool)
+    ref = tailconv.conv1x3x3_pool_reference(x, w, b, (d, d), pool)
+    torch.cuda.synchronize()
+    assert tailconv.head_launches == before + 1
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+def test_wide_unet_k1_route_matches_cudnn_route(cuda_device):
+    m = wide_unet_model(widths=(8, 16, 32), device=cuda_device)
+    vol = torch.from_numpy(np.random.RandomState(16).rand(
+        1, 20, 72, 76).astype(np.float32)).to(cuda_device)
+    m.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    before = tailconv.launches
+    a = m.predict_dense_device(vol, pad_raw=True)
+    assert tailconv.launches == before + 4
+    m.set_convdense_impl(zfold=True, skipsum=True)
+    b = m.predict_dense_device(vol, pad_raw=True)
+    torch.cuda.synchronize()
+    assert tailconv.launches == before + 4
+    assert tuple(a.shape) == (2, 20, 72, 76)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
 def test_k1_rejects_host_tensors_mixed_with_card(cuda_device):
     x, w, b = _inputs(12, 1, 4, 4, (6, 10, 12), cuda_device)
     with pytest.raises(ValueError, match="is on"):
@@ -65,7 +119,7 @@ def test_k1_rejects_host_tensors_mixed_with_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flagship_k1_route_matches_cudnn_route(cuda_device):
-    m = flagship_model(mfp=True, patch=[9, 41, 41]).to(cuda_device)
+    m = flagship_model(mfp=True, patch=[9, 41, 41], device=cuda_device)
     vol = torch.from_numpy(np.random.RandomState(13).rand(
         1, 12, 80, 72).astype(np.float32)).to(cuda_device)
     m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
@@ -126,7 +180,7 @@ def test_k3_matches_plain(cuda_device, f, shape, patch, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rotate", [False, True])
 def test_tracer_kernel_route_matches_plain_route(cuda_device, rotate):
-    m = tracer_model((8, 8, 8), enc_w=16, gru_w=16).to(cuda_device)
+    m = tracer_model((8, 8, 8), enc_w=16, gru_w=16, device=cuda_device)
     rng = np.random.RandomState(23)
     vol = torch.from_numpy(rng.rand(1, 48, 48, 48).astype(np.float32)).to(
         cuda_device)

@@ -53,7 +53,7 @@ def jax_model():
 
 @pytest.fixture
 def port_model(jax_model):
-    m = flagship_model(mfp=True, patch=PATCH)
+    m = flagship_model(mfp=True, patch=PATCH, device="cpu")
     m.set_params(params_from_jax(jax_model.params, m))
     return m
 
@@ -73,7 +73,7 @@ def jax_dense(vol):
 def test_modelload_reads_jax_save(jax_model, tmp_path):
     fname = str(tmp_path / "flagship.mdl")
     jax_model.save(fname)
-    m = modelload(fname)
+    m = modelload(fname, device="cpu")
     assert list(m.nodes) == list(jax_model.nodes)
     for name, node in jax_model.nodes.items():
         assert type(m.nodes[name]).__name__ == type(node).__name__
@@ -92,7 +92,7 @@ def test_modelload_reads_jax_save(jax_model, tmp_path):
 def test_params_from_jax_equals_modelload(jax_model, port_model, tmp_path):
     fname = str(tmp_path / "flagship.mdl")
     jax_model.save(fname)
-    loaded = modelload(fname).params
+    loaded = modelload(fname, device="cpu").params
     conv = params_from_jax(jax_model.params, port_model)
     assert set(conv) == set(loaded)
     for n in conv:
@@ -159,7 +159,7 @@ def test_pallas_tail_routes_agree_and_use_k1(port_model, vol, monkeypatch):
 def test_mfp_route_matches_entry():
     fn, (params, x) = entry()
     ref = np.asarray(fn(params, x))
-    m = flagship_model(mfp=True)
+    m = flagship_model(mfp=True, device="cpu")
     m.set_params(params_from_jax(params, m))
     outs, _ = m._apply([m.prediction_node], m.params, m.state,
                        {m.input_node.name: torch.from_numpy(x)}, None,
@@ -231,7 +231,7 @@ def test_unported_nodes_raise(tmp_path):
         fname = str(tmp_path / "bn.mdl")
         m.save(fname)
     with pytest.raises(NotImplementedError, match="BatchNorm"):
-        modelload(fname)
+        modelload(fname, device="cpu")
     with fresh_graph("elektronn2_tpu_torch"):
         t_inp = tnm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
         with pytest.raises(NotImplementedError, match="batch_normalisation"):

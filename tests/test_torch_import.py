@@ -38,6 +38,8 @@ MODULES = [
     "elektronn2_tpu_torch.data",
     "elektronn2_tpu_torch.data.skeleton",
     "elektronn2_tpu_torch.data.tracing_utils",
+    "elektronn2_tpu_torch.scripts",
+    "elektronn2_tpu_torch.scripts.exp_convdense_headk",
 ]
 
 
@@ -68,10 +70,36 @@ def test_flagship_builds_and_runs_without_jax():
     code = ("import sys, torch\n"
             "torch.set_num_threads(1)\n"
             "from elektronn2_tpu_torch.utils.convert import flagship_model\n"
-            "m = flagship_model(mfp=True, patch=[9, 41, 41])\n"
+            "m = flagship_model(mfp=True, patch=[9, 41, 41], device='cpu')\n"
             "m.set_dilated_impl('direct', zfold=True, pallas_tail=True)\n"
             "y = m.predict_dense_device(torch.rand(1, 7, 30, 30), pad_raw=True)\n"
             "assert tuple(y.shape) == (2, 7, 30, 30), y.shape\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_unet_conv_dense_runs_without_jax():
+    # the conv-dense slice (decoder graph, every lowering knob, K1's and
+    # K4's wrappers on the CPU, the probe's shapes) stays jax-free when it
+    # runs
+    code = ("import sys, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import wide_unet_model\n"
+            "from elektronn2_tpu_torch.ops.tailconv import "
+            "conv1x3x3_pool_dilated\n"
+            "from elektronn2_tpu_torch.scripts import exp_convdense_headk\n"
+            "m = wide_unet_model(widths=(4, 8, 16), device='cpu')\n"
+            "m.set_convdense_impl(zfold=True, skipsum=True, ptail=True)\n"
+            "y = m.predict_dense_device(torch.rand(1, 10, 40, 44), "
+            "pad_raw=True)\n"
+            "assert tuple(y.shape) == (2, 10, 40, 44), y.shape\n"
+            "h = conv1x3x3_pool_dilated(torch.rand(1, 2, 3, 9, 9), "
+            "torch.rand(4, 2, 1, 3, 3), torch.rand(4))\n"
+            "assert tuple(h.shape) == (1, 4, 3, 6, 6), h.shape\n"
+            "assert len(exp_convdense_headk.cases()) == 5\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code)
@@ -86,7 +114,7 @@ def test_tracing_rollout_runs_without_jax():
             "torch.set_num_threads(1)\n"
             "from elektronn2_tpu_torch.utils.convert import tracer_model\n"
             "from elektronn2_tpu_torch.data.tracing_utils import DeviceTracer\n"
-            "m = tracer_model((4, 4, 4), enc_w=8, gru_w=8)\n"
+            "m = tracer_model((4, 4, 4), enc_w=8, gru_w=8, device='cpu')\n"
             "vol = torch.rand(1, 16, 16, 16)\n"
             "d = tempfile.mkdtemp()\n"
             "for rot in (False, True):\n"

@@ -42,7 +42,7 @@ def _randomise(jax_model, seed):
 def _replay(jax_model, tmp_path):
     path = str(tmp_path / "model.mdl")
     jax_model.save(path)
-    return modelload(path)
+    return modelload(path, device="cpu")
 
 
 def _predict_both(jm, tm, x):
@@ -77,7 +77,8 @@ def test_tracer_model_matches_jax_build_model_layouts():
     layouts, so ``params_from_jax`` is a plain copy; the predictions agree."""
     jm = build_model((4, 4, 4), enc_w=8, gru_w=6, batch=2, t=3)
     _randomise(jm, 2)
-    tm = tracer_model((4, 4, 4), enc_w=8, gru_w=6, batch=2, t=3)
+    tm = tracer_model((4, 4, 4), enc_w=8, gru_w=6, batch=2, t=3,
+                      device="cpu")
     assert list(tm.nodes) == list(jm.nodes)
     shapes = {n: {k: tuple(v.shape) for k, v in d.items()}
               for n, d in tm.params.items()}
@@ -226,7 +227,8 @@ def test_perceptron_unported_options_raise(kw):
 
 
 def test_scan_rejects_sequence_of_wrong_length():
-    tm = tracer_model((3, 3, 3), enc_w=4, gru_w=4, batch=1, t=3)
+    tm = tracer_model((3, 3, 3), enc_w=4, gru_w=4, batch=1, t=3,
+                      device="cpu")
     with pytest.raises(ValueError, match="expects 3 on axis 0"):
         tm.predict(torch.rand(2, 1, 1, 3, 3, 3))
 

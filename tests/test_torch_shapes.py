@@ -37,7 +37,7 @@ def _same_shape(a, b):
                                         (False, [23, 103, 103])])
 def test_flagship_tagged_shapes_equal(mfp, patch):
     jm = _flagship_model(mfp=mfp, patch=patch)
-    tm = flagship_model(mfp=mfp, patch=patch)
+    tm = flagship_model(mfp=mfp, patch=patch, device="cpu")
     assert list(jm.nodes) == list(tm.nodes)
     for name in jm.nodes:
         _same_shape(tm.nodes[name].shape, jm.nodes[name].shape)

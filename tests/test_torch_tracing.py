@@ -59,7 +59,7 @@ def _jax_ff(rng, bias, scale=0.02, patch=PATCH):
 def _port(jax_model, tmp_path):
     path = str(tmp_path / "tracer.mdl")
     jax_model.save(path)
-    return modelload(path)
+    return modelload(path, device="cpu")
 
 
 def _jax_gru(rng, patch=PATCH, bias=(0.4, 0.3, -0.2)):
@@ -70,7 +70,8 @@ def _jax_gru(rng, patch=PATCH, bias=(0.4, 0.3, -0.2)):
     jm.params["step"]["b"] = jnp.asarray(np.asarray(bias, np.float32))
     jm.params["h0"]["state0"] = jnp.asarray(
         rng.randn(1, 16).astype(np.float32) * 0.5)
-    tm = tracer_model(patch, enc_w=16, gru_w=16, batch=2, t=3)
+    tm = tracer_model(patch, enc_w=16, gru_w=16, batch=2, t=3,
+                      device="cpu")
     tm.set_params(params_from_jax(jm.params, tm))
     return jm, tm
 
