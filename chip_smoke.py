@@ -9,15 +9,21 @@ conv-dense serving of the wide U-Net (``examples/unet3d_wide.py``, widths
 64/128/256) with K1 on its (3,3,3) convs; fused agent tracing of the
 tracing deployment's recurrent model (16^3 patch, Perceptron 64 -> GRU 64
 via ScanN -> 3-vector step) with the patch kernels K2 (``csrc/extract.cu``,
-translation) and K3 (``csrc/extract_rot.cu``, frame-aligned); and the K4
-probe at the conv-dense path's kz=1 shapes. Phases:
+translation) and K3 (``csrc/extract_rot.cu``, frame-aligned); the K4
+probe at the conv-dense path's kz=1 shapes; and the entry points of the
+three kernels no production route runs: K5's benchmark (the im2col dilated
+conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
+``csrc/ptail_dot.cu``) and P2 (K1's per-row ablations,
+``csrc/ptail_ablate.cu``). Phases:
 
 1. device: the card's name, capability, ``nvidia-smi`` name and power limit,
    and the float32 flags (cuDNN and cuBLAS TF32 off, a conv and a matmul
    checked against float64);
-2. build: K1, K4, K2 and K3 compiled with ``nvcc`` from the checkout's
-   sources, one nvcc per source, all started together; ptxas registers and
-   spills;
+2. build: K1, K4, K2, K3, K5, P1 and P2 compiled with ``nvcc`` from the
+   checkout's sources, one nvcc per source, all started together; ptxas
+   registers and spills, and SASS op counts (``cuobjdump -sass``): P1's
+   FFMAs / HMMAs and, per P2 probe, its FFMAs and LDGs show that the
+   probed work survived compilation;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
    kernel, plain) and at ragged and border shapes, with each timed case's
@@ -30,7 +36,11 @@ probe at the conv-dense path's kz=1 shapes. Phases:
    K2: atol 1e-5 (values in [0, 1), 8 products per output in another
    order). K3: atol 1e-4 on a 256^3 volume (coordinates near 256 carry an
    ulp of 1.5e-5, which moves a sample by about that much) and ``ok`` equal
-   except for agents with a box corner within 1e-4 of a bound (counted);
+   except for agents with a box corner within 1e-4 of a bound (counted).
+   K5: rtol=atol=1e-4 (float32 sums of 27*Cin products in another order)
+   and its pad channels exactly 0, at its benchmark's perf case (timed, with
+   one ``F.conv3d`` as its library call) and correctness case, the JAX
+   test's case and a ragged case (Cout 45, Yo 37, Y over-padded);
 4. slice: the MFP route (``predict`` + ``fragments2dense``) against
    ``predict_dense_device`` on a patch-sized volume (atol 1e-5), then three
    requests of distinct random 120x496x496 volumes through
@@ -62,18 +72,31 @@ probe at the conv-dense path's kz=1 shapes. Phases:
 9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
    the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds;
 10. headk_probe: the rows of ``elektronn2_tpu_torch.scripts.
-    exp_convdense_headk.main()`` (K4 against the zfold cuDNN conv).
+    exp_convdense_headk.main()`` (K4 against the zfold cuDNN conv);
+11. k5_main: the rows of ``elektronn2_tpu_torch.ops.experimental.
+    dilated_conv.main()``, K5's benchmark;
+12. probe_dot: the rows of ``elektronn2_tpu_torch.scripts.exp_ptail_dot.
+    main()`` (P1's six configs; each within rtol=atol=1e-3 of its plain
+    version in float32, rtol=atol=1e-2 in bf16, and no faster than its
+    bound);
+13. probe_ablate: the rows of ``elektronn2_tpu_torch.scripts.
+    exp_ptail_ablate.main()`` at the canonical tail shape (``k_disp=2``)
+    and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes' times
+    beside K1's, ``full`` and ``noepi`` within 1e-4 of their plain
+    versions.
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
-plain_ms, bound_ms, bound_by, library_ms), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
+plain_ms, bound_ms, bound_by, library_ms; P1's ``ms`` is one call of 1024
+cells x 8 dots, its ``plain_ms`` and ``library_ms`` compute the 8 dots
+once), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
 is not 0. Without a CUDA device it exits non-zero before any result.
 Usage, from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,12 +112,15 @@ from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
                                                      flight_frame)
 from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
 from elektronn2_tpu_torch.ops.conv import f32_convs, f32_matmuls
+from elektronn2_tpu_torch.ops.experimental import dilated_conv
 from elektronn2_tpu_torch.ops.mfp import fragments2dense
-from elektronn2_tpu_torch.scripts import exp_convdense_headk
-from elektronn2_tpu_torch.scripts.exp_convdense_headk import (FP32_FLOP_S,
-                                                             HBM_BYTES_S)
+from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
+                                          exp_ptail_ablate, exp_ptail_dot)
 from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
                                                 wide_unet_model)
+from elektronn2_tpu_torch.utils.cuda_build import find_nvcc
+from elektronn2_tpu_torch.utils.device_timing import (bound_ms, in_turns,
+                                                      time_ms)
 
 SEED = 0
 REQ_SHAPE = (1, 120, 496, 496)          # (f, Z, X, Y) of one request
@@ -128,18 +154,6 @@ def nvidia_smi_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, n=3):
-    """Mean device time of ``fn`` over ``n`` launches (CUDA events)."""
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
 
 
 def phase_device():
@@ -181,12 +195,63 @@ def phase_device():
     return smi
 
 
+SASS_OPS = ("FFMA", "HMMA", "LDG", "STG", "LDS", "STS")
+
+
+def sass_counts(path):
+    """{kernel function: {op: count}} of the SASS in a built library
+    (``cuobjdump -sass``, from nvcc's directory), for the ops in
+    ``SASS_OPS``."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, check=True, timeout=300)
+    counts, fn = {}, None
+    for ln in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", ln):
+                counts[fn][op] += 1
+    return counts
+
+
+def check_probe_sass(kernel, counts):
+    """The probes' work survived compilation: P1's float32 dot keeps its 8x8
+    FFMAs per k step and the bf16 dot its HMMAs; in P2 every probe with the
+    dot leg has K1's 2160 FFMAs per input channel (9 taps x 3 ky x 40
+    channels x 2 y), every probe with the loads leg its 54 LDGs, and the
+    others fewer."""
+    if kernel == "ptail_dot":
+        want = {"dot_f32_kernel": ("FFMA", 512), "dot_bf16_kernel": ("HMMA", 16)}
+        for key, (op, n) in want.items():
+            got = [c[op] for f, c in counts.items() if key in f]
+            if len(got) != 1 or got[0] < n:
+                raise AssertionError(f"{key}: {op} counts {got}, want >= {n}")
+        return
+    probes = {int(m.group(1)): c for f, c in counts.items()
+              for m in [re.search(r"ablate_kernelILi(\d+)EE", f)] if m}
+    if sorted(probes) != list(range(len(exp_ptail_ablate.PROBES))):
+        raise AssertionError(f"ptail_ablate: instances {sorted(probes)}")
+    for i, name in enumerate(exp_ptail_ablate.PROBES):
+        dot = name in ("full", "nostage", "noepi", "dotonly")
+        loads = name not in ("dotonly", "outonly")
+        c = probes[i]
+        if (c["FFMA"] >= 2160) != dot or (c["LDG"] >= 54) != loads:
+            raise AssertionError(f"ptail_ablate {name}: SASS {c}")
+
+
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together; each library's
+    ptxas report and SASS op counts, the probes' checked."""
     builds = {"conv3x3_dilated": tailconv.build,
               "conv1x3x3_pool_dilated": tailconv.build_head,
               "trilinear_patches": extract.build,
-              "rotated_patches": extract_rot.build}
+              "rotated_patches": extract_rot.build,
+              "dilated_conv": dilated_conv.build,
+              "ptail_dot": exp_ptail_dot.build,
+              "ptail_ablate": exp_ptail_ablate.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(b) for k, b in builds.items()}
@@ -195,8 +260,12 @@ def phase_build():
     for k, lib in libs.items():
         ptxas = [ln.strip() for ln in lib.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
+        sass = sass_counts(lib.path)
         emit("build", kernel=k, library=lib.path,
-             nvcc_seconds=lib.build_seconds, wall_seconds=wall, ptxas=ptxas)
+             nvcc_seconds=lib.build_seconds, wall_seconds=wall, ptxas=ptxas,
+             sass=sass)
+        if k in ("ptail_dot", "ptail_ablate"):
+            check_probe_sass(k, sass)
 
 
 def conv_bound(cin, cout, x_numel, out_numel):
@@ -204,10 +273,8 @@ def conv_bound(cin, cout, x_numel, out_numel):
     read once and the output (``out_numel`` elements, channels included)
     written once over the memory rate, against its multiply-adds over the
     FP32 rate."""
-    flop = 2.0 * cin * 27 * out_numel
-    nbytes = 4.0 * (x_numel + out_numel + cout * (cin * 27 + 1))
-    t_b, t_f = nbytes / HBM_BYTES_S, flop / FP32_FLOP_S
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b > t_f else "operations")
+    return bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
+                    2.0 * cin * 27 * out_numel)
 
 
 def phase_kernel():
@@ -306,7 +373,7 @@ def phase_kernel_k4():
                    x=[N, cin, *sp], cout=cout, d=d, pool=pool,
                    max_abs_err=err)
         if timed:
-            ms, pms = timed_pair(
+            ms, pms = in_turns(
                 lambda: tailconv.conv1x3x3_pool_dilated(x, w, b, (d, d),
                                                         pool),
                 lambda: tailconv.conv1x3x3_pool_reference(x, w, b, (d, d),
@@ -389,14 +456,6 @@ def near_bound_agents(vol_shape, pos, F, patch, tol=1e-4):
         | (np.abs(c - hi).min(axis=(1, 2)) < tol)
 
 
-def timed_pair(kern, plain, n=20):
-    """(kernel ms, plain ms) per call, in turns: plain, kernel, kernel,
-    plain."""
-    t = [time_ms(plain, n), time_ms(kern, n), time_ms(kern, n),
-         time_ms(plain, n)]
-    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-
-
 def patch_bound(B, f, patch, in_bytes, flop_per_sample):
     """(bound ms, 'bytes' or 'operations') of a batched patch cut on an
     H100: each agent's (p+1)^3 window of the volume read once (the voxels
@@ -404,9 +463,8 @@ def patch_bound(B, f, patch, in_bytes, flop_per_sample):
     patches written once, against its arithmetic over the FP32 rate."""
     samples = B * f * int(np.prod(patch))
     window = B * f * int(np.prod([p + 1 for p in patch]))
-    t_b = (4.0 * (window + samples) + in_bytes) / HBM_BYTES_S
-    t_f = flop_per_sample * samples / FP32_FLOP_S
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b > t_f else "operations")
+    return bound_ms(4.0 * (window + samples) + in_bytes,
+                    flop_per_sample * samples)
 
 
 def phase_kernel_k2():
@@ -428,9 +486,10 @@ def phase_kernel_k2():
                    vol=list(vol.shape), B=pos.shape[0], patch=list(patch),
                    max_abs_err=err, bit_exact=bool(torch.equal(got, ref)))
         if timed:
-            ms, pms = timed_pair(
+            ms, pms = in_turns(
                 lambda: extract.trilinear_patches(vol, pos, patch),
-                lambda: extract.trilinear_patches_reference(vol, pos, patch))
+                lambda: extract.trilinear_patches_reference(vol, pos, patch),
+                n=20)
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * pos.numel(), 21)
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
@@ -469,10 +528,10 @@ def phase_kernel_k3():
                    ok_differ=int(differ.sum()),
                    near_bound_agents=int(near.sum()))
         if timed:
-            ms, pms = timed_pair(
+            ms, pms = in_turns(
                 lambda: extract_rot.rotated_patches(vol, pos, F, patch),
                 lambda: extract_rot.rotated_patches_reference(vol, pos, F,
-                                                              patch))
+                                                              patch), n=20)
             # per sample: the frame rotation (9 multiply-adds), the blend
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * (pos.numel() + F.numel()), 39)
@@ -480,6 +539,117 @@ def phase_kernel_k3():
                        bound_by=bound[1], library_ms=None)
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
+
+
+K5_CASES = [  # name, (Z, X, Cin, Y), Cout, d, Yo, timed
+    # the benchmark's perf case (its __main__), Y over-padded 520 -> 640
+    ("perf", (44, 307, 30, 640), 40, 4, 512, True),
+    ("correct", (12, 12, 5, 136), 7, 4, 128, False),
+    # tests/test_pallas_experimental.py's case, Y over-padded 132 -> 256
+    ("jax_test", (8, 8, 5, 256), 7, 2, 128, False),
+    # Cout 45 -> Cout_pad 48 (two channel groups, three pad rows), ragged Yo
+    ("ragged", (6, 9, 3, 50), 45, 1, 37, False),
+]
+
+
+def phase_kernel_k5():
+    """K5 against its plain version (``dilated_conv.check``: rtol=atol=1e-4,
+    pad channels exactly 0); returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms) at the benchmark's perf case. The library call is
+    one ``F.conv3d`` on the same input in NCDHW (transposed outside the
+    timed window), in full float32."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    max_err = 0.0
+    for name, sp, cout, d, yo, timed in K5_CASES:
+        cin = sp[2]
+        x = torch.rand(sp, device="cuda", generator=g) - 0.5
+        w = (torch.rand(cout, cin, 3, 3, 3, device="cuda", generator=g)
+             - 0.5) * (2.0 / (27 * cin)) ** 0.5
+        got = dilated_conv.dilated_conv(x, w, d, yo)
+        err = dilated_conv.check(
+            got, dilated_conv.dilated_conv_reference(x, w, d, yo), cout)
+        max_err = max(max_err, err)
+        rec = dict(kernel="dilated_conv", case=name, x=list(sp), cout=cout,
+                   d=d, Yo=yo, out=list(got.shape), max_abs_err=err,
+                   pad_rows_zero=True)
+        if timed:
+            ms, pms = in_turns(
+                lambda: dilated_conv.dilated_conv(x, w, d, yo),
+                lambda: dilated_conv.dilated_conv_reference(x, w, d, yo))
+            xn = x[..., :yo + 2 * d].permute(2, 0, 1, 3)[None].contiguous()
+            with f32_convs():
+                lms = time_ms(lambda: torch.nn.functional.conv3d(
+                    xn, w, dilation=(d, d, d)))
+            bound, by = dilated_conv.conv_bound(x, w, got)
+            flop = dilated_conv.conv_flop(sp[0] - 2 * d, sp[1] - 2 * d, yo,
+                                          cin, cout)
+            rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
+                       bound_by=by, kernel_tflop_s=flop / ms / 1e9,
+                       library_tflop_s=flop / lms / 1e9)
+            row = (ms, pms, bound, by, lms)
+            del xn
+        emit("kernel", **rec)
+        del x, w, got
+    torch.cuda.empty_cache()
+    return (max_err,) + row
+
+
+def phase_k5_main():
+    """K5's entry point, its benchmark (``dilated_conv.main()``, the port of
+    the JAX module's ``__main__``); returns its kernel launches."""
+    dilated_conv.launches = 0
+    for row in dilated_conv.main():
+        emit("k5_main", **row)
+    launches = dilated_conv.launches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_probe_dot():
+    """P1's entry point, ``exp_ptail_dot.main()`` (its six configs, each held
+    against its plain version inside); returns (launches, (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)) with the times of the float32
+    (120, 360, 512) config. A time below the bound would mean the compiler
+    removed work: it fails."""
+    exp_ptail_dot.launches = 0
+    rows = exp_ptail_dot.main()
+    launches = exp_ptail_dot.launches
+    for row in rows:
+        emit("probe_dot", **row)
+        if row["ms"] < row["bound_ms"]:
+            raise AssertionError(f"probe_dot {row}: faster than its bound")
+    r = rows[0]
+    return launches, (max(x["max_abs_err"] for x in rows), r["ms"],
+                      r["plain_ms"], r["bound_ms"], r["bound_by"],
+                      r["library_ms"])
+
+
+#: P2 at the canonical isolated tail shape, and at the wide U-Net's d1 conv
+#: (the K1 shape that loses most to cuDNN): (shape, dil, cout, k_disp)
+ABLATE_RUNS = [((1, 40, 34, 320, 531), (1, 4, 4), 40, 2),
+               ((1, 256, 130, 230, 230), (1, 1, 1), 128, 1)]
+
+
+def phase_probe_ablate():
+    """P2's entry point, ``exp_ptail_ablate.main()`` at ``ABLATE_RUNS``
+    (``full`` and ``noepi`` held against their plain versions inside, every
+    probe checked for shape and finite values); returns (launches,
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)) of
+    ``full`` at the canonical shape."""
+    exp_ptail_ablate.launches = 0
+    runs = []
+    for shape, dil, cout, k_disp in ABLATE_RUNS:
+        rows = exp_ptail_ablate.main(shape=shape, dil=dil, cout=cout,
+                                     k_disp=k_disp)
+        torch.cuda.empty_cache()
+        for row in rows:
+            emit("probe_ablate", **row)
+        runs.append({r["probe"]: r for r in rows})
+    launches = exp_ptail_ablate.launches
+    full = runs[0]["full"]
+    return launches, (max(r["full"]["max_abs_err"] for r in runs), full["ms"],
+                      full["plain_ms"], full["bound_ms"], full["bound_by"],
+                      full["library_ms"])
 
 
 def seeded_params(model, rng):
@@ -911,6 +1081,7 @@ def main():
     k4 = phase_kernel_k4()
     k2 = phase_kernel_k2()
     k3 = phase_kernel_k3()
+    k5 = phase_kernel_k5()
     k1_launches = phase_slice()
     k4_launches, k1_chain = phase_head_chain()
     k1_launches += k1_chain + phase_convdense()
@@ -918,6 +1089,9 @@ def main():
     k3_launches = phase_trace(rotate=True)
     phase_trace_kzip()
     phase_headk_probe()
+    k5_launches = phase_k5_main()
+    p1_launches, p1 = phase_probe_dot()
+    p2_launches, p2 = phase_probe_ablate()
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),
@@ -927,7 +1101,17 @@ def main():
             ("trilinear_patches", "extract.cu",
              "elektronn2_tpu/ops/pallas_extract.py:75", k2_launches, k2),
             ("rotated_patches", "extract_rot.cu",
-             "elektronn2_tpu/ops/pallas_extract_rot.py:106", k3_launches, k3)]
+             "elektronn2_tpu/ops/pallas_extract_rot.py:106", k3_launches, k3),
+            ("dilated_conv", "dilated_conv.cu",
+             "elektronn2_tpu/ops/experimental/pallas_dilated_conv.py:69",
+             k5_launches, k5),
+            ("ptail_dot", "ptail_dot.cu", "scripts/exp_ptail_dot.py:26",
+             p1_launches, p1),
+            ("ptail_ablate", "ptail_ablate.cu",
+             "scripts/exp_ptail_ablate.py:72", p2_launches, p2)]
+    for n, _, _, launches, _ in rows:
+        if launches < 1:
+            raise AssertionError(f"{n}: no launch on its main path")
     print(json.dumps({"kernels": [{
         "name": n, "route": "cuda",
         "source": f"elektronn2_tpu_torch/csrc/{src}", "replaces": rep,

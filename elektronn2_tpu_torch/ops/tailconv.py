@@ -124,6 +124,19 @@ def _check_args(x, w, b, dil, relu):
     return dx, dy
 
 
+def regroup_weights(w, T, b=None):
+    """(Cout, Cin, 3,3,3) weights and (Cout,) bias -> (G, Cin, 27, T) and
+    (G*T,), G = ceil(Cout/T): per channel group, per input channel, the 27
+    taps with the group's T output channels innermost, zero-padded. The bias
+    comes back as None when none is given."""
+    Cout, Cin = w.shape[:2]
+    G = -(-Cout // T)
+    wt = F.pad(w.permute(1, 2, 3, 4, 0).reshape(Cin, 27, Cout),
+               (0, G * T - Cout))
+    wt = wt.reshape(Cin, 27, G, T).permute(2, 0, 1, 3).contiguous()
+    return wt, None if b is None else F.pad(b, (0, G * T - Cout)).contiguous()
+
+
 def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True):
     """Valid (3,3,3) conv, z-dilation 1, xy-dilation (dx, dy), fused bias
     and ReLU.
@@ -140,14 +153,7 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True):
     build()
     N, Cin, Z, X, Y = x.shape
     Cout = w.shape[0]
-    T = _cout_tile
-    G = -(-Cout // T)
-    # (Cout, Cin, 3,3,3) -> (G, Cin, 27, T): per channel group, per input
-    # channel, the 27 taps with the group's T output channels innermost
-    wt = F.pad(w.permute(1, 2, 3, 4, 0).reshape(Cin, 27, Cout),
-               (0, G * T - Cout))
-    wt = wt.reshape(Cin, 27, G, T).permute(2, 0, 1, 3).contiguous()
-    bp = F.pad(b, (0, G * T - Cout)).contiguous()
+    wt, bp = regroup_weights(w, _cout_tile, b)
     y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

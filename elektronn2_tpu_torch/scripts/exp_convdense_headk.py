@@ -25,10 +25,8 @@ import torch
 
 from ..ops.conv import conv_zfold2d, f32_convs
 from ..ops.tailconv import conv1x3x3_pool_dilated
+from ..utils.device_timing import bound_ms, time_ms
 
-#: H100 SXM data sheet: HBM bytes/s and FP32 FLOP/s outside the tensor cores
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
 TOL = 1e-4
 
 
@@ -63,19 +61,7 @@ def head_bound_ms(cin, cout, sp, d=1, pool=1):
     conv_out = z * (x - 2 * d) * (y - 2 * d)
     flop = 2.0 * 9 * cin * cout * conv_out
     nbytes = 4.0 * (cin * math.prod(sp) + cout * out + cout * (9 * cin + 1))
-    return max(nbytes / HBM_BYTES_S, flop / FP32_FLOP_S) * 1e3, \
-        "bytes" if nbytes / HBM_BYTES_S > flop / FP32_FLOP_S else "operations"
-
-
-def _time_ms(fn, k):
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(k):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / k
+    return bound_ms(nbytes, flop)
 
 
 def main(case_list=None, k=3, seed=0):
@@ -104,8 +90,8 @@ def main(case_list=None, k=3, seed=0):
         if not err <= TOL:
             raise AssertionError(f"{name}: K4 vs zfold differ by {err}")
         del y0, y1
-        t = [_time_ms(zfold, k), _time_ms(headk, k), _time_ms(headk, k),
-             _time_ms(zfold, k)]
+        t = [time_ms(zfold, k), time_ms(headk, k), time_ms(headk, k),
+             time_ms(zfold, k)]
         zms, hms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         bound, by = head_bound_ms(ci, co, sp)
         rows.append(dict(case=name, x=[1, ci, *sp], cout=co, zfold_ms=zms,

@@ -1,0 +1,47 @@
+"""Device timing for the probes and ``chip_smoke.py``: CUDA-event windows
+and the H100's published peaks for the bounds they report.
+
+Peaks: NVIDIA's H100 SXM data sheet (dense rates, 700 W): HBM at 3.35 TB/s,
+67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s bf16 on them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+
+
+def time_ms(fn, n=3):
+    """Mean device time of ``fn`` over ``n`` back-to-back calls, from one
+    pair of CUDA events around them."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def best_ms(fn, n):
+    """The best of three windows of ``n`` calls (mean ms per call)."""
+    return min(time_ms(fn, n) for _ in range(3))
+
+
+def in_turns(kern, plain, n=3):
+    """(kernel ms, plain ms) per call, timed in turns: plain, kernel,
+    kernel, plain."""
+    t = [time_ms(plain, n), time_ms(kern, n), time_ms(kern, n),
+         time_ms(plain, n)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def bound_ms(nbytes, flop, flop_s=FP32_FLOP_S):
+    """(least ms on an H100, 'bytes' or 'operations'): the larger of
+    ``nbytes`` over the memory rate and ``flop`` over ``flop_s``."""
+    t_b, t_f = nbytes / HBM_BYTES_S, flop / flop_s
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b > t_f else "operations")

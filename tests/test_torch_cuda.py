@@ -9,7 +9,10 @@ inputs; tolerance 1e-4 for K1 and K4 (float32 sums of up to 27*Cin and
 [0, 1), 8 products per output) and 1e-4 for K3 (coordinates near 256 carry
 an ulp of 1.5e-5, which moves a sample by about that much); K3's ``ok``
 flags must be equal. Both patch kernels avoid FMA contraction and are
-expected to agree with their plain versions bit for bit.
+expected to agree with their plain versions bit for bit. K5 and P2's
+``full`` and ``noepi``: 1e-4 (K1's reason), K5's pad channels exactly 0.
+P1: rtol=atol=1e-3 in float32 (sums of 360 products of unit normals in
+another order), 1e-2 in bf16 (the tensor cores' float32 accumulation).
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ import torch
 from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
                                                      flight_frame)
 from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
+from elektronn2_tpu_torch.ops.experimental import dilated_conv
+from elektronn2_tpu_torch.scripts import exp_ptail_ablate, exp_ptail_dot
 from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
                                                 wide_unet_model)
 
@@ -196,3 +201,64 @@ def test_tracer_kernel_route_matches_plain_route(cuda_device, rotate):
     for g, r in zip(got, ref):
         assert len(g.coords) == len(r.coords)
         np.testing.assert_allclose(g.coords, r.coords, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp, cout, d, yo", [
+    ((6, 9, 3, 50), 45, 1, 37),       # ragged: Cout_pad 48, Y over-padded
+    ((8, 8, 5, 256), 7, 2, 128),      # the JAX test's case
+    ((10, 12, 20, 300), 40, 3, 290),  # Cin past the weight chunk, Yo > 256
+])
+def test_k5_matches_plain(cuda_device, sp, cout, d, yo):
+    rng = np.random.RandomState(31)
+    x = torch.from_numpy((rng.rand(*sp) - 0.5).astype(np.float32)).to(
+        cuda_device)
+    w = torch.from_numpy((rng.rand(cout, sp[2], 3, 3, 3) - 0.5).astype(
+        np.float32)).to(cuda_device)
+    before = dilated_conv.launches
+    got = dilated_conv.dilated_conv(x, w, d, yo)
+    ref = dilated_conv.dilated_conv_reference(x, w, d, yo)
+    torch.cuda.synchronize()
+    assert dilated_conv.launches == before + 1
+    assert tuple(got.shape) == (sp[0] - 2 * d, sp[1] - 2 * d,
+                                dilated_conv.cout_pad(cout), yo)
+    torch.testing.assert_close(got, ref, **TOL)
+    assert bool((got[:, :, cout:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt, M, K, N", exp_ptail_dot.configs())
+def test_p1_matches_plain(cuda_device, dt, M, K, N):
+    zb = 8
+    rng = np.random.RandomState(32)
+    w = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(
+        cuda_device).to(getattr(torch, dt))
+    x = torch.from_numpy(rng.randn(zb * K, N).astype(np.float32)).to(
+        cuda_device).to(getattr(torch, dt))
+    before = exp_ptail_dot.launches
+    got = exp_ptail_dot.dot_rows(w, x, zb, n_cells=4)
+    ref = exp_ptail_dot.dot_rows_reference(w, x, zb)
+    torch.cuda.synchronize()
+    assert exp_ptail_dot.launches == before + 1
+    torch.testing.assert_close(got, ref, **exp_ptail_dot.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", exp_ptail_ablate.PROBES)
+def test_p2_probes(cuda_device, probe):
+    x, w, b = _inputs(33, 1, 30, 45, (5, 40, 70), cuda_device)
+    dil = (1, 4, 4)
+    before = exp_ptail_ablate.launches
+    got = exp_ptail_ablate.ablate(probe, x, w, b, dil)
+    torch.cuda.synchronize()
+    assert exp_ptail_ablate.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    if probe == "full":     # K1 unchanged: its plain version, and K1 itself
+        torch.testing.assert_close(
+            got, tailconv.conv3x3_dilated_reference(x, w, b, dil), **TOL)
+        assert torch.equal(got, tailconv.conv3x3_dilated(x, w, b, dil))
+    elif probe == "noepi":
+        torch.testing.assert_close(got, exp_ptail_ablate.probe_reference(
+            probe, x, w, b, dil), **TOL)
+    elif probe != "dmaonly":
+        assert tuple(got.shape) == (1, 45, 3, 32, 62)

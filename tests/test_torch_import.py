@@ -16,6 +16,7 @@ MODULES = [
     "elektronn2_tpu_torch.utils",
     "elektronn2_tpu_torch.utils.cnncalculator",
     "elektronn2_tpu_torch.utils.cuda_build",
+    "elektronn2_tpu_torch.utils.device_timing",
     "elektronn2_tpu_torch.utils.convert",
     "elektronn2_tpu_torch.utils.basic",
     "elektronn2_tpu_torch.ops",
@@ -25,6 +26,8 @@ MODULES = [
     "elektronn2_tpu_torch.ops.tailconv",
     "elektronn2_tpu_torch.ops.extract",
     "elektronn2_tpu_torch.ops.extract_rot",
+    "elektronn2_tpu_torch.ops.experimental",
+    "elektronn2_tpu_torch.ops.experimental.dilated_conv",
     "elektronn2_tpu_torch.neuromancer",
     "elektronn2_tpu_torch.neuromancer.graphutils",
     "elektronn2_tpu_torch.neuromancer.graphmanager",
@@ -40,6 +43,8 @@ MODULES = [
     "elektronn2_tpu_torch.data.tracing_utils",
     "elektronn2_tpu_torch.scripts",
     "elektronn2_tpu_torch.scripts.exp_convdense_headk",
+    "elektronn2_tpu_torch.scripts.exp_ptail_dot",
+    "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
 ]
 
 
@@ -122,6 +127,31 @@ def test_tracing_rollout_runs_without_jax():
             "    tr = t.trace_batch([[8.0, 8.0, 8.0]],\n"
             "                       save_kzip=os.path.join(d, 'a.k.zip'))\n"
             "    assert len(tr) == 1 and len(tr[0].coords) >= 1\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_k5_and_probes_run_without_jax():
+    # K5 and the two probes of K1 (their wrappers' plain versions on the
+    # CPU) stay jax-free when they run
+    code = ("import sys, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.ops.experimental.dilated_conv import "
+            "dilated_conv\n"
+            "from elektronn2_tpu_torch.scripts import exp_ptail_ablate, "
+            "exp_ptail_dot\n"
+            "y = dilated_conv(torch.rand(6, 7, 3, 20), torch.rand(5, 3, 3, 3, "
+            "3), 2, Yo=12)\n"
+            "assert tuple(y.shape) == (2, 3, 8, 12), y.shape\n"
+            "o = exp_ptail_dot.dot_rows(torch.rand(4, 16).bfloat16(), "
+            "torch.rand(32, 128).bfloat16(), 2)\n"
+            "assert tuple(o.shape) == (2, 128), o.shape\n"
+            "a = exp_ptail_ablate.ablate('full', torch.rand(1, 2, 5, 9, 9), "
+            "torch.rand(3, 2, 3, 3, 3), torch.rand(3), (1, 2, 2))\n"
+            "assert tuple(a.shape) == (1, 3, 3, 5, 5), a.shape\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code)
