@@ -3,7 +3,8 @@
 
 Drives the port's paths at full width and checks them: dense MFP inference
 of the flagship neuro3d-class net (20/30/40/40 channels) with the tail-conv
-kernel K1 (``csrc/tailconv.cu``); the same request with the flagship's
+kernel K1 (``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on ``wgmma``); the
+same request with the flagship's
 head units in the head-unit kernel K4 (``csrc/headconv.cu``); U-Net
 conv-dense serving of the wide U-Net (``examples/unet3d_wide.py``, widths
 64/128/256) with K1 on its (3,3,3) convs; fused agent tracing of the
@@ -13,7 +14,7 @@ translation) and K3 (``csrc/extract_rot.cu``, frame-aligned); the K4
 probe at the conv-dense path's kz=1 shapes; and the entry points of the
 three kernels no production route runs: K5's benchmark (the im2col dilated
 conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
-``csrc/ptail_dot.cu``) and P2 (K1's per-row ablations,
+``csrc/ptail_dot.cu``) and P2 (per-row ablations of K1's former FFMA body,
 ``csrc/ptail_ablate.cu``). Phases:
 
 1. device: the card's name, capability, ``nvidia-smi`` name and power limit,
@@ -21,16 +22,22 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    checked against float64);
 2. build: K1, K4, K2, K3, K5, P1 and P2 compiled with ``nvcc`` from the
    checkout's sources, one nvcc per source, all started together; ptxas
-   registers and spills, and SASS op counts (``cuobjdump -sass``): P1's
+   registers and spills, and SASS op counts (``cuobjdump -sass``): every
+   instance of K1 must hold HGMMAs (the tensor-core ``wgmma``), and P1's
    FFMAs / HMMAs and, per P2 probe, its FFMAs and LDGs show that the
    probed work survived compilation;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
    kernel, plain) and at ragged and border shapes, with each timed case's
-   bound on an H100 (bytes at 3.35 TB/s or FLOPs at 67 TFLOP/s FP32,
-   whichever is larger). K1 and K4: ``assert_close`` rtol=atol=1e-4
-   (float32 sums of up to 27*Cin or 9*Cin products in another order); K1
-   also times one ``F.conv3d`` with the bias (its library call; no ReLU).
+   bound on an H100: the larger of its bytes at 3.35 TB/s and its FLOPs
+   at 67 TFLOP/s FP32 for the FFMA kernels (K2-K5, P2), at 495 / 3
+   TFLOP/s for K1 (three TF32 products per multiply-add). K1 and K4:
+   ``assert_close`` rtol=atol=1e-4 (float32 sums of up to 27*Cin or 9*Cin
+   products in another order). At its six main-path shapes K1 is timed in
+   turns with its plain version, one ``F.conv3d`` with the bias (its
+   library call; no ReLU) and K1's former FFMA body (``ffma_ms``, P2's
+   ``full``), and held against a float64 conv on the first 8 output
+   planes: its ``f64_max_abs`` must be within 2x cuDNN float32's + 1e-6.
    K4 covers the flagship's head units, ragged Y, d=3 and the probe's
    shapes; its plain version is the flagship route's own cuDNN sequence.
    K2: atol 1e-5 (values in [0, 1), 8 products per output in another
@@ -56,7 +63,8 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    shape (2, 128, 448, 448), finite values, channel sums of 1 (within
    1e-5), four K1 launches per slab, time, Mvox/s and peak memory; one slab
    against the cuDNN route (``ptail=False``, the bench's configuration;
-   atol 1e-4, ``CONVDENSE_ATOL``);
+   atol 1e-4, ``CONVDENSE_ATOL``); then ``convdense_profile``: one warm
+   slab under ``torch.profiler``, its top device kernels and K1's share;
 7. trace_rollout: ``DeviceTracer.trace_batch`` of B=1024 seeds for K=256
    steps over a 256^3 volume (``min_step=0``), one rollout under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the loop),
@@ -81,9 +89,10 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
     bound);
 13. probe_ablate: the rows of ``elektronn2_tpu_torch.scripts.
     exp_ptail_ablate.main()`` at the canonical tail shape (``k_disp=2``)
-    and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes' times
-    beside K1's, ``full`` and ``noepi`` within 1e-4 of their plain
-    versions.
+    and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes of the
+    former FFMA body, ``full`` and ``noepi`` within 1e-4 of their plain
+    versions, and ``k1_ms``, the redesigned K1 beside the former body's
+    ``full``.
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
@@ -119,7 +128,8 @@ from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
 from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
                                                 wide_unet_model)
 from elektronn2_tpu_torch.utils.cuda_build import find_nvcc
-from elektronn2_tpu_torch.utils.device_timing import (bound_ms, in_turns,
+from elektronn2_tpu_torch.utils.device_timing import (TF32_FLOP_S, bound_ms,
+                                                      in_turns, palindrome_ms,
                                                       time_ms)
 
 SEED = 0
@@ -195,7 +205,7 @@ def phase_device():
     return smi
 
 
-SASS_OPS = ("FFMA", "HMMA", "LDG", "STG", "LDS", "STS")
+SASS_OPS = ("FFMA", "HMMA", "HGMMA", "LDG", "STG", "LDS", "STS")
 
 
 def sass_counts(path):
@@ -266,22 +276,53 @@ def phase_build():
              sass=sass)
         if k in ("ptail_dot", "ptail_ablate"):
             check_probe_sass(k, sass)
+        # K1 is the tensor-core kernel: no instance may have lost its wgmma
+        if k == "conv3x3_dilated" and (
+                not sass or min(c["HGMMA"] for c in sass.values()) < 1):
+            raise AssertionError(f"K1: no HGMMA in some instance: {sass}")
 
 
 def conv_bound(cin, cout, x_numel, out_numel):
-    """(bound ms, 'bytes' or 'operations') of K1 on an H100: each input
-    read once and the output (``out_numel`` elements, channels included)
-    written once over the memory rate, against its multiply-adds over the
-    FP32 rate."""
-    return bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
-                    2.0 * cin * 27 * out_numel)
+    """(bound ms, 'bytes' or 'operations (3xTF32)') of K1 on an H100: each
+    input read once and the output (``out_numel`` elements, channels
+    included) written once over the memory rate, against three times its
+    FLOPs (three TF32 products per multiply-add) over the TF32 tensor-core
+    peak."""
+    bound, by = bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
+                         3 * 2.0 * cin * 27 * out_numel, TF32_FLOP_S)
+    return bound, by if by == "bytes" else "operations (3xTF32)"
+
+
+#: input z-planes of K1's float64 check (8 output planes)
+F64_PLANES = 10
+
+
+def conv3d_f32(x, w, b, dil):
+    """K1's library call: one ``F.conv3d`` with the bias (no ReLU), in full
+    float32."""
+    with f32_convs():
+        return torch.nn.functional.conv3d(x, w, b, dilation=dil)
+
+
+def f64_errors(x, w, b, dil):
+    """(K1, cuDNN float32) max abs against a float64 conv + bias + ReLU, on
+    the first ``F64_PLANES`` input z-planes of ``x``."""
+    xs = x[:, :, :F64_PLANES].contiguous()
+    ref = torch.relu(torch.nn.functional.conv3d(
+        xs.double(), w.double(), b.double(), dilation=dil))
+    k1 = tailconv.conv3x3_dilated(xs, w, b, dil).double()
+    cudnn = torch.relu(conv3d_f32(xs, w, b, dil)).double()
+    return ((k1 - ref).abs().max().item(),
+            (cudnn - ref).abs().max().item())
 
 
 def phase_kernel():
     """K1 against its plain version; returns (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms) with the times summed over the main
     path's conv2 + conv3 shapes; the library call is one ``F.conv3d`` with
-    the bias (no ReLU), in full float32."""
+    the bias (no ReLU), in full float32. At the timed shapes K1 is also
+    held against float64 (``f64_errors``) and timed beside its former FFMA
+    body (P2's ``full``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # name, N, Cin, Cout, (Z, X, Y), dil
         ("conv2", 1, 30, 40, (124, 512, 512), (1, 4, 4)),
@@ -312,21 +353,27 @@ def phase_kernel():
         rec = dict(case=name, x=[N, cin, *sp], cout=cout, dil=list(dil),
                    max_abs_err=err)
         if name in ("conv2", "conv3") or name.startswith("wide"):
-            kern = lambda: tailconv.conv3x3_dilated(x, w, b, dil)  # noqa: E731
-            plain = lambda: tailconv.conv3x3_dilated_reference(  # noqa: E731
-                x, w, b, dil)
-            # in turns: plain, kernel, kernel, plain
-            t = [time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)]
-            ms, pms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            with f32_convs():
-                lms = time_ms(lambda: torch.nn.functional.conv3d(
-                    x, w, b, dilation=dil))
+            k64, c64 = f64_errors(x, w, b, dil)
+            rec.update(f64_max_abs=k64, cudnn_f64_max_abs=c64)
+            if k64 > 2 * c64 + 1e-6:
+                emit("kernel", **rec)
+                raise AssertionError(f"K1 {name}: {k64} from float64, over "
+                                     f"2x cuDNN float32's {c64} + 1e-6")
+            # in turns: plain, kernel, FFMA body, library, then reversed
+            pms, ms, fms, lms = palindrome_ms([
+                lambda: tailconv.conv3x3_dilated_reference(x, w, b, dil),
+                lambda: tailconv.conv3x3_dilated(x, w, b, dil),
+                lambda: exp_ptail_ablate.ablate("full", x, w, b, dil),
+                lambda: conv3d_f32(x, w, b, dil)])
             zo, xo, yo = sp[0] - 2, sp[1] - 2 * dil[1], sp[2] - 2 * dil[2]
             flop = 2.0 * N * cout * cin * 27 * zo * xo * yo
             bound, by = conv_bound(cin, cout, x.numel(),
                                    N * cout * zo * xo * yo)
-            rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-                       bound_by=by, kernel_tflop_s=flop / ms / 1e9,
+            rec.update(ms=ms, plain_ms=pms, library_ms=lms, ffma_ms=fms,
+                       bound_ms=bound, bound_by=by,
+                       kernel_tflop_s=flop / ms / 1e9,
+                       library_tflop_s=flop / lms / 1e9,
+                       ffma_tflop_s=flop / fms / 1e9,
                        plain_tflop_s=flop / pms / 1e9)
             if name in ("conv2", "conv3"):      # the flagship's main path
                 ms_sum += ms
@@ -813,7 +860,8 @@ def phase_convdense():
     """U-Net conv-dense serving: three distinct 128x448x448 slabs of the
     full-width wide U-Net through ``predict_dense_device(pad_raw=True)``
     with K1 on its (3,3,3) convs, then one slab through the cuDNN route;
-    returns the K1 launches of the three slabs."""
+    returns the K1 launches of the three slabs. Then one more slab under
+    the profiler (``profile_slab``), outside the counted run."""
     rng = np.random.RandomState(SEED + 7)
     model = wide_unet_model()
     model.set_params(seeded_params(model, rng))
@@ -862,7 +910,37 @@ def phase_convdense():
                              f"{CONVDENSE_ATOL}")
     if tailconv.launches != launches:
         raise AssertionError("the cuDNN route launched K1")
+    model.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    profile_slab(model, vols[1])
     return launches
+
+
+def profile_slab(model, vol, top=12):
+    """One warm K1-route slab under ``torch.profiler``: the device kernels
+    by total time, K1's share and the share outside it, and the device
+    idle share of the slab's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model.predict_dense_device(vol, pad_raw=True)           # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.predict_dense_device(vol, pad_raw=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in kernels
+                if "tailconv_tc_kernel" in e.key) / 1e3
+    emit("convdense_profile", wall_ms=wall * 1e3, device_ms=dev_ms,
+         k1_ms=k1_ms,
+         outside_k1_share=(dev_ms - k1_ms) / dev_ms if dev_ms else None,
+         idle_share=1.0 - dev_ms / (wall * 1e3) if dev_ms else None,
+         top=[dict(kernel=e.key[:100], ms=e.self_device_time_total / 1e3,
+                   calls=e.count) for e in kernels[:top]])
 
 
 def phase_headk_probe():

@@ -4,20 +4,21 @@
 // Replaces the Pallas TPU probe kernel scripts/exp_ptail_ablate.py::main.
 // make (its pallas_call), which is a standalone copy of the TPU tail conv's
 // body with legs removed. This file is the same for the card: a standalone
-// copy of K1's body (csrc/tailconv.cu, tailconv_f32_kernel) with the probe
-// as a template parameter. It is a copy and not an #include on purpose: the
-// build hashes only the source it compiles, and a probe must time the code
-// as it stands. When K1 changes, this copy is updated with it; the probe
-// script prints `full` beside K1's own time so that a drift shows.
+// copy of the FFMA body K1 had until its redesign as a 3xTF32 tensor-core
+// GEMM (csrc/tailconv.cu before then, tailconv_f32_kernel), with the probe
+// as a template parameter. It probes that FFMA design and is kept as it
+// was: the probe script prints the redesigned K1's time (`k1_ms`) beside
+// this body's `full`, so the gap between them is the redesign's gain, not
+// drift.
 //
-// K1's legs on the card:
+// The FFMA body's legs on the card:
 //   dma   its global input loads (__ldg along y)
 //   stage its shared-memory weight staging, 8 input channels at a time
 //   dot   the FFMA loop: 40 FFMAs per loaded value, weights from shared memory
 //   epi   bias + ReLU
 //   out   the stores along y
 // Probes:
-//   full     K1 unchanged
+//   full     the FFMA body unchanged
 //   nodot    loads, staging, epilogue; each loaded value is folded into the
 //            accumulators with one add instead of 40 FFMAs
 //   nostage  the dot reads its weights with __ldg from global memory, no
@@ -195,11 +196,13 @@ const AblateKernel KERNELS[N_PROBES] = {
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. The arguments are K1's
-// (e2t_tailconv_f32), with the probe's index first and `fill` last:
+// Plain C entry point, loaded with ctypes. The arguments are the FFMA
+// body's (its entry e2t_tailconv_f32), with the probe's index first and
+// `fill` last:
 //   probe 0..7 = full, nodot, nostage, noepi, dotonly, none, dmaonly, outonly
 //   x    (N, Cin, Z, X, Y) float32, contiguous
-//   wt   (G, Cin, 27, 40) float32, regrouped as for K1
+//   wt   (G, Cin, 27, 40) float32, as ops/tailconv.py::regroup_weights
+//        gives them
 //   bias (G*40,) float32
 //   y    (N, Cout, Z-2, X-2dx, Y-2dy) float32; for dmaonly a block of
 //        e2t_ptail_ablate_tiny() floats

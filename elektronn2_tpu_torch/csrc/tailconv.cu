@@ -1,177 +1,416 @@
 // K1 for Hopper: the dense-sweep tail conv, valid (3,3,3), z-dilation 1,
-// xy-dilation (dx, dy), bias and ReLU fused, exact float32 FFMA.
+// xy-dilation (dx, dy), bias and ReLU fused, float32 in and out, at float32
+// accuracy, on the tensor cores: a 3xTF32 implicit GEMM on `wgmma`.
 //
 // Replaces the Pallas TPU kernel elektronn2_tpu/ops/pallas_tailconv.py::
 // conv3x3_dilated (the dense MFP path's conv2 and conv3, 93% of the
-// multiply-adds per output voxel of the flagship net).
+// multiply-adds per output voxel of the flagship net; on the conv-dense path
+// the wide U-Net's (3,3,3) ReLU convs).
 //
-// What bounds it on this card: float32 FFMA throughput. One 120x496x496
-// request sends about 4.6 TFLOP through this kernel (conv2 30->40 and conv3
-// 40->40 channels, 27 taps each) against about 14 GB of input and output
-// traffic, i.e. ~330 FLOP per byte, far above the card's FP32 ridge of ~20
-// FLOP/byte. Tensor cores are not used: TF32 would break float32 parity with
-// the JAX package (about 1e-3), so this first version stays on the FP32 pipe.
+// Why 3xTF32 is float32-grade: each operand splits as v = hi + lo, hi = v
+// rounded to TF32 (10 explicit mantissa bits, round half away from zero, as
+// cvt.rna.tf32.f32) and lo = (v - hi) rounded the same way; v - hi is exact
+// and |lo| <= 2^-11 |v|, so hi + lo keeps about 21 bits of v's 24. Each
+// product is hi*hi + hi*lo + lo*hi (the dropped lo*lo is below 2^-22 of
+// it), each term exact on the tensor cores. Their float32 accumulation
+// truncates instead of rounding, and that bias adds up over a long sum, so
+// every PROMOTE = 3 stages (216 products per output) sum into fresh
+// partials that are then added into the totals with an ordinary
+// round-to-nearest FADD. The weights are split once per weight tensor on
+// the host (ops/tailconv.py::pack_weights, cached by packed_weights), the
+// input in registers here.
 //
-// What the design does about it: keep the FFMA pipe fed from registers.
-//  * A block of up to 256 threads owns one (n, z, x) output row and a run
-//    of 2 x 256 = 512 y outputs (the whole 504- or 496-wide row of the main
-//    path, so its weights are staged once per row); each thread keeps
-//    2 x 40 accumulators (40 output channels = one channel group) in
-//    registers. 128 registers a thread, two blocks an SM; on the card this
-//    measured 12% faster than 128-thread blocks with 256-wide y runs.
-//    A shorter row gets a block sized to it (a multiple of 32 threads): the
-//    wide U-Net's 228- to 236-wide rows take 128 threads and its 115-wide
-//    bottleneck rows 64, where a 256-thread block left 55% and 78% of its
-//    lanes without an output.
-//  * Weights are staged in shared memory in chunks of 8 input channels
-//    (8*27*40*4 = 34,560 bytes, under the 48 KB static limit), laid out
-//    [ci][kz][kx][ky][co] so that every thread reads the same float4
-//    (a broadcast): one LDS.128 feeds 4 x 2 FFMAs.
-//  * Input reads run along y, so a warp's loads are coalesced; each input
-//    value loaded feeds 40 FFMAs. Rows reused by the kx / kz taps of
-//    neighbouring blocks come from L1/L2.
-//  * Bias and ReLU are applied in the epilogue; stores run along y.
-//  * Offsets are 64-bit: a 2-slab batch at 120x496x496 has more than 2^31
-//    output elements. Ragged y (504, 496 are not multiples of 512) and Cout
-//    not a multiple of 40 are masked; Cin needs no padding (the chunk loop
-//    takes the remainder).
-// wgmma / TMA / reduced-precision modes are later work.
+// What bounds it on this card: three TF32 products per multiply-add at 495
+// TFLOP/s (165 TFLOP/s of float32-grade work, 2.5x the 67 of the FP32
+// pipe), or its bytes at 3.35 TB/s; at every shape of the main paths the
+// operations (~330 FLOP per byte and more).
+//
+// The GEMM: M = output voxels along y of a (n, zo, xo) row, N = output
+// channels, K = 27 taps x Cin, walked as stages of (8-channel chunk of Cin,
+// kz, kx), each 3 ky shifts x 3 terms of one m64nNk8 `wgmma`. What the
+// design does about the four limits of K1's earlier FFMA body:
+//  1. It ran on the FP32 pipe (58% of 67 TFLOP/s; cuDNN's f32 conv 61-66%):
+//     the products run on the tensor cores.
+//  2. Its loads and FFMAs serialized: a ring of STAGES shared-memory stages,
+//     each an 8-channel chunk of the (kz, kx) input rows and the matching
+//     weights, is filled by cp.async (4-byte copies for the input rows, which
+//     start at any y, zero-filled past Cin and Y; 16-byte copies for the
+//     packed weights) STAGES - 2 = 3 stages ahead of the math.
+//  3. Cout 128 ran as 4 groups of 40, each reloading the input: one block
+//     owns N = Cout (padded to a multiple of 8) up to 64 channels, else a
+//     128-channel group (Cout 256: two groups in the grid).
+//  4. A short row ran a whole block for a few outputs: a block is 2
+//     warpgroups of one 64-output tile each, 128 outputs along a row, and a
+//     row of at most 64 outputs shares its block with the next row; the
+//     ragged y edge and padded channels are masked in the epilogue.
+// A (the input) comes from registers: the three ky taps read one staged row
+// at offsets 0, dy, 2dy, where a swizzled shared-memory descriptor cannot
+// start. Each thread loads its fragment with ld.shared (the row stride is 8
+// mod 32 words, so a warp's 32 loads hit 32 banks) and splits it. B (the
+// weights, hi and lo) comes from shared memory by descriptor, packed on the
+// host as the K-major, unswizzled core-matrix tile the descriptor reads.
+// One tile a warpgroup: its totals and partials take N registers a thread
+// (128 at N = 128). Bias and ReLU are applied to the totals; stores run
+// along y in NCDHW with 64-bit offsets (a 2-slab batch at 120x496x496 has
+// more than 2^31 output elements).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int COT = 40;            // output channels per block (one group)
-constexpr int THREADS = 256;       // threads per block at most
-constexpr int YPT = 2;             // y outputs per thread
-constexpr int CI_CHUNK = 8;        // input channels of weights staged at once
-constexpr int TAPS = 27;
+constexpr int KC = 8;              // input channels per stage: one TF32 k
+constexpr int WG = 2;              // warpgroups per block
+constexpr int THREADS = WG * 128;
+constexpr int STAGES = 5;          // shared-memory ring depth
+// Stages summed into one set of partials before they are added into the
+// totals. The tensor cores' float32 accumulation truncates: summed in one
+// accumulator over all 9 x Cin/8 stages its bias built up to 5-16x the
+// error of cuDNN's float32 conv against float64 at the main paths' shapes
+// (on an H100); added in every 3 stages it stays at 0.2-0.55x, at no
+// measurable cost in time.
+constexpr int PROMOTE = 3;
 
-__global__ void __launch_bounds__(THREADS, 2)
-tailconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                    const float* __restrict__ bias, float* __restrict__ y,
-                    int Cin, int Z, int X, int Y, int Cout,
-                    int Zo, int Xo, int Yo, int dx, int dy) {
-  __shared__ __align__(16) float w_s[CI_CHUNK * TAPS * COT];
+// B's descriptor: K-major, no swizzle. A core matrix is 8 rows (n) of 16
+// bytes (4 k) stored contiguously; the two k halves of a k8 step lie LBO
+// bytes apart, consecutive 8-row groups of n SBO bytes apart.
+constexpr uint32_t LBO = 128;
+constexpr uint32_t SBO = 256;
 
-  const int64_t row = blockIdx.x;            // (n, zo, xo), xo fastest
-  const int xo = static_cast<int>(row % Xo);
-  const int64_t t = row / Xo;
-  const int zo = static_cast<int>(t % Zo);
-  const int64_t n = t / Zo;
-  const int g = blockIdx.z;                  // output-channel group
+__device__ __forceinline__ uint64_t smem_desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(LBO >> 4) << 16)
+         | (static_cast<uint64_t>(SBO >> 4) << 32);
+}
 
-  int yo[YPT];
-  bool ok[YPT];
+// float32 -> TF32 bits, round half away from zero (cvt.rna.tf32.f32): the
+// sign-magnitude bits plus half a TF32 ulp, the low 13 bits cleared
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving an accumulator's reads or writes across a
+// wgmma fence or wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int j = 0; j < YPT; ++j) {
-    yo[j] = (blockIdx.y * YPT + j) * blockDim.x + threadIdx.x;
-    ok[j] = yo[j] < Yo;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D(64 x N, float32, in registers) += A(64 x 8, TF32 fragment in registers)
+// * B(8 x N, TF32 in shared memory at descriptor b): `wgmma` m64nNk8, one
+// specialization per N the kernel takes. The asm operands are numbered A's
+// four registers (%0-%3), B's descriptor (%4), the scale flag (%5), then D's
+// N/2 registers, so that every N's D list is a prefix of one list:
+// WGMMA_D<R> names %6 .. %(5 + R) and WGMMA_C<R> binds d[0 .. R-1]. A, b
+// and the flag are tied in-out operands only to come first; the asm does
+// not change them.
+#define WGMMA_D4 "%6, %7, %8, %9"
+#define WGMMA_D8 WGMMA_D4 ", %10, %11, %12, %13"
+#define WGMMA_D12 WGMMA_D8 ", %14, %15, %16, %17"
+#define WGMMA_D16 WGMMA_D12 ", %18, %19, %20, %21"
+#define WGMMA_D20 WGMMA_D16 ", %22, %23, %24, %25"
+#define WGMMA_D24 WGMMA_D20 ", %26, %27, %28, %29"
+#define WGMMA_D28 WGMMA_D24 ", %30, %31, %32, %33"
+#define WGMMA_D32 WGMMA_D28 ", %34, %35, %36, %37"
+#define WGMMA_D64                                                          \
+  WGMMA_D32 ", %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49" \
+            ", %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61" \
+            ", %62, %63, %64, %65, %66, %67, %68, %69"
+#define WGMMA_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGMMA_C4 WGMMA_F4(0)
+#define WGMMA_C8 WGMMA_C4, WGMMA_F4(4)
+#define WGMMA_C12 WGMMA_C8, WGMMA_F4(8)
+#define WGMMA_C16 WGMMA_C12, WGMMA_F4(12)
+#define WGMMA_C20 WGMMA_C16, WGMMA_F4(16)
+#define WGMMA_C24 WGMMA_C20, WGMMA_F4(20)
+#define WGMMA_C28 WGMMA_C24, WGMMA_F4(24)
+#define WGMMA_C32 WGMMA_C28, WGMMA_F4(28)
+#define WGMMA_C64                                                        \
+  WGMMA_C32, WGMMA_F4(32), WGMMA_F4(36), WGMMA_F4(40), WGMMA_F4(44),     \
+      WGMMA_F4(48), WGMMA_F4(52), WGMMA_F4(56), WGMMA_F4(60)
+
+template <int N>
+struct Mma;
+
+// the specialization for N (R = N / 2 accumulator registers a thread)
+#define WGMMA_TF32(N, R)                                                   \
+  template <>                                                              \
+  struct Mma<N> {                                                          \
+    static_assert(2 * (R) == (N), "R must be N / 2");                      \
+    static __device__ __forceinline__ void run(float (&d)[R],              \
+                                               const uint32_t (&a)[4],     \
+                                               uint64_t b, int scale_d) {  \
+      uint32_t a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];                 \
+      asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                        \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {"        \
+        WGMMA_D##R "}, {%0, %1, %2, %3}, %4, p, 1, 1;\n}\n"                \
+          : "+r"(a0), "+r"(a1), "+r"(a2), "+r"(a3), "+l"(b),               \
+            "+r"(scale_d), WGMMA_C##R);                                    \
+    }                                                                      \
+  };
+
+WGMMA_TF32(8, 4)
+WGMMA_TF32(16, 8)
+WGMMA_TF32(24, 12)
+WGMMA_TF32(32, 16)
+WGMMA_TF32(40, 20)
+WGMMA_TF32(48, 24)
+WGMMA_TF32(56, 28)
+WGMMA_TF32(64, 32)
+WGMMA_TF32(128, 64)
+
+// One k group (a staged chunk at one ky shift) of a warpgroup's tile, into
+// the partial sums `part`: the TF32 split of its A fragment, then hi*lo,
+// lo*hi and hi*hi (the small terms first, into fresh partials when
+// `first`). The group three back, whose fragment registers these reuse, is
+// waited for first.
+template <int NP>
+__device__ __forceinline__ void mma_group(float (&part)[NP / 2],
+                                          const float* p, const float* w,
+                                          int RS, bool first) {
+  wgmma_wait<2>();
+  // fragment: rows lane/4 (+8), channels lane%4 (+4) of the warp's 16 rows
+  const float v[4] = {p[0], p[8], p[4 * RS], p[4 * RS + 8]};
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ah[i] = tf32_rna(v[i]);
+    al[i] = tf32_rna(v[i] - __uint_as_float(ah[i]));
   }
+  const uint64_t bh = smem_desc(w);
+  const uint64_t bl = smem_desc(w + NP * KC);
+  wgmma_fence();
+  Mma<NP>::run(part, ah, bl, first ? 0 : 1);
+  Mma<NP>::run(part, al, bh, 1);
+  Mma<NP>::run(part, ah, bh, 1);
+  wgmma_commit();
+}
 
-  float acc[YPT][COT];
-#pragma unroll
-  for (int j = 0; j < YPT; ++j)
-#pragma unroll
-    for (int co = 0; co < COT; ++co) acc[j][co] = 0.f;
+// One block: its two warpgroups' 64-output tiles cover R = 2 / tpr output
+// rows (n, zo, xo0 .. xo0+R-1) of tpr tiles (64 tpr y outputs) each; a row
+// of up to 64 outputs shares a block with the next instead of leaving half
+// of it idle. `RS` is the staged row stride (>= 64 tpr + 2dy, 8 mod 32).
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+tailconv_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                   const float* __restrict__ bias, float* __restrict__ y,
+                   int Cin, int Z, int X, int Y, int Cout, int Zo, int Xo,
+                   int Yo, int dx, int dy, int tpr, int RS) {
+  constexpr int WF = 3 * 2 * NP * KC;      // weight floats per stage
+  extern __shared__ __align__(128) float smem[];
+  const int R = WG / tpr;
+  const int SF = WF + R * KC * RS;         // floats per stage
+
+  const int xblocks = (Xo + R - 1) / R;
+  const int64_t bx = blockIdx.x;           // (n, zo, x block), x fastest
+  const int xo0 = static_cast<int>(bx % xblocks) * R;
+  const int64_t rz = bx / xblocks;
+  const int zo = static_cast<int>(rz % Zo);
+  const int64_t n = rz / Zo;
+  const int y0 = blockIdx.y * tpr * 64;
+  const int g = blockIdx.z;                // output-channel group
+  const int CC = (Cin + KC - 1) / KC;
+  const int nsteps = CC * 9;
+
+  // this thread's staging copies: elements tid, tid + THREADS, ... of the
+  // R*KC rows of `cols` columns; (rc, j) advance by (qd, rm) per step
+  const int cols = tpr * 64 + 2 * dy;
+  const int total = R * KC * cols;
+  const int qd = THREADS / cols, rm = THREADS % cols;
+  const int rc0 = threadIdx.x / cols, j0 = threadIdx.x % cols;
 
   const int64_t plane = static_cast<int64_t>(X) * Y;
-  const int64_t chan = static_cast<int64_t>(Z) * plane;
-  const int64_t xstep = static_cast<int64_t>(dx) * Y;
-  // input row of tap (ci, kz, kx): xn + ci*chan + kz*plane + kx*xstep
-  const float* xn = x + n * Cin * chan + zo * plane + static_cast<int64_t>(xo) * Y;
+  const float* xn = x + n * Cin * Z * plane + zo * plane + y0;
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += CI_CHUNK) {
-    const int cc = min(CI_CHUNK, Cin - ci0);
-    __syncthreads();  // every thread is done with the previous chunk
-    {
-      const float4* src = reinterpret_cast<const float4*>(
-          wt + (static_cast<int64_t>(g) * Cin + ci0) * TAPS * COT);
-      float4* dst = reinterpret_cast<float4*>(w_s);
-      const int n4 = cc * TAPS * COT / 4;
-      for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+  // stage s = (channel chunk cc, tap kz, kx) into ring slot `slot`
+  auto load_stage = [&](int s, int slot) {
+    float* sw = smem + slot * SF;
+    float* si = sw + WF;
+    const int cc = s / 9, tap = s - cc * 9;
+    const int kz = tap / 3, kx = tap - kz * 3;
+    const float* wsrc = wp + (static_cast<int64_t>(g * CC + cc) * 9 + tap) * WF;
+    for (int i = threadIdx.x; i < WF / 4; i += THREADS)
+      cp_async16(sw + 4 * i, wsrc + 4 * i);
+    const float* xs = xn + kz * plane + static_cast<int64_t>(kx) * dx * Y;
+    int rc = rc0, j = j0;
+    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+      const int ci = cc * KC + rc % KC;
+      const int xr = min(xo0 + rc / KC, Xo - 1);
+      const float* src = xs + min(ci, Cin - 1) * Z * plane
+                         + static_cast<int64_t>(xr) * Y;
+      const bool ok = ci < Cin && y0 + j < Y;
+      cp_async4(si + rc * RS + j, ok ? src + j : src, ok ? 4 : 0);
+      rc += qd;
+      j += rm;
+      if (j >= cols) {
+        j -= cols;
+        ++rc;
+      }
     }
-    __syncthreads();
+  };
 
-    for (int c = 0; c < cc; ++c) {
-      const float* xc = xn + (ci0 + c) * chan;
+  // ring of STAGES slots, filled STAGES - 2 stages ahead: the slot refilled
+  // at stage s was read by stage s - 2, whose wgmmas every warpgroup has
+  // waited for before the barrier at s (a group waits for all but the two
+  // before it)
 #pragma unroll
-      for (int kz = 0; kz < 3; ++kz) {
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < nsteps) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  // totals and partial sums
+  float acc[NP / 2], part[NP / 2];
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float* xr = xc + kz * plane + kx * xstep;
-          float v[3][YPT];
+  for (int i = 0; i < NP / 2; ++i) acc[i] = part[i] = 0.f;
+
+  // this warpgroup's tile (staged row wg / tpr, y tile wg % tpr); this
+  // thread's fragment rows 16 * warp + lane / 4 (+ 8), channels lane % 4
+  // (+ 4)
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int q = lane % 4;
+  const int m0 = 16 * warp + lane / 4;
+  const int toff = (wg / tpr) * KC * RS + (wg % tpr) * 64 + q * RS + m0;
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<STAGES - 3>();           // this thread's copies of s landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                       // everyone's; s-2's math done
+    if (s + STAGES - 2 < nsteps)
+      load_stage(s + STAGES - 2, (s + STAGES - 2) % STAGES);
+    cp_async_commit();
+    const float* sw = smem + (s % STAGES) * SF;
+    const float* si = sw + WF + toff;
 #pragma unroll
-          for (int ky = 0; ky < 3; ++ky)
+    for (int ky = 0; ky < 3; ++ky)
+      mma_group<NP>(part, si + ky * dy, sw + 2 * ky * NP * KC, RS,
+                    ky == 0 && s % PROMOTE == 0);
+    // every PROMOTE stages (and at the end) the partials, once done, are
+    // added into the totals in float32 with round-to-nearest
+    if (s % PROMOTE == PROMOTE - 1 || s == nsteps - 1) {
+      wgmma_wait<0>();
+      fence_regs(part);
 #pragma unroll
-            for (int j = 0; j < YPT; ++j)
-              v[ky][j] = ok[j] ? __ldg(xr + yo[j] + ky * dy) : 0.f;
-          const float4* wp = reinterpret_cast<const float4*>(
-              w_s + ((c * 3 + kz) * 3 + kx) * 3 * COT);
+      for (int i = 0; i < NP / 2; ++i) acc[i] += part[i];
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: bias + ReLU; accumulator 4j+e holds tile row m0 + 8 (e / 2),
+  // channel 8j + 2q + e % 2
+  const int xo = xo0 + wg / tpr;
+  if (xo >= Xo) return;
+  const int64_t ostride = static_cast<int64_t>(Zo) * Xo * Yo;  // per channel
+  float* yrow = y + n * Cout * ostride + static_cast<int64_t>(zo) * Xo * Yo
+                + static_cast<int64_t>(xo) * Yo;
+  const int yb = y0 + (wg % tpr) * 64 + m0;
 #pragma unroll
-          for (int ky = 0; ky < 3; ++ky) {
+  for (int j = 0; j < NP / 8; ++j) {
 #pragma unroll
-            for (int q = 0; q < COT / 4; ++q) {
-              const float4 wv = wp[ky * (COT / 4) + q];
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int co = g * NP + 8 * j + 2 * q + e2;
+      if (co >= Cout) continue;
+      const float bv = __ldg(bias + co);
 #pragma unroll
-              for (int j = 0; j < YPT; ++j) {
-                acc[j][4 * q + 0] = fmaf(v[ky][j], wv.x, acc[j][4 * q + 0]);
-                acc[j][4 * q + 1] = fmaf(v[ky][j], wv.y, acc[j][4 * q + 1]);
-                acc[j][4 * q + 2] = fmaf(v[ky][j], wv.z, acc[j][4 * q + 2]);
-                acc[j][4 * q + 3] = fmaf(v[ky][j], wv.w, acc[j][4 * q + 3]);
-              }
-            }
-          }
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int yo = yb + 8 * h;
+        if (yo < Yo)
+          yrow[co * ostride + yo] = fmaxf(acc[4 * j + 2 * h + e2] + bv, 0.f);
       }
     }
   }
+}
 
-  // epilogue: bias + ReLU, stores along y
-  const int64_t ostride = static_cast<int64_t>(Zo) * Xo * Yo;  // per channel
-  float* yrow = y + (n * Cout + static_cast<int64_t>(g) * COT) * ostride
-                + static_cast<int64_t>(zo) * Xo * Yo
-                + static_cast<int64_t>(xo) * Yo;
-#pragma unroll
-  for (int co = 0; co < COT; ++co) {
-    if (g * COT + co < Cout) {
-      const float bv = __ldg(bias + g * COT + co);
-#pragma unroll
-      for (int j = 0; j < YPT; ++j)
-        if (ok[j]) yrow[co * ostride + yo[j]] = fmaxf(acc[j][co] + bv, 0.f);
-    }
-  }
+template <int NP>
+int launch(const float* x, const float* wp, const float* bias, float* y,
+           int N, int Cin, int Z, int X, int Y, int Cout, int dx, int dy,
+           cudaStream_t stream) {
+  const int Zo = Z - 2, Xo = X - 2 * dx, Yo = Y - 2 * dy;
+  // tiles per row: both of the block's, or one where a tile covers a row
+  const int tpr = Yo > 64 ? WG : 1;
+  const int R = WG / tpr;
+  const int RS = (tpr * 64 + 2 * dy + 23) / 32 * 32 + 8;
+  const size_t smem = sizeof(float) * STAGES * (6 * NP * KC + R * KC * RS);
+  cudaError_t err = cudaFuncSetAttribute(
+      tailconv_tc_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(
+      static_cast<unsigned>(static_cast<int64_t>(N) * Zo * ((Xo + R - 1) / R)),
+      static_cast<unsigned>((Yo + tpr * 64 - 1) / (tpr * 64)),
+      static_cast<unsigned>((Cout + NP - 1) / NP));
+  tailconv_tc_kernel<NP><<<grid, THREADS, smem, stream>>>(
+      x, wp, bias, y, Cin, Z, X, Y, Cout, Zo, Xo, Yo, dx, dy, tpr, RS);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.
 //   x    (N, Cin, Z, X, Y) float32, contiguous
-//   wt   (G, Cin, 27, 40) float32: the weights (Cout, Cin, 3, 3, 3)
-//        regrouped by the wrapper, Cout zero-padded to G*40
-//   bias (G*40,) float32, zero-padded
+//   wp   the weights (Cout, Cin, 3, 3, 3) split into TF32 hi and lo and
+//        packed by ops/tailconv.py::pack_weights for N tile `np` (the
+//        output channels of one block: 8, 16, ..., 64 or 128; Cout runs as
+//        ceil(Cout/np) groups), Cout and Cin zero-padded
+//   bias (Cout,) float32
 //   y    (N, Cout, Z-2, X-2dx, Y-2dy) float32, written
 // Launches on `stream` and returns cudaGetLastError() (0 on success): a
 // refused launch shows only there.
-extern "C" int e2t_tailconv_f32(const float* x, const float* wt,
-                                const float* bias, float* y, int N, int Cin,
-                                int Z, int X, int Y, int Cout, int dx, int dy,
-                                void* stream) {
-  const int Zo = Z - 2, Xo = X - 2 * dx, Yo = Y - 2 * dy;
-  if (N < 1 || Cin < 1 || Cout < 1 || Zo < 1 || Xo < 1 || Yo < 1)
+extern "C" int e2t_tailconv_tc(const float* x, const float* wp,
+                               const float* bias, float* y, int N, int Cin,
+                               int Z, int X, int Y, int Cout, int np, int dx,
+                               int dy, void* stream) {
+  if (N < 1 || Cin < 1 || Cout < 1 || Z - 2 < 1 || X - 2 * dx < 1
+      || Y - 2 * dy < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = (Cout + COT - 1) / COT;
-  // threads: enough for the row's y outputs, a multiple of 32, at most 256
-  const int threads = min(THREADS, ((Yo + YPT - 1) / YPT + 31) / 32 * 32);
-  const int yt = threads * YPT;
-  const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(N) * Zo * Xo),
-                  static_cast<unsigned>((Yo + yt - 1) / yt),
-                  static_cast<unsigned>(G));
-  tailconv_f32_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, wt, bias, y, Cin, Z, X, Y, Cout, Zo, Xo, Yo, dx, dy);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define E2T_CASE(NP)                                                     \
+  case NP:                                                               \
+    return launch<NP>(x, wp, bias, y, N, Cin, Z, X, Y, Cout, dx, dy, s);
+  switch (np) {
+    E2T_CASE(8) E2T_CASE(16) E2T_CASE(24) E2T_CASE(32) E2T_CASE(40)
+    E2T_CASE(48) E2T_CASE(56) E2T_CASE(64) E2T_CASE(128)
+  }
+#undef E2T_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
-
-// The channel-group width the wrapper must regroup the weights to.
-extern "C" int e2t_tailconv_cout_tile() { return COT; }

@@ -3,11 +3,14 @@ Hopper.
 
 K1 ports the Pallas TPU kernel ``elektronn2_tpu/ops/pallas_tailconv.py::
 conv3x3_dilated``: a valid-mode (3,3,3) convolution with z-dilation 1 and
-xy-dilation (dx, dy), bias and ReLU fused, summed in float32. On the dense
+xy-dilation (dx, dy), bias and ReLU fused, at float32 accuracy. On the dense
 MFP path (``neuromancer/inference.py``) it runs the flagship's conv2 and
 conv3, which hold 93% of the multiply-adds per output voxel; on the
 conv-dense path, the U-Net's (3,3,3) ReLU convs. Kernel:
-``csrc/tailconv.cu``.
+``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on the tensor cores
+(``wgmma``): the weights are split into TF32 hi and lo parts and packed
+for it by :func:`pack_weights` (once per weight tensor:
+:func:`packed_weights`), the input is split inside the kernel.
 
 K4 ports ``conv1x3x3_pool_dilated`` of the same module: a valid (1,3,3)
 conv with isotropic xy-dilation d, bias, an optional stride-1 (2,2) max
@@ -42,7 +45,6 @@ launches = 0
 head_launches = 0
 
 _fn = None
-_cout_tile = None
 _head_fn = None
 _head_cout_tile = None
 
@@ -50,17 +52,13 @@ _head_cout_tile = None
 def build():
     """Build (on first use) and load the kernel library; returns the
     ``CudaLibrary`` (build time and nvcc's report included)."""
-    global _fn, _cout_tile
+    global _fn
     lib = load_cuda_library("tailconv")
     if _fn is None:
-        fn = lib.cdll.e2t_tailconv_f32
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn = lib.cdll.e2t_tailconv_tc
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        tile = lib.cdll.e2t_tailconv_cout_tile
-        tile.argtypes = []
-        tile.restype = ctypes.c_int
-        _cout_tile = int(tile())
         _fn = fn
     return lib
 
@@ -124,11 +122,82 @@ def _check_args(x, w, b, dil, relu):
     return dx, dy
 
 
+#: input channels per k step of the kernel (one TF32 ``wgmma`` k)
+K_CHUNK = 8
+
+
+def n_tile(cout):
+    """The kernel's N tile (output channels of one block, one ``wgmma`` N)
+    for ``cout``: Cout rounded up to a multiple of 8 up to 64, else 128
+    (wider Cout runs as more 128-channel groups in the grid)."""
+    return -(-cout // 8) * 8 if cout <= 64 else 128
+
+
+def tf32_round(t):
+    """float32 -> float32 rounded to TF32 (10 explicit mantissa bits), half
+    away from zero, as ``cvt.rna.tf32.f32``: an integer op on the bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t):
+    """(hi, lo): ``hi`` = t rounded to TF32, ``lo`` = (t - hi) rounded to
+    TF32; hi + lo is within 2^-21 |t| of t."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def pack_weights(w, NP):
+    """(Cout, Cin, 3,3,3) float32 weights -> the kernel's packed TF32 hi/lo
+    weights for N tile ``NP`` (:func:`n_tile`), shape (G, CC, 3, 3, 3, 2,
+    NP/8, 2, 8, 4) with G = ceil(Cout/NP), CC = ceil(Cin/8), Cout and Cin
+    zero-padded.
+
+    Dims: channel group, 8-channel chunk of Cin, kz, kx, ky, hi/lo, 8-row
+    group of output channels, k half, row (output channel), 4 input
+    channels. One (group, chunk, kz, kx) is the kernel's stage, copied
+    linearly; each (ky, hi/lo) slice in it is the K-major, unswizzled tile a
+    ``wgmma`` descriptor reads: core matrices of 8 output channels x 4
+    input channels (128 bytes), the two k halves 128 bytes apart, the
+    8-channel groups 256 bytes apart."""
+    Cout, Cin = w.shape[:2]
+    G, CC = -(-Cout // NP), -(-Cin // K_CHUNK)
+    wp = F.pad(w, (0, 0, 0, 0, 0, 0, 0, CC * K_CHUNK - Cin, 0, G * NP - Cout))
+    parts = torch.stack(split_tf32(wp))  # (2, G*NP, CC*8, kz, kx, ky)
+    parts = parts.reshape(2, G, NP // 8, 8, CC, 2, 4, 3, 3, 3)
+    return parts.permute(1, 4, 7, 8, 9, 0, 2, 5, 3, 6).contiguous()
+
+
+#: :func:`packed_weights`' cache: (address of w, NP) -> (w, w's version,
+#: packed); an entry holds w, so no other tensor takes its address
+_packed = {}
+#: entries kept (one per conv of a model; the oldest goes first)
+PACKED_CACHE = 16
+
+
+def packed_weights(w, NP):
+    """:func:`pack_weights` of ``w`` for ``NP``, cached, so that a model's
+    constant weights are split and packed once and not on every call. An
+    in-place update of ``w`` bumps its version and repacks; a write through
+    ``w.data`` is not seen."""
+    key = (w.data_ptr(), NP)
+    hit = _packed.get(key)
+    if hit is not None and hit[0] is w and hit[1] == w._version:
+        return hit[2]
+    wp = pack_weights(w, NP)
+    _packed.pop(key, None)
+    if len(_packed) >= PACKED_CACHE:
+        del _packed[next(iter(_packed))]
+    _packed[key] = (w, w._version, wp)
+    return wp
+
+
 def regroup_weights(w, T, b=None):
     """(Cout, Cin, 3,3,3) weights and (Cout,) bias -> (G, Cin, 27, T) and
     (G*T,), G = ceil(Cout/T): per channel group, per input channel, the 27
     taps with the group's T output channels innermost, zero-padded. The bias
-    comes back as None when none is given."""
+    comes back as None when none is given. The layout of the FFMA kernels
+    K5 and P2 (K1's former body); K1 itself takes :func:`pack_weights`."""
     Cout, Cin = w.shape[:2]
     G = -(-Cout // T)
     wt = F.pad(w.permute(1, 2, 3, 4, 0).reshape(Cin, 27, Cout),
@@ -142,7 +211,8 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True):
     and ReLU.
 
     x: (N, Cin, Z, X, Y) float32, contiguous; w: (Cout, Cin, 3, 3, 3);
-    b: (Cout,). Returns (N, Cout, Z-2, X-2dx, Y-2dy) float32.
+    b: (Cout,). Returns (N, Cout, Z-2, X-2dx, Y-2dy) float32. On the card
+    the sums are 3xTF32 products accumulated in float32 (float32-grade).
     """
     global launches
     dx, dy = _check_args(x, w, b, dil, relu)
@@ -153,13 +223,14 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True):
     build()
     N, Cin, Z, X, Y = x.shape
     Cout = w.shape[0]
-    wt, bp = regroup_weights(w, _cout_tile, b)
+    NP = n_tile(Cout)
+    wp = packed_weights(w, NP)
     y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(x.data_ptr(), wt.data_ptr(), bp.data_ptr(), y.data_ptr(),
-                  N, Cin, Z, X, Y, Cout, dx, dy, stream)
+        err = _fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+                  N, Cin, Z, X, Y, Cout, NP, dx, dy, stream)
     if err != 0:
         raise RuntimeError(f"tail conv kernel launch failed: CUDA error {err}")
     launches += 1

@@ -1,13 +1,15 @@
 """P2: ablation probes of K1's per-row cost, on the card.
 
 Port of ``scripts/exp_ptail_ablate.py``. ``csrc/ptail_ablate.cu`` is a
-standalone copy of K1's body (``csrc/tailconv.cu``) with legs removed, the
-probe a template parameter (WRONG VALUES except for ``full`` and ``noepi``:
-timing only). K1's legs on the card are its global input loads (dma), its
-shared-memory weight staging (stage), its FFMA loop (dot), bias + ReLU
-(epi) and its stores (out); the probes, named as in the JAX script:
+standalone copy of the FFMA body K1 had until its redesign as a 3xTF32
+tensor-core GEMM, with legs removed, the probe a template parameter (WRONG
+VALUES except for ``full`` and ``noepi``: timing only). It probes that FFMA
+design and is not rewritten for the tensor-core K1. The body's legs on the
+card are its global input loads (dma), its shared-memory weight staging
+(stage), its FFMA loop (dot), bias + ReLU (epi) and its stores (out); the
+probes, named as in the JAX script:
 
-  full     K1 unchanged
+  full     the FFMA body unchanged
   nodot    loads, staging, epilogue; one add per loaded value, no FFMAs
   nostage  the dot reads its weights from global memory, no staging
   noepi    raw accumulators stored (no bias, no ReLU)
@@ -19,8 +21,9 @@ shared-memory weight staging (stage), its FFMA loop (dot), bias + ReLU
 Each row has the JAX keys ``probe, ms, us_per_row, tflops_padded`` (the best
 of three windows of ``k_disp`` calls, CUDA events; a row is one (n, z, x)
 output row, K1's block; the port pads nothing, so ``tflops_padded`` is the
-plain FLOP count over the time) and ``k1_ms``, the port's K1 at the same
-shape, so that a drift of the copy shows. ``full`` and ``noepi`` are held
+plain FLOP count over the time) and ``k1_ms``, the redesigned K1 at the
+same shape beside the FFMA body's ``full``: their gap is the redesign's
+gain, not a drift of the copy. ``full`` and ``noepi`` are held
 against their plain versions (:func:`probe_reference`: K1's plain version,
 and the same conv without bias and ReLU) within rtol=atol=1e-4 (float32
 sums of 27*Cin products in another order); their rows carry
@@ -157,6 +160,7 @@ def main(shape=(1, 40, 34, 320, 531), dil=(1, 4, 4), cout=40, k_disp=8,
     n_rows = N * zo * xo
     flop = 2.0 * N * zo * xo * yo * cout * Cin * 27
     tailconv.conv3x3_dilated(x, w, b, dil)       # built and warm
+    # the redesigned (3xTF32) K1, beside the FFMA body's probes
     k1_ms = best_ms(lambda: tailconv.conv3x3_dilated(x, w, b, dil), k_disp)
     rows = []
     for probe in probes:

@@ -2,7 +2,8 @@
 and the H100's published peaks for the bounds they report.
 
 Peaks: NVIDIA's H100 SXM data sheet (dense rates, 700 W): HBM at 3.35 TB/s,
-67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s bf16 on them.
+67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s bf16 and 495 TFLOP/s
+TF32 on them.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+TF32_FLOP_S = 495e12
 
 
 def time_ms(fn, n=3):
@@ -32,12 +34,19 @@ def best_ms(fn, n):
     return min(time_ms(fn, n) for _ in range(3))
 
 
+def palindrome_ms(fns, n=3):
+    """Mean ms per call of each of ``fns``, timed in turns: in order, then
+    in reverse order, the two windows of each averaged."""
+    t = [time_ms(f, n) for f in list(fns) + list(fns)[::-1]]
+    k = len(fns)
+    return [(t[i] + t[2 * k - 1 - i]) / 2 for i in range(k)]
+
+
 def in_turns(kern, plain, n=3):
     """(kernel ms, plain ms) per call, timed in turns: plain, kernel,
     kernel, plain."""
-    t = [time_ms(plain, n), time_ms(kern, n), time_ms(kern, n),
-         time_ms(plain, n)]
-    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    plain_ms, kern_ms = palindrome_ms([plain, kern], n)
+    return kern_ms, plain_ms
 
 
 def bound_ms(nbytes, flop, flop_s=FP32_FLOP_S):

@@ -50,7 +50,8 @@ def _inputs(seed, n, cin, cout, sp, device):
     (1, 30, 40, (6, 64, 300), (1, 4, 4)),     # conv2-like, ragged y
     (1, 40, 40, (5, 40, 520), (1, 4, 4)),     # conv3-like, y > one block
     (2, 3, 5, (5, 20, 30), (1, 2, 3)),        # batch, anisotropic dilation
-    (1, 30, 45, (5, 40, 70), (1, 1, 1)),      # two channel groups
+    (1, 30, 45, (5, 40, 70), (1, 1, 1)),      # Cout padded to 48
+    (2, 3, 5, (5, 21, 20), (1, 1, 1)),        # 8 rows of 18 outputs a block
 ])
 def test_k1_matches_plain(cuda_device, n, cin, cout, sp, dil):
     x, w, b = _inputs(11, n, cin, cout, sp, cuda_device)
@@ -66,6 +67,8 @@ def test_k1_matches_plain(cuda_device, n, cin, cout, sp, dil):
 @pytest.mark.parametrize("n, cin, cout, sp", [
     (1, 64, 128, (6, 40, 61)),    # e1a, scaled down
     (2, 256, 128, (5, 23, 30)),   # d1: Cin past the weight chunk, a batch
+    (1, 128, 256, (5, 20, 117)),  # bott: two 128-channel groups, two rows
+                                  # of 115 outputs per block
 ])
 def test_k1_matches_plain_at_wide_unet_shapes(cuda_device, n, cin, cout, sp):
     x, w, b = _inputs(14, n, cin, cout, sp, cuda_device)
@@ -73,6 +76,21 @@ def test_k1_matches_plain_at_wide_unet_shapes(cuda_device, n, cin, cout, sp):
     got = tailconv.conv3x3_dilated(x, w, b)
     ref = tailconv.conv3x3_dilated_reference(x, w, b)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [1, 16, 24, 32, 40, 56, 64, 200])
+def test_k1_every_n_tile(cuda_device, cout):
+    """Each of the kernel's N tiles (8, 16, ..., 64 and 128; Cout 200 runs
+    as two 128-channel groups, the second ragged)."""
+    x, w, b = _inputs(15, 1, 11, cout, (4, 9, 70), cuda_device)
+    w = w * (2.0 / (27 * 11)) ** 0.5
+    before = tailconv.launches
+    got = tailconv.conv3x3_dilated(x, w, b)
+    ref = tailconv.conv3x3_dilated_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert tailconv.launches == before + 1
     torch.testing.assert_close(got, ref, **TOL)
 
 
@@ -253,10 +271,14 @@ def test_p2_probes(cuda_device, probe):
     torch.cuda.synchronize()
     assert exp_ptail_ablate.launches == before + 1
     assert bool(torch.isfinite(got).all())
-    if probe == "full":     # K1 unchanged: its plain version, and K1 itself
+    if probe == "full":     # K1's former FFMA body: its plain version, and K1
+        # by tolerance: K1 is now the 3xTF32 tensor-core kernel and P2 keeps
+        # the FFMA body, so the two no longer agree bit for bit (that check
+        # was dropped on purpose; their gap is not drift)
         torch.testing.assert_close(
             got, tailconv.conv3x3_dilated_reference(x, w, b, dil), **TOL)
-        assert torch.equal(got, tailconv.conv3x3_dilated(x, w, b, dil))
+        torch.testing.assert_close(
+            got, tailconv.conv3x3_dilated(x, w, b, dil), **TOL)
     elif probe == "noepi":
         torch.testing.assert_close(got, exp_ptail_ablate.probe_reference(
             probe, x, w, b, dil), **TOL)
