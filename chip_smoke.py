@@ -23,23 +23,30 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
 2. build: K1, K4, K2, K3, K5, P1 and P2 compiled with ``nvcc`` from the
    checkout's sources, one nvcc per source, all started together; ptxas
    registers and spills, and SASS op counts (``cuobjdump -sass``): every
-   instance of K1 must hold HGMMAs (the tensor-core ``wgmma``), and P1's
+   instance of K1 and of K4's tensor-core body must hold HGMMAs (the
+   tensor-core ``wgmma``) and neither library's ptxas report may carry
+   C7514 (``wgmma`` serialized), and P1's
    FFMAs / HMMAs and, per P2 probe, its FFMAs and LDGs show that the
    probed work survived compilation;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
    kernel, plain) and at ragged and border shapes, with each timed case's
    bound on an H100: the larger of its bytes at 3.35 TB/s and its FLOPs
-   at 67 TFLOP/s FP32 for the FFMA kernels (K2-K5, P2), at 495 / 3
-   TFLOP/s for K1 (three TF32 products per multiply-add). K1 and K4:
+   at 67 TFLOP/s FP32 for the FFMA kernels (K2, K3, K5, P2), at 495 / 3
+   TFLOP/s for K1 and K4 (three TF32 products per multiply-add). K1 and K4:
    ``assert_close`` rtol=atol=1e-4 (float32 sums of up to 27*Cin or 9*Cin
    products in another order). At its six main-path shapes K1 is timed in
    turns with its plain version, one ``F.conv3d`` with the bias (its
    library call; no ReLU) and K1's former FFMA body (``ffma_ms``, P2's
    ``full``), and held against a float64 conv on the first 8 output
    planes: its ``f64_max_abs`` must be within 2x cuDNN float32's + 1e-6.
-   K4 covers the flagship's head units, ragged Y, d=3 and the probe's
-   shapes; its plain version is the flagship route's own cuDNN sequence.
+   K4 (both bodies, ``head_tc`` and ``head_ffma``, and the wrapper's
+   choice) covers the flagship's head units, ragged Y, d=3, Cout past one
+   N tile and the probe's shapes; its plain version is the flagship route's
+   own cuDNN sequence. At the head units and the probe's shapes the plain
+   version, both bodies and, with pool=1, one ``F.conv3d`` with the bias
+   are timed in turns, and the tensor-core body is held against float64 on
+   8 output planes (within 2x cuDNN float32's + 1e-6).
    K2: atol 1e-5 (values in [0, 1), 8 products per output in another
    order). K3: atol 1e-4 on a 256^3 volume (coordinates near 256 carry an
    ulp of 1.5e-5, which moves a sample by about that much) and ``ok`` equal
@@ -56,7 +63,8 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    against the plain cuDNN route (``pallas_tail=False``, atol 1e-5);
 5. head_chain: one request through K4 (conv0) -> K4 (conv1) -> K1 (conv2,
    conv3) -> barrier -> softmax against ``predict_dense_device`` (atol
-   1e-5), two K4 and two K1 launches, timed against the request;
+   1e-5), two K4 and two K1 launches (and K4's tensor-core launches),
+   timed against the request;
 6. convdense_request: three distinct random 128x448x448 slabs of the
    full-width wide U-Net through ``predict_dense_device(pad_raw=True)``
    under ``set_convdense_impl(zfold=True, skipsum=True, ptail=True)``:
@@ -80,7 +88,8 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
 9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
    the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds;
 10. headk_probe: the rows of ``elektronn2_tpu_torch.scripts.
-    exp_convdense_headk.main()`` (K4 against the zfold cuDNN conv);
+    exp_convdense_headk.main()`` (K4 against the zfold cuDNN conv, with
+    the body the wrapper ran);
 11. k5_main: the rows of ``elektronn2_tpu_torch.ops.experimental.
     dilated_conv.main()``, K5's benchmark;
 12. probe_dot: the rows of ``elektronn2_tpu_torch.scripts.exp_ptail_dot.
@@ -96,7 +105,9 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
-plain_ms, bound_ms, bound_by, library_ms; P1's ``ms`` is one call of 1024
+plain_ms, bound_ms, bound_by, library_ms; K4's are summed over the
+probe's pool=1 shapes, where one ``F.conv3d`` is its library call; P1's
+``ms`` is one call of 1024
 cells x 8 dots, its ``plain_ms`` and ``library_ms`` compute the 8 dots
 once), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
 is not 0. Without a CUDA device it exits non-zero before any result.
@@ -276,10 +287,18 @@ def phase_build():
              sass=sass)
         if k in ("ptail_dot", "ptail_ablate"):
             check_probe_sass(k, sass)
-        # K1 is the tensor-core kernel: no instance may have lost its wgmma
-        if k == "conv3x3_dilated" and (
-                not sass or min(c["HGMMA"] for c in sass.values()) < 1):
-            raise AssertionError(f"K1: no HGMMA in some instance: {sass}")
+        # the tensor-core kernels (every instance of K1, K4's tc body): no
+        # instance may have lost its wgmma, and ptxas must not have
+        # serialized it (warning C7514: non-wgmma code reads live
+        # accumulators)
+        tc = {"conv3x3_dilated": "tailconv_tc_kernel",
+              "conv1x3x3_pool_dilated": "headconv_tc_kernel"}.get(k)
+        if tc is not None:
+            inst = [c["HGMMA"] for f, c in sass.items() if tc in f]
+            if not inst or min(inst) < 1:
+                raise AssertionError(f"{k}: no HGMMA in some instance: {sass}")
+            if "C7514" in lib.build_log:
+                raise AssertionError(f"{k}: ptxas serialized wgmma (C7514)")
 
 
 def conv_bound(cin, cout, x_numel, out_numel):
@@ -392,51 +411,93 @@ K4_CASES = [  # name, N, Cin, Cout, (Z, X, Y), d, pool, timed (N=1)
     ("conv1", 1, 20, 30, (124, 518, 518), 2, 2, True),
     ("ragged_y", 1, 20, 30, (4, 60, 301), 2, 2, False),
     ("d3_pool2", 2, 3, 5, (3, 40, 45), 3, 2, False),
+    # Cout past one 64-channel group with pool 2, and a 128 N tile (pool 1)
+    ("cout72_pool2", 1, 9, 72, (2, 30, 140), 2, 2, False),
+    ("cout128_pool1", 1, 11, 128, (2, 20, 140), 1, 1, False),
 ]
 
 
+def head_f64_errors(x, w, b, d, pool):
+    """(tensor-core body, cuDNN float32) max abs against a float64 conv +
+    bias (+ pool) + ReLU on the first ``F64_PLANES`` - 2 z-planes of ``x``
+    (kz = 1: as many output planes as K1's check)."""
+    xs = x[:, :, :F64_PLANES - 2].contiguous()
+    ref = tailconv.conv1x3x3_pool_reference(xs.double(), w.double(),
+                                            b.double(), (d, d), pool)
+    tc = tailconv.head_tc(xs, w, b, (d, d), pool).double()
+    cudnn = tailconv.conv1x3x3_pool_reference(xs, w, b, (d, d), pool).double()
+    return ((tc - ref).abs().max().item(), (cudnn - ref).abs().max().item())
+
+
 def phase_kernel_k4():
-    """K4 against its plain version (``assert_close`` 1e-4) at the
-    flagship's head shapes, ragged Y, d=3 and the probe's shapes; returns
-    (max_abs_err, ms, plain_ms, bound_ms, bound_by) summed over conv0 and
-    conv1. The plain version is the flagship route's own cuDNN sequence
-    (conv3d + bias, max_pool3d, ReLU), so its time is that route's."""
+    """K4 against its plain version (``assert_close`` 1e-4), both bodies
+    (``head_tc``, ``head_ffma``) and the wrapper's choice, at the flagship's
+    head shapes, ragged Y, d=3, Cout past one N tile and the probe's
+    shapes. The plain version is the flagship route's own cuDNN sequence
+    (conv3d + bias, max_pool3d, ReLU), so its time is that route's. At the
+    timed shapes the plain version, both bodies and, with pool=1, the
+    library call (one ``F.conv3d`` with the bias; no ReLU) are timed in
+    turns, and the tensor-core body is held against float64
+    (``head_f64_errors``, within 2x cuDNN float32's + 1e-6). Returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms) summed over
+    the probe's shapes, all pool=1: the conv-dense path's kz=1 layers,
+    where one ``F.conv3d`` is the library call; ``ms`` is the body the
+    wrapper ran."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    probe = [(n, 1, ci, co, sp, 1, 1, False)
+    probe = [(n, 1, ci, co, sp, 1, 1, True)
              for n, ci, co, sp in exp_convdense_headk.cases()]
-    max_err, ms_sum, plain_sum, bound_sum, parts = 0.0, 0.0, 0.0, 0.0, []
+    max_err, sums, parts = 0.0, [0.0] * 4, []
     for name, N, cin, cout, sp, d, pool, timed in K4_CASES + probe:
         x = torch.rand((N, cin) + sp, device="cuda", generator=g) - 0.5
         w = (torch.rand(cout, cin, 1, 3, 3, device="cuda", generator=g)
              - 0.5) * (2.0 / (9 * cin)) ** 0.5
         b = torch.rand(cout, device="cuda", generator=g) * 0.2 - 0.1
-        got = tailconv.conv1x3x3_pool_dilated(x, w, b, (d, d), pool)
+        body = tailconv.head_body(cin, cout, pool)
         ref = tailconv.conv1x3x3_pool_reference(x, w, b, (d, d), pool)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, **KERNEL_TOL)
-        err = (got - ref).abs().max().item()
-        max_err = max(max_err, err)
+        errs = {}
+        for fn, key in ((tailconv.conv1x3x3_pool_dilated, "wrapper"),
+                        (tailconv.head_tc, "tc"), (tailconv.head_ffma, "ffma")):
+            got = fn(x, w, b, (d, d), pool)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, **KERNEL_TOL)
+            errs[key] = (got - ref).abs().max().item()
+            del got
+        del ref
+        max_err = max(max_err, *errs.values())
         rec = dict(kernel="conv1x3x3_pool_dilated", case=name,
-                   x=[N, cin, *sp], cout=cout, d=d, pool=pool,
-                   max_abs_err=err)
+                   x=[N, cin, *sp], cout=cout, d=d, pool=pool, body=body,
+                   max_abs_err=errs["wrapper"], tc_max_abs_err=errs["tc"],
+                   ffma_max_abs_err=errs["ffma"])
         if timed:
-            ms, pms = in_turns(
-                lambda: tailconv.conv1x3x3_pool_dilated(x, w, b, (d, d),
-                                                        pool),
-                lambda: tailconv.conv1x3x3_pool_reference(x, w, b, (d, d),
-                                                          pool), n=3)
+            k64, c64 = head_f64_errors(x, w, b, d, pool)
+            rec.update(f64_max_abs=k64, cudnn_f64_max_abs=c64)
+            if k64 > 2 * c64 + 1e-6:
+                emit("kernel", **rec)
+                raise AssertionError(f"K4 {name}: {k64} from float64, over "
+                                     f"2x cuDNN float32's {c64} + 1e-6")
+            fns = [lambda: tailconv.conv1x3x3_pool_reference(x, w, b, (d, d),
+                                                             pool),
+                   lambda: tailconv.head_tc(x, w, b, (d, d), pool),
+                   lambda: tailconv.head_ffma(x, w, b, (d, d), pool)]
+            if pool == 1:
+                fns.append(lambda: conv3d_f32(x, w, b, (1, d, d)))
+            pms, tms, fms, *lms = palindrome_ms(fns)
+            ms = tms if body == "tc" else fms
+            lms = lms[0] if lms else None
             bound, by = exp_convdense_headk.head_bound_ms(cin, cout, sp, d,
                                                           pool)
-            rec.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-                       library_ms=None)
-            ms_sum += ms
-            plain_sum += pms
-            bound_sum += bound
-            parts.append((bound, by))
+            rec.update(ms=ms, plain_ms=pms, tc_ms=tms, ffma_ms=fms,
+                       library_ms=lms, bound_ms=bound, bound_by=by,
+                       body_within_5pct=ms <= 1.05 * min(tms, fms))
+            if pool == 1:
+                for k, v in enumerate((ms, pms, bound, lms)):
+                    sums[k] += v
+                parts.append((bound, by))
         emit("kernel", **rec)
-        del x, w, b, got, ref
+        del x, w, b
         torch.cuda.empty_cache()
-    return max_err, ms_sum, plain_sum, bound_sum, max(parts)[1]
+    ms, pms, bound, lms = sums
+    return max_err, ms, pms, bound, max(parts)[1], lms
 
 
 def k2_cases(rng):
@@ -834,11 +895,13 @@ def phase_head_chain():
     ref = model.predict_dense_device(vol, pad_raw=True)
     torch.cuda.synchronize()
     tailconv.launches, tailconv.head_launches = 0, 0
+    tailconv.head_tc_launches = 0
     t0 = time.perf_counter()
     got = head_chain(model, vol)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     k4, k1 = tailconv.head_launches, tailconv.launches
+    k4_tc = tailconv.head_tc_launches
     dev = check_probs(got, out_shape)
     if k4 != 2 or k1 != 2:
         raise AssertionError(f"head chain: {k4} K4 and {k1} K1 launches, "
@@ -850,7 +913,8 @@ def phase_head_chain():
     ref_dt = time.perf_counter() - t0
     emit("head_chain", seconds=dt, request_seconds=ref_dt,
          mvox_s=np.prod(REQ_SHAPE[1:]) / 1e6 / dt, k4_launches=k4,
-         k1_launches=k1, channel_sum_dev=dev, max_abs_err_vs_request=err)
+         k4_tc_launches=k4_tc, k1_launches=k1, channel_sum_dev=dev,
+         max_abs_err_vs_request=err)
     if err > SLICE_ATOL:
         raise AssertionError(f"head chain vs request: {err} > {SLICE_ATOL}")
     return k4, k1
@@ -1174,8 +1238,7 @@ def main():
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),
             ("conv1x3x3_pool_dilated", "headconv.cu",
-             "elektronn2_tpu/ops/pallas_tailconv.py:547", k4_launches,
-             k4 + (None,)),
+             "elektronn2_tpu/ops/pallas_tailconv.py:547", k4_launches, k4),
             ("trilinear_patches", "extract.cu",
              "elektronn2_tpu/ops/pallas_extract.py:75", k2_launches, k2),
             ("rotated_patches", "extract_rot.cu",

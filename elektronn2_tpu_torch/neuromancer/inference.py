@@ -175,8 +175,10 @@ def dilated_dense_forward(model, vol, batch=False):
             w = params[node.name]["w"]
             b = params[node.name]["b"]
             if use_ptail and dil[0] == 1 and _ptail_node_ok(node):
-                # bias + ReLU fused in the kernel; eligible convs never pool
-                return conv3x3_dilated(xin, w, b, dil=(1, dil[1], dil[2])), dil
+                # bias + ReLU fused in the kernel; eligible convs never pool;
+                # the input may be the caller's strided view
+                return conv3x3_dilated(xin.contiguous(), w, b,
+                                       dil=(1, dil[1], dil[2])), dil
             y = ops_conv(xin, w, b, dilation=dil)
             if any(p > 1 for p in node.pool_shape):
                 y = dilated_pool(y, node.pool_shape, dil)

@@ -280,8 +280,9 @@ class Model:
 
     def set_params(self, params):
         """Replace the parameters; ``params`` is ``{node: {name: array}}``
-        (tensors or ndarrays), converted to float32 tensors on the model's
-        current device. Shapes must match the graph's."""
+        (tensors or ndarrays), converted to contiguous float32 tensors on
+        the model's current device (the hand kernels take no strided view).
+        Shapes must match the graph's."""
         dev = self.device
         new = {}
         for nname, d in params.items():
@@ -289,7 +290,8 @@ class Model:
             for pname, v in d.items():
                 t = torch.as_tensor(np.asarray(v, dtype=np.float32)
                                     if not isinstance(v, torch.Tensor) else v,
-                                    dtype=torch.float32, device=dev)
+                                    dtype=torch.float32,
+                                    device=dev).contiguous()
                 want = tuple(self.nodes[nname].params[pname].shape)
                 if tuple(t.shape) != want:
                     raise ValueError(f"param {nname}/{pname}: shape "

@@ -16,7 +16,10 @@ K4 ports ``conv1x3x3_pool_dilated`` of the same module: a valid (1,3,3)
 conv with isotropic xy-dilation d, bias, an optional stride-1 (2,2) max
 window dilated by d, and ReLU, fused; the flagship's head units conv0+pool0
 and conv1+pool1. As in the JAX package no entry point's default route calls
-it. Kernel: ``csrc/headconv.cu``.
+it. Kernel: ``csrc/headconv.cu``, two bodies: K1's 3xTF32 ``wgmma``
+implicit GEMM with kz = 1 and the pool in its epilogue (:func:`head_tc`,
+weights packed by :func:`pack_weights` too), and exact float32 FFMA
+(:func:`head_ffma`); the wrapper picks one by Cin (:func:`head_body`).
 
 Both read and write NCDHW with a batch dimension, so a K4 output chains into
 K1 as it is; the TPU kernels' ``xzcy`` layout, ``z_block``, ``valid_y`` and
@@ -26,7 +29,8 @@ Each source's head note says what bounds it on the card and how.
 Dispatch: a CPU tensor runs the plain PyTorch version
 (:func:`conv3x3_dilated_reference`, :func:`conv1x3x3_pool_reference`); a
 CUDA tensor launches the kernel or raises. ``launches`` counts K1's kernel
-launches and ``head_launches`` K4's.
+launches, ``head_launches`` K4's (both bodies) and ``head_tc_launches``
+those of K4's tensor-core body.
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ from .conv import f32_convs
 launches = 0
 #: kernel launches made by :func:`conv1x3x3_pool_dilated` in this process
 head_launches = 0
+#: of those, launches of the tensor-core body (:func:`head_tc`)
+head_tc_launches = 0
 
 _fn = None
-_head_fn = None
+_head_fns = None
 _head_cout_tile = None
 
 
@@ -64,20 +70,23 @@ def build():
 
 
 def build_head():
-    """Build (on first use) and load K4's library; returns the
-    ``CudaLibrary``."""
-    global _head_fn, _head_cout_tile
+    """Build (on first use) and load K4's library (both bodies); returns
+    the ``CudaLibrary``."""
+    global _head_fns, _head_cout_tile
     lib = load_cuda_library("headconv")
-    if _head_fn is None:
-        fn = lib.cdll.e2t_headconv_f32
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    if _head_fns is None:
+        ffma = lib.cdll.e2t_headconv_f32
+        ffma.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                         + [ctypes.c_void_p])
+        tc = lib.cdll.e2t_headconv_tc
+        tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        ffma.restype = tc.restype = ctypes.c_int
         tile = lib.cdll.e2t_headconv_cout_tile
         tile.argtypes = []
         tile.restype = ctypes.c_int
         _head_cout_tile = int(tile())
-        _head_fn = fn
+        _head_fns = {"ffma": ffma, "tc": tc}
     return lib
 
 
@@ -148,10 +157,11 @@ def split_tf32(t):
 
 
 def pack_weights(w, NP):
-    """(Cout, Cin, 3,3,3) float32 weights -> the kernel's packed TF32 hi/lo
-    weights for N tile ``NP`` (:func:`n_tile`), shape (G, CC, 3, 3, 3, 2,
-    NP/8, 2, 8, 4) with G = ceil(Cout/NP), CC = ceil(Cin/8), Cout and Cin
-    zero-padded.
+    """(Cout, Cin, kz, 3, 3) float32 weights, kz = 3 (K1) or 1 (K4, which
+    also takes (Cout, Cin, 3, 3)) -> the kernels' packed TF32 hi/lo weights
+    for N tile ``NP`` (:func:`n_tile`, :func:`head_n_tile`), shape (G, CC,
+    kz, 3, 3, 2, NP/8, 2, 8, 4) with G = ceil(Cout/NP), CC = ceil(Cin/8),
+    Cout and Cin zero-padded.
 
     Dims: channel group, 8-channel chunk of Cin, kz, kx, ky, hi/lo, 8-row
     group of output channels, k half, row (output channel), 4 input
@@ -160,11 +170,13 @@ def pack_weights(w, NP):
     ``wgmma`` descriptor reads: core matrices of 8 output channels x 4
     input channels (128 bytes), the two k halves 128 bytes apart, the
     8-channel groups 256 bytes apart."""
-    Cout, Cin = w.shape[:2]
+    if w.ndim == 4:
+        w = w[:, :, None]
+    Cout, Cin, kz = w.shape[:3]
     G, CC = -(-Cout // NP), -(-Cin // K_CHUNK)
     wp = F.pad(w, (0, 0, 0, 0, 0, 0, 0, CC * K_CHUNK - Cin, 0, G * NP - Cout))
     parts = torch.stack(split_tf32(wp))  # (2, G*NP, CC*8, kz, kx, ky)
-    parts = parts.reshape(2, G, NP // 8, 8, CC, 2, 4, 3, 3, 3)
+    parts = parts.reshape(2, G, NP // 8, 8, CC, 2, 4, kz, 3, 3)
     return parts.permute(1, 4, 7, 8, 9, 0, 2, 5, 3, 6).contiguous()
 
 
@@ -277,43 +289,101 @@ def _check_head_args(x, w, b, dil, pool, relu):
     return d, w
 
 
+#: K4 runs its tensor-core body (:func:`head_tc`) from this many input
+#: channels on, below it the FFMA body (:func:`head_ffma`); with an N tile
+#: of at most 16 (short ``wgmma`` k steps) from ``HEAD_TC_MIN_CIN_N16`` on.
+#: A tensor-core k step takes 8 input channels (at Cin 1, the flagship's
+#: conv0, 7/8 of its products are padding). Measured crossovers on an H100
+#: (``scripts/exp_headconv_tc.py``, 32 z-planes): Cin 2-4 at Cout 30 (N 32,
+#: d 2, pool 2); Cin 20-24 at Cout 16 (N 16, pool 1), where the FFMA body is
+#: faster up to Cin 12 and by 3-5% at Cin 20, the tensor-core body by 1-4%
+#: at Cin 16 and by 15% at the U-Net's dec layer (Cin 24, full size).
+HEAD_TC_MIN_CIN = 4
+HEAD_TC_MIN_CIN_N16 = 24
+
+
+def head_body(cin, cout, pool):
+    """The K4 body the wrapper runs for ``cin`` -> ``cout`` channels with
+    ``pool``: ``"tc"`` or ``"ffma"``."""
+    low = HEAD_TC_MIN_CIN_N16 if head_n_tile(cout, pool) <= 16 \
+        else HEAD_TC_MIN_CIN
+    return "tc" if cin >= low else "ffma"
+
+
+def head_n_tile(cout, pool):
+    """N tile of K4's tensor-core body: :func:`n_tile`, but at most 64
+    with ``pool=2`` (its two-row pool ring must fit beside the stage
+    ring)."""
+    return min(n_tile(cout), 64) if pool == 2 else n_tile(cout)
+
+
 def conv1x3x3_pool_dilated(x, w, b, dil=(1, 1), pool=2, relu=True):
     """Head unit: valid (1,3,3) conv with xy-dilation ``dil`` (isotropic),
     + bias, then with ``pool=2`` a stride-1 (2,2) max window dilated by d,
     then ReLU.
 
     x: (N, Cin, Z, X, Y) float32, contiguous; w: (Cout, Cin, 1, 3, 3) or
-    (Cout, Cin, 3, 3); b: (Cout,). Returns (N, Cout, Z, X-2d-d(pool-1),
-    Y-2d-d(pool-1)) float32.
+    (Cout, Cin, 3, 3), contiguous; b: (Cout,). Returns (N, Cout, Z,
+    X-2d-d(pool-1), Y-2d-d(pool-1)) float32. On the card :func:`head_body`
+    picks the body by Cin and the N tile.
     """
-    global head_launches
     d, w4 = _check_head_args(x, w, b, dil, pool, relu)
     if x.device.type == "cpu":
         return conv1x3x3_pool_reference(x, w, b, (d, d), pool)
+    return _launch_head(head_body(x.shape[1], w4.shape[0], pool), x, w, w4, b,
+                        d, pool)
+
+
+def _launch_head(body, x, w, w4, b, d, pool):
+    """Launch ``body``'s kernel on a validated head-unit call (``w4``, ``d``
+    from :func:`_check_head_args`); returns the output."""
+    global head_launches, head_tc_launches
     if x.device.type != "cuda":
         raise ValueError(f"head kernel: no kernel for device {x.device}")
     build_head()
     N, Cin, Z, X, Y = x.shape
     Cout = w4.shape[0]
-    T = _head_cout_tile
-    G = -(-Cout // T)
-    # (Cout, Cin, 3, 3) -> (G, Cin, 9, T): per channel group, per input
-    # channel, the 9 taps with the group's T output channels innermost
-    wt = F.pad(w4.permute(1, 2, 3, 0).reshape(Cin, 9, Cout),
-               (0, G * T - Cout))
-    wt = wt.reshape(Cin, 9, G, T).permute(2, 0, 1, 3).contiguous()
-    bp = F.pad(b, (0, G * T - Cout)).contiguous()
+    if body == "tc":
+        NP = head_n_tile(Cout, pool)
+        wt, bp, extra = packed_weights(w, NP), b, (NP,)
+    else:
+        T = _head_cout_tile
+        G = -(-Cout // T)
+        # (Cout, Cin, 3, 3) -> (G, Cin, 9, T): per channel group, per input
+        # channel, the 9 taps with the group's T output channels innermost
+        wt = F.pad(w4.permute(1, 2, 3, 0).reshape(Cin, 9, Cout),
+                   (0, G * T - Cout))
+        wt = wt.reshape(Cin, 9, G, T).permute(2, 0, 1, 3).contiguous()
+        bp, extra = F.pad(b, (0, G * T - Cout)).contiguous(), ()
     dp = d * (pool - 1)
     y = torch.empty((N, Cout, Z, X - 2 * d - dp, Y - 2 * d - dp),
                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _head_fn(x.data_ptr(), wt.data_ptr(), bp.data_ptr(),
-                       y.data_ptr(), N, Cin, Z, X, Y, Cout, d, pool, stream)
+        err = _head_fns[body](x.data_ptr(), wt.data_ptr(), bp.data_ptr(),
+                              y.data_ptr(), N, Cin, Z, X, Y, Cout, *extra, d,
+                              pool, stream)
     if err != 0:
-        raise RuntimeError(f"head kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"head kernel ({body}) launch failed: CUDA error "
+                           f"{err}")
     head_launches += 1
+    if body == "tc":
+        head_tc_launches += 1
     return y
+
+
+def head_tc(x, w, b, dil=(1, 1), pool=2):
+    """K4's tensor-core body on the card (3xTF32 ``wgmma``, float32-grade
+    sums), whatever Cin; :func:`conv1x3x3_pool_dilated`'s arguments."""
+    d, w4 = _check_head_args(x, w, b, dil, pool, True)
+    return _launch_head("tc", x, w, w4, b, d, pool)
+
+
+def head_ffma(x, w, b, dil=(1, 1), pool=2):
+    """K4's FFMA body on the card (exact float32 products), whatever Cin;
+    :func:`conv1x3x3_pool_dilated`'s arguments."""
+    d, w4 = _check_head_args(x, w, b, dil, pool, True)
+    return _launch_head("ffma", x, w, w4, b, d, pool)
 
 
 def conv1x3x3_pool_reference(x, w, b, dil=(1, 1), pool=2):

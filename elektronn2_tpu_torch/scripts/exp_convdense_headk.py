@@ -8,9 +8,11 @@ its first layer ``enc0`` 1->12 at 96 x 512 x 512), plus the kz=1 layers of
 (``pad_raw``): e0a 1->64 on the padded input and d0 128->64 on the skip
 merge m0. K4 writes NCDHW, as the conv-dense path consumes it, so the
 comparison needs no transpose. Each row gives both device times (CUDA
-events, in turns: zfold, K4, K4, zfold), K4's bound on an H100 (the larger
-of its bytes at 3.35 TB/s and its FLOPs at 67 TFLOP/s FP32) and the largest
-difference (tolerance 1e-4: sums of up to 9*Cin products in another order).
+events, in turns: zfold, K4, K4, zfold), the K4 body the wrapper ran
+(``tailconv.head_body``), K4's bound on an H100 (the larger of its bytes at
+3.35 TB/s and three times its FLOPs at 495 TFLOP/s TF32, the float32-grade
+rate of 3xTF32, whichever body runs) and the largest difference (tolerance
+1e-4: sums of up to 9*Cin products in another order).
 
 Usage, on the card: ``python -m elektronn2_tpu_torch.scripts.exp_convdense_headk``
 (prints one JSON line per case); :func:`main` returns the rows.
@@ -24,8 +26,8 @@ import math
 import torch
 
 from ..ops.conv import conv_zfold2d, f32_convs
-from ..ops.tailconv import conv1x3x3_pool_dilated
-from ..utils.device_timing import bound_ms, time_ms
+from ..ops.tailconv import conv1x3x3_pool_dilated, head_body
+from ..utils.device_timing import TF32_FLOP_S, bound_ms, time_ms
 
 TOL = 1e-4
 
@@ -52,16 +54,19 @@ def cases():
 
 
 def head_bound_ms(cin, cout, sp, d=1, pool=1):
-    """Least time an H100 could take for one head unit on (1, cin, *sp):
-    the larger of its bytes (input read once, output written once) over
-    the memory rate and its FLOPs over the FP32 rate, in ms."""
+    """(least ms on an H100, 'bytes' or 'operations (3xTF32)') for one
+    head unit on (1, cin, *sp): the larger of its bytes (input read once,
+    output written once) over the memory rate and three times its FLOPs
+    (three TF32 products per multiply-add) over the TF32 tensor-core
+    rate."""
     z, x, y = sp
     dp = d * (pool - 1)
     out = z * (x - 2 * d - dp) * (y - 2 * d - dp)
     conv_out = z * (x - 2 * d) * (y - 2 * d)
     flop = 2.0 * 9 * cin * cout * conv_out
     nbytes = 4.0 * (cin * math.prod(sp) + cout * out + cout * (9 * cin + 1))
-    return bound_ms(nbytes, flop)
+    bound, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_S)
+    return bound, by if by == "bytes" else "operations (3xTF32)"
 
 
 def main(case_list=None, k=3, seed=0):
@@ -94,9 +99,10 @@ def main(case_list=None, k=3, seed=0):
              time_ms(zfold, k)]
         zms, hms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         bound, by = head_bound_ms(ci, co, sp)
-        rows.append(dict(case=name, x=[1, ci, *sp], cout=co, zfold_ms=zms,
-                         headk_ms=hms, speedup=zms / hms, bound_ms=bound,
-                         bound_by=by, max_abs_err=err))
+        rows.append(dict(case=name, x=[1, ci, *sp], cout=co,
+                         body=head_body(ci, co, 1), zfold_ms=zms, headk_ms=hms,
+                         speedup=zms / hms, bound_ms=bound, bound_by=by,
+                         max_abs_err=err))
         del x, w, b
         torch.cuda.empty_cache()
     return rows

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 first use, for Hopper only (``sm_90a``), into ``elektronn2_tpu_torch/_build/``
-(git-ignored) under a name that carries a hash of the source and the flags,
-so an edited source is rebuilt. As in ``elektronn2_tpu/utils/native_build.py``
+(git-ignored) under a name that carries a hash of the source, of every
+header it includes with ``#include "..."`` (``csrc/*.cuh``, followed
+recursively) and of the flags, so an edited source or header is rebuilt. As in ``elektronn2_tpu/utils/native_build.py``
 the library is written to a per-process temp name and renamed into place
 atomically, so concurrent first users never load a half-written file.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,15 +62,36 @@ def find_nvcc():
                        "first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_key(src):
+    """Hash of the source file ``src``, of the text of every header it
+    includes with ``#include "..."`` (resolved beside the including file,
+    followed recursively, each once) and of ``NVCC_FLAGS``: an edit to any
+    of them gives a new key, so a stale library is never loaded."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [os.path.abspath(src)], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(text)
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    return h.hexdigest()[:16]
+
+
 def load_cuda_library(name):
     """Build ``csrc/<name>.cu`` on first use and load it; cached per process."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = source_key(src)
     so = os.path.join(BUILD_DIR, f"lib{name}-{key}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(so):

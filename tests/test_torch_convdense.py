@@ -408,3 +408,24 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert modelload(path, device="cpu").device == torch.device("cpu")
+
+
+def test_transposed_view_weight_takes_the_k1_route():
+    """``set_params`` stores contiguous tensors: a weight given as a strided
+    view reaches K1's wrapper (which refuses one) under ptail, and the K1
+    route equals the cuDNN route."""
+    jm, tm = _example_pair("unet3d_wide")
+    params = {n: dict(d) for n, d in tm.params.items()}
+    w = params["d1"]["w"]
+    params["d1"]["w"] = w.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not params["d1"]["w"].is_contiguous()
+    tm.set_params(params)
+    vol = torch.from_numpy(np.random.RandomState(6).rand(
+        1, 18, 70, 74).astype(np.float32))
+    tm.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    a = tm.predict_dense_device(vol, pad_raw=True)
+    assert tm.params["d1"]["w"].is_contiguous()
+    assert torch.equal(tm.params["d1"]["w"], w)
+    tm.set_convdense_impl(zfold=True, skipsum=True)
+    b = tm.predict_dense_device(vol, pad_raw=True)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, rtol=0)

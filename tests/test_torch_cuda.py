@@ -4,8 +4,8 @@ This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA: ``python -m pytest tests/test_torch_cuda.py
 --noconftest -q`` (``--noconftest``: ``tests/conftest.py`` imports jax).
 Each test holds a kernel against its plain PyTorch version on the same
-inputs; tolerance 1e-4 for K1 and K4 (float32 sums of up to 27*Cin and
-9*Cin products in another order), 1e-5 on the flagship's probabilities, 1e-5 for K2 (values in
+inputs; tolerance 1e-4 for K1 and K4, both of K4's bodies (float32 sums of
+up to 27*Cin and 9*Cin products in another order), 1e-5 on the flagship's probabilities, 1e-5 for K2 (values in
 [0, 1), 8 products per output) and 1e-4 for K3 (coordinates near 256 carry
 an ulp of 1.5e-5, which moves a sample by about that much); K3's ``ok``
 flags must be equal. Both patch kernels avoid FMA contraction and are
@@ -113,6 +113,51 @@ def test_k4_matches_plain(cuda_device, n, cin, cout, sp, d, pool):
     ref = tailconv.conv1x3x3_pool_reference(x, w, b, (d, d), pool)
     torch.cuda.synchronize()
     assert tailconv.head_launches == before + 1
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+def _head_inputs(seed, n, cin, cout, sp, device):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        (rng.rand(n, cin, *sp) - 0.5).astype(np.float32),
+        ((rng.rand(cout, cin, 1, 3, 3) - 0.5)
+         * (2.0 / (9 * cin)) ** 0.5).astype(np.float32),
+        (rng.rand(cout) - 0.5).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [5, 16, 30, 64, 128])
+@pytest.mark.parametrize("d, pool", [(1, 1), (3, 1), (1, 2), (2, 2), (3, 2)])
+def test_k4_tc_every_n_tile(cuda_device, cout, d, pool):
+    """K4's tensor-core body at each kind of N tile (8, 16, 32, 64; Cout
+    128: one 128 tile with pool 1, two 64-channel groups with pool 2),
+    pool 1 and 2, d 1 to 3, a ragged Y (two y-blocks, the second short)
+    and a strip of 32 output rows plus a short one."""
+    x, w, b = _head_inputs(16, 1, 11, cout, (2, 41, 141), cuda_device)
+    before = (tailconv.head_launches, tailconv.head_tc_launches)
+    got = tailconv.head_tc(x, w, b, (d, d), pool)
+    ref = tailconv.conv1x3x3_pool_reference(x, w, b, (d, d), pool)
+    torch.cuda.synchronize()
+    assert (tailconv.head_launches, tailconv.head_tc_launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout, pool", [(20, 2), (16, 1)])
+@pytest.mark.parametrize("side", [-1, 0])
+def test_k4_dispatch_both_sides_of_the_cin_threshold(cuda_device, side,
+                                                      cout, pool):
+    low = (tailconv.HEAD_TC_MIN_CIN_N16 if cout <= 16
+           else tailconv.HEAD_TC_MIN_CIN)
+    cin = low + side
+    x, w, b = _head_inputs(17, 2, cin, cout, (3, 30, 75), cuda_device)
+    before = (tailconv.head_launches, tailconv.head_tc_launches)
+    got = tailconv.conv1x3x3_pool_dilated(x, w, b, (2, 2), pool)
+    ref = tailconv.conv1x3x3_pool_reference(x, w, b, (2, 2), pool)
+    torch.cuda.synchronize()
+    assert tailconv.head_launches == before[0] + 1
+    assert tailconv.head_tc_launches == before[1] + (side == 0)
     torch.testing.assert_close(got, ref, **TOL)
 
 

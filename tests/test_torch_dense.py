@@ -339,3 +339,35 @@ def test_dense_path_rejects_unported_nodes():
     assert tuple(y.shape) == (1, 4, 7, 7)
     with pytest.raises(NotImplementedError, match="Concat"):
         m.predict_dense_device(torch.rand(1, 12, 12))
+
+
+def test_permuted_view_volume_takes_the_k1_route(monkeypatch):
+    """A strided view of the volume (pad_raw=False) reaches the graph's first
+    conv as it is; under pallas_tail that conv is K1's and must get a
+    contiguous input: the route equals the cuDNN route."""
+    from elektronn2_tpu_torch import neuromancer as tnm
+    with fresh_graph("elektronn2_tpu_torch") as gm:
+        inp = tnm.Input([1, 1, 9, 11, 12], "b,f,z,x,y", name="raw")
+        c = tnm.Conv(inp, 4, (3, 3, 3), activation_func="relu", name="c")
+        probs = tnm.Softmax(tnm.Conv(c, 2, 1, 1, activation_func="lin",
+                                     name="cls"), name="probs")
+        m = gm.getmodel()
+        m.designate_nodes(input_node=inp, prediction_node=probs)
+    base = np.random.RandomState(5).rand(1, 11, 12, 9).astype(np.float32)
+    vol = torch.from_numpy(base).permute(0, 3, 1, 2)      # (1, 9, 11, 12)
+    assert not vol.is_contiguous()
+    calls = []
+    orig = tailconv.conv3x3_dilated
+
+    def spy(x, w, b, dil=(1, 1, 1), relu=True):
+        calls.append(tuple(x.shape))
+        return orig(x, w, b, dil, relu)
+
+    monkeypatch.setattr(tailconv, "conv3x3_dilated", spy)
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    a = m.predict_dense_device(vol, pad_raw=False)
+    assert calls == [(1, 1, 9, 11, 12)]
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=False)
+    b = m.predict_dense_device(vol, pad_raw=False)
+    assert len(calls) == 1 and tuple(a.shape) == (2, 7, 9, 10)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, rtol=0)

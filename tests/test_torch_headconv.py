@@ -161,9 +161,9 @@ def test_probe_cases_and_bound():
                                          "enc0-96x512 1->12"]
     assert cases[3][1:] == (1, 64, (136, 480, 480))
     assert cases[4][1:] == (128, 64, (128, 456, 456))
-    # the flagship's conv1 unit: 354 GFLOP at 67 TFLOP/s
+    # the flagship's conv1 unit: 3 x 354 GFLOP at 495 TFLOP/s (3xTF32)
     ms, by = probe.head_bound_ms(20, 30, (124, 518, 518), d=2, pool=2)
-    assert by == "operations" and abs(ms - 5.29) < 0.01
+    assert by == "operations (3xTF32)" and abs(ms - 2.14) < 0.01
     ms, by = probe.head_bound_ms(1, 20, (124, 521, 521), d=1, pool=2)
     assert by == "bytes" and abs(ms - 0.84) < 0.01
     if not torch.cuda.is_available():

@@ -43,6 +43,7 @@ MODULES = [
     "elektronn2_tpu_torch.data.tracing_utils",
     "elektronn2_tpu_torch.scripts",
     "elektronn2_tpu_torch.scripts.exp_convdense_headk",
+    "elektronn2_tpu_torch.scripts.exp_headconv_tc",
     "elektronn2_tpu_torch.scripts.exp_ptail_dot",
     "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
 ]
