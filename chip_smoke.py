@@ -30,7 +30,7 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    probed work survived compilation;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
-   kernel, plain) and at ragged and border shapes, with each timed case's
+   kernel, plain; K2 and K3 in CUDA graphs) and at ragged and border shapes, with each timed case's
    bound on an H100: the larger of its bytes at 3.35 TB/s and its FLOPs
    at 67 TFLOP/s FP32 for the FFMA kernels (K2, K3, K5, P2), at 495 / 3
    TFLOP/s for K1 and K4 (three TF32 products per multiply-add). K1 and K4:
@@ -51,6 +51,11 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    order). K3: atol 1e-4 on a 256^3 volume (coordinates near 256 carry an
    ulp of 1.5e-5, which moves a sample by about that much) and ``ok`` equal
    except for agents with a box corner within 1e-4 of a bound (counted).
+   Both are expected bit for bit (``bit_exact``). Their times are device
+   time per launch: CUDA events around replays of a CUDA graph of 20
+   launches (``graph_ms``), with the bytes their windows stage and each
+   other ring arrangement timed beside the default (``k2_arrangement``,
+   ``k3_arrangement``).
    K5: rtol=atol=1e-4 (float32 sums of 27*Cin products in another order)
    and its pad channels exactly 0, at its benchmark's perf case (timed, with
    one ``F.conv3d`` as its library call) and correctness case, the JAX
@@ -74,15 +79,22 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    atol 1e-4, ``CONVDENSE_ATOL``); then ``convdense_profile``: one warm
    slab under ``torch.profiler``, its top device kernels and K1's share;
 7. trace_rollout: ``DeviceTracer.trace_batch`` of B=1024 seeds for K=256
-   steps over a 256^3 volume (``min_step=0``), one rollout under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the loop),
-   then timed rollouts: agent-steps/s (B*K / wall), alive fraction, K2
-   launches (K per rollout), peak memory, the ``trace_batch`` wall with its
-   host-side decode; against the
-   plain route (``use_pallas_extract=False``): (a) teacher-forced, the plain
-   rollout's positions fed to the kernel at every step (atol 1e-5), (b) K=8
-   rollouts (``traj`` within 1e-4, ``alive`` equal), (c) the full horizon,
-   reported (first step over 1e-3, share of agents within 1e-3 at the end);
+   steps over a 256^3 volume (``min_step=0``): on the card one replay of
+   the rollout's CUDA graph (captured once, ``capture_seconds``); one
+   replay and one eager rollout under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then the
+   graphed route and the eager loop timed in turns (graphed, eager, eager,
+   graphed, graphed, eager): agent-steps/s (B*K / wall) of each, alive
+   fraction, K2 launches (K per rollout, a replay counting the launches it
+   captured), peak memory, the ``trace_batch`` wall with its host-side
+   decode; (d) the graphed rollout equals the eager kernel route bit for
+   bit (``traj`` and ``moved``); ``*_profile``: one graphed rollout under
+   ``torch.profiler`` (device idle share, top device kernels, K2's device
+   us per launch); against the plain route (``use_pallas_extract=False``):
+   (a) teacher-forced, the plain rollout's positions fed to the kernel at
+   every step (atol 1e-5), (b) K=8 rollouts (``traj`` within 1e-4,
+   ``alive`` equal), (c) the full horizon, reported (first step over 1e-3,
+   share of agents within 1e-3 at the end);
 8. trace_rot_rollout: the same with ``rotate_to_heading=True``, B=512, K=64,
    K3 (atol 1e-4 in (a));
 9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
@@ -95,7 +107,8 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
 12. probe_dot: the rows of ``elektronn2_tpu_torch.scripts.exp_ptail_dot.
     main()`` (P1's six configs; each within rtol=atol=1e-3 of its plain
     version in float32, rtol=atol=1e-2 in bf16, and no faster than its
-    bound);
+    bound), and ``probe_dot_library``: one batched ``torch.matmul`` over
+    the same 1024 x 8 dots as P1's float32 row, its library call;
 13. probe_ablate: the rows of ``elektronn2_tpu_torch.scripts.
     exp_ptail_ablate.main()`` at the canonical tail shape (``k_disp=2``)
     and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes of the
@@ -107,9 +120,8 @@ Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
 plain_ms, bound_ms, bound_by, library_ms; K4's are summed over the
 probe's pool=1 shapes, where one ``F.conv3d`` is its library call; P1's
-``ms`` is one call of 1024
-cells x 8 dots, its ``plain_ms`` and ``library_ms`` compute the 8 dots
-once), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
+``ms`` and ``library_ms`` are one call of 1024 cells x 8 dots, its
+``plain_ms`` computes the 8 dots once), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
 is not 0. Without a CUDA device it exits non-zero before any result.
 Usage, from the repository root: ``python3 chip_smoke.py``.
 """
@@ -139,7 +151,8 @@ from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
 from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
                                                 wide_unet_model)
 from elektronn2_tpu_torch.utils.cuda_build import find_nvcc
-from elektronn2_tpu_torch.utils.device_timing import (TF32_FLOP_S, bound_ms,
+from elektronn2_tpu_torch.utils.device_timing import (TF32_FLOP_S, best_ms,
+                                                      bound_ms, graph_ms,
                                                       in_turns, palindrome_ms,
                                                       time_ms)
 
@@ -575,11 +588,21 @@ def patch_bound(B, f, patch, in_bytes, flop_per_sample):
                     flop_per_sample * samples)
 
 
+#: ring slots timed for K2 (four blocks an SM) and for K3 (one slot: two
+#: blocks an SM; two slots: one block)
+K2_ARRANGEMENTS = [1, 2, 3]
+K3_ARRANGEMENTS = [1, 2]
+
+
 def phase_kernel_k2():
     """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms) at the tracer's shape. No single
-    PyTorch call computes K2: ``grid_sample`` clamps its samples, where K2
-    takes the fraction before it clips the window's base."""
+    bound_ms, bound_by, library_ms) at the tracer's shape. Times are device
+    time per launch: CUDA events around replays of a CUDA graph of 20
+    launches, the kernel and the plain version in turns (``graph_ms``).
+    The other ring arrangements are timed beside the default
+    (``k2_arrangement``). No single PyTorch call computes K2:
+    ``grid_sample`` clamps its samples, where K2 takes the fraction before
+    it clips the window's base."""
     rng = np.random.RandomState(SEED + 2)
     max_err, ms, pms = 0.0, None, None
     for name, vol, pos, patch, timed in k2_cases(rng):
@@ -594,22 +617,39 @@ def phase_kernel_k2():
                    vol=list(vol.shape), B=pos.shape[0], patch=list(patch),
                    max_abs_err=err, bit_exact=bool(torch.equal(got, ref)))
         if timed:
-            ms, pms = in_turns(
-                lambda: extract.trilinear_patches(vol, pos, patch),
+            pms, ms = graph_ms([
                 lambda: extract.trilinear_patches_reference(vol, pos, patch),
-                n=20)
+                lambda: extract.trilinear_patches(vol, pos, patch)])
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * pos.numel(), 21)
+            slots, grid = extract._plan(vol.device, patch)
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
-                       bound_by=bound[1], library_ms=None)
+                       bound_by=bound[1], library_ms=None,
+                       timing="cuda graph of 20 launches, CUDA events",
+                       staged_bytes=4 * pos.shape[0] * vol.shape[0]
+                       * extract.staged_floats(patch),
+                       ring_slots=slots, grid=min(grid, pos.shape[0]))
+            default = extract.RING_SLOTS
+            try:
+                for slots in K2_ARRANGEMENTS:
+                    extract.RING_SLOTS = slots
+                    t, = graph_ms([lambda: extract.trilinear_patches(
+                        vol, pos, patch)])
+                    emit("k2_arrangement", ring_slots=slots, ms=t,
+                         plan=list(extract._plan(vol.device, patch)))
+            finally:
+                extract.RING_SLOTS = default
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
 
 
 def phase_kernel_k3():
     """K3 against its plain version; returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms) at the rotated tracer's shape. No
-    single PyTorch call computes K3: ``grid_sample`` has no ``ok`` flag."""
+    bound_ms, bound_by, library_ms) at the rotated tracer's shape, timed
+    as K2's (``graph_ms``), with the bytes its staged boxes read beside the
+    bound and the other ring arrangement timed beside the default
+    (``k3_arrangement``). No single PyTorch call computes K3:
+    ``grid_sample`` has no ``ok`` flag."""
     rng = np.random.RandomState(SEED + 3)
     max_err, ms, pms = 0.0, None, None
     for name, vol, pos, heads, patch, timed in k3_cases(rng):
@@ -636,15 +676,37 @@ def phase_kernel_k3():
                    ok_differ=int(differ.sum()),
                    near_bound_agents=int(near.sum()))
         if timed:
-            ms, pms = in_turns(
-                lambda: extract_rot.rotated_patches(vol, pos, F, patch),
+            pms, ms = graph_ms([
                 lambda: extract_rot.rotated_patches_reference(vol, pos, F,
-                                                              patch), n=20)
+                                                              patch),
+                lambda: extract_rot.rotated_patches(vol, pos, F, patch)])
             # per sample: the frame rotation (9 multiply-adds), the blend
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * (pos.numel() + F.numel()), 39)
+            lo, hi = extract_rot.staged_box(vol.shape, pos, F, patch)
+            edges = (hi - lo + 1).cpu().numpy()
+            rows = edges[:, 0] * edges[:, 1]
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
-                       bound_by=bound[1], library_ms=None)
+                       bound_by=bound[1], library_ms=None,
+                       timing="cuda graph of 20 launches, CUDA events",
+                       staged_bytes=4 * vol.shape[0] * int(sum(
+                           r * extract.row_floats(int(e))
+                           for r, e in zip(rows, edges[:, 2]))),
+                       box_edge_mean=float(edges.mean()),
+                       box_edge_max=int(edges.max()),
+                       ring_slots=extract_rot._plan(vol.device, patch,
+                                                    vol.shape)[1])
+            default = extract_rot.RING_SLOTS
+            try:
+                for slots in K3_ARRANGEMENTS:
+                    extract_rot.RING_SLOTS = slots
+                    t, = graph_ms([lambda: extract_rot.rotated_patches(
+                        vol, pos, F, patch)])
+                    emit("k3_arrangement", ring_slots=slots, ms=t,
+                         plan=list(extract_rot._plan(vol.device, patch,
+                                                     vol.shape)))
+            finally:
+                extract_rot.RING_SLOTS = default
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
 
@@ -713,12 +775,32 @@ def phase_k5_main():
     return launches
 
 
+def p1_batched_library_ms(n_cells=1024, zb=8, seed=0, k_disp=3):
+    """P1's library call, like for like: one batched ``torch.matmul`` over
+    the same ``n_cells`` x ``zb`` dots the kernel computes, at the float32
+    (120, 360, 512) config (the probe's own ``library_ms`` computes the zb
+    dots once). The operands are made as ``exp_ptail_dot.main`` makes them;
+    x's zb blocks are repeated ``n_cells`` times outside the timed
+    window."""
+    dt, M, K, N = exp_ptail_dot.configs()[0]
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randn(M, K).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.randn(zb * K, N).astype(np.float32)).cuda()
+    xb = x.view(zb, K, N).repeat(n_cells, 1, 1)
+    with f32_matmuls():
+        ms = best_ms(lambda: torch.matmul(w, xb), k_disp)
+    del w, x, xb
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_probe_dot():
     """P1's entry point, ``exp_ptail_dot.main()`` (its six configs, each held
     against its plain version inside); returns (launches, (max_abs_err, ms,
     plain_ms, bound_ms, bound_by, library_ms)) with the times of the float32
-    (120, 360, 512) config. A time below the bound would mean the compiler
-    removed work: it fails."""
+    (120, 360, 512) config, its library call the batched matmul of
+    ``p1_batched_library_ms``. A time below the bound would mean the
+    compiler removed work: it fails."""
     exp_ptail_dot.launches = 0
     rows = exp_ptail_dot.main()
     launches = exp_ptail_dot.launches
@@ -727,9 +809,12 @@ def phase_probe_dot():
         if row["ms"] < row["bound_ms"]:
             raise AssertionError(f"probe_dot {row}: faster than its bound")
     r = rows[0]
+    lib = p1_batched_library_ms(r["cells"], r["zb"])
+    emit("probe_dot_library", dtype=r["dtype"], M=r["M"], K=r["K"],
+         N=r["N"], dots=r["cells"] * r["zb"], batched_library_ms=lib,
+         ms=r["ms"])
     return launches, (max(x["max_abs_err"] for x in rows), r["ms"],
-                      r["plain_ms"], r["bound_ms"], r["bound_by"],
-                      r["library_ms"])
+                      r["plain_ms"], r["bound_ms"], r["bound_by"], lib)
 
 
 #: P2 at the canonical isolated tail shape, and at the wide U-Net's d1 conv
@@ -1070,11 +1155,53 @@ def teacher_forced_err(log, vol, rotate):
     return err
 
 
+#: the timed rollouts, in turns: the graphed route first, then the eager
+#: loop, then the other way round, and again
+ROLLOUT_TURNS = ("graphed", "eager", "eager", "graphed", "graphed", "eager")
+
+
+def profile_rollout(fn, kernel, top=10):
+    """One warm rollout ``fn`` under ``torch.profiler``: its wall time, the
+    device time of its kernels, the device idle share of the wall, the top
+    device kernels, and the device us per launch of ``kernel`` (a substring
+    of its name). A profile with no device events reports None and the
+    wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    mine = [e for e in kernels if kernel in e.key]
+    n = sum(e.count for e in mine)
+    return dict(wall_ms=wall * 1e3, device_ms=dev_ms if kernels else None,
+                idle_share=1.0 - dev_ms / (wall * 1e3) if kernels else None,
+                kernel_us_per_launch=sum(e.self_device_time_total
+                                         for e in mine) / n if n else None,
+                kernel_launches=n, device_kernels=sum(e.count
+                                                      for e in kernels),
+                top=[dict(kernel=e.key[:90],
+                          ms=e.self_device_time_total / 1e3, calls=e.count)
+                     for e in kernels[:top]])
+
+
 def phase_trace(rotate):
     """One fused-tracing path at full width: the main path through
-    ``trace_batch`` (kernel launches counted there), timed rollouts, and the
-    rollout checks (a), (b), (c) against the plain route. Returns the
-    kernel's launch count of the main path's run."""
+    ``trace_batch`` (one replay of the rollout's CUDA graph; kernel
+    launches counted there), the graphed route and the eager loop timed in
+    turns, check (d) (the graphed rollout equals the eager kernel route bit
+    for bit), a profile of one graphed rollout, and the rollout checks (a),
+    (b), (c) against the plain route. Returns the kernel's launch count of
+    the main path's run."""
     name = "trace_rot_rollout" if rotate else "trace_rollout"
     mod = extract_rot if rotate else extract
     B, K = (ROT_B, ROT_K) if rotate else (TRACE_B, TRACE_K)
@@ -1091,22 +1218,28 @@ def phase_trace(rotate):
         raise AssertionError(f"{name}: the tracer did not pick the kernel")
     seeds_d = torch.from_numpy(seeds).cuda()
     heads_d = seeds_d.new_tensor([[0.0, 0.0, 1.0]]).expand(B, 3)
+    routes = {
+        "eager": lambda: tracer._rollout(model.params, vol, seeds_d, heads_d),
+        "graphed": lambda: tracer._rollout_graphed(model.params, seeds_d,
+                                                   heads_d)}
 
-    def rollout():
-        return tracer._rollout(model.params, vol, seeds_d, heads_d)
-
-    rollout()                                   # warm
+    routes["eager"]()                           # warm
+    t0 = time.perf_counter()
+    routes["graphed"]()                         # warm-up step and capture
     torch.cuda.synchronize()
-    # no host sync inside the rollout loop: PyTorch raises on any
+    first_call = time.perf_counter() - t0
+    capture = tracer.capture_seconds
+    # no host sync inside a replay or the eager loop: PyTorch raises on any
     # synchronising call (a copy to or from the host, .item(), ...)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        rollout()
+        routes["graphed"]()
+        routes["eager"]()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
 
-    # the main path, through the user's entry point
+    # the main path, through the user's entry point: one replay
     mod.launches = 0
     t0 = time.perf_counter()
     traces = tracer.trace_batch(seeds)
@@ -1115,31 +1248,57 @@ def phase_trace(rotate):
     if launches != K:
         raise AssertionError(f"{name}: {launches} kernel launches in "
                              f"trace_batch, expected {K}")
+    if len(tracer._graphs) != 1:
+        raise AssertionError(f"{name}: {len(tracer._graphs)} graphs kept, "
+                             "expected the one captured")
     n_pts = sum(len(t.coords) for t in traces)
     if len(traces) != B or not all(np.isfinite(t.coords).all()
                                    for t in traces):
         raise AssertionError(f"{name}: bad traces from trace_batch")
 
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(3):
+    walls = {"graphed": [], "eager": []}
+    peak = {}
+    out = {}
+    for route in ROLLOUT_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         before = mod.launches
         t0 = time.perf_counter()
-        traj, moved = rollout()
+        out[route] = routes[route]()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        walls[route].append(time.perf_counter() - t0)
+        peak[route] = max(peak.get(route, 0.0),
+                          torch.cuda.max_memory_allocated() / 2**30)
         if mod.launches - before != K:
             raise AssertionError(f"{name}: {mod.launches - before} launches "
-                                 f"in a rollout, expected {K}")
+                                 f"in a {route} rollout, expected {K}")
+    (traj, moved), (gtraj, gmoved) = out["eager"], out["graphed"]
     if tuple(traj.shape) != (K, B, 3) or not bool(torch.isfinite(traj).all()):
         raise AssertionError(f"{name}: bad trajectory {tuple(traj.shape)}")
-    wall = min(walls)
+    # (d) the graph replays the eager kernel route, bit for bit
+    check_d = bool(torch.equal(gtraj, traj) and torch.equal(gmoved, moved))
+    if not check_d:
+        raise AssertionError(f"{name}: the graphed rollout differs from the "
+                             "eager kernel route")
+    g, e = min(walls["graphed"]), min(walls["eager"])
     emit(name, B=B, K=K, vol=list(TRACE_VOL), patch=list(TRACE_PATCH),
-         rollout_seconds=walls, agent_steps_s=B * K / wall,
-         alive_fraction=moved.float().mean().item(), launches_per_rollout=K,
-         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         graphed_seconds=walls["graphed"], eager_seconds=walls["eager"],
+         agent_steps_s=B * K / g, eager_agent_steps_s=B * K / e,
+         graphed_speedup=e / g, capture_seconds=capture,
+         first_call_seconds=first_call, alive_fraction=moved.float().mean()
+         .item(), launches_per_rollout=K, peak_gib=peak["graphed"],
+         eager_peak_gib=peak["eager"],
+         reserved_gib=torch.cuda.memory_reserved() / 2**30,
          trace_batch_seconds=batch_wall, trace_batch_points=n_pts,
-         main_path_launches=launches, host_syncs_in_rollout=0)
+         main_path_launches=launches, host_syncs_in_rollout=0,
+         graphed_equals_eager=check_d)
+    prof = profile_rollout(routes["graphed"], "rotated_patches_kernel"
+                           if rotate else "trilinear_patches_kernel")
+    # the profiler stretches the wall it watches: the idle share against
+    # the fastest unprofiled replay too
+    emit(name + "_profile", route="graphed", **prof,
+         idle_share_of_timed_wall=None if prof["device_ms"] is None
+         else 1.0 - prof["device_ms"] / (g * 1e3))
 
     # (a) teacher-forced and (c) full horizon, from one plain rollout
     plain = make_tracer(model, vol, max_steps=K, use_pallas_extract=False,
@@ -1176,7 +1335,8 @@ def phase_trace(rotate):
          full_horizon_share_within_1e_3=(d[-1] <= HORIZON_TOL).float()
          .mean().item(),
          full_horizon_alive_equal=bool(torch.equal(moved, pmoved)),
-         bit_exact=bool(torch.equal(traj, ptraj)))
+         bit_exact=bool(torch.equal(traj, ptraj)),
+         graphed_equals_eager=check_d)
     return launches
 
 

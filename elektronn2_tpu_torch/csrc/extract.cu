@@ -14,66 +14,109 @@
 // (B = 1024 agents, one channel, patch 16^3, a 256^3 volume) one call reads
 // each agent's 17^3 window (~20 MB in all) and writes 16^3 outputs per
 // agent (~17 MB), about 11 us at 3.35 TB/s; the 8 products per output are
-// nothing beside that. The TPU kernel's DMA windows and lane rolls exist for
-// the TPU's tiled VMEM and have no counterpart here.
+// little beside that, as long as the loads and the blend overlap and the
+// instructions around them stay few.
 //
-// What the design does about it:
-//  * one block per (agent, channel); the block computes its agent's base
-//    and fractions itself from pos, so no host-built meta array exists;
-//  * the agent's (pz+1)(px+1)(py+1) window is staged in shared memory once
-//    (19.7 KB at patch 16^3), with consecutive threads on consecutive y, so
-//    the loads of a warp are coalesced along rows; each window value then
-//    feeds up to 8 outputs from shared memory;
-//  * one thread per output voxel (looping when the patch exceeds the
-//    block), writes consecutive along y;
+// What the design does about it (the TPU kernel's idea, a ring of window
+// copies in flight while the previous window is blended, not its blocks):
+//  * persistent blocks, as many as fit the card at once (four an SM),
+//    walk over the (agent, channel) items; each block keeps a ring of 1 to
+//    3 window slots in shared memory and, with more than one, copies the
+//    window of item k+1 with cp.async while it blends item k. On an H100,
+//    at two items a block, one slot measured 5-8% faster than two or three:
+//    the four blocks of an SM overlap one another's copies and blends
+//    (ops/extract.py::RING_SLOTS); one block an SM with 4 to 8 slots was
+//    15-35% slower;
+//  * the window's rows are copied with 16-byte cp.async from the 16-byte
+//    group that holds each row's start (stage_rows16 in cp_async.cuh): any
+//    Y, 5 pieces per 17-float row instead of 17 single floats. A row lands
+//    in shared memory at its offset within 16 bytes in device memory, which
+//    steps by Y mod 4 from row to row (0 when Y % 4 == 0);
+//  * the blend gives each thread a (z, y) column of the patch and slides it
+//    along x: the 2x2 (z, y) window values of the current x stay in
+//    registers, so each output reads 4 values from shared memory, not 8;
+//    consecutive threads take consecutive y, so loads hit consecutive banks
+//    (window planes are padded to 16 banks mod 32) and stores coalesce;
 //  * products and sums use __fmul_rn / __fadd_rn, so nvcc contracts nothing
 //    into FMAs: the result is the plain PyTorch version's, bit for bit.
-// A window over 48 KB takes the dynamic shared-memory opt-in; one over the
-// card's opt-in limit (227 KB, patch edge ~37) is refused.
+// A ring slot is one (p+1)^3 window in rows of 16-byte pieces (25 KB at
+// 16^3); the ring holds as many slots as asked and the card's per-block
+// opt-in shared memory allows. The opt-in is set once, by
+// e2t_trilinear_patches_init, outside any CUDA graph capture; a window over
+// the opt-in (a cubic patch's edge 37 and up) is refused.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_SLOTS = 3;
 
-__global__ void __launch_bounds__(THREADS)
-trilinear_patches_kernel(const float* __restrict__ vol,
-                         const float* __restrict__ pos,
-                         float* __restrict__ out, int F, int Z, int X, int Y,
-                         int pz, int px, int py) {
-  extern __shared__ float win[];
-  const int b = blockIdx.x;
-  const int c = blockIdx.y;
-  const int p[3] = {pz, px, py};
-  const int hi[3] = {Z - (pz + 1), X - (px + 1), Y - (py + 1)};
-  int base[3];
-  float w0[3], w1[3];
+struct Geometry {
+  int F, Z, X, Y;      // volume (F, Z, X, Y)
+  int pz, px, py;      // patch
+  int sx, sz;          // window edges along z and x (p + 1)
+  int rp;              // floats per staged window row (py + 1 floats)
+  int pitch;           // floats between window z-planes in shared memory
+  int slot;            // floats per ring slot
+  const float* end;    // the end of the volume, never read
+};
+
+// The window origin and the per-axis weights of agent b.
+__device__ __forceinline__ void agent_window(const float* __restrict__ pos,
+                                             int b, const Geometry& g,
+                                             int base[3], float w0[3],
+                                             float w1[3]) {
+  const int p[3] = {g.pz, g.px, g.py};
+  const int hi[3] = {g.Z - (g.pz + 1), g.X - (g.px + 1), g.Y - (g.py + 1)};
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const float corner = __fsub_rn(pos[3 * b + d], 0.5f * (float)(p[d] - 1));
+    const float corner = __fsub_rn(__ldg(pos + 3 * b + d),
+                                   0.5f * (float)(p[d] - 1));
     const float fl = floorf(corner);
     const float fr = __fsub_rn(corner, fl);
     base[d] = (int)fminf(fmaxf(fl, 0.f), (float)hi[d]);
     w0[d] = __fsub_rn(1.f, fr);
     w1[d] = fr;
   }
+}
 
-  // stage the window, y fastest
-  const int sx = px + 1, sy = py + 1;
-  const int n_win = (pz + 1) * sx * sy;
-  const float* vc = vol + (int64_t)c * Z * X * Y;
-  for (int i = threadIdx.x; i < n_win; i += THREADS) {
-    const int wz = i / (sx * sy);
-    const int r = i - wz * sx * sy;
-    const int wx = r / sy;
-    const int wy = r - wx * sy;
-    win[i] = __ldg(vc + ((int64_t)(base[0] + wz) * X + base[1] + wx) * Y
-                   + base[2] + wy);
-  }
-  __syncthreads();
+// The device address of the first voxel of item (b, c)'s window.
+__device__ __forceinline__ const float* window_origin(
+    const float* vol, const int base[3], int c, const Geometry& g) {
+  return vol + (((int64_t)c * g.Z + base[0]) * g.X + base[1]) * g.Y
+         + base[2];
+}
 
+// Start this thread's cp.async copies of item (b, c)'s window into `slot`.
+__device__ __forceinline__ void stage_window(float* slot,
+                                             const float* __restrict__ vol,
+                                             const float* __restrict__ pos,
+                                             int b, int c,
+                                             const Geometry& g) {
+  int base[3];
+  float w0[3], w1[3];
+  agent_window(pos, b, g, base, w0, w1);
+  stage_rows16(slot, g.pitch, g.rp, window_origin(vol, base, c, g),
+               (int64_t)g.X * g.Y, g.Y, g.sz, g.sx, g.rp / 4, g.end,
+               threadIdx.x, THREADS);
+}
+
+// Blend item (b, c) from its staged window: each thread slides (z, y)
+// columns of the patch along x. kAligned: Y % 4 == 0, so every staged row
+// has the first row's offset within 16 bytes.
+template <bool kAligned>
+__device__ __forceinline__ void blend_window(const float* slot,
+                                             const float* __restrict__ vol,
+                                             const float* __restrict__ pos,
+                                             float* __restrict__ out, int b,
+                                             int c, const Geometry& g) {
+  int base[3];
+  float w0[3], w1[3];
+  agent_window(pos, b, g, base, w0, w1);
   float w[8];
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz)
@@ -84,59 +127,182 @@ trilinear_patches_kernel(const float* __restrict__ vol,
         w[(dz * 2 + dx) * 2 + dy] =
             __fmul_rn(__fmul_rn(dz ? w1[0] : w0[0], dx ? w1[1] : w0[1]),
                       dy ? w1[2] : w0[2]);
-
-  const int n_out = pz * px * py;
-  float* o = out + ((int64_t)b * F + c) * n_out;
-  for (int i = threadIdx.x; i < n_out; i += THREADS) {
-    const int iz = i / (px * py);
-    const int r = i - iz * px * py;
-    const int ix = r / py;
-    const int iy = r - ix * py;
-    float acc = 0.f;
-#pragma unroll
-    for (int dz = 0; dz < 2; ++dz)
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy)
-          acc = __fadd_rn(acc, __fmul_rn(
-              w[(dz * 2 + dx) * 2 + dy],
-              win[((iz + dz) * sx + ix + dx) * sy + iy + dy]));
-    o[i] = acc;
+  // staged row (z, x) holds its voxels from offset (s0 + z*mz + x*mx) mod 4
+  const int s0 = row_shift(window_origin(vol, base, c, g));
+  const int mz = kAligned ? 0 : (int)(((int64_t)g.X * g.Y) & 3);
+  const int mx = kAligned ? 0 : g.Y & 3;
+  const int n_col = g.pz * g.py;
+  float* o = out + ((int64_t)b * g.F + c) * (g.pz * g.px * g.py);
+  for (int col = threadIdx.x; col < n_col; col += THREADS) {
+    const int iz = col / g.py;            // once per column of px outputs
+    const int iy = col - iz * g.py;
+    const float* r0 = slot + iz * g.pitch + iy;
+    const float* r1 = r0 + g.pitch;
+    int h0 = (s0 + iz * mz) & 3;
+    int h1 = (h0 + mz) & 3;
+    float a00 = r0[h0], a01 = r0[h0 + 1], a10 = r1[h1], a11 = r1[h1 + 1];
+    float* oc = o + iz * g.px * g.py + iy;
+    for (int ix = 0; ix < g.px; ++ix) {
+      r0 += g.rp;
+      r1 += g.rp;
+      h0 = (h0 + mx) & 3;
+      h1 = (h1 + mx) & 3;
+      const float b00 = r0[h0], b01 = r0[h0 + 1], b10 = r1[h1],
+                  b11 = r1[h1 + 1];
+      float acc = 0.f;
+      acc = __fadd_rn(acc, __fmul_rn(w[0], a00));   // dz 0, dx 0
+      acc = __fadd_rn(acc, __fmul_rn(w[1], a01));
+      acc = __fadd_rn(acc, __fmul_rn(w[2], b00));   // dz 0, dx 1
+      acc = __fadd_rn(acc, __fmul_rn(w[3], b01));
+      acc = __fadd_rn(acc, __fmul_rn(w[4], a10));   // dz 1, dx 0
+      acc = __fadd_rn(acc, __fmul_rn(w[5], a11));
+      acc = __fadd_rn(acc, __fmul_rn(w[6], b10));   // dz 1, dx 1
+      acc = __fadd_rn(acc, __fmul_rn(w[7], b11));
+      oc[ix * g.py] = acc;
+      a00 = b00;
+      a01 = b01;
+      a10 = b10;
+      a11 = b11;
+    }
   }
+}
+
+template <bool kAligned>
+__global__ void __launch_bounds__(THREADS)
+trilinear_patches_kernel(const float* __restrict__ vol,
+                         const float* __restrict__ pos,
+                         float* __restrict__ out, const Geometry g, int work,
+                         int n_slots) {
+  extern __shared__ __align__(16) float ring[];
+  const int depth = n_slots - 1;                 // items copied ahead
+  const int n_mine = (int)blockIdx.x < work
+                         ? (work - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                         : 0;
+  // prologue: the first `depth` items in flight, one commit group each
+  for (int j = 0; j < depth; ++j) {
+    if (j < n_mine) {
+      const int w = blockIdx.x + j * gridDim.x;
+      const int b = w / g.F;
+      stage_window(ring + j * g.slot, vol, pos, b, w - b * g.F, g);
+    }
+    cp_async_commit();
+  }
+  int s_load = depth, s_use = 0;
+  for (int k = 0; k < n_mine; ++k) {
+    if (k + depth < n_mine) {
+      const int w = blockIdx.x + (k + depth) * gridDim.x;
+      const int b = w / g.F;
+      stage_window(ring + s_load * g.slot, vol, pos, b, w - b * g.F, g);
+    }
+    cp_async_commit();
+    cp_async_wait_upto(depth);       // this thread's copies of item k landed
+    __syncthreads();                 // ... and every other thread's
+    const int w = blockIdx.x + k * gridDim.x;
+    const int b = w / g.F;
+    blend_window<kAligned>(ring + s_use * g.slot, vol, pos, out, b,
+                           w - b * g.F, g);
+    __syncthreads();                 // slot s_use is free for the next copy
+    s_load = s_load + 1 == n_slots ? 0 : s_load + 1;
+    s_use = s_use + 1 == n_slots ? 0 : s_use + 1;
+  }
+}
+
+Geometry make_geometry(const float* vol, int F, int Z, int X, int Y, int pz,
+                       int px, int py) {
+  Geometry g;
+  g.F = F;
+  g.Z = Z;
+  g.X = X;
+  g.Y = Y;
+  g.pz = pz;
+  g.px = px;
+  g.py = py;
+  g.sz = pz + 1;
+  g.sx = px + 1;
+  g.rp = 4 * ((py + 1 + 6) / 4);          // pieces for py + 1 floats
+  const int plane = g.sx * g.rp;
+  g.pitch = plane + (48 - plane % 32) % 32;   // pitch % 32 == 16
+  g.slot = g.sz * g.pitch;
+  g.end = vol ? vol + (int64_t)F * Z * X * Y : nullptr;
+  return g;
 }
 
 }  // namespace
 
+// Set both kernel forms' dynamic shared-memory limit to the current
+// device's per-block opt-in and report that opt-in and the SM count. Call
+// it once per device before the first launch, outside any CUDA graph
+// capture.
+extern "C" int e2t_trilinear_patches_init(int* optin_bytes, int* n_sm) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin_bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(trilinear_patches_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *optin_bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(trilinear_patches_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *optin_bytes);
+  return static_cast<int>(e);
+}
+
+// How many blocks of the kernel fit one SM with an n_slots ring for this
+// patch (0 when none does), and the bytes of one slot. A host-side query:
+// call it outside any CUDA graph capture.
+extern "C" int e2t_trilinear_patches_fit(int pz, int px, int py, int n_slots,
+                                         int* blocks_per_sm,
+                                         int* slot_bytes) {
+  if (pz < 1 || px < 1 || py < 1 || n_slots < 1 || n_slots > MAX_SLOTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *slot_bytes = static_cast<int>(sizeof(float))
+                * make_geometry(nullptr, 1, 1, 1, 1, pz, px, py).slot;
+  *blocks_per_sm = 0;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess || (size_t)*slot_bytes * n_slots > (size_t)optin)
+    return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, trilinear_patches_kernel<true>, THREADS,
+      (size_t)*slot_bytes * n_slots));
+}
+
 // Plain C entry point, loaded with ctypes.
-//   vol  (F, Z, X, Y) float32, contiguous
+//   vol  (F, Z, X, Y) float32, contiguous, 16-byte aligned
 //   pos  (B, 3) float32, contiguous
 //   out  (B, F, pz, px, py) float32, written
+//   n_slots  ring slots per block (1..3), within the opt-in set by
+//            e2t_trilinear_patches_init
+//   grid  blocks to launch (persistent: each walks items grid apart)
 // Launches on `stream` and returns a CUDA error code (0 on success):
 // cudaErrorInvalidValue for shapes the kernel does not take (a volume
-// smaller than patch+1, or a window beyond the card's shared memory), else
-// cudaGetLastError() after the launch.
+// smaller than patch+1 or not 16-byte aligned, a bad slot or block count),
+// else cudaGetLastError() after the launch. Nothing here synchronises or
+// sets an attribute: it runs inside CUDA graph captures.
 extern "C" int e2t_trilinear_patches_f32(const float* vol, const float* pos,
                                          float* out, int B, int F, int Z,
                                          int X, int Y, int pz, int px, int py,
-                                         void* stream) {
+                                         int n_slots, int grid, void* stream) {
   if (B < 1 || F < 1 || pz < 1 || px < 1 || py < 1 || Z < pz + 1 ||
-      X < px + 1 || Y < py + 1)
+      X < px + 1 || Y < py + 1 || n_slots < 1 || n_slots > MAX_SLOTS ||
+      grid < 1 || (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (size_t)(pz + 1) * (px + 1) * (py + 1);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        trilinear_patches_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(F));
-  trilinear_patches_kernel<<<grid, THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      vol, pos, out, F, Z, X, Y, pz, px, py);
+  const Geometry g = make_geometry(vol, F, Z, X, Y, pz, px, py);
+  const size_t smem = sizeof(float) * (size_t)g.slot * n_slots;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Y % 4 == 0)
+    trilinear_patches_kernel<true><<<grid, THREADS, smem, s>>>(
+        vol, pos, out, g, B * F, n_slots);
+  else
+    trilinear_patches_kernel<false><<<grid, THREADS, smem, s>>>(
+        vol, pos, out, g, B * F, n_slots);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,126 +12,434 @@
 //   in the order dz, dx, dy, and
 //   ok[b] = all samples have 0 <= coord <= dims-2.
 //
-// What bounds it on this card: the scattered corner loads. A rotated patch
-// box does not map to a window along y, so each sample reads 8 corners that
-// no neighbouring thread shares along a row; at B = 512 agents, patch 16^3,
-// that is 16.8 M corner loads (67 MB through L1/L2) per call against 8 MB
-// written. The agent's samples all fall in a 30^3 rotation-invariant window
-// (108 KB per channel), which stays in L1/L2 while the block works on it.
+// What bounds it on this card: the corner gathers. A rotated patch does
+// not map to rows of the volume, so each sample reads 8 corners no
+// neighbouring thread shares along a row; at B = 512 agents, patch 16^3,
+// that is 16.8 M corner reads per call. Served from L1/L2 they cost 36 us
+// (the former form of this kernel); the bytes the call must move (each
+// agent's (p+1)^3 voxels once, 8 MB of patches) take 5.5 us at 3.35 TB/s.
 // The TPU kernel's hat-weight matrix contraction on the MXU exists only
-// because the TPU has no fast gather and is not carried over.
+// because the TPU has no fast gather and is not carried over; its staged
+// window (pallas_extract_rot.py::_geom) is.
 //
 // What the design does about it:
-//  * one block per agent, one thread per output sample (looping over the
-//    patch); the sample's coordinates, corners and weights are computed
-//    once and serve every channel;
-//  * the 8 corner loads go through the read-only path (__ldg), and the
-//    neighbouring samples of a warp hit the same cache lines;
+//  * each agent's window, the axis-aligned box of its rotated lattice, is
+//    staged in shared memory and the 8 corners of every sample are read
+//    from there. Along axis d the samples span pos_d -+ t_d, t_d = sum_j
+//    |F_jd| (p_j-1)/2; the box runs from floor(pos_d - t_d - e) to
+//    floor(pos_d + t_d + e) + 1, where e = 2^-20 (|pos_d| + t_d) is over
+//    twice the float rounding of any sample's coordinate, and is clipped to
+//    the volume. At 16^3 an edge is at most 28 voxels;
+//  * the box's rows are copied with 16-byte cp.async from the 16-byte group
+//    that holds each row's start (stage_rows16 in cp_async.cuh), so a row
+//    lands in shared memory at the same offset within 16 bytes as in device
+//    memory; a sample finds its corner rows' offsets from the row start's
+//    address (constant over the box when Y % 4 == 0);
+//  * persistent blocks walk over the (agent, channel) items with a ring of
+//    1 or 2 slots of 25088 floats (98 KB, a 28 x 28 box of 32-float rows at
+//    16^3): with 2, the next item's box is copied while this one is
+//    blended; with 1, two blocks share an SM and overlap each other. On an
+//    H100 one slot measured 14-17% faster (ops/extract_rot.py::RING_SLOTS);
+//  * no shared-memory value is read unless this item's copy wrote it (the
+//    0*NaN trap of pallas_extract_rot.py:239-247): a sample whose corners
+//    fall outside the staged box, or an item whose box outgrows a slot
+//    (only frames that are not orthonormal do), reads its corners from
+//    device memory instead, with the same arithmetic;
+//  * the sample walk steps its mixed-radix digits by the block's stride,
+//    with one carry at most per digit: no division per sample;
 //  * coordinates are computed in the oracle's order, t = F0i*o0 + F1i*o1,
 //    t = t + F2i*o2, coord = pos_i + t, with __fmul_rn / __fadd_rn so nvcc
 //    contracts nothing into FMAs: patches and ok equal the plain PyTorch
 //    version bit for bit;
 //  * ok is the all-samples criterion on those same coordinates, reduced
-//    over the block with __syncthreads_and (the TPU kernel used the
-//    equivalent 8-box-corner test, rotated_ok).
-// Staging the window in shared memory is later work; nothing is staged, so
-// no unread window tail can poison a weighted sum (the 0*NaN trap).
+//    over the block with __syncthreads_and;
+//  * an agent whose box, before the clip, lies in [0, dims-2] (the common
+//    case) takes a sample loop without the per-sample bound test, clip and
+//    box test: every coordinate lies in [pos - t - e, pos + t + e], inside
+//    that box, so all three hold for every sample and ok is true, as the
+//    plain version finds.
+// The kernel's dynamic shared-memory limit is lifted to the card's opt-in
+// once, by e2t_rotated_patches_init, outside any CUDA graph capture.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_SLOTS = 2;
 
-__global__ void __launch_bounds__(THREADS)
-rotated_patches_kernel(const float* __restrict__ vol,
-                       const float* __restrict__ pos,
-                       const float* __restrict__ frames,
-                       float* __restrict__ out, unsigned char* __restrict__ ok,
-                       int F, int Z, int X, int Y, int pz, int px, int py) {
-  const int b = blockIdx.x;
-  float fr[9];  // frame rows: fr[3*j + i] = F[j][i]
-#pragma unroll
-  for (int k = 0; k < 9; ++k) fr[k] = __ldg(frames + 9 * b + k);
+struct Geometry {
+  int F, Z, X, Y;      // volume (F, Z, X, Y)
+  int pz, px, py;      // patch
+  int cap;             // floats per ring slot
+  const float* end;    // the end of the volume, never read
+};
+
+struct Digits {
+  int z, x, y;
+};
+
+__device__ __forceinline__ Digits digits(int i, int ex, int ey) {
+  Digits d;
+  const int plane = ex * ey;
+  d.z = i / plane;
+  const int r = i - d.z * plane;
+  d.x = r / ey;
+  d.y = r - d.x * ey;
+  return d;
+}
+
+// Advance (z, x, y) by `st` (with st.x < ex, st.y < ey): one carry at most
+// per digit.
+__device__ __forceinline__ void advance(int& z, int& x, int& y,
+                                        const Digits& st, int ex, int ey) {
+  y += st.y;
+  x += st.x;
+  z += st.z;
+  if (y >= ey) {
+    y -= ey;
+    ++x;
+  }
+  if (x >= ex) {
+    x -= ex;
+    ++z;
+  }
+}
+
+// Floats a staged row takes: 16-byte pieces enough for n floats from any
+// offset within 16 bytes (ops/extract.py::row_floats).
+__device__ __forceinline__ int row_floats(int n) {
+  return 4 * ((n + 6) / 4);
+}
+
+struct Agent {
+  float fr[9];   // frame rows: fr[3*j + i] = F[j][i]
   float p0[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) p0[d] = __ldg(pos + 3 * b + d);
-  const int dims[3] = {Z, X, Y};
-  const float half[3] = {0.5f * (float)(pz - 1), 0.5f * (float)(px - 1),
-                         0.5f * (float)(py - 1)};
-  const int n_out = pz * px * py;
-  const int64_t plane = (int64_t)X * Y;
-  const int64_t chan = (int64_t)Z * plane;
-  int all_ok = 1;
+  int lo[3];     // the staged box: origin and edges
+  int ext[3];
+  int rp;        // floats per staged row
+  bool staged;   // the box fits a slot
+  bool interior; // staged, and its unclipped box lies in [0, dims-2]
+};
 
+__device__ __forceinline__ Agent load_agent(const float* __restrict__ pos,
+                                            const float* __restrict__ frames,
+                                            int b, const Geometry& g) {
+  Agent a;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) a.fr[k] = __ldg(frames + 9 * b + k);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) a.p0[d] = __ldg(pos + 3 * b + d);
+  const int dims[3] = {g.Z, g.X, g.Y};
+  const float half[3] = {0.5f * (float)(g.pz - 1), 0.5f * (float)(g.px - 1),
+                         0.5f * (float)(g.py - 1)};
+  bool interior = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float t = __fadd_rn(__fmul_rn(fabsf(a.fr[d]), half[0]),
+                        __fmul_rn(fabsf(a.fr[3 + d]), half[1]));
+    t = __fadd_rn(t, __fmul_rn(fabsf(a.fr[6 + d]), half[2]));
+    const float e = __fmul_rn(__fadd_rn(fabsf(a.p0[d]), t), 0x1p-20f);
+    const float lo_f = floorf(__fsub_rn(__fsub_rn(a.p0[d], t), e));
+    const float hi_f = floorf(__fadd_rn(__fadd_rn(a.p0[d], t), e)) + 1.f;
+    interior = interior && lo_f >= 0.f && hi_f <= (float)(dims[d] - 2);
+    const float lo = fminf(fmaxf(lo_f, 0.f), (float)(dims[d] - 2));
+    const float hi = fminf(fmaxf(hi_f, lo + 1.f), (float)(dims[d] - 1));
+    a.lo[d] = (int)lo;
+    a.ext[d] = (int)hi - a.lo[d] + 1;
+  }
+  a.rp = row_floats(a.ext[2]);
+  a.staged = (int64_t)a.ext[0] * a.ext[1] * a.rp <= g.cap;
+  a.interior = a.staged && interior;
+  return a;
+}
+
+// The 8-corner sum of one sample from its corner rows r00 (dz, dx) = (0,
+// 0), r01 (0, 1), r10 (1, 0), r11 (1, 1), each pointing at the corner's y,
+// in the oracle's order: w = (wz*wx)*wy, acc = acc + w*v from 0.
+__device__ __forceinline__ float corner_sum(const float* r00,
+                                            const float* r01,
+                                            const float* r10,
+                                            const float* r11,
+                                            const float w0[3],
+                                            const float w1[3]) {
+  const float* rows[4] = {r00, r01, r10, r11};
+  float acc = 0.f;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float w = __fmul_rn(
+            __fmul_rn(dz ? w1[0] : w0[0], dx ? w1[1] : w0[1]),
+            dy ? w1[2] : w0[2]);
+        acc = __fadd_rn(acc, __fmul_rn(w, rows[2 * dz + dx][dy]));
+      }
+  return acc;
+}
+
+// The same sum read from device memory: the rare sample whose corners lie
+// outside the staged box. Not inlined, so the hot path keeps its shared-
+// memory loads and nothing of this one.
+__device__ __noinline__ float corner_sum_global(const float* __restrict__ v,
+                                                int64_t plane, int row,
+                                                float wz0, float wz1,
+                                                float wx0, float wx1,
+                                                float wy0, float wy1) {
+  const float w0[3] = {wz0, wx0, wy0}, w1[3] = {wz1, wx1, wy1};
+  float acc = 0.f;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float w = __fmul_rn(
+            __fmul_rn(dz ? w1[0] : w0[0], dx ? w1[1] : w0[1]),
+            dy ? w1[2] : w0[2]);
+        acc = __fadd_rn(acc, __fmul_rn(
+            w, __ldg(v + dz * plane + (int64_t)dx * row + dy)));
+      }
+  return acc;
+}
+
+// Blend item (b, c) of agent `a`, staged at `slot` from `box` (the device
+// address of the box's first voxel in channel base vc); returns this
+// thread's ok (every sample it computed in bounds).
+//   kInterior: `a` is interior, so every sample lies in bounds (ok), its
+//     clip does nothing and its corners lie in the staged box, and none of
+//     the three is tested;
+//   kAligned: Y % 4 == 0, so every staged row has the first row's offset
+//     within 16 bytes.
+template <bool kInterior, bool kAligned>
+__device__ __forceinline__ int blend_box(const float* slot,
+                                         const float* __restrict__ vc,
+                                         const float* box,
+                                         float* __restrict__ o,
+                                         const Agent& a, const Geometry& g,
+                                         Digits t0, Digits st) {
+  const int dims[3] = {g.Z, g.X, g.Y};
+  const float half[3] = {0.5f * (float)(g.pz - 1), 0.5f * (float)(g.px - 1),
+                         0.5f * (float)(g.py - 1)};
+  const int64_t XY = (int64_t)g.X * g.Y;
+  const int ex = a.ext[1], rp = a.rp;
+  // a staged row (z, x) starts at slot + (z*ex + x)*rp + its shift, the
+  // row start's offset within 16 bytes: (s0 + z*mz + x*mx) mod 4 floats
+  const int s0 = row_shift(box);
+  const int mz = (int)(XY & 3), mx = g.Y & 3;
+  const int n_out = g.pz * g.px * g.py;
+  int all_ok = 1;
+  int iz = t0.z, ix = t0.x, iy = t0.y;
+  // F1d*o1 and F2d*o2 of the last ix and iy: a thread's samples lie
+  // THREADS apart, so (ix, iy) change rarely (never at a 16^3 patch)
+  int last_x = -1, last_y = -1;
+  float fx[3], fy[3];
   for (int i = threadIdx.x; i < n_out; i += THREADS) {
-    const int iz = i / (px * py);
-    const int r = i - iz * px * py;
-    const int ix = r / py;
-    const int iy = r - ix * py;
-    const float o[3] = {__fsub_rn((float)iz, half[0]),
-                        __fsub_rn((float)ix, half[1]),
-                        __fsub_rn((float)iy, half[2])};
+    if (ix != last_x) {
+      last_x = ix;
+      const float o1 = __fsub_rn((float)ix, half[1]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fx[d] = __fmul_rn(a.fr[3 + d], o1);
+    }
+    if (iy != last_y) {
+      last_y = iy;
+      const float o2 = __fsub_rn((float)iy, half[2]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fy[d] = __fmul_rn(a.fr[6 + d], o2);
+    }
+    const float o0 = __fsub_rn((float)iz, half[0]);
     int c0[3];
     float w0[3], w1[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      float t = __fadd_rn(__fmul_rn(fr[d], o[0]), __fmul_rn(fr[3 + d], o[1]));
-      t = __fadd_rn(t, __fmul_rn(fr[6 + d], o[2]));
-      const float c = __fadd_rn(p0[d], t);
+      const float t = __fadd_rn(__fadd_rn(__fmul_rn(a.fr[d], o0), fx[d]),
+                                fy[d]);
+      const float c = __fadd_rn(a.p0[d], t);
       const float hi = (float)(dims[d] - 2);
-      all_ok &= (c >= 0.f) & (c <= hi);
+      if (!kInterior) all_ok &= (c >= 0.f) & (c <= hi);
       const float fl = floorf(c);
       const float f1 = __fsub_rn(c, fl);
-      c0[d] = (int)fminf(fmaxf(fl, 0.f), hi);
+      c0[d] = kInterior ? (int)fl : (int)fminf(fmaxf(fl, 0.f), hi);
       w0[d] = __fsub_rn(1.f, f1);
       w1[d] = f1;
     }
-    const int64_t base = c0[0] * plane + (int64_t)c0[1] * Y + c0[2];
-    for (int ch = 0; ch < F; ++ch) {
-      const float* v = vol + ch * chan + base;
-      float acc = 0.f;
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz)
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-          for (int dy = 0; dy < 2; ++dy) {
-            const float w = __fmul_rn(
-                __fmul_rn(dz ? w1[0] : w0[0], dx ? w1[1] : w0[1]),
-                dy ? w1[2] : w0[2]);
-            acc = __fadd_rn(acc, __fmul_rn(
-                w, __ldg(v + dz * plane + (int64_t)dx * Y + dy)));
-          }
-      out[((int64_t)b * F + ch) * n_out + i] = acc;
+    const int lz = c0[0] - a.lo[0], lx = c0[1] - a.lo[1],
+              ly = c0[2] - a.lo[2];
+    const bool inside = kInterior || (a.staged
+        && (unsigned)lz <= (unsigned)(a.ext[0] - 2)
+        && (unsigned)lx <= (unsigned)(ex - 2)
+        && (unsigned)ly <= (unsigned)(a.ext[2] - 2));
+    if (inside) {
+      const float* r00 = slot + (lz * ex + lx) * rp + ly;
+      const float* r10 = r00 + ex * rp;
+      if (kAligned) {
+        o[i] = corner_sum(r00 + s0, r00 + rp + s0, r10 + s0, r10 + rp + s0,
+                          w0, w1);
+      } else {
+        const int h00 = (s0 + lz * mz + lx * mx) & 3;
+        const int h01 = (h00 + mx) & 3, h10 = (h00 + mz) & 3;
+        const int h11 = (h10 + mx) & 3;
+        o[i] = corner_sum(r00 + h00, r00 + rp + h01, r10 + h10,
+                          r10 + rp + h11, w0, w1);
+      }
+    } else {
+      o[i] = corner_sum_global(vc + c0[0] * XY + (int64_t)c0[1] * g.Y + c0[2],
+                               XY, g.Y, w0[0], w1[0], w0[1], w1[1], w0[2],
+                               w1[2]);
     }
+    advance(iz, ix, iy, st, g.px, g.py);
   }
-  all_ok = __syncthreads_and(all_ok);
-  if (threadIdx.x == 0) ok[b] = static_cast<unsigned char>(all_ok != 0);
+  return all_ok;
+}
+
+// The device address of the first voxel of a's box in channel base vc.
+__device__ __forceinline__ const float* box_origin(const float* vc,
+                                                  const Agent& a,
+                                                  const Geometry& g) {
+  return vc + (a.lo[0] * (int64_t)g.X + a.lo[1]) * g.Y + a.lo[2];
+}
+
+// Start this thread's copies of a's box (channel base vc) into `slot`.
+__device__ __forceinline__ void stage_box(float* slot, const float* vc,
+                                          const Agent& a, const Geometry& g) {
+  const int64_t XY = (int64_t)g.X * g.Y;
+  stage_rows16(slot, a.ext[1] * a.rp, a.rp, box_origin(vc, a, g), XY, g.Y,
+               a.ext[0], a.ext[1], a.rp / 4, g.end, threadIdx.x, THREADS);
+}
+
+template <bool kAligned>
+__global__ void __launch_bounds__(THREADS, 2)
+rotated_patches_kernel(const float* __restrict__ vol,
+                       const float* __restrict__ pos,
+                       const float* __restrict__ frames,
+                       float* __restrict__ out, unsigned char* __restrict__ ok,
+                       const Geometry g, int work, int n_slots) {
+  extern __shared__ __align__(16) float ring[];
+  const Digits t0 = digits(threadIdx.x, g.px, g.py);
+  const Digits st = digits(THREADS, g.px, g.py);
+  const int64_t chan = (int64_t)g.Z * g.X * g.Y;
+  const int n_out = g.pz * g.px * g.py;
+  const int depth = n_slots - 1;
+  const int n_mine = (int)blockIdx.x < work
+                         ? (work - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                         : 0;
+  if (depth > 0 && n_mine > 0) {           // prologue: the first item
+    const int b = blockIdx.x / g.F, c = blockIdx.x - b * g.F;
+    const Agent a = load_agent(pos, frames, b, g);
+    if (a.staged) stage_box(ring, vol + c * chan, a, g);
+  }
+  if (depth > 0) cp_async_commit();
+  int s_load = depth, s_use = 0;
+  for (int k = 0; k < n_mine; ++k) {
+    if (k + depth < n_mine) {
+      const int w = blockIdx.x + (k + depth) * gridDim.x;
+      const int b = w / g.F, c = w - b * g.F;
+      const Agent a = load_agent(pos, frames, b, g);
+      if (a.staged) stage_box(ring + s_load * g.cap, vol + c * chan, a, g);
+    }
+    cp_async_commit();
+    cp_async_wait_upto(depth);       // this thread's copies of item k landed
+    __syncthreads();                 // ... and every other thread's
+    const int w = blockIdx.x + k * gridDim.x;
+    const int b = w / g.F, c = w - b * g.F;
+    const Agent a = load_agent(pos, frames, b, g);
+    const float* vc = vol + c * chan;
+    const float* box = box_origin(vc, a, g);
+    float* o = out + (int64_t)w * n_out;
+    const float* slot = ring + s_use * g.cap;
+    const int mine =
+        a.interior
+            ? blend_box<true, kAligned>(slot, vc, box, o, a, g, t0, st)
+            : blend_box<false, kAligned>(slot, vc, box, o, a, g, t0, st);
+    // a barrier too: slot s_use is free for the next copy after it
+    const int all_ok = __syncthreads_and(mine);
+    if (threadIdx.x == 0 && c == 0)
+      ok[b] = static_cast<unsigned char>(all_ok != 0);
+    s_load = s_load + 1 == n_slots ? 0 : s_load + 1;
+    s_use = s_use + 1 == n_slots ? 0 : s_use + 1;
+  }
 }
 
 }  // namespace
 
+// Set both kernel forms' dynamic shared-memory limit to the current
+// device's per-block opt-in and report that opt-in and the SM count. Call
+// it once per device before the first launch, outside any CUDA graph
+// capture.
+extern "C" int e2t_rotated_patches_init(int* optin_bytes, int* n_sm) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin_bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rotated_patches_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *optin_bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rotated_patches_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *optin_bytes);
+  return static_cast<int>(e);
+}
+
+// How many blocks of the kernel fit one SM with `smem_bytes` of ring (0 when
+// none does). A host-side query: call it outside any CUDA graph capture.
+extern "C" int e2t_rotated_patches_fit(int smem_bytes, int* blocks_per_sm) {
+  *blocks_per_sm = 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, rotated_patches_kernel<true>, THREADS,
+      (size_t)smem_bytes));
+}
+
 // Plain C entry point, loaded with ctypes.
-//   vol    (F, Z, X, Y) float32, contiguous
+//   vol    (F, Z, X, Y) float32, contiguous, 16-byte aligned
 //   pos    (B, 3) float32, contiguous
 //   frames (B, 3, 3) float32, contiguous: flight-frame rows per agent
 //   out    (B, F, pz, px, py) float32, written
 //   ok     (B,) one byte per agent (a torch.bool tensor), written 0 / 1
+//   cap    floats per ring slot (a box that takes more is not staged)
+//   n_slots  ring slots per block (1 or 2), n_slots * cap floats within the
+//            opt-in set by e2t_rotated_patches_init
+//   grid   blocks to launch (persistent: each walks items grid apart)
 // Launches on `stream` and returns a CUDA error code (0 on success):
 // cudaErrorInvalidValue for shapes the kernel does not take (a volume with
-// an edge under 2), else cudaGetLastError() after the launch.
+// an edge under 2, a volume not 16-byte aligned, a bad slot or block
+// count), else cudaGetLastError() after the launch. Nothing here
+// synchronises or sets an attribute: it runs inside CUDA graph captures.
 extern "C" int e2t_rotated_patches_f32(const float* vol, const float* pos,
                                        const float* frames, float* out,
                                        unsigned char* ok, int B, int F, int Z,
                                        int X, int Y, int pz, int px, int py,
+                                       int cap, int n_slots, int grid,
                                        void* stream) {
   if (B < 1 || F < 1 || pz < 1 || px < 1 || py < 1 || Z < 2 || X < 2 ||
-      Y < 2)
+      Y < 2 || cap < 16 || n_slots < 1 || n_slots > MAX_SLOTS || grid < 1 ||
+      (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  rotated_patches_kernel<<<static_cast<unsigned>(B), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      vol, pos, frames, out, ok, F, Z, X, Y, pz, px, py);
+  Geometry g;
+  g.F = F;
+  g.Z = Z;
+  g.X = X;
+  g.Y = Y;
+  g.pz = pz;
+  g.px = px;
+  g.py = py;
+  g.cap = cap & ~3;                     // slots stay 16-byte aligned
+  g.end = vol + (int64_t)F * Z * X * Y;
+  const size_t smem = sizeof(float) * (size_t)g.cap * n_slots;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Y % 4 == 0)
+    rotated_patches_kernel<true><<<grid, THREADS, smem, s>>>(
+        vol, pos, frames, out, ok, g, B * F, n_slots);
+  else
+    rotated_patches_kernel<false><<<grid, THREADS, smem, s>>>(
+        vol, pos, frames, out, ok, g, B * F, n_slots);
   return static_cast<int>(cudaGetLastError());
 }

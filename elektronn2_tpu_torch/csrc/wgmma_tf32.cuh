@@ -1,7 +1,7 @@
 // Device helpers of the 3xTF32 `wgmma` implicit GEMMs K1 (tailconv.cu) and
-// K4 (headconv.cu), for sm_90a: cp.async staging, the shared-memory matrix
-// descriptor of the packed weights, the TF32 split, and one m64nNk8 `wgmma`
-// per N tile. Included by both sources; utils/cuda_build.py puts the text of
+// K4 (headconv.cu), for sm_90a: cp.async staging (cp_async.cuh), the
+// shared-memory matrix descriptor of the packed weights, the TF32 split, and
+// one m64nNk8 `wgmma` per N tile. Included by both sources; utils/cuda_build.py puts the text of
 // every included header into a library's build key.
 //
 // The split: v = hi + lo, hi = v rounded to TF32 (10 explicit mantissa
@@ -14,6 +14,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -36,28 +38,6 @@ __device__ __forceinline__ uint64_t smem_desc(const float* p) {
 // sign-magnitude bits plus half a TF32 ulp, the low 13 bits cleared
 __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -2,14 +2,20 @@
 
 Port of ``CubeShape``, ``ShotgunRegistry`` and the fused ``DeviceTracer``
 rollout in ``elektronn2_tpu/data/tracing_utils.py`` (reference:
-``elektronn2/data/tracing_utils.py``). The JAX package compiles the rollout
-into one ``lax.scan``; here it is a Python loop over ``max_steps`` that only
-enqueues work on the volume's device: positions, the alive mask and the
-recurrent state stay tensors, every stop is a ``torch.where``, and the only
-copy to the host is the final trajectory. Each step cuts the agents' patches
-with the hand-written CUDA kernel K2 (``ops/extract.py``) or, with
-``rotate_to_heading=True``, K3 (``ops/extract_rot.py``), then evaluates the
-model's ``ScanN`` cell on them.
+``elektronn2/data/tracing_utils.py``). The rollout is a Python loop over
+``max_steps`` that only enqueues work on the volume's device: positions, the
+alive mask and the recurrent state stay tensors, every stop is a
+``torch.where``, and the only copy to the host is the final trajectory. Each
+step cuts the agents' patches with the hand-written CUDA kernel K2
+(``ops/extract.py``) or, with ``rotate_to_heading=True``, K3
+(``ops/extract_rot.py``), then evaluates the model's ``ScanN`` cell on them.
+
+Where the JAX package compiles the rollout into one ``jax.jit(lax.scan)``,
+a rollout on the card is captured once into a CUDA graph and replayed: one
+dispatch per rollout instead of some 33 launches per step, each of which
+costs the host more than the device takes to run it. A graph is kept per
+(batch size, horizon, route, volume and parameter tensors), see
+:meth:`DeviceTracer.graph_key`; a CPU volume takes the eager loop.
 
 Not ported (``NotImplementedError`` naming ROADMAP.md §1 item 7b): the
 respawning and chained pools (``trace_pool``, ``trace_pool_chain``,
@@ -18,6 +24,9 @@ the bf16 rotated mode, and (item 11) the mesh-sharded ``trace_batch``.
 """
 
 from __future__ import annotations
+
+import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -131,6 +140,26 @@ def _kernel_route(knob, vol, name):
     return bool(knob)
 
 
+def _param_tensors(params):
+    """The tensors of ``{node: {name: tensor}}``, in a fixed order."""
+    return [params[n][k] for n in sorted(params) for k in sorted(params[n])]
+
+
+class _RolloutGraph:
+    """One captured rollout: the CUDA graph, its static inputs (seeds,
+    headings) and outputs (``traj``, ``moved``), the tensors it reads
+    (held, so that their ids stay unique while the graph lives), the kernel
+    launches it makes per replay and the seconds its capture took."""
+
+    def __init__(self, tensors, seeds, heads):
+        self.tensors = tensors
+        self.seeds, self.heads = seeds, heads
+        self.graph = torch.cuda.CUDAGraph()
+        self.traj = self.moved = None
+        self.launches = (0, 0)               # (K2, K3) per replay
+        self.capture_seconds = None
+
+
 class DeviceTracer(_AgentStepper):
     """Fused agent rollout: a batch of agents steps through a volume that
     stays on the device.
@@ -156,7 +185,16 @@ class DeviceTracer(_AgentStepper):
 
     The volume is moved to the model's device; the model's parameters must
     be there already (``Model.to``).
+
+    On the card :meth:`trace_batch` (and so :meth:`trace` and
+    ``ShotgunRegistry.run``) replays a CUDA graph of the whole rollout,
+    captured on first use for its :meth:`graph_key`; ``capture_seconds`` is
+    the last capture's time. At most ``MAX_GRAPHS`` graphs are kept, the
+    least recently used dropped first.
     """
+
+    #: captured rollouts kept per tracer
+    MAX_GRAPHS = 2
 
     def __init__(self, model, volume, step_scale=1.0, max_steps=500,
                  min_step=1e-4, use_pallas_extract=None,
@@ -205,6 +243,8 @@ class DeviceTracer(_AgentStepper):
         self._lo = margin
         self._hi = torch.tensor(self.volume.shape[1:], dtype=torch.float32,
                                 device=self.volume.device) - margin
+        self._graphs = OrderedDict()         # graph_key -> _RolloutGraph
+        self.capture_seconds = None
 
     # -- the plain patch cuts (the kernels' oracles) -------------------------
     def _extract(self, vol, pos):
@@ -223,11 +263,11 @@ class DeviceTracer(_AgentStepper):
         return patches, ok, F
 
     # -- the rollout ----------------------------------------------------------
-    def _rollout(self, params, vol, seeds, headings0):
-        """Roll out ``max_steps`` steps from ``seeds`` (B, 3); returns the
-        device tensors ``(traj (K, B, 3), moved (K, B))``: each step's
-        positions and which agents moved in it. Nothing in it waits for the
-        device."""
+    def _rollout(self, params, vol, seeds, headings0, steps=None):
+        """Roll out ``steps`` (default ``max_steps``) steps from ``seeds``
+        (B, 3); returns the device tensors ``(traj (K, B, 3), moved (K,
+        B))``: each step's positions and which agents moved in it. Nothing in
+        it waits for the device, so it can be captured in a CUDA graph."""
         B = seeds.shape[0]
 
         def inbounds(p):
@@ -239,7 +279,7 @@ class DeviceTracer(_AgentStepper):
         rnn = self._init_carry(params, B)
         traj, moves = [], []
         with torch.no_grad(), f32_matmuls():
-            for _ in range(self.max_steps):
+            for _ in range(self.max_steps if steps is None else steps):
                 F = None
                 if self.rotate_to_heading:
                     if self._rot_kernel:
@@ -277,6 +317,84 @@ class DeviceTracer(_AgentStepper):
                     torch.zeros((0, B), dtype=torch.bool, device=vol.device))
         return torch.stack(traj), torch.stack(moves)
 
+    # -- the rollout as one CUDA graph -----------------------------------------
+    def graph_key(self, params, B):
+        """The key under which a captured rollout of ``B`` agents with
+        ``params`` is kept: B, the horizon and step rules, the route, and
+        for the volume and every parameter tensor its identity, ``_version``
+        and address. A graph reads its tensors' memory as it was at capture,
+        so
+        - ``Model.set_params`` makes new tensors: new ids, a new graph (ids
+          are compared only while the kept graph holds the old tensors, so
+          no id is reused; an address alone could be);
+        - an in-place update (``p.add_(...)``, ``p.copy_(...)``) bumps
+          ``_version``: a new graph;
+        - assigning ``p.data = other`` bumps nothing but moves the address:
+          a new graph. A write through ``p.data`` in place (``p.data.copy_``)
+          changes neither, and needs none: the graph reads the same memory.
+        """
+        tensors = [self.volume] + _param_tensors(params)
+        return (int(B), self.max_steps, self.step_scale, self.min_step,
+                self.rotate_to_heading, self._extract_kernel, self._rot_kernel,
+                tuple((id(t), t._version, t.data_ptr()) for t in tensors))
+
+    def _capture(self, params, seeds, headings0):
+        """Capture ``_rollout`` of ``seeds``' batch into a new
+        ``_RolloutGraph``. A one-step eager rollout on the capture stream
+        first loads the libraries, makes cuBLAS's workspace and lifts the
+        kernels' shared-memory limits, so none of that happens inside the
+        capture. The kernel counters tick while the capture records, though
+        nothing runs: they are put back, and each replay adds the recorded
+        launches instead."""
+        dev = self.volume.device
+        entry = _RolloutGraph([self.volume] + _param_tensors(params),
+                              torch.empty((len(seeds), 3), device=dev),
+                              torch.empty((len(seeds), 3), device=dev))
+        entry.seeds.copy_(seeds)
+        entry.heads.copy_(headings0)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._rollout(params, self.volume, entry.seeds, entry.heads,
+                          steps=1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = (extract.launches, extract_rot.launches)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(entry.graph, stream=side):
+            entry.traj, entry.moved = self._rollout(params, self.volume,
+                                                    entry.seeds, entry.heads)
+        entry.capture_seconds = self.capture_seconds = \
+            time.perf_counter() - t0
+        entry.launches = (extract.launches - before[0],
+                          extract_rot.launches - before[1])
+        extract.launches, extract_rot.launches = before
+        return entry
+
+    def _rollout_graphed(self, params, seeds, headings0):
+        """``_rollout`` of ``max_steps`` steps as one replay of a CUDA graph,
+        captured on the first call for :meth:`graph_key`. ``seeds`` and
+        ``headings0`` (B, 3) may lie on the host or the card; they are copied
+        into the graph's static inputs. Returns clones of the static outputs
+        ``(traj, moved)``, so the next replay overwrites nothing a caller
+        holds. A failed capture or replay raises: there is no eager
+        fallback."""
+        with torch.cuda.device(self.volume.device):
+            key = self.graph_key(params, seeds.shape[0])
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = self._capture(params, seeds,
+                                                          headings0)
+                while len(self._graphs) > self.MAX_GRAPHS:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+                entry.seeds.copy_(seeds)
+                entry.heads.copy_(headings0)
+            entry.graph.replay()
+            extract.launches += entry.launches[0]
+            extract_rot.launches += entry.launches[1]
+            return entry.traj.clone(), entry.moved.clone()
+
     def trace_batch(self, seeds, save_kzip=None, mesh=None,
                     axis_name="data", initial_headings=None):
         """Roll out a batch of agents; returns a list of ``Trace``, each the
@@ -285,7 +403,10 @@ class DeviceTracer(_AgentStepper):
         (``skeleton.trace_to_kzip``). ``initial_headings``: (B, 3) world
         headings orienting the first frame-aligned views when
         ``rotate_to_heading=True`` (default (0, 0, 1); ignored otherwise).
-        ``mesh`` (sharding agents over devices) is not ported."""
+        ``mesh`` (sharding agents over devices) is not ported. On the card
+        the rollout is a replay of its CUDA graph (:meth:`graph_key`), and
+        its outputs are copied to the host at once; a CPU volume, no seeds
+        or ``max_steps=0`` take the eager loop."""
         if mesh is not None:
             raise NotImplementedError(
                 "trace_batch(mesh=...): sharding agents over devices is not "
@@ -299,9 +420,14 @@ class DeviceTracer(_AgentStepper):
             raise ValueError(f"initial_headings: {len(heads)} headings "
                              f"for {len(seeds)} seeds")
         dev = self.volume.device
-        traj, moved = self._rollout(self.model.params, self.volume,
-                                    torch.from_numpy(seeds).to(dev),
-                                    torch.from_numpy(heads).to(dev))
+        if dev.type == "cuda" and len(seeds) and self.max_steps:
+            traj, moved = self._rollout_graphed(self.model.params,
+                                                torch.from_numpy(seeds),
+                                                torch.from_numpy(heads))
+        else:
+            traj, moved = self._rollout(self.model.params, self.volume,
+                                        torch.from_numpy(seeds).to(dev),
+                                        torch.from_numpy(heads).to(dev))
         traj = traj.cpu().numpy().transpose(1, 0, 2)     # (B, K, 3)
         moved = moved.cpu().numpy().T                    # (B, K)
         traces = [Trace(np.concatenate([seeds[b:b + 1].astype(np.float64),
@@ -363,7 +489,8 @@ class ShotgunRegistry:
         With ``batch_size > 1`` and a tracer with ``trace_batch``, seeds are
         rolled out ``batch_size`` at a time; the last partial batch is
         padded with its first seed to a constant batch size and the padding
-        traces are dropped. Seeds of one batch are deduped against earlier
+        traces are dropped, so on the card one captured rollout graph serves
+        the whole drain. Seeds of one batch are deduped against earlier
         traces only, not against each other's fresh paths (the reference's
         documented relaxation, bounded by ``radius``). ``save_kzip``: after
         the drain, write all traces as a KNOSSOS annotation. ``pool=True``

@@ -26,24 +26,98 @@ import torch
 
 from ..utils.cuda_build import load_cuda_library
 
-#: kernel launches made by :func:`trilinear_patches` in this process
+#: kernel launches made by :func:`trilinear_patches` in this process (a
+#: replayed CUDA graph adds the launches it captured, see
+#: ``data/tracing_utils.py``)
 launches = 0
 
-_fn = None
+#: window slots in each block's shared-memory ring (1 to 3): with n slots a
+#: block copies n-1 windows ahead of the one it blends. One slot, with four
+#: blocks an SM overlapping each other, measured 5-8% faster than two or
+#: three on an H100 (chip_smoke.py's ``k2_arrangement`` rows time them)
+RING_SLOTS = 1
+
+_fns = None
+_devices = {}        # (init, device index) -> (opt-in bytes, SM count)
+_plans = {}          # (device, patch, slots) -> (ring slots, grid cap)
 
 
 def build():
     """Build (on first use) and load the kernel library; returns the
     ``CudaLibrary`` (build time and nvcc's report included)."""
-    global _fn
+    global _fns
     lib = load_cuda_library("extract")
-    if _fn is None:
-        fn = lib.cdll.e2t_trilinear_patches_f32
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+    if _fns is None:
+        c = lib.cdll
+        P, I = ctypes.c_void_p, ctypes.c_int
+        c.e2t_trilinear_patches_init.argtypes = [P, P]
+        c.e2t_trilinear_patches_fit.argtypes = [I] * 4 + [P, P]
+        c.e2t_trilinear_patches_f32.argtypes = [P] * 3 + [I] * 10 + [P]
+        for fn in (c.e2t_trilinear_patches_init, c.e2t_trilinear_patches_fit,
+                   c.e2t_trilinear_patches_f32):
+            fn.restype = I
+        _fns = c
     return lib
+
+
+def row_floats(n):
+    """Floats a staged row of ``n`` voxels takes in shared memory: the
+    16-byte pieces that cover n floats from any offset within 16 bytes
+    (``stage_rows16`` in ``csrc/cp_async.cuh``)."""
+    return 4 * ((n + 6) // 4)
+
+
+def staged_floats(patch):
+    """Floats K2 copies per (agent, channel): the (p+1)^3 window in rows of
+    16-byte pieces."""
+    return (patch[0] + 1) * (patch[1] + 1) * row_floats(patch[2] + 1)
+
+
+def device_limits(init, device):
+    """(opt-in shared bytes per block, SM count) of ``device``, from the
+    library's ``init`` entry point, which also lifts the kernel's dynamic
+    shared-memory limit to that opt-in. Runs once per device: keep the first
+    call outside a CUDA graph capture (``DeviceTracer`` warms up first)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    got = _devices.get((init.__name__, idx))
+    if got is None:
+        optin, n_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = init(ctypes.byref(optin), ctypes.byref(n_sm))
+        if err != 0:
+            raise RuntimeError(f"patch kernel init failed: CUDA error {err}")
+        got = _devices[(init.__name__, idx)] = (optin.value, n_sm.value)
+    return idx, got
+
+
+def _plan(device, patch):
+    """(ring slots, most blocks to launch) for ``patch`` on ``device``:
+    ``RING_SLOTS``, or fewer where the opt-in allows fewer, and the blocks
+    that fit the card at once. Raises when one window does not fit a
+    block."""
+    idx, (optin, n_sm) = device_limits(_fns.e2t_trilinear_patches_init,
+                                       device)
+    key = (idx, patch, RING_SLOTS)
+    got = _plans.get(key)
+    if got is None:
+        for slots in range(RING_SLOTS, 0, -1):
+            fit, slot_bytes = ctypes.c_int(0), ctypes.c_int(0)
+            with torch.cuda.device(idx):
+                err = _fns.e2t_trilinear_patches_fit(
+                    *patch, slots, ctypes.byref(fit), ctypes.byref(slot_bytes))
+            if err != 0:
+                raise RuntimeError(f"trilinear patch kernel: occupancy query "
+                                   f"failed, CUDA error {err}")
+            if slots * slot_bytes.value <= optin and fit.value > 0:
+                break
+        else:
+            raise ValueError(
+                f"trilinear patch kernel: patch {patch} needs a window of "
+                f"{slot_bytes.value} bytes, over the card's {optin} bytes of "
+                "shared memory per block")
+        got = _plans[key] = (slots, fit.value * n_sm)
+    return got
 
 
 def check_tensor(t, name, ndim, like=None, what="patch extraction"):
@@ -103,16 +177,19 @@ def trilinear_patches(vol, pos, patch):
     out = torch.empty((B, f, *patch), dtype=torch.float32, device=vol.device)
     if B == 0:
         return out
+    if vol.data_ptr() % 16:
+        # the kernel copies 16-byte pieces from 16-byte aligned addresses
+        # of the volume: a view that starts mid-piece is copied first
+        vol = vol.clone()
+    slots, max_grid = _plan(vol.device, patch)
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(vol.data_ptr(), pos.data_ptr(), out.data_ptr(), B, f, Z, X,
-                  Y, *patch, stream)
+        err = _fns.e2t_trilinear_patches_f32(
+            vol.data_ptr(), pos.data_ptr(), out.data_ptr(), B, f, Z, X, Y,
+            *patch, slots, min(B * f, max_grid), stream)
     if err != 0:
-        raise RuntimeError(
-            f"trilinear patch kernel launch failed: CUDA error {err} "
-            f"(patch {patch}: a (p+1)^3 window of "
-            f"{4 * (patch[0] + 1) * (patch[1] + 1) * (patch[2] + 1)} bytes "
-            "must fit the card's shared memory per block)")
+        raise RuntimeError(f"trilinear patch kernel launch failed: CUDA error "
+                           f"{err}")
     launches += 1
     return out
 

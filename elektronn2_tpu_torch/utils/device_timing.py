@@ -1,5 +1,6 @@
 """Device timing for the probes and ``chip_smoke.py``: CUDA-event windows
-and the H100's published peaks for the bounds they report.
+(around eager calls, or around replays of a CUDA graph of many calls) and
+the H100's published peaks for the bounds they report.
 
 Peaks: NVIDIA's H100 SXM data sheet (dense rates, 700 W): HBM at 3.35 TB/s,
 67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s bf16 and 495 TFLOP/s
@@ -47,6 +48,25 @@ def in_turns(kern, plain, n=3):
     kernel, plain."""
     plain_ms, kern_ms = palindrome_ms([plain, kern], n)
     return kern_ms, plain_ms
+
+
+def graph_ms(fns, n=20):
+    """Mean device ms per call of each of ``fns``, each captured ``n`` times
+    into one CUDA graph whose replays are timed in turns (in order, then in
+    reverse order) with CUDA events: the host's launch cost stays out of
+    the window, the gaps between a graph's kernels stay in."""
+    graphs = []
+    for fn in fns:
+        fn()                                  # warm, outside the capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(n):
+                fn()
+        graphs.append(g)
+    return [ms / n for ms in palindrome_ms([g.replay for g in graphs], 1)]
 
 
 def bound_ms(nbytes, flop, flop_s=FP32_FLOP_S):

@@ -202,12 +202,18 @@ def test_flagship_k1_route_matches_cudnn_route(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 3])
 @pytest.mark.parametrize("f, shape, patch, B", [
     (1, (64, 64, 64), (16, 16, 16), 300),     # the tracer's patch
     (2, (20, 24, 28), (5, 7, 9), 3),          # ragged patch, two channels
     (1, (40, 40, 40), (36, 36, 36), 2),       # a window past 48 KB
+    (1, (30, 41, 50), (8, 8, 8), 200),        # Y % 4 == 2: rows shift
 ])
-def test_k2_matches_plain(cuda_device, f, shape, patch, B):
+def test_k2_matches_plain(cuda_device, monkeypatch, slots, f, shape, patch,
+                          B):
+    """K2 with a ring of one and of three window slots (fewer where a
+    window is too large for three)."""
+    monkeypatch.setattr(extract, "RING_SLOTS", slots)
     rng = np.random.RandomState(21)
     vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
         cuda_device)
@@ -220,14 +226,18 @@ def test_k2_matches_plain(cuda_device, f, shape, patch, B):
     torch.cuda.synchronize()
     assert extract.launches == before + 1
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert torch.equal(got, ref)            # no FMA contraction: bit for bit
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 2])
 @pytest.mark.parametrize("f, shape, patch, B", [
     (1, (96, 96, 96), (16, 16, 16), 200),
-    (2, (30, 34, 40), (4, 8, 6), 17),
+    (2, (30, 34, 41), (4, 8, 6), 17),         # Y % 4 == 1: rows shift
 ])
-def test_k3_matches_plain(cuda_device, f, shape, patch, B):
+def test_k3_matches_plain(cuda_device, monkeypatch, slots, f, shape, patch,
+                          B):
+    monkeypatch.setattr(extract_rot, "RING_SLOTS", slots)
     rng = np.random.RandomState(22)
     vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
         cuda_device)
@@ -245,6 +255,152 @@ def test_k3_matches_plain(cuda_device, f, shape, patch, B):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
+def _k3_headings(kind, B, rng):
+    """Unit headings: random; along the axes (the smallest boxes); along
+    the cube's diagonals (1, 1, 1)/sqrt(3) with every sign (the largest)."""
+    if kind == "random":
+        h = rng.randn(B, 3)
+    elif kind == "axis":
+        h = np.eye(3)[np.arange(B) % 3] * np.where(np.arange(B) % 2, -1, 1)[
+            :, None]
+    else:
+        signs = np.asarray([[a, b, c] for a in (-1, 1) for b in (-1, 1)
+                            for c in (-1, 1)])
+        h = signs[np.arange(B) % 8] / np.sqrt(3.0)
+    return h / np.linalg.norm(h, axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heading", ["random", "axis", "diagonal"])
+def test_k3_staged_windows(cuda_device, heading):
+    """K3 with two channels at random, axis-aligned and diagonal headings,
+    half the agents with their lowest box corner at the ok bound (0 + a
+    small delta), in a volume that is NaN everywhere outside the agents'
+    staged boxes: the patches are finite and equal the plain version's,
+    and so are the ok flags."""
+    rng = np.random.RandomState(24)
+    B, patch, shape = 64, (16, 16, 16), (2, 60, 66, 72)
+    h = torch.from_numpy(_k3_headings(heading, B, rng).astype(np.float32))
+    F = flight_frame(h.to(cuda_device))
+    dims = np.asarray(shape[1:], np.float64)
+    pos = rng.uniform(15.0, dims - 15.0, (B, 3))
+    half = (np.asarray(patch) - 1) / 2.0
+    low = np.abs(F.double().cpu().numpy()).transpose(0, 2, 1) @ half
+    deltas = (-1e-3, -1e-5, 0.0, 1e-5, 1e-3, 0.25)
+    for i in range(0, B, 2):             # lowest corner along axis i % 3
+        d = (i // 2) % 3
+        pos[i, d] = low[i, d] + deltas[(i // 2) % len(deltas)]
+    pos = torch.from_numpy(pos.astype(np.float32)).to(cuda_device)
+    lo, hi = extract_rot.staged_box(shape, pos, F, patch)
+    assert int((hi - lo + 1).max()) <= extract_rot.box_edge(patch)
+    keep = torch.zeros(shape[1:], dtype=torch.bool)
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        keep[a[0]:b[0] + 1, a[1]:b[1] + 1, a[2]:b[2] + 1] = True
+    vol = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    vol[:, ~keep] = float("nan")
+    vol = vol.to(cuda_device)
+    before = extract_rot.launches
+    got, ok = extract_rot.rotated_patches(vol, pos, F, patch)
+    ref, ok_ref = extract_rot.rotated_patches_reference(vol, pos, F, patch)
+    torch.cuda.synchronize()
+    assert extract_rot.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, ref)
+    assert torch.equal(ok, ok_ref) and bool(ok.any()) and not bool(ok.all())
+
+
+def _graph_tracer(device, rotate, K, seed=25, B=48):
+    m = tracer_model((8, 8, 8), enc_w=16, gru_w=16, device=device)
+    rng = np.random.RandomState(seed)
+    vol = torch.from_numpy(rng.rand(1, 40, 40, 40).astype(np.float32)).to(
+        device)
+    seeds = rng.uniform(8, 32, (2, B, 3)).astype(np.float32)
+    return m, DeviceTracer(m, vol, max_steps=K, min_step=0.0,
+                           rotate_to_heading=rotate), seeds
+
+
+def _eager(dt, m, seeds):
+    s = torch.from_numpy(seeds).to(dt.volume.device)
+    h = s.new_tensor([[0.0, 0.0, 1.0]]).expand(len(seeds), 3)
+    return dt._rollout(m.params, dt.volume, s, h)
+
+
+def _traces_of(traj, moved, seeds):
+    traj = traj.cpu().numpy().transpose(1, 0, 2)
+    moved = moved.cpu().numpy().T
+    return [np.concatenate([seeds[b:b + 1].astype(np.float64),
+                            traj[b][moved[b]]]) for b in range(len(seeds))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rotate", [False, True])
+def test_graphed_trace_batch_equals_eager_rollout(cuda_device, rotate):
+    """``trace_batch`` replays one captured graph per rollout: its traces
+    are the eager kernel-route rollout's bit for bit, and a replay counts
+    K kernel launches."""
+    K = 8
+    m, dt, seeds = _graph_tracer(cuda_device, rotate, K)
+    counter = extract_rot if rotate else extract
+    dt.trace_batch(seeds[0])                    # captures
+    assert len(dt._graphs) == 1 and dt.capture_seconds > 0
+    before = counter.launches
+    got = dt.trace_batch(seeds[0])
+    assert counter.launches == before + K
+    traj, moved = _eager(dt, m, seeds[0])
+    assert counter.launches == before + 2 * K
+    for g, r in zip(got, _traces_of(traj, moved, seeds[0])):
+        assert np.array_equal(g.coords, r)
+    s = torch.from_numpy(seeds[0]).to(cuda_device)
+    gt, gm = dt._rollout_graphed(m.params, s, s.new_tensor(
+        [[0.0, 0.0, 1.0]]).expand(len(s), 3))
+    assert torch.equal(gt, traj) and torch.equal(gm, moved)
+    assert len(dt._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_graph_recaptured_after_new_weights(cuda_device):
+    """The stale-graph trap: after ``set_params`` and after an in-place
+    update the rollout follows the new weights (a new capture each), and at
+    most ``MAX_GRAPHS`` graphs are kept."""
+    m, dt, seeds = _graph_tracer(cuda_device, False, 6)
+    first = dt.trace_batch(seeds[0])
+    rng = np.random.RandomState(26)
+    m.set_params({n: {k: rng.standard_normal(tuple(v.shape)) * 0.3
+                      for k, v in d.items()} for n, d in m.params.items()})
+    second = dt.trace_batch(seeds[0])
+    assert len(dt._graphs) == 2
+    for g, r in zip(second, _traces_of(*_eager(dt, m, seeds[0]), seeds[0])):
+        assert np.array_equal(g.coords, r)
+    assert any(not np.array_equal(a.coords, b.coords)
+               for a, b in zip(first, second))
+    with torch.no_grad():
+        m.params["step"]["b"].add_(0.5)
+    third = dt.trace_batch(seeds[0])
+    assert len(dt._graphs) == dt.MAX_GRAPHS == 2
+    for g, r in zip(third, _traces_of(*_eager(dt, m, seeds[0]), seeds[0])):
+        assert np.array_equal(g.coords, r)
+    assert any(not np.array_equal(a.coords, b.coords)
+               for a, b in zip(second, third))
+
+
+@pytest.mark.cuda
+def test_graphed_calls_do_not_alias(cuda_device):
+    """A replay overwrites the graph's static outputs: what an earlier call
+    returned (host traces, device clones) stays as it was."""
+    m, dt, seeds = _graph_tracer(cuda_device, True, 6)
+    a = dt.trace_batch(seeds[0])
+    kept = [t.coords.copy() for t in a]
+    b = dt.trace_batch(seeds[1])
+    assert all(np.array_equal(t.coords, k) for t, k in zip(a, kept))
+    assert any(not np.array_equal(t.coords, u.coords) for t, u in zip(a, b))
+    s = torch.from_numpy(seeds).to(cuda_device)
+    h = s.new_tensor([[0.0, 0.0, 1.0]]).expand(s.shape[1], 3)
+    t0, _ = dt._rollout_graphed(m.params, s[0], h)
+    t0_kept = t0.clone()
+    t1, _ = dt._rollout_graphed(m.params, s[1], h)
+    assert torch.equal(t0, t0_kept) and not torch.equal(t0, t1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rotate", [False, True])
 def test_tracer_kernel_route_matches_plain_route(cuda_device, rotate):
@@ -255,8 +411,10 @@ def test_tracer_kernel_route_matches_plain_route(cuda_device, rotate):
     seeds = rng.uniform(8, 40, (64, 3)).astype(np.float32)
     kw = dict(max_steps=8, min_step=0.0, rotate_to_heading=rotate)
     counter = extract_rot if rotate else extract
+    dt = DeviceTracer(m, vol, **kw)
+    dt.trace_batch(seeds)         # capture (its one-step warm-up launches)
     before = counter.launches
-    got = DeviceTracer(m, vol, **kw).trace_batch(seeds)
+    got = dt.trace_batch(seeds)
     assert counter.launches == before + 8
     ref = DeviceTracer(m, vol, use_pallas_extract=False, use_pallas_rot=False,
                        **kw).trace_batch(seeds)

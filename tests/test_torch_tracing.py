@@ -294,3 +294,75 @@ def test_cube_shape_matches_jax(rng):
     for p in rng.uniform(-2, 30, (40, 3)):
         assert mine.inside(p) == ref.inside(p)
         np.testing.assert_array_equal(mine.clip(p), ref.clip(p))
+
+
+def test_cpu_trace_batch_builds_no_graph(rng, monkeypatch):
+    """A CPU volume takes the eager loop: no CUDA graph is captured or
+    replayed, for either route."""
+    _, tm = _jax_gru(rng)
+    vol = rng.rand(1, 26, 26, 26).astype(np.float32)
+
+    def no_graph(*args, **kwargs):
+        raise AssertionError("the graphed rollout ran for a CPU volume")
+
+    for rotate in (False, True):
+        dt = DeviceTracer(tm, vol, max_steps=3, rotate_to_heading=rotate)
+        monkeypatch.setattr(dt, "_rollout_graphed", no_graph)
+        traces = dt.trace_batch(_seeds(rng, 2, 11, 15))
+        assert len(traces) == 2 and dt._graphs == {}
+        assert dt.capture_seconds is None
+
+
+def _key_tracers(rng, **kw):
+    """A GRU tracer model and a volume tensor shared by the tracers made
+    from it (DeviceTracer keeps a float32 contiguous tensor as it is)."""
+    _, tm = _jax_gru(rng)
+    vol = torch.from_numpy(rng.rand(1, 26, 26, 26).astype(np.float32))
+    return tm, vol
+
+
+def test_graph_key_changes_with_params_batch_horizon_and_route(rng):
+    tm, vol = _key_tracers(rng)
+    dt = DeviceTracer(tm, vol, max_steps=4)
+    assert dt.volume is vol
+    key = dt.graph_key(tm.params, 8)
+    assert dt.graph_key(tm.params, 8) == key
+    # B, the horizon and the route
+    assert dt.graph_key(tm.params, 9) != key
+    assert DeviceTracer(tm, vol, max_steps=5).graph_key(tm.params, 8) != key
+    assert DeviceTracer(tm, vol, max_steps=4).graph_key(tm.params, 8) == key
+    assert DeviceTracer(tm, vol, max_steps=4, rotate_to_heading=True
+                        ).graph_key(tm.params, 8) != key
+    assert DeviceTracer(tm, vol, max_steps=4, min_step=0.5
+                        ).graph_key(tm.params, 8) != key
+    # set_params makes new tensors; the old ones stay held, as a kept graph
+    # holds them, so their ids are not reused
+    held = tm.params
+    tm.set_params({n: {k: v.detach().numpy() for k, v in d.items()}
+                   for n, d in held.items()})
+    assert tm.params["enc"]["w"] is not held["enc"]["w"]
+    replaced = dt.graph_key(tm.params, 8)
+    assert replaced != key
+    # an in-place update bumps the tensor's version
+    with torch.no_grad():
+        tm.params["gru"]["w_cand"].mul_(1.0)
+    bumped = dt.graph_key(tm.params, 8)
+    assert bumped not in (key, replaced)
+    # assigning .data swaps the storage: a new address
+    w = tm.params["step"]["w"]
+    w.data = w.detach().clone()
+    assert dt.graph_key(tm.params, 8) not in (key, replaced, bumped)
+
+
+def test_graph_key_constant_across_registry_batches(rng, monkeypatch):
+    """The registry pads its last batch to the batch size, so every batch of
+    a drain has one key: one captured graph serves the drain."""
+    tm, vol = _key_tracers(rng)
+    dt = DeviceTracer(tm, vol, max_steps=3)
+    keys = []
+    real = dt.trace_batch
+    monkeypatch.setattr(dt, "trace_batch", lambda s: keys.append(
+        dt.graph_key(tm.params, len(s))) or real(s))
+    seeds = _seeds(rng, 5, 10, 16)
+    ShotgunRegistry(seeds, radius=0.01).run(dt, batch_size=2)
+    assert len(keys) == 3 and len(set(keys)) == 1
