@@ -53,9 +53,11 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    except for agents with a box corner within 1e-4 of a bound (counted).
    Both are expected bit for bit (``bit_exact``). Their times are device
    time per launch: CUDA events around replays of a CUDA graph of 20
-   launches (``graph_ms``), with the bytes their windows stage and each
-   other ring arrangement timed beside the default (``k2_arrangement``,
-   ``k3_arrangement``).
+   launches (``graph_ms``), with the bytes their windows stage (K3's as its
+   own count, ``extract_rot.staging_stats``, which must show no item left
+   unstaged) and the wrapper's grid (as many blocks as fit the card, each
+   walking items) timed beside a grid of one block per item (``k2_grid``,
+   ``k3_grid``).
    K5: rtol=atol=1e-4 (float32 sums of 27*Cin products in another order)
    and its pad channels exactly 0, at its benchmark's perf case (timed, with
    one ``F.conv3d`` as its library call) and correctness case, the JAX
@@ -85,9 +87,13 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then the
    graphed route and the eager loop timed in turns (graphed, eager, eager,
    graphed, graphed, eager): agent-steps/s (B*K / wall) of each, alive
-   fraction, K2 launches (K per rollout, a replay counting the launches it
-   captured), peak memory, the ``trace_batch`` wall with its host-side
-   decode; (d) the graphed rollout equals the eager kernel route bit for
+   fraction, K2 launches (K per rollout: the ``trace_batch`` run is
+   profiled, and the device's count of K2 launches in it, which goes into
+   the kernels line, must equal K and the wrapper's counter, to which a
+   replay adds the launches it captured), peak memory, the ``trace_batch``
+   wall with its host-side decode (``*_main_profile``: profiled, its idle
+   share counts the decode); (d) the graphed rollout equals the eager
+   kernel route bit for
    bit (``traj`` and ``moved``); ``*_profile``: one graphed rollout under
    ``torch.profiler`` (device idle share, top device kernels, K2's device
    us per launch); against the plain route (``use_pallas_extract=False``):
@@ -96,7 +102,8 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    ``alive`` equal), (c) the full horizon, reported (first step over 1e-3,
    share of agents within 1e-3 at the end);
 8. trace_rot_rollout: the same with ``rotate_to_heading=True``, B=512, K=64,
-   K3 (atol 1e-4 in (a));
+   K3 (atol 1e-4 in (a)), and K3's staging count over the ``trace_batch``
+   run: no item left unstaged;
 9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
    the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds;
 10. headk_probe: the rows of ``elektronn2_tpu_torch.scripts.
@@ -588,10 +595,36 @@ def patch_bound(B, f, patch, in_bytes, flop_per_sample):
                     flop_per_sample * samples)
 
 
-#: ring slots timed for K2 (four blocks an SM) and for K3 (one slot: two
-#: blocks an SM; two slots: one block)
-K2_ARRANGEMENTS = [1, 2, 3]
-K3_ARRANGEMENTS = [1, 2]
+def k2_one_item_grid(vol, pos, patch):
+    """K2 through its C entry point with one block per (agent, channel)
+    item; the wrapper launches only as many blocks as fit the card, each
+    walking several items."""
+    B, f = pos.shape[0], vol.shape[0]
+    out = torch.empty((B, f, *patch), device=vol.device)
+    err = extract._fns.e2t_trilinear_patches_f32(
+        vol.data_ptr(), pos.data_ptr(), out.data_ptr(), B, f,
+        *vol.shape[1:], *patch, B * f,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K2, one item a block: CUDA error {err}")
+    return out
+
+
+def k3_one_item_grid(vol, pos, F, patch):
+    """K3 through its C entry point with one block per item (as
+    ``k2_one_item_grid``)."""
+    B, f = pos.shape[0], vol.shape[0]
+    out = torch.empty((B, f, *patch), device=vol.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=vol.device)
+    err = extract_rot._fns.e2t_rotated_patches_f32(
+        vol.data_ptr(), pos.data_ptr(), F.data_ptr(), out.data_ptr(),
+        ok.data_ptr(), extract_rot.staging_stats(vol.device).data_ptr(), B,
+        f, *vol.shape[1:], *patch,
+        extract_rot._plan(vol.device, patch, vol.shape)[0], B * f,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K3, one item a block: CUDA error {err}")
+    return out, ok
 
 
 def phase_kernel_k2():
@@ -599,8 +632,8 @@ def phase_kernel_k2():
     bound_ms, bound_by, library_ms) at the tracer's shape. Times are device
     time per launch: CUDA events around replays of a CUDA graph of 20
     launches, the kernel and the plain version in turns (``graph_ms``).
-    The other ring arrangements are timed beside the default
-    (``k2_arrangement``). No single PyTorch call computes K2:
+    A grid of one block per item is timed beside the wrapper's
+    (``k2_grid``). No single PyTorch call computes K2:
     ``grid_sample`` clamps its samples, where K2 takes the fraction before
     it clips the window's base."""
     rng = np.random.RandomState(SEED + 2)
@@ -622,23 +655,21 @@ def phase_kernel_k2():
                 lambda: extract.trilinear_patches(vol, pos, patch)])
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * pos.numel(), 21)
-            slots, grid = extract._plan(vol.device, patch)
+            grid = min(extract._max_grid(vol.device, patch),
+                       pos.shape[0] * vol.shape[0])
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
                        bound_by=bound[1], library_ms=None,
                        timing="cuda graph of 20 launches, CUDA events",
                        staged_bytes=4 * pos.shape[0] * vol.shape[0]
-                       * extract.staged_floats(patch),
-                       ring_slots=slots, grid=min(grid, pos.shape[0]))
-            default = extract.RING_SLOTS
-            try:
-                for slots in K2_ARRANGEMENTS:
-                    extract.RING_SLOTS = slots
-                    t, = graph_ms([lambda: extract.trilinear_patches(
-                        vol, pos, patch)])
-                    emit("k2_arrangement", ring_slots=slots, ms=t,
-                         plan=list(extract._plan(vol.device, patch)))
-            finally:
-                extract.RING_SLOTS = default
+                       * extract.staged_floats(patch), grid=grid)
+            if not torch.equal(k2_one_item_grid(vol, pos, patch), got):
+                raise AssertionError("K2: one item a block differs")
+            walk, one = graph_ms([
+                lambda: extract.trilinear_patches(vol, pos, patch),
+                lambda: k2_one_item_grid(vol, pos, patch),
+                ])
+            emit("k2_grid", walking_ms=walk, walking_blocks=grid,
+                 one_item_ms=one, items=pos.shape[0] * vol.shape[0])
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
 
@@ -647,18 +678,23 @@ def phase_kernel_k3():
     """K3 against its plain version; returns (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms) at the rotated tracer's shape, timed
     as K2's (``graph_ms``), with the bytes its staged boxes read beside the
-    bound and the other ring arrangement timed beside the default
-    (``k3_arrangement``). No single PyTorch call computes K3:
+    bound (its own count) and a grid of one block per item beside the
+    wrapper's (``k3_grid``). Every case must stage every item. No single
+    PyTorch call computes K3:
     ``grid_sample`` has no ``ok`` flag."""
     rng = np.random.RandomState(SEED + 3)
     max_err, ms, pms = 0.0, None, None
     for name, vol, pos, heads, patch, timed in k3_cases(rng):
         pos = torch.from_numpy(pos.astype(np.float32)).cuda()
         F = flight_frame(torch.from_numpy(heads.astype(np.float32)).cuda())
+        stats = extract_rot.staging_stats(vol.device)
+        stats.zero_()
         got, ok = extract_rot.rotated_patches(vol, pos, F, patch)
         ref, ok_ref = extract_rot.rotated_patches_reference(vol, pos, F,
                                                             patch)
-        torch.cuda.synchronize()
+        unstaged, staged = stats.tolist()
+        if unstaged:
+            raise AssertionError(f"K3 {name}: {unstaged} items not staged")
         torch.testing.assert_close(got, ref, atol=K3_ATOL, rtol=0)
         near = near_bound_agents(vol.shape, pos, F, patch)
         differ = (ok != ok_ref).cpu().numpy()
@@ -671,6 +707,7 @@ def phase_kernel_k3():
         max_err = max(max_err, err)
         rec = dict(kernel="rotated_patches", case=name, vol=list(vol.shape),
                    B=pos.shape[0], patch=list(patch), max_abs_err=err,
+                   staged_bytes=4 * staged,
                    bit_exact=bool(torch.equal(got, ref)),
                    ok_fraction=ok.float().mean().item(),
                    ok_differ=int(differ.sum()),
@@ -683,30 +720,20 @@ def phase_kernel_k3():
             # per sample: the frame rotation (9 multiply-adds), the blend
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * (pos.numel() + F.numel()), 39)
-            lo, hi = extract_rot.staged_box(vol.shape, pos, F, patch)
-            edges = (hi - lo + 1).cpu().numpy()
-            rows = edges[:, 0] * edges[:, 1]
+            grid = min(extract_rot._plan(vol.device, patch, vol.shape)[1],
+                       pos.shape[0] * vol.shape[0])
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
                        bound_by=bound[1], library_ms=None,
                        timing="cuda graph of 20 launches, CUDA events",
-                       staged_bytes=4 * vol.shape[0] * int(sum(
-                           r * extract.row_floats(int(e))
-                           for r, e in zip(rows, edges[:, 2]))),
-                       box_edge_mean=float(edges.mean()),
-                       box_edge_max=int(edges.max()),
-                       ring_slots=extract_rot._plan(vol.device, patch,
-                                                    vol.shape)[1])
-            default = extract_rot.RING_SLOTS
-            try:
-                for slots in K3_ARRANGEMENTS:
-                    extract_rot.RING_SLOTS = slots
-                    t, = graph_ms([lambda: extract_rot.rotated_patches(
-                        vol, pos, F, patch)])
-                    emit("k3_arrangement", ring_slots=slots, ms=t,
-                         plan=list(extract_rot._plan(vol.device, patch,
-                                                     vol.shape)))
-            finally:
-                extract_rot.RING_SLOTS = default
+                       grid=grid)
+            one_out, one_ok = k3_one_item_grid(vol, pos, F, patch)
+            if not (torch.equal(one_out, got) and torch.equal(one_ok, ok)):
+                raise AssertionError("K3: one item a block differs")
+            walk, one = graph_ms([
+                lambda: extract_rot.rotated_patches(vol, pos, F, patch),
+                lambda: k3_one_item_grid(vol, pos, F, patch)])
+            emit("k3_grid", walking_ms=walk, walking_blocks=grid,
+                 one_item_ms=one, items=pos.shape[0] * vol.shape[0])
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
 
@@ -1160,15 +1187,14 @@ def teacher_forced_err(log, vol, rotate):
 ROLLOUT_TURNS = ("graphed", "eager", "eager", "graphed", "graphed", "eager")
 
 
-def profile_rollout(fn, kernel, top=10):
-    """One warm rollout ``fn`` under ``torch.profiler``: its wall time, the
+def profile_once(fn, kernel, top=10):
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
     device time of its kernels, the device idle share of the wall, the top
-    device kernels, and the device us per launch of ``kernel`` (a substring
-    of its name). A profile with no device events reports None and the
-    wall."""
+    device kernels, and the launches and device us per launch of ``kernel``
+    (a substring of its name) as the device recorded them. A profile with
+    no device events reports None and the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1196,12 +1222,12 @@ def profile_rollout(fn, kernel, top=10):
 
 def phase_trace(rotate):
     """One fused-tracing path at full width: the main path through
-    ``trace_batch`` (one replay of the rollout's CUDA graph; kernel
-    launches counted there), the graphed route and the eager loop timed in
-    turns, check (d) (the graphed rollout equals the eager kernel route bit
-    for bit), a profile of one graphed rollout, and the rollout checks (a),
-    (b), (c) against the plain route. Returns the kernel's launch count of
-    the main path's run."""
+    ``trace_batch`` (one replay of the rollout's CUDA graph, profiled: the
+    device counts the kernel's launches), the graphed route and the eager
+    loop timed in turns, check (d) (the graphed rollout equals the eager
+    kernel route bit for bit), a profile of one graphed rollout, and the
+    rollout checks (a), (b), (c) against the plain route. Returns the
+    device's count of the kernel's launches in the main path's run."""
     name = "trace_rot_rollout" if rotate else "trace_rollout"
     mod = extract_rot if rotate else extract
     B, K = (ROT_B, ROT_K) if rotate else (TRACE_B, TRACE_K)
@@ -1239,15 +1265,30 @@ def phase_trace(rotate):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
 
-    # the main path, through the user's entry point: one replay
+    # the main path, through the user's entry point: one replay, profiled,
+    # so the launches are the device's count in this run, held against K
+    # and against the wrapper's counter (which the replay added to)
+    kernel = "rotated_patches_kernel" if rotate else "trilinear_patches_kernel"
+    if rotate:
+        stats = extract_rot.staging_stats(vol.device)
+        stats.zero_()
     mod.launches = 0
-    t0 = time.perf_counter()
-    traces = tracer.trace_batch(seeds)
-    batch_wall = time.perf_counter() - t0
-    launches = mod.launches
-    if launches != K:
-        raise AssertionError(f"{name}: {launches} kernel launches in "
-                             f"trace_batch, expected {K}")
+    traces = []
+    main = profile_once(lambda: traces.extend(tracer.trace_batch(seeds)),
+                        kernel)
+    counted = mod.launches
+    launches = main["kernel_launches"]
+    if launches != K or counted != K:
+        raise AssertionError(f"{name}: {launches} kernel launches on the "
+                             f"device in trace_batch and {counted} counted, "
+                             f"expected {K}")
+    staged = {}
+    if rotate:
+        unstaged, floats = stats.tolist()
+        if unstaged:
+            raise AssertionError(f"{name}: {unstaged} items not staged")
+        staged = dict(staged_bytes_per_launch=4 * floats / K)
+    emit(name + "_main_profile", route="trace_batch", **main, **staged)
     if len(tracer._graphs) != 1:
         raise AssertionError(f"{name}: {len(tracer._graphs)} graphs kept, "
                              "expected the one captured")
@@ -1289,11 +1330,14 @@ def phase_trace(rotate):
          .item(), launches_per_rollout=K, peak_gib=peak["graphed"],
          eager_peak_gib=peak["eager"],
          reserved_gib=torch.cuda.memory_reserved() / 2**30,
-         trace_batch_seconds=batch_wall, trace_batch_points=n_pts,
+         trace_batch_points=n_pts,
          main_path_launches=launches, host_syncs_in_rollout=0,
          graphed_equals_eager=check_d)
-    prof = profile_rollout(routes["graphed"], "rotated_patches_kernel"
-                           if rotate else "trilinear_patches_kernel")
+    routes["graphed"]()
+    prof = profile_once(routes["graphed"], kernel)
+    if prof["kernel_launches"] != K:
+        raise AssertionError(f"{name}: {prof['kernel_launches']} kernel "
+                             f"launches in a profiled replay, expected {K}")
     # the profiler stretches the wall it watches: the idle share against
     # the fastest unprofiled replay too
     emit(name + "_profile", route="graphed", **prof,

@@ -45,16 +45,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// cp_async_wait for a count known only at run time (0, 1, or 2 and more)
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  if (n <= 0)
-    cp_async_wait<0>();
-  else if (n == 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<2>();
-}
-
 // Shift, in floats, of a row start within its 16-byte group.
 __device__ __forceinline__ int row_shift(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);

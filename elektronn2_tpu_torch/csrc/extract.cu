@@ -17,16 +17,14 @@
 // little beside that, as long as the loads and the blend overlap and the
 // instructions around them stay few.
 //
-// What the design does about it (the TPU kernel's idea, a ring of window
-// copies in flight while the previous window is blended, not its blocks):
-//  * persistent blocks, as many as fit the card at once (four an SM),
-//    walk over the (agent, channel) items; each block keeps a ring of 1 to
-//    3 window slots in shared memory and, with more than one, copies the
-//    window of item k+1 with cp.async while it blends item k. On an H100,
-//    at two items a block, one slot measured 5-8% faster than two or three:
-//    the four blocks of an SM overlap one another's copies and blends
-//    (ops/extract.py::RING_SLOTS); one block an SM with 4 to 8 slots was
-//    15-35% slower;
+// What the design does about it (the TPU kernel's idea, window copies in
+// flight while other windows are blended, not its blocks):
+//  * a block stages one (agent, channel) item's window with cp.async,
+//    waits, blends it, and moves on to its next item; four blocks share an
+//    SM, so one block's copy overlaps the others' blends. A ring of 2 or 3
+//    slots per block, copying the next window while blending this one,
+//    measured 5-12% slower on an H100 at four blocks an SM, and 15-40%
+//    slower at one or two blocks an SM with 4 to 8 slots (PERF.md);
 //  * the window's rows are copied with 16-byte cp.async from the 16-byte
 //    group that holds each row's start (stage_rows16 in cp_async.cuh): any
 //    Y, 5 pieces per 17-float row instead of 17 single floats. A row lands
@@ -39,11 +37,11 @@
 //    (window planes are padded to 16 banks mod 32) and stores coalesce;
 //  * products and sums use __fmul_rn / __fadd_rn, so nvcc contracts nothing
 //    into FMAs: the result is the plain PyTorch version's, bit for bit.
-// A ring slot is one (p+1)^3 window in rows of 16-byte pieces (25 KB at
-// 16^3); the ring holds as many slots as asked and the card's per-block
-// opt-in shared memory allows. The opt-in is set once, by
-// e2t_trilinear_patches_init, outside any CUDA graph capture; a window over
-// the opt-in (a cubic patch's edge 37 and up) is refused.
+// A window is (p+1)^3 floats in rows of 16-byte pieces (25 KB at 16^3). The
+// kernel's dynamic shared-memory limit is lifted to the card's per-block
+// opt-in once, by e2t_trilinear_patches_init, outside any CUDA graph
+// capture; a window over the opt-in (a cubic patch's edge 37 and up) is
+// refused.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +51,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_SLOTS = 3;
 
 struct Geometry {
   int F, Z, X, Y;      // volume (F, Z, X, Y)
@@ -61,7 +58,7 @@ struct Geometry {
   int sx, sz;          // window edges along z and x (p + 1)
   int rp;              // floats per staged window row (py + 1 floats)
   int pitch;           // floats between window z-planes in shared memory
-  int slot;            // floats per ring slot
+  int window;          // floats of a staged window
   const float* end;    // the end of the volume, never read
 };
 
@@ -91,8 +88,8 @@ __device__ __forceinline__ const float* window_origin(
          + base[2];
 }
 
-// Start this thread's cp.async copies of item (b, c)'s window into `slot`.
-__device__ __forceinline__ void stage_window(float* slot,
+// Start this thread's cp.async copies of item (b, c)'s window into `win`.
+__device__ __forceinline__ void stage_window(float* win,
                                              const float* __restrict__ vol,
                                              const float* __restrict__ pos,
                                              int b, int c,
@@ -100,7 +97,7 @@ __device__ __forceinline__ void stage_window(float* slot,
   int base[3];
   float w0[3], w1[3];
   agent_window(pos, b, g, base, w0, w1);
-  stage_rows16(slot, g.pitch, g.rp, window_origin(vol, base, c, g),
+  stage_rows16(win, g.pitch, g.rp, window_origin(vol, base, c, g),
                (int64_t)g.X * g.Y, g.Y, g.sz, g.sx, g.rp / 4, g.end,
                threadIdx.x, THREADS);
 }
@@ -109,7 +106,7 @@ __device__ __forceinline__ void stage_window(float* slot,
 // columns of the patch along x. kAligned: Y % 4 == 0, so every staged row
 // has the first row's offset within 16 bytes.
 template <bool kAligned>
-__device__ __forceinline__ void blend_window(const float* slot,
+__device__ __forceinline__ void blend_window(const float* win,
                                              const float* __restrict__ vol,
                                              const float* __restrict__ pos,
                                              float* __restrict__ out, int b,
@@ -136,7 +133,7 @@ __device__ __forceinline__ void blend_window(const float* slot,
   for (int col = threadIdx.x; col < n_col; col += THREADS) {
     const int iz = col / g.py;            // once per column of px outputs
     const int iy = col - iz * g.py;
-    const float* r0 = slot + iz * g.pitch + iy;
+    const float* r0 = win + iz * g.pitch + iy;
     const float* r1 = r0 + g.pitch;
     int h0 = (s0 + iz * mz) & 3;
     int h1 = (h0 + mz) & 3;
@@ -171,39 +168,18 @@ template <bool kAligned>
 __global__ void __launch_bounds__(THREADS)
 trilinear_patches_kernel(const float* __restrict__ vol,
                          const float* __restrict__ pos,
-                         float* __restrict__ out, const Geometry g, int work,
-                         int n_slots) {
-  extern __shared__ __align__(16) float ring[];
-  const int depth = n_slots - 1;                 // items copied ahead
-  const int n_mine = (int)blockIdx.x < work
-                         ? (work - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
-                         : 0;
-  // prologue: the first `depth` items in flight, one commit group each
-  for (int j = 0; j < depth; ++j) {
-    if (j < n_mine) {
-      const int w = blockIdx.x + j * gridDim.x;
-      const int b = w / g.F;
-      stage_window(ring + j * g.slot, vol, pos, b, w - b * g.F, g);
-    }
-    cp_async_commit();
-  }
-  int s_load = depth, s_use = 0;
-  for (int k = 0; k < n_mine; ++k) {
-    if (k + depth < n_mine) {
-      const int w = blockIdx.x + (k + depth) * gridDim.x;
-      const int b = w / g.F;
-      stage_window(ring + s_load * g.slot, vol, pos, b, w - b * g.F, g);
-    }
-    cp_async_commit();
-    cp_async_wait_upto(depth);       // this thread's copies of item k landed
-    __syncthreads();                 // ... and every other thread's
-    const int w = blockIdx.x + k * gridDim.x;
+                         float* __restrict__ out, const Geometry g,
+                         int work) {
+  extern __shared__ __align__(16) float win[];
+  for (int w = blockIdx.x; w < work; w += gridDim.x) {
     const int b = w / g.F;
-    blend_window<kAligned>(ring + s_use * g.slot, vol, pos, out, b,
-                           w - b * g.F, g);
-    __syncthreads();                 // slot s_use is free for the next copy
-    s_load = s_load + 1 == n_slots ? 0 : s_load + 1;
-    s_use = s_use + 1 == n_slots ? 0 : s_use + 1;
+    const int c = w - b * g.F;
+    stage_window(win, vol, pos, b, c, g);
+    cp_async_commit();
+    cp_async_wait<0>();              // this thread's copies landed
+    __syncthreads();                 // ... and every other thread's
+    blend_window<kAligned>(win, vol, pos, out, b, c, g);
+    __syncthreads();                 // the window is free for the next copy
   }
 }
 
@@ -222,7 +198,7 @@ Geometry make_geometry(const float* vol, int F, int Z, int X, int Y, int pz,
   g.rp = 4 * ((py + 1 + 6) / 4);          // pieces for py + 1 floats
   const int plane = g.sx * g.rp;
   g.pitch = plane + (48 - plane % 32) % 32;   // pitch % 32 == 16
-  g.slot = g.sz * g.pitch;
+  g.window = g.sz * g.pitch;
   g.end = vol ? vol + (int64_t)F * Z * X * Y : nullptr;
   return g;
 }
@@ -252,57 +228,56 @@ extern "C" int e2t_trilinear_patches_init(int* optin_bytes, int* n_sm) {
   return static_cast<int>(e);
 }
 
-// How many blocks of the kernel fit one SM with an n_slots ring for this
-// patch (0 when none does), and the bytes of one slot. A host-side query:
-// call it outside any CUDA graph capture.
-extern "C" int e2t_trilinear_patches_fit(int pz, int px, int py, int n_slots,
+// How many blocks of the kernel fit one SM for this patch (0 when none
+// does), and the bytes of its window. A host-side query: call it outside
+// any CUDA graph capture.
+extern "C" int e2t_trilinear_patches_fit(int pz, int px, int py,
                                          int* blocks_per_sm,
-                                         int* slot_bytes) {
-  if (pz < 1 || px < 1 || py < 1 || n_slots < 1 || n_slots > MAX_SLOTS)
+                                         int* window_bytes) {
+  if (pz < 1 || px < 1 || py < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  *slot_bytes = static_cast<int>(sizeof(float))
-                * make_geometry(nullptr, 1, 1, 1, 1, pz, px, py).slot;
+  *window_bytes = static_cast<int>(sizeof(float))
+                  * make_geometry(nullptr, 1, 1, 1, 1, pz, px, py).window;
   *blocks_per_sm = 0;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess || (size_t)*slot_bytes * n_slots > (size_t)optin)
+  if (e != cudaSuccess || *window_bytes > optin)
     return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, trilinear_patches_kernel<true>, THREADS,
-      (size_t)*slot_bytes * n_slots));
+      (size_t)*window_bytes));
 }
 
 // Plain C entry point, loaded with ctypes.
 //   vol  (F, Z, X, Y) float32, contiguous, 16-byte aligned
 //   pos  (B, 3) float32, contiguous
 //   out  (B, F, pz, px, py) float32, written
-//   n_slots  ring slots per block (1..3), within the opt-in set by
-//            e2t_trilinear_patches_init
-//   grid  blocks to launch (persistent: each walks items grid apart)
+//   grid  blocks to launch: each walks the items grid apart
+// The window must fit the opt-in set by e2t_trilinear_patches_init.
 // Launches on `stream` and returns a CUDA error code (0 on success):
 // cudaErrorInvalidValue for shapes the kernel does not take (a volume
-// smaller than patch+1 or not 16-byte aligned, a bad slot or block count),
-// else cudaGetLastError() after the launch. Nothing here synchronises or
-// sets an attribute: it runs inside CUDA graph captures.
+// smaller than patch+1 or not 16-byte aligned, a bad block count), else
+// cudaGetLastError() after the launch. Nothing here synchronises or sets an
+// attribute: it runs inside CUDA graph captures.
 extern "C" int e2t_trilinear_patches_f32(const float* vol, const float* pos,
                                          float* out, int B, int F, int Z,
                                          int X, int Y, int pz, int px, int py,
-                                         int n_slots, int grid, void* stream) {
+                                         int grid, void* stream) {
   if (B < 1 || F < 1 || pz < 1 || px < 1 || py < 1 || Z < pz + 1 ||
-      X < px + 1 || Y < py + 1 || n_slots < 1 || n_slots > MAX_SLOTS ||
-      grid < 1 || (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
+      X < px + 1 || Y < py + 1 || grid < 1 ||
+      (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = make_geometry(vol, F, Z, X, Y, pz, px, py);
-  const size_t smem = sizeof(float) * (size_t)g.slot * n_slots;
+  const size_t smem = sizeof(float) * (size_t)g.window;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Y % 4 == 0)
-    trilinear_patches_kernel<true><<<grid, THREADS, smem, s>>>(
-        vol, pos, out, g, B * F, n_slots);
+    trilinear_patches_kernel<true><<<grid, THREADS, smem, s>>>(vol, pos, out,
+                                                               g, B * F);
   else
-    trilinear_patches_kernel<false><<<grid, THREADS, smem, s>>>(
-        vol, pos, out, g, B * F, n_slots);
+    trilinear_patches_kernel<false><<<grid, THREADS, smem, s>>>(vol, pos,
+                                                                out, g, B * F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,16 +35,22 @@
 //    lands in shared memory at the same offset within 16 bytes as in device
 //    memory; a sample finds its corner rows' offsets from the row start's
 //    address (constant over the box when Y % 4 == 0);
-//  * persistent blocks walk over the (agent, channel) items with a ring of
-//    1 or 2 slots of 25088 floats (98 KB, a 28 x 28 box of 32-float rows at
-//    16^3): with 2, the next item's box is copied while this one is
-//    blended; with 1, two blocks share an SM and overlap each other. On an
-//    H100 one slot measured 14-17% faster (ops/extract_rot.py::RING_SLOTS);
+//  * a block stages one (agent, channel) item's box into a window of
+//    25088 floats (98 KB, a 28 x 28 box of 32-float rows at 16^3), waits,
+//    blends it and moves on to its next item; two blocks share an SM and
+//    overlap each other's copies and blends. A ring of two windows in one
+//    block (the next box copied while this one is blended) measured 14-17%
+//    slower on an H100 (PERF.md);
 //  * no shared-memory value is read unless this item's copy wrote it (the
 //    0*NaN trap of pallas_extract_rot.py:239-247): a sample whose corners
-//    fall outside the staged box, or an item whose box outgrows a slot
+//    fall outside the staged box, or an item whose box outgrows the window
 //    (only frames that are not orthonormal do), reads its corners from
 //    device memory instead, with the same arithmetic;
+//  * what was staged is counted, by one atomic add per item into `stats`:
+//    stats[0] the items whose box outgrew the window, stats[1] the floats
+//    copied into shared memory, so a window sized too small for the boxes
+//    the kernel computes shows as stats[0] > 0 (ops/extract_rot.py::
+//    staging_stats);
 //  * the sample walk steps its mixed-radix digits by the block's stride,
 //    with one carry at most per digit: no division per sample;
 //  * coordinates are computed in the oracle's order, t = F0i*o0 + F1i*o1,
@@ -69,12 +75,11 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_SLOTS = 2;
 
 struct Geometry {
   int F, Z, X, Y;      // volume (F, Z, X, Y)
   int pz, px, py;      // patch
-  int cap;             // floats per ring slot
+  int cap;             // floats of the window
   const float* end;    // the end of the volume, never read
 };
 
@@ -121,7 +126,7 @@ struct Agent {
   int lo[3];     // the staged box: origin and edges
   int ext[3];
   int rp;        // floats per staged row
-  bool staged;   // the box fits a slot
+  bool staged;   // the box fits the window
   bool interior; // staged, and its unclipped box lies in [0, dims-2]
 };
 
@@ -207,7 +212,7 @@ __device__ __noinline__ float corner_sum_global(const float* __restrict__ v,
   return acc;
 }
 
-// Blend item (b, c) of agent `a`, staged at `slot` from `box` (the device
+// Blend item (b, c) of agent `a`, staged at `win` from `box` (the device
 // address of the box's first voxel in channel base vc); returns this
 // thread's ok (every sample it computed in bounds).
 //   kInterior: `a` is interior, so every sample lies in bounds (ok), its
@@ -216,7 +221,7 @@ __device__ __noinline__ float corner_sum_global(const float* __restrict__ v,
 //   kAligned: Y % 4 == 0, so every staged row has the first row's offset
 //     within 16 bytes.
 template <bool kInterior, bool kAligned>
-__device__ __forceinline__ int blend_box(const float* slot,
+__device__ __forceinline__ int blend_box(const float* win,
                                          const float* __restrict__ vc,
                                          const float* box,
                                          float* __restrict__ o,
@@ -227,7 +232,7 @@ __device__ __forceinline__ int blend_box(const float* slot,
                          0.5f * (float)(g.py - 1)};
   const int64_t XY = (int64_t)g.X * g.Y;
   const int ex = a.ext[1], rp = a.rp;
-  // a staged row (z, x) starts at slot + (z*ex + x)*rp + its shift, the
+  // a staged row (z, x) starts at win + (z*ex + x)*rp + its shift, the
   // row start's offset within 16 bytes: (s0 + z*mz + x*mx) mod 4 floats
   const int s0 = row_shift(box);
   const int mz = (int)(XY & 3), mx = g.Y & 3;
@@ -274,7 +279,7 @@ __device__ __forceinline__ int blend_box(const float* slot,
         && (unsigned)lx <= (unsigned)(ex - 2)
         && (unsigned)ly <= (unsigned)(a.ext[2] - 2));
     if (inside) {
-      const float* r00 = slot + (lz * ex + lx) * rp + ly;
+      const float* r00 = win + (lz * ex + lx) * rp + ly;
       const float* r10 = r00 + ex * rp;
       if (kAligned) {
         o[i] = corner_sum(r00 + s0, r00 + rp + s0, r10 + s0, r10 + rp + s0,
@@ -303,11 +308,11 @@ __device__ __forceinline__ const float* box_origin(const float* vc,
   return vc + (a.lo[0] * (int64_t)g.X + a.lo[1]) * g.Y + a.lo[2];
 }
 
-// Start this thread's copies of a's box (channel base vc) into `slot`.
-__device__ __forceinline__ void stage_box(float* slot, const float* vc,
+// Start this thread's copies of a's box (channel base vc) into `win`.
+__device__ __forceinline__ void stage_box(float* win, const float* vc,
                                           const Agent& a, const Geometry& g) {
   const int64_t XY = (int64_t)g.X * g.Y;
-  stage_rows16(slot, a.ext[1] * a.rp, a.rp, box_origin(vc, a, g), XY, g.Y,
+  stage_rows16(win, a.ext[1] * a.rp, a.rp, box_origin(vc, a, g), XY, g.Y,
                a.ext[0], a.ext[1], a.rp / 4, g.end, threadIdx.x, THREADS);
 }
 
@@ -317,50 +322,38 @@ rotated_patches_kernel(const float* __restrict__ vol,
                        const float* __restrict__ pos,
                        const float* __restrict__ frames,
                        float* __restrict__ out, unsigned char* __restrict__ ok,
-                       const Geometry g, int work, int n_slots) {
-  extern __shared__ __align__(16) float ring[];
+                       unsigned long long* __restrict__ stats,
+                       const Geometry g, int work) {
+  extern __shared__ __align__(16) float win[];
   const Digits t0 = digits(threadIdx.x, g.px, g.py);
   const Digits st = digits(THREADS, g.px, g.py);
   const int64_t chan = (int64_t)g.Z * g.X * g.Y;
   const int n_out = g.pz * g.px * g.py;
-  const int depth = n_slots - 1;
-  const int n_mine = (int)blockIdx.x < work
-                         ? (work - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
-                         : 0;
-  if (depth > 0 && n_mine > 0) {           // prologue: the first item
-    const int b = blockIdx.x / g.F, c = blockIdx.x - b * g.F;
-    const Agent a = load_agent(pos, frames, b, g);
-    if (a.staged) stage_box(ring, vol + c * chan, a, g);
-  }
-  if (depth > 0) cp_async_commit();
-  int s_load = depth, s_use = 0;
-  for (int k = 0; k < n_mine; ++k) {
-    if (k + depth < n_mine) {
-      const int w = blockIdx.x + (k + depth) * gridDim.x;
-      const int b = w / g.F, c = w - b * g.F;
-      const Agent a = load_agent(pos, frames, b, g);
-      if (a.staged) stage_box(ring + s_load * g.cap, vol + c * chan, a, g);
-    }
-    cp_async_commit();
-    cp_async_wait_upto(depth);       // this thread's copies of item k landed
-    __syncthreads();                 // ... and every other thread's
-    const int w = blockIdx.x + k * gridDim.x;
+  for (int w = blockIdx.x; w < work; w += gridDim.x) {
     const int b = w / g.F, c = w - b * g.F;
     const Agent a = load_agent(pos, frames, b, g);
     const float* vc = vol + c * chan;
+    if (a.staged) stage_box(win, vc, a, g);
+    cp_async_commit();
+    cp_async_wait<0>();              // this thread's copies landed
+    __syncthreads();                 // ... and every other thread's
+    if (threadIdx.x == 0) {
+      if (a.staged)
+        atomicAdd(stats + 1,
+                  (unsigned long long)a.ext[0] * a.ext[1] * a.rp);
+      else
+        atomicAdd(stats, 1ull);
+    }
     const float* box = box_origin(vc, a, g);
     float* o = out + (int64_t)w * n_out;
-    const float* slot = ring + s_use * g.cap;
     const int mine =
         a.interior
-            ? blend_box<true, kAligned>(slot, vc, box, o, a, g, t0, st)
-            : blend_box<false, kAligned>(slot, vc, box, o, a, g, t0, st);
-    // a barrier too: slot s_use is free for the next copy after it
+            ? blend_box<true, kAligned>(win, vc, box, o, a, g, t0, st)
+            : blend_box<false, kAligned>(win, vc, box, o, a, g, t0, st);
+    // a barrier too: the window is free for the next copy after it
     const int all_ok = __syncthreads_and(mine);
     if (threadIdx.x == 0 && c == 0)
       ok[b] = static_cast<unsigned char>(all_ok != 0);
-    s_load = s_load + 1 == n_slots ? 0 : s_load + 1;
-    s_use = s_use + 1 == n_slots ? 0 : s_use + 1;
   }
 }
 
@@ -389,8 +382,9 @@ extern "C" int e2t_rotated_patches_init(int* optin_bytes, int* n_sm) {
   return static_cast<int>(e);
 }
 
-// How many blocks of the kernel fit one SM with `smem_bytes` of ring (0 when
-// none does). A host-side query: call it outside any CUDA graph capture.
+// How many blocks of the kernel fit one SM with a window of `smem_bytes`
+// (0 when none does). A host-side query: call it outside any CUDA graph
+// capture.
 extern "C" int e2t_rotated_patches_fit(int smem_bytes, int* blocks_per_sm) {
   *blocks_per_sm = 0;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -404,23 +398,24 @@ extern "C" int e2t_rotated_patches_fit(int smem_bytes, int* blocks_per_sm) {
 //   frames (B, 3, 3) float32, contiguous: flight-frame rows per agent
 //   out    (B, F, pz, px, py) float32, written
 //   ok     (B,) one byte per agent (a torch.bool tensor), written 0 / 1
-//   cap    floats per ring slot (a box that takes more is not staged)
-//   n_slots  ring slots per block (1 or 2), n_slots * cap floats within the
-//            opt-in set by e2t_rotated_patches_init
-//   grid   blocks to launch (persistent: each walks items grid apart)
+//   stats  two running counts, added to: items not staged, floats staged
+//   cap    floats of the window (a box that takes more is not staged),
+//          within the opt-in set by e2t_rotated_patches_init
+//   grid   blocks to launch: each walks the items grid apart
 // Launches on `stream` and returns a CUDA error code (0 on success):
 // cudaErrorInvalidValue for shapes the kernel does not take (a volume with
-// an edge under 2, a volume not 16-byte aligned, a bad slot or block
-// count), else cudaGetLastError() after the launch. Nothing here
-// synchronises or sets an attribute: it runs inside CUDA graph captures.
+// an edge under 2, a volume not 16-byte aligned, a bad block count), else
+// cudaGetLastError() after the launch. Nothing here synchronises or sets an
+// attribute: it runs inside CUDA graph captures.
 extern "C" int e2t_rotated_patches_f32(const float* vol, const float* pos,
                                        const float* frames, float* out,
-                                       unsigned char* ok, int B, int F, int Z,
-                                       int X, int Y, int pz, int px, int py,
-                                       int cap, int n_slots, int grid,
+                                       unsigned char* ok,
+                                       unsigned long long* stats, int B,
+                                       int F, int Z, int X, int Y, int pz,
+                                       int px, int py, int cap, int grid,
                                        void* stream) {
   if (B < 1 || F < 1 || pz < 1 || px < 1 || py < 1 || Z < 2 || X < 2 ||
-      Y < 2 || cap < 16 || n_slots < 1 || n_slots > MAX_SLOTS || grid < 1 ||
+      Y < 2 || cap < 16 || grid < 1 ||
       (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Geometry g;
@@ -431,15 +426,15 @@ extern "C" int e2t_rotated_patches_f32(const float* vol, const float* pos,
   g.pz = pz;
   g.px = px;
   g.py = py;
-  g.cap = cap & ~3;                     // slots stay 16-byte aligned
+  g.cap = cap & ~3;                     // the window stays 16-byte aligned
   g.end = vol + (int64_t)F * Z * X * Y;
-  const size_t smem = sizeof(float) * (size_t)g.cap * n_slots;
+  const size_t smem = sizeof(float) * (size_t)g.cap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Y % 4 == 0)
     rotated_patches_kernel<true><<<grid, THREADS, smem, s>>>(
-        vol, pos, frames, out, ok, g, B * F, n_slots);
+        vol, pos, frames, out, ok, stats, g, B * F);
   else
     rotated_patches_kernel<false><<<grid, THREADS, smem, s>>>(
-        vol, pos, frames, out, ok, g, B * F, n_slots);
+        vol, pos, frames, out, ok, stats, g, B * F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,15 +31,9 @@ from ..utils.cuda_build import load_cuda_library
 #: ``data/tracing_utils.py``)
 launches = 0
 
-#: window slots in each block's shared-memory ring (1 to 3): with n slots a
-#: block copies n-1 windows ahead of the one it blends. One slot, with four
-#: blocks an SM overlapping each other, measured 5-8% faster than two or
-#: three on an H100 (chip_smoke.py's ``k2_arrangement`` rows time them)
-RING_SLOTS = 1
-
 _fns = None
 _devices = {}        # (init, device index) -> (opt-in bytes, SM count)
-_plans = {}          # (device, patch, slots) -> (ring slots, grid cap)
+_grids = {}          # (device, patch) -> most blocks to launch
 
 
 def build():
@@ -51,8 +45,8 @@ def build():
         c = lib.cdll
         P, I = ctypes.c_void_p, ctypes.c_int
         c.e2t_trilinear_patches_init.argtypes = [P, P]
-        c.e2t_trilinear_patches_fit.argtypes = [I] * 4 + [P, P]
-        c.e2t_trilinear_patches_f32.argtypes = [P] * 3 + [I] * 10 + [P]
+        c.e2t_trilinear_patches_fit.argtypes = [I] * 3 + [P, P]
+        c.e2t_trilinear_patches_f32.argtypes = [P] * 3 + [I] * 9 + [P]
         for fn in (c.e2t_trilinear_patches_init, c.e2t_trilinear_patches_fit,
                    c.e2t_trilinear_patches_f32):
             fn.restype = I
@@ -91,32 +85,28 @@ def device_limits(init, device):
     return idx, got
 
 
-def _plan(device, patch):
-    """(ring slots, most blocks to launch) for ``patch`` on ``device``:
-    ``RING_SLOTS``, or fewer where the opt-in allows fewer, and the blocks
-    that fit the card at once. Raises when one window does not fit a
-    block."""
-    idx, (optin, n_sm) = device_limits(_fns.e2t_trilinear_patches_init,
-                                       device)
-    key = (idx, patch, RING_SLOTS)
-    got = _plans.get(key)
+def _max_grid(device, patch):
+    """The most blocks of the kernel for ``patch`` that fit ``device`` at
+    once. Queries the card on the first call for (device, patch): keep that
+    call outside a CUDA graph capture. Raises when one window does not fit
+    a block."""
+    got = _grids.get((device, patch))
     if got is None:
-        for slots in range(RING_SLOTS, 0, -1):
-            fit, slot_bytes = ctypes.c_int(0), ctypes.c_int(0)
-            with torch.cuda.device(idx):
-                err = _fns.e2t_trilinear_patches_fit(
-                    *patch, slots, ctypes.byref(fit), ctypes.byref(slot_bytes))
-            if err != 0:
-                raise RuntimeError(f"trilinear patch kernel: occupancy query "
-                                   f"failed, CUDA error {err}")
-            if slots * slot_bytes.value <= optin and fit.value > 0:
-                break
-        else:
+        idx, (optin, n_sm) = device_limits(_fns.e2t_trilinear_patches_init,
+                                           device)
+        fit, window = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = _fns.e2t_trilinear_patches_fit(
+                *patch, ctypes.byref(fit), ctypes.byref(window))
+        if err != 0:
+            raise RuntimeError(f"trilinear patch kernel: occupancy query "
+                               f"failed, CUDA error {err}")
+        if window.value > optin or fit.value < 1:
             raise ValueError(
                 f"trilinear patch kernel: patch {patch} needs a window of "
-                f"{slot_bytes.value} bytes, over the card's {optin} bytes of "
+                f"{window.value} bytes, over the card's {optin} bytes of "
                 "shared memory per block")
-        got = _plans[key] = (slots, fit.value * n_sm)
+        got = _grids[(device, patch)] = fit.value * n_sm
     return got
 
 
@@ -181,12 +171,12 @@ def trilinear_patches(vol, pos, patch):
         # the kernel copies 16-byte pieces from 16-byte aligned addresses
         # of the volume: a view that starts mid-piece is copied first
         vol = vol.clone()
-    slots, max_grid = _plan(vol.device, patch)
+    grid = min(B * f, _max_grid(vol.device, patch))
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fns.e2t_trilinear_patches_f32(
             vol.data_ptr(), pos.data_ptr(), out.data_ptr(), B, f, Z, X, Y,
-            *patch, slots, min(B * f, max_grid), stream)
+            *patch, grid, stream)
     if err != 0:
         raise RuntimeError(f"trilinear patch kernel launch failed: CUDA error "
                            f"{err}")

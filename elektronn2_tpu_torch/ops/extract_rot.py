@@ -39,15 +39,10 @@ from .extract import check_patch, check_tensor, device_limits, row_floats
 #: ``data/tracing_utils.py``)
 launches = 0
 
-#: window slots in each block's shared-memory ring (1 or 2): with 2 a block
-#: copies the next agent's box while it blends this one; with 1 two blocks
-#: share an SM and overlap each other (measured faster; chip_smoke.py's
-#: ``k3_arrangement`` rows time both)
-RING_SLOTS = 1
-
 _fns = None
 _WHAT = "rotated patch extraction"
-_plans = {}          # (device, patch, volume, slots) -> (cap, slots, grid)
+_plans = {}          # (device, patch, volume) -> (window floats, grid)
+_stats = {}          # device -> staging_stats(device)
 
 
 def build():
@@ -60,7 +55,7 @@ def build():
         P, I = ctypes.c_void_p, ctypes.c_int
         c.e2t_rotated_patches_init.argtypes = [P, P]
         c.e2t_rotated_patches_fit.argtypes = [I, P]
-        c.e2t_rotated_patches_f32.argtypes = [P] * 5 + [I] * 11 + [P]
+        c.e2t_rotated_patches_f32.argtypes = [P] * 6 + [I] * 10 + [P]
         for fn in (c.e2t_rotated_patches_init, c.e2t_rotated_patches_fit,
                    c.e2t_rotated_patches_f32):
             fn.restype = I
@@ -76,27 +71,43 @@ def box_edge(patch):
     return math.floor(math.sqrt(sum((p - 1) ** 2 for p in patch))) + 3
 
 
+def staging_stats(device):
+    """K3's running counts on ``device``, an int64 tensor of two, added to
+    by every launch: the items whose box outgrew the window, so their
+    corners were read from device memory (right, but slow; none for an
+    orthonormal frame), and the floats staged into shared memory.
+    ``zero_()`` it to start a count. Made on the first call for the device:
+    keep that outside a CUDA graph capture (the first launch makes it)."""
+    device = torch.device(device)
+    got = _stats.get(device)
+    if got is None:
+        got = _stats[device] = torch.zeros(2, dtype=torch.int64,
+                                           device=device)
+    return got
+
+
 def _plan(device, patch, vol_shape):
-    """(slot floats, ring slots, most blocks to launch) of the kernel for
-    ``patch`` in a volume of ``vol_shape`` (f, Z, X, Y) on ``device``: a
-    slot holds the largest box of an orthonormal frame (``box_edge``, rows
-    of ``row_floats``), or what the opt-in allows."""
-    idx, (optin, n_sm) = device_limits(_fns.e2t_rotated_patches_init, device)
-    key = (idx, patch, tuple(vol_shape[1:]), RING_SLOTS)
+    """(window floats, most blocks to launch) of the kernel for ``patch`` in
+    a volume of ``vol_shape`` (f, Z, X, Y) on ``device``: the window holds
+    the largest box of an orthonormal frame (``box_edge``, rows of
+    ``row_floats``), or what the opt-in allows. Queries the card on the
+    first call for its key: keep that call outside a CUDA graph capture."""
+    key = (device, patch, tuple(vol_shape[1:]))
     got = _plans.get(key)
     if got is None:
+        idx, (optin, n_sm) = device_limits(_fns.e2t_rotated_patches_init,
+                                           device)
         ez, ex, ey = (min(box_edge(patch), d) for d in vol_shape[1:])
         cap = min(ez * ex * row_floats(ey), optin // 4) // 4 * 4
-        slots = max(1, min(RING_SLOTS, optin // (4 * cap)))
         fit = ctypes.c_int(0)
         with torch.cuda.device(idx):
-            err = _fns.e2t_rotated_patches_fit(4 * cap * slots,
-                                               ctypes.byref(fit))
+            err = _fns.e2t_rotated_patches_fit(4 * cap, ctypes.byref(fit))
         if err != 0 or fit.value < 1:
-            raise RuntimeError(f"{_WHAT}: no block of {4 * cap * slots} "
-                               f"bytes of shared memory fits the card (CUDA "
-                               f"error {err})")
-        got = _plans[key] = (cap, slots, fit.value * n_sm)
+            raise RuntimeError(f"{_WHAT}: no block of {4 * cap} bytes of "
+                               f"shared memory fits the card (CUDA error "
+                               f"{err})")
+        staging_stats(device)
+        got = _plans[key] = (cap, fit.value * n_sm)
     return got
 
 
@@ -140,41 +151,18 @@ def rotated_patches(vol, pos, frames, patch):
         # the kernel copies 16-byte pieces from 16-byte aligned addresses
         # of the volume: a view that starts mid-piece is copied first
         vol = vol.clone()
-    cap, slots, max_grid = _plan(vol.device, patch, vol.shape)
+    cap, max_grid = _plan(vol.device, patch, vol.shape)
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fns.e2t_rotated_patches_f32(
             vol.data_ptr(), pos.data_ptr(), frames.data_ptr(), out.data_ptr(),
-            ok.data_ptr(), B, f, Z, X, Y, *patch, cap, slots,
-            min(B * f, max_grid), stream)
+            ok.data_ptr(), _stats[vol.device].data_ptr(), B, f, Z, X, Y,
+            *patch, cap, min(B * f, max_grid), stream)
     if err != 0:
         raise RuntimeError(f"rotated patch kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
     return out, ok
-
-
-def staged_box(vol_shape, pos, frames, patch):
-    """``(lo, hi)``, (B, 3) int64, inclusive: the box of the volume the
-    kernel stages for each agent, in its arithmetic. Along axis d the
-    samples span ``pos_d -+ t_d`` with ``t_d = (|F0d| h0 + |F1d| h1) +
-    |F2d| h2``, ``h = (p-1)/2``; with ``e = 2^-20 (|pos_d| + t_d)``, over
-    twice a sample coordinate's float rounding, the box runs from
-    ``floor(pos_d - t_d - e)`` to ``floor(pos_d + t_d + e) + 1`` (the
-    corners' +1), clipped to the volume, at least two voxels wide. The
-    kernel copies ``ez * ex * row_floats(ey)`` floats of it."""
-    h = [(p - 1) / 2.0 for p in patch]
-    a = frames.abs()
-    t = a[:, 0] * h[0] + a[:, 1] * h[1]
-    t = t + a[:, 2] * h[2]
-    e = (pos.abs() + t) * 2.0 ** -20
-    dims = torch.tensor(vol_shape[1:], dtype=torch.float32,
-                        device=pos.device)
-    lo = torch.minimum(torch.clamp(torch.floor(pos - t - e), min=0.0),
-                       dims - 2.0)
-    hi = torch.minimum(torch.maximum(torch.floor(pos + t + e) + 1.0,
-                                     lo + 1.0), dims - 1.0)
-    return lo.long(), hi.long()
 
 
 def _offsets(patch, device):

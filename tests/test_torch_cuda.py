@@ -202,18 +202,13 @@ def test_flagship_k1_route_matches_cudnn_route(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("slots", [1, 3])
 @pytest.mark.parametrize("f, shape, patch, B", [
     (1, (64, 64, 64), (16, 16, 16), 300),     # the tracer's patch
     (2, (20, 24, 28), (5, 7, 9), 3),          # ragged patch, two channels
     (1, (40, 40, 40), (36, 36, 36), 2),       # a window past 48 KB
     (1, (30, 41, 50), (8, 8, 8), 200),        # Y % 4 == 2: rows shift
 ])
-def test_k2_matches_plain(cuda_device, monkeypatch, slots, f, shape, patch,
-                          B):
-    """K2 with a ring of one and of three window slots (fewer where a
-    window is too large for three)."""
-    monkeypatch.setattr(extract, "RING_SLOTS", slots)
+def test_k2_matches_plain(cuda_device, f, shape, patch, B):
     rng = np.random.RandomState(21)
     vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
         cuda_device)
@@ -230,14 +225,11 @@ def test_k2_matches_plain(cuda_device, monkeypatch, slots, f, shape, patch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("slots", [1, 2])
 @pytest.mark.parametrize("f, shape, patch, B", [
     (1, (96, 96, 96), (16, 16, 16), 200),
     (2, (30, 34, 41), (4, 8, 6), 17),         # Y % 4 == 1: rows shift
 ])
-def test_k3_matches_plain(cuda_device, monkeypatch, slots, f, shape, patch,
-                          B):
-    monkeypatch.setattr(extract_rot, "RING_SLOTS", slots)
+def test_k3_matches_plain(cuda_device, f, shape, patch, B):
     rng = np.random.RandomState(22)
     vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
         cuda_device)
@@ -253,6 +245,28 @@ def test_k3_matches_plain(cuda_device, monkeypatch, slots, f, shape, patch,
     assert extract_rot.launches == before + 1
     assert torch.equal(ok, ok_ref) and bool(ok.any()) and not bool(ok.all())
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+def _staged_box(vol_shape, pos, frames, patch):
+    """``(lo, hi)``, (B, 3) int64, inclusive: the box of the volume K3
+    stages for each agent, by the kernel's rule (``load_agent`` in
+    ``csrc/extract_rot.cu``): along axis d the samples span ``pos_d -+ t_d``
+    with ``t_d = (|F0d| h0 + |F1d| h1) + |F2d| h2``, ``h = (p-1)/2``; with
+    ``e = 2^-20 (|pos_d| + t_d)`` the box runs from ``floor(pos_d - t_d -
+    e)`` to ``floor(pos_d + t_d + e) + 1``, clipped to the volume, at least
+    two voxels wide."""
+    h = [(p - 1) / 2.0 for p in patch]
+    a = frames.abs()
+    t = a[:, 0] * h[0] + a[:, 1] * h[1]
+    t = t + a[:, 2] * h[2]
+    e = (pos.abs() + t) * 2.0 ** -20
+    dims = torch.tensor(vol_shape[1:], dtype=torch.float32,
+                        device=pos.device)
+    lo = torch.minimum(torch.clamp(torch.floor(pos - t - e), min=0.0),
+                       dims - 2.0)
+    hi = torch.minimum(torch.maximum(torch.floor(pos + t + e) + 1.0,
+                                     lo + 1.0), dims - 1.0)
+    return lo.long(), hi.long()
 
 
 def _k3_headings(kind, B, rng):
@@ -277,7 +291,9 @@ def test_k3_staged_windows(cuda_device, heading):
     half the agents with their lowest box corner at the ok bound (0 + a
     small delta), in a volume that is NaN everywhere outside the agents'
     staged boxes: the patches are finite and equal the plain version's,
-    and so are the ok flags."""
+    and so are the ok flags. The kernel stages every item, the boxes the
+    window was sized for (``box_edge``), and its count of staged floats is
+    the boxes' own."""
     rng = np.random.RandomState(24)
     B, patch, shape = 64, (16, 16, 16), (2, 60, 66, 72)
     h = torch.from_numpy(_k3_headings(heading, B, rng).astype(np.float32))
@@ -291,19 +307,25 @@ def test_k3_staged_windows(cuda_device, heading):
         d = (i // 2) % 3
         pos[i, d] = low[i, d] + deltas[(i // 2) % len(deltas)]
     pos = torch.from_numpy(pos.astype(np.float32)).to(cuda_device)
-    lo, hi = extract_rot.staged_box(shape, pos, F, patch)
-    assert int((hi - lo + 1).max()) <= extract_rot.box_edge(patch)
+    lo, hi = _staged_box(shape, pos, F, patch)
+    edges = (hi - lo + 1).cpu()
+    assert int(edges.max()) <= extract_rot.box_edge(patch)
+    floats = shape[0] * int((edges[:, 0] * edges[:, 1] * (
+        (edges[:, 2] + 6) // 4 * 4)).sum())
     keep = torch.zeros(shape[1:], dtype=torch.bool)
     for a, b in zip(lo.tolist(), hi.tolist()):
         keep[a[0]:b[0] + 1, a[1]:b[1] + 1, a[2]:b[2] + 1] = True
     vol = torch.from_numpy(rng.rand(*shape).astype(np.float32))
     vol[:, ~keep] = float("nan")
     vol = vol.to(cuda_device)
+    stats = extract_rot.staging_stats(vol.device)
+    stats.zero_()
     before = extract_rot.launches
     got, ok = extract_rot.rotated_patches(vol, pos, F, patch)
     ref, ok_ref = extract_rot.rotated_patches_reference(vol, pos, F, patch)
     torch.cuda.synchronize()
     assert extract_rot.launches == before + 1
+    assert stats.tolist() == [0, floats]
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, ref)
     assert torch.equal(ok, ok_ref) and bool(ok.any()) and not bool(ok.all())
