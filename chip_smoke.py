@@ -55,9 +55,7 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    time per launch: CUDA events around replays of a CUDA graph of 20
    launches (``graph_ms``), with the bytes their windows stage (K3's as its
    own count, ``extract_rot.staging_stats``, which must show no item left
-   unstaged) and the wrapper's grid (as many blocks as fit the card, each
-   walking items) timed beside a grid of one block per item (``k2_grid``,
-   ``k3_grid``).
+   unstaged).
    K5: rtol=atol=1e-4 (float32 sums of 27*Cin products in another order)
    and its pad channels exactly 0, at its benchmark's perf case (timed, with
    one ``F.conv3d`` as its library call) and correctness case, the JAX
@@ -595,45 +593,12 @@ def patch_bound(B, f, patch, in_bytes, flop_per_sample):
                     flop_per_sample * samples)
 
 
-def k2_one_item_grid(vol, pos, patch):
-    """K2 through its C entry point with one block per (agent, channel)
-    item; the wrapper launches only as many blocks as fit the card, each
-    walking several items."""
-    B, f = pos.shape[0], vol.shape[0]
-    out = torch.empty((B, f, *patch), device=vol.device)
-    err = extract._fns.e2t_trilinear_patches_f32(
-        vol.data_ptr(), pos.data_ptr(), out.data_ptr(), B, f,
-        *vol.shape[1:], *patch, B * f,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"K2, one item a block: CUDA error {err}")
-    return out
-
-
-def k3_one_item_grid(vol, pos, F, patch):
-    """K3 through its C entry point with one block per item (as
-    ``k2_one_item_grid``)."""
-    B, f = pos.shape[0], vol.shape[0]
-    out = torch.empty((B, f, *patch), device=vol.device)
-    ok = torch.empty((B,), dtype=torch.bool, device=vol.device)
-    err = extract_rot._fns.e2t_rotated_patches_f32(
-        vol.data_ptr(), pos.data_ptr(), F.data_ptr(), out.data_ptr(),
-        ok.data_ptr(), extract_rot.staging_stats(vol.device).data_ptr(), B,
-        f, *vol.shape[1:], *patch,
-        extract_rot._plan(vol.device, patch, vol.shape)[0], B * f,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"K3, one item a block: CUDA error {err}")
-    return out, ok
-
-
 def phase_kernel_k2():
     """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms) at the tracer's shape. Times are device
     time per launch: CUDA events around replays of a CUDA graph of 20
     launches, the kernel and the plain version in turns (``graph_ms``).
-    A grid of one block per item is timed beside the wrapper's
-    (``k2_grid``). No single PyTorch call computes K2:
+    No single PyTorch call computes K2:
     ``grid_sample`` clamps its samples, where K2 takes the fraction before
     it clips the window's base."""
     rng = np.random.RandomState(SEED + 2)
@@ -655,21 +620,11 @@ def phase_kernel_k2():
                 lambda: extract.trilinear_patches(vol, pos, patch)])
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * pos.numel(), 21)
-            grid = min(extract._max_grid(vol.device, patch),
-                       pos.shape[0] * vol.shape[0])
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
                        bound_by=bound[1], library_ms=None,
                        timing="cuda graph of 20 launches, CUDA events",
                        staged_bytes=4 * pos.shape[0] * vol.shape[0]
-                       * extract.staged_floats(patch), grid=grid)
-            if not torch.equal(k2_one_item_grid(vol, pos, patch), got):
-                raise AssertionError("K2: one item a block differs")
-            walk, one = graph_ms([
-                lambda: extract.trilinear_patches(vol, pos, patch),
-                lambda: k2_one_item_grid(vol, pos, patch),
-                ])
-            emit("k2_grid", walking_ms=walk, walking_blocks=grid,
-                 one_item_ms=one, items=pos.shape[0] * vol.shape[0])
+                       * extract.staged_floats(patch))
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
 
@@ -678,8 +633,7 @@ def phase_kernel_k3():
     """K3 against its plain version; returns (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms) at the rotated tracer's shape, timed
     as K2's (``graph_ms``), with the bytes its staged boxes read beside the
-    bound (its own count) and a grid of one block per item beside the
-    wrapper's (``k3_grid``). Every case must stage every item. No single
+    bound (its own count). Every case must stage every item. No single
     PyTorch call computes K3:
     ``grid_sample`` has no ``ok`` flag."""
     rng = np.random.RandomState(SEED + 3)
@@ -720,20 +674,9 @@ def phase_kernel_k3():
             # per sample: the frame rotation (9 multiply-adds), the blend
             bound = patch_bound(pos.shape[0], vol.shape[0], patch,
                                 4.0 * (pos.numel() + F.numel()), 39)
-            grid = min(extract_rot._plan(vol.device, patch, vol.shape)[1],
-                       pos.shape[0] * vol.shape[0])
             rec.update(ms=ms, plain_ms=pms, bound_ms=bound[0],
                        bound_by=bound[1], library_ms=None,
-                       timing="cuda graph of 20 launches, CUDA events",
-                       grid=grid)
-            one_out, one_ok = k3_one_item_grid(vol, pos, F, patch)
-            if not (torch.equal(one_out, got) and torch.equal(one_ok, ok)):
-                raise AssertionError("K3: one item a block differs")
-            walk, one = graph_ms([
-                lambda: extract_rot.rotated_patches(vol, pos, F, patch),
-                lambda: k3_one_item_grid(vol, pos, F, patch)])
-            emit("k3_grid", walking_ms=walk, walking_blocks=grid,
-                 one_item_ms=one, items=pos.shape[0] * vol.shape[0])
+                       timing="cuda graph of 20 launches, CUDA events")
         emit("kernel", **rec)
     return (max_err, ms, pms) + bound + (None,)
 

@@ -20,11 +20,12 @@
 // What the design does about it (the TPU kernel's idea, window copies in
 // flight while other windows are blended, not its blocks):
 //  * a block stages one (agent, channel) item's window with cp.async,
-//    waits, blends it, and moves on to its next item; four blocks share an
-//    SM, so one block's copy overlaps the others' blends. A ring of 2 or 3
-//    slots per block, copying the next window while blending this one,
-//    measured 5-12% slower on an H100 at four blocks an SM, and 15-40%
-//    slower at one or two blocks an SM with 4 to 8 slots (PERF.md);
+//    waits and blends it; four blocks share an SM, so one block's copy
+//    overlaps the others' blends. A ring of 2 or 3 slots per block, copying
+//    the next window while blending this one, measured 5-12% slower on an
+//    H100 at four blocks an SM, and 15-40% slower at one or two blocks an
+//    SM with 4 to 8 slots; blocks that walk over several items were no
+//    faster than one block per item (PERF.md);
 //  * the window's rows are copied with 16-byte cp.async from the 16-byte
 //    group that holds each row's start (stage_rows16 in cp_async.cuh): any
 //    Y, 5 pieces per 17-float row instead of 17 single floats. A row lands
@@ -168,19 +169,15 @@ template <bool kAligned>
 __global__ void __launch_bounds__(THREADS)
 trilinear_patches_kernel(const float* __restrict__ vol,
                          const float* __restrict__ pos,
-                         float* __restrict__ out, const Geometry g,
-                         int work) {
+                         float* __restrict__ out, const Geometry g) {
   extern __shared__ __align__(16) float win[];
-  for (int w = blockIdx.x; w < work; w += gridDim.x) {
-    const int b = w / g.F;
-    const int c = w - b * g.F;
-    stage_window(win, vol, pos, b, c, g);
-    cp_async_commit();
-    cp_async_wait<0>();              // this thread's copies landed
-    __syncthreads();                 // ... and every other thread's
-    blend_window<kAligned>(win, vol, pos, out, b, c, g);
-    __syncthreads();                 // the window is free for the next copy
-  }
+  const int b = blockIdx.x / g.F;
+  const int c = blockIdx.x - b * g.F;
+  stage_window(win, vol, pos, b, c, g);
+  cp_async_commit();
+  cp_async_wait<0>();                // this thread's copies landed
+  __syncthreads();                   // ... and every other thread's
+  blend_window<kAligned>(win, vol, pos, out, b, c, g);
 }
 
 Geometry make_geometry(const float* vol, int F, int Z, int X, int Y, int pz,
@@ -206,17 +203,14 @@ Geometry make_geometry(const float* vol, int F, int Z, int X, int Y, int pz,
 }  // namespace
 
 // Set both kernel forms' dynamic shared-memory limit to the current
-// device's per-block opt-in and report that opt-in and the SM count. Call
-// it once per device before the first launch, outside any CUDA graph
-// capture.
-extern "C" int e2t_trilinear_patches_init(int* optin_bytes, int* n_sm) {
+// device's per-block opt-in and report that opt-in. Call it once per device
+// before the first launch, outside any CUDA graph capture.
+extern "C" int e2t_trilinear_patches_init(int* optin_bytes) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(optin_bytes,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(trilinear_patches_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -228,56 +222,39 @@ extern "C" int e2t_trilinear_patches_init(int* optin_bytes, int* n_sm) {
   return static_cast<int>(e);
 }
 
-// How many blocks of the kernel fit one SM for this patch (0 when none
-// does), and the bytes of its window. A host-side query: call it outside
-// any CUDA graph capture.
-extern "C" int e2t_trilinear_patches_fit(int pz, int px, int py,
-                                         int* blocks_per_sm,
-                                         int* window_bytes) {
-  if (pz < 1 || px < 1 || py < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *window_bytes = static_cast<int>(sizeof(float))
-                  * make_geometry(nullptr, 1, 1, 1, 1, pz, px, py).window;
-  *blocks_per_sm = 0;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess || *window_bytes > optin)
-    return static_cast<int>(e);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, trilinear_patches_kernel<true>, THREADS,
-      (size_t)*window_bytes));
+// Bytes of shared memory the kernel's window takes for this patch.
+extern "C" int e2t_trilinear_patches_window_bytes(int pz, int px, int py) {
+  return static_cast<int>(sizeof(float))
+         * make_geometry(nullptr, 1, 1, 1, 1, pz, px, py).window;
 }
 
 // Plain C entry point, loaded with ctypes.
 //   vol  (F, Z, X, Y) float32, contiguous, 16-byte aligned
 //   pos  (B, 3) float32, contiguous
 //   out  (B, F, pz, px, py) float32, written
-//   grid  blocks to launch: each walks the items grid apart
-// The window must fit the opt-in set by e2t_trilinear_patches_init.
+// One block per (agent, channel) item; the window must fit the opt-in set
+// by e2t_trilinear_patches_init.
 // Launches on `stream` and returns a CUDA error code (0 on success):
 // cudaErrorInvalidValue for shapes the kernel does not take (a volume
-// smaller than patch+1 or not 16-byte aligned, a bad block count), else
+// smaller than patch+1 or not 16-byte aligned), else
 // cudaGetLastError() after the launch. Nothing here synchronises or sets an
 // attribute: it runs inside CUDA graph captures.
 extern "C" int e2t_trilinear_patches_f32(const float* vol, const float* pos,
                                          float* out, int B, int F, int Z,
                                          int X, int Y, int pz, int px, int py,
-                                         int grid, void* stream) {
+                                         void* stream) {
   if (B < 1 || F < 1 || pz < 1 || px < 1 || py < 1 || Z < pz + 1 ||
-      X < px + 1 || Y < py + 1 || grid < 1 ||
+      X < px + 1 || Y < py + 1 ||
       (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = make_geometry(vol, F, Z, X, Y, pz, px, py);
   const size_t smem = sizeof(float) * (size_t)g.window;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Y % 4 == 0)
-    trilinear_patches_kernel<true><<<grid, THREADS, smem, s>>>(vol, pos, out,
-                                                               g, B * F);
+    trilinear_patches_kernel<true><<<B * F, THREADS, smem, s>>>(vol, pos,
+                                                                out, g);
   else
-    trilinear_patches_kernel<false><<<grid, THREADS, smem, s>>>(vol, pos,
-                                                                out, g, B * F);
+    trilinear_patches_kernel<false><<<B * F, THREADS, smem, s>>>(vol, pos,
+                                                                 out, g);
   return static_cast<int>(cudaGetLastError());
 }

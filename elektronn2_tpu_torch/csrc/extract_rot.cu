@@ -36,11 +36,12 @@
 //    memory; a sample finds its corner rows' offsets from the row start's
 //    address (constant over the box when Y % 4 == 0);
 //  * a block stages one (agent, channel) item's box into a window of
-//    25088 floats (98 KB, a 28 x 28 box of 32-float rows at 16^3), waits,
-//    blends it and moves on to its next item; two blocks share an SM and
-//    overlap each other's copies and blends. A ring of two windows in one
-//    block (the next box copied while this one is blended) measured 14-17%
-//    slower on an H100 (PERF.md);
+//    25088 floats (98 KB, a 28 x 28 box of 32-float rows at 16^3), waits
+//    and blends it; two blocks share an SM and overlap each other's copies
+//    and blends. A ring of two windows in one block (the next box copied
+//    while this one is blended) measured 14-17% slower on an H100, and
+//    blocks that walk over several items were no faster than one block per
+//    item (PERF.md);
 //  * no shared-memory value is read unless this item's copy wrote it (the
 //    0*NaN trap of pallas_extract_rot.py:239-247): a sample whose corners
 //    fall outside the staged box, or an item whose box outgrows the window
@@ -323,54 +324,46 @@ rotated_patches_kernel(const float* __restrict__ vol,
                        const float* __restrict__ frames,
                        float* __restrict__ out, unsigned char* __restrict__ ok,
                        unsigned long long* __restrict__ stats,
-                       const Geometry g, int work) {
+                       const Geometry g) {
   extern __shared__ __align__(16) float win[];
+  const int w = blockIdx.x;
+  const int b = w / g.F, c = w - b * g.F;
+  const Agent a = load_agent(pos, frames, b, g);
+  const float* vc = vol + c * ((int64_t)g.Z * g.X * g.Y);
+  if (a.staged) stage_box(win, vc, a, g);
+  cp_async_commit();
+  cp_async_wait<0>();                // this thread's copies landed
+  __syncthreads();                   // ... and every other thread's
+  if (threadIdx.x == 0) {
+    if (a.staged)
+      atomicAdd(stats + 1, (unsigned long long)a.ext[0] * a.ext[1] * a.rp);
+    else
+      atomicAdd(stats, 1ull);
+  }
   const Digits t0 = digits(threadIdx.x, g.px, g.py);
   const Digits st = digits(THREADS, g.px, g.py);
-  const int64_t chan = (int64_t)g.Z * g.X * g.Y;
-  const int n_out = g.pz * g.px * g.py;
-  for (int w = blockIdx.x; w < work; w += gridDim.x) {
-    const int b = w / g.F, c = w - b * g.F;
-    const Agent a = load_agent(pos, frames, b, g);
-    const float* vc = vol + c * chan;
-    if (a.staged) stage_box(win, vc, a, g);
-    cp_async_commit();
-    cp_async_wait<0>();              // this thread's copies landed
-    __syncthreads();                 // ... and every other thread's
-    if (threadIdx.x == 0) {
-      if (a.staged)
-        atomicAdd(stats + 1,
-                  (unsigned long long)a.ext[0] * a.ext[1] * a.rp);
-      else
-        atomicAdd(stats, 1ull);
-    }
-    const float* box = box_origin(vc, a, g);
-    float* o = out + (int64_t)w * n_out;
-    const int mine =
-        a.interior
-            ? blend_box<true, kAligned>(win, vc, box, o, a, g, t0, st)
-            : blend_box<false, kAligned>(win, vc, box, o, a, g, t0, st);
-    // a barrier too: the window is free for the next copy after it
-    const int all_ok = __syncthreads_and(mine);
-    if (threadIdx.x == 0 && c == 0)
-      ok[b] = static_cast<unsigned char>(all_ok != 0);
-  }
+  const float* box = box_origin(vc, a, g);
+  float* o = out + (int64_t)w * (g.pz * g.px * g.py);
+  const int mine =
+      a.interior
+          ? blend_box<true, kAligned>(win, vc, box, o, a, g, t0, st)
+          : blend_box<false, kAligned>(win, vc, box, o, a, g, t0, st);
+  const int all_ok = __syncthreads_and(mine);
+  if (threadIdx.x == 0 && c == 0)
+    ok[b] = static_cast<unsigned char>(all_ok != 0);
 }
 
 }  // namespace
 
 // Set both kernel forms' dynamic shared-memory limit to the current
-// device's per-block opt-in and report that opt-in and the SM count. Call
-// it once per device before the first launch, outside any CUDA graph
-// capture.
-extern "C" int e2t_rotated_patches_init(int* optin_bytes, int* n_sm) {
+// device's per-block opt-in and report that opt-in. Call it once per device
+// before the first launch, outside any CUDA graph capture.
+extern "C" int e2t_rotated_patches_init(int* optin_bytes) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(optin_bytes,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(rotated_patches_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -382,16 +375,6 @@ extern "C" int e2t_rotated_patches_init(int* optin_bytes, int* n_sm) {
   return static_cast<int>(e);
 }
 
-// How many blocks of the kernel fit one SM with a window of `smem_bytes`
-// (0 when none does). A host-side query: call it outside any CUDA graph
-// capture.
-extern "C" int e2t_rotated_patches_fit(int smem_bytes, int* blocks_per_sm) {
-  *blocks_per_sm = 0;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, rotated_patches_kernel<true>, THREADS,
-      (size_t)smem_bytes));
-}
-
 // Plain C entry point, loaded with ctypes.
 //   vol    (F, Z, X, Y) float32, contiguous, 16-byte aligned
 //   pos    (B, 3) float32, contiguous
@@ -401,10 +384,10 @@ extern "C" int e2t_rotated_patches_fit(int smem_bytes, int* blocks_per_sm) {
 //   stats  two running counts, added to: items not staged, floats staged
 //   cap    floats of the window (a box that takes more is not staged),
 //          within the opt-in set by e2t_rotated_patches_init
-//   grid   blocks to launch: each walks the items grid apart
+// One block per (agent, channel) item.
 // Launches on `stream` and returns a CUDA error code (0 on success):
 // cudaErrorInvalidValue for shapes the kernel does not take (a volume with
-// an edge under 2, a volume not 16-byte aligned, a bad block count), else
+// an edge under 2, a volume not 16-byte aligned), else
 // cudaGetLastError() after the launch. Nothing here synchronises or sets an
 // attribute: it runs inside CUDA graph captures.
 extern "C" int e2t_rotated_patches_f32(const float* vol, const float* pos,
@@ -412,10 +395,10 @@ extern "C" int e2t_rotated_patches_f32(const float* vol, const float* pos,
                                        unsigned char* ok,
                                        unsigned long long* stats, int B,
                                        int F, int Z, int X, int Y, int pz,
-                                       int px, int py, int cap, int grid,
+                                       int px, int py, int cap,
                                        void* stream) {
   if (B < 1 || F < 1 || pz < 1 || px < 1 || py < 1 || Z < 2 || X < 2 ||
-      Y < 2 || cap < 16 || grid < 1 ||
+      Y < 2 || cap < 16 ||
       (reinterpret_cast<uintptr_t>(vol) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Geometry g;
@@ -431,10 +414,10 @@ extern "C" int e2t_rotated_patches_f32(const float* vol, const float* pos,
   const size_t smem = sizeof(float) * (size_t)g.cap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Y % 4 == 0)
-    rotated_patches_kernel<true><<<grid, THREADS, smem, s>>>(
-        vol, pos, frames, out, ok, stats, g, B * F);
+    rotated_patches_kernel<true><<<B * F, THREADS, smem, s>>>(
+        vol, pos, frames, out, ok, stats, g);
   else
-    rotated_patches_kernel<false><<<grid, THREADS, smem, s>>>(
-        vol, pos, frames, out, ok, stats, g, B * F);
+    rotated_patches_kernel<false><<<B * F, THREADS, smem, s>>>(
+        vol, pos, frames, out, ok, stats, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,8 +32,8 @@ from ..utils.cuda_build import load_cuda_library
 launches = 0
 
 _fns = None
-_devices = {}        # (init, device index) -> (opt-in bytes, SM count)
-_grids = {}          # (device, patch) -> most blocks to launch
+_optins = {}         # (init, device index) -> opt-in bytes
+_windows = set()     # (device, patch) whose window fits the device
 
 
 def build():
@@ -44,10 +44,11 @@ def build():
     if _fns is None:
         c = lib.cdll
         P, I = ctypes.c_void_p, ctypes.c_int
-        c.e2t_trilinear_patches_init.argtypes = [P, P]
-        c.e2t_trilinear_patches_fit.argtypes = [I] * 3 + [P, P]
-        c.e2t_trilinear_patches_f32.argtypes = [P] * 3 + [I] * 9 + [P]
-        for fn in (c.e2t_trilinear_patches_init, c.e2t_trilinear_patches_fit,
+        c.e2t_trilinear_patches_init.argtypes = [P]
+        c.e2t_trilinear_patches_window_bytes.argtypes = [I] * 3
+        c.e2t_trilinear_patches_f32.argtypes = [P] * 3 + [I] * 8 + [P]
+        for fn in (c.e2t_trilinear_patches_init,
+                   c.e2t_trilinear_patches_window_bytes,
                    c.e2t_trilinear_patches_f32):
             fn.restype = I
         _fns = c
@@ -67,47 +68,38 @@ def staged_floats(patch):
     return (patch[0] + 1) * (patch[1] + 1) * row_floats(patch[2] + 1)
 
 
-def device_limits(init, device):
-    """(opt-in shared bytes per block, SM count) of ``device``, from the
-    library's ``init`` entry point, which also lifts the kernel's dynamic
+def shared_optin(init, device):
+    """The opt-in shared bytes per block of ``device``, from the library's
+    ``init`` entry point, which also lifts the kernel's dynamic
     shared-memory limit to that opt-in. Runs once per device: keep the first
     call outside a CUDA graph capture (``DeviceTracer`` warms up first)."""
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    got = _devices.get((init.__name__, idx))
+    got = _optins.get((init.__name__, idx))
     if got is None:
-        optin, n_sm = ctypes.c_int(0), ctypes.c_int(0)
+        optin = ctypes.c_int(0)
         with torch.cuda.device(idx):
-            err = init(ctypes.byref(optin), ctypes.byref(n_sm))
+            err = init(ctypes.byref(optin))
         if err != 0:
             raise RuntimeError(f"patch kernel init failed: CUDA error {err}")
-        got = _devices[(init.__name__, idx)] = (optin.value, n_sm.value)
-    return idx, got
-
-
-def _max_grid(device, patch):
-    """The most blocks of the kernel for ``patch`` that fit ``device`` at
-    once. Queries the card on the first call for (device, patch): keep that
-    call outside a CUDA graph capture. Raises when one window does not fit
-    a block."""
-    got = _grids.get((device, patch))
-    if got is None:
-        idx, (optin, n_sm) = device_limits(_fns.e2t_trilinear_patches_init,
-                                           device)
-        fit, window = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(idx):
-            err = _fns.e2t_trilinear_patches_fit(
-                *patch, ctypes.byref(fit), ctypes.byref(window))
-        if err != 0:
-            raise RuntimeError(f"trilinear patch kernel: occupancy query "
-                               f"failed, CUDA error {err}")
-        if window.value > optin or fit.value < 1:
-            raise ValueError(
-                f"trilinear patch kernel: patch {patch} needs a window of "
-                f"{window.value} bytes, over the card's {optin} bytes of "
-                "shared memory per block")
-        got = _grids[(device, patch)] = fit.value * n_sm
+        got = _optins[(init.__name__, idx)] = optin.value
     return got
+
+
+def _check_window(device, patch):
+    """Raise unless the kernel's window for ``patch`` fits a block on
+    ``device`` (checked once per pair, outside a capture as
+    :func:`shared_optin`)."""
+    if (device, patch) in _windows:
+        return
+    optin = shared_optin(_fns.e2t_trilinear_patches_init, device)
+    window = _fns.e2t_trilinear_patches_window_bytes(*patch)
+    if window > optin:
+        raise ValueError(
+            f"trilinear patch kernel: patch {patch} needs a window of "
+            f"{window} bytes, over the card's {optin} bytes of shared "
+            "memory per block")
+    _windows.add((device, patch))
 
 
 def check_tensor(t, name, ndim, like=None, what="patch extraction"):
@@ -171,12 +163,12 @@ def trilinear_patches(vol, pos, patch):
         # the kernel copies 16-byte pieces from 16-byte aligned addresses
         # of the volume: a view that starts mid-piece is copied first
         vol = vol.clone()
-    grid = min(B * f, _max_grid(vol.device, patch))
+    _check_window(vol.device, patch)
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fns.e2t_trilinear_patches_f32(
             vol.data_ptr(), pos.data_ptr(), out.data_ptr(), B, f, Z, X, Y,
-            *patch, grid, stream)
+            *patch, stream)
     if err != 0:
         raise RuntimeError(f"trilinear patch kernel launch failed: CUDA error "
                            f"{err}")

@@ -32,7 +32,7 @@ import math
 import torch
 
 from ..utils.cuda_build import load_cuda_library
-from .extract import check_patch, check_tensor, device_limits, row_floats
+from .extract import check_patch, check_tensor, row_floats, shared_optin
 
 #: kernel launches made by :func:`rotated_patches` in this process (a
 #: replayed CUDA graph adds the launches it captured, see
@@ -41,7 +41,7 @@ launches = 0
 
 _fns = None
 _WHAT = "rotated patch extraction"
-_plans = {}          # (device, patch, volume) -> (window floats, grid)
+_caps = {}           # (device, patch, volume) -> window floats
 _stats = {}          # device -> staging_stats(device)
 
 
@@ -53,11 +53,9 @@ def build():
     if _fns is None:
         c = lib.cdll
         P, I = ctypes.c_void_p, ctypes.c_int
-        c.e2t_rotated_patches_init.argtypes = [P, P]
-        c.e2t_rotated_patches_fit.argtypes = [I, P]
-        c.e2t_rotated_patches_f32.argtypes = [P] * 6 + [I] * 10 + [P]
-        for fn in (c.e2t_rotated_patches_init, c.e2t_rotated_patches_fit,
-                   c.e2t_rotated_patches_f32):
+        c.e2t_rotated_patches_init.argtypes = [P]
+        c.e2t_rotated_patches_f32.argtypes = [P] * 6 + [I] * 9 + [P]
+        for fn in (c.e2t_rotated_patches_init, c.e2t_rotated_patches_f32):
             fn.restype = I
         _fns = c
     return lib
@@ -86,28 +84,19 @@ def staging_stats(device):
     return got
 
 
-def _plan(device, patch, vol_shape):
-    """(window floats, most blocks to launch) of the kernel for ``patch`` in
-    a volume of ``vol_shape`` (f, Z, X, Y) on ``device``: the window holds
-    the largest box of an orthonormal frame (``box_edge``, rows of
-    ``row_floats``), or what the opt-in allows. Queries the card on the
-    first call for its key: keep that call outside a CUDA graph capture."""
+def window_floats(device, patch, vol_shape):
+    """Floats of the kernel's window for ``patch`` in a volume of
+    ``vol_shape`` (f, Z, X, Y) on ``device``: the largest box of an
+    orthonormal frame (``box_edge``, rows of ``row_floats``), or what the
+    opt-in allows. Queries the card on the first call for its key: keep
+    that call outside a CUDA graph capture."""
     key = (device, patch, tuple(vol_shape[1:]))
-    got = _plans.get(key)
+    got = _caps.get(key)
     if got is None:
-        idx, (optin, n_sm) = device_limits(_fns.e2t_rotated_patches_init,
-                                           device)
+        optin = shared_optin(_fns.e2t_rotated_patches_init, device)
         ez, ex, ey = (min(box_edge(patch), d) for d in vol_shape[1:])
-        cap = min(ez * ex * row_floats(ey), optin // 4) // 4 * 4
-        fit = ctypes.c_int(0)
-        with torch.cuda.device(idx):
-            err = _fns.e2t_rotated_patches_fit(4 * cap, ctypes.byref(fit))
-        if err != 0 or fit.value < 1:
-            raise RuntimeError(f"{_WHAT}: no block of {4 * cap} bytes of "
-                               f"shared memory fits the card (CUDA error "
-                               f"{err})")
         staging_stats(device)
-        got = _plans[key] = (cap, fit.value * n_sm)
+        got = _caps[key] = min(ez * ex * row_floats(ey), optin // 4) // 4 * 4
     return got
 
 
@@ -151,13 +140,13 @@ def rotated_patches(vol, pos, frames, patch):
         # the kernel copies 16-byte pieces from 16-byte aligned addresses
         # of the volume: a view that starts mid-piece is copied first
         vol = vol.clone()
-    cap, max_grid = _plan(vol.device, patch, vol.shape)
+    cap = window_floats(vol.device, patch, vol.shape)
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fns.e2t_rotated_patches_f32(
             vol.data_ptr(), pos.data_ptr(), frames.data_ptr(), out.data_ptr(),
             ok.data_ptr(), _stats[vol.device].data_ptr(), B, f, Z, X, Y,
-            *patch, cap, min(B * f, max_grid), stream)
+            *patch, cap, stream)
     if err != 0:
         raise RuntimeError(f"rotated patch kernel launch failed: CUDA error "
                            f"{err}")

@@ -46,6 +46,7 @@ MODULES = [
     "elektronn2_tpu_torch.scripts.exp_headconv_tc",
     "elektronn2_tpu_torch.scripts.exp_ptail_dot",
     "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
+    "elektronn2_tpu_torch.scripts.exp_wrapper_host",
 ]
 
 
