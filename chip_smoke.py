@@ -13,9 +13,9 @@ via ScanN -> 3-vector step) with the patch kernels K2 (``csrc/extract.cu``,
 translation) and K3 (``csrc/extract_rot.cu``, frame-aligned); the K4
 probe at the conv-dense path's kz=1 shapes; and the entry points of the
 three kernels no production route runs: K5's benchmark (the im2col dilated
-conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
-``csrc/ptail_dot.cu``) and P2 (per-row ablations of K1's former FFMA body,
-``csrc/ptail_ablate.cu``). Phases:
+conv, ``csrc/dilated_conv.cu``) and the probes P1 (the ``wgmma`` dot rate
+at K1's dot shapes, ``csrc/ptail_dot.cu``) and P2 (K1's own body with its
+legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
 
 1. device: the card's name, capability, ``nvidia-smi`` name and power limit,
    and the float32 flags (cuDNN and cuBLAS TF32 off, a conv and a matmul
@@ -24,22 +24,23 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
    checkout's sources, one nvcc per source, all started together; ptxas
    registers and spills, and SASS op counts (``cuobjdump -sass``): every
    instance of K1 and of K4's tensor-core body must hold HGMMAs (the
-   tensor-core ``wgmma``) and neither library's ptxas report may carry
-   C7514 (``wgmma`` serialized), and P1's
-   FFMAs / HMMAs and, per P2 probe, its FFMAs and LDGs show that the
-   probed work survived compilation;
+   tensor-core ``wgmma``) and no library's ptxas report may carry C7514
+   (``wgmma`` serialized); both P1 kernels must hold HGMMAs and no HMMA
+   and no FFMA loop; per P2 probe, HGMMAs (at least the 9 a stage) exactly
+   when it has the dot leg and LDGSTS (``cp.async``) when it has the dma
+   leg show that the probed work survived compilation;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the main paths' shapes (timed with CUDA events: plain, kernel,
    kernel, plain; K2 and K3 in CUDA graphs) and at ragged and border shapes, with each timed case's
    bound on an H100: the larger of its bytes at 3.35 TB/s and its FLOPs
-   at 67 TFLOP/s FP32 for the FFMA kernels (K2, K3, K5, P2), at 495 / 3
-   TFLOP/s for K1 and K4 (three TF32 products per multiply-add). K1 and K4:
+   at 67 TFLOP/s FP32 for the FFMA kernels (K2, K3, K5), at 495 / 3
+   TFLOP/s for K1, K4, P2 and P1's float32 dots (three TF32 products per
+   multiply-add), at 989 TFLOP/s for P1's bf16 dots. K1 and K4:
    ``assert_close`` rtol=atol=1e-4 (float32 sums of up to 27*Cin or 9*Cin
    products in another order). At its six main-path shapes K1 is timed in
-   turns with its plain version, one ``F.conv3d`` with the bias (its
-   library call; no ReLU) and K1's former FFMA body (``ffma_ms``, P2's
-   ``full``), and held against a float64 conv on the first 8 output
-   planes: its ``f64_max_abs`` must be within 2x cuDNN float32's + 1e-6.
+   turns with its plain version and one ``F.conv3d`` with the bias (its
+   library call; no ReLU), and held against a float64 conv on the first 8
+   output planes: its ``f64_max_abs`` must be within 2x cuDNN float32's + 1e-6.
    K4 (both bodies, ``head_tc`` and ``head_ffma``, and the wrapper's
    choice) covers the flagship's head units, ragged Y, d=3, Cout past one
    N tile and the probe's shapes; its plain version is the flagship route's
@@ -111,23 +112,26 @@ conv, ``csrc/dilated_conv.cu``) and the probes P1 (dot rate,
     dilated_conv.main()``, K5's benchmark;
 12. probe_dot: the rows of ``elektronn2_tpu_torch.scripts.exp_ptail_dot.
     main()`` (P1's six configs; each within rtol=atol=1e-3 of its plain
-    version in float32, rtol=atol=1e-2 in bf16, and no faster than its
-    bound), and ``probe_dot_library``: one batched ``torch.matmul`` over
-    the same 1024 x 8 dots as P1's float32 row, its library call;
+    version in float32, rtol=atol=1e-2 in bf16, the float32 rows within 2x
+    the plain float32 version's error against float64 + 1e-6, and none
+    faster than its bound), each with its library call, one batched
+    ``torch.matmul`` over the same 1024 x 8 dots in the row's type;
 13. probe_ablate: the rows of ``elektronn2_tpu_torch.scripts.
     exp_ptail_ablate.main()`` at the canonical tail shape (``k_disp=2``)
-    and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes of the
-    former FFMA body, ``full`` and ``noepi`` within 1e-4 of their plain
-    versions, and ``k1_ms``, the redesigned K1 beside the former body's
-    ``full``.
+    and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes of
+    K1's body, ``full`` equal to K1 (``torch.equal``) and within 1e-4 of
+    its plain version, ``noepi`` within ``noepi_tol`` of the bare conv (and
+    1e-4 at the canonical shape), and
+    ``k1_ms``, K1 through its wrapper beside ``full``.
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
 plain_ms, bound_ms, bound_by, library_ms; K4's are summed over the
 probe's pool=1 shapes, where one ``F.conv3d`` is its library call; P1's
-``ms`` and ``library_ms`` are one call of 1024 cells x 8 dots, its
-``plain_ms`` computes the 8 dots once), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and the exit code
-is not 0. Without a CUDA device it exits non-zero before any result.
+are its float32 (120, 360, 512) row: ``ms`` and ``library_ms`` one call of
+1024 cells x 8 dots, ``plain_ms`` the 8 dots once), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
+the exit code is not 0. Without a CUDA device it exits non-zero before any result.
 Usage, from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -156,8 +160,8 @@ from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
 from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
                                                 wide_unet_model)
 from elektronn2_tpu_torch.utils.cuda_build import find_nvcc
-from elektronn2_tpu_torch.utils.device_timing import (TF32_FLOP_S, best_ms,
-                                                      bound_ms, graph_ms,
+from elektronn2_tpu_torch.utils.device_timing import (best_ms, bound_ms,
+                                                      conv3x3_bound, graph_ms,
                                                       in_turns, palindrome_ms,
                                                       time_ms)
 
@@ -234,13 +238,14 @@ def phase_device():
     return smi
 
 
-SASS_OPS = ("FFMA", "HMMA", "HGMMA", "LDG", "STG", "LDS", "STS")
+SASS_OPS = ("FFMA", "HMMA", "HGMMA", "LDG", "LDGSTS", "STG", "LDS", "STS")
 
 
 def sass_counts(path):
     """{kernel function: {op: count}} of the SASS in a built library
     (``cuobjdump -sass``, from nvcc's directory), for the ops in
-    ``SASS_OPS``."""
+    ``SASS_OPS``; instructions predicated on ``!PT`` (never executed: the
+    compiler's ``@!PT LDS RZ, [RZ]`` fillers) are not counted."""
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, check=True, timeout=300)
@@ -250,35 +255,43 @@ def sass_counts(path):
         if m:
             fn = m.group(1)
             counts[fn] = dict.fromkeys(SASS_OPS, 0)
-        elif fn is not None:
+        elif fn is not None and "@!PT" not in ln:
             for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", ln):
                 counts[fn][op] += 1
     return counts
 
 
+#: P2's probes with the dot leg (9 ``wgmma`` a stage) and with the dma leg
+P2_DOT = ("full", "nostage", "noepi", "dotonly")
+P2_DMA = ("full", "nodot", "nostage", "noepi", "none", "dmaonly")
+
+
 def check_probe_sass(kernel, counts):
-    """The probes' work survived compilation: P1's float32 dot keeps its 8x8
-    FFMAs per k step and the bf16 dot its HMMAs; in P2 every probe with the
-    dot leg has K1's 2160 FFMAs per input channel (9 taps x 3 ky x 40
-    channels x 2 y), every probe with the loads leg its 54 LDGs, and the
-    others fewer."""
+    """The probes run what they claim: both of P1's kernels (each with its
+    dot-only instance) hold HGMMAs (``wgmma``), no HMMA (``mma.sync``) and
+    fewer than 64 FFMAs (the FFMA dot of before had 512 a k step); in P2,
+    at each N tile of ``exp_ptail_ablate.N_TILES``, every probe with the dot
+    leg holds at least K1's 9 HGMMAs a stage and the others none, and every
+    probe with the dma leg holds LDGSTS (``cp.async``)."""
     if kernel == "ptail_dot":
-        want = {"dot_f32_kernel": ("FFMA", 512), "dot_bf16_kernel": ("HMMA", 16)}
-        for key, (op, n) in want.items():
-            got = [c[op] for f, c in counts.items() if key in f]
-            if len(got) != 1 or got[0] < n:
-                raise AssertionError(f"{key}: {op} counts {got}, want >= {n}")
+        for key in ("dot_tf32_kernel", "dot_bf16_kernel"):
+            got = [c for f, c in counts.items() if key in f]
+            if len(got) != 2 or any(c["HGMMA"] < 1 or c["HMMA"]
+                                    or c["FFMA"] >= 64 for c in got):
+                raise AssertionError(f"ptail_dot {key}: SASS {got}")
         return
-    probes = {int(m.group(1)): c for f, c in counts.items()
-              for m in [re.search(r"ablate_kernelILi(\d+)EE", f)] if m}
-    if sorted(probes) != list(range(len(exp_ptail_ablate.PROBES))):
-        raise AssertionError(f"ptail_ablate: instances {sorted(probes)}")
-    for i, name in enumerate(exp_ptail_ablate.PROBES):
-        dot = name in ("full", "nostage", "noepi", "dotonly")
-        loads = name not in ("dotonly", "outonly")
-        c = probes[i]
-        if (c["FFMA"] >= 2160) != dot or (c["LDG"] >= 54) != loads:
-            raise AssertionError(f"ptail_ablate {name}: SASS {c}")
+    inst = {(int(m.group(1)), int(m.group(2))): c for f, c in counts.items()
+            for m in [re.search(r"tailconv_tc_kernelILi(\d+)ELi(\d+)EE", f)]
+            if m}
+    want = sorted((nt, i) for nt in exp_ptail_ablate.N_TILES
+                  for i in range(len(exp_ptail_ablate.PROBES)))
+    if sorted(inst) != want:
+        raise AssertionError(f"ptail_ablate: instances {sorted(inst)}")
+    for (nt, i), c in inst.items():
+        name = exp_ptail_ablate.PROBES[i]
+        if ((c["HGMMA"] < 9 if name in P2_DOT else c["HGMMA"] > 0)
+                or (name in P2_DMA and c["LDGSTS"] < 1)):
+            raise AssertionError(f"ptail_ablate {name} N {nt}: SASS {c}")
 
 
 def phase_build():
@@ -306,28 +319,17 @@ def phase_build():
         if k in ("ptail_dot", "ptail_ablate"):
             check_probe_sass(k, sass)
         # the tensor-core kernels (every instance of K1, K4's tc body): no
-        # instance may have lost its wgmma, and ptxas must not have
-        # serialized it (warning C7514: non-wgmma code reads live
-        # accumulators)
+        # instance may have lost its wgmma; and ptxas must not have
+        # serialized a wgmma (warning C7514: non-wgmma code reads live
+        # accumulators) in any library
         tc = {"conv3x3_dilated": "tailconv_tc_kernel",
               "conv1x3x3_pool_dilated": "headconv_tc_kernel"}.get(k)
         if tc is not None:
             inst = [c["HGMMA"] for f, c in sass.items() if tc in f]
             if not inst or min(inst) < 1:
                 raise AssertionError(f"{k}: no HGMMA in some instance: {sass}")
-            if "C7514" in lib.build_log:
-                raise AssertionError(f"{k}: ptxas serialized wgmma (C7514)")
-
-
-def conv_bound(cin, cout, x_numel, out_numel):
-    """(bound ms, 'bytes' or 'operations (3xTF32)') of K1 on an H100: each
-    input read once and the output (``out_numel`` elements, channels
-    included) written once over the memory rate, against three times its
-    FLOPs (three TF32 products per multiply-add) over the TF32 tensor-core
-    peak."""
-    bound, by = bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
-                         3 * 2.0 * cin * 27 * out_numel, TF32_FLOP_S)
-    return bound, by if by == "bytes" else "operations (3xTF32)"
+        if "C7514" in lib.build_log:
+            raise AssertionError(f"{k}: ptxas serialized wgmma (C7514)")
 
 
 #: input z-planes of K1's float64 check (8 output planes)
@@ -358,8 +360,7 @@ def phase_kernel():
     bound_ms, bound_by, library_ms) with the times summed over the main
     path's conv2 + conv3 shapes; the library call is one ``F.conv3d`` with
     the bias (no ReLU), in full float32. At the timed shapes K1 is also
-    held against float64 (``f64_errors``) and timed beside its former FFMA
-    body (P2's ``full``)."""
+    held against float64 (``f64_errors``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # name, N, Cin, Cout, (Z, X, Y), dil
         ("conv2", 1, 30, 40, (124, 512, 512), (1, 4, 4)),
@@ -396,21 +397,18 @@ def phase_kernel():
                 emit("kernel", **rec)
                 raise AssertionError(f"K1 {name}: {k64} from float64, over "
                                      f"2x cuDNN float32's {c64} + 1e-6")
-            # in turns: plain, kernel, FFMA body, library, then reversed
-            pms, ms, fms, lms = palindrome_ms([
+            # in turns: plain, kernel, library, then reversed
+            pms, ms, lms = palindrome_ms([
                 lambda: tailconv.conv3x3_dilated_reference(x, w, b, dil),
                 lambda: tailconv.conv3x3_dilated(x, w, b, dil),
-                lambda: exp_ptail_ablate.ablate("full", x, w, b, dil),
                 lambda: conv3d_f32(x, w, b, dil)])
             zo, xo, yo = sp[0] - 2, sp[1] - 2 * dil[1], sp[2] - 2 * dil[2]
             flop = 2.0 * N * cout * cin * 27 * zo * xo * yo
-            bound, by = conv_bound(cin, cout, x.numel(),
-                                   N * cout * zo * xo * yo)
-            rec.update(ms=ms, plain_ms=pms, library_ms=lms, ffma_ms=fms,
-                       bound_ms=bound, bound_by=by,
-                       kernel_tflop_s=flop / ms / 1e9,
+            bound, by = conv3x3_bound(cin, cout, x.numel(),
+                                      N * cout * zo * xo * yo)
+            rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
+                       bound_by=by, kernel_tflop_s=flop / ms / 1e9,
                        library_tflop_s=flop / lms / 1e9,
-                       ffma_tflop_s=flop / fms / 1e9,
                        plain_tflop_s=flop / pms / 1e9)
             if name in ("conv2", "conv3"):      # the flagship's main path
                 ms_sum += ms
@@ -745,32 +743,13 @@ def phase_k5_main():
     return launches
 
 
-def p1_batched_library_ms(n_cells=1024, zb=8, seed=0, k_disp=3):
-    """P1's library call, like for like: one batched ``torch.matmul`` over
-    the same ``n_cells`` x ``zb`` dots the kernel computes, at the float32
-    (120, 360, 512) config (the probe's own ``library_ms`` computes the zb
-    dots once). The operands are made as ``exp_ptail_dot.main`` makes them;
-    x's zb blocks are repeated ``n_cells`` times outside the timed
-    window."""
-    dt, M, K, N = exp_ptail_dot.configs()[0]
-    rng = np.random.RandomState(seed)
-    w = torch.from_numpy(rng.randn(M, K).astype(np.float32)).cuda()
-    x = torch.from_numpy(rng.randn(zb * K, N).astype(np.float32)).cuda()
-    xb = x.view(zb, K, N).repeat(n_cells, 1, 1)
-    with f32_matmuls():
-        ms = best_ms(lambda: torch.matmul(w, xb), k_disp)
-    del w, x, xb
-    torch.cuda.empty_cache()
-    return ms
-
-
 def phase_probe_dot():
     """P1's entry point, ``exp_ptail_dot.main()`` (its six configs, each held
-    against its plain version inside); returns (launches, (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, library_ms)) with the times of the float32
-    (120, 360, 512) config, its library call the batched matmul of
-    ``p1_batched_library_ms``. A time below the bound would mean the
-    compiler removed work: it fails."""
+    against its plain version inside, the float32 rows also against
+    float64, each with its batched library call); returns (launches,
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)) with the
+    times of the float32 (120, 360, 512) config. A time below the bound
+    would mean the compiler removed work: it fails."""
     exp_ptail_dot.launches = 0
     rows = exp_ptail_dot.main()
     launches = exp_ptail_dot.launches
@@ -778,13 +757,11 @@ def phase_probe_dot():
         emit("probe_dot", **row)
         if row["ms"] < row["bound_ms"]:
             raise AssertionError(f"probe_dot {row}: faster than its bound")
+    torch.cuda.empty_cache()
     r = rows[0]
-    lib = p1_batched_library_ms(r["cells"], r["zb"])
-    emit("probe_dot_library", dtype=r["dtype"], M=r["M"], K=r["K"],
-         N=r["N"], dots=r["cells"] * r["zb"], batched_library_ms=lib,
-         ms=r["ms"])
     return launches, (max(x["max_abs_err"] for x in rows), r["ms"],
-                      r["plain_ms"], r["bound_ms"], r["bound_by"], lib)
+                      r["plain_ms"], r["bound_ms"], r["bound_by"],
+                      r["library_ms"])
 
 
 #: P2 at the canonical isolated tail shape, and at the wide U-Net's d1 conv
@@ -795,8 +772,9 @@ ABLATE_RUNS = [((1, 40, 34, 320, 531), (1, 4, 4), 40, 2),
 
 def phase_probe_ablate():
     """P2's entry point, ``exp_ptail_ablate.main()`` at ``ABLATE_RUNS``
-    (``full`` and ``noepi`` held against their plain versions inside, every
-    probe checked for shape and finite values); returns (launches,
+    (``full`` held to K1 with ``torch.equal`` and, with ``noepi``, to its
+    plain version inside, every probe checked for shape and finite values);
+    returns (launches,
     (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)) of
     ``full`` at the canonical shape."""
     exp_ptail_ablate.launches = 0
@@ -809,6 +787,8 @@ def phase_probe_ablate():
             emit("probe_ablate", **row)
         runs.append({r["probe"]: r for r in rows})
     launches = exp_ptail_ablate.launches
+    if runs[0]["noepi"]["max_abs_err"] > 1e-4:     # the canonical shape
+        raise AssertionError(f"probe_ablate noepi: {runs[0]['noepi']}")
     full = runs[0]["full"]
     return launches, (max(r["full"]["max_abs_err"] for r in runs), full["ms"],
                       full["plain_ms"], full["bound_ms"], full["bound_by"],

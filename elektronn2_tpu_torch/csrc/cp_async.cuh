@@ -1,9 +1,9 @@
 // cp.async helpers for sm_90a: asynchronous copies from device memory into
 // shared memory, committed in groups and waited on by group count, and the
 // row stager of the patch kernels. Shared by the tensor-core GEMMs K1 and
-// K4 (through wgmma_tf32.cuh) and by the patch kernels K2 (extract.cu) and
-// K3 (extract_rot.cu); utils/cuda_build.py puts the text of every included
-// header into a library's build key.
+// K4 and the probes P1 and P2 (through wgmma_tf32.cuh) and by the patch
+// kernels K2 (extract.cu) and K3 (extract_rot.cu); utils/cuda_build.py puts
+// the text of every included header into a library's build key.
 
 #pragma once
 

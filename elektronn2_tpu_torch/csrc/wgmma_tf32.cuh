@@ -1,8 +1,10 @@
-// Device helpers of the 3xTF32 `wgmma` implicit GEMMs K1 (tailconv.cu) and
-// K4 (headconv.cu), for sm_90a: cp.async staging (cp_async.cuh), the
-// shared-memory matrix descriptor of the packed weights, the TF32 split, and
-// one m64nNk8 `wgmma` per N tile. Included by both sources; utils/cuda_build.py puts the text of
-// every included header into a library's build key.
+// Device helpers of the 3xTF32 `wgmma` implicit GEMMs K1 (tailconv.cu,
+// through tailconv_tc_body.cuh) and K4 (headconv.cu), and of their probes
+// P1 (ptail_dot.cu) and P2 (ptail_ablate.cu), for sm_90a: cp.async staging
+// (cp_async.cuh), the shared-memory matrix descriptor of the packed
+// weights, the TF32 split, and one m64nNk8 `wgmma` per N tile;
+// utils/cuda_build.py puts the text of every included header into a
+// library's build key.
 //
 // The split: v = hi + lo, hi = v rounded to TF32 (10 explicit mantissa
 // bits, round half away from zero, as cvt.rna.tf32.f32) and lo = (v - hi)

@@ -180,23 +180,24 @@ def pack_weights(w, NP):
     return parts.permute(1, 4, 7, 8, 9, 0, 2, 5, 3, 6).contiguous()
 
 
-#: :func:`packed_weights`' cache: (address of w, NP) -> (w, w's version,
-#: packed); an entry holds w, so no other tensor takes its address
+#: :func:`packed_weights`' cache: (address of w, NP, packer) -> (w, w's
+#: version, packed); an entry holds w, so no other tensor takes its address
 _packed = {}
 #: entries kept (one per conv of a model; the oldest goes first)
 PACKED_CACHE = 16
 
 
-def packed_weights(w, NP):
-    """:func:`pack_weights` of ``w`` for ``NP``, cached, so that a model's
-    constant weights are split and packed once and not on every call. An
-    in-place update of ``w`` bumps its version and repacks; a write through
-    ``w.data`` is not seen."""
-    key = (w.data_ptr(), NP)
+def packed_weights(w, NP, pack=None):
+    """``pack(w, NP)`` (by default :func:`pack_weights`), cached, so that a
+    model's constant weights are split and packed once and not on every
+    call. An in-place update of ``w`` bumps its version and repacks; a
+    write through ``w.data`` is not seen."""
+    pack = pack or pack_weights
+    key = (w.data_ptr(), NP, pack)
     hit = _packed.get(key)
     if hit is not None and hit[0] is w and hit[1] == w._version:
         return hit[2]
-    wp = pack_weights(w, NP)
+    wp = pack(w, NP)
     _packed.pop(key, None)
     if len(_packed) >= PACKED_CACHE:
         del _packed[next(iter(_packed))]
@@ -208,8 +209,8 @@ def regroup_weights(w, T, b=None):
     """(Cout, Cin, 3,3,3) weights and (Cout,) bias -> (G, Cin, 27, T) and
     (G*T,), G = ceil(Cout/T): per channel group, per input channel, the 27
     taps with the group's T output channels innermost, zero-padded. The bias
-    comes back as None when none is given. The layout of the FFMA kernels
-    K5 and P2 (K1's former body); K1 itself takes :func:`pack_weights`."""
+    comes back as None when none is given. The layout of the FFMA kernel
+    K5; K1 and its probe P2 take :func:`pack_weights`."""
     Cout, Cin = w.shape[:2]
     G = -(-Cout // T)
     wt = F.pad(w.permute(1, 2, 3, 4, 0).reshape(Cin, 27, Cout),

@@ -74,3 +74,14 @@ def bound_ms(nbytes, flop, flop_s=FP32_FLOP_S):
     ``nbytes`` over the memory rate and ``flop`` over ``flop_s``."""
     t_b, t_f = nbytes / HBM_BYTES_S, flop / flop_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b > t_f else "operations")
+
+
+def conv3x3_bound(cin, cout, x_numel, out_numel):
+    """(bound ms, 'bytes' or 'operations (3xTF32)') of K1, a valid (3,3,3)
+    conv with bias, on an H100: each input read once and the output
+    (``out_numel`` elements, channels included) written once over the
+    memory rate, against three times its FLOPs (three TF32 products per
+    multiply-add) over the TF32 tensor-core peak."""
+    bound, by = bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
+                         3 * 2.0 * cin * 27 * out_numel, TF32_FLOP_S)
+    return bound, by if by == "bytes" else "operations (3xTF32)"

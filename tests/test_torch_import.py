@@ -152,8 +152,8 @@ def test_k5_and_probes_run_without_jax():
             "torch.rand(32, 128).bfloat16(), 2)\n"
             "assert tuple(o.shape) == (2, 128), o.shape\n"
             "a = exp_ptail_ablate.ablate('full', torch.rand(1, 2, 5, 9, 9), "
-            "torch.rand(3, 2, 3, 3, 3), torch.rand(3), (1, 2, 2))\n"
-            "assert tuple(a.shape) == (1, 3, 3, 5, 5), a.shape\n"
+            "torch.rand(40, 2, 3, 3, 3), torch.rand(40), (1, 2, 2))\n"
+            "assert tuple(a.shape) == (1, 40, 3, 5, 5), a.shape\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code)
