@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``elektronn2_tpu_torch``).
 
-Drives the port's paths at full width and checks them: dense MFP inference
+Drives the port's paths at full width and checks them: training of the
+bench's neuro3d net (the fused loop, one CUDA graph per chunk) with the
+trained weights served through K1 after it; dense MFP inference
 of the flagship neuro3d-class net (20/30/40/40 channels) with the tail-conv
 kernel K1 (``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on ``wgmma``); the
 same request with the flagship's
@@ -122,7 +124,34 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     K1's body, ``full`` equal to K1 (``torch.equal``) and within 1e-4 of
     its plain version, ``noepi`` within ``noepi_tol`` of the bare conv (and
     1e-4 at the canonical shape), and
-    ``k1_ms``, K1 through its wrapper beside ``full``.
+    ``k1_ms``, K1 through its wrapper beside ``full``;
+14. train (``train_row``, ``train_profile``, ``train_checks`` per row,
+    ``train_serve``): the bench's training net at full width
+    (``utils/convert.neuro3d_train_model``, weights from numpy seed 0, Adam
+    1e-3) in its two rows, b4 (B=4, 15x54x54 in, K=16 steps a chunk, two
+    1x48x128x128 cubes) and slab (B=1, 47x182x182, K=4, two 1x72x200x200
+    cubes), cubes from numpy seed 0 with labels = the raw cube thresholded
+    at 0.5 (learnable, so the loss can fall), augmented on the card (warp
+    0.5, grey on channel 0, flips). ``FusedTrainLoop.run_chunk`` replays one
+    CUDA graph per chunk (the main path); graphed and eager chunks timed in
+    turns (it/s, input Mvox/s), the graphed chunk again with cuDNN's
+    algorithm search on, ``trainingstep`` per step on a fixed batch,
+    ``capture_seconds``, peak memory, the FP32 bound of a step (its convs'
+    forward and backward FLOPs at 67 TFLOP/s) and one graphed chunk under
+    ``torch.profiler`` (device time, idle share, kernels per step, top
+    kernels). Checks: (a) one step's gradients against the same step in
+    float64 (plain float64 ops), each leaf's relative L2 error within 1e-4
+    (TF32 in a backward conv shows about 1e-3); (b) under
+    ``cudnn.deterministic`` a graphed chunk equals the eager chunk from the
+    same parameters, optimiser state and generator state, bit for bit;
+    (c) losses finite, and the mean loss of the last of at least 16 b4
+    chunks below the first's; (d) an eager chunk and a replay make no host
+    sync (``set_sync_debug_mode("error")``); (e) after the b4 row, a
+    64x256x256 request through the trained model's K1 route
+    (``set_dilated_impl("direct", zfold=True, pallas_tail=True)``, two K1
+    launches, which join the kernels line) equals its cuDNN route within
+    ``SLICE_ATOL`` and differs from the same request served before
+    training.
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
@@ -155,9 +184,13 @@ from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
 from elektronn2_tpu_torch.ops.conv import f32_convs, f32_matmuls
 from elektronn2_tpu_torch.ops.experimental import dilated_conv
 from elektronn2_tpu_torch.ops.mfp import fragments2dense
+from elektronn2_tpu_torch.ops.warp import DeviceBatchAugmenter
 from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
                                           exp_ptail_ablate, exp_ptail_dot)
-from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
+from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
+from elektronn2_tpu_torch.utils.convert import (flagship_model,
+                                                neuro3d_train_model,
+                                                tracer_model,
                                                 wide_unet_model)
 from elektronn2_tpu_torch.utils.cuda_build import find_nvcc
 from elektronn2_tpu_torch.utils.device_timing import (best_ms, bound_ms,
@@ -1339,6 +1372,276 @@ def phase_trace_kzip():
          registry_seconds=dt)
 
 
+# ---------------------------------------------------------------- training
+
+#: the bench's two training rows (``bench.py:210-296``): name, batch,
+#: desired patch, steps a chunk, cube shape (f, Z, X, Y); two cubes each
+TRAIN_ROWS = (("b4", 4, (15, 55, 55), 16, (1, 48, 128, 128)),
+              ("slab", 1, (47, 183, 183), 4, (1, 72, 200, 200)))
+TRAIN_MIN_CHUNKS = 16                   # check (c): b4 chunks at least
+TRAIN_TURN_CHUNKS = 2                   # chunks in one timed turn
+TRAINSTEP_N = 8                         # trainingstep calls timed
+GRAD_F64_TOL = 1e-4                     # check (a): relative L2 per leaf
+SERVE_SHAPE = (1, 64, 256, 256)         # check (e): one request
+
+
+def train_setup(B, patch, K, cube):
+    """The bench's training net at full width with He-normal weights from
+    numpy seed 0, two cubes from numpy seed 0 labelled by thresholding the
+    raw cube at 0.5 (labels the net can learn, so check (c) can see the
+    loss fall), the augmenter (warp amount 1, grey on channel 0) and the
+    fused loop (warp 0.5, flips on)."""
+    model = neuro3d_train_model(B, patch)
+    model.set_params(seeded_params(model, np.random.RandomState(SEED)))
+    rng = np.random.RandomState(SEED)
+    raws = [rng.rand(*cube).astype(np.float32) for _ in range(2)]
+    labs = [(r[0] > 0.5).astype(np.int16) for r in raws]
+    ps = model.prediction_node.shape
+    aug = DeviceBatchAugmenter(raws, labs,
+                               patch_size=model.input_node.shape.spatial_shape,
+                               target_size=ps.spatial_shape,
+                               target_strides=ps.strides, grey_channels=[0],
+                               seed=SEED)
+    loop = FusedTrainLoop(model, aug, batch_size=B, n_inner=K, warp=0.5,
+                          seed=SEED)
+    return model, aug, loop
+
+
+def neuro3d_loss_f64(model, params, x, t):
+    """The neuro3d net's loss written out in plain float64 ops (conv + bias
+    -> max pool -> ReLU, the 1x1 conv, softmax, the sparse NLL's mean), the
+    reference of check (a)."""
+    F = torch.nn.functional
+    h = x.double()
+    for i in range(4):
+        node, p = model.nodes[f"conv{i}"], params[f"conv{i}"]
+        h = F.conv3d(h, p["w"], p["b"])
+        if any(q > 1 for q in node.pool_shape):
+            h = F.max_pool3d(h, node.pool_shape)
+        h = torch.relu(h)
+    probs = torch.softmax(F.conv3d(h, params["cls"]["w"],
+                                   params["cls"]["b"]), 1)
+    logp = torch.log(torch.clamp(probs, min=1e-10))
+    return -torch.gather(logp, 1, t.long()[:, None]).mean()
+
+
+def grads_vs_f64(model, aug, B):
+    """Check (a): one step's gradients (the port's float32 forward and
+    backward on the card) against the same step in float64; returns each
+    leaf's relative L2 error."""
+    data, tgt = aug.getbatch(B, warp=0.5)
+    _, _, grads, _ = model._loss_and_grads(model._feed(data, tgt), None)
+    p64 = {n: {k: v.detach().double().requires_grad_() for k, v in d.items()}
+           for n, d in model.params.items()}
+    names = [(n, k) for n in sorted(p64) for k in sorted(p64[n])]
+    g64 = torch.autograd.grad(neuro3d_loss_f64(model, p64, data, tgt),
+                              [p64[n][k] for n, k in names])
+    errs = {f"{n}/{k}": ((grads[n][k].double() - g).norm() / g.norm()).item()
+            for (n, k), g in zip(names, g64)}
+    bad = {k: v for k, v in errs.items() if not v <= GRAD_F64_TOL}
+    if bad:
+        raise AssertionError(f"train: gradients off float64 by {bad} > "
+                             f"{GRAD_F64_TOL} (TF32 would show ~1e-3)")
+    return errs
+
+
+def graphed_equals_eager(model, loop):
+    """Check (b): under cudnn.deterministic, a graphed chunk equals the
+    eager chunk from the same parameters, optimiser state and generator
+    state, bit for bit. Returns the chunk means of the two chunks that
+    trained on."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        first, _ = loop.run_chunk()             # captured under the flag
+        model.snapshot_good()
+        state = loop.generator.get_state()
+        eager_l, _ = loop._run_chunk_eager()
+        eager = {n: {k: v.clone() for k, v in d.items()}
+                 for n, d in model.params.items()}
+        model.repair_fuckup()
+        loop.generator.set_state(state)
+        graph_l, _ = loop.run_chunk()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = np.array_equal(graph_l, eager_l) and all(
+        torch.equal(model.params[n][k], v)
+        for n, d in eager.items() for k, v in d.items())
+    if not same:
+        raise AssertionError("train: the graphed chunk differs from the "
+                             "eager chunk")
+    return [float(first.mean()), float(graph_l.mean())]
+
+
+def no_sync_chunks(loop):
+    """Check (d): an eager chunk and a replay each launch with no host sync
+    (PyTorch raises on any synchronising call); each chunk's losses are read
+    after it. Returns the two chunks' mean losses."""
+    means = []
+    for launch in (loop._launch_eager, loop._launch_graphed):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        means.append(float(loop._result()[0].mean()))
+    return means
+
+
+def step_work(model, aug, B):
+    """(step FLOPs, augmentation FLOPs, bytes) of one training step: each
+    conv's forward, weight gradient and (but the first's) data gradient at
+    2 FLOPs a multiply-add; the separable warp's four matmul passes of the
+    image and of the target; the batch and the target read once, the
+    parameters and Adam's two slots read and written once."""
+    from elektronn2_tpu_torch.ops.warp import _sep_geometry
+    flop = 0.0
+    for name in ("conv0", "conv1", "conv2", "conv3", "cls"):
+        node, w = model.nodes[name], model.params[name]["w"]
+        out = B * np.prod([s - k + 1 for s, k in zip(
+            node.parents[0].shape.spatial_shape, w.shape[2:])])
+        fwd = 2.0 * out * w.shape[0] * int(np.prod(w.shape[1:]))
+        flop += fwd * (2 if name == "conv0" else 3)
+    nx3, (nbz, nbx, nby) = _sep_geometry(aug.patch_size, aug.warp_amount)
+
+    def passes(f, z, x, y):
+        return f * (z * nbz * nbx * nby + nby * nx3 * nbx * z
+                    + nx3 * y * nby * z + y * x * nx3 * z)
+    aug_flop = 2.0 * B * (passes(aug.raws.shape[1], *aug.patch_size)
+                          + passes(1, *aug.target_size))
+    nbytes = 4.0 * (B * (np.prod(aug.patch_size) + np.prod(aug.target_size))
+                    + 3 * 2 * model.param_count)
+    return flop, aug_flop, nbytes
+
+
+def serve_request(model, vol, ptail):
+    model.set_dilated_impl("direct", zfold=True, pallas_tail=ptail)
+    out = model.predict_dense_device(vol, pad_raw=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_train(smi):
+    """The training path at full width, the bench's b4 and slab rows: the
+    fused loop's graphed chunks (one CUDA graph replay each, the main path)
+    and eager chunks timed in turns, ``trainingstep`` per step, a profile
+    of one graphed chunk, checks (a)-(d), and after the b4 row check (e):
+    the trained weights served through K1. Returns K1's launches in the
+    serving run."""
+    k1_launches = 0
+    for name, B, patch, K, cube in TRAIN_ROWS:
+        model, aug, loop = train_setup(B, patch, K, cube)
+        pin = tuple(model.input_node.shape.spatial_shape)
+        pout = tuple(model.prediction_node.shape.spatial_shape)
+        if name == "b4":
+            rng = np.random.RandomState(SEED + 9)
+            vol = torch.from_numpy(rng.rand(*SERVE_SHAPE).astype(
+                np.float32)).cuda()
+            before = serve_request(model, vol, ptail=True)
+            grads = grads_vs_f64(model, aug, B)             # (a)
+        history = graphed_equals_eager(model, loop)         # (b)
+        capture = loop.capture_seconds
+        history.append(float(loop.run_chunk()[0].mean()))  # recapture
+        history += no_sync_chunks(loop)                     # (d)
+        walls = {"graphed": [], "eager": []}
+        routes = {"graphed": loop.run_chunk, "eager": loop._run_chunk_eager}
+        peak = {}
+        torch.cuda.synchronize()
+        for route in ROLLOUT_TURNS:
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(TRAIN_TURN_CHUNKS):
+                t0 = time.perf_counter()
+                losses, _ = routes[route]()
+                walls[route].append(time.perf_counter() - t0)
+                if not np.isfinite(losses).all():
+                    raise AssertionError(f"train {name}: non-finite loss")
+                history.append(float(losses.mean()))
+            peak[route] = max(peak.get(route, 0.0),
+                              torch.cuda.max_memory_allocated() / 2**30)
+        # the same graphed chunk with cuDNN's algorithm search on (captured
+        # anew: the flag is in the graph's key), for where the time goes
+        torch.backends.cudnn.benchmark = True
+        try:
+            history.append(float(loop.run_chunk()[0].mean()))
+            search = []
+            for _ in range(TRAIN_TURN_CHUNKS):
+                t0 = time.perf_counter()
+                history.append(float(loop.run_chunk()[0].mean()))
+                search.append(time.perf_counter() - t0)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        while name == "b4" and len(history) < TRAIN_MIN_CHUNKS:
+            history.append(float(loop.run_chunk()[0].mean()))
+        data, tgt = aug.getbatch(B, warp=0.5)
+        model.trainingstep(data, tgt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAINSTEP_N):
+            model.trainingstep(data, tgt)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TRAINSTEP_N
+        flop, aug_flop, nbytes = step_work(model, aug, B)
+        bound, by = bound_ms(nbytes, flop)
+        g, e = min(walls["graphed"]), min(walls["eager"])
+        mvox = B * float(np.prod(pin)) * K / 1e6
+        emit("train_row", row=name, B=B, K=K, patch_in=list(pin),
+             patch_out=list(pout), cube=list(cube),
+             graphed_chunk_seconds=walls["graphed"],
+             eager_chunk_seconds=walls["eager"], it_s=K / g,
+             eager_it_s=K / e, mvox_in_s=mvox / g, eager_mvox_in_s=mvox / e,
+             graphed_speedup=e / g, trainingstep_ms=step_s * 1e3,
+             cudnn_benchmark_chunk_seconds=search,
+             cudnn_benchmark_it_s=K / min(search),
+             capture_seconds=capture, recapture_seconds=loop.capture_seconds,
+             peak_gib=peak["graphed"], eager_peak_gib=peak["eager"],
+             step_gflop=flop / 1e9, aug_gflop=aug_flop / 1e9,
+             step_bound_ms=bound, step_bound_by=by,
+             graphed_step_ms=g / K * 1e3, nvidia_smi=smi)
+        history.append(float(loop.run_chunk()[0].mean()))  # recapture
+        prof = profile_once(loop.run_chunk, "conv")
+        emit("train_profile", row=name, route="graphed", **prof,
+             kernels_per_step=prof["device_kernels"] / K,
+             idle_share_of_timed_wall=None if prof["device_ms"] is None
+             else 1.0 - prof["device_ms"] / (g * 1e3))
+        checks = dict(graphed_equals_eager=True, host_syncs_in_chunk=0,
+                      chunks=len(history), chunk_mean_losses=history)
+        if name == "b4":
+            # (c) the loss falls over at least TRAIN_MIN_CHUNKS chunks
+            if not history[-1] < history[0]:
+                raise AssertionError(f"train: last chunk's mean loss "
+                                     f"{history[-1]} not below the first's "
+                                     f"{history[0]}")
+            checks["grad_f64_rel_l2"] = grads
+            # (e) the trained weights through K1, against the cuDNN route
+            # and against the request served before training
+            tailconv.launches = 0
+            t0 = time.perf_counter()
+            k1 = serve_request(model, vol, ptail=True)
+            dt = time.perf_counter() - t0
+            k1_launches = tailconv.launches
+            if k1_launches != 2:
+                raise AssertionError(f"train serve: {k1_launches} K1 "
+                                     "launches, expected 2")
+            ref = serve_request(model, vol, ptail=False)
+            err = (k1 - ref).abs().max().item()
+            moved = (k1 - before).abs().max().item()
+            emit("train_serve", request=list(SERVE_SHAPE), seconds=dt,
+                 k1_launches=k1_launches, max_abs_vs_cudnn=err,
+                 max_abs_vs_before_training=moved,
+                 channel_sum_dev=check_probs(k1, (2,) + SERVE_SHAPE[1:]))
+            if err > SLICE_ATOL:
+                raise AssertionError(f"train serve: K1 vs cuDNN {err} > "
+                                     f"{SLICE_ATOL}")
+            if not moved > 100 * SLICE_ATOL:
+                raise AssertionError("train serve: the trained model serves "
+                                     f"the old weights ({moved})")
+            del vol, before, k1, ref
+        emit("train_checks", row=name, **checks)
+        del model, aug, loop
+        torch.cuda.empty_cache()
+    return k1_launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -1361,6 +1664,7 @@ def main():
     k5_launches = phase_k5_main()
     p1_launches, p1 = phase_probe_dot()
     p2_launches, p2 = phase_probe_ablate()
+    k1_launches += phase_train(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),

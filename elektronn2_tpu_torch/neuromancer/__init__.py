@@ -1,8 +1,9 @@
-"""neuromancer — the declarative graph layer (forward only in this slice).
+"""neuromancer — the declarative graph layer.
 
 Port of ``elektronn2_tpu/neuromancer``: every node is a spec whose
 construction computes shapes (``TaggedShape``) and initial parameters;
-``Model`` evaluates the graph eagerly on torch tensors.
+``Model`` evaluates the graph eagerly on torch tensors and trains it
+(``optimiser``: SGD, Adam, AdaGrad, AdaDelta).
 """
 
 from .graphutils import TaggedShape, floatX, as_floatX
@@ -14,6 +15,7 @@ from .various import ScanN
 from .loss import (Softmax, MultinoulliNLL, SquaredLoss, Errors,
                    AggregateLoss)
 from .model import Model, modelload
+from . import optimiser
 
 __all__ = [
     "TaggedShape", "floatX", "as_floatX", "GraphManager", "model_manager",
@@ -21,4 +23,5 @@ __all__ = [
     "Perceptron", "Dot", "Conv", "Pool", "UpConv", "Crop", "FaithlessMerge",
     "FragmentsToDense", "GRU", "LSTM", "ScanN", "Softmax", "MultinoulliNLL",
     "SquaredLoss", "Errors", "AggregateLoss", "Model", "modelload",
+    "optimiser",
 ]

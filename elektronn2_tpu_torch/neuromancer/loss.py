@@ -1,12 +1,11 @@
-"""Loss nodes, forward only.
+"""Loss nodes.
 
 Port of ``Softmax``, ``MultinoulliNLL``, ``SquaredLoss``, ``Errors`` and
 ``AggregateLoss`` in
 ``elektronn2_tpu/neuromancer/loss.py`` (reference:
-``elektronn2/neuromancer/loss.py``). This slice serves dense inference and
-does not train; the loss nodes exist so that a model's graph and its saved
-spec are whole, and they evaluate forward. Per-voxel losses return
-(b, *spatial) maps; ``AggregateLoss`` reduces them to a (1,) tensor.
+``elektronn2/neuromancer/loss.py``). Autograd differentiates them for
+training (``Model.trainingstep``). Per-voxel losses return (b, *spatial)
+maps; ``AggregateLoss`` reduces them to a (1,) tensor.
 """
 
 from __future__ import annotations
@@ -87,13 +86,23 @@ class MultinoulliNLL(Node):
         self.target_is_sparse = bool(target_is_sparse)
         self.n_class = pred.shape["f"]
         self.shape = _loss_map_shape(pred.shape)
+        self._aux_tensors = {}   # (id of the constant, device) -> tensor
 
     def _aux_value(self, aux, parent_vals, like):
+        """A weight argument's value: a parent's output, or the constant as
+        a tensor on ``like``'s device, made once per device. Copying it from
+        the host on every forward would stall each step and break a CUDA
+        graph's capture."""
         if aux is None:
             return None
         if isinstance(aux, Node):
             return parent_vals[self.parents.index(aux)]
-        return torch.as_tensor(aux, device=like.device)
+        key = (id(aux), like.device)
+        t = self._aux_tensors.get(key)
+        if t is None:
+            t = self._aux_tensors[key] = torch.as_tensor(aux,
+                                                         device=like.device)
+        return t
 
     def _compute(self, ctx, *pv):
         pred, target = pv[0], pv[1]

@@ -1,20 +1,28 @@
 """Model — designated nodes, forward evaluation, dense inference, save/load.
 
 Port of ``Model`` and ``modelload`` in ``elektronn2_tpu/neuromancer/model.py``
-(reference: ``elektronn2/neuromancer/model.py``), for inference: node
-designation, the forward ``_apply``, ``predict``, ``predict_dense_device``,
-``set_dilated_impl``, ``set_convdense_impl`` and the npz
-``save``/``modelload`` format.
+(reference: ``elektronn2/neuromancer/model.py``): node designation, the
+forward ``_apply``, ``predict``, ``predict_dense_device``,
+``set_dilated_impl``, ``set_convdense_impl``, the training half (``set_opt``,
+``trainingstep``, ``loss``, ``test_error``, ``snapshot_good``,
+``repair_fuckup``, ``paramstats``) and the npz ``save``/``modelload`` format
+with the optimiser state.
 
 PyTorch idiom: parameters are a ``{node: {name: tensor}}`` dict on one
 device, moved explicitly with :meth:`Model.to`; calls that get data on
-another device raise instead of moving it. Evaluation is eager, under
-``torch.no_grad()``, with TF32 off in cuDNN and cuBLAS
-(``ops.conv.f32_convs``, ``ops.conv.f32_matmuls``).
+another device raise instead of moving it. Evaluation is eager, with TF32
+off in cuDNN and cuBLAS (``ops.conv.f32_convs``, ``ops.conv.f32_matmuls``).
+A training step takes its gradients with ``torch.autograd.grad`` over the
+trainable leaves (the functional counterpart of ``jax.value_and_grad``) and
+runs forward, backward and update inside one pair of those contexts: the
+flags are global, and a backward run after the ``with`` block would take
+cuDNN's TF32 algorithms. The update writes into the parameter and slot
+tensors in place (``neuromancer/optimiser.py``), so a CUDA graph of steps
+(``training/fused_loop.py``) replays on fixed addresses.
 
 Not in this slice (``NotImplementedError`` naming the ROADMAP.md item):
-training (§1 item 6), compute dtypes other than float32, the host-tiled
-``predict_dense`` and orbax checkpoints.
+compute dtypes other than float32, the host-tiled ``predict_dense``, orbax
+checkpoints, ``set_train_lowering`` and remat.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from ..log import logger
 from ..ops.conv import f32_convs, f32_matmuls
 from .graphmanager import GraphManager
 from .node_basic import TraceCtx
+from .optimiser import Optimiser, get_optimiser, opt_leaves, tree_leaves
 
 
 class Model:
@@ -39,6 +48,8 @@ class Model:
         model = model_manager.getmodel()
         model.designate_nodes(input_node=inp, prediction_node=pred, ...)
         model.to("cuda")                  # modelload puts it there itself
+        model.set_opt("Adam", lr=1e-3)
+        loss, aux = model.trainingstep(data, target)   # tensors on the card
         probs = model.predict(raw)
         dense = model.predict_dense_device(vol, pad_raw=True)
     """
@@ -58,6 +69,12 @@ class Model:
         self.params = {n.name: {k: v.clone() for k, v in n.params.items()}
                        for n in self.nodes.values() if n.params}
         self.state = {}                       # aux state (BN: not ported)
+        self.optimiser = None
+        self.opt_state = None
+        self._lr_mults = self._wd_mults = None
+        self._step_count = 0
+        self._seed = 0
+        self._gen = None                      # made on first use, see seed
         self._dilated_impl = "direct"
         self._dilated_ptail = False
         self._convdense_upconv = "dilate"
@@ -101,9 +118,16 @@ class Model:
         return torch.device("cpu")
 
     def to(self, device):
-        """Move every parameter to ``device``; returns the model."""
+        """Move every parameter (and the optimiser state) to ``device``;
+        returns the model."""
         self.params = {n: {k: v.to(device) for k, v in d.items()}
                        for n, d in self.params.items()}
+        if self.opt_state is not None:
+            self.opt_state = {
+                "step": self.opt_state["step"].to(device),
+                "slots": tuple({n: {k: v.to(device) for k, v in d.items()}
+                                for n, d in s.items()}
+                               for s in self.opt_state["slots"])}
         return self
 
     def _check_device(self, t, what):
@@ -199,18 +223,21 @@ class Model:
         return self
 
     def _apply(self, out_nodes, params, state, feed, rng, train):
-        """Evaluate ``out_nodes`` eagerly; returns (outputs, state)."""
-        if train:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP.md §1 item 6)")
-        ctx = TraceCtx(params, feed)
-        with torch.no_grad(), f32_convs(), f32_matmuls():
+        """Evaluate ``out_nodes`` eagerly; returns (outputs, state). With
+        ``train`` autograd records (the caller takes the gradients inside
+        its own ``f32_convs``/``f32_matmuls``), else ``torch.no_grad()``."""
+        ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state)
+        with torch.set_grad_enabled(train), f32_convs(), f32_matmuls():
             outs = [ctx.get(n) for n in out_nodes]
-        return outs, dict(state)
+        new_state = dict(state)
+        new_state.update(ctx.state_out)
+        return outs, new_state
 
-    def _feed(self, data, extra=None):
+    def _feed(self, data, target=None, extra=None, overrides=None):
         if isinstance(data, dict):
             known = {self.input_node.name} | {n.name for n in self.extra_inputs}
+            if self.target_node is not None:
+                known.add(self.target_node.name)
             unknown = set(data) - known
             if unknown:
                 raise KeyError(
@@ -219,8 +246,12 @@ class Model:
             feed = dict(data)
         else:
             feed = {self.input_node.name: data}
+        if target is not None and self.target_node is not None:
+            feed[self.target_node.name] = target
         for node, val in zip(self.extra_inputs, extra or []):
             feed[node.name] = val
+        if overrides:
+            feed.update(overrides)
         for k, v in feed.items():
             if isinstance(v, np.ndarray):
                 v = torch.from_numpy(v)
@@ -230,6 +261,187 @@ class Model:
             self._check_device(v, f"feed {k!r}")
             feed[k] = v
         return feed
+
+    def seed(self, n):
+        """Reset the model's random stream (a ``torch.Generator`` on the
+        model's device, handed to every training step)."""
+        self._seed = int(n)
+        self._gen = torch.Generator(self.device).manual_seed(self._seed)
+        return self
+
+    def _next_rng(self):
+        """The step's generator: one stream that advances with its draws
+        (a moved model starts it anew from the last :meth:`seed`)."""
+        if self._gen is None or self._gen.device != self.device:
+            self.seed(self._seed)
+        return self._gen
+
+    # --------------------------------------------------------------- training
+    def set_opt(self, optimiser="Adam", **hyperparams):
+        """Attach an optimiser (name or instance) and make its state (zero
+        slots, step 0) on the parameters' device. Reference: Model/Trainer
+        optimiser setup."""
+        if isinstance(optimiser, Optimiser):
+            self.optimiser = optimiser
+        else:
+            self.optimiser = get_optimiser(optimiser)(**hyperparams)
+        self.opt_state = self.optimiser.init_state(self._trainable(self.params))
+        self._lr_mults = self._mult_tree("lr_mult")
+        self._wd_mults = self._mult_tree("wd_mult")
+        return self.optimiser
+
+    def _trainable(self, params):
+        out = {}
+        for nname, pdict in params.items():
+            node = self.nodes[nname]
+            sub = {p: v for p, v in pdict.items()
+                   if node.param_flags[p]["trainable"]}
+            if sub:
+                out[nname] = sub
+        return out
+
+    def _mult_tree(self, key):
+        out = {}
+        for nname, pdict in self._trainable(self.params).items():
+            node = self.nodes[nname]
+            out[nname] = {p: node.param_flags[p][key] for p in pdict}
+        return out
+
+    def _aux_nodes(self):
+        return ([self.error_node] if self.error_node is not None else []) \
+            + list(self.debug_outputs)
+
+    def _check_trainable(self):
+        if self.loss_node is None:
+            raise RuntimeError("designate a loss_node before training")
+        if self.optimiser is None:
+            self.set_opt("Adam")
+
+    def _loss_and_grads(self, feed, rng):
+        """Forward in training mode and the gradients of the loss with
+        respect to every trainable parameter: (loss, aux outputs, grads
+        tree, new aux state), all on the device, no host sync. Forward and
+        backward run inside one ``f32_convs``/``f32_matmuls``."""
+        leaves = {n: {p: v.detach().requires_grad_() for p, v in d.items()}
+                  for n, d in self._trainable(self.params).items()}
+        merged = {n: {**d, **leaves.get(n, {})}
+                  for n, d in self.params.items()}
+        names = [(n, p) for n in sorted(leaves) for p in sorted(leaves[n])]
+        with f32_convs(), f32_matmuls():
+            outs, new_state = self._apply([self.loss_node] + self._aux_nodes(),
+                                          merged, self.state, feed, rng,
+                                          train=True)
+            loss = outs[0][0]
+            gs = torch.autograd.grad(loss, [leaves[n][p] for n, p in names],
+                                     allow_unused=True)
+        grads = {}
+        for (n, p), g in zip(names, gs):     # an unused leaf: zero gradient
+            grads.setdefault(n, {})[p] = (torch.zeros_like(leaves[n][p])
+                                          if g is None else g)
+        return (loss.detach(), [o.detach() for o in outs[1:]], grads,
+                new_state)
+
+    def _train_step(self, feed, rng, hyper):
+        """One step in place: forward, backward, the optimiser's update of
+        the parameter and slot tensors. ``hyper`` is the optimiser's
+        ``current_hyper`` dict (read, never written, so a CUDA graph of this
+        step reads the live values). Returns (loss, aux outputs, gradient
+        norm) as device tensors; no host sync."""
+        with f32_convs(), f32_matmuls():
+            loss, aux, grads, new_state = self._loss_and_grads(feed, rng)
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
+                                   for g in tree_leaves(grads)))
+            self.optimiser.update(self._trainable(self.params), grads,
+                                  self.opt_state, hyper, self._lr_mults,
+                                  self._wd_mults)
+        self.state = new_state
+        return loss, aux, gnorm
+
+    def trainingstep(self, data, target=None, extra=None,
+                     feed_overrides=None):
+        """One forward + backward + update step. Returns (loss, aux_dict),
+        device tensors (the caller syncs when it reads them).
+
+        aux_dict holds 'gradnorm', 'error' (if an error node is designated)
+        and the debug outputs by node name. ``feed_overrides`` injects values
+        for non-input nodes that accept feeding (e.g. InitialState_like).
+        The feed must lie on the model's device. Reference:
+        ``Model.trainingstep``.
+        """
+        self._check_trainable()
+        feed = self._feed(data, target, extra, feed_overrides)
+        hyper = self.optimiser.current_hyper(self.device)
+        loss, aux, gnorm = self._train_step(feed, self._next_rng(), hyper)
+        self._step_count += 1
+        aux_dict = {"gradnorm": gnorm}
+        i = 0
+        if self.error_node is not None:
+            aux_dict["error"] = aux[0][0]
+            i = 1
+        for node, v in zip(self.debug_outputs, aux[i:]):
+            aux_dict[node.name] = v
+        return loss, aux_dict
+
+    def loss(self, data, target=None, extra=None):
+        """The scalar loss without updating (eval mode)."""
+        outs, _ = self._apply([self.loss_node], self.params, self.state,
+                              self._feed(data, target, extra), None,
+                              train=False)
+        return outs[0][0]
+
+    def test_error(self, data, target, extra=None):
+        """(loss, error rate or None) in eval mode (validation)."""
+        nodes = [self.loss_node]
+        if self.error_node is not None:
+            nodes.append(self.error_node)
+        outs, _ = self._apply(nodes, self.params, self.state,
+                              self._feed(data, target, extra), None,
+                              train=False)
+        return (outs[0][0], outs[1][0]) if len(outs) > 1 \
+            else (outs[0][0], None)
+
+    # ------------------------------------------------------- blowup recovery
+    def snapshot_good(self):
+        """Record the current params / optimiser state / aux state as
+        known-good: copies on the device, no host transfer.
+        :meth:`repair_fuckup` restores them."""
+        self._good = (_tree_clone(self.params), _tree_clone(self.opt_state),
+                      _tree_clone(self.state))
+
+    def repair_fuckup(self, lr_scale=None):
+        """Roll back to the last :meth:`snapshot_good` after a training
+        blowup (non-finite loss / exploded params): params, optimiser slots
+        and step counter, aux state. The values are copied into the live
+        tensors, which keep their addresses. ``lr_scale`` multiplies the
+        live learning rate. Returns True if a snapshot existed.
+        Reference: ``optimiser.py::repair_fuckup``."""
+        good = getattr(self, "_good", None)
+        if good is None:
+            return False
+        p, o, s = good
+        _tree_copy_(self.params, p)
+        if o is not None and self.opt_state is not None:
+            self.opt_state["step"].copy_(o["step"])
+            for live, kept in zip(self.opt_state["slots"], o["slots"]):
+                _tree_copy_(live, kept)
+        self.state = _tree_clone(s)
+        if lr_scale is not None and self.optimiser is not None:
+            self.optimiser.setlr(float(self.optimiser.hyperparams["lr"])
+                                 * float(lr_scale))
+        return True
+
+    def paramstats(self):
+        """Per-node parameter mean/std/min/max (reference:
+        Model.paramstats)."""
+        stats = {}
+        for nname, pdict in self.params.items():
+            for pname, v in pdict.items():
+                a = v.detach().cpu().numpy()
+                stats[f"{nname}/{pname}"] = {
+                    "shape": tuple(a.shape),
+                    "mean": float(a.mean()), "std": float(a.std()),
+                    "min": float(a.min()), "max": float(a.max())}
+        return stats
 
     # -------------------------------------------------------------- inference
     def predict(self, raw, extra=None):
@@ -259,9 +471,12 @@ class Model:
 
     # ---------------------------------------------------------------- save/load
     def save(self, fname, backend="npz"):
-        """Serialise spec + params as the JAX package's ``Model.save`` does
-        (``backend='npz'``): one ``.npz`` with the JSON node spec
-        (``__spec__``), its arg arrays and ``param/<node>/<name>``."""
+        """Serialise spec + params (+ optimiser state) as the JAX package's
+        ``Model.save`` does (``backend='npz'``): one ``.npz`` with the JSON
+        node spec (``__spec__``), its arg arrays, ``param/<node>/<name>``,
+        and with an optimiser ``__opt__`` (class, hyperparams, nesterov,
+        step count) and its state's leaves ``opt/<i>`` in ``jax.tree_util``
+        order, so either package resumes the other's training."""
         if backend != "npz":
             raise NotImplementedError(
                 f"backend={backend!r}: only 'npz' is ported (orbax is a JAX "
@@ -272,11 +487,34 @@ class Model:
         for nname, pdict in self.params.items():
             for pname, v in pdict.items():
                 payload[f"param/{nname}/{pname}"] = v.detach().cpu().numpy()
+        if self.optimiser is not None:
+            payload["__opt__"] = np.frombuffer(
+                json.dumps(self._opt_meta()).encode(), np.uint8)
+            for i, v in enumerate(opt_leaves(self.opt_state)):
+                payload[f"opt/{i}"] = v.detach().cpu().numpy()
         buf = io.BytesIO()
         np.savez_compressed(buf, **payload)
         with open(fname, "wb") as f:
             f.write(buf.getvalue())
         logger.info(f"saved model to {fname} ({self.param_count} params)")
+
+    def _opt_meta(self):
+        return {"cls": type(self.optimiser).__name__,
+                "hyper": self.optimiser.hyperparams,
+                "nesterov": bool(getattr(self.optimiser, "nesterov", False)),
+                "step_count": self._step_count}
+
+    def _load_opt(self, meta, leaves):
+        """Restore an optimiser from a model file's ``__opt__`` and
+        ``opt/<i>`` leaves (``{i: array}``, in :func:`opt_leaves` order)."""
+        self.set_opt(meta["cls"], **meta["hyper"])
+        if meta.get("nesterov"):
+            self.optimiser.nesterov = True
+        self._step_count = meta.get("step_count", 0)
+        with torch.no_grad():
+            for i, t in enumerate(opt_leaves(self.opt_state)):
+                if i in leaves:
+                    t.copy_(torch.as_tensor(leaves[i], dtype=t.dtype))
 
     def set_params(self, params):
         """Replace the parameters; ``params`` is ``{node: {name: array}}``
@@ -323,9 +561,10 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
     package or by the JAX package) by replaying its node spec; the
     parameters land on ``device`` (see :func:`target_device`).
 
-    Optimiser slots (``opt/…``, ``__opt__``) are training state and are not
-    read. ``override_mfp_to_active`` / ``imposed_patch_size``
-    (``rebuild_model``) and orbax checkpoint directories are not ported.
+    The optimiser and its state (``__opt__``, ``opt/…``), where the file
+    has them, are restored on ``device`` too. ``override_mfp_to_active`` /
+    ``imposed_patch_size`` (``rebuild_model``) and orbax checkpoint
+    directories are not ported.
     """
     if override_mfp_to_active or imposed_patch_size is not None:
         raise NotImplementedError(
@@ -335,7 +574,7 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
     with np.load(fname, allow_pickle=False) as z:
         spec = json.loads(bytes(z["__spec__"].tobytes()).decode())
         arg_arrays = {k: z[k] for k in z.files if k.startswith("__spec__/")}
-        params, state = {}, {}
+        params, state, opt_leaves_ = {}, {}, {}
         for k in z.files:
             if k.startswith("param/"):
                 _, nname, pname = k.split("/", 2)
@@ -343,6 +582,10 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
             elif k.startswith("state/"):
                 _, nname, sname = k.split("/", 2)
                 state.setdefault(nname, {})[sname] = torch.from_numpy(z[k])
+            elif k.startswith("opt/"):
+                opt_leaves_[int(k.split("/")[1])] = z[k]
+        opt_meta = (json.loads(bytes(z["__opt__"].tobytes()).decode())
+                    if "__opt__" in z.files else None)
     gm = GraphManager.replay(spec["nodes"], arg_arrays)
     gm.designations = spec.get("designations", {})
     model = Model(gm, name=spec.get("graph", "model"))
@@ -362,5 +605,27 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
     model.set_params(params)
     model.to(device)
     model.state = state
+    if opt_meta is not None:
+        model._load_opt(opt_meta, opt_leaves_)
     logger.info(f"loaded model from {fname}: {model!r}")
     return model
+
+
+def _tree_clone(tree):
+    """Copy of a nested dict/tuple of tensors, on the same devices."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tuple(_tree_clone(v) for v in tree)
+
+
+@torch.no_grad()
+def _tree_copy_(dst, src):
+    """Copy ``src``'s values into ``dst``'s tensors (``{node: {name:
+    tensor}}``), which keep their addresses."""
+    for n, d in dst.items():
+        for k, v in d.items():
+            v.copy_(src[n][k])

@@ -4,7 +4,7 @@ restitching, recurrent cells.
 Port of ``Perceptron``, ``Conv``, ``Pool``, ``UpConv``, ``Crop``,
 ``FaithlessMerge``, ``FragmentsToDense``, ``GRU`` and ``LSTM`` in
 ``elektronn2_tpu/neuromancer/neural.py`` (reference:
-``elektronn2/neuromancer/neural.py``), forward only. Semantics are the JAX
+``elektronn2/neuromancer/neural.py``). Semantics are the JAX
 package's: valid-mode convs, pooling applied *before* the activation, MFP
 valid-size arithmetic (see ops/mfp.py and utils/cnncalculator.py).
 
@@ -15,7 +15,7 @@ the flags of the ``TraceCtx``; every other evaluation leaves them off.
 The dense and recurrent matmuls are ``torch.matmul`` (cuBLAS on the card),
 as the JAX package leaves them to XLA. Not in this slice, raising
 ``NotImplementedError``: batch normalisation, dropout and prelu (ROADMAP.md
-§1 item 6, training path).
+§1 item 2, which was item 6).
 """
 
 from __future__ import annotations

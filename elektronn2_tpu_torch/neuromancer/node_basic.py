@@ -1,4 +1,4 @@
-"""Node base class and basic graph nodes (forward only).
+"""Node base class and basic graph nodes.
 
 Port of ``Node``, ``Input``, ``Concat``, ``InitialState_like``, ``Split``
 and ``split`` in ``elektronn2_tpu/neuromancer/node_basic.py`` and its
@@ -27,6 +27,9 @@ class TraceCtx:
       params : {node_name: {param_name: tensor}} — current parameters
       feed   : {input_node_name: tensor}
       values : memoised node outputs of this evaluation
+      rng    : the step's ``torch.Generator`` or None (stochastic nodes)
+      train  : training mode (``Model.trainingstep``)
+      state_in/state_out : {node_name: value} aux state read and written
 
     The ``convdense_*`` flags select the conv-dense serving lowerings
     (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
@@ -39,10 +42,14 @@ class TraceCtx:
     convdense_skipsum = False
     convdense_ptail = False
 
-    def __init__(self, params, feed):
+    def __init__(self, params, feed, rng=None, train=False, state_in=None):
         self.params = params or {}
         self.feed = feed or {}
         self.values = {}
+        self.rng = rng
+        self.train = train
+        self.state_in = state_in or {}
+        self.state_out = {}
 
     def get(self, node):
         """Memoised evaluation of ``node`` (and, recursively, its parents).
@@ -102,6 +109,7 @@ class Node:
         gm = graphmanager.current_manager()
         self.name = gm.unique_name(name)
         self.params = {}       # pname -> float32 CPU tensor (initial value)
+        self.param_flags = {}  # pname -> {"trainable","lr_mult","wd_mult"}
         self.shape = None
         for p in parents:
             p.children.append(self)
@@ -109,13 +117,17 @@ class Node:
         self._gm = gm
 
     # -- params ----------------------------------------------------------------
-    def register_param(self, pname, value):
+    def register_param(self, pname, value, trainable=True, lr_mult=1.0,
+                       wd_mult=1.0):
         """Register a parameter's initial value (ndarray or tensor), stored
-        as a float32 CPU tensor. The training flags (trainable, lr_mult,
-        wd_mult) come with the training path."""
+        as a float32 CPU tensor, with its training flags (the optimiser
+        skips a parameter that is not ``trainable``)."""
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(np.array(value, dtype=np.float32))
         self.params[pname] = torch.as_tensor(value, dtype=torch.float32)
+        self.param_flags[pname] = {"trainable": bool(trainable),
+                                   "lr_mult": float(lr_mult),
+                                   "wd_mult": float(wd_mult)}
 
     @property
     def param_count(self):

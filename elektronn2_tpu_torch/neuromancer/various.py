@@ -1,11 +1,11 @@
-"""Recurrence: the ``ScanN`` node (forward only).
+"""Recurrence: the ``ScanN`` node.
 
 Port of ``ScanN`` in ``elektronn2_tpu/neuromancer/various.py`` (reference:
 ``elektronn2/neuromancer/various.py``). The JAX package compiles the
 recurrence with ``lax.scan``; here it is a Python loop over the steps with
 the state carried in tensors, evaluated eagerly. ``GaussianRV`` and the
-skeleton losses (``SkelLoss``, ``SkelPrior``, ``SkelGetBatch``) wait for the
-training slice (ROADMAP.md §1 item 6).
+skeleton losses (``SkelLoss``, ``SkelPrior``, ``SkelGetBatch``) are not
+ported yet (ROADMAP.md §1 item 2).
 """
 
 from __future__ import annotations
@@ -79,7 +79,8 @@ class ScanN(Node):
                     f"expects {self.n_steps} on axis 0")
         ys = []
         for t in range(self.n_steps):
-            sub = TraceCtx(ctx.params, ctx.feed)
+            sub = TraceCtx(ctx.params, ctx.feed, rng=ctx.rng,
+                           train=ctx.train, state_in=ctx.state_in)
             for m, c in zip(self.in_memory, carry):
                 sub.values[m.name] = c
             for it, x in zip(self.in_iterate, seqs):

@@ -8,9 +8,13 @@ package's parameter layout (conv ``w`` ``(Cout, Cin, kz, kx, ky)``, UpConv
 ``w_gates``/``b_gates``/``w_cand``/``b_cand``, ``InitialState_like``
 ``state0``), so the conversion is an exact copy.
 
+``opt_state_from_jax`` carries the JAX package's optimiser state (slots and
+step counter) into a port model the same way.
+
 The builders have the arguments, node names and geometry of their
 counterparts: ``flagship_model`` of ``__graft_entry__._flagship_model`` (the
-neuro3d-class net), ``tracer_model`` of
+neuro3d-class net), ``neuro3d_train_model`` of the bench's training net
+(``scripts/bench_tpu_pending.py::_neuro3d_model``), ``tracer_model`` of
 ``scripts/exp_tracer_rollout.py::build_model`` (the tracing deployment's
 recurrent model), ``wide_unet_model`` of ``examples/unet3d_wide.py::
 create_model`` and ``unet3d_model`` of ``examples/unet3d.py::create_model``
@@ -56,6 +60,79 @@ def params_from_jax(params, model=None):
             out[nname][pname] = torch.tensor(a, dtype=torch.float32,
                                              device=device)
     return out
+
+
+def opt_state_from_jax(opt_state, model):
+    """The JAX package's optimiser state (``{"step": int, "slots": (tree,
+    ...)}``, jax or numpy arrays) written into ``model.opt_state`` (a port
+    ``Model`` after ``set_opt`` with the same optimiser): every slot and the
+    step counter, copied into the port's tensors in place. Shapes and the
+    number of slots must match."""
+    from ..neuromancer.optimiser import tree_leaves
+    mine = model.opt_state
+    if len(opt_state["slots"]) != len(mine["slots"]):
+        raise ValueError(f"{len(opt_state['slots'])} slot trees in JAX, "
+                         f"{len(mine['slots'])} in the port")
+    with torch.no_grad():
+        for src, dst in zip(opt_state["slots"], mine["slots"]):
+            if set(src) != set(dst):
+                raise ValueError(f"slot nodes differ: {sorted(src)} vs "
+                                 f"{sorted(dst)}")
+            for a, t in zip(tree_leaves(src), tree_leaves(dst)):
+                a = np.asarray(a)
+                if a.shape != tuple(t.shape):
+                    raise ValueError(f"slot shape {a.shape} != port's "
+                                     f"{tuple(t.shape)}")
+                t.copy_(torch.tensor(a, dtype=t.dtype))
+        mine["step"].fill_(int(np.asarray(opt_state["step"])))
+    return mine
+
+
+#: the neuro3d training net of the bench (``scripts/bench_tpu_pending.py::
+#: _neuro3d_model``, ``scripts/exp_train_largepatch.py::_model``)
+NEURO3D_FILTERS = [(1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3)]
+NEURO3D_POOLS = [(1, 2, 2), (1, 2, 2), (1, 1, 1), (1, 1, 1)]
+NEURO3D_WIDTHS = (20, 30, 40, 40)
+
+
+def neuro3d_train_model(batch=4, patch=(15, 55, 55), widths=None,
+                        device="cuda"):
+    """The bench's training net (``_neuro3d_model`` of
+    ``scripts/bench_tpu_pending.py`` and ``_model`` of
+    ``scripts/exp_train_largepatch.py``, float32): convs (1,3,3), (1,3,3),
+    (3,3,3), (3,3,3) at widths 20/30/40/40 with pools (1,2,2), (1,2,2), 1,
+    1; a 1x1 ``cls`` conv to 2 classes; Softmax ``probs``;
+    ``MultinoulliNLL(target_is_sparse=True)`` against the int32 ``target``
+    -> ``AggregateLoss``; ``Adam(lr=1e-3)``. ``patch`` is the desired patch
+    (the input is the nearest valid size, ``cnncalculator``); ``batch``
+    sizes the inputs; ``widths`` narrows the four convs (tests). Weights
+    come from ``model_manager.reset(seed=0)``'s generator."""
+    from .. import neuromancer as nm
+    from ..neuromancer.model import target_device
+    from .cnncalculator import cnncalculator
+
+    device = target_device(device)
+    nof = tuple(widths or NEURO3D_WIDTHS)
+    calc = cnncalculator(NEURO3D_FILTERS, NEURO3D_POOLS,
+                         desired_patch_size=list(patch), mfp=False, ndim=3)
+    z, x, y = calc.input
+    nm.model_manager.reset(seed=0)
+    inp = nm.Input([batch, 1, z, x, y], "b,f,z,x,y", name="raw")
+    h = inp
+    for i, (f, p, nf) in enumerate(zip(NEURO3D_FILTERS, NEURO3D_POOLS, nof)):
+        h = nm.Conv(h, nf, f, p, name=f"conv{i}")
+    out = nm.Conv(h, 2, 1, 1, activation_func="lin", name="cls")
+    probs = nm.Softmax(out, name="probs")
+    tgt = nm.Input([batch, *probs.shape.spatial_shape], "b,z,x,y",
+                   dtype="int32", name="target")
+    nll = nm.MultinoulliNLL(probs, tgt, target_is_sparse=True, name="nll")
+    model = nm.model_manager.getmodel("bench_neuro3d")
+    model.designate_nodes(input_node=inp, target_node=tgt,
+                          loss_node=nm.AggregateLoss(nll),
+                          prediction_node=probs)
+    model.to(device)
+    model.set_opt("Adam", lr=1e-3)
+    return model
 
 
 def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0,

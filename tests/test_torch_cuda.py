@@ -18,6 +18,10 @@ P1: rtol=atol=1e-3 in float32 (sums of 360 products of unit normals in
 another order), 1e-2 in bf16 (the tensor cores' float32 accumulation); its
 float32 rows, like K1, within 2x the plain float32 version's error against
 float64 + 1e-6; its dot-only instance for shape and finite values.
+Training (``training/fused_loop.py``): a graphed chunk equals the eager
+chunk from the same parameters, optimiser state and generator state bit for
+bit under ``torch.backends.cudnn.deterministic``; K1 serving the trained
+weights within 1e-5 of the cuDNN route (``SLICE_ATOL`` of chip_smoke.py).
 """
 
 import numpy as np
@@ -29,7 +33,9 @@ from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
 from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
 from elektronn2_tpu_torch.ops.experimental import dilated_conv
 from elektronn2_tpu_torch.scripts import exp_ptail_ablate, exp_ptail_dot
-from elektronn2_tpu_torch.utils.convert import (flagship_model, tracer_model,
+from elektronn2_tpu_torch.utils.convert import (flagship_model,
+                                                neuro3d_train_model,
+                                                tracer_model,
                                                 wide_unet_model)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -550,3 +556,128 @@ def test_p2_probes(cuda_device, probe, cin, cout, sp, dil):
         assert tuple(got.shape) == (256,)
     else:
         assert tuple(got.shape) == out_shape
+
+
+# ------------------------------------------------------------- training
+
+
+def _train_net(device, class_weights=None):
+    """A small net of the training slice's nodes, optionally with class
+    weights in its loss, and its augmenter on ``device``."""
+    import elektronn2_tpu_torch.neuromancer as nm
+    from elektronn2_tpu_torch.ops.warp import DeviceBatchAugmenter
+    nm.model_manager.reset(seed=5)
+    inp = nm.Input([2, 1, 7, 30, 30], "b,f,z,x,y", name="raw")
+    h = nm.Conv(inp, 6, (1, 3, 3), (1, 2, 2), name="c0")
+    h = nm.Conv(h, 8, (3, 3, 3), (1, 1, 1), name="c1")
+    probs = nm.Softmax(nm.Conv(h, 2, 1, 1, activation_func="lin",
+                               name="cls"), name="probs")
+    tgt = nm.Input([2, *probs.shape.spatial_shape], "b,z,x,y",
+                   dtype="int32", name="target")
+    nll = nm.MultinoulliNLL(probs, tgt, target_is_sparse=True,
+                            class_weights=class_weights, name="nll")
+    m = nm.model_manager.getmodel("train_net")
+    m.designate_nodes(input_node=inp, target_node=tgt,
+                      loss_node=nm.AggregateLoss(nll), prediction_node=probs,
+                      error_node=nm.Errors(probs, tgt, target_is_sparse=True))
+    m.to(device)
+    m.set_opt("Adam", lr=1e-3)
+    rng = np.random.RandomState(6)
+    raws = [rng.rand(1, 20, 70, 70).astype(np.float32) for _ in range(2)]
+    aug = DeviceBatchAugmenter(
+        raws, [(r[0] > 0.5).astype(np.int16) for r in raws],
+        patch_size=inp.shape.spatial_shape, target_size=probs.shape
+        .spatial_shape, target_strides=probs.shape.strides,
+        grey_channels=[0], device=device)
+    return m, aug
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("class_weights", [None, [0.4, 1.6]])
+def test_graphed_chunk_equals_eager_chunk(cuda_device, deterministic_cudnn,
+                                          class_weights):
+    """One replay of the chunk's CUDA graph = the eager chunk from the same
+    parameters, optimiser state and generator state, bit for bit (the
+    class-weighted loss included: its weights are made on the card once,
+    so the capture copies nothing from the host)."""
+    from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
+    m, aug = _train_net(cuda_device, class_weights)
+    loop = FusedTrainLoop(m, aug, batch_size=2, n_inner=3, seed=7)
+    loop.run_chunk()                 # one graphed chunk: a trained start
+    m.snapshot_good()
+    state = loop.generator.get_state()
+    el, ee = loop._run_chunk_eager()
+    eager = {n: {k: v.clone() for k, v in d.items()}
+             for n, d in m.params.items()}
+    m.repair_fuckup()
+    loop.generator.set_state(state)
+    gl, ge = loop.run_chunk()        # recaptured (repair wrote in place)
+    np.testing.assert_array_equal(gl, el)
+    np.testing.assert_array_equal(ge, ee)
+    for n, d in eager.items():
+        for k, v in d.items():
+            assert torch.equal(m.params[n][k], v), (n, k)
+    assert int(m.opt_state["step"]) == 6 and m._step_count == 9
+
+
+@pytest.mark.cuda
+def test_replays_draw_new_batches_and_setlr_needs_no_recapture(cuda_device):
+    from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
+    m, aug = _train_net(cuda_device)
+    loop = FusedTrainLoop(m, aug, batch_size=2, n_inner=2, seed=8)
+    loop.run_chunk()
+    graph = loop._graph
+    m.optimiser.setlr(0.0)           # Adam with lr 0: weights stay
+    w = m.params["c1"]["w"].clone()
+    a, _ = loop.run_chunk()
+    b, _ = loop.run_chunk()
+    assert loop._graph is graph      # no recapture for a new lr
+    assert torch.equal(m.params["c1"]["w"], w)
+    assert not np.array_equal(a, b)  # the generator advanced: new batches
+    m.optimiser.setlr(1e-3)
+    loop.run_chunk()
+    assert loop._graph is graph and not torch.equal(m.params["c1"]["w"], w)
+    m.set_params({n: {k: v.clone() for k, v in d.items()}
+                  for n, d in m.params.items()})
+    loop.run_chunk()
+    assert loop._graph is not graph  # new tensors: a new capture
+
+
+@pytest.mark.cuda
+def test_k1_serves_the_weights_a_replay_trained(cuda_device):
+    """A replay updates the weights in place and bumps no version by
+    itself; the loop bumps them, so K1's packed-weight cache repacks and
+    the K1 route equals the cuDNN route on the trained weights."""
+    from elektronn2_tpu_torch.ops.warp import DeviceBatchAugmenter
+    from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
+    m = neuro3d_train_model(2, (7, 30, 30), widths=(4, 6, 8, 8),
+                            device=cuda_device)
+    m.optimiser.setlr(1e-2)
+    ps = m.prediction_node.shape
+    rng = np.random.RandomState(9)
+    raws = [rng.rand(1, 20, 70, 70).astype(np.float32)]
+    aug = DeviceBatchAugmenter(raws, [(raws[0][0] > 0.5).astype(np.int16)],
+                               m.input_node.shape.spatial_shape,
+                               ps.spatial_shape, ps.strides,
+                               device=cuda_device)
+    loop = FusedTrainLoop(m, aug, batch_size=2, n_inner=3, seed=9)
+    vol = torch.from_numpy(rng.rand(1, 9, 60, 60).astype(np.float32)
+                           ).to(cuda_device)
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    before = m.predict_dense_device(vol, pad_raw=True)   # packs the weights
+    loop.run_chunk()
+    n = tailconv.launches
+    k1 = m.predict_dense_device(vol, pad_raw=True)
+    assert tailconv.launches == n + 2
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=False)
+    cudnn = m.predict_dense_device(vol, pad_raw=True)
+    torch.testing.assert_close(k1, cudnn, atol=1e-5, rtol=0)
+    assert (k1 - before).abs().max().item() > 1e-4

@@ -213,7 +213,9 @@ def test_error_paths(port_model):
         port_model.set_dilated_impl("nope")
     with pytest.raises(NotImplementedError, match="bf16"):
         port_model.set_compute_dtype("bfloat16")
-    with pytest.raises(NotImplementedError, match="training"):
+    # training is ported: a training-mode evaluation without a feed names
+    # the input it lacks
+    with pytest.raises(KeyError, match="no value fed"):
         port_model._apply([port_model.loss_node], port_model.params, {}, {},
                           None, train=True)
     with pytest.raises(NotImplementedError, match="predict_dense"):

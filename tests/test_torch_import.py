@@ -26,18 +26,22 @@ MODULES = [
     "elektronn2_tpu_torch.ops.tailconv",
     "elektronn2_tpu_torch.ops.extract",
     "elektronn2_tpu_torch.ops.extract_rot",
+    "elektronn2_tpu_torch.ops.warp",
     "elektronn2_tpu_torch.ops.experimental",
     "elektronn2_tpu_torch.ops.experimental.dilated_conv",
     "elektronn2_tpu_torch.neuromancer",
     "elektronn2_tpu_torch.neuromancer.graphutils",
     "elektronn2_tpu_torch.neuromancer.graphmanager",
     "elektronn2_tpu_torch.neuromancer.variables",
+    "elektronn2_tpu_torch.neuromancer.optimiser",
     "elektronn2_tpu_torch.neuromancer.node_basic",
     "elektronn2_tpu_torch.neuromancer.neural",
     "elektronn2_tpu_torch.neuromancer.loss",
     "elektronn2_tpu_torch.neuromancer.model",
     "elektronn2_tpu_torch.neuromancer.inference",
     "elektronn2_tpu_torch.neuromancer.various",
+    "elektronn2_tpu_torch.training",
+    "elektronn2_tpu_torch.training.fused_loop",
     "elektronn2_tpu_torch.data",
     "elektronn2_tpu_torch.data.skeleton",
     "elektronn2_tpu_torch.data.tracing_utils",
@@ -154,6 +158,37 @@ def test_k5_and_probes_run_without_jax():
             "a = exp_ptail_ablate.ablate('full', torch.rand(1, 2, 5, 9, 9), "
             "torch.rand(40, 2, 3, 3, 3), torch.rand(40), (1, 2, 2))\n"
             "assert tuple(a.shape) == (1, 40, 3, 5, 5), a.shape\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_training_runs_without_jax():
+    # the training slice (optimiser, trainingstep, augmenter, fused loop,
+    # save with the optimiser state and load) stays jax-free when it runs
+    code = ("import os, sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import "
+            "neuro3d_train_model\n"
+            "from elektronn2_tpu_torch.ops.warp import DeviceBatchAugmenter\n"
+            "from elektronn2_tpu_torch.training.fused_loop import "
+            "FusedTrainLoop\n"
+            "from elektronn2_tpu_torch.neuromancer.model import modelload\n"
+            "m = neuro3d_train_model(2, (7, 30, 30), widths=(3, 3, 4, 4), "
+            "device='cpu')\n"
+            "ps = m.prediction_node.shape\n"
+            "r = [np.random.RandomState(0).rand(1, 12, 50, 50)"
+            ".astype(np.float32)]\n"
+            "a = DeviceBatchAugmenter(r, [(r[0][0] > 0.5).astype(np.int16)], "
+            "m.input_node.shape.spatial_shape, ps.spatial_shape, ps.strides, "
+            "grey_channels=[0], device='cpu')\n"
+            "losses, _ = FusedTrainLoop(m, a, 2, 2).run_chunk()\n"
+            "assert np.isfinite(losses).all() and losses.shape == (2,)\n"
+            "f = os.path.join(tempfile.mkdtemp(), 'm.mdl')\n"
+            "m.save(f)\n"
+            "assert int(modelload(f, device='cpu').opt_state['step']) == 2\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code)
