@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``elektronn2_tpu_torch``).
 
-Drives the port's paths at full width and checks them: training of the
-bench's neuro3d net (the fused loop, one CUDA graph per chunk) with the
+Drives the port's paths at full width and checks them: the dense-serving
+deployment (whole KNOSSOS datasets swept slab by slab by ``sweep_knossos``,
+the flagship through K1, the wide U-Net, and the ``predict`` CLI); training
+of the bench's neuro3d net (the fused loop, one CUDA graph per chunk) with the
 trained weights served through K1 after it; dense MFP inference
 of the flagship neuro3d-class net (20/30/40/40 channels) with the tail-conv
 kernel K1 (``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on ``wgmma``); the
@@ -39,7 +41,9 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
    TFLOP/s for K1, K4, P2 and P1's float32 dots (three TF32 products per
    multiply-add), at 989 TFLOP/s for P1's bf16 dots. K1 and K4:
    ``assert_close`` rtol=atol=1e-4 (float32 sums of up to 27*Cin or 9*Cin
-   products in another order). At its six main-path shapes K1 is timed in
+   products in another order). At its eight main-path shapes (the
+   flagship's conv2 and conv3 of one request and, at N = 2, of a sweep
+   chunk of two (112, 496, 496) slabs; the U-Net's four) K1 is timed in
    turns with its plain version and one ``F.conv3d`` with the bias (its
    library call; no ReLU), and held against a float64 conv on the first 8
    output planes: its ``f64_max_abs`` must be within 2x cuDNN float32's + 1e-6.
@@ -151,7 +155,35 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     (``set_dilated_impl("direct", zfold=True, pallas_tail=True)``, two K1
     launches, which join the kernels line) equals its cuDNN route within
     ``SLICE_ATOL`` and differs from the same request served before
-    training.
+    training;
+15. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
+    ``sweep_unet`` x2, ``sweep_unet_checks``): KNOSSOS datasets from numpy
+    seeds written in 128^3 cubes by the port's ``save_knossos`` into a
+    temporary directory (removed after the phase). The flagship (weights as
+    in 4., K1 route) sweeps a 224x992x992 uint8 dataset at the default
+    ptail step (112, 496, 496), 8 slabs, through ``Model.sweep_knossos``
+    (a fresh ``KnossosArray`` each time, so the cube cache starts empty) at
+    slab_batch 1, 2, 2, 1: wall seconds, Mvox/s, host staging and
+    write-back ms per slab, peak memory, the out-of-memory fallback count
+    and K1's launches; then one sweep at each slab_batch under
+    ``torch.profiler``: device (kernel) ms per slab, K1's, the copies', and
+    the idle share (1 - kernel time / wall, also against the unprofiled
+    walls). Checks: (a) a step-sized block centred on the first seams
+    (z 112, x 496, y 496) equals one ``predict_dense_device`` of the raw
+    block plus its halo (1e-5); (b) slab_batch 2 equals 1 (1e-5); (c)
+    finite, channel sums 1 within 1e-5; (d) no out-of-memory fallback; (e)
+    two K1 launches per chunk (each over slab_batch slabs). The predict
+    CLI (``scripts/predict.main([... "--ptail", "--knossos-out", ...])``)
+    over a 112x496x496 dataset, its uint8 maps read back with
+    ``KnossosArray`` equal to clip(sweep x 255) byte for byte; where h5py
+    does not import, the CLI's own two calls (``sweep_knossos``,
+    ``save_knossos``) run in its place and the line says so. The wide U-Net
+    (64/128/256, ``set_convdense_impl(zfold, skipsum, ptail)``) sweeps a
+    256x512x512 dataset at step (128, 512, 512), 2 slabs, at slab_batch 1
+    and 2 (running out of memory at 2 falls back per slab and is reported,
+    not failed); checks (b), (c) and the first slab against one
+    ``predict_dense_device`` of the slab as staged (1e-4). K1's launches in
+    the timed sweeps and the CLI join the kernels line.
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
@@ -164,6 +196,7 @@ the exit code is not 0. Without a CUDA device it exits non-zero before any resul
 Usage, from the repository root: ``python3 chip_smoke.py``.
 """
 
+import importlib.util
 import json
 import os
 import re
@@ -176,17 +209,21 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from elektronn2_tpu_torch.data.knossos_array import KnossosArray, save_knossos
 from elektronn2_tpu_torch.data.skeleton import read_nml_file
 from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
                                                      ShotgunRegistry,
                                                      flight_frame)
+from elektronn2_tpu_torch.neuromancer import inference
+from elektronn2_tpu_torch.neuromancer.model import modelload
 from elektronn2_tpu_torch.ops import extract, extract_rot, tailconv
 from elektronn2_tpu_torch.ops.conv import f32_convs, f32_matmuls
 from elektronn2_tpu_torch.ops.experimental import dilated_conv
 from elektronn2_tpu_torch.ops.mfp import fragments2dense
 from elektronn2_tpu_torch.ops.warp import DeviceBatchAugmenter
 from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
-                                          exp_ptail_ablate, exp_ptail_dot)
+                                          exp_ptail_ablate, exp_ptail_dot,
+                                          predict)
 from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
 from elektronn2_tpu_torch.utils.convert import (flagship_model,
                                                 neuro3d_train_model,
@@ -403,6 +440,10 @@ def phase_kernel():
         ("wide_e1b", 1, 128, 128, (134, 236, 236), (1, 1, 1)),
         ("wide_bott", 1, 128, 256, (132, 117, 117), (1, 1, 1)),
         ("wide_d1", 1, 256, 128, (130, 230, 230), (1, 1, 1)),
+        # the flagship's conv2 and conv3 in a sweep chunk of two
+        # (112, 496, 496) slabs with their halo (slab_batch=2)
+        ("sweep_conv2_n2", 2, 30, 40, (116, 512, 512), (1, 4, 4)),
+        ("sweep_conv3_n2", 2, 40, 40, (114, 504, 504), (1, 4, 4)),
         ("ragged_d1", 2, 3, 5, (6, 14, 20), (1, 1, 1)),
         ("ragged_d23", 2, 3, 5, (5, 20, 30), (1, 2, 3)),
         ("ragged_cout45", 1, 30, 45, (5, 40, 300), (1, 4, 4)),
@@ -423,7 +464,7 @@ def phase_kernel():
         del got, ref
         rec = dict(case=name, x=[N, cin, *sp], cout=cout, dil=list(dil),
                    max_abs_err=err)
-        if name in ("conv2", "conv3") or name.startswith("wide"):
+        if name in ("conv2", "conv3") or name.startswith(("wide", "sweep")):
             k64, c64 = f64_errors(x, w, b, dil)
             rec.update(f64_max_abs=k64, cudnn_f64_max_abs=c64)
             if k64 > 2 * c64 + 1e-6:
@@ -1642,6 +1683,325 @@ def phase_train(smi):
     return k1_launches
 
 
+SWEEP_SHAPE = (224, 992, 992)           # the flagship sweep's dataset
+SWEEP_STEP = (112, 496, 496)            # sweep_knossos' default under ptail
+UNET_SWEEP_SHAPE = (256, 512, 512)      # the U-Net sweep's dataset
+UNET_SWEEP_STEP = (128, 512, 512)
+SWEEP_TURNS = (1, 2, 2, 1)              # slab_batch of the timed sweeps
+KNOSSOS_EDGE = 128
+
+
+def write_dataset(path, shape, seed):
+    """A uint8 volume from numpy ``seed``, written as a KNOSSOS dataset in
+    128^3 cubes by the port's ``save_knossos``; returns the volume."""
+    vol = np.random.RandomState(seed).randint(0, 256, size=shape,
+                                              dtype=np.uint8)
+    save_knossos(vol, path, exp_name="raw", cube_edge=KNOSSOS_EDGE)
+    return vol
+
+
+def timed_sweep(model, path, slab_batch, step=None):
+    """One ``sweep_knossos`` over the whole dataset at ``path`` (a fresh
+    ``KnossosArray``, so its cube cache starts empty), timed on the host
+    clock: the sweep returns after its last readback event, so the card is
+    done. Returns (output, record)."""
+    t = {}
+    fallbacks = inference.sweep_oom_fallbacks
+    k1 = tailconv.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.sweep_knossos(KnossosArray(path), step=step,
+                              slab_batch=slab_batch, timings=t)
+    wall = time.perf_counter() - t0
+    n = sum(t["slabs"])
+    return out, dict(
+        slab_batch=slab_batch, seconds=wall,
+        mvox_s=float(np.prod(out.shape[1:])) / 1e6 / wall, slabs=n,
+        chunks=len(t["slabs"]),
+        stage_ms_per_slab=sum(t["stage_s"]) / n * 1e3,
+        write_ms_per_slab=sum(t["write_s"]) / n * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        oom_fallbacks=inference.sweep_oom_fallbacks - fallbacks,
+        k1_launches=tailconv.launches - k1)
+
+
+def sweep_timeline(prof):
+    """Where a profiled sweep's device idles: from the profiler's trace,
+    the union of the kernels' intervals (all streams) within the sweep's
+    span (``chip_smoke.sweep``): the idle time before the first kernel
+    (``lead_ms``), after the last (``tail_ms``), and between them, summed
+    by the sweep's host span (``sweep_knossos.*``, main thread) that was
+    running when each gap began."""
+    with tempfile.TemporaryDirectory() as d:
+        f = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(f)
+        with open(f) as fh:
+            ev = json.load(fh)["traceEvents"]
+    sweep = next(e for e in ev if e.get("name") == "chip_smoke.sweep")
+    t0, t1 = sweep["ts"], sweep["ts"] + sweep["dur"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+             if e.get("cat") == "user_annotation"
+             and e.get("tid") == sweep.get("tid")
+             and e["name"].startswith("sweep_knossos.")]
+    busy = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
+                       if e.get("cat") == "kernel"):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    if not busy:
+        return dict(lead_ms=None, tail_ms=None, gaps={})
+    gaps = {}
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        lab = next((n for s, e, n in spans if s <= a < e), "other")
+        gaps[lab] = gaps.get(lab, 0.0) + (b - a) / 1e3
+    return dict(lead_ms=(busy[0][0] - t0) / 1e3,
+                tail_ms=(t1 - busy[-1][1]) / 1e3,
+                gaps_by_host_span_ms=gaps,
+                busy_ms=sum(b - a for a, b in busy) / 1e3)
+
+
+def profile_sweep(model, path, slab_batch, step=None, top=8):
+    """One more sweep under ``torch.profiler``: the device's kernel time
+    (all streams; copies apart) per slab, K1's share, the idle share of
+    the sweep's wall (1 - kernel time / wall) and where the idle time
+    falls (``sweep_timeline``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    t = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("chip_smoke.sweep"):
+            model.sweep_knossos(KnossosArray(path), step=step,
+                                slab_batch=slab_batch, timings=t)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the spans' device-side annotations would count their kernels twice
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not e.key.startswith(("chip_smoke.", "sweep_knossos."))]
+    copies = [e for e in dev if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = sorted((e for e in dev if e not in copies),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    kern_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in kernels
+                if "tailconv_tc_kernel" in e.key) / 1e3
+    n = sum(t["slabs"])
+    return dict(profiled_wall_ms=wall_ms, kernel_ms=kern_ms,
+                device_ms_per_slab=kern_ms / n, k1_ms_per_slab=k1_ms / n,
+                copy_ms=sum(e.self_device_time_total for e in copies) / 1e3,
+                idle_share=1.0 - kern_ms / wall_ms,
+                timeline=sweep_timeline(prof),
+                top=[dict(kernel=e.key[:80], ms=e.self_device_time_total
+                          / 1e3, calls=e.count) for e in kernels[:top]])
+
+
+def check_sweep_out(out, shape):
+    """(c) finite, channel sums 1 within ``SLICE_ATOL``: on the card."""
+    o = torch.from_numpy(out).cuda()
+    dev = check_probs(o, shape)
+    del o
+    return dev
+
+
+def sweep_max_diff(a, b):
+    return (torch.from_numpy(a).cuda() - torch.from_numpy(b).cuda()
+            ).abs().max().item()
+
+
+def phase_sweep_flagship(smi, model, tmp):
+    """The flagship swept over a 224x992x992 uint8 KNOSSOS dataset at the
+    default ptail step (112, 496, 496), 8 slabs, at slab_batch 1 and 2 in
+    turns; checks (a)-(e). Returns K1's launches in the timed sweeps."""
+    path = os.path.join(tmp, "flagship_raw")
+    t0 = time.perf_counter()
+    vol = write_dataset(path, SWEEP_SHAPE, SEED)
+    write_s = time.perf_counter() - t0
+    shape = (2,) + SWEEP_SHAPE
+    step = list(SWEEP_STEP)
+    n_slabs = int(np.prod([-(-n // s) for n, s in zip(SWEEP_SHAPE, step)]))
+    for b in (1, 2):                  # warm: one row of slabs each
+        model.sweep_knossos(KnossosArray(path), slab_batch=b, step=step,
+                            region=[(0, step[0]), (0, step[1]),
+                                    (0, SWEEP_SHAPE[2])])
+    torch.cuda.synchronize()
+    outs, walls = {}, {}
+    tailconv.launches = 0
+    for turn, b in enumerate(SWEEP_TURNS):
+        out, rec = timed_sweep(model, path, b, step=step)
+        want_k1 = 2 * -(-n_slabs // b)
+        emit("sweep_flagship", turn=turn, dataset=list(SWEEP_SHAPE),
+             step=step, k1_launches_expected=want_k1, nvidia_smi=smi,
+             **rec)
+        if rec["oom_fallbacks"]:                                 # (d)
+            raise AssertionError(f"flagship sweep slab_batch={b}: "
+                                 "fell back per slab (out of memory)")
+        if rec["k1_launches"] != want_k1:                        # (e)
+            raise AssertionError(f"flagship sweep slab_batch={b}: "
+                                 f"{rec['k1_launches']} K1 launches, "
+                                 f"expected {want_k1}")
+        walls.setdefault(b, []).append(rec["seconds"])
+        outs.setdefault(b, out)
+        del out
+    launches = tailconv.launches
+    devs = {b: check_sweep_out(o, shape) for b, o in outs.items()}   # (c)
+    b_err = sweep_max_diff(outs[1], outs[2])                         # (b)
+    # (a) a step-sized block centred on the first slab seams (z 112, x 496,
+    # y 496) against one predict_dense_device of the raw block plus its
+    # halo
+    fov = model.prediction_node.shape.fov
+    lo = [(f - 1) // 2 for f in fov]
+    hi = [f - 1 - a for f, a in zip(fov, lo)]
+    blk = [(s // 2, s + s // 2) for s in step]
+    raw = vol[tuple(slice(a - l, b + h) for (a, b), l, h in zip(blk, lo, hi))]
+    ref = model.predict_dense_device(torch.from_numpy(
+        raw[None].astype(np.float32) / 255.0).cuda())
+    got = torch.from_numpy(np.ascontiguousarray(outs[1][
+        (slice(None),) + tuple(slice(a, b) for a, b in blk)])).cuda()
+    a_err = (got - ref).abs().max().item()
+    del ref, got, raw
+    prof = {b: profile_sweep(model, path, b, step=step) for b in (1, 2)}
+    for b, p in prof.items():
+        p["idle_share_of_timed_wall"] = (
+            1.0 - p["kernel_ms"] / (np.mean(walls[b]) * 1e3))
+    emit("sweep_flagship_checks", a_seams_vs_request_max_abs=a_err,
+         b_batch2_vs_batch1_max_abs=b_err, c_channel_sum_dev=devs,
+         d_oom_fallbacks=0, e_k1_launches=launches, tolerance=SLICE_ATOL,
+         dataset_write_seconds=write_s, profile=prof, nvidia_smi=smi)
+    if a_err > SLICE_ATOL or b_err > SLICE_ATOL:
+        raise AssertionError(f"flagship sweep: seams vs request {a_err}, "
+                             f"slab_batch 2 vs 1 {b_err} (> {SLICE_ATOL})")
+    return launches
+
+
+def phase_sweep_unet(smi, tmp):
+    """The wide U-Net (64/128/256) swept over a 256x512x512 uint8 dataset
+    at step (128, 512, 512), 2 slabs, at slab_batch 1 and 2 (running out of
+    memory at 2 is reported, not a failure); checks (b), (c) and the first
+    slab against one ``predict_dense_device`` of its staged slab (1e-4).
+    Returns K1's launches in the timed sweeps."""
+    rng = np.random.RandomState(SEED + 7)
+    model = wide_unet_model()
+    model.set_params(seeded_params(model, rng))
+    model.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    path = os.path.join(tmp, "unet_raw")
+    vol = write_dataset(path, UNET_SWEEP_SHAPE, SEED + 1)
+    shape = (2,) + UNET_SWEEP_SHAPE
+    step = list(UNET_SWEEP_STEP)
+    model.sweep_knossos(KnossosArray(path), step=step,    # warm: one slab
+                        region=[(0, s) for s in step])
+    torch.cuda.synchronize()
+    outs = {}
+    tailconv.launches = 0
+    for b in (1, 2):
+        out, rec = timed_sweep(model, path, b, step=step)
+        emit("sweep_unet", dataset=list(UNET_SWEEP_SHAPE), step=step,
+             out_of_memory_at_slab_batch=bool(rec["oom_fallbacks"]),
+             nvidia_smi=smi, **rec)
+        if b == 1 and rec["k1_launches"] != 8:
+            raise AssertionError(f"U-Net sweep: {rec['k1_launches']} K1 "
+                                 "launches, expected 4 per slab")
+        outs[b] = out
+        del out
+    launches = tailconv.launches
+    devs = {b: check_sweep_out(o, shape) for b, o in outs.items()}   # (c)
+    b_err = sweep_max_diff(outs[1], outs[2])                         # (b)
+    # the first slab (origin 0) as the sweep stages it: the M-aligned front
+    # halo reflect-padded at the dataset's edge, the back halo read
+    pred = model.prediction_node
+    M = inference._valid_period(pred, 3)
+    fov = pred.shape.fov
+    lo = [-(-((f - 1) // 2) // m) * m for f, m in zip(fov, M)]
+    hi = [f - 1 - (f - 1) // 2 for f in fov]
+    delta = [a - (f - 1) // 2 for a, f in zip(lo, fov)]
+    sub = vol[tuple(slice(0, min(s + h, n)) for s, h, n in
+                    zip(step, hi, UNET_SWEEP_SHAPE))]
+    slab = np.pad(sub, [(a, s + a + h - n - a) for a, s, h, n in
+                        zip(lo, step, hi, sub.shape)], mode="reflect")
+    ref = model.predict_dense_device(torch.from_numpy(
+        slab[None].astype(np.float32) / 255.0).cuda())
+    ref = ref[(slice(None),) + tuple(slice(d, d + s)
+                                     for d, s in zip(delta, step))]
+    got = torch.from_numpy(np.ascontiguousarray(outs[1][
+        (slice(None),) + tuple(slice(0, s) for s in step)])).cuda()
+    slab_err = (got - ref).abs().max().item()
+    del ref, got
+    prof = profile_sweep(model, path, 1, step=step)
+    emit("sweep_unet_checks", b_batch2_vs_batch1_max_abs=b_err,
+         c_channel_sum_dev=devs, first_slab_vs_request_max_abs=slab_err,
+         tolerance=dict(b=SLICE_ATOL, slab=CONVDENSE_ATOL),
+         staged_slab=list(slab.shape), profile_slab_batch_1=prof,
+         nvidia_smi=smi)
+    if b_err > SLICE_ATOL or slab_err > CONVDENSE_ATOL:
+        raise AssertionError(f"U-Net sweep: slab_batch 2 vs 1 {b_err}, "
+                             f"first slab vs request {slab_err}")
+    return launches
+
+
+def phase_sweep_cli(smi, model, tmp):
+    """``elektronn2_tpu_torch.scripts.predict.main`` over a 112x496x496
+    KNOSSOS dataset (one slab, ``SWEEP_STEP``) with ``--ptail
+    --knossos-out``: the uint8 maps read back
+    must equal clip(sweep * 255) of the same dataset byte for byte. Where
+    h5py does not import, the CLI's own two calls (``Model.sweep_knossos``,
+    then ``save_knossos``) run in its place. Returns K1's launches."""
+    kdir, kout = os.path.join(tmp, "cli_raw"), os.path.join(tmp, "cli_out")
+    write_dataset(kdir, SWEEP_STEP, SEED + 2)
+    mdl = os.path.join(tmp, "flagship.mdl")
+    model.save(mdl)
+    want = model.sweep_knossos(KnossosArray(kdir))
+    u8 = np.clip(want * 255.0, 0, 255).astype(np.uint8)
+    h5 = importlib.util.find_spec("h5py") is not None
+    tailconv.launches = 0
+    t0 = time.perf_counter()
+    if h5:
+        rc = predict.main([mdl, kdir, "--ptail", "--knossos-out", kout,
+                           "-o", os.path.join(tmp, "prediction.h5")])
+        if rc != 0:
+            raise AssertionError(f"predict CLI exited with {rc}")
+    else:
+        m = modelload(mdl)
+        m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+        out = m.sweep_knossos(KnossosArray(kdir), verbose=True)
+        out = np.clip(out * 255.0, 0, 255).astype(np.uint8)
+        for c in range(out.shape[0]):
+            save_knossos(out[c], os.path.join(kout, f"c{c}"),
+                         exp_name=f"pred_c{c}")
+    dt = time.perf_counter() - t0
+    launches = tailconv.launches
+    equal = [bool(np.array_equal(
+        KnossosArray(os.path.join(kout, f"c{c}"))[:, :, :], u8[c]))
+        for c in range(u8.shape[0])]
+    emit("sweep_cli", h5py=h5, ran="predict.main" if h5 else
+         "h5py does not import: sweep_knossos + save_knossos in its place",
+         dataset=list(SWEEP_STEP), seconds=dt, k1_launches=launches,
+         maps_equal_sweep=equal, nvidia_smi=smi)
+    if not all(equal):
+        raise AssertionError("CLI KNOSSOS maps differ from the sweep's")
+    if launches != 2:
+        raise AssertionError(f"CLI: {launches} K1 launches, expected 2")
+    return launches
+
+
+def phase_sweep(smi):
+    """The dense-serving deployment: KNOSSOS datasets written into a
+    temporary directory (removed after the phase) and swept, the flagship
+    (``phase_sweep_flagship``, the main measurement), the wide U-Net and
+    the predict CLI. Returns K1's launches in the sweeps and the CLI."""
+    rng = np.random.RandomState(SEED)
+    model = flagship_model(mfp=True, patch=[23, 103, 103])
+    model.set_params(seeded_params(model, rng))
+    model.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_sweep_flagship(smi, model, tmp)
+        launches += phase_sweep_cli(smi, model, tmp)
+        del model
+        torch.cuda.empty_cache()
+        launches += phase_sweep_unet(smi, tmp)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -1665,6 +2025,7 @@ def main():
     p1_launches, p1 = phase_probe_dot()
     p2_launches, p2 = phase_probe_ablate()
     k1_launches += phase_train(smi)
+    k1_launches += phase_sweep(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),

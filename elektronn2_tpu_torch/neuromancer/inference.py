@@ -1,8 +1,10 @@
-"""Dense (whole-volume) inference: the dilated form of MFP, and the
-whole-volume convolutional path of decoder (U-Net) graphs.
+"""Dense inference: the dilated form of MFP, the whole-volume
+convolutional path of decoder (U-Net) graphs, the overlap-tiled sweep, and
+the whole-dataset KNOSSOS sweep.
 
 Port of ``dilated_dense_forward``, ``convolutional_dense_forward``,
-``check_conv_dense_supported`` and ``predict_dense_device`` in
+``check_conv_dense_supported``, ``predict_dense_device``,
+``predict_dense`` and ``sweep_knossos`` in
 ``elektronn2_tpu/neuromancer/inference.py``.
 
 *Dilated path* (``direct`` lowering only). MFP (fragment pooling +
@@ -22,32 +24,44 @@ skipsum, and K1 on the eligible (3,3,3) ReLU convs, pooled ones included).
 The walk frees every value after its last consumer: at full width the
 values of a wide U-Net slab add up to far more than the card holds.
 
+*Tiled sweep*. Patch-sized tiles through the network and
+``ops.mfp.fragments2dense``, stitched: the host-tiled ``predict_dense``
+(the oracle of the two paths above) and the fallback of
+``predict_dense_device``.
+
 ``predict_dense_device`` chooses the path from the graph's structure: a
 graph of Input, Conv, Pool, Softmax and FragmentsToDense nodes takes the
 dilated path; otherwise a graph that passes ``check_conv_dense_supported``
-takes the convolutional one; anything else raises ``NotImplementedError``
-naming the tiled fallback, which is not ported. Both paths read and write
+takes the convolutional one, unless the volume's shape makes that path
+refuse it; anything else takes the tiled fallback. All paths read and write
 NCDHW, so the prediction is always (f, Z, X, Y).
 
-Not in this slice (``NotImplementedError``): the tiled fallback, the
-s2b/s2bg/ztap/zmajor/poolslice lowerings of the dilated path, reduced
-precision, halo sharding (ROADMAP.md §1, 'Left out of the dense slice' and
-item 8b).
+``sweep_knossos`` stages slabs of a KNOSSOS dataset on a host thread,
+runs them through those paths one or ``slab_batch`` at a time, and reads
+each chunk back while the next one computes.
+
+Not in this slice (``NotImplementedError``): the s2b/s2bg/ztap/zmajor/
+poolslice lowerings of the dilated path, reduced precision, sharded
+serving (ROADMAP.md §1 items 7 and 8).
 """
 
 from __future__ import annotations
 
 import itertools
+import math
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
+
+from ..log import logger
 
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
-_TILED = ("the JAX package serves such graphs through its tiled fallback, "
-          "which is not ported (ROADMAP.md §1, 'Left out of the dense "
-          "slice')")
+_TILED = "predict_dense_device serves such graphs through its tiled fallback"
 
 
 def _check_dense_geometry(pred):
@@ -86,6 +100,105 @@ def _valid_period(pred, nsp):
         if st is not None and len(st) == nsp:
             M = [max(m, int(s)) for m, s in zip(M, st)]
     return M
+
+
+def _tile_geometry(V, tile_in, g, dense_sp, fov, nsp, L=None):
+    """Overlap-tiling arithmetic of the tiled sweeps (the host-tiled
+    :func:`predict_dense` and the tiled fallback of
+    :func:`predict_dense_device`), copied from the JAX package's
+    ``inference.py::_tile_geometry``.
+
+    ``L`` is the tile-origin alignment period (default ``g``): decoder
+    (UpConv) graphs are shift-equivariant only modulo the valid-size period
+    M, so their tile origins stay on the lcm(g, M) grid
+    (:func:`_origin_period`).
+
+    Returns ``(pad_r, out_total, origins, cov)``: right-alignment padding
+    per dim (so the last, clamped tile lands on the L grid), total dense
+    output extents, the volume-clamped tile input origins, and ``cov``: how
+    many leading output rows of each tile the stitch may use (FaithlessMerge
+    graphs can over-produce rows from merge-cropped context that the
+    whole-volume program does not see; those are never written)."""
+    L = list(g) if L is None else L
+    # output extent required from the volume as given
+    R_req = [(V[d] - fov[d]) // g[d] + 1 for d in range(nsp)]
+    cov = [max(1, min(dense_sp[d], (tile_in[d] - fov[d]) // g[d] + 1))
+           for d in range(nsp)]
+    span = []
+    single = [False] * nsp   # dims served by one origin-0 tile
+    for d in range(nsp):
+        s = cov[d] * g[d]               # usable input extent per tile
+        if s >= L[d]:
+            # step on the L grid, never past the tile's own coverage
+            s = (s // L[d]) * L[d]
+        elif R_req[d] > cov[d]:
+            # less than one phase period of outputs per tile: L-aligned
+            # origins cannot cover the volume, and off-grid origins would
+            # compute another pooling phase than the whole-volume program
+            raise ValueError(
+                f"tiled dense sweep: dim {d} produces only {cov[d]} "
+                f"usable output row(s) per tile, less than the graph's "
+                f"phase period {L[d]} — a decoder patch this small "
+                f"cannot tile phase-consistently; use a patch whose "
+                f"per-tile output covers >= {L[d]} rows (or serve the "
+                f"volume whole)")
+        else:
+            # one origin-0 tile covers everything required in this dim
+            L[d] = g[d]
+            single[d] = True
+        span.append(s)
+    pad_r = [(L[d] - (V[d] - tile_in[d]) % L[d]) % L[d] for d in range(nsp)]
+    Vp = [v + p for v, p in zip(V, pad_r)]
+    # the farthest tile must reach R_req: graphs whose per-tile output is
+    # smaller than the per-tile valid extent need more (L-aligned) padding
+    for d in range(nsp):
+        if single[d]:
+            continue
+        lack = (R_req[d] - cov[d]) * g[d] - (Vp[d] - tile_in[d])
+        if lack > 0:
+            extra = -(-lack // L[d]) * L[d]
+            pad_r[d] += extra
+            Vp[d] += extra
+    out_total = [(Vp[d] - fov[d]) // g[d] + 1 for d in range(nsp)]
+    n_tiles = [1 if single[d] or not span[d]
+               else 1 + max(0, -(-(Vp[d] - tile_in[d]) // span[d]))
+               for d in range(nsp)]
+    origins = []
+    for idx in itertools.product(*[range(n) for n in n_tiles]):
+        # the clamp lands on the L grid because pad_r aligned it
+        origins.append(tuple(
+            (min(idx[d] * span[d], Vp[d] - tile_in[d]) // g[d]) * g[d]
+            for d in range(nsp)))
+    uniq = list(dict.fromkeys(origins))   # clamping can repeat the last
+    return pad_r, out_total, uniq, cov
+
+
+def _origin_period(pred, g, nsp):
+    """Per-dim tile-origin alignment period of the tiled sweeps: ``g`` for
+    pure MFP graphs (the restitch covers every pooling phase), else
+    lcm(g, M) with M the valid-size period (:func:`_valid_period`), which
+    decoder and hybrid graphs need to keep the whole-volume pooling
+    phase."""
+    from .neural import UpConv
+    if pred.shape.n_frag > 1 and not any(isinstance(n, UpConv)
+                                         for n in pred.all_parents()):
+        return list(g)
+    M = _valid_period(pred, nsp)
+    return [math.lcm(int(gd), int(md)) for gd, md in zip(g, M)]
+
+
+def _pad_raw_front(pred, g, fov, nsp):
+    """Front and back reflect pads of the tiled ``pad_raw`` legs, and the
+    front trim after the stitch: the centre offset ``(fov-1)//2``, rounded
+    up to the origin period where that exceeds the output stride (decoder
+    graphs are phase-sensitive); ``delta`` is the surplus trimmed off."""
+    off = [(f - 1) // 2 for f in fov]
+    hi = [f - 1 - o for f, o in zip(fov, off)]
+    L = _origin_period(pred, g, nsp)
+    lo = [-(-o // l) * l if l > gd else o
+          for o, l, gd in zip(off, L, g)]
+    delta = [l - o for l, o in zip(lo, off)]
+    return lo, hi, delta
 
 
 def dilated_pool(y, pool, dil, mode="max"):
@@ -394,10 +507,11 @@ def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
                   mode="reflect")
     got = conv_dense_shapes(pred, N)[pred.name]
     if any(g < w for g, w in zip(got, want_out)):
-        raise NotImplementedError(
+        raise ValueError(
             f"convolutional dense path under-produces {tuple(got)} vs the "
             f"required {want_out}: this graph's merge-crop deficit grows "
-            f"with the input size; " + _TILED)
+            f"with the input size (predict_dense_device serves it through "
+            f"the tiled fallback)")
     ctx = TraceCtx(model.params, {inp.name: x})
     ctx.convdense_upconv_d2s = model._convdense_upconv == "d2s"
     ctx.convdense_zfold = model._convdense_zfold
@@ -417,8 +531,10 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
 
     ``pad_raw`` reflect-pads the volume by the fov first, so the output has
     the volume's own spatial shape. Without it a volume smaller than the fov
-    raises. The path is chosen from the graph (module docstring);
-    ``tile_batch`` belongs to the tiled fallback, which is not ported.
+    raises. The path is chosen from the graph (module docstring); a graph
+    neither whole-volume path takes, or a volume the convolutional path
+    rejects by its shape, takes the overlap-tiled fallback
+    (:func:`_tiled_sweep`, ``tile_batch`` tiles per forward).
     """
     from ..ops.conv import f32_convs
 
@@ -446,16 +562,14 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
             f"volume spatial shape {tuple(vol.shape[1:])} smaller than "
             f"the model fov {tuple(fov)}; pad_raw=True may help")
 
-    bad = _dilated_unsupported(pred)
-    if bad is not None:
-        reason = _conv_dense_rejection(pred)
-        if reason is not None:
-            raise NotImplementedError(
-                f"dense path: the dilated path does not take node "
-                f"{bad.name!r} of type {type(bad).__name__}, and the "
-                f"convolutional dense path rejects the graph ({reason}); "
-                + _TILED)
-        return convolutional_dense_forward(model, vol, pad_raw=pad_raw)
+    if _dilated_unsupported(pred) is not None:
+        if _conv_dense_rejection(pred) is None:
+            try:
+                return convolutional_dense_forward(model, vol,
+                                                   pad_raw=pad_raw)
+            except ValueError:
+                pass    # shape-dependent rejection: the tiled fallback
+        return _tiled_sweep(model, vol, pad_raw, tile_batch)
 
     with torch.no_grad(), f32_convs():
         if pad_raw:
@@ -465,3 +579,389 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
                 pads += [(f - 1) // 2, f - 1 - (f - 1) // 2]
             vol = F.pad(vol[None], pads, mode="reflect")[0]
         return dilated_dense_forward(model, vol)
+
+
+def _tiled_sweep(model, vol, pad_raw, tile_batch, verbose=False):
+    """Overlap-tiled dense sweep: patch-sized tiles through
+    ``Model._apply`` and ``ops.mfp.fragments2dense``, stitched.
+
+    Port of the host sweep of ``inference.py::predict_dense`` and of the
+    tiled fallback of ``predict_dense_device`` in the JAX package, which
+    share this arithmetic. ``vol`` is a (f, *spatial) float32 numpy array
+    (host tiling: each group of ``tile_batch`` tiles goes to the model's
+    device and its dense output comes back; returns numpy) or a tensor on
+    the model's device (everything stays there; returns a tensor). A
+    residual (non-MFP) output stride g is upsampled by repetition, as the
+    JAX package does.
+    """
+    from ..ops.mfp import fragments2dense
+    inp, pred = model.input_node, model.prediction_node
+    host = isinstance(vol, np.ndarray)
+    nsp = len(inp.shape.spatial_axes)
+    tile_in = list(inp.shape.spatial_shape)
+    g, _, dense_sp = _dense_geometry(pred.shape)
+    fov = list(pred.shape.fov)
+    f_out = pred.shape["f"]
+
+    def pad(a, lo, hi):
+        if host:
+            return np.pad(a, [(0, 0)] + list(zip(lo, hi)), mode="reflect")
+        p = [q for a_, b_ in zip(reversed(lo), reversed(hi))
+             for q in (a_, b_)]
+        return F.pad(a[None], p, mode="reflect")[0]
+
+    V_orig = list(vol.shape[1:])
+    delta_lo = [0] * nsp
+    if pad_raw:
+        lo, hi, delta_lo = _pad_raw_front(pred, g, fov, nsp)
+        vol = pad(vol, lo, hi)
+    V = list(vol.shape[1:])
+    for d in range(nsp):
+        if V[d] < tile_in[d]:
+            raise ValueError(
+                f"volume dim {d} ({V[d]}) smaller than model patch "
+                f"{tile_in[d]}; pad_raw=True may help")
+    pad_r, out_total, origins, cov = _tile_geometry(
+        V, tile_in, g, dense_sp, fov, nsp, L=_origin_period(pred, g, nsp))
+    if any(pad_r):
+        vol = pad(vol, [0] * nsp, pad_r)
+    out = (np.empty([f_out] + out_total, np.float32) if host else
+           torch.empty([f_out] + out_total, dtype=torch.float32,
+                       device=vol.device))
+    dev = model.device
+    tb = max(1, int(tile_batch))
+    for start in range(0, len(origins), tb):
+        group = origins[start:start + tb]
+        # a short last group repeats its last tile: one batch shape
+        group_in = group + [group[-1]] * (tb - len(group))
+        tiles = [vol[(slice(None),) + tuple(slice(o[d], o[d] + tile_in[d])
+                                            for d in range(nsp))]
+                 for o in group_in]
+        tiles = (torch.from_numpy(np.stack(tiles)).to(dev) if host
+                 else torch.stack(tiles))
+        y = model._apply([pred], model.params, model.state,
+                         {inp.name: tiles}, None, train=False)[0][0]
+        dense = fragments2dense(y, pred.shape.mfp_offsets)
+        if host:
+            dense = dense.cpu().numpy()
+        for bi, o in enumerate(group):
+            o_out = [o[d] // g[d] for d in range(nsp)]
+            sl_out, sl_src = [slice(None)], [slice(None)]
+            for d in range(nsp):
+                # only cov rows per tile: over-produced rows never land
+                n = min(cov[d], out_total[d] - o_out[d])
+                sl_out.append(slice(o_out[d], o_out[d] + n))
+                sl_src.append(slice(0, n))
+            out[tuple(sl_out)] = dense[bi][tuple(sl_src)]
+        if verbose:
+            logger.info(f"predict_dense: {min(start + tb, len(origins))}/"
+                        f"{len(origins)} tiles")
+    for d in range(nsp):
+        if g[d] > 1:   # residual stride: repeat-upsample to full resolution
+            out = (np.repeat(out, g[d], axis=1 + d) if host
+                   else torch.repeat_interleave(out, g[d], dim=1 + d))
+    # crop the alignment padding back off; delta_lo trims the phase
+    # rounding of the pad_raw front pad
+    keep = [V_orig[d] if pad_raw else V_orig[d] - fov[d] + 1
+            for d in range(nsp)]
+    return out[(slice(None),) + tuple(slice(dl, dl + k)
+                                      for dl, k in zip(delta_lo, keep))]
+
+
+def predict_dense(model, raw_img, pad_raw=False, as_uint8=False,
+                  tile_batch=1, verbose=False, prefer_device=True,
+                  device_budget=4 << 30):
+    """Dense prediction over a volume given on the host; returns numpy.
+
+    Port of ``inference.py::predict_dense``. ``raw_img`` is (f, *spatial)
+    or (*spatial,) numpy; uint8 is normalised to [0, 1] (``/ 255``);
+    ``pad_raw`` mirror-pads so the output covers the whole volume;
+    ``as_uint8`` rescales the probabilities to uint8 (clipped, truncated).
+    With ``prefer_device`` a volume whose estimated footprint (voxels x
+    widest feature map x 4 bytes x 2) fits ``device_budget`` bytes goes
+    whole to :func:`predict_dense_device` on the model's device; otherwise
+    (and with ``prefer_device=False``, the oracle the fused paths are held
+    against) ``tile_batch`` patch-sized tiles at a time go through the
+    network and are stitched on the host (:func:`_tiled_sweep`).
+    """
+    inp, pred = model.input_node, model.prediction_node
+    if pred is None:
+        raise RuntimeError("designate a prediction_node first")
+    _check_dense_geometry(pred)
+    in_ts = inp.shape
+    nsp = len(in_ts.spatial_axes)
+    n_ch = in_ts["f"]
+
+    # rank/channel validation + normalisation happens BEFORE any routing
+    raw = np.asarray(raw_img)
+    if raw.ndim == nsp:
+        raw = raw[None]
+    if raw.ndim != nsp + 1:
+        raise ValueError(f"raw has rank {raw.ndim}, expected {nsp} or "
+                         f"{nsp + 1} (f, *spatial)")
+    if raw.shape[0] != n_ch:
+        raise ValueError(f"raw channels {raw.shape[0]} != model input "
+                         f"channels {n_ch}")
+    if raw.dtype == np.uint8:
+        raw = raw.astype(np.float32) / 255.0
+    else:
+        raw = raw.astype(np.float32, copy=False)
+
+    out = None
+    if prefer_device:
+        max_f = max([int(n.shape["f"]) for n in pred.all_parents()
+                     if n.shape is not None and "f" in n.shape.tags] + [1])
+        if int(np.prod(raw.shape[1:])) * max_f * 4 * 2 <= device_budget:
+            out = predict_dense_device(
+                model, torch.from_numpy(raw).to(model.device),
+                pad_raw=pad_raw, tile_batch=tile_batch).cpu().numpy()
+    if out is None:
+        out = _tiled_sweep(model, raw, pad_raw, tile_batch, verbose=verbose)
+    if as_uint8:
+        out = np.clip(out * 255.0, 0, 255).astype(np.uint8)
+    return out
+
+
+# ------------------------------------------------------ whole-dataset sweep
+
+#: sweeps that fell back to per-slab forwards after a batched chunk ran out
+#: of device memory, in this process
+sweep_oom_fallbacks = 0
+
+#: chunks whose write-back into ``out`` may still be running while the next
+#: chunk is enqueued
+WRITE_DEPTH = 2
+
+#: uint8 -> float32 normalisation table: entry v is ``np.float32(v) / 255.0``
+#: as numpy computes it, so a staged slab cast by lookup on the device has
+#: the bits of the JAX package's host cast
+_U8_SCALE = np.arange(256, dtype=np.float32) / 255.0
+
+
+def _sweep_forward(model, batched):
+    """The forward of one chunk of staged slabs, (B, f, *slab) float32 ->
+    (B, f_out, *out), or None when ``batched`` and neither whole-volume
+    path takes the graph. Per slab (``batched=False``) it is
+    :func:`predict_dense_device`, which serves every graph."""
+    from ..ops.conv import f32_convs
+    pred = model.prediction_node
+    if not batched:
+        return lambda x: predict_dense_device(model, x[0])[None]
+    if _dilated_unsupported(pred) is None:
+        def dilated(x):
+            with torch.no_grad(), f32_convs():
+                return dilated_dense_forward(model, x, batch=True)
+        return dilated
+    if _conv_dense_rejection(pred) is None:
+        return lambda x: convolutional_dense_forward(model, x, batch=True)
+    return None
+
+
+def sweep_knossos(model, karr, region=None, step=None, out=None,
+                  verbose=False, mesh=None, axis_name="space",
+                  slab_batch=1, batch_axis="data", timings=None):
+    """Dense-predict a whole KNOSSOS dataset (or a region of it), slab by
+    staged slab, on the model's device.
+
+    Port of ``inference.py::sweep_knossos``. ``karr`` is a ``KnossosArray``
+    (or ``KnossosArrayMulti``, or any (z, x, y) / (f, z, x, y) array).
+    Slabs of ``step`` voxels (default: the JAX package's, (112, 496, 496)
+    under ``set_dilated_impl(pallas_tail=True)``, (128, 512, 512) for a
+    conv-dense graph under ``set_convdense_impl(ptail=True)``, else
+    (64, 384, 384)), rounded up to the valid-size period M, start on the
+    M-grid; each is read with an M-aligned front halo and the fov's back
+    halo, reflect-padded where it passes the dataset's edge, and written
+    into ``out`` (a (f_out, *region_shape) float32 array, allocated if
+    None; a memory-mapped array works) after the ``delta`` trim.
+
+    The pipeline on the card: one staging thread reads and pads the next
+    chunk into pinned host memory while the card works; the chunk goes to
+    the card as it is stored (uint8 is cast there by a table lookup with
+    numpy's bits, other integers are cast to float32 on the host); each
+    chunk's trimmed result is read back through a non-blocking copy into
+    pinned memory on a side stream with an event, and one writer thread
+    waits on that event and writes the slabs into ``out`` while the next
+    chunks compute (up to :data:`WRITE_DEPTH` behind). No host sync
+    otherwise. Under ``torch.profiler`` the host's parts show as the spans
+    ``sweep_knossos.stage`` (on the staging thread), ``.enqueue``,
+    ``.wait`` and ``.write_back``.
+
+    ``slab_batch`` > 1 runs that many slabs per forward through
+    ``dilated_dense_forward(batch=True)`` (``convolutional_dense_forward``
+    for decoder graphs); the last partial chunk repeats its final slab. A
+    batched chunk that runs out of device memory makes the sweep start over
+    per slab, with a warning, counted in :data:`sweep_oom_fallbacks`. A
+    graph neither batched path takes is swept per slab.
+
+    ``timings``, when a dict, gets per chunk the host seconds of staging
+    (``stage_s``, on the staging thread) and of writing into ``out``
+    (``write_s``), and the chunk's slab count (``slabs``). ``mesh`` (slabs
+    sharded over devices) is not ported.
+    """
+    global sweep_oom_fallbacks
+    if mesh is not None:
+        raise NotImplementedError(
+            "sweep_knossos(mesh=...): sharded serving is not ported "
+            "(ROADMAP.md §1 item 8)")
+    pred = model.prediction_node
+    if region is None:
+        region = tuple((0, s) for s in karr.shape[-3:])
+    region = [(int(a), int(b)) for a, b in region]
+    rshape = [b - a for a, b in region]
+    fov = list(pred.shape.fov)
+    f_out = pred.shape["f"]
+    # decoder graphs are shift-equivariant only modulo M: slab origins and
+    # the front halo stay on the M grid, write-back trims the surplus
+    M = _valid_period(pred, 3)
+    if step is None:
+        if model._convdense_ptail and _conv_dense_rejection(pred) is None:
+            default = (128, 512, 512)
+        elif model._dilated_ptail:
+            default = (112, 496, 496)
+        else:
+            default = (64, 384, 384)
+        step = [min(r, s) for r, s in zip(rshape, default)]
+    if any(int(s) % m for s, m in zip(step, M)):
+        step = [min(r, -(-int(s) // m) * m)
+                for s, m, r in zip(step, M, rshape)]
+        logger.info(f"sweep_knossos: step rounded to the valid-size "
+                    f"period {M} -> {step} (slab phase consistency)")
+    step = [int(s) for s in step]
+    if out is None:
+        out = np.zeros([f_out] + rshape, np.float32)
+
+    halo_lo = [-(-((f - 1) // 2) // m) * m for f, m in zip(fov, M)]
+    delta = [h - (f - 1) // 2 for h, f in zip(halo_lo, fov)]
+    halo_hi = [f - 1 - (f - 1) // 2 for f in fov]
+    want = [step[d] + halo_lo[d] + halo_hi[d] for d in range(3)]
+    origins = [(z0, x0, y0)
+               for z0 in range(0, rshape[0], step[0])
+               for x0 in range(0, rshape[1], step[1])
+               for y0 in range(0, rshape[2], step[2])]
+    if not origins:     # degenerate region (a zero-size dimension)
+        return out
+    dev = model.device
+    cuda = dev.type == "cuda"
+    lut = torch.from_numpy(_U8_SCALE)
+    side = None
+    if cuda:    # copied from pinned memory: no host sync
+        lut = lut.pin_memory().to(dev, non_blocking=True)
+        side = torch.cuda.Stream(dev)
+    if timings is not None:
+        for k in ("stage_s", "write_s", "slabs"):
+            timings.setdefault(k, [])
+
+    def read(o):
+        """Slab + halo from the backing store, clamped to the dataset and
+        reflect-padded where the halo passes its edge; uint8 stays uint8,
+        other dtypes become float32."""
+        lo_cut = [max(0, -(region[d][0] + o[d] - halo_lo[d]))
+                  for d in range(3)]
+        sub = tuple(slice(max(0, region[d][0] + o[d] - halo_lo[d]),
+                          min(region[d][0] + o[d] + step[d] + halo_hi[d],
+                              karr.shape[-3:][d])) for d in range(3))
+        slab = np.asarray(karr[sub] if karr.ndim == 3
+                          else karr[(slice(None),) + sub])
+        if slab.ndim == 3:
+            slab = slab[None]
+        if slab.dtype != np.uint8:
+            slab = slab.astype(np.float32, copy=False)
+        pads = [(0, 0)] + [
+            (lo_cut[d], max(0, want[d] - slab.shape[1 + d] - lo_cut[d]))
+            for d in range(3)]
+        if any(p != (0, 0) for p in pads):
+            slab = np.pad(slab, pads, mode="reflect")
+        return slab
+
+    def stage(chunk, B):
+        """The chunk's slabs stacked into one (pinned, on the card) host
+        tensor; a short chunk repeats its final slab."""
+        t0 = time.perf_counter()
+        with record_function("sweep_knossos.stage"):
+            slabs = [read(o) for o in chunk]
+            slabs += [slabs[-1]] * (B - len(slabs))
+            buf = torch.empty((B,) + slabs[0].shape, pin_memory=cuda,
+                              dtype=torch.uint8 if slabs[0].dtype == np.uint8
+                              else torch.float32)
+            np.stack(slabs, out=buf.numpy())
+        if timings is not None:
+            timings["stage_s"].append(time.perf_counter() - t0)
+        return buf
+
+    def readback(dense, chunk):
+        """Enqueue the copy of the chunk's trimmed output to the host;
+        returns what :func:`write_back` needs."""
+        dense = dense[(slice(None), slice(None)) + tuple(
+            slice(dl, dl + s) for dl, s in zip(delta, step))].contiguous()
+        if not cuda:
+            return dense.numpy(), None, chunk
+        host = torch.empty(dense.shape, dtype=dense.dtype, pin_memory=True)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            host.copy_(dense, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        dense.record_stream(side)       # its memory waits for the copy
+        return host.numpy(), done, chunk
+
+    def write_back(pending):
+        arr, done, chunk = pending
+        if done is not None:
+            with record_function("sweep_knossos.wait"):
+                done.synchronize()
+        t0 = time.perf_counter()
+        with record_function("sweep_knossos.write_back"):
+            for j, o in enumerate(chunk):
+                n = [min(step[d], rshape[d] - o[d]) for d in range(3)]
+                out[:, o[0]:o[0] + n[0], o[1]:o[1] + n[1],
+                    o[2]:o[2] + n[2]] = arr[j, :, :n[0], :n[1], :n[2]]
+        if timings is not None:
+            timings["write_s"].append(time.perf_counter() - t0)
+            timings["slabs"].append(len(chunk))
+        if verbose:
+            logger.info(f"sweep_knossos: slab {chunk[-1]} done "
+                        f"({len(chunk)} in the chunk)")
+
+    def run(B, forward):
+        chunks = [origins[i:i + B] for i in range(0, len(origins), B)]
+        writes = []      # write-backs in flight, oldest first
+        with ThreadPoolExecutor(max_workers=1) as stager, \
+                ThreadPoolExecutor(max_workers=1) as writer:
+            fut = stager.submit(stage, chunks[0], B)
+            for ci, chunk in enumerate(chunks):
+                buf = fut.result()
+                if ci + 1 < len(chunks):
+                    fut = stager.submit(stage, chunks[ci + 1], B)
+                with record_function("sweep_knossos.enqueue"):
+                    x = buf.to(dev, non_blocking=True)
+                    x = lut[x.int()] if x.dtype == torch.uint8 else x
+                    pending = readback(forward(x), chunk)
+                    del x
+                # the card may run WRITE_DEPTH chunks ahead of the writer: a
+                # write-back that first touches the pages of ``out`` takes
+                # longer than a slab computes
+                if len(writes) >= WRITE_DEPTH:
+                    writes.pop(0).result()
+                writes.append(writer.submit(write_back, pending))
+            for w in writes:
+                w.result()
+
+    forward = _sweep_forward(model, slab_batch > 1)
+    if slab_batch > 1 and forward is None:
+        logger.warning("sweep_knossos: neither batched path takes this "
+                       "graph — sweeping per slab")
+    if slab_batch > 1 and forward is not None:
+        try:
+            run(int(slab_batch), forward)
+            return out
+        except torch.cuda.OutOfMemoryError:
+            # slab_batch multiplies activation memory; writes are
+            # idempotent, so sweep everything again per slab
+            sweep_oom_fallbacks += 1
+            torch.cuda.empty_cache()
+            logger.warning(
+                f"sweep_knossos: slab_batch={slab_batch} exhausted device "
+                f"memory — falling back to per-slab sweeps (use a smaller "
+                f"step= or slab_batch for batched serving)")
+    run(1, _sweep_forward(model, False))
+    return out

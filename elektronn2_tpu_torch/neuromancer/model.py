@@ -20,9 +20,13 @@ cuDNN's TF32 algorithms. The update writes into the parameter and slot
 tensors in place (``neuromancer/optimiser.py``), so a CUDA graph of steps
 (``training/fused_loop.py``) replays on fixed addresses.
 
+``predict_dense`` (host-tiled), ``sweep_knossos`` and :func:`rebuild_model`
+(``modelload``'s ``override_mfp_to_active`` / ``imposed_patch_size``) serve
+a trained net over whole volumes.
+
 Not in this slice (``NotImplementedError`` naming the ROADMAP.md item):
-compute dtypes other than float32, the host-tiled ``predict_dense``, orbax
-checkpoints, ``set_train_lowering`` and remat.
+compute dtypes other than float32, ``tune_serving``, orbax checkpoints,
+``set_train_lowering`` and remat.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ class Model:
         loss, aux = model.trainingstep(data, target)   # tensors on the card
         probs = model.predict(raw)
         dense = model.predict_dense_device(vol, pad_raw=True)
+        maps = model.sweep_knossos(KnossosArray(path))
     """
 
     def __init__(self, graph_manager, name="model"):
@@ -450,10 +455,19 @@ class Model:
                               self._feed(raw, extra=extra), None, train=False)
         return outs[0]
 
-    def predict_dense(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the host-tiled predict_dense is not ported yet (ROADMAP.md §1, "
-            "'Left out of the dense slice'); use predict_dense_device")
+    def predict_dense(self, raw_img, pad_raw=False, as_uint8=False,
+                      tile_batch=1, verbose=False, prefer_device=True,
+                      device_budget=4 << 30):
+        """Dense prediction over a host volume (numpy in, numpy out):
+        volumes that fit ``device_budget`` go whole through
+        :meth:`predict_dense_device`, larger ones (and all with
+        ``prefer_device=False``) through the overlap-tiled sweep
+        (``neuromancer/inference.py::predict_dense``)."""
+        from .inference import predict_dense
+        return predict_dense(self, raw_img, pad_raw=pad_raw,
+                             as_uint8=as_uint8, tile_batch=tile_batch,
+                             verbose=verbose, prefer_device=prefer_device,
+                             device_budget=device_budget)
 
     def predict_dense_device(self, vol, pad_raw=False, tile_batch=1):
         """Dense sweep of a device-resident volume: (f, Z, X, Y) float32
@@ -462,6 +476,18 @@ class Model:
         from .inference import predict_dense_device
         return predict_dense_device(self, vol, pad_raw=pad_raw,
                                     tile_batch=tile_batch)
+
+    def sweep_knossos(self, karr, region=None, step=None, out=None,
+                      verbose=False, mesh=None, axis_name="space",
+                      slab_batch=1, batch_axis="data", timings=None):
+        """Dense-predict a whole KNOSSOS dataset slab by staged slab, one or
+        ``slab_batch`` slabs per forward, each read back while the next
+        computes (``neuromancer/inference.py::sweep_knossos``)."""
+        from .inference import sweep_knossos
+        return sweep_knossos(self, karr, region=region, step=step, out=out,
+                             verbose=verbose, mesh=mesh,
+                             axis_name=axis_name, slab_batch=slab_batch,
+                             batch_axis=batch_axis, timings=timings)
 
     # ------------------------------------------------------------------ stats
     @property
@@ -563,13 +589,9 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
 
     The optimiser and its state (``__opt__``, ``opt/…``), where the file
     has them, are restored on ``device`` too. ``override_mfp_to_active`` /
-    ``imposed_patch_size`` (``rebuild_model``) and orbax checkpoint
-    directories are not ported.
+    ``imposed_patch_size`` rebuild the graph after loading
+    (:func:`rebuild_model`). Orbax checkpoint directories are not ported.
     """
-    if override_mfp_to_active or imposed_patch_size is not None:
-        raise NotImplementedError(
-            "modelload: rebuild_model (override_mfp_to_active / "
-            "imposed_patch_size) is not ported yet (ROADMAP.md §1 item 9)")
     device = target_device(device)
     with np.load(fname, allow_pickle=False) as z:
         spec = json.loads(bytes(z["__spec__"].tobytes()).decode())
@@ -586,29 +608,132 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
                 opt_leaves_[int(k.split("/")[1])] = z[k]
         opt_meta = (json.loads(bytes(z["__opt__"].tobytes()).decode())
                     if "__opt__" in z.files else None)
-    gm = GraphManager.replay(spec["nodes"], arg_arrays)
-    gm.designations = spec.get("designations", {})
-    model = Model(gm, name=spec.get("graph", "model"))
-    d = gm.designations
-
-    def pick(key):
-        n = d.get(key)
-        return gm.nodes[n] if n else None
-
-    model.designate_nodes(
-        input_node=pick("input_node"), target_node=pick("target_node"),
-        loss_node=pick("loss_node"), prediction_node=pick("prediction_node"),
-        prediction_ext_node=pick("prediction_ext_node"),
-        error_node=pick("error_node"),
-        debug_outputs=[gm.nodes[n] for n in d.get("debug_outputs", [])],
-        extra_inputs=[gm.nodes[n] for n in d.get("extra_inputs", [])])
+    model = _designated(GraphManager.replay(spec["nodes"], arg_arrays),
+                        spec.get("designations", {}),
+                        spec.get("graph", "model"))
     model.set_params(params)
     model.to(device)
     model.state = state
     if opt_meta is not None:
         model._load_opt(opt_meta, opt_leaves_)
+    if override_mfp_to_active or imposed_patch_size is not None:
+        model = rebuild_model(model,
+                              override_mfp_to_active=override_mfp_to_active,
+                              imposed_patch_size=imposed_patch_size)
     logger.info(f"loaded model from {fname}: {model!r}")
     return model
+
+
+def _designated(gm, designations, name):
+    """A new Model over ``gm`` with ``designations`` (node names)."""
+    model = Model(gm, name=name)
+
+    def pick(key):
+        n = designations.get(key)
+        return gm.nodes[n] if n else None
+
+    return model.designate_nodes(
+        input_node=pick("input_node"), target_node=pick("target_node"),
+        loss_node=pick("loss_node"), prediction_node=pick("prediction_node"),
+        prediction_ext_node=pick("prediction_ext_node"),
+        error_node=pick("error_node"),
+        debug_outputs=[gm.nodes[n] for n in
+                       designations.get("debug_outputs", [])],
+        extra_inputs=[gm.nodes[n] for n in
+                      designations.get("extra_inputs", [])])
+
+
+def rebuild_model(model, override_mfp_to_active=False,
+                  imposed_patch_size=None):
+    """Rebuild a model's graph from its own spec, e.g. with another patch
+    size for the designated input or with MFP switched on in every Conv
+    and Pool for dense inference; the target input is resized to the new
+    prediction geometry.
+
+    Port of ``model.py::rebuild_model`` (reference: ``elektronn2``'s).
+    Parameters, aux state and the optimiser state are copied (clones, on
+    the model's device) wherever their shapes still match, and the serving
+    lowerings (``set_dilated_impl``, ``set_convdense_impl``) carry over.
+    """
+    def _input_fields(d):
+        """(shape list, tag list) of an Input descriptor; writes the shape
+        back as a plain list so edits to it reach the replay."""
+        args = d["args"]
+        shape = args[0] if args else d["kwargs"]["shape"]
+        tags = args[1] if len(args) > 1 else d["kwargs"]["tags"]
+        if isinstance(shape, dict) and "__tuple__" in shape:
+            shape = list(shape["__tuple__"])
+            if args:
+                args[0] = shape
+            else:
+                d["kwargs"]["shape"] = shape
+        if isinstance(tags, dict) and "__tuple__" in tags:
+            tags = list(tags["__tuple__"])
+        if isinstance(tags, str):
+            tags = tags.split(",") if "," in tags else list(tags)
+        return shape, tags
+
+    def _set_spatial(d, sizes):
+        shape, tags = _input_fields(d)
+        sp_idx = [i for i, t in enumerate(tags) if t in ("z", "x", "y")]
+        for i, ax in enumerate(sp_idx):
+            shape[ax] = int(sizes[i])
+
+    dd_old = model.gm.designations
+    in_name = dd_old.get("input_node")
+    tgt_name = dd_old.get("target_node")
+    changed = imposed_patch_size is not None or override_mfp_to_active
+    descriptors, arrays = model.gm.get_descriptors()
+    for d in descriptors:
+        # the patch applies to the designated data input only; the target
+        # input is the network's output size, resized below
+        if (d["cls"] == "Input" and imposed_patch_size is not None
+                and d["name"] == in_name):
+            _set_spatial(d, imposed_patch_size)
+        if override_mfp_to_active and d["cls"] in ("Conv", "Pool"):
+            d["kwargs"]["mfp"] = True
+    new = _designated(GraphManager.replay(descriptors, arrays), dd_old,
+                      model.name)
+    if tgt_name is not None and new.prediction_node is not None and changed:
+        pred_ts = new.prediction_node.shape
+        tgt_node = new.nodes.get(tgt_name)
+        if tgt_node is not None and (tuple(tgt_node.shape.spatial_shape)
+                                     != tuple(pred_ts.spatial_shape)
+                                     or tgt_node.shape["b"]
+                                     != pred_ts["b"]):
+            for d in descriptors:
+                if d["name"] == tgt_name:
+                    _set_spatial(d, pred_ts.spatial_shape)
+                    shape, tags = _input_fields(d)
+                    if "b" in tags:
+                        shape[tags.index("b")] = int(pred_ts["b"])
+            new = _designated(GraphManager.replay(descriptors, arrays),
+                              dd_old, model.name)
+    for nname, pdict in model.params.items():
+        for pname, v in pdict.items():
+            if tuple(new.params.get(nname, {}).get(
+                    pname, torch.empty(0)).shape) == tuple(v.shape):
+                new.params[nname][pname] = v.detach().clone()
+    new.to(model.device)
+    new.state = _tree_clone(model.state)
+    if model.optimiser is not None:
+        meta = model._opt_meta()
+        new.set_opt(meta["cls"], **meta["hyper"])
+        if meta.get("nesterov"):
+            new.optimiser.nesterov = True
+        new._step_count = model._step_count
+        old_l, new_l = opt_leaves(model.opt_state), opt_leaves(new.opt_state)
+        if len(old_l) == len(new_l):
+            with torch.no_grad():
+                for o, n in zip(old_l, new_l):
+                    if o.shape == n.shape:
+                        n.copy_(o)
+    new._seed = model._seed
+    for knob in ("_dilated_impl", "_dilated_ptail", "_convdense_upconv",
+                 "_convdense_zfold", "_convdense_ptail",
+                 "_convdense_poolslice", "_convdense_skipsum"):
+        setattr(new, knob, getattr(model, knob))
+    return new
 
 
 def _tree_clone(tree):

@@ -1,16 +1,50 @@
-"""Host-side helpers: a growing array buffer and a KD-tree over a growing
-point set.
+"""Host-side helpers: HDF5 save and load, a growing array buffer and a
+KD-tree over a growing point set.
 
-Jax-free copy of ``AccumulationArray`` and ``DynamicKDT`` in
-``elektronn2_tpu/utils/basic.py`` (reference: ``elektronn2/utils``), which
+Jax-free copy of ``h5save``, ``h5load``, ``AccumulationArray`` and
+``DynamicKDT`` in ``elektronn2_tpu/utils/basic.py`` (reference:
+``elektronn2/utils``); the predict CLI writes through ``h5save``,
 ``data/skeleton.py::Trace`` and ``data/tracing_utils.py::ShotgunRegistry``
-need. ``AccumulationArray.extend`` copies a block at once instead of
-appending row by row; the contents are the same.
+need the other two. ``AccumulationArray.extend`` copies a block at once
+instead of appending row by row; the contents are the same. ``h5py`` is
+imported when a file is read or written, not with this module.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def h5save(data, path, keys=None, compress=True):
+    """Save array(s) to HDF5. ``data`` may be an array, list of arrays
+    (with ``keys``), or a dict. Reference: ``utils::h5save``."""
+    import h5py
+    kw = {"compression": "gzip"} if compress else {}
+    with h5py.File(path, "w") as f:
+        if isinstance(data, dict):
+            for k, v in data.items():
+                f.create_dataset(str(k), data=np.asarray(v), **kw)
+        elif isinstance(data, (list, tuple)):
+            keys = keys or [f"data{i}" for i in range(len(data))]
+            for k, v in zip(keys, data):
+                f.create_dataset(str(k), data=np.asarray(v), **kw)
+        else:
+            f.create_dataset(keys or "data", data=np.asarray(data), **kw)
+
+
+def h5load(path, keys=None):
+    """Load dataset(s) from HDF5; ``keys`` may be a str, list, or None
+    (→ all datasets; single array if only one). Reference:
+    ``utils::h5load``."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        if isinstance(keys, str):
+            return f[keys][()]
+        names = keys or list(f.keys())
+        out = [f[k][()] for k in names]
+        if keys is None and len(out) == 1:
+            return out[0]
+        return out
 
 
 class AccumulationArray:

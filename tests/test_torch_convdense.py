@@ -317,12 +317,19 @@ def test_ptail_routes_eligible_convs_through_k1(monkeypatch):
 
 
 def test_underproducing_graph_raises_naming_tiled_fallback():
+    """The convolutional path refuses a graph whose merge-crop deficit
+    grows with the input, in both packages; predict_dense_device then
+    serves it through the tiled fallback, equal to the JAX package's."""
     jm, tm = _pair(underproducing_unet)
     vol = np.random.RandomState(4).rand(1, 40, 40).astype(np.float32)
     with pytest.raises(ValueError, match="under-produces"):
         jax_convolutional_dense_forward(jm, jnp.asarray(vol))
-    with pytest.raises(NotImplementedError, match="tiled fallback"):
-        tm.predict_dense_device(torch.from_numpy(vol))
+    with pytest.raises(ValueError, match="tiled fallback"):
+        tinf.convolutional_dense_forward(tm, torch.from_numpy(vol))
+    want = np.asarray(jm.predict_dense_device(jnp.asarray(vol)))
+    got = tm.predict_dense_device(torch.from_numpy(vol)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
 def test_routing_and_errors():
@@ -343,14 +350,19 @@ def test_routing_and_errors():
     fm = flagship_model(mfp=True, patch=[9, 41, 41], device="cpu")
     with pytest.raises(ValueError, match="MFP"):
         tinf.check_conv_dense_supported(fm.prediction_node)
-    # a graph neither path takes names the tiled fallback
-    with fresh_graph("elektronn2_tpu_torch") as gm:
-        inp = tnm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
-        c = tnm.Crop(tnm.Conv(inp, 2, 3, name="a"), 1, name="crop")
-        m = gm.getmodel()
-        m.designate_nodes(input_node=inp, prediction_node=c)
+    # a graph neither whole-volume path takes is served by the tiled
+    # fallback, equal to the JAX package's
+    def crop_graph(nm):
+        inp = nm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
+        return inp, nm.Crop(nm.Conv(inp, 2, 3, name="a"), 1, name="crop")
+    jc, tc = _pair(crop_graph)
     with pytest.raises(NotImplementedError, match="tiled fallback"):
-        m.predict_dense_device(torch.rand(1, 12, 12))
+        tinf.dilated_dense_forward(tc, torch.rand(1, 12, 12))
+    v = np.random.RandomState(5).rand(1, 12, 12).astype(np.float32)
+    np.testing.assert_allclose(
+        tc.predict_dense_device(torch.from_numpy(v)).numpy(),
+        np.asarray(jc.predict_dense_device(jnp.asarray(v))), atol=ATOL,
+        rtol=0)
 
 
 def test_faithless_merge_crops_at_run_time():

@@ -18,11 +18,16 @@ P1: rtol=atol=1e-3 in float32 (sums of 360 products of unit normals in
 another order), 1e-2 in bf16 (the tensor cores' float32 accumulation); its
 float32 rows, like K1, within 2x the plain float32 version's error against
 float64 + 1e-6; its dot-only instance for shape and finite values.
+The KNOSSOS sweep (``sweep_knossos``) on the card equals the same sweep on
+the CPU within 1e-5, two slabs at a time launch K1 at N = 2, and the chunk
+loop makes no host sync (``torch.cuda.set_sync_debug_mode("error")``).
 Training (``training/fused_loop.py``): a graphed chunk equals the eager
 chunk from the same parameters, optimiser state and generator state bit for
 bit under ``torch.backends.cudnn.deterministic``; K1 serving the trained
 weights within 1e-5 of the cuDNN route (``SLICE_ATOL`` of chip_smoke.py).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -681,3 +686,77 @@ def test_k1_serves_the_weights_a_replay_trained(cuda_device):
     cudnn = m.predict_dense_device(vol, pad_raw=True)
     torch.testing.assert_close(k1, cudnn, atol=1e-5, rtol=0)
     assert (k1 - before).abs().max().item() > 1e-4
+
+
+def _sweep_setup(tmp_path, device):
+    """The flagship on ``device`` (weights from numpy seed 10, K1's route
+    on) and a 16x64x60 uint8 KNOSSOS dataset in 16^3 cubes."""
+    from elektronn2_tpu_torch.data.knossos_array import save_knossos
+    rng = np.random.RandomState(10)
+    m = flagship_model(mfp=True, patch=[9, 41, 41], device=device)
+    m.set_params({n: {k: rng.standard_normal(tuple(v.shape)) * 0.1
+                      for k, v in d.items()} for n, d in m.params.items()})
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    raw = (rng.rand(16, 64, 60) * 255).astype(np.uint8)
+    path = str(tmp_path / "raw")
+    if not os.path.exists(path):
+        save_knossos(raw, path, cube_edge=16)
+    return m, path
+
+
+@pytest.mark.cuda
+def test_sweep_on_card_equals_cpu(cuda_device, tmp_path):
+    """``sweep_knossos`` on the card (K1, pinned staging, side-stream
+    readback) equals the same sweep on the CPU (K1's plain version), per
+    slab and two slabs at a time, within 1e-5 (the flagship's)."""
+    from elektronn2_tpu_torch.data.knossos_array import KnossosArray
+    mc, path = _sweep_setup(tmp_path, "cpu")
+    mg, _ = _sweep_setup(tmp_path, cuda_device)
+    for sb in (1, 2):
+        want = mc.sweep_knossos(KnossosArray(path), step=[8, 32, 32],
+                                slab_batch=sb)
+        got = mg.sweep_knossos(KnossosArray(path), step=[8, 32, 32],
+                               slab_batch=sb)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sweep_slab_batch_launches_k1_at_n2(cuda_device, tmp_path,
+                                            monkeypatch):
+    from elektronn2_tpu_torch.data.knossos_array import KnossosArray
+    m, path = _sweep_setup(tmp_path, cuda_device)
+    one = m.sweep_knossos(KnossosArray(path), step=[8, 32, 32])
+    batches = []
+    orig = tailconv.conv3x3_dilated
+
+    def spy(x, w, b, dil=(1, 1, 1), relu=True):
+        batches.append(x.shape[0])
+        return orig(x, w, b, dil, relu)
+
+    monkeypatch.setattr(tailconv, "conv3x3_dilated", spy)
+    n = tailconv.launches
+    two = m.sweep_knossos(KnossosArray(path), step=[8, 32, 32],
+                          slab_batch=2)
+    assert batches == [2] * 8 and tailconv.launches == n + 8   # 4 chunks
+    np.testing.assert_allclose(two, one, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_batch", [1, 2])
+def test_sweep_makes_no_host_sync(cuda_device, tmp_path, slab_batch):
+    """The chunk loop copies every slab in and every result out without a
+    host sync: only the readback events are waited on (the readback of
+    chunk N after chunk N+1 is enqueued)."""
+    from elektronn2_tpu_torch.data.knossos_array import KnossosArray
+    m, path = _sweep_setup(tmp_path, cuda_device)
+    want = m.sweep_knossos(KnossosArray(path), step=[8, 32, 32],
+                           slab_batch=slab_batch)          # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = m.sweep_knossos(KnossosArray(path), step=[8, 32, 32],
+                              slab_batch=slab_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

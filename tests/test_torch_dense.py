@@ -218,8 +218,10 @@ def test_error_paths(port_model):
     with pytest.raises(KeyError, match="no value fed"):
         port_model._apply([port_model.loss_node], port_model.params, {}, {},
                           None, train=True)
-    with pytest.raises(NotImplementedError, match="predict_dense"):
-        port_model.predict_dense(np.zeros((1, 9, 40, 40), np.float32))
+    with pytest.raises(ValueError, match="channels"):
+        port_model.predict_dense(np.zeros((2, 9, 40, 40), np.float32))
+    with pytest.raises(ValueError, match="rank"):
+        port_model.predict_dense(np.zeros((1, 1, 9, 40, 40), np.float32))
 
 
 def test_unported_nodes_raise(tmp_path):
@@ -329,18 +331,33 @@ def test_dense_geometry_matches_jax(jax_model, port_model):
 
 
 def test_dense_path_rejects_unported_nodes():
+    """The port's dilated path takes no Concat (the JAX package's does):
+    it raises naming the node, and predict_dense_device serves the graph
+    through the tiled fallback, equal to the JAX package's dilated path."""
+    import elektronn2_tpu.neuromancer as jnm
     from elektronn2_tpu_torch import neuromancer as tnm
-    with fresh_graph("elektronn2_tpu_torch") as gm:
-        inp = tnm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
-        a = tnm.Conv(inp, 2, 3, name="a")
-        b = tnm.Conv(inp, 2, 3, name="b")
-        cat = tnm.Concat([a, b], name="cat")
-        m = gm.getmodel()
-        m.designate_nodes(input_node=inp, prediction_node=cat)
+    from elektronn2_tpu_torch.neuromancer.inference import \
+        dilated_dense_forward
+    models = []
+    for pkg, nm in (("elektronn2_tpu", jnm), ("elektronn2_tpu_torch", tnm)):
+        with fresh_graph(pkg) as gm:
+            inp = nm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
+            a = nm.Conv(inp, 2, 3, name="a")
+            b = nm.Conv(inp, 2, 3, name="b")
+            cat = nm.Concat([a, b], name="cat")
+            m = gm.getmodel()
+            m.designate_nodes(input_node=inp, prediction_node=cat)
+        models.append(m)
+    jm, m = models
+    m.set_params(params_from_jax(jm.params, m))
     y = m.predict(torch.rand(1, 1, 9, 9))      # node path: Concat works
     assert tuple(y.shape) == (1, 4, 7, 7)
     with pytest.raises(NotImplementedError, match="Concat"):
-        m.predict_dense_device(torch.rand(1, 12, 12))
+        dilated_dense_forward(m, torch.rand(1, 12, 12))
+    v = np.random.RandomState(6).rand(1, 12, 12).astype(np.float32)
+    np.testing.assert_allclose(
+        m.predict_dense_device(torch.from_numpy(v)).numpy(),
+        np.asarray(jm.predict_dense_device(jnp.asarray(v))), atol=ATOL)
 
 
 def test_permuted_view_volume_takes_the_k1_route(monkeypatch):

@@ -19,6 +19,7 @@ MODULES = [
     "elektronn2_tpu_torch.utils.device_timing",
     "elektronn2_tpu_torch.utils.convert",
     "elektronn2_tpu_torch.utils.basic",
+    "elektronn2_tpu_torch.utils.native_build",
     "elektronn2_tpu_torch.ops",
     "elektronn2_tpu_torch.ops.activations",
     "elektronn2_tpu_torch.ops.conv",
@@ -44,6 +45,8 @@ MODULES = [
     "elektronn2_tpu_torch.training.fused_loop",
     "elektronn2_tpu_torch.data",
     "elektronn2_tpu_torch.data.skeleton",
+    "elektronn2_tpu_torch.data._knossos_native",
+    "elektronn2_tpu_torch.data.knossos_array",
     "elektronn2_tpu_torch.data.tracing_utils",
     "elektronn2_tpu_torch.scripts",
     "elektronn2_tpu_torch.scripts.exp_convdense_headk",
@@ -51,6 +54,7 @@ MODULES = [
     "elektronn2_tpu_torch.scripts.exp_ptail_dot",
     "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
     "elektronn2_tpu_torch.scripts.exp_wrapper_host",
+    "elektronn2_tpu_torch.scripts.predict",
 ]
 
 
@@ -194,6 +198,61 @@ def test_training_runs_without_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_sweep_and_cli_run_without_jax():
+    # the dense-serving deployment (KNOSSOS dataset, sweep with slab
+    # batches, the predict CLI with rebuild and KNOSSOS output) stays
+    # jax-free when it runs
+    code = ("import os, sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import flagship_model\n"
+            "from elektronn2_tpu_torch.data.knossos_array import "
+            "KnossosArray, save_knossos\n"
+            "from elektronn2_tpu_torch.scripts.predict import main\n"
+            "d = tempfile.mkdtemp()\n"
+            "raw = (np.random.RandomState(0).rand(8, 30, 30) * 255)"
+            ".astype(np.uint8)\n"
+            "save_knossos(raw, os.path.join(d, 'raw'), cube_edge=16)\n"
+            "m = flagship_model(mfp=False, patch=[9, 44, 44], device='cpu')\n"
+            "m.set_dilated_impl('direct', zfold=True, pallas_tail=True)\n"
+            "ka = KnossosArray(os.path.join(d, 'raw'))\n"
+            "y = m.sweep_knossos(ka, step=[4, 16, 16], slab_batch=2)\n"
+            "assert y.shape == (2, 8, 30, 30), y.shape\n"
+            "m.save(os.path.join(d, 'm.mdl'))\n"
+            "assert main([os.path.join(d, 'm.mdl'), os.path.join(d, 'raw'), "
+            "'--cpu', '--mfp', '--patch', '9,41,41', '--ptail', '--step', "
+            "'4,16,16', '-o', os.path.join(d, 'p.h5'), '--knossos-out', "
+            "os.path.join(d, 'out')]) == 0\n"
+            "assert KnossosArray(os.path.join(d, 'out', 'c1')).shape == "
+            "(8, 30, 30)\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_package_data_ships_every_source():
+    # an installed port (not a checkout) builds its kernels and cores from
+    # the files pyproject.toml's package-data lists: every source under
+    # csrc/ and every .cpp must match one of its patterns
+    import glob
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        cfg = tomllib.load(f)
+    pats = cfg["tool"]["setuptools"]["package-data"]["elektronn2_tpu_torch"]
+    pkg = os.path.join(REPO, "elektronn2_tpu_torch")
+    shipped = set()
+    for p in pats:
+        shipped |= set(glob.glob(p, root_dir=pkg, recursive=True))
+    need = {os.path.join("csrc", f)
+            for f in os.listdir(os.path.join(pkg, "csrc"))}
+    need |= {os.path.relpath(p, pkg) for p in glob.glob(
+        os.path.join(pkg, "**", "*.cpp"), recursive=True)}
+    assert any(n.endswith(".cuh") for n in need)
+    assert any(n.endswith(".cpp") for n in need)
+    assert not need - shipped, sorted(need - shipped)
 
 
 def test_package_source_names_no_jax():
