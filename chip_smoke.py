@@ -425,12 +425,34 @@ def f64_errors(x, w, b, dil):
             (cudnn - ref).abs().max().item())
 
 
+#: cuDNN's calls stay within 32-bit indexing up to this many elements a
+#: tensor; past it they take its 64-bit-indexed kernels, several times
+#: slower (PERF.md section 5)
+INT32_ELEMS = 2**31 - 1
+
+
+def k1_plain(x, w, b, dil):
+    """K1's plain version, ``conv3x3_dilated_reference``; where ``x`` or
+    the output passes ``INT32_ELEMS`` elements, over z-chunks of the output
+    that each stay within it, concatenated (the same values)."""
+    n, cin, z, X, Y = x.shape
+    plane_in = n * cin * X * Y
+    plane_out = n * w.shape[0] * (X - 2 * dil[1]) * (Y - 2 * dil[2])
+    if x.numel() <= INT32_ELEMS and (z - 2) * plane_out <= INT32_ELEMS:
+        return tailconv.conv3x3_dilated_reference(x, w, b, dil)
+    k = min(INT32_ELEMS // plane_in - 2, INT32_ELEMS // plane_out)
+    return torch.cat([tailconv.conv3x3_dilated_reference(
+        x[:, :, z0:z0 + k + 2], w, b, dil) for z0 in range(0, z - 2, k)],
+        dim=2)
+
+
 def phase_kernel():
     """K1 against its plain version; returns (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms) with the times summed over the main
     path's conv2 + conv3 shapes; the library call is one ``F.conv3d`` with
-    the bias (no ReLU), in full float32. At the timed shapes K1 is also
-    held against float64 (``f64_errors``)."""
+    the bias (no ReLU), in full float32. At the timed shapes and the U-Net
+    sweep's (``unet512_*``, untimed) K1 is also held against float64
+    (``f64_errors``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # name, N, Cin, Cout, (Z, X, Y), dil
         ("conv2", 1, 30, 40, (124, 512, 512), (1, 4, 4)),
@@ -440,6 +462,13 @@ def phase_kernel():
         ("wide_e1b", 1, 128, 128, (134, 236, 236), (1, 1, 1)),
         ("wide_bott", 1, 128, 256, (132, 117, 117), (1, 1, 1)),
         ("wide_d1", 1, 256, 128, (130, 230, 230), (1, 1, 1)),
+        # the same convs in the U-Net sweep's (128, 512, 512) slab (staged
+        # 136x543x543, padded to 136x544x544); d1's input passes 2^31
+        # elements
+        ("unet512_e1a", 1, 64, 128, (136, 270, 270), (1, 1, 1)),
+        ("unet512_e1b", 1, 128, 128, (134, 268, 268), (1, 1, 1)),
+        ("unet512_bott", 1, 128, 256, (132, 133, 133), (1, 1, 1)),
+        ("unet512_d1", 1, 256, 128, (130, 262, 262), (1, 1, 1)),
         # the flagship's conv2 and conv3 in a sweep chunk of two
         # (112, 496, 496) slabs with their halo (slab_batch=2)
         ("sweep_conv2_n2", 2, 30, 40, (116, 512, 512), (1, 4, 4)),
@@ -456,21 +485,32 @@ def phase_kernel():
              - 0.5) * (2.0 / (27 * cin)) ** 0.5
         b = torch.rand(cout, device="cuda", generator=g) * 0.2 - 0.1
         got = tailconv.conv3x3_dilated(x, w, b, dil)
-        ref = tailconv.conv3x3_dilated_reference(x, w, b, dil)
+        ref = k1_plain(x, w, b, dil)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, **KERNEL_TOL)
         err = (got - ref).abs().max().item()
         max_err = max(max_err, err)
-        del got, ref
+        del ref
         rec = dict(case=name, x=[N, cin, *sp], cout=cout, dil=list(dil),
                    max_abs_err=err)
-        if name in ("conv2", "conv3") or name.startswith(("wide", "sweep")):
+        if name.startswith("sweep"):    # each item as its N = 1 launch
+            rec["items_equal_n1"] = all(
+                torch.equal(got[i], tailconv.conv3x3_dilated(
+                    x[i:i + 1], w, b, dil)[0]) for i in range(N))
+            if not rec["items_equal_n1"]:
+                emit("kernel", **rec)
+                raise AssertionError(f"K1 {name}: an item differs from its "
+                                     "own N = 1 launch")
+        del got
+        if name in ("conv2", "conv3") or name.startswith(
+                ("wide", "sweep", "unet512")):
             k64, c64 = f64_errors(x, w, b, dil)
             rec.update(f64_max_abs=k64, cudnn_f64_max_abs=c64)
             if k64 > 2 * c64 + 1e-6:
                 emit("kernel", **rec)
                 raise AssertionError(f"K1 {name}: {k64} from float64, over "
                                      f"2x cuDNN float32's {c64} + 1e-6")
+        if name in ("conv2", "conv3") or name.startswith(("wide", "sweep")):
             # in turns: plain, kernel, library, then reversed
             pms, ms, lms = palindrome_ms([
                 lambda: tailconv.conv3x3_dilated_reference(x, w, b, dil),
@@ -1730,8 +1770,8 @@ def sweep_timeline(prof):
     the union of the kernels' intervals (all streams) within the sweep's
     span (``chip_smoke.sweep``): the idle time before the first kernel
     (``lead_ms``), after the last (``tail_ms``), and between them, summed
-    by the sweep's host span (``sweep_knossos.*``, main thread) that was
-    running when each gap began."""
+    by the sweep's host span on the main thread (``sweep_knossos.enqueue``,
+    else "other") that was running when each gap began."""
     with tempfile.TemporaryDirectory() as d:
         f = os.path.join(d, "trace.json")
         prof.export_chrome_trace(f)
@@ -1877,9 +1917,11 @@ def phase_sweep_flagship(smi, model, tmp):
 def phase_sweep_unet(smi, tmp):
     """The wide U-Net (64/128/256) swept over a 256x512x512 uint8 dataset
     at step (128, 512, 512), 2 slabs, at slab_batch 1 and 2 (running out of
-    memory at 2 is reported, not a failure); checks (b), (c) and the first
-    slab against one ``predict_dense_device`` of its staged slab (1e-4).
-    Returns K1's launches in the timed sweeps."""
+    memory at 2 is reported, not a failure: the sweep then restarts per
+    slab, and check (b) compares the per-slab path with itself); checks
+    (b), (c) and the first slab against one ``predict_dense_device`` of its
+    staged slab on the cuDNN route (``ptail=False``), within
+    ``CONVDENSE_ATOL``. Returns K1's launches in the timed sweeps."""
     rng = np.random.RandomState(SEED + 7)
     model = wide_unet_model()
     model.set_params(seeded_params(model, rng))
@@ -1891,10 +1933,11 @@ def phase_sweep_unet(smi, tmp):
     model.sweep_knossos(KnossosArray(path), step=step,    # warm: one slab
                         region=[(0, s) for s in step])
     torch.cuda.synchronize()
-    outs = {}
+    outs, oom = {}, False
     tailconv.launches = 0
     for b in (1, 2):
         out, rec = timed_sweep(model, path, b, step=step)
+        oom = oom or bool(rec["oom_fallbacks"])
         emit("sweep_unet", dataset=list(UNET_SWEEP_SHAPE), step=step,
              out_of_memory_at_slab_batch=bool(rec["oom_fallbacks"]),
              nvidia_smi=smi, **rec)
@@ -1918,8 +1961,13 @@ def phase_sweep_unet(smi, tmp):
                     zip(step, hi, UNET_SWEEP_SHAPE))]
     slab = np.pad(sub, [(a, s + a + h - n - a) for a, s, h, n in
                         zip(lo, step, hi, sub.shape)], mode="reflect")
+    model.set_convdense_impl(zfold=True, skipsum=True, ptail=False)
+    k1 = tailconv.launches
     ref = model.predict_dense_device(torch.from_numpy(
         slab[None].astype(np.float32) / 255.0).cuda())
+    if tailconv.launches != k1:
+        raise AssertionError("U-Net cuDNN route launched K1")
+    model.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
     ref = ref[(slice(None),) + tuple(slice(d, d + s)
                                      for d, s in zip(delta, step))]
     got = torch.from_numpy(np.ascontiguousarray(outs[1][
@@ -1928,13 +1976,14 @@ def phase_sweep_unet(smi, tmp):
     del ref, got
     prof = profile_sweep(model, path, 1, step=step)
     emit("sweep_unet_checks", b_batch2_vs_batch1_max_abs=b_err,
-         c_channel_sum_dev=devs, first_slab_vs_request_max_abs=slab_err,
+         b_compares_per_slab_with_itself=oom, c_channel_sum_dev=devs,
+         first_slab_vs_cudnn_route_max_abs=slab_err,
          tolerance=dict(b=SLICE_ATOL, slab=CONVDENSE_ATOL),
          staged_slab=list(slab.shape), profile_slab_batch_1=prof,
          nvidia_smi=smi)
     if b_err > SLICE_ATOL or slab_err > CONVDENSE_ATOL:
         raise AssertionError(f"U-Net sweep: slab_batch 2 vs 1 {b_err}, "
-                             f"first slab vs request {slab_err}")
+                             f"first slab vs the cuDNN route {slab_err}")
     return launches
 
 

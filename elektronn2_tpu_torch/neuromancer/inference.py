@@ -64,6 +64,15 @@ _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _TILED = "predict_dense_device serves such graphs through its tiled fallback"
 
 
+class ConvDenseShapeError(ValueError):
+    """The convolutional dense path refuses a volume for its shape alone:
+    too small for the graph, or an output that the graph's merge crops
+    under-produce. Raised from the geometry, before any work.
+    ``predict_dense_device`` serves such a volume through its tiled
+    fallback, and only such a volume: any other error of the walk, K1's
+    included, reaches the caller."""
+
+
 def _check_dense_geometry(pred):
     """Nodes whose alignment TaggedShape cannot express (padding makes the
     centred-fov model lie) are rejected for dense sweeps."""
@@ -389,8 +398,9 @@ def conv_dense_shapes(pred, sp):
                 s = [min(a, b) for a, b in
                      zip(s, shapes[node.parents[1].name])]
         if min(s) < 1:
-            raise ValueError(f"volume {tuple(sp)} is too small for the "
-                             f"graph: node {node.name!r} would be {s}")
+            raise ConvDenseShapeError(
+                f"volume {tuple(sp)} is too small for the graph: node "
+                f"{node.name!r} would be {s}")
         shapes[node.name] = s
     return shapes
 
@@ -411,21 +421,24 @@ def conv_dense_extent(model, V, pad_raw=False):
         lo = [-(-o // m) * m for o, m in zip(off, M)]
         hi = [f - 1 - o for f, o in zip(fov, off)]
         if any(a + b > v - 1 for a, b, v in zip(lo, hi, V)):
-            raise ValueError(f"volume {V} too small for pad_raw reflect pad")
+            raise ConvDenseShapeError(
+                f"volume {V} too small for pad_raw reflect pad")
         front = (lo, hi, off)
         V = [v + a + b for v, a, b in zip(V, lo, hi)]
     patch0 = [int(s) for s in model.input_node.shape.spatial_shape]
     out0 = [int(s) for s in pred.shape.spatial_shape]
     want_out = [v - f + 1 for v, f in zip(V, fov)]
     if any(w < 1 for w in want_out):
-        raise ValueError(f"volume {V} smaller than model fov {fov}")
+        raise ConvDenseShapeError(
+            f"volume {V} smaller than model fov {fov}")
     # FaithlessMerge under-reports fov, so out0 may be less than
     # patch0 - fov + 1: pad the deficit too
     delta = [max(0, (p - f + 1) - o) for p, f, o in zip(patch0, fov, out0)]
     N = [p + max(0, -(-(v + d - p) // m)) * m
          for p, v, d, m in zip(patch0, V, delta, M)]
     if any(n - v > v - 1 for n, v in zip(N, V)):
-        raise ValueError(f"volume {V} too small to pad to valid size {N}")
+        raise ConvDenseShapeError(
+            f"volume {V} too small to pad to valid size {N}")
     return N, front, want_out
 
 
@@ -471,9 +484,10 @@ def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
     output has the volume's own spatial shape.
 
     ``vol``: (f, *spatial), or (B, f, *spatial) with ``batch=True``
-    (returns (B, f_out, *out)). A graph whose merge crops lose more voxels
-    the larger the input, so that one run cannot cover the output, raises
-    ``NotImplementedError`` before any work.
+    (returns (B, f_out, *out)). A volume too small for the graph, or one
+    whose output the graph's merge crops under-produce (they lose more
+    voxels the larger the input), raises :class:`ConvDenseShapeError`
+    before any work.
     """
     from .node_basic import TraceCtx
     from ..ops.conv import f32_convs
@@ -507,7 +521,7 @@ def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
                   mode="reflect")
     got = conv_dense_shapes(pred, N)[pred.name]
     if any(g < w for g, w in zip(got, want_out)):
-        raise ValueError(
+        raise ConvDenseShapeError(
             f"convolutional dense path under-produces {tuple(got)} vs the "
             f"required {want_out}: this graph's merge-crop deficit grows "
             f"with the input size (predict_dense_device serves it through "
@@ -533,8 +547,9 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
     the volume's own spatial shape. Without it a volume smaller than the fov
     raises. The path is chosen from the graph (module docstring); a graph
     neither whole-volume path takes, or a volume the convolutional path
-    rejects by its shape, takes the overlap-tiled fallback
-    (:func:`_tiled_sweep`, ``tile_batch`` tiles per forward).
+    refuses for its shape (:class:`ConvDenseShapeError`), takes the
+    overlap-tiled fallback (:func:`_tiled_sweep`, ``tile_batch`` tiles per
+    forward). Any other error, a kernel's included, reaches the caller.
     """
     from ..ops.conv import f32_convs
 
@@ -567,8 +582,8 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
             try:
                 return convolutional_dense_forward(model, vol,
                                                    pad_raw=pad_raw)
-            except ValueError:
-                pass    # shape-dependent rejection: the tiled fallback
+            except ConvDenseShapeError:
+                pass    # refused for the volume's shape: the tiled fallback
         return _tiled_sweep(model, vol, pad_raw, tile_batch)
 
     with torch.no_grad(), f32_convs():
@@ -758,15 +773,14 @@ def _sweep_forward(model, batched):
 
 
 def sweep_knossos(model, karr, region=None, step=None, out=None,
-                  verbose=False, mesh=None, axis_name="space",
-                  slab_batch=1, batch_axis="data", timings=None):
+                  verbose=False, mesh=None, slab_batch=1, timings=None):
     """Dense-predict a whole KNOSSOS dataset (or a region of it), slab by
     staged slab, on the model's device.
 
     Port of ``inference.py::sweep_knossos``. ``karr`` is a ``KnossosArray``
     (or ``KnossosArrayMulti``, or any (z, x, y) / (f, z, x, y) array).
-    Slabs of ``step`` voxels (default: the JAX package's, (112, 496, 496)
-    under ``set_dilated_impl(pallas_tail=True)``, (128, 512, 512) for a
+    Slabs of ``step`` voxels (default: (112, 496, 496) under
+    ``set_dilated_impl(pallas_tail=True)``, (128, 448, 448) for a
     conv-dense graph under ``set_convdense_impl(ptail=True)``, else
     (64, 384, 384)), rounded up to the valid-size period M, start on the
     M-grid; each is read with an M-aligned front halo and the fov's back
@@ -782,9 +796,9 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     pinned memory on a side stream with an event, and one writer thread
     waits on that event and writes the slabs into ``out`` while the next
     chunks compute (up to :data:`WRITE_DEPTH` behind). No host sync
-    otherwise. Under ``torch.profiler`` the host's parts show as the spans
-    ``sweep_knossos.stage`` (on the staging thread), ``.enqueue``,
-    ``.wait`` and ``.write_back``.
+    otherwise. Under ``torch.profiler`` the main thread's part shows as
+    the span ``sweep_knossos.enqueue``; the worker threads' parts are
+    timed by ``timings`` (the profiler's trace holds no span of theirs).
 
     ``slab_batch`` > 1 runs that many slabs per forward through
     ``dilated_dense_forward(batch=True)`` (``convolutional_dense_forward``
@@ -815,7 +829,11 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     M = _valid_period(pred, 3)
     if step is None:
         if model._convdense_ptail and _conv_dense_rejection(pred) is None:
-            default = (128, 512, 512)
+            # not the JAX package's (128, 512, 512): there the wide
+            # U-Net's 64-channel maps pass 2^31 elements and cuDNN's
+            # transposed conv leaves its int32 kernels, 4.5x slower a
+            # voxel on the H100 (PERF.md section 5)
+            default = (128, 448, 448)
         elif model._dilated_ptail:
             default = (112, 496, 496)
         else:
@@ -877,13 +895,12 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
         """The chunk's slabs stacked into one (pinned, on the card) host
         tensor; a short chunk repeats its final slab."""
         t0 = time.perf_counter()
-        with record_function("sweep_knossos.stage"):
-            slabs = [read(o) for o in chunk]
-            slabs += [slabs[-1]] * (B - len(slabs))
-            buf = torch.empty((B,) + slabs[0].shape, pin_memory=cuda,
-                              dtype=torch.uint8 if slabs[0].dtype == np.uint8
-                              else torch.float32)
-            np.stack(slabs, out=buf.numpy())
+        slabs = [read(o) for o in chunk]
+        slabs += [slabs[-1]] * (B - len(slabs))
+        buf = torch.empty((B,) + slabs[0].shape, pin_memory=cuda,
+                          dtype=torch.uint8 if slabs[0].dtype == np.uint8
+                          else torch.float32)
+        np.stack(slabs, out=buf.numpy())
         if timings is not None:
             timings["stage_s"].append(time.perf_counter() - t0)
         return buf
@@ -907,14 +924,12 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     def write_back(pending):
         arr, done, chunk = pending
         if done is not None:
-            with record_function("sweep_knossos.wait"):
-                done.synchronize()
+            done.synchronize()
         t0 = time.perf_counter()
-        with record_function("sweep_knossos.write_back"):
-            for j, o in enumerate(chunk):
-                n = [min(step[d], rshape[d] - o[d]) for d in range(3)]
-                out[:, o[0]:o[0] + n[0], o[1]:o[1] + n[1],
-                    o[2]:o[2] + n[2]] = arr[j, :, :n[0], :n[1], :n[2]]
+        for j, o in enumerate(chunk):
+            n = [min(step[d], rshape[d] - o[d]) for d in range(3)]
+            out[:, o[0]:o[0] + n[0], o[1]:o[1] + n[1],
+                o[2]:o[2] + n[2]] = arr[j, :, :n[0], :n[1], :n[2]]
         if timings is not None:
             timings["write_s"].append(time.perf_counter() - t0)
             timings["slabs"].append(len(chunk))

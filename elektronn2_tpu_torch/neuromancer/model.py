@@ -478,16 +478,14 @@ class Model:
                                     tile_batch=tile_batch)
 
     def sweep_knossos(self, karr, region=None, step=None, out=None,
-                      verbose=False, mesh=None, axis_name="space",
-                      slab_batch=1, batch_axis="data", timings=None):
+                      verbose=False, mesh=None, slab_batch=1, timings=None):
         """Dense-predict a whole KNOSSOS dataset slab by staged slab, one or
         ``slab_batch`` slabs per forward, each read back while the next
         computes (``neuromancer/inference.py::sweep_knossos``)."""
         from .inference import sweep_knossos
         return sweep_knossos(self, karr, region=region, step=step, out=out,
                              verbose=verbose, mesh=mesh,
-                             axis_name=axis_name, slab_batch=slab_batch,
-                             batch_axis=batch_axis, timings=timings)
+                             slab_batch=slab_batch, timings=timings)
 
     # ------------------------------------------------------------------ stats
     @property

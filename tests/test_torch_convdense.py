@@ -324,12 +324,36 @@ def test_underproducing_graph_raises_naming_tiled_fallback():
     vol = np.random.RandomState(4).rand(1, 40, 40).astype(np.float32)
     with pytest.raises(ValueError, match="under-produces"):
         jax_convolutional_dense_forward(jm, jnp.asarray(vol))
-    with pytest.raises(ValueError, match="tiled fallback"):
+    with pytest.raises(tinf.ConvDenseShapeError, match="tiled fallback"):
         tinf.convolutional_dense_forward(tm, torch.from_numpy(vol))
     want = np.asarray(jm.predict_dense_device(jnp.asarray(vol)))
     got = tm.predict_dense_device(torch.from_numpy(vol)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_k1_error_in_the_walk_reaches_the_caller(monkeypatch):
+    """Only a refusal for the volume's shape takes the tiled fallback: a
+    ValueError raised by K1's wrapper inside the conv-dense walk reaches
+    the caller of predict_dense_device, and no tile is run."""
+    from elektronn2_tpu_torch.neuromancer import neural
+    _, tm = _example_pair("unet3d_wide")
+    orig = tailconv.conv3x3_dilated
+
+    def wrong_bias(x, w, b, dil=(1, 1, 1), relu=True):
+        return orig(x, w, b[:-1], dil, relu)
+
+    def no_tiles(*args, **kwargs):
+        raise AssertionError("the tiled fallback ran")
+
+    monkeypatch.setattr(neural, "conv3x3_dilated", wrong_bias)
+    monkeypatch.setattr(tinf, "_tiled_sweep", no_tiles)
+    vol = torch.from_numpy(np.random.RandomState(6).rand(
+        1, 18, 70, 74).astype(np.float32))
+    tm.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    with pytest.raises(ValueError, match="tail conv: b must be") as err:
+        tm.predict_dense_device(vol, pad_raw=True)
+    assert not isinstance(err.value, tinf.ConvDenseShapeError)
 
 
 def test_routing_and_errors():
