@@ -5,7 +5,9 @@ Drives the port's paths at full width and checks them: the dense-serving
 deployment (whole KNOSSOS datasets swept slab by slab by ``sweep_knossos``,
 the flagship through K1, the wide U-Net, and the ``predict`` CLI); training
 of the bench's neuro3d net (the fused loop, one CUDA graph per chunk) with the
-trained weights served through K1 after it; dense MFP inference
+trained weights served through K1 after it; the training entry point
+(the train CLI on three example configs, the neuro3d weights it saved
+served through K1); dense MFP inference
 of the flagship neuro3d-class net (20/30/40/40 channels) with the tail-conv
 kernel K1 (``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on ``wgmma``); the
 same request with the flagship's
@@ -156,7 +158,32 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     launches, which join the kernels line) equals its cuDNN route within
     ``SLICE_ATOL`` and differs from the same request served before
     training;
-15. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
+15. train_cli (x3, ``train_cli_serve``): the training entry point, the
+    train CLI's ``main([...])`` (``elektronn2_tpu_torch/scripts/train.py``)
+    on the unchanged example configs into a temporary directory:
+    ``examples/neuro3d.py`` (20/30/40/40, 23x102x102, B=1, Adam, warp 0.5,
+    grey; per step, two forked ``BackgroundProc`` workers started after the
+    first step with CUDA up, each batch staged through pinned buffers, the
+    one-step loss lag, validation at its ``history_freq``) for 300 steps,
+    ``examples/unet3d_wide.py`` (64/128/256, 16x64x64, warp 0.3;
+    ``HostFedFusedLoop``: 4 host batches a CUDA graph replay, the next
+    chunk drawn by the prefetch thread) for 64 steps, and
+    ``examples/neuro3d_fast.py`` (B=4, bf16 conv operands,
+    ``FusedTrainLoop`` on the card, 16 steps a replay) for 96. The calls
+    the trainer trains with are wrapped (``CliProbe``): steady-state it/s
+    and ms a step from the end of the warm-up (20 steps, or 2 chunks) to a
+    ``torch.profiler`` window over the last 20 steps (whole chunks), which
+    gives the device's ms a step, the host-to-device copies' ms a step and
+    the idle share (1 - device time / window wall); the time the loop
+    waited on its workers (``BackgroundProc.get``) a step; the host's
+    ``getbatch`` ms a batch and its thrown-away draws, timed alone after
+    the run; peak memory; the smoothed loss at the first and last step;
+    the capture seconds. Checks: every loss finite, the smoothed loss
+    falls (last < 0.98 x first), a ``.mdl`` written; then the neuro3d
+    weights the CLI saved, through ``modelload``, serve a 64x256x256
+    request through K1 (two launches, which join the kernels line) within
+    ``SLICE_ATOL`` of the cuDNN route;
+16. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
     ``sweep_unet`` x2, ``sweep_unet_checks``): KNOSSOS datasets from numpy
     seeds written in 128^3 cubes by the port's ``save_knossos`` into a
     temporary directory (removed after the phase). The flagship (weights as
@@ -1723,6 +1750,221 @@ def phase_train(smi):
     return k1_launches
 
 
+TRAIN_CLI_RUNS = (                      # (config, steps, warm-up steps)
+    ("neuro3d", 300, 20),                # per step, 2 forked workers
+    ("unet3d_wide", 64, 8),              # host-fed chunks of 4
+    ("neuro3d_fast", 96, 32))            # device-sampled chunks of 16
+TRAIN_CLI_WINDOW = 20                   # steps profiled, at a run's end
+GETBATCH_N = 20                         # host getbatch calls timed
+
+
+class CliProbe:
+    """What a CLI run's Trainer did, seen from the calls it trains with
+    (``Model.trainingstep`` a step, either fused loop's ``run_chunk`` a
+    chunk): the steps done and the time after each call, a
+    ``torch.profiler`` window over the run's last ``window`` steps or more
+    (whole calls), and the trainer itself (``Trainer.run``)."""
+
+    def __init__(self, n_steps, window):
+        self.n_steps, self.window = n_steps, window
+        self.steps, self.stamps = 0, []
+        self.prof = self.trainer = self.window_at = None
+        self.window_wall = self.window_steps = None
+        self.batch_waits = []           # seconds in BackgroundProc.get
+
+    def _timed_get(self, orig):
+        def get(bg, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(bg, *a, **kw)
+            self.batch_waits.append(time.perf_counter() - t0)
+            return out
+        return get
+
+    def _wrap(self, orig, k):
+        def call(obj, *a, **kw):
+            n = k or obj.n_inner
+            if self.window_at is None and \
+                    self.steps + n > self.n_steps - self.window:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+                self.window_at = (self.steps, time.perf_counter())
+            out = orig(obj, *a, **kw)
+            self.steps += n
+            self.stamps.append((self.steps, time.perf_counter()))
+            if self.prof is not None and self.steps >= self.n_steps:
+                torch.cuda.synchronize()
+                self.window_wall = time.perf_counter() - self.window_at[1]
+                self.window_steps = self.steps - self.window_at[0]
+                self.prof.stop()
+            return out
+        return call
+
+    def patches(self):
+        """(owner, attribute, replacement) of every wrapped call."""
+        from elektronn2_tpu_torch.neuromancer.model import Model
+        from elektronn2_tpu_torch.training import fused_loop
+        from elektronn2_tpu_torch.training.parallelisation import \
+            BackgroundProc
+        from elektronn2_tpu_torch.training.trainer import Trainer
+        run = Trainer.run
+
+        def keep(tr):
+            self.trainer = tr
+            return run(tr)
+        return [(Model, "trainingstep", self._wrap(Model.trainingstep, 1)),
+                (fused_loop.FusedTrainLoop, "run_chunk",
+                 self._wrap(fused_loop.FusedTrainLoop.run_chunk, None)),
+                (fused_loop.HostFedFusedLoop, "run_chunk",
+                 self._wrap(fused_loop.HostFedFusedLoop.run_chunk, None)),
+                (BackgroundProc, "get", self._timed_get(BackgroundProc.get)),
+                (Trainer, "run", keep)]
+
+    def rate(self, warm):
+        """Steps a second from the end of the call that finished the
+        ``warm``-th step to the start of the profiled window."""
+        s0, t0 = next((s, t) for s, t in self.stamps if s >= warm)
+        s1, t1 = self.window_at
+        return (s1 - s0) / (t1 - t0)
+
+    def window_profile(self, top=6):
+        """Device ms a step (kernels; host-to-device copies apart), the
+        copies' ms a step, and the device's idle share of the window."""
+        from torch.autograd import DeviceType
+        dev = [e for e in self.prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        h2d = [e for e in dev if e.key.startswith("Memcpy HtoD")]
+        kern = sorted((e for e in dev if not e.key.startswith("Memcpy")
+                       and not e.key.startswith("Memset")),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        n = self.window_steps
+        return dict(
+            window_steps=n, window_wall_ms=self.window_wall * 1e3,
+            device_ms_per_step=sum(e.self_device_time_total
+                                   for e in kern) / 1e3 / n,
+            h2d_ms_per_step=sum(e.self_device_time_total
+                                for e in h2d) / 1e3 / n,
+            h2d_copies=sum(e.count for e in h2d),
+            idle_share=1.0 - busy_ms / (self.window_wall * 1e3),
+            top=[dict(kernel=e.key[:80], ms=e.self_device_time_total / 1e3,
+                      calls=e.count) for e in kern[:top]])
+
+
+def getbatch_cost(trainer):
+    """The host's ``getbatch`` of the run's data source: ms a batch (mean of
+    ``GETBATCH_N`` calls in this process, alone on the host) and the
+    patches it drew and threw away a batch (``WarpingOOBError`` retries);
+    None for a source that samples on the card."""
+    data = trainer.data
+    if hasattr(data, "device_batch"):
+        return None, None
+    data.getbatch(trainer.batch_size, **trainer.data_batch_args)
+    failed = data._n_failed
+    t0 = time.perf_counter()
+    for _ in range(GETBATCH_N):
+        data.getbatch(trainer.batch_size, **trainer.data_batch_args)
+    return ((time.perf_counter() - t0) / GETBATCH_N * 1e3,
+            (data._n_failed - failed) / GETBATCH_N)
+
+
+def train_cli_run(smi, name, n_steps, warm, tmp):
+    """One run of the train CLI's ``main`` on ``examples/<name>.py``: its
+    numbers (one JSON line) and checks (the loss falls, every loss finite,
+    a ``.mdl`` written). Returns the trainer and the model file."""
+    from elektronn2_tpu_torch.scripts import train
+    probe = CliProbe(n_steps, TRAIN_CLI_WINDOW)
+    out = os.path.join(tmp, name)
+    args = [os.path.join("examples", f"{name}.py"), "--n-steps",
+            str(n_steps), "--save-path", out]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in probe.patches()]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for o, a, f in probe.patches():
+        setattr(o, a, f)
+    try:
+        train.main(args)
+    finally:
+        for o, a, f in saved:
+            setattr(o, a, f)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tr = probe.trainer
+    tl = tr.history.timeline.data
+    mdl = os.path.join(out, f"{name}-LAST.mdl")
+    loop = getattr(tr, "fused_loop", None)
+    gb_ms, gb_retries = getbatch_cost(tr)
+    waits = probe.batch_waits[warm:]
+    emit("train_cli", run=name, config=f"examples/{name}.py",
+         steps=tr.step, batch=tr.batch_size,
+         patch_in=list(tr.model.input_node.shape.spatial_shape),
+         fused_steps=None if loop is None else loop.n_inner,
+         loop=None if loop is None else type(loop).__name__,
+         workers=tr.n_workers if loop is None else 0,
+         warm_steps=warm, it_s=probe.rate(warm),
+         ms_per_step=1e3 / probe.rate(warm), getbatch_ms=gb_ms,
+         getbatch_retries=gb_retries,
+         worker_wait_ms_per_step=(sum(waits) / len(waits) * 1e3 if waits
+                                  else None),
+         **probe.window_profile(), peak_gib=peak,
+         loss_smooth_first=float(tl[0, 3]), loss_smooth_last=float(tl[-1, 3]),
+         capture_seconds=None if loop is None else loop.capture_seconds,
+         wall_seconds=wall, nvidia_smi=smi)
+    if len(tl) != n_steps or tr.step != n_steps:
+        raise AssertionError(f"train_cli {name}: {len(tl)} steps recorded, "
+                             f"{tr.step} run, {n_steps} asked")
+    if not np.isfinite(tl[:, 2]).all():
+        raise AssertionError(f"train_cli {name}: non-finite loss")
+    if not tl[-1, 3] < tl[0, 3] * 0.98:
+        raise AssertionError(f"train_cli {name}: the smoothed loss "
+                             f"{tl[-1, 3]} did not fall below 0.98 x "
+                             f"{tl[0, 3]}")
+    if not os.path.exists(mdl):
+        raise AssertionError(f"train_cli {name}: no {mdl}")
+    return tr, mdl
+
+
+def phase_train_cli(smi):
+    """The training entry point at full width: the train CLI on the
+    unchanged example configs (``TRAIN_CLI_RUNS``) into a temporary
+    directory; then the neuro3d weights it saved, loaded by ``modelload``,
+    served through K1 (``set_dilated_impl("direct", zfold=True,
+    pallas_tail=True)``) against the cuDNN route. Returns K1's launches in
+    that request."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n_steps, warm in TRAIN_CLI_RUNS:
+            _, mdl = train_cli_run(smi, name, n_steps, warm, tmp)
+            if name == "neuro3d":
+                served = mdl
+            torch.cuda.empty_cache()
+        model = modelload(served)
+        vol = torch.from_numpy(np.random.RandomState(SEED + 11).rand(
+            *SERVE_SHAPE).astype(np.float32)).cuda()
+        ref = serve_request(model, vol, ptail=False)
+        tailconv.launches = 0
+        t0 = time.perf_counter()
+        k1 = serve_request(model, vol, ptail=True)
+        dt = time.perf_counter() - t0
+        launches = tailconv.launches
+        err = (k1 - ref).abs().max().item()
+        emit("train_cli_serve", model=os.path.basename(served),
+             request=list(SERVE_SHAPE), seconds=dt, k1_launches=launches,
+             max_abs_vs_cudnn=err,
+             channel_sum_dev=check_probs(k1, (2,) + SERVE_SHAPE[1:]))
+        if launches != 2:
+            raise AssertionError(f"train_cli serve: {launches} K1 launches, "
+                                 "expected 2")
+        if err > SLICE_ATOL:
+            raise AssertionError(f"train_cli serve: K1 vs cuDNN {err} > "
+                                 f"{SLICE_ATOL}")
+        del model, vol, ref, k1
+    torch.cuda.empty_cache()
+    return launches
+
+
 SWEEP_SHAPE = (224, 992, 992)           # the flagship sweep's dataset
 SWEEP_STEP = (112, 496, 496)            # sweep_knossos' default under ptail
 UNET_SWEEP_SHAPE = (256, 512, 512)      # the U-Net sweep's dataset
@@ -2074,6 +2316,7 @@ def main():
     p1_launches, p1 = phase_probe_dot()
     p2_launches, p2 = phase_probe_ablate()
     k1_launches += phase_train(smi)
+    k1_launches += phase_train_cli(smi)
     k1_launches += phase_sweep(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",

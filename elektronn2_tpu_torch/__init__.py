@@ -15,7 +15,10 @@ MFP inference slice of the flagship net, with the tail-conv kernel K1
 kernel K4; training (``neuromancer/optimiser.py``, ``Model.trainingstep``,
 on-device augmentation in ``ops/warp.py`` and ``training/fused_loop.py``,
 one CUDA graph per chunk of K steps), whose convs stay cuDNN's as the JAX
-package leaves them to XLA. ROADMAP.md lists what is still to come.
+package leaves them to XLA; the training entry point (``scripts/train.py``
+on the example configs through ``config.py``, ``training/trainer.py``, the
+host data pipeline in ``data/`` and ``HostFedFusedLoop``). ROADMAP.md lists
+what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,9 @@ Jax-free copy of ``Trace``, ``_parse_nml``, ``_build_nml``,
 ``_write_nml_file`` and ``trace_to_kzip`` in
 ``elektronn2_tpu/data/skeleton.py`` (reference:
 ``elektronn2/data/skeleton.py``), plus :func:`read_nml_file`, the reading
-half of ``SkeletonMFK.load`` for NML and k.zip files. ``SkeletonMFK`` and the
-skeleton losses wait for the training slice (ROADMAP.md §1 item 6).
+half of ``SkeletonMFK.load`` for NML and k.zip files. ``SkeletonMFK`` waits
+for the tracing trainer (ROADMAP.md §1 item 3c), the skeleton losses for
+the nodes left (item 2).
 """
 
 from __future__ import annotations

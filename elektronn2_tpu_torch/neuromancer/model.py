@@ -80,6 +80,7 @@ class Model:
         self._step_count = 0
         self._seed = 0
         self._gen = None                      # made on first use, see seed
+        self._compute_dtype = None
         self._dilated_impl = "direct"
         self._dilated_ptail = False
         self._convdense_upconv = "dilate"
@@ -217,21 +218,43 @@ class Model:
         return self
 
     def set_compute_dtype(self, dtype, activations=False):
-        """Only float32 is ported (``None``/``'float32'``)."""
-        if dtype not in (None, "float32"):
+        """Mixed precision for training and patch prediction: with
+        ``'bfloat16'`` every Conv runs its operands in bf16 with float32
+        accumulation, bias and epilogue in float32; None or ``'float32'``
+        restores full float32. As in the JAX package's mode, for graphs
+        whose weighted nodes are all Convs. The dense serving paths, and
+        the other dtypes and ``activations=True``, are not ported (ROADMAP.md
+        item 7) and raise."""
+        if dtype in (None, "float32"):
+            self._compute_dtype = None
+            return self
+        if dtype != "bfloat16" or activations:
             raise NotImplementedError(
-                f"set_compute_dtype({dtype!r}): bf16/fp16/int8 serving is not "
-                "ported (ROADMAP.md §1, 'Left out of the dense slice')")
-        if activations:
+                f"set_compute_dtype({dtype!r}, activations={activations}): "
+                "only 'bfloat16' operands in training are ported (ROADMAP.md "
+                "item 7)")
+        from .neural import Conv
+        other = sorted(n.name for n in self.nodes.values()
+                       if n.params and not isinstance(n, Conv))
+        if other:
             raise NotImplementedError(
-                "set_compute_dtype(activations=True) is not ported")
+                f"set_compute_dtype('bfloat16'): nodes {other} are not Convs; "
+                "their bf16 mode is not ported (ROADMAP.md item 7)")
+        self._compute_dtype = torch.bfloat16
         return self
+
+    def _check_f32_serving(self):
+        if self._compute_dtype is not None:
+            raise NotImplementedError(
+                "dense serving in bf16 is not ported (ROADMAP.md item 7): "
+                "call set_compute_dtype(None) first")
 
     def _apply(self, out_nodes, params, state, feed, rng, train):
         """Evaluate ``out_nodes`` eagerly; returns (outputs, state). With
         ``train`` autograd records (the caller takes the gradients inside
         its own ``f32_convs``/``f32_matmuls``), else ``torch.no_grad()``."""
         ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state)
+        ctx.compute_dtype = self._compute_dtype
         with torch.set_grad_enabled(train), f32_convs(), f32_matmuls():
             outs = [ctx.get(n) for n in out_nodes]
         new_state = dict(state)
@@ -464,6 +487,7 @@ class Model:
         ``prefer_device=False``) through the overlap-tiled sweep
         (``neuromancer/inference.py::predict_dense``)."""
         from .inference import predict_dense
+        self._check_f32_serving()
         return predict_dense(self, raw_img, pad_raw=pad_raw,
                              as_uint8=as_uint8, tile_batch=tile_batch,
                              verbose=verbose, prefer_device=prefer_device,
@@ -474,6 +498,7 @@ class Model:
         tensor on the model's device in, dense map (f_out, Z', X', Y') out
         (with ``pad_raw``, the volume's own spatial shape)."""
         from .inference import predict_dense_device
+        self._check_f32_serving()
         return predict_dense_device(self, vol, pad_raw=pad_raw,
                                     tile_batch=tile_batch)
 
@@ -483,6 +508,7 @@ class Model:
         ``slab_batch`` slabs per forward, each read back while the next
         computes (``neuromancer/inference.py::sweep_knossos``)."""
         from .inference import sweep_knossos
+        self._check_f32_serving()
         return sweep_knossos(self, karr, region=region, step=step, out=out,
                              verbose=verbose, mesh=mesh,
                              slab_batch=slab_batch, timings=timings)

@@ -240,6 +240,13 @@ class Conv(Node):
             if any(p > 1 for p in self.pool_shape):
                 y = self._pool(ctx, y)
             return y
+        cd = ctx.compute_dtype
+        if cd is not None:
+            # mixed precision: operands in ``cd``, float32 accumulation,
+            # the bias and the epilogue in float32 (as the JAX package)
+            y = self._serving_conv_fn(ctx)(x.to(cd), w.to(cd)).float()
+            y = y + b.reshape((1, -1) + (1,) * (x.ndim - 2))
+            return self._conv_epilogue(ctx, y)
         return self._conv_epilogue(ctx, self._serving_conv_fn(ctx)(x, w, b))
 
     def _pool(self, ctx, y):

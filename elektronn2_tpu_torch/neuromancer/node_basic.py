@@ -34,8 +34,11 @@ class TraceCtx:
     The ``convdense_*`` flags select the conv-dense serving lowerings
     (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
     sets them on its own context, every other evaluation leaves them off.
+    ``compute_dtype`` (``Model.set_compute_dtype``) is the dtype of the
+    Conv operands, or None for float32.
     """
 
+    compute_dtype = None
     convdense_zfold = False
     convdense_upconv_d2s = False
     convdense_poolslice = False

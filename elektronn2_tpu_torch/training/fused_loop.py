@@ -34,15 +34,26 @@ What the graph holds, and why it stays right:
   ``f32_convs``/``f32_matmuls``, during capture too, so cuDNN and cuBLAS
   record their full float32 algorithms and not TF32 ones.
 
+``HostFedFusedLoop`` (JAX ``make_fused_hostfed_trainstep`` and
+``HostFedFusedLoop``) runs the same machinery over a host data source: K
+``data.getbatch`` batches are stacked into pinned host buffers and copied
+into static feed buffers on the card before the replay (never inside a
+capture: a copy under capture fails it), and a prefetch thread draws the
+next chunk's batches while the graph runs. The pinned buffers come in two
+slots used in turn; refilling a slot first waits on the event of that
+slot's last copy, so the host never overwrites bytes still being copied
+(``PinnedStage``, which also stages the Trainer's per-step batches).
+
 A failed capture or replay raises; there is no eager fallback on the card.
 A model on the CPU runs the chunk eagerly (there are no graphs there).
-``HostFedFusedLoop`` (host-fed batches) is not ported (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
+import numpy as np
 import torch
 
 from ..neuromancer.optimiser import opt_leaves, tree_leaves
@@ -93,7 +104,167 @@ class _ChunkGraph:
         self.capture_seconds = None
 
 
-class FusedTrainLoop:
+class PinnedStage:
+    """Host (numpy) batches to the card through reusable page-locked
+    buffers, without a host sync: ``n_slots`` sets of pinned host buffers
+    used in turn. Filling a slot first waits on the event recorded after
+    that slot's last copy (long done in steady state), so the host never
+    overwrites bytes a copy is still reading; the copy itself is
+    non-blocking (a copy from pageable memory would sync the host)."""
+
+    def __init__(self, device, n_slots=2):
+        self.device = torch.device(device)
+        self._bufs = [{} for _ in range(int(n_slots))]
+        self._events = [None] * int(n_slots)
+        self._turn = 0
+
+    def fill(self, slot, arrays):
+        """Write ``{name: ndarray}`` into slot ``slot``'s pinned buffers
+        (made on first use, remade for a new shape or dtype); returns them."""
+        ev = self._events[slot]
+        if ev is not None:
+            ev.synchronize()
+        bufs = self._bufs[slot]
+        for name, a in arrays.items():
+            a = np.asarray(a)
+            b = bufs.get(name)
+            if b is None or tuple(b.shape) != a.shape or \
+                    b.numpy().dtype != a.dtype:
+                dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+                b = bufs[name] = torch.empty(a.shape, dtype=dtype,
+                                             pin_memory=True)
+            np.copyto(b.numpy(), a)
+        return {name: bufs[name] for name in arrays}
+
+    def copy(self, slot, names, out=None):
+        """Copy slot ``slot``'s buffers ``names`` to the card, into the
+        tensors of ``out`` where given (static buffers), else into new
+        ones; records the slot's event after the copies. Returns the card
+        tensors."""
+        bufs = self._bufs[slot]
+        res = {}
+        for name in names:
+            if out is not None:
+                res[name] = out[name].copy_(bufs[name], non_blocking=True)
+            else:
+                res[name] = bufs[name].to(self.device, non_blocking=True)
+        ev = self._events[slot] = torch.cuda.Event()
+        ev.record()
+        return res
+
+    def stage(self, arrays):
+        """``fill`` the next slot with ``arrays`` and ``copy`` it to the
+        card: ``{name: tensor on the card}``."""
+        slot = self._turn
+        self._turn = (slot + 1) % len(self._bufs)
+        self.fill(slot, arrays)
+        return self.copy(slot, list(arrays))
+
+
+class _ChunkLoop:
+    """What both fused loops share: the chunk's CUDA graph, its key, the
+    capture and the replay. A subclass sets ``model``, ``n_inner``,
+    ``generator``, ``_out``, ``_has_err``, ``_graph`` and
+    ``capture_seconds``, and defines ``_steps(hyper, steps)`` (the chunk
+    body), ``_inputs()`` (the tensors a chunk reads besides the parameters
+    and slots, in the key with their versions), ``_key_head()``, and may
+    add ``_owned()`` (buffers the loop itself writes between chunks, in the
+    key by identity and address only)."""
+
+    # -- the tensors a chunk reads and writes ------------------------------
+    def _written(self):
+        """Every tensor a chunk updates in place: the trainable parameters,
+        the optimiser's slots and step counter."""
+        m = self.model
+        return tree_leaves(m._trainable(m.params)) + opt_leaves(m.opt_state)
+
+    def _read(self):
+        m = self.model
+        return (tree_leaves(m.params) + opt_leaves(m.opt_state)
+                + self._inputs())
+
+    def _owned(self):
+        return []
+
+    def graph_key(self):
+        """The key under which the captured chunk is kept: the loop's own
+        head (B, K, switches), cuDNN's deterministic and benchmark flags,
+        and for every parameter, optimiser slot and step counter and input
+        the tensor's identity, ``_version`` and address (see
+        ``DeviceTracer.graph_key``). The loop's own replays bump the
+        versions and move the kept key along with them."""
+        cudnn = torch.backends.cudnn
+        return (self._key_head(), bool(cudnn.deterministic),
+                bool(cudnn.benchmark),
+                tuple((id(t), t._version, t.data_ptr())
+                      for t in self._read()),
+                tuple((id(t), t.data_ptr()) for t in self._owned()))
+
+    # -- running chunks ------------------------------------------------------
+    def _result(self):
+        """The chunk's losses and errors as numpy, after one copy (the
+        chunk's single sync)."""
+        out = self._out.cpu().numpy()
+        self.model._step_count += self.n_inner
+        return out[0].copy(), (out[1].copy() if self._has_err else None)
+
+    def _launch_eager(self):
+        """Launch one chunk eagerly (the CPU's route; on the card the
+        reference the graph is held to): same steps, same draws. Like a
+        replay it writes in place only tensors the kept graph reads, so a
+        key that was current moves along."""
+        current = self._graph is not None and self._graph.key == \
+            self.graph_key()
+        hyper = self.model.optimiser.current_hyper(self.model.device)
+        self._steps(hyper, self.n_inner)
+        if current:
+            self._graph.key = self.graph_key()
+
+    def _launch_graphed(self):
+        """Launch one chunk as a replay of its CUDA graph, captured first if
+        the kept one's key is not current; then bump the versions of what
+        the replay wrote. No host sync unless it captures."""
+        hyper = self.model.optimiser.current_hyper(self.model.device)
+        if self._graph is None or self._graph.key != self.graph_key():
+            self._graph = None              # free the old graph's pool
+            self._graph = self._capture(hyper)
+        self._graph.graph.replay()
+        for t in self._written():
+            torch.autograd.graph.increment_version(t)
+        self._graph.key = self.graph_key()
+
+    def _capture(self, hyper):
+        """Capture one chunk into a new ``_ChunkGraph``. One eager step on
+        the capture stream first loads the libraries, makes cuDNN's and
+        cuBLAS's workspaces and the loss nodes' constants on the card, so
+        none of that happens inside the capture; the values it changed
+        (parameters, slots, step counter, the generator's state) are put
+        back before the capture, which runs nothing."""
+        dev = self.model.device
+        written = self._written()
+        saved = [t.clone() for t in written]
+        gen_state = self.generator.get_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._steps(hyper, 1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(written, saved):
+                t.copy_(s)
+        self.generator.set_state(gen_state)
+        del saved
+        entry = _ChunkGraph(self._read() + self._owned())
+        entry.graph.register_generator_state(self.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(entry.graph, stream=side):
+            self._steps(hyper, self.n_inner)
+        entry.capture_seconds = self.capture_seconds = \
+            time.perf_counter() - t0
+        return entry
+
+
+class FusedTrainLoop(_ChunkLoop):
     """Owns the chunk function, its CUDA graph and the random stream, and
     runs the model's training K steps at a time (:meth:`run_chunk`)."""
 
@@ -118,63 +289,15 @@ class FusedTrainLoop:
         self._graph = None
         self.capture_seconds = None
 
-    # -- the tensors a chunk reads and writes ------------------------------
-    def _written(self):
-        """Every tensor a chunk updates in place: the trainable parameters,
-        the optimiser's slots and step counter."""
-        m = self.model
-        return tree_leaves(m._trainable(m.params)) + opt_leaves(m.opt_state)
+    def _steps(self, hyper, steps):
+        self._chunk(self.generator, hyper, self._out, steps=steps)
 
-    def _read(self):
-        m, aug = self.model, self._augmenter
-        return (tree_leaves(m.params) + opt_leaves(m.opt_state)
-                + [aug.raws, aug.labels])
+    def _inputs(self):
+        return [self._augmenter.raws, self._augmenter.labels]
 
-    def graph_key(self):
-        """The key under which the captured chunk is kept: B, K, the warp,
-        grey and flip switches, cuDNN's deterministic and benchmark flags,
-        and for every parameter, optimiser slot and step counter and the
-        augmenter's cube stacks, the tensor's identity, ``_version`` and
-        address (see ``DeviceTracer.graph_key``). The loop's own replays
-        bump the versions and move the kept key along with them."""
-        cudnn = torch.backends.cudnn
-        return (self.batch_size, self.n_inner, self._switches,
-                bool(cudnn.deterministic), bool(cudnn.benchmark),
-                tuple((id(t), t._version, t.data_ptr())
-                      for t in self._read()))
-
-    # -- running chunks ------------------------------------------------------
-    def _result(self):
-        """The chunk's losses and errors as numpy, after one copy (the
-        chunk's single sync)."""
-        out = self._out.cpu().numpy()
-        self.model._step_count += self.n_inner
-        return out[0].copy(), (out[1].copy() if self._has_err else None)
-
-    def _launch_eager(self):
-        """Launch one chunk eagerly (the CPU's route; on the card the
-        reference the graph is held to): same steps, same draws. Like a
-        replay it writes in place only tensors the kept graph reads, so a
-        key that was current moves along."""
-        current = self._graph is not None and self._graph.key == \
-            self.graph_key()
-        hyper = self.model.optimiser.current_hyper(self.model.device)
-        self._chunk(self.generator, hyper, self._out)
-        if current:
-            self._graph.key = self.graph_key()
-
-    def _launch_graphed(self):
-        """Launch one chunk as a replay of its CUDA graph, captured first if
-        the kept one's key is not current; then bump the versions of what
-        the replay wrote. No host sync unless it captures."""
-        hyper = self.model.optimiser.current_hyper(self.model.device)
-        if self._graph is None or self._graph.key != self.graph_key():
-            self._graph = None              # free the old graph's pool
-            self._graph = self._capture(hyper)
-        self._graph.graph.replay()
-        for t in self._written():
-            torch.autograd.graph.increment_version(t)
-        self._graph.key = self.graph_key()
+    def _key_head(self):
+        """B, K and the warp, grey and flip switches."""
+        return (self.batch_size, self.n_inner, self._switches)
 
     def _run_chunk_eager(self):
         """:meth:`run_chunk` with eager launches."""
@@ -193,32 +316,176 @@ class FusedTrainLoop:
             self._launch_graphed()
             return self._result()
 
-    def _capture(self, hyper):
-        """Capture one chunk into a new ``_ChunkGraph``. One eager step on
-        the capture stream first loads the libraries, makes cuDNN's and
-        cuBLAS's workspaces and the loss nodes' constants on the card, so
-        none of that happens inside the capture; the values it changed
-        (parameters, slots, step counter, the generator's state) are put
-        back before the capture, which runs nothing."""
-        dev = self.model.device
-        written = self._written()
-        saved = [t.clone() for t in written]
-        gen_state = self.generator.get_state()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._chunk(self.generator, hyper, self._out, steps=1)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with torch.no_grad():
-            for t, s in zip(written, saved):
-                t.copy_(s)
-        self.generator.set_state(gen_state)
-        del saved
-        entry = _ChunkGraph(self._read())
-        entry.graph.register_generator_state(self.generator)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(entry.graph, stream=side):
-            self._chunk(self.generator, hyper, self._out)
-        entry.capture_seconds = self.capture_seconds = \
-            time.perf_counter() - t0
-        return entry
+
+def make_fused_hostfed_trainstep(model, n_inner):
+    """Build ``chunk(feeds, gen, hyper, out, steps=n_inner)``: ``steps``
+    steps of forward -> backward -> update of ``model`` in place, step k fed
+    ``{name: feeds[name][k]}`` (each feed carries a leading (K,) axis of
+    stacked host batches), losses written into ``out[0, :steps]`` and errors
+    (0 without an error node) into ``out[1, :steps]``. No host sync, so a
+    CUDA graph can capture it. Port of the JAX package's
+    ``make_fused_hostfed_trainstep`` without its ``carry_specs``."""
+    model._check_trainable()
+    has_err = model.error_node is not None
+
+    def chunk(feeds, gen, hyper, out, steps=n_inner):
+        with f32_convs(), f32_matmuls():
+            for k in range(steps):
+                feed = {name: v[k] for name, v in feeds.items()}
+                loss, aux, _ = model._train_step(feed, gen, hyper)
+                out[0, k] = loss
+                if has_err:
+                    out[1, k] = aux[0][0]
+
+    return chunk
+
+
+class HostFedFusedLoop(_ChunkLoop):
+    """``FusedTrainLoop``'s interface over a host data source: draws K
+    batches from ``data.getbatch``, stacks them, and runs them as one chunk,
+    on the card one replay of the chunk's CUDA graph (which reads static
+    feed buffers), with one loss readback per K steps.
+
+    On the card the K batches are written into one of two pinned slots
+    (``PinnedStage``) and copied into the static feed buffers before the
+    replay; with ``prefetch`` a thread draws the next chunk into the other
+    slot while the graph runs. ``data.getbatch`` is not thread-safe (one
+    ``np.random.RandomState``), so every draw, the prefetch thread's and
+    any of the caller's (validation, preview, a chunk's tail), holds
+    :attr:`data_lock`. The batches of every chunk keep one shape.
+
+    ``carry_map`` (the JAX package's fused truncated BPTT of the tracing
+    trainer) is not ported (ROADMAP.md item 3c)."""
+
+    _pool = _next = None
+
+    def __init__(self, model, data, batch_size, n_inner, batch_args=None,
+                 seed=0, prefetch=True, carry_map=None):
+        if int(n_inner) < 1:
+            raise ValueError(f"n_inner must be >= 1, got {n_inner}")
+        if carry_map:
+            raise NotImplementedError(
+                "HostFedFusedLoop(carry_map=...): the fused TBPTT carry of "
+                "the tracing trainer is not ported (ROADMAP.md item 3c)")
+        self.model = model
+        self.data = data
+        self.batch_size = int(batch_size)
+        self.n_inner = int(n_inner)
+        self.batch_args = dict(batch_args or {})
+        self._chunk = make_fused_hostfed_trainstep(model, self.n_inner)
+        self._inp = model.input_node.name
+        self._tgt = (model.target_node.name if model.target_node is not None
+                     else None)
+        self.generator = torch.Generator(model.device).manual_seed(int(seed))
+        self._has_err = model.error_node is not None
+        self._out = torch.zeros((2, self.n_inner), device=model.device)
+        self._graph = None
+        self.capture_seconds = None
+        self.data_lock = threading.Lock()
+        self._feeds = None           # the chunk's feeds on the model's device
+        self._stage = (PinnedStage(model.device)
+                       if model.device.type == "cuda" else None)
+        self._slot = 0
+        if prefetch:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(max_workers=1)
+
+    def _draw_feeds(self):
+        """K batches from ``data.getbatch``, stacked: ``{name: (K, ...)}``."""
+        ds, ts = [], []
+        for _ in range(self.n_inner):
+            with self.data_lock:
+                b = self.data.getbatch(self.batch_size, **self.batch_args)
+            b = b if isinstance(b, (tuple, list)) else (b,)
+            ds.append(np.asarray(b[0]))
+            if self._tgt is not None:
+                ts.append(np.asarray(b[1]))
+        feeds = {self._inp: np.stack(ds)}
+        if self._tgt is not None:
+            feeds[self._tgt] = np.stack(ts)
+        return feeds
+
+    def _fill(self, slot):
+        """Draw a chunk into pinned slot ``slot`` (on the card) or return it
+        (on the CPU)."""
+        feeds = self._draw_feeds()
+        if self._stage is None:
+            return {k: torch.from_numpy(v) for k, v in feeds.items()}
+        return self._stage.fill(slot, feeds)
+
+    def _take(self):
+        """This chunk's feeds: the prefetched ones, or drawn now."""
+        if self._next is not None:
+            feeds, self._next = self._next.result(), None
+            return feeds
+        return self._fill(self._slot)
+
+    def _upload(self, pinned):
+        """Copy the pinned chunk into the static feed buffers (made on the
+        first chunk; a batch of another shape raises)."""
+        if self._feeds is None:
+            self._feeds = {k: torch.empty(v.shape, dtype=v.dtype,
+                                          device=self.model.device)
+                           for k, v in pinned.items()}
+        for k, v in pinned.items():
+            if v.shape != self._feeds[k].shape or \
+                    v.dtype != self._feeds[k].dtype:
+                raise ValueError(
+                    f"feed {k!r}: a chunk of {tuple(v.shape)} {v.dtype}, the "
+                    f"first was {tuple(self._feeds[k].shape)} "
+                    f"{self._feeds[k].dtype}; batches must keep one shape")
+        self._stage.copy(self._slot, list(pinned), out=self._feeds)
+
+    def _steps(self, hyper, steps):
+        self._chunk(self._feeds, self.generator, hyper, self._out,
+                    steps=steps)
+
+    def _inputs(self):
+        return []
+
+    def _owned(self):
+        return list(self._feeds.values()) if self._feeds else []
+
+    def _key_head(self):
+        return (self.batch_size, self.n_inner)
+
+    def _prefetch(self):
+        """Start drawing the next chunk into the other slot."""
+        if self._pool is not None:
+            self._slot ^= 1
+            self._next = self._pool.submit(self._fill, self._slot)
+
+    def _run_chunk_eager(self):
+        """:meth:`run_chunk` with an eager launch (on the card: the feeds
+        still go through the pinned slots and the static buffers)."""
+        feeds = self._take()
+        if self._stage is None:
+            self._feeds = feeds
+        else:
+            self._upload(feeds)
+        self._launch_eager()
+        self._prefetch()
+        return self._result()
+
+    def run_chunk(self):
+        """Run K fused steps on K host batches; returns (losses (K,),
+        errors (K,) or None) as numpy after the chunk's single sync. On the
+        card: the feed copy, then one replay of the chunk's CUDA graph
+        (captured on the first call for :meth:`graph_key`), then the next
+        chunk's prefetch; on the CPU the chunk runs eagerly."""
+        m = self.model
+        if m.device.type != "cuda":
+            return self._run_chunk_eager()
+        with torch.cuda.device(m.device):
+            self._upload(self._take())
+            self._launch_graphed()
+            self._prefetch()
+            return self._result()
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = self._next = None
+
+    def __del__(self):
+        self.close()

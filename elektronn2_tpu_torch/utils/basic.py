@@ -1,9 +1,10 @@
-"""Host-side helpers: HDF5 save and load, a growing array buffer and a
-KD-tree over a growing point set.
+"""Host-side helpers: HDF5 save and load, a growing array buffer, a
+KD-tree over a growing point set and ``as_list``.
 
-Jax-free copy of ``h5save``, ``h5load``, ``AccumulationArray`` and
-``DynamicKDT`` in ``elektronn2_tpu/utils/basic.py`` (reference:
-``elektronn2/utils``); the predict CLI writes through ``h5save``,
+Jax-free copy of ``as_list``, ``h5save``, ``h5load``, ``AccumulationArray``
+and ``DynamicKDT`` in ``elektronn2_tpu/utils/basic.py`` (reference:
+``elektronn2/utils``); the predict CLI and ``HistoryTracker`` write through
+``h5save``, ``data/cnndata.py`` reads through ``h5load`` and ``as_list``,
 ``data/skeleton.py::Trace`` and ``data/tracing_utils.py::ShotgunRegistry``
 need the other two. ``AccumulationArray.extend`` copies a block at once
 instead of appending row by row; the contents are the same. ``h5py`` is
@@ -13,6 +14,14 @@ imported when a file is read or written, not with this module.
 from __future__ import annotations
 
 import numpy as np
+
+
+def as_list(x):
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]
 
 
 def h5save(data, path, keys=None, compress=True):

@@ -25,6 +25,12 @@ Training (``training/fused_loop.py``): a graphed chunk equals the eager
 chunk from the same parameters, optimiser state and generator state bit for
 bit under ``torch.backends.cudnn.deterministic``; K1 serving the trained
 weights within 1e-5 of the cuDNN route (``SLICE_ATOL`` of chip_smoke.py).
+The host-fed loop (``HostFedFusedLoop``) likewise, on batches staged through
+its pinned slots; its replays over four chunks with the prefetch thread
+equal eager ``trainingstep`` calls on the recorded batches within rtol
+1e-5 (other buffer addresses may take other cuDNN algorithms). The
+Trainer's forked workers deliver batches with CUDA up in the parent, and
+its staged per-step path makes no host sync.
 """
 
 import os
@@ -760,3 +766,147 @@ def test_sweep_makes_no_host_sync(cuda_device, tmp_path, slab_batch):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _host_data(model, seed=4):
+    """A host data source (``BatchCreatorImage``, numpy) for ``model``."""
+    from elektronn2_tpu_torch.data.cnndata import BatchCreatorImage
+    rng = np.random.RandomState(seed)
+    raws = [rng.rand(1, 20, 70, 70).astype(np.float32) for _ in range(2)]
+    bc = BatchCreatorImage(input_data=raws,
+                           target_data=[(r[0] > 0.5).astype(np.int16)
+                                        for r in raws])
+    bc.link_model_geometry(model)
+    bc.rng = np.random.RandomState(seed + 1)
+    return bc
+
+
+@pytest.mark.cuda
+def test_host_fed_graphed_chunk_equals_eager_chunk(cuda_device,
+                                                   deterministic_cudnn):
+    """``HostFedFusedLoop``: one replay of the chunk's CUDA graph on K host
+    batches staged through the pinned slots = the eager chunk on the same
+    batches from the same state, bit for bit."""
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    m, _ = _train_net(cuda_device)
+    data = _host_data(m)
+    loop = HostFedFusedLoop(m, data, 2, 3, batch_args={"warp": 0.5},
+                            prefetch=False)
+    loop.run_chunk()                 # one graphed chunk: a trained start
+    m.snapshot_good()
+    rng = data.rng.get_state()
+    el, ee = loop._run_chunk_eager()
+    eager = {n: {k: v.clone() for k, v in d.items()}
+             for n, d in m.params.items()}
+    m.repair_fuckup()
+    data.rng.set_state(rng)          # the same K batches again
+    gl, ge = loop.run_chunk()        # recaptured (repair wrote in place)
+    np.testing.assert_array_equal(gl, el)
+    np.testing.assert_array_equal(ge, ee)
+    for n, d in eager.items():
+        for k, v in d.items():
+            assert torch.equal(m.params[n][k], v), (n, k)
+    assert loop.capture_seconds is not None
+
+
+@pytest.mark.cuda
+def test_host_fed_chunks_draw_new_feeds_through_the_double_buffer(
+        cuda_device):
+    """With the prefetch thread filling one pinned slot while the graph
+    reads what was copied from the other, every chunk trains on its own
+    batches: the replayed losses equal eager ``trainingstep``s on the
+    recorded batches in order (a slot overwritten mid-copy would show as
+    a batch that was never drawn)."""
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    m, _ = _train_net(cuda_device)
+    data = _host_data(m, seed=8)
+    drawn = []
+    getbatch = data.getbatch
+
+    def recording(*a, **kw):
+        drawn.append(getbatch(*a, **kw))
+        return drawn[-1]
+
+    data.getbatch = recording
+    m.snapshot_good()
+    loop = HostFedFusedLoop(m, data, 2, 3, batch_args={"warp": 0.5})
+    graph = []
+    for _ in range(4):
+        graph.append(loop.run_chunk()[0])
+    loop.close()
+    assert len({c.tobytes() for c in graph}) == 4
+    m.repair_fuckup()
+    eager = []
+    for d, t in drawn[:12]:
+        loss, _ = m.trainingstep(torch.from_numpy(d).to(cuda_device),
+                                 torch.from_numpy(t).to(cuda_device))
+        eager.append(float(loss))
+    np.testing.assert_allclose(np.concatenate(graph), eager, rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_k1_serves_the_weights_a_host_fed_replay_trained(cuda_device):
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    m = neuro3d_train_model(2, (7, 30, 30), widths=(4, 6, 8, 8),
+                            device=cuda_device)
+    m.optimiser.setlr(1e-2)
+    loop = HostFedFusedLoop(m, _host_data(m, seed=12), 2, 3,
+                            batch_args={"warp": 0.5})
+    vol = torch.from_numpy(np.random.RandomState(13).rand(1, 9, 60, 60)
+                           .astype(np.float32)).to(cuda_device)
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    before = m.predict_dense_device(vol, pad_raw=True)   # packs the weights
+    loop.run_chunk()
+    loop.close()
+    n = tailconv.launches
+    k1 = m.predict_dense_device(vol, pad_raw=True)
+    assert tailconv.launches == n + 2
+    m.set_dilated_impl("direct", zfold=True, pallas_tail=False)
+    cudnn = m.predict_dense_device(vol, pad_raw=True)
+    torch.testing.assert_close(k1, cudnn, atol=1e-5, rtol=0)
+    assert (k1 - before).abs().max().item() > 1e-4
+
+
+@pytest.mark.cuda
+def test_workers_forked_after_cuda_init_deliver_batches(cuda_device):
+    """The Trainer forks its ``BackgroundProc`` workers after its first
+    step, with CUDA up in the parent; the numpy-only ``getbatch`` runs in
+    them, batches arrive, and shutdown leaves no worker behind."""
+    from elektronn2_tpu_torch.training.parallelisation import BackgroundProc
+    m, _ = _train_net(cuda_device)
+    data = _host_data(m)
+    m.predict(torch.zeros(tuple(m.input_node.shape.shape),
+                          device=cuda_device))   # cuDNN and CUDA are up
+    torch.cuda.synchronize()
+    bg = BackgroundProc(data.getbatch, n_proc=2, target_args=(2,),
+                        target_kwargs={"warp": 0.5}, mode="process")
+    try:
+        got = [bg.get(timeout=60) for _ in range(6)]
+    finally:
+        bg.shutdown()
+    assert all(d.shape == (2, 1, 7, 30, 30) for d, _ in got)
+    assert len({d.tobytes() for d, _ in got}) == 6
+    assert not any(w.is_alive() for w in bg._workers)
+
+
+@pytest.mark.cuda
+def test_staged_training_steps_make_no_host_sync(cuda_device, tmp_path):
+    """The Trainer's per-step path (a host batch staged through the pinned
+    slots, then ``trainingstep``) makes no host sync; the losses are read
+    after (the loop's one-step lag reads each one step later)."""
+    from elektronn2_tpu_torch.training.trainer import Trainer
+    m, _ = _train_net(cuda_device)
+    data = _host_data(m)
+    tr = Trainer(model=m, data=data, batch_size=2, n_workers=0,
+                 save_path=str(tmp_path), device=cuda_device)
+    batches = [data.getbatch(2, warp=0.5) for _ in range(5)]
+    tr._train_batch(batches[0])                 # warm: cuDNN, allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [tr._train_batch(b)[0] for b in batches[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    vals = [float(v) for v in losses]
+    assert np.isfinite(vals).all() and m._step_count == 5

@@ -211,8 +211,16 @@ def test_error_paths(port_model):
             port_model.set_dilated_impl(**kw)
     with pytest.raises(ValueError, match="impl"):
         port_model.set_dilated_impl("nope")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        port_model.set_compute_dtype("bfloat16")
+    # bf16 Conv operands are ported for training, not for dense serving
+    port_model.set_compute_dtype("bfloat16")
+    try:
+        with pytest.raises(NotImplementedError, match="bf16"):
+            port_model.predict_dense_device(torch.rand(1, 9, 40, 40))
+    finally:
+        port_model.set_compute_dtype(None)
+    for dt in ("float16", "int8"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            port_model.set_compute_dtype(dt)
     # training is ported: a training-mode evaluation without a feed names
     # the input it lacks
     with pytest.raises(KeyError, match="no value fed"):

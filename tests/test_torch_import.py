@@ -13,6 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "elektronn2_tpu_torch",
     "elektronn2_tpu_torch.log",
+    "elektronn2_tpu_torch.config",
     "elektronn2_tpu_torch.utils",
     "elektronn2_tpu_torch.utils.cnncalculator",
     "elektronn2_tpu_torch.utils.cuda_build",
@@ -20,6 +21,7 @@ MODULES = [
     "elektronn2_tpu_torch.utils.convert",
     "elektronn2_tpu_torch.utils.basic",
     "elektronn2_tpu_torch.utils.native_build",
+    "elektronn2_tpu_torch.utils.plotting",
     "elektronn2_tpu_torch.ops",
     "elektronn2_tpu_torch.ops.activations",
     "elektronn2_tpu_torch.ops.conv",
@@ -43,11 +45,19 @@ MODULES = [
     "elektronn2_tpu_torch.neuromancer.various",
     "elektronn2_tpu_torch.training",
     "elektronn2_tpu_torch.training.fused_loop",
+    "elektronn2_tpu_torch.training.parallelisation",
+    "elektronn2_tpu_torch.training.trainutils",
+    "elektronn2_tpu_torch.training.trainer",
     "elektronn2_tpu_torch.data",
     "elektronn2_tpu_torch.data.skeleton",
     "elektronn2_tpu_torch.data._knossos_native",
     "elektronn2_tpu_torch.data.knossos_array",
     "elektronn2_tpu_torch.data.tracing_utils",
+    "elektronn2_tpu_torch.data.transformations",
+    "elektronn2_tpu_torch.data._warp_native",
+    "elektronn2_tpu_torch.data.image",
+    "elektronn2_tpu_torch.data.cnndata",
+    "elektronn2_tpu_torch.data.traindata",
     "elektronn2_tpu_torch.scripts",
     "elektronn2_tpu_torch.scripts.exp_convdense_headk",
     "elektronn2_tpu_torch.scripts.exp_headconv_tc",
@@ -55,6 +65,7 @@ MODULES = [
     "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
     "elektronn2_tpu_torch.scripts.exp_wrapper_host",
     "elektronn2_tpu_torch.scripts.predict",
+    "elektronn2_tpu_torch.scripts.train",
 ]
 
 
@@ -227,6 +238,40 @@ def test_sweep_and_cli_run_without_jax():
             "assert KnossosArray(os.path.join(d, 'out', 'c1')).shape == "
             "(8, 30, 30)\n"
             "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_example_configs_load_without_jax():
+    # the config loader execs the unchanged example files, whose
+    # create_model imports the JAX package by name; the port builds their
+    # models (at full width, on the CPU) and one batch each without loading
+    # jax or the JAX package (TensorBoard is off: its writer may pull in
+    # other frameworks)
+    code = ("import sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.config import ExperimentConfig\n"
+            "from elektronn2_tpu_torch.training import Trainer\n"
+            "for name in ('neuro3d', 'neuro3d_fast', 'unet3d_wide'):\n"
+            "    exp = ExperimentConfig.from_file(\n"
+            "        f'examples/{name}.py', override={\n"
+            "            'save_path': tempfile.mkdtemp(),\n"
+            "            'tensorboard': False})\n"
+            "    tr = Trainer(exp, device='cpu')\n"
+            "    d, t = tr.debug_getbatch()\n"
+            "    d, t = np.asarray(d), np.asarray(t)\n"
+            "    assert d.shape[0] == exp.batch_size and np.isfinite(d).all()\n"
+            "    assert tuple(d.shape[2:]) == tuple(\n"
+            "        tr.model.input_node.shape.spatial_shape), (name, d.shape)\n"
+            "    assert tuple(t.shape[1:]) == tuple(\n"
+            "        tr.model.target_node.shape.spatial_shape), (name, t.shape)\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'elektronn2_tpu'\n"
+            "             or k.startswith('elektronn2_tpu.'))\n"
+            "assert not bad, bad\n"
             "print('ok')\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
