@@ -182,7 +182,12 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     falls (last < 0.98 x first), a ``.mdl`` written; then the neuro3d
     weights the CLI saved, through ``modelload``, serve a 64x256x256
     request through K1 (two launches, which join the kernels line) within
-    ``SLICE_ATOL`` of the cuDNN route;
+    ``SLICE_ATOL`` of the cuDNN route and unlike the request served with
+    the weights the run started from; trained probabilities saturate, so
+    each K1 launch's own output (conv2, conv3) is also held against cuDNN
+    float32 on the same input, within ``K1_SERVE_RTOL`` of the output's
+    largest magnitude, with at least ``K1_SERVE_MIN_ACTIVE`` of its voxels
+    past the ReLU, and no further from float64 than twice cuDNN's error;
 16. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
     ``sweep_unet`` x2, ``sweep_unet_checks``): KNOSSOS datasets from numpy
     seeds written in 128^3 cubes by the port's ``save_knossos`` into a
@@ -1769,6 +1774,7 @@ class CliProbe:
         self.n_steps, self.window = n_steps, window
         self.steps, self.stamps = 0, []
         self.prof = self.trainer = self.window_at = None
+        self.initial = None             # the parameters before Trainer.run
         self.window_wall = self.window_steps = None
         self.batch_waits = []           # seconds in BackgroundProc.get
 
@@ -1813,6 +1819,9 @@ class CliProbe:
 
         def keep(tr):
             self.trainer = tr
+            self.initial = {n: {k: v.detach().cpu().clone()
+                                for k, v in d.items()}
+                            for n, d in tr.model.params.items()}
             return run(tr)
         return [(Model, "trainingstep", self._wrap(Model.trainingstep, 1)),
                 (fused_loop.FusedTrainLoop, "run_chunk",
@@ -1874,7 +1883,8 @@ def getbatch_cost(trainer):
 def train_cli_run(smi, name, n_steps, warm, tmp):
     """One run of the train CLI's ``main`` on ``examples/<name>.py``: its
     numbers (one JSON line) and checks (the loss falls, every loss finite,
-    a ``.mdl`` written). Returns the trainer and the model file."""
+    a ``.mdl`` written). Returns the trainer, the model file and the
+    parameters the run started from."""
     from elektronn2_tpu_torch.scripts import train
     probe = CliProbe(n_steps, TRAIN_CLI_WINDOW)
     out = os.path.join(tmp, name)
@@ -1924,7 +1934,47 @@ def train_cli_run(smi, name, n_steps, warm, tmp):
                              f"{tl[0, 3]}")
     if not os.path.exists(mdl):
         raise AssertionError(f"train_cli {name}: no {mdl}")
-    return tr, mdl
+    return tr, mdl, probe.initial
+
+
+#: K1's own output in the served request against cuDNN float32 on the same
+#: input: max abs error over the output's largest magnitude
+K1_SERVE_RTOL = 1e-4
+#: and a real share of its voxels past the ReLU, so the check can fail
+K1_SERVE_MIN_ACTIVE = 0.01
+
+
+def k1_calls_vs_plain(calls):
+    """Each recorded K1 launch ``(x, w, b, dil, y)`` of a served request
+    held against the plain version on the same input: the error relative
+    to the activation's largest magnitude (``K1_SERVE_RTOL``), the share of
+    voxels past the ReLU (``K1_SERVE_MIN_ACTIVE``) and, on the first
+    ``F64_PLANES`` planes, K1's and cuDNN's distance from float64 (K1 no
+    further than twice cuDNN's, as in ``phase_kernel``)."""
+    recs = []
+    for i, (x, w, b, dil, y) in enumerate(calls):
+        ref = k1_plain(x, w, b, dil)
+        scale = ref.abs().max().item()
+        err = (y - ref).abs().max().item()
+        active = (ref > 0).float().mean().item()
+        k64, c64 = f64_errors(x, w, b, dil)
+        rec = dict(launch=i, x=list(x.shape), cout=w.shape[0],
+                   dil=list(dil), max_abs_err=err, max_abs_ref=scale,
+                   rel_err=err / scale if scale else None,
+                   active_share=active, f64_max_abs=k64,
+                   cudnn_f64_max_abs=c64)
+        recs.append(rec)
+        if not active > K1_SERVE_MIN_ACTIVE or not scale > 0:
+            raise AssertionError(f"train_cli serve: K1 launch {i} is past "
+                                 f"its ReLU at {active} of its voxels")
+        if err > K1_SERVE_RTOL * scale:
+            raise AssertionError(f"train_cli serve: K1 launch {i} vs cuDNN "
+                                 f"{err} > {K1_SERVE_RTOL} x {scale}")
+        if k64 > 2 * c64 + 1e-6 * scale:
+            raise AssertionError(f"train_cli serve: K1 launch {i} {k64} "
+                                 f"from float64, over 2x cuDNN's {c64}")
+        del ref
+    return recs
 
 
 def phase_train_cli(smi):
@@ -1932,34 +1982,61 @@ def phase_train_cli(smi):
     unchanged example configs (``TRAIN_CLI_RUNS``) into a temporary
     directory; then the neuro3d weights it saved, loaded by ``modelload``,
     served through K1 (``set_dilated_impl("direct", zfold=True,
-    pallas_tail=True)``) against the cuDNN route. Returns K1's launches in
-    that request."""
+    pallas_tail=True)``). The served probabilities are held against the
+    cuDNN route at ``SLICE_ATOL`` and against the request served with the
+    weights the run started from (they must have moved); each K1 launch of
+    the request is held against its plain version on the same input
+    (``k1_calls_vs_plain``), since trained probabilities can saturate and
+    then hide a wrong activation. Returns K1's launches in that request."""
     with tempfile.TemporaryDirectory() as tmp:
         for name, n_steps, warm in TRAIN_CLI_RUNS:
-            _, mdl = train_cli_run(smi, name, n_steps, warm, tmp)
+            _, mdl, initial = train_cli_run(smi, name, n_steps, warm, tmp)
             if name == "neuro3d":
-                served = mdl
+                served, start = mdl, initial
             torch.cuda.empty_cache()
         model = modelload(served)
         vol = torch.from_numpy(np.random.RandomState(SEED + 11).rand(
             *SERVE_SHAPE).astype(np.float32)).cuda()
         ref = serve_request(model, vol, ptail=False)
+        calls, k1_fn = [], tailconv.conv3x3_dilated
+
+        def recorded(x, w, b, dil=(1, 1, 1), relu=True):
+            y = k1_fn(x, w, b, dil, relu)
+            calls.append((x, w, b, tuple(dil), y))
+            return y
         tailconv.launches = 0
-        t0 = time.perf_counter()
-        k1 = serve_request(model, vol, ptail=True)
-        dt = time.perf_counter() - t0
+        tailconv.conv3x3_dilated = recorded
+        try:
+            t0 = time.perf_counter()
+            k1 = serve_request(model, vol, ptail=True)
+            dt = time.perf_counter() - t0
+        finally:
+            tailconv.conv3x3_dilated = k1_fn
         launches = tailconv.launches
         err = (k1 - ref).abs().max().item()
+        unsaturated = ((k1 > 1e-3) & (k1 < 1 - 1e-3)).float().mean().item()
+        probs_dev = check_probs(k1, (2,) + SERVE_SHAPE[1:])
+        per_launch = (k1_calls_vs_plain(calls)
+                      if launches == len(calls) == 2 else None)
+        n_recorded = len(calls)
+        del calls
+        model.set_params(start)
+        moved = (k1 - serve_request(model, vol, ptail=True)).abs().max(
+            ).item()
         emit("train_cli_serve", model=os.path.basename(served),
              request=list(SERVE_SHAPE), seconds=dt, k1_launches=launches,
-             max_abs_vs_cudnn=err,
-             channel_sum_dev=check_probs(k1, (2,) + SERVE_SHAPE[1:]))
-        if launches != 2:
+             max_abs_vs_cudnn=err, max_abs_vs_before_training=moved,
+             unsaturated_share=unsaturated, channel_sum_dev=probs_dev,
+             k1_launches_vs_plain=per_launch)
+        if launches != 2 or per_launch is None:
             raise AssertionError(f"train_cli serve: {launches} K1 launches, "
-                                 "expected 2")
+                                 f"{n_recorded} recorded, expected 2")
         if err > SLICE_ATOL:
             raise AssertionError(f"train_cli serve: K1 vs cuDNN {err} > "
                                  f"{SLICE_ATOL}")
+        if not moved > 100 * SLICE_ATOL:
+            raise AssertionError("train_cli serve: the trained model serves "
+                                 f"the weights it started from ({moved})")
         del model, vol, ref, k1
     torch.cuda.empty_cache()
     return launches

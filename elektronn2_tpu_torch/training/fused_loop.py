@@ -106,21 +106,27 @@ class _ChunkGraph:
 
 class PinnedStage:
     """Host (numpy) batches to the card through reusable page-locked
-    buffers, without a host sync: ``n_slots`` sets of pinned host buffers
-    used in turn. Filling a slot first waits on the event recorded after
-    that slot's last copy (long done in steady state), so the host never
-    overwrites bytes a copy is still reading; the copy itself is
-    non-blocking (a copy from pageable memory would sync the host)."""
+    buffers, without a host sync. There are two slots of pinned host
+    buffers, and one protocol: :meth:`fill` writes the slot after the last
+    one filled, :meth:`copy` copies the slot last filled to the card, and
+    the two alternate (fill, copy, fill, copy, ...); :meth:`stage` is one
+    fill and its copy. A fill may run on another thread than its copy (the
+    host-fed loop's prefetch fills slot 1 while the card still runs the
+    chunk copied from slot 0). Filling a slot first waits on the event
+    recorded after that slot's last copy (long done in steady state), so
+    the host never overwrites bytes a copy is still reading; the copy itself
+    is non-blocking (a copy from pageable memory would sync the host)."""
 
-    def __init__(self, device, n_slots=2):
+    def __init__(self, device):
         self.device = torch.device(device)
-        self._bufs = [{} for _ in range(int(n_slots))]
-        self._events = [None] * int(n_slots)
-        self._turn = 0
+        self._bufs = ({}, {})
+        self._events = [None, None]
+        self._slot = 1                # the slot last filled
 
-    def fill(self, slot, arrays):
-        """Write ``{name: ndarray}`` into slot ``slot``'s pinned buffers
+    def fill(self, arrays):
+        """Write ``{name: ndarray}`` into the next slot's pinned buffers
         (made on first use, remade for a new shape or dtype); returns them."""
+        slot = self._slot ^ 1
         ev = self._events[slot]
         if ev is not None:
             ev.synchronize()
@@ -134,31 +140,30 @@ class PinnedStage:
                 b = bufs[name] = torch.empty(a.shape, dtype=dtype,
                                              pin_memory=True)
             np.copyto(b.numpy(), a)
+        self._slot = slot
         return {name: bufs[name] for name in arrays}
 
-    def copy(self, slot, names, out=None):
-        """Copy slot ``slot``'s buffers ``names`` to the card, into the
-        tensors of ``out`` where given (static buffers), else into new
+    def copy(self, names, out=None):
+        """Copy the last filled slot's buffers ``names`` to the card, into
+        the tensors of ``out`` where given (static buffers), else into new
         ones; records the slot's event after the copies. Returns the card
         tensors."""
-        bufs = self._bufs[slot]
+        bufs = self._bufs[self._slot]
         res = {}
         for name in names:
             if out is not None:
                 res[name] = out[name].copy_(bufs[name], non_blocking=True)
             else:
                 res[name] = bufs[name].to(self.device, non_blocking=True)
-        ev = self._events[slot] = torch.cuda.Event()
+        ev = self._events[self._slot] = torch.cuda.Event()
         ev.record()
         return res
 
     def stage(self, arrays):
-        """``fill`` the next slot with ``arrays`` and ``copy`` it to the
-        card: ``{name: tensor on the card}``."""
-        slot = self._turn
-        self._turn = (slot + 1) % len(self._bufs)
-        self.fill(slot, arrays)
-        return self.copy(slot, list(arrays))
+        """:meth:`fill` the next slot with ``arrays`` and :meth:`copy` it
+        to the card: ``{name: tensor on the card}``."""
+        self.fill(arrays)
+        return self.copy(list(arrays))
 
 
 class _ChunkLoop:
@@ -385,7 +390,6 @@ class HostFedFusedLoop(_ChunkLoop):
         self._feeds = None           # the chunk's feeds on the model's device
         self._stage = (PinnedStage(model.device)
                        if model.device.type == "cuda" else None)
-        self._slot = 0
         if prefetch:
             from concurrent.futures import ThreadPoolExecutor
             self._pool = ThreadPoolExecutor(max_workers=1)
@@ -405,20 +409,20 @@ class HostFedFusedLoop(_ChunkLoop):
             feeds[self._tgt] = np.stack(ts)
         return feeds
 
-    def _fill(self, slot):
-        """Draw a chunk into pinned slot ``slot`` (on the card) or return it
-        (on the CPU)."""
+    def _fill(self):
+        """Draw a chunk into the stage's next pinned slot (on the card) or
+        return it (on the CPU)."""
         feeds = self._draw_feeds()
         if self._stage is None:
             return {k: torch.from_numpy(v) for k, v in feeds.items()}
-        return self._stage.fill(slot, feeds)
+        return self._stage.fill(feeds)
 
     def _take(self):
         """This chunk's feeds: the prefetched ones, or drawn now."""
         if self._next is not None:
             feeds, self._next = self._next.result(), None
             return feeds
-        return self._fill(self._slot)
+        return self._fill()
 
     def _upload(self, pinned):
         """Copy the pinned chunk into the static feed buffers (made on the
@@ -434,7 +438,7 @@ class HostFedFusedLoop(_ChunkLoop):
                     f"feed {k!r}: a chunk of {tuple(v.shape)} {v.dtype}, the "
                     f"first was {tuple(self._feeds[k].shape)} "
                     f"{self._feeds[k].dtype}; batches must keep one shape")
-        self._stage.copy(self._slot, list(pinned), out=self._feeds)
+        self._stage.copy(list(pinned), out=self._feeds)
 
     def _steps(self, hyper, steps):
         self._chunk(self._feeds, self.generator, hyper, self._out,
@@ -452,8 +456,7 @@ class HostFedFusedLoop(_ChunkLoop):
     def _prefetch(self):
         """Start drawing the next chunk into the other slot."""
         if self._pool is not None:
-            self._slot ^= 1
-            self._next = self._pool.submit(self._fill, self._slot)
+            self._next = self._pool.submit(self._fill)
 
     def _run_chunk_eager(self):
         """:meth:`run_chunk` with an eager launch (on the card: the feeds

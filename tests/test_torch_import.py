@@ -254,7 +254,8 @@ def test_example_configs_load_without_jax():
             "torch.set_num_threads(1)\n"
             "from elektronn2_tpu_torch.config import ExperimentConfig\n"
             "from elektronn2_tpu_torch.training import Trainer\n"
-            "for name in ('neuro3d', 'neuro3d_fast', 'unet3d_wide'):\n"
+            "for name in ('neuro2d', 'neuro3d', 'neuro3d_fast', 'unet3d',\n"
+            "             'unet3d_wide'):\n"
             "    exp = ExperimentConfig.from_file(\n"
             "        f'examples/{name}.py', override={\n"
             "            'save_path': tempfile.mkdtemp(),\n"

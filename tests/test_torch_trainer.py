@@ -49,6 +49,8 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEURO3D = os.path.join(REPO, "examples", "neuro3d.py")
+NEURO2D = os.path.join(REPO, "examples", "neuro2d.py")
+UNET3D = os.path.join(REPO, "examples", "unet3d.py")
 LOSS_RTOL = 1e-5
 
 
@@ -353,6 +355,60 @@ def test_host_fed_chunk_equals_sequential_steps(small_init, prefetch):
     loop2.run_chunk()
     assert len(drawn) >= 2 * K and not np.array_equal(drawn[0][0],
                                                       drawn[K][0])
+
+
+def test_trainer_unet3d_host_fed_matches_jax(tmp_path):
+    # the decoder config (UpConv, FaithlessMerge) at its own widths: host
+    # batches from BatchCreatorImage through HostFedFusedLoop (its
+    # fused_steps, one chunk of 8), from the same JAX-saved weights and
+    # equal data rngs in both packages
+    init = str(tmp_path / "unet3d-init.mdl")
+    JaxConfig.from_file(UNET3D).create_model().save(init)
+    ov = dict(n_steps=8, history_freq=0, save_freq=0)
+    jt = JaxTrainer(JaxConfig.from_file(
+        UNET3D, override=dict(ov, save_path=str(tmp_path / "j"))),
+        model_load_path=init)
+    tt = Trainer(ExperimentConfig.from_file(
+        UNET3D, override=dict(ov, save_path=str(tmp_path / "t"))),
+        model_load_path=init, device="cpu")
+    jt.data.rng = np.random.RandomState(7)
+    tt.data.rng = np.random.RandomState(7)
+    jh, th = jt.run(), tt.run()
+    assert isinstance(tt.fused_loop, HostFedFusedLoop)
+    assert tt.fused_loop.n_inner == 8 and tt.step == 8
+    np.testing.assert_array_equal(th.timeline.data[:, 1], np.arange(1, 9))
+    assert_losses_close(th.timeline.data[:, 2], jh.timeline.data[:, 2])
+    assert os.path.exists(tmp_path / "t" / "unet3d-LAST.mdl")
+
+
+def test_trainer_neuro2d_matches_jax_on_its_batches(tmp_path):
+    # 2-D data through the Trainer: the config's DeviceBatchAugmenter
+    # promotes the 2-D images inside and draws from the port's own stream,
+    # so the JAX model (same saved weights, same optimiser from the same
+    # config) takes the batches the port's Trainer recorded, step by step
+    init = str(tmp_path / "neuro2d-init.mdl")
+    JaxConfig.from_file(NEURO2D).create_model().save(init)
+    ov = dict(n_steps=4, history_freq=0, save_freq=0)
+    tt = Trainer(ExperimentConfig.from_file(
+        NEURO2D, override=dict(ov, save_path=str(tmp_path / "t"))),
+        model_load_path=init, device="cpu")
+    assert isinstance(tt.data, DeviceBatchAugmenter)
+    fed, step = [], tt.model.trainingstep
+
+    def recorded(d, t, **kw):
+        fed.append((d.numpy().copy(), t.numpy().copy()))
+        return step(d, t, **kw)
+    tt.model.trainingstep = recorded
+    th = tt.run()
+    assert len(fed) == 4 and fed[0][0].ndim == 4     # (b, f, x, y)
+    assert tuple(fed[0][0].shape[2:]) == tuple(
+        tt.model.input_node.shape.spatial_shape)
+    jt = JaxTrainer(JaxConfig.from_file(
+        NEURO2D, override=dict(ov, save_path=str(tmp_path / "j"))),
+        model_load_path=init)
+    jl = [float(jt.model.trainingstep(d, t)[0]) for d, t in fed]
+    assert_losses_close(th.timeline.data[:, 2], jl)
+    assert os.path.exists(tmp_path / "t" / "neuro2d-LAST.mdl")
 
 
 def test_trainer_device_sampled_fused_and_tail(tmp_path):
