@@ -16,7 +16,11 @@ conv-dense serving of the wide U-Net (``examples/unet3d_wide.py``, widths
 64/128/256) with K1 on its (3,3,3) convs; fused agent tracing of the
 tracing deployment's recurrent model (16^3 patch, Perceptron 64 -> GRU 64
 via ScanN -> 3-vector step) with the patch kernels K2 (``csrc/extract.cu``,
-translation) and K3 (``csrc/extract_rot.cu``, frame-aligned); the K4
+translation) and K3 (``csrc/extract_rot.cu``, frame-aligned, float32 and
+bf16), and the tracing campaign around it (the respawning and chained
+pools, ``tune_batch``, a pooled registry drain) and tracing training
+(``examples/tracing3d.py`` through the train CLI, ``TracingTrainerRNN``
+with the fused carry); the K4
 probe at the conv-dense path's kz=1 shapes; and the entry points of the
 three kernels no production route runs: K5's benchmark (the im2col dilated
 conv, ``csrc/dilated_conv.cu``) and the probes P1 (the ``wgmma`` dot rate
@@ -113,25 +117,55 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
    run: no item left unstaged;
 9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
    the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds;
-10. headk_probe: the rows of ``elektronn2_tpu_torch.scripts.
+10. kernel (``rotated_patches_bf16``): K3's bf16 mode against its plain
+    version (the same bf16 arithmetic in PyTorch; atol ``K3_ATOL``, bit
+    for bit expected and reported, ``ok`` equal except near a bound) at
+    the rotated tracer's shape, an anisotropic patch (Y % 8 == 0), the ok
+    boundary and a ragged Y; at the tracer's shape timed with its plain
+    version and the float32 mode (``graph_ms``), its bound (bf16 windows),
+    the values it stages (its own count, 2 bytes each) and both modes'
+    error against float64 (50th / 99th percentile, max);
+11. trace_pool: the translation pools at B=1024, K=256, a queue of 8B
+    seeds (``trace_pool`` through its entry point under ``torch.profiler``:
+    the device counts K2's launches; every consumed seed decoded once), the
+    bench's protocol for the respawning and the chained pool (``pool_rates``:
+    effective agent-steps/s, util, beside the raw rate x alive), one wave
+    graphed = eager bit for bit and replayed under
+    ``set_sync_debug_mode("error")``, and on a 48-seed queue the pools'
+    traces against ``trace_batch`` (1e-5);
+12. trace_rot_pool: the rotated pools at B=512, K=64, in K3's float32 and
+    bf16 modes, the same way (no item left unstaged);
+13. tune_batch: candidates 256-2048, 64 steps; the tracer's ``max_steps``
+    and kept graph put back, its next ``trace_batch`` a replay;
+14. registry_pool: ``ShotgunRegistry.run(pool=True)`` over 16B seeds, its
+    seconds split into waves, ``register`` and the k.zip, the k.zip read
+    back equal to the traces;
+15. train_tracing (run after train_cli): the train CLI on
+    ``examples/tracing3d.py`` (300 steps,
+    data seeded; its 50-step mean loss must fall), then
+    ``TracingTrainerRNN`` with fused chunks on the deployment's model over
+    ``AgentData`` on a 256^3 volume, its losses and final ``h0`` against
+    the per-step carry on the same batches (1e-5), and a chained pool
+    served with the trained weights;
+16. headk_probe: the rows of ``elektronn2_tpu_torch.scripts.
     exp_convdense_headk.main()`` (K4 against the zfold cuDNN conv, with
     the body the wrapper ran);
-11. k5_main: the rows of ``elektronn2_tpu_torch.ops.experimental.
+17. k5_main: the rows of ``elektronn2_tpu_torch.ops.experimental.
     dilated_conv.main()``, K5's benchmark;
-12. probe_dot: the rows of ``elektronn2_tpu_torch.scripts.exp_ptail_dot.
+18. probe_dot: the rows of ``elektronn2_tpu_torch.scripts.exp_ptail_dot.
     main()`` (P1's six configs; each within rtol=atol=1e-3 of its plain
     version in float32, rtol=atol=1e-2 in bf16, the float32 rows within 2x
     the plain float32 version's error against float64 + 1e-6, and none
     faster than its bound), each with its library call, one batched
     ``torch.matmul`` over the same 1024 x 8 dots in the row's type;
-13. probe_ablate: the rows of ``elektronn2_tpu_torch.scripts.
+19. probe_ablate: the rows of ``elektronn2_tpu_torch.scripts.
     exp_ptail_ablate.main()`` at the canonical tail shape (``k_disp=2``)
     and at the wide U-Net's d1 conv (``k_disp=1``): the eight probes of
     K1's body, ``full`` equal to K1 (``torch.equal``) and within 1e-4 of
     its plain version, ``noepi`` within ``noepi_tol`` of the bare conv (and
     1e-4 at the canonical shape), and
     ``k1_ms``, K1 through its wrapper beside ``full``;
-14. train (``train_row``, ``train_profile``, ``train_checks`` per row,
+20. train (``train_row``, ``train_profile``, ``train_checks`` per row,
     ``train_serve``): the bench's training net at full width
     (``utils/convert.neuro3d_train_model``, weights from numpy seed 0, Adam
     1e-3) in its two rows, b4 (B=4, 15x54x54 in, K=16 steps a chunk, two
@@ -158,7 +192,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     launches, which join the kernels line) equals its cuDNN route within
     ``SLICE_ATOL`` and differs from the same request served before
     training;
-15. train_cli (x3, ``train_cli_serve``): the training entry point, the
+21. train_cli (x3, ``train_cli_serve``): the training entry point, the
     train CLI's ``main([...])`` (``elektronn2_tpu_torch/scripts/train.py``)
     on the unchanged example configs into a temporary directory:
     ``examples/neuro3d.py`` (20/30/40/40, 23x102x102, B=1, Adam, warp 0.5,
@@ -177,7 +211,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     the idle share (1 - device time / window wall); the time the loop
     waited on its workers (``BackgroundProc.get``) a step; the host's
     ``getbatch`` ms a batch and its thrown-away draws, timed alone after
-    the run; peak memory; the smoothed loss at the first and last step;
+    the run (a tracing trainer's ``get_tracing_batch``); peak memory; the smoothed loss at the first and last step;
     the capture seconds. Checks: every loss finite, the smoothed loss
     falls (last < 0.98 x first), a ``.mdl`` written; then the neuro3d
     weights the CLI saved, through ``modelload``, serve a 64x256x256
@@ -188,7 +222,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     float32 on the same input, within ``K1_SERVE_RTOL`` of the output's
     largest magnitude, with at least ``K1_SERVE_MIN_ACTIVE`` of its voxels
     past the ReLU, and no further from float64 than twice cuDNN's error;
-16. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
+22. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
     ``sweep_unet`` x2, ``sweep_unet_checks``): KNOSSOS datasets from numpy
     seeds written in 128^3 cubes by the port's ``save_knossos`` into a
     temporary directory (removed after the phase). The flagship (weights as
@@ -726,14 +760,15 @@ def near_bound_agents(vol_shape, pos, F, patch, tol=1e-4):
         | (np.abs(c - hi).min(axis=(1, 2)) < tol)
 
 
-def patch_bound(B, f, patch, in_bytes, flop_per_sample):
+def patch_bound(B, f, patch, in_bytes, flop_per_sample, window_bytes=4):
     """(bound ms, 'bytes' or 'operations') of a batched patch cut on an
     H100: each agent's (p+1)^3 window of the volume read once (the voxels
-    its samples touch), its other inputs (``in_bytes``) read once and the
-    patches written once, against its arithmetic over the FP32 rate."""
+    its samples touch, ``window_bytes`` each), its other inputs
+    (``in_bytes``) read once and the float32 patches written once, against
+    its arithmetic over the FP32 rate."""
     samples = B * f * int(np.prod(patch))
     window = B * f * int(np.prod([p + 1 for p in patch]))
-    return bound_ms(4.0 * (window + samples) + in_bytes,
+    return bound_ms(window_bytes * window + 4.0 * samples + in_bytes,
                     flop_per_sample * samples)
 
 
@@ -1296,7 +1331,9 @@ def phase_trace(rotate):
     loop timed in turns, check (d) (the graphed rollout equals the eager
     kernel route bit for bit), a profile of one graphed rollout, and the
     rollout checks (a), (b), (c) against the plain route. Returns the
-    device's count of the kernel's launches in the main path's run."""
+    device's count of the kernel's launches in the main path's run
+    (``launches``), the graphed rate (``agent_steps_s``) and the alive
+    fraction, which the pools' phases take."""
     name = "trace_rot_rollout" if rotate else "trace_rollout"
     mod = extract_rot if rotate else extract
     B, K = (ROT_B, ROT_K) if rotate else (TRACE_B, TRACE_K)
@@ -1450,7 +1487,8 @@ def phase_trace(rotate):
          full_horizon_alive_equal=bool(torch.equal(moved, pmoved)),
          bit_exact=bool(torch.equal(traj, ptraj)),
          graphed_equals_eager=check_d)
-    return launches
+    return dict(launches=launches, agent_steps_s=B * K / g,
+                alive_fraction=moved.float().mean().item())
 
 
 def phase_trace_kzip():
@@ -1483,6 +1521,615 @@ def phase_trace_kzip():
          registry_seeds=2 * TRACE_B, registry_traces=len(reg_traces),
          registry_points=int(sum(len(t) for t in reg_traces)),
          registry_seconds=dt)
+
+
+# ------------------------------------------------------------ tracing pools
+
+POOL_QUEUE = 8                          # queue seeds a slot (bench.py:362)
+CHAIN_WAVES = 3                         # full waves before the drain wave
+SUB_B, SUB_N = 16, 48                   # the per-seed check's pool
+POOL_ATOL = 1e-5                        # tests/test_tracing.py:1023
+TUNE_CANDIDATES = (256, 512, 1024, 2048)
+TUNE_STEPS = 64
+
+
+def pool_total(N, B, K, alive):
+    """The bench's single-wave pool length (``bench.py:362-364``)."""
+    return int(N * max(0.05, alive) * K / B) + K
+
+
+def chain_wave_steps(K, alive):
+    """The bench's chained wave length (``bench.py:391-395``)."""
+    return max(int(K), int(5 * max(0.1, alive) * K))
+
+
+def pool_rates(tracer, B, K, alive, rng, lo, hi):
+    """The bench's pool protocol (``bench.py:351-445``) on the card, timed
+    as device work ending in one synchronize, the host decode left out: the
+    respawning pool, one wave of ``pool_total`` steps over N = 8B seeds (two
+    warm-up waves, then the best of two), and the chained pool, three waves
+    of ``chain_wave_steps`` steps with fresh N-seed queues and a K-step
+    drain wave with an empty queue, the id offset kept on the device (one
+    warm-up, the best of two). Effective agent-steps/s = recorded steps /
+    wall; util = recorded steps / slot-steps."""
+    params = tracer.model.params
+    dev = tracer.volume.device
+    N = POOL_QUEUE * B
+    total = pool_total(N, B, K, alive)
+    seeds = rng.uniform(lo, hi, (N, 3)).astype(np.float32)
+    waves = [rng.uniform(lo, hi, (N, 3)).astype(np.float32)
+             for _ in range(CHAIN_WAVES)]
+    empty = np.zeros((N, 3), np.float32)
+    no_cut = np.iinfo(np.int32).max
+    WS = chain_wave_steps(K, alive)
+    st = tracer._pool_setup(B, N)
+
+    def one_pool():
+        st.reset(tracer._init_carry(params, B))
+        _, moved, _ = tracer._pool_wave(params, st, seeds, N, total,
+                                        max(0, total - K), 0)
+        return moved.sum()
+
+    def run_chain():
+        st.reset(tracer._init_carry(params, B))
+        off = torch.zeros((), dtype=torch.int32, device=dev)
+        movs = []
+        for sw in waves:
+            _, mv, _ = tracer._pool_wave(params, st, sw, N, WS, no_cut, off)
+            movs.append(mv.sum())
+            off = off + st.ptr
+        _, mv, _ = tracer._pool_wave(params, st, empty, 0, K, no_cut, off)
+        movs.append(mv.sum())
+        return torch.stack(movs).sum()
+
+    out = {}
+    for name, fn, warm, slots in (("pool", one_pool, 2, B * total),
+                                  ("chain", run_chain, 1,
+                                   B * (CHAIN_WAVES * WS + K))):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            eff = int(fn().item())
+            walls.append(time.perf_counter() - t0)
+        out[name] = dict(seconds=walls, effective_steps=eff,
+                         slot_steps=slots, eff_sps=eff / min(walls),
+                         util=eff / slots)
+    out["pool"]["total_steps"] = total
+    out["chain"].update(wave_steps=WS, waves=CHAIN_WAVES, drain_steps=K)
+    return out
+
+
+def check_decoded(traces, stats, seeds, name):
+    """Every consumed seed decoded once: one trace each, in seed order,
+    starting at its seed, their steps summing to the recorded steps."""
+    n = stats["consumed"]
+    if len(traces) != n or n == 0:
+        raise AssertionError(f"{name}: {len(traces)} traces for {n} "
+                             "consumed seeds")
+    starts = np.asarray([t.coords[0] for t in traces])
+    if not np.array_equal(starts, seeds[:n].astype(np.float64)):
+        raise AssertionError(f"{name}: a trace does not start at its seed")
+    if sum(len(t) - 1 for t in traces) != stats["effective_steps"]:
+        raise AssertionError(f"{name}: the traces' steps differ from the "
+                             "recorded steps")
+    if not all(np.isfinite(t.coords).all() for t in traces):
+        raise AssertionError(f"{name}: non-finite trace")
+
+
+def same_traces(got, ref):
+    """Max abs difference of two lists of traces of equal lengths (inf when
+    a length differs)."""
+    if len(got) != len(ref):
+        return float("inf")
+    err = 0.0
+    for g, r in zip(got, ref):
+        if len(g) != len(r):
+            return float("inf")
+        err = max(err, float(np.abs(g.coords - r.coords).max()))
+    return err
+
+
+def pool_wave_checks(tracer, B, N, total, seeds, name):
+    """One wave graphed against the same wave eager, bit for bit (outputs
+    and final state), and a replayed wave under
+    ``set_sync_debug_mode("error")`` (no host sync inside a wave)."""
+    params = tracer.model.params
+    st = tracer._pool_setup(B, N)
+    got = tracer._pool_wave(params, st, seeds, N, total, total - tracer.
+                            max_steps, 0)
+    g_state = [x.clone() for x in st.tensors()]
+    st = tracer._pool_setup(B, N)
+    ref = tracer._pool_wave(params, st, seeds, N, total, total - tracer.
+                            max_steps, 0, graphed=False)
+    equal = all(torch.equal(a, b) for a, b in zip(got, ref)) and all(
+        torch.equal(a, b) for a, b in zip(g_state, st.tensors()))
+    if not equal:
+        raise AssertionError(f"{name}: the graphed pool wave differs from "
+                             "the eager one")
+    st = tracer._pool_setup(B, N)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tracer._pool_wave(params, st, seeds, N, total,
+                          total - tracer.max_steps, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return equal
+
+
+def all_launches():
+    """The patch kernels' launch counters (K2, K3 in both modes), summed:
+    a pool runs one of them."""
+    return extract.launches + extract_rot.launches + extract_rot.launches_bf16
+
+
+def pool_main_path(tracer, seeds, B, total, kernel, name, stats=None):
+    """The respawning pool through its entry point, ``trace_pool``: a first
+    call (which captures the chunk graph), then the same call under
+    ``torch.profiler``, whose device count of ``kernel``'s launches must be
+    the replays' (``n_rep`` x S) and the wrapper's count; both calls give
+    the same traces, every consumed seed decoded once. ``stats``: K3's
+    staging counts, which must show no item left unstaged in either call;
+    the values staged in the profiled call are returned. Returns (traces,
+    stats, launches, the first call's seconds, the profile, staged
+    values)."""
+    if stats is not None:
+        stats.zero_()
+    t0 = time.perf_counter()
+    traces, st = tracer.trace_pool(seeds, batch_size=B, total_steps=total)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check_decoded(traces, st, seeds, name)
+    if stats is not None:
+        if stats[0].item():
+            raise AssertionError(f"{name}: items not staged")
+        stats.zero_()
+    before = all_launches()
+    out = []
+    prof = profile_once(lambda: out.append(tracer.trace_pool(
+        seeds, batch_size=B, total_steps=total)), kernel)
+    counted = all_launches() - before
+    S = tracer._pool_chunk_len(total)
+    expect = -(-total // S) * S
+    if prof["kernel_launches"] != expect or counted != expect:
+        raise AssertionError(f"{name}: {prof['kernel_launches']} launches "
+                             f"on the device, {counted} counted, expected "
+                             f"{expect}")
+    again, st2 = out[0]
+    if st2 != st or same_traces(again, traces) != 0.0:
+        raise AssertionError(f"{name}: a second trace_pool differs")
+    values = None
+    if stats is not None:
+        unstaged, values = stats.tolist()
+        if unstaged:
+            raise AssertionError(f"{name}: {unstaged} items not staged")
+    return traces, st, expect, first, prof, values
+
+
+def phase_trace_pool(raw):
+    """The translation pools at full width (B = 1024, K = 256, N = 8B):
+    ``trace_pool`` through its entry point (``pool_main_path``; K2's
+    launches counted by the device), the bench's protocol for both pools
+    (``pool_rates``) beside the raw rollout rate of ``phase_trace``, one
+    wave graphed = eager and without a host sync (``pool_wave_checks``),
+    and on a small sub-queue the pools' traces against each seed's own
+    ``trace_batch`` (``POOL_ATOL``, K = ``SHORT_K``). Returns K2's launches
+    on the main path."""
+    rng = np.random.RandomState(SEED + 6)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    B, K = TRACE_B, TRACE_K
+    N = POOL_QUEUE * B
+    alive, raw_sps = raw["alive_fraction"], raw["agent_steps_s"]
+    total = pool_total(N, B, K, alive)
+    seeds = rng.uniform(*TRACE_SEEDS, (N, 3)).astype(np.float32)
+    tracer = make_tracer(model, vol, max_steps=K)
+    torch.cuda.reset_peak_memory_stats()
+    traces, stats, launches, first, prof, _ = pool_main_path(
+        tracer, seeds, B, total, "trilinear_patches_kernel", "trace_pool")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    capture = [e.capture_seconds for e in tracer._pool_graphs.values()]
+    emit("trace_pool_main_profile", route="trace_pool", **prof)
+    equal = pool_wave_checks(tracer, B, N, total, seeds, "trace_pool")
+    rates = pool_rates(tracer, B, K, alive, rng, *TRACE_SEEDS)
+    p, c = rates["pool"], rates["chain"]
+    best = max(("pool", p["eff_sps"]), ("chain", c["eff_sps"]),
+               key=lambda x: x[1])
+    emit("trace_pool", B=B, K=K, queue=N, vol=list(TRACE_VOL),
+         patch=list(TRACE_PATCH), total_steps=total,
+         chunk_steps=tracer._pool_chunk_len(total), pool=p, chain=c,
+         raw_sps=raw_sps, raw_alive=alive, raw_x_alive=raw_sps * alive,
+         pool_wins=p["eff_sps"] > raw_sps * alive,
+         chain_wins=c["eff_sps"] > raw_sps * alive,
+         headline=dict(impl=best[0], sps=best[1]) if best[1] > raw_sps
+         * alive else dict(impl="raw", sps=raw_sps),
+         capture_seconds=capture, first_call_seconds=first, peak_gib=peak,
+         main_path_launches=launches, consumed=stats["consumed"],
+         main_effective_steps=stats["effective_steps"],
+         graphed_equals_eager=equal, host_syncs_in_wave=0)
+    # per seed, on a small sub-queue at a short horizon
+    short = make_tracer(model, vol, max_steps=SHORT_K)
+    sub = seeds[:SUB_N]
+    ref = short.trace_batch(sub)
+    got, st = short.trace_pool(sub, batch_size=SUB_B)
+    err_pool = same_traces(got, ref)
+    chain, cst = short.trace_pool_chain(sub, batch_size=SUB_B,
+                                        wave_seeds=SUB_B, wave_steps=5)
+    err_chain = same_traces(chain, ref)
+    emit("trace_pool_checks", sub_queue=SUB_N, slots=SUB_B, k=SHORT_K,
+         pool_consumed=st["consumed"], pool_max_abs_vs_trace_batch=err_pool,
+         chain_consumed=cst["consumed"], chain_waves=cst["waves"],
+         chain_max_abs_vs_trace_batch=err_chain)
+    if st["consumed"] != SUB_N or cst["consumed"] != SUB_N \
+            or err_pool > POOL_ATOL or err_chain > POOL_ATOL:
+        raise AssertionError(f"trace_pool: the pools' traces differ from "
+                             f"trace_batch ({err_pool}, {err_chain})")
+    del tracer, short, vol
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_trace_rot_pool(raw):
+    """The rotated pools (B = 512, K = 64, N = 8B), in K3's float32 mode and
+    in its bf16 mode: each through ``trace_pool`` (launches counted by the
+    device, no item left unstaged), one wave graphed = eager without a host
+    sync, and the bench's protocol for both pools. Returns K3's main-path
+    launches in each mode."""
+    rng = np.random.RandomState(SEED + 7)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    B, K = ROT_B, ROT_K
+    N = POOL_QUEUE * B
+    alive, raw_sps = raw["alive_fraction"], raw["agent_steps_s"]
+    total = pool_total(N, B, K, alive)
+    seeds = rng.uniform(*ROT_SEEDS, (N, 3)).astype(np.float32)
+    launches = {}
+    for mode in ("float32", "bfloat16"):
+        tracer = make_tracer(model, vol, max_steps=K, rotate_to_heading=True,
+                             rot_compute_dtype=mode)
+        if not tracer._rot_kernel or tracer._rot_bf16 != (mode == "bfloat16"):
+            raise AssertionError(f"trace_rot_pool {mode}: not K3's {mode} "
+                                 "kernel")
+        dtype = torch.bfloat16 if mode == "bfloat16" else torch.float32
+        traces, st, n, first, prof, values = pool_main_path(
+            tracer, seeds, B, total, "rotated_patches_kernel",
+            f"trace_rot_pool {mode}",
+            stats=extract_rot.staging_stats(vol.device, dtype))
+        launches[mode] = n
+        emit("trace_rot_pool_main_profile", mode=mode, route="trace_pool",
+             **prof)
+        equal = pool_wave_checks(tracer, B, N, total, seeds,
+                                 f"trace_rot_pool {mode}")
+        rates = pool_rates(tracer, B, K, alive, rng, *ROT_SEEDS)
+        emit("trace_rot_pool", mode=mode, B=B, K=K, queue=N,
+             total_steps=total, chunk_steps=tracer._pool_chunk_len(total),
+             pool=rates["pool"], chain=rates["chain"], raw_sps=raw_sps,
+             raw_alive=alive,
+             pool_wins=rates["pool"]["eff_sps"] > raw_sps * alive,
+             chain_wins=rates["chain"]["eff_sps"] > raw_sps * alive,
+             capture_seconds=[e.capture_seconds
+                              for e in tracer._pool_graphs.values()],
+             first_call_seconds=first, main_path_launches=n,
+             consumed=st["consumed"],
+             staged_bytes_per_launch=values * (2 if mode == "bfloat16"
+                                               else 4) / n,
+             graphed_equals_eager=equal, host_syncs_in_wave=0)
+        del tracer
+    torch.cuda.empty_cache()
+    return launches["float32"], launches["bfloat16"]
+
+
+def phase_tune_batch():
+    """``tune_batch`` on the card at the deployment's shapes: the table of
+    agent-steps/s per candidate batch from graphed rollouts of
+    ``TUNE_STEPS`` steps; afterwards the tracer's ``max_steps`` and its kept
+    rollout graph are as they were, and the next ``trace_batch`` replays the
+    kept graph (no capture)."""
+    rng = np.random.RandomState(SEED + 8)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    tracer = make_tracer(model, vol, max_steps=TRACE_K)
+    seeds = rng.uniform(*TRACE_SEEDS, (TRACE_B, 3)).astype(np.float32)
+    tracer.trace_batch(seeds)
+    kept = list(tracer._graphs.items())
+    t0 = time.perf_counter()
+    res = tracer.tune_batch(TUNE_CANDIDATES, steps=TUNE_STEPS)
+    dt = time.perf_counter() - t0
+    restored = (tracer.max_steps == TRACE_K
+                and list(tracer._graphs.items()) == kept)
+    capture = tracer.capture_seconds
+    tracer.trace_batch(seeds)
+    replayed = (list(tracer._graphs.items()) == kept
+                and tracer.capture_seconds == capture)
+    emit("tune_batch", candidates=list(TUNE_CANDIDATES), steps=TUNE_STEPS,
+         table={str(b): v for b, v in res["table"].items()},
+         best=res["best"], seconds=dt, max_steps_restored=tracer.max_steps,
+         kept_graphs_restored=restored, next_trace_batch_replayed=replayed)
+    if not restored or not replayed or set(res["table"]) != set(
+            TUNE_CANDIDATES) or min(res["table"].values()) <= 0:
+        raise AssertionError("tune_batch: the table is wrong or the "
+                             "tracer was not put back")
+    del tracer, vol
+    torch.cuda.empty_cache()
+
+
+def phase_registry_pool():
+    """``ShotgunRegistry.run(pool=True)`` over 2N = 16B seeds at B = 1024,
+    K = 256 and the registry's default radius (the chained pool, fed and
+    deduped by the registry between waves), then its ``.k.zip`` written and
+    read back by the port's NML parser: the nodes are the traces' points,
+    in order. The drain's seconds are split into the waves on the card
+    (with their readback and decode), ``register`` (the dedupe KD-tree)
+    and the k.zip. Returns K2's launches (the wrapper's count)."""
+    rng = np.random.RandomState(SEED + 9)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    tracer = make_tracer(model, vol, max_steps=TRACE_K)
+    n = 2 * POOL_QUEUE * TRACE_B
+    reg = ShotgunRegistry(rng.uniform(*TRACE_SEEDS, (n, 3)))
+    spent = {"register": 0.0}
+    register = reg.register
+
+    def timed(trace):
+        t0 = time.perf_counter()
+        register(trace)
+        spent["register"] += time.perf_counter() - t0
+    reg.register = timed
+    before = extract.launches
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "registry.k.zip")
+        t0 = time.perf_counter()
+        traces = reg.run(tracer, batch_size=TRACE_B, pool=True)
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reg.save_kzip(out)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nodes, edges, _ = read_nml_file(out)
+        read_s = time.perf_counter() - t0
+        kzip_mb = os.path.getsize(out) / 2**20
+    launches = extract.launches - before
+    pts = np.asarray([nodes[i] for i in sorted(nodes)])
+    want = np.concatenate([t.coords for t in traces])
+    ok = (reg.next_seed() is None and len(traces) > 0
+          and pts.shape == want.shape and np.array_equal(pts, want)
+          and len(edges) == len(pts) - len(traces))
+    emit("registry_pool", seeds=n, B=TRACE_B, K=TRACE_K, radius=reg.radius,
+         traces=len(traces), points=int(len(want)), drain_seconds=dt,
+         register_seconds=spent["register"], kzip_write_seconds=write_s,
+         kzip_read_seconds=read_s, kzip_mb=kzip_mb, k2_launches=launches,
+         kzip_equal=ok)
+    if not ok:
+        raise AssertionError("registry_pool: the drain or its k.zip is "
+                             "wrong")
+    del tracer, vol
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------- tracing training
+
+TRACE_TRAIN_CLI = ("tracing3d", 300, 20)   # (config, steps, warm-up steps)
+TRACE_FALL_WINDOW = 50                  # its loss falls: mean of 50 steps
+TT_B, TT_T, TT_K, TT_STEPS = 16, 8, 8, 64  # batch, scan, chunk, steps
+CARRY_TOL = 1e-5
+
+
+def helix_skeleton(shape, n=400):
+    """``examples/tracing3d.py``'s helix, scaled to a volume of ``shape``
+    (Z, X, Y)."""
+    from elektronn2_tpu_torch.data import SkeletonMFK
+    z, x, y = (np.asarray(shape, np.float64))
+    t = np.linspace(0, 4 * np.pi, n)
+    pos = np.stack([z * 0.2 + t * z * 0.6 / (4 * np.pi),
+                    x / 2 + x * 0.22 * np.cos(t),
+                    y / 2 + y * 0.22 * np.sin(t)], 1)
+    return SkeletonMFK(pos, [(i, i + 1) for i in range(n - 1)])
+
+
+def phase_train_tracing(smi):
+    """Tracing training on the card. (1) The train CLI on
+    ``examples/tracing3d.py`` unchanged (``train_cli_run``: it/s, idle
+    share, the loss first and last; its batches of two agents make the loss
+    noisy, so the mean of the last ``TRACE_FALL_WINDOW`` steps must fall
+    below 0.98 x that of the first, on a data stream seeded from
+    ``SEED``). (2)
+    ``TracingTrainerRNN`` with ``fused_steps`` on the deployment's model
+    (``tracer_model``, 16^3, 64/64) over ``AgentData`` on a 256^3 volume
+    with a helix skeleton: the host-fed chunks with the carry in the graph,
+    held against the per-step carry on the same batches from the same
+    weights (losses rtol and final ``h0`` atol ``CARRY_TOL``); then the
+    trained weights serve a chained pool. Returns K2's launches in that
+    pool."""
+    from elektronn2_tpu_torch.data import AgentData
+    from elektronn2_tpu_torch.training.trainer import TracingTrainerRNN
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli_run(smi, *TRACE_TRAIN_CLI, tmp,
+                      fall_window=TRACE_FALL_WINDOW, data_seed=SEED)
+        rng = np.random.RandomState(SEED + 10)
+        vol = rng.rand(*TRACE_VOL).astype(np.float32)
+        ad = AgentData(input_data=[vol], target_data=[
+            (vol[0] > 0.5).astype(np.int16)])
+        ad.set_geometry(TRACE_PATCH)
+        ad.skeletons = [helix_skeleton(TRACE_VOL[1:])]
+        ad.rng = np.random.RandomState(SEED)
+        drawn = []
+        draw = ad.get_tracing_batch
+        ad.get_tracing_batch = lambda *a, **k: drawn.append(
+            draw(*a, **k)) or drawn[-1]
+        weights = None
+        models = []
+        for _ in range(2):
+            m = tracer_model(TRACE_PATCH, batch=TT_B, t=TT_T)
+            weights = weights or seeded_tracer_params(m, rng)
+            m.set_params(weights)
+            models.append(m)
+        tr = TracingTrainerRNN(model=models[0], data=ad, n_scan_steps=TT_T,
+                               batch_size=TT_B, fused_steps=TT_K,
+                               n_steps=TT_STEPS, n_workers=0,
+                               history_freq=0, save_freq=0, save_path=tmp,
+                               optimiser="Adam",
+                               optimiser_params={"lr": 1e-3})
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fused = tr.history.timeline.data[:, 2]
+        h_fused = tr.fused_loop.rnn_carry["h0"].clone()
+        # the per-step TBPTT on the same batches, eagerly
+        m = models[1]
+        m.set_opt("Adam", lr=1e-3)
+        m.debug_outputs.append(m.nodes["scan"])
+        carry, per_step = None, []
+        for d, t in drawn[:TT_STEPS]:
+            lv, aux = m.trainingstep(
+                torch.from_numpy(d).cuda(), torch.from_numpy(t).cuda(),
+                feed_overrides=None if carry is None else {"h0": carry})
+            per_step.append(float(lv))
+            carry = aux["scan"][-1]
+        loss_err = float(np.abs(fused - np.asarray(per_step)).max())
+        h_err = (h_fused - carry).abs().max().item()
+        # the trained weights serve a chained pool
+        tracer = make_tracer(tr.model, torch.from_numpy(vol).cuda(),
+                             max_steps=TRACE_K)
+        before = extract.launches
+        t0 = time.perf_counter()
+        traces, st = tracer.trace_pool_chain(
+            rng.uniform(*TRACE_SEEDS, (2 * TRACE_B, 3)),
+            batch_size=TRACE_B)
+        serve_s = time.perf_counter() - t0
+        launches = extract.launches - before
+        emit("train_tracing", model="tracer_model", patch=list(TRACE_PATCH),
+             batch=TT_B, scan_steps=TT_T, fused_steps=TT_K, steps=TT_STEPS,
+             vol=list(TRACE_VOL), seconds=wall, it_s=TT_STEPS / wall,
+             capture_seconds=tr.fused_loop.capture_seconds,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             loss_first=float(fused[0]), loss_last=float(fused[-1]),
+             fused_vs_per_step_loss_max_abs=loss_err,
+             fused_vs_per_step_h0_max_abs=h_err,
+             served_chain=dict(seeds=2 * TRACE_B, consumed=st["consumed"],
+                               waves=st["waves"], util=st["util"],
+                               seconds=serve_s, k2_launches=launches))
+        if not np.isfinite(fused).all() or len(fused) != TT_STEPS:
+            raise AssertionError("train_tracing: bad losses")
+        if loss_err > CARRY_TOL * max(1.0, abs(per_step[0])) \
+                or h_err > CARRY_TOL:
+            raise AssertionError(f"train_tracing: the fused carry differs "
+                                 f"from the per-step carry ({loss_err}, "
+                                 f"{h_err})")
+        if st["consumed"] != 2 * TRACE_B or len(traces) != 2 * TRACE_B \
+                or not all(np.isfinite(t.coords).all() for t in traces):
+            raise AssertionError("train_tracing: the served chain is wrong")
+        del tr, tracer, models, m
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------- K3's bf16 mode
+
+F64_SAMPLES = 64                        # agents of the float64 comparison
+
+
+def k3_errors_vs_f64(vol, pos, F, patch, got_f32, got_bf16):
+    """The float32 and bf16 modes' errors against float64 truth (the plain
+    version in float64 at float64 coordinates) on the first
+    ``F64_SAMPLES`` agents with ``ok``: 50th and 99th percentile and max."""
+    n = F64_SAMPLES
+    ref, ok = extract_rot.rotated_patches_reference(
+        vol.double(), pos[:n].double(), F[:n].double(), patch)
+    out = {}
+    for mode, got in (("float32", got_f32), ("bfloat16", got_bf16)):
+        e = (got[:n][ok] - ref[ok]).abs().flatten().double()
+        q = torch.quantile(e[:2**24], torch.tensor([0.5, 0.99],
+                                                   dtype=torch.float64,
+                                                   device=e.device))
+        out[mode] = dict(p50=q[0].item(), p99=q[1].item(),
+                         max=e.max().item())
+    return out
+
+
+def phase_kernel_k3_bf16():
+    """K3's bf16 mode against its plain version (the same bf16 arithmetic in
+    PyTorch; ``assert_close`` atol ``K3_ATOL``, bit for bit expected and
+    reported, ``ok`` as in ``phase_kernel_k3``) on ``k3_cases`` (the rotated
+    tracer's shape, B = 512 at 16^3, an anisotropic patch with two channels
+    and Y % 8 == 0, the ok boundary) and a case with Y % 8 != 0 (the
+    unaligned instance). At the tracer's shape: device ms per launch from
+    graph replays (``graph_ms``: the plain version, the bf16 kernel and the
+    float32 kernel in turns), its bound (bf16 windows, float32 patches and
+    inputs at 3.35 TB/s against its FLOPs at the FP32 peak), the values it
+    stages (its own count, 2 bytes each) and both modes' errors against
+    float64 (``k3_errors_vs_f64``). No single PyTorch call computes it:
+    ``grid_sample`` has no ``ok`` and no bf16 rounding of its operands.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    rng = np.random.RandomState(SEED + 12)
+    cases = list(k3_cases(rng))
+    vol3 = torch.from_numpy(rng.rand(2, 20, 30, 42).astype(np.float32)).cuda()
+    cases.append(("ragged_y", vol3, rng.uniform(3, 17, (40, 3)),
+                  rng.randn(40, 3), (5, 7, 6), False))
+    max_err, ms, pms, bound = 0.0, None, None, (None, None)
+    for name, vol, pos, heads, patch, timed in cases:
+        pos = torch.from_numpy(pos.astype(np.float32)).cuda()
+        F = flight_frame(torch.from_numpy(heads.astype(np.float32)).cuda())
+        vb = vol.to(torch.bfloat16).contiguous()
+        stats = extract_rot.staging_stats(vol.device, torch.bfloat16)
+        stats.zero_()
+        before = extract_rot.launches_bf16
+        got, ok = extract_rot.rotated_patches_bf16(vb, pos, F, patch)
+        ref, ok_ref = extract_rot.rotated_patches_bf16_reference(vb, pos, F,
+                                                                 patch)
+        unstaged, staged = stats.tolist()
+        if extract_rot.launches_bf16 != before + 1:
+            raise AssertionError(f"K3 bf16 {name}: the wrapper did not count "
+                                 "its launch")
+        if unstaged:
+            raise AssertionError(f"K3 bf16 {name}: {unstaged} items not "
+                                 "staged")
+        torch.testing.assert_close(got, ref, atol=K3_ATOL, rtol=0)
+        near = near_bound_agents(vol.shape, pos, F, patch)
+        differ = (ok != ok_ref).cpu().numpy()
+        if (differ & ~near).any():
+            raise AssertionError(f"K3 bf16 {name}: ok differs from the plain "
+                                 "version")
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        rec = dict(kernel="rotated_patches_bf16", case=name,
+                   vol=list(vol.shape), B=pos.shape[0], patch=list(patch),
+                   max_abs_err=err, staged_bytes=2 * staged,
+                   bit_exact=bool(torch.equal(got, ref)),
+                   ok_fraction=ok.float().mean().item(),
+                   ok_differ=int(differ.sum()),
+                   aligned_instance=vol.shape[3] % 8 == 0)
+        if timed:
+            pms, ms, f32_ms = graph_ms([
+                lambda: extract_rot.rotated_patches_bf16_reference(
+                    vb, pos, F, patch),
+                lambda: extract_rot.rotated_patches_bf16(vb, pos, F, patch),
+                lambda: extract_rot.rotated_patches(vol, pos, F, patch)])
+            got32, _ = extract_rot.rotated_patches(vol, pos, F, patch)
+            bound = patch_bound(pos.shape[0], vol.shape[0], patch,
+                                4.0 * (pos.numel() + F.numel()), 39,
+                                window_bytes=2)
+            stats32 = extract_rot.staging_stats(vol.device)
+            stats32.zero_()
+            extract_rot.rotated_patches(vol, pos, F, patch)
+            rec.update(ms=ms, plain_ms=pms, f32_kernel_ms=f32_ms,
+                       bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                       f32_staged_bytes=4 * stats32[1].item(),
+                       timing="cuda graph of 20 launches, CUDA events",
+                       f64_errors=k3_errors_vs_f64(vol, pos, F, patch, got32,
+                                                   got))
+        emit("kernel", **rec)
+    return (max_err, ms, pms) + bound + (None,)
 
 
 # ---------------------------------------------------------------- training
@@ -1770,8 +2417,9 @@ class CliProbe:
     ``torch.profiler`` window over the run's last ``window`` steps or more
     (whole calls), and the trainer itself (``Trainer.run``)."""
 
-    def __init__(self, n_steps, window):
+    def __init__(self, n_steps, window, data_seed=None):
         self.n_steps, self.window = n_steps, window
+        self.data_seed = data_seed
         self.steps, self.stamps = 0, []
         self.prof = self.trainer = self.window_at = None
         self.initial = None             # the parameters before Trainer.run
@@ -1819,6 +2467,8 @@ class CliProbe:
 
         def keep(tr):
             self.trainer = tr
+            if self.data_seed is not None:       # a reproducible stream
+                tr.data.rng = np.random.RandomState(self.data_seed)
             self.initial = {n: {k: v.detach().cpu().clone()
                                 for k, v in d.items()}
                             for n, d in tr.model.params.items()}
@@ -1871,6 +2521,12 @@ def getbatch_cost(trainer):
     data = trainer.data
     if hasattr(data, "device_batch"):
         return None, None
+    if hasattr(trainer, "n_scan_steps"):         # tracing batches
+        t0 = time.perf_counter()
+        for _ in range(GETBATCH_N):
+            data.get_tracing_batch(trainer.batch_size,
+                                   n_steps=trainer.n_scan_steps)
+        return (time.perf_counter() - t0) / GETBATCH_N * 1e3, None
     data.getbatch(trainer.batch_size, **trainer.data_batch_args)
     failed = data._n_failed
     t0 = time.perf_counter()
@@ -1880,13 +2536,19 @@ def getbatch_cost(trainer):
             (data._n_failed - failed) / GETBATCH_N)
 
 
-def train_cli_run(smi, name, n_steps, warm, tmp):
+def train_cli_run(smi, name, n_steps, warm, tmp, fall_window=None,
+                  data_seed=None):
     """One run of the train CLI's ``main`` on ``examples/<name>.py``: its
     numbers (one JSON line) and checks (the loss falls, every loss finite,
-    a ``.mdl`` written). Returns the trainer, the model file and the
-    parameters the run started from."""
+    a ``.mdl`` written). The loss falls when the smoothed loss at the last
+    step is below 0.98 x that at the first or, with ``fall_window``, when
+    the mean loss of the last ``fall_window`` steps is below 0.98 x that of
+    the first (for a noisy loss, whose smoothing starts at one draw).
+    ``data_seed``: the data source's ``RandomState`` seed, set when the run
+    starts. Returns the trainer, the model file and the parameters the run
+    started from."""
     from elektronn2_tpu_torch.scripts import train
-    probe = CliProbe(n_steps, TRAIN_CLI_WINDOW)
+    probe = CliProbe(n_steps, TRAIN_CLI_WINDOW, data_seed)
     out = os.path.join(tmp, name)
     args = [os.path.join("examples", f"{name}.py"), "--n-steps",
             str(n_steps), "--save-path", out]
@@ -1921,6 +2583,11 @@ def train_cli_run(smi, name, n_steps, warm, tmp):
                                   else None),
          **probe.window_profile(), peak_gib=peak,
          loss_smooth_first=float(tl[0, 3]), loss_smooth_last=float(tl[-1, 3]),
+         **({} if fall_window is None else dict(
+             fall_window=fall_window,
+             loss_mean_first=float(tl[:fall_window, 2].mean()),
+             loss_mean_last=float(tl[-fall_window:, 2].mean()))),
+         data_seed=data_seed,
          capture_seconds=None if loop is None else loop.capture_seconds,
          wall_seconds=wall, nvidia_smi=smi)
     if len(tl) != n_steps or tr.step != n_steps:
@@ -1928,10 +2595,11 @@ def train_cli_run(smi, name, n_steps, warm, tmp):
                              f"{tr.step} run, {n_steps} asked")
     if not np.isfinite(tl[:, 2]).all():
         raise AssertionError(f"train_cli {name}: non-finite loss")
-    if not tl[-1, 3] < tl[0, 3] * 0.98:
-        raise AssertionError(f"train_cli {name}: the smoothed loss "
-                             f"{tl[-1, 3]} did not fall below 0.98 x "
-                             f"{tl[0, 3]}")
+    first, last = ((tl[0, 3], tl[-1, 3]) if fall_window is None else
+                   (tl[:fall_window, 2].mean(), tl[-fall_window:, 2].mean()))
+    if not last < first * 0.98:
+        raise AssertionError(f"train_cli {name}: the loss {last} did not "
+                             f"fall below 0.98 x {first}")
     if not os.path.exists(mdl):
         raise AssertionError(f"train_cli {name}: no {mdl}")
     return tr, mdl, probe.initial
@@ -2385,15 +3053,23 @@ def main():
     k1_launches = phase_slice()
     k4_launches, k1_chain = phase_head_chain()
     k1_launches += k1_chain + phase_convdense()
-    k2_launches = phase_trace(rotate=False)
-    k3_launches = phase_trace(rotate=True)
+    raw = phase_trace(rotate=False)
+    raw_rot = phase_trace(rotate=True)
+    k2_launches, k3_launches = raw["launches"], raw_rot["launches"]
     phase_trace_kzip()
+    k3b = phase_kernel_k3_bf16()
+    k2_launches += phase_trace_pool(raw)
+    k3_pool, k3b_launches = phase_trace_rot_pool(raw_rot)
+    k3_launches += k3_pool
+    phase_tune_batch()
+    k2_launches += phase_registry_pool()
     phase_headk_probe()
     k5_launches = phase_k5_main()
     p1_launches, p1 = phase_probe_dot()
     p2_launches, p2 = phase_probe_ablate()
     k1_launches += phase_train(smi)
     k1_launches += phase_train_cli(smi)
+    k2_launches += phase_train_tracing(smi)
     k1_launches += phase_sweep(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
@@ -2404,6 +3080,9 @@ def main():
              "elektronn2_tpu/ops/pallas_extract.py:75", k2_launches, k2),
             ("rotated_patches", "extract_rot.cu",
              "elektronn2_tpu/ops/pallas_extract_rot.py:106", k3_launches, k3),
+            ("rotated_patches_bf16", "extract_rot.cu",
+             "elektronn2_tpu/ops/pallas_extract_rot.py:106", k3b_launches,
+             k3b),
             ("dilated_conv", "dilated_conv.cu",
              "elektronn2_tpu/ops/experimental/pallas_dilated_conv.py:69",
              k5_launches, k5),

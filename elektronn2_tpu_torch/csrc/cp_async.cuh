@@ -45,25 +45,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Shift, in floats, of a row start within its 16-byte group.
-__device__ __forceinline__ int row_shift(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+// Shift, in values of T (4 floats or 8 bf16 values to 16 bytes), of a row
+// start within its 16-byte group.
+template <typename T>
+__device__ __forceinline__ int row_shift(const T* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) / sizeof(T)) &
+                          (16 / sizeof(T) - 1));
 }
 
-// Start this thread's 16-byte cp.async copies of a box of rows into shared
-// memory. Row (z, x), for z < nz and x < nx, starts at src0 + z*zs + x*xs
-// in device memory; it is copied in `chunks` aligned 16-byte pieces from
-// the 16-byte group that holds its start, so it lands at dst + z*dz + x*dx
-// + row_shift(row start), and `chunks` = (ny + 6) / 4 covers ny floats from
-// any shift. dst, dz and dx must keep 16-byte alignment, src0's storage
-// must start 16-byte aligned, and bytes at or past src_end are zero-filled,
-// never read. The thread takes the pieces tid, tid + nthreads, ... in
-// (z, x, chunk) order, stepping its digits with one carry at most each: no
-// division per piece.
+// Start this thread's 16-byte cp.async copies of a box of rows of values of
+// T (float or a 2-byte type; kPer = 16 / sizeof(T) values to a piece) into
+// shared memory. Row (z, x), for z < nz and x < nx, starts at src0 + z*zs +
+// x*xs in device memory; it is copied in `chunks` aligned 16-byte pieces
+// from the 16-byte group that holds its start, so it lands at dst + z*dz +
+// x*dx + row_shift(row start), and `chunks` = (ny + 2*kPer - 2) / kPer
+// covers ny values from any shift. dst, dz and dx must keep 16-byte
+// alignment, src0's storage must start 16-byte aligned, and bytes at or past
+// src_end are zero-filled, never read. The thread takes the pieces tid,
+// tid + nthreads, ... in (z, x, chunk) order, stepping its digits with one
+// carry at most each: no division per piece.
+template <typename T>
 __device__ __forceinline__ void stage_rows16(
-    float* dst, int dz, int dx, const float* src0, int64_t zs, int64_t xs,
-    int nz, int nx, int chunks, const float* src_end, int tid,
-    int nthreads) {
+    T* dst, int dz, int dx, const T* src0, int64_t zs, int64_t xs, int nz,
+    int nx, int chunks, const T* src_end, int tid, int nthreads) {
+  constexpr int kPer = 16 / sizeof(T);
   const int per_z = nx * chunks;
   int z = tid / per_z;
   int r = tid - z * per_z;
@@ -74,12 +79,17 @@ __device__ __forceinline__ void stage_rows16(
   const int st_x = r / chunks;
   const int st_c = r - st_x * chunks;
   while (z < nz) {
-    const float* row = src0 + z * zs + x * xs;
-    const float* a = reinterpret_cast<const float*>(
-        reinterpret_cast<uintptr_t>(row) & ~static_cast<uintptr_t>(15)) + 4 * c;
-    const int64_t left = src_end - a;                // floats before the end
-    const int bytes = left >= 4 ? 16 : (left > 0 ? 4 * (int)left : 0);
-    cp_async16_zfill(dst + z * dz + x * dx + 4 * c, a, bytes);
+    const T* row = src0 + z * zs + x * xs;
+    const T* a = reinterpret_cast<const T*>(
+        reinterpret_cast<uintptr_t>(row) & ~static_cast<uintptr_t>(15)) +
+        kPer * c;
+    const int64_t left = src_end - a;                // values before the end
+    const int bytes = left >= kPer ? 16
+                      : (left > 0 ? static_cast<int>(sizeof(T)) * (int)left
+                                  : 0);
+    cp_async16_zfill(reinterpret_cast<float*>(dst + z * dz + x * dx +
+                                              kPer * c),
+                     reinterpret_cast<const float*>(a), bytes);
     c += st_c;
     x += st_x;
     z += st_z;

@@ -11,8 +11,8 @@ for pooled nets and per-fragment targets for MFP training.
 The batches are numpy and nothing here runs torch: the Trainer's forked
 ``BackgroundProc`` workers call ``getbatch`` after the parent has set up
 CUDA, and a forked child must not touch CUDA (or torch's CPU thread pool).
-``AgentData`` needs the tracing batch sampler, which is not ported yet
-(ROADMAP.md item 3c), and raises.
+``AgentData`` draws its tracing batches through
+``skeleton.sample_tracing_batch``.
 """
 
 from __future__ import annotations
@@ -386,13 +386,27 @@ class GridData(BatchCreatorImage):
 
 
 class AgentData(BatchCreatorImage):
-    """Skeleton-following tracing batches
-    (``elektronn2_tpu/data/cnndata.py::AgentData``). It samples along
-    ``SkeletonMFK`` skeletons through ``sample_tracing_batch``
-    (``elektronn2_tpu/data/skeleton.py``), neither of which the port has
-    yet."""
+    """Skeleton-following tracing batches.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AgentData needs SkeletonMFK and sample_tracing_batch, which are "
-            "not ported yet (ROADMAP.md item 3c)")
+    Reference: ``cnndata.py::AgentData``: serves (image patch sequence,
+    direction target) pairs for the recurrent tracing workload, sampled
+    along neurite skeletons (``skeleton.py::sample_tracing_batch``).
+    ``skeleton_cube``: one original-order cube index per skeleton (None
+    pairs by position or with the single cube). ``rotate_to_heading``: cut
+    views in the local flight frame and express targets in it (pair with
+    ``Tracer(rotate_to_heading=True)`` at rollout).
+    """
+
+    def __init__(self, *args, skeleton_files=None, skeleton_cube=None,
+                 rotate_to_heading=False, **kwargs):
+        super().__init__(*args, **kwargs)
+        from .skeleton import SkeletonMFK
+        self.skeletons = [SkeletonMFK.load(f) for f in (skeleton_files or [])]
+        self.skeleton_cube = (None if skeleton_cube is None
+                              else [int(c) for c in skeleton_cube])
+        self.rotate_to_heading = bool(rotate_to_heading)
+
+    def get_tracing_batch(self, batch_size=1, n_steps=8, source="train"):
+        from .skeleton import sample_tracing_batch
+        return sample_tracing_batch(self, batch_size, n_steps, self.rng,
+                                    source=source)

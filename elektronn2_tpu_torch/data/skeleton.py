@@ -1,12 +1,13 @@
-"""Traces of the tracing agent and their KNOSSOS export.
+"""Neurite skeletons, traces of the tracing agent and their KNOSSOS export.
 
-Jax-free copy of ``Trace``, ``_parse_nml``, ``_build_nml``,
-``_write_nml_file`` and ``trace_to_kzip`` in
-``elektronn2_tpu/data/skeleton.py`` (reference:
-``elektronn2/data/skeleton.py``), plus :func:`read_nml_file`, the reading
-half of ``SkeletonMFK.load`` for NML and k.zip files. ``SkeletonMFK`` waits
-for the tracing trainer (ROADMAP.md §1 item 3c), the skeleton losses for
-the nodes left (item 2).
+Jax-free copy of ``Trace``, ``SkeletonMFK``, ``_parse_nml``, ``_build_nml``,
+``_write_nml_file``, ``trace_to_kzip``, ``sample_tracing_batch`` and
+``skeleton_distance_field`` in ``elektronn2_tpu/data/skeleton.py``
+(reference: ``elektronn2/data/skeleton.py``), plus :func:`read_nml_file`,
+the reading half of ``SkeletonMFK.load`` for NML and k.zip files. The
+skeleton loss helpers (``skel_loss_callback``, ``register_skeleton``,
+``clear_skeleton_registry``) belong to the ``SkelLoss`` nodes, which are not
+ported (ROADMAP.md §1 item 2): they raise.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
-from ..utils.basic import AccumulationArray
+from ..utils.basic import AccumulationArray, DynamicKDT
 
 
 class Trace:
@@ -173,3 +174,284 @@ def trace_to_kzip(traces, fname, scale=(1.0, 1.0, 1.0),
         things.append((coords, edges, None, comment))
     return _write_nml_file(fname, things, scale=scale,
                            experiment=experiment)
+
+
+class SkeletonMFK:
+    """A neurite skeleton graph with tracing geometry.
+
+    Reference: ``skeleton.py::SkeletonMFK``. Holds node positions (z, x, y),
+    edges and radii; provides KD-tree queries, flight-path sampling and
+    next-step direction targets.
+    """
+
+    def __init__(self, positions, edges, radii=None):
+        self.positions = np.asarray(positions, np.float64).reshape(-1, 3)
+        self.edges = np.asarray(edges, np.int64).reshape(-1, 2)
+        self.radii = (np.asarray(radii, np.float64)
+                      if radii is not None
+                      else np.ones(len(self.positions)))
+        self._adj = [[] for _ in range(len(self.positions))]
+        for a, b in self.edges:
+            self._adj[a].append(b)
+            self._adj[b].append(a)
+        self._kdt = DynamicKDT(self.positions)
+
+    # ------------------------------------------------------------- loading
+    @classmethod
+    def load(cls, fname):
+        """Load from .nml, .k.zip (``annotation.xml`` or ``.nml`` inside) or
+        .npz (positions/edges arrays)."""
+        fname = os.fspath(fname)
+        if fname.endswith(".npz"):
+            z = np.load(fname)
+            return cls(z["positions"], z["edges"],
+                       z["radii"] if "radii" in z.files else None)
+        nodes, edges, radii = read_nml_file(fname)
+        ids = sorted(nodes)
+        remap = {nid: i for i, nid in enumerate(ids)}
+        pos = np.array([nodes[i] for i in ids])
+        e = np.array([(remap[a], remap[b]) for a, b in edges
+                      if a in remap and b in remap])
+        r = np.array([radii[i] for i in ids])
+        return cls(pos, e, r)
+
+    def save(self, fname, scale=(1.0, 1.0, 1.0)):
+        """Save as .npz (arrays), .nml (KNOSSOS XML), or .k.zip/.zip
+        (zipped NML), picked from the extension. Returns the path written
+        (np.savez appends .npz when it is missing)."""
+        fname = os.fspath(fname)
+        if fname.endswith((".nml", ".k.zip", ".zip")):
+            return _write_nml_file(
+                fname, [(self.positions, self.edges, self.radii, None)],
+                scale=scale)
+        np.savez(fname, positions=self.positions, edges=self.edges,
+                 radii=self.radii)
+        return fname if fname.endswith(".npz") else fname + ".npz"
+
+    def to_kzip(self, fname, scale=(1.0, 1.0, 1.0)):
+        """Explicit KNOSSOS export (k.zip), regardless of extension."""
+        return _write_nml_file(
+            fname, [(self.positions, self.edges, self.radii, None)],
+            scale=scale, force_zip=True)
+
+    # ------------------------------------------------------------- queries
+    def get_closest_node(self, position):
+        dist, pts, idx = self._kdt.get_knn(np.asarray(position,
+                                                      np.float64), k=1)
+        return int(idx), float(dist)
+
+    def distance_to_skeleton(self, positions):
+        """Distance of arbitrary points to the nearest skeleton node."""
+        d, _, _ = self._kdt.get_knn(np.asarray(positions, np.float64), k=1)
+        return np.atleast_1d(d)
+
+    # ------------------------------------------------------ flight sampling
+    def sample_node(self, rng):
+        return int(rng.randint(len(self.positions)))
+
+    def walk(self, start, n_steps, rng, avoid_backtrack=True):
+        """Random walk along edges: list of node indices (may repeat at
+        dead ends)."""
+        path = [start]
+        prev = -1
+        cur = start
+        for _ in range(n_steps):
+            nbrs = self._adj[cur]
+            if not nbrs:
+                path.append(cur)
+                continue
+            cand = [n for n in nbrs if n != prev] or nbrs
+            nxt = cand[rng.randint(len(cand))]
+            path.append(nxt)
+            prev, cur = cur, nxt
+        return path
+
+    def direction_target(self, position, lookahead=2, heading=None):
+        """Unit direction from ``position`` toward the skeleton, then along
+        it: the tracing training target. ``heading`` (the agent's flight
+        direction) picks the continuation aligned with it; without one the
+        walk takes the neighbour farthest from ``position``. The walk never
+        steps back to the node it came from."""
+        position = np.asarray(position, np.float64)
+        idx, dist = self.get_closest_node(position)
+        target_node = idx
+        prev = None
+        for _ in range(lookahead):
+            nbrs = [n for n in self._adj[target_node] if n != prev]
+            if not nbrs:
+                break
+            if heading is not None:
+                h = np.asarray(heading, np.float64)
+                nxt = max(nbrs, key=lambda n: float(
+                    (self.positions[n] - position) @ h))
+            else:
+                nxt = max(nbrs, key=lambda n: np.linalg.norm(
+                    self.positions[n] - position))
+            prev, target_node = target_node, nxt
+        vec = self.positions[target_node] - position
+        n = np.linalg.norm(vec)
+        return vec / n if n > 0 else np.array([0.0, 0.0, 1.0])
+
+    def local_frame(self, node_idx):
+        """Orthonormal frame at a node: (tangent, normal1, normal2)."""
+        from .transformations import flight_frame
+        nbrs = self._adj[node_idx]
+        if nbrs:
+            t = self.positions[nbrs[0]] - self.positions[node_idx]
+        else:
+            t = np.array([0.0, 0.0, 1.0])
+        return flight_frame(t)
+
+    def __repr__(self):
+        return (f"<SkeletonMFK {len(self.positions)} nodes, "
+                f"{len(self.edges)} edges>")
+
+
+def _skel_loss_not_ported(name):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}: the skeleton losses (SkelLoss, SkelLossField) are not "
+            "ported (ROADMAP.md §1 item 2)")
+    fn.__name__ = name
+    fn.__doc__ = (f"The JAX package's ``skeleton.py::{name}``, a helper of "
+                  "the skeleton losses: not ported (ROADMAP.md §1 item 2).")
+    return fn
+
+
+skel_loss_callback = _skel_loss_not_ported("skel_loss_callback")
+register_skeleton = _skel_loss_not_ported("register_skeleton")
+clear_skeleton_registry = _skel_loss_not_ported("clear_skeleton_registry")
+
+
+def sample_tracing_batch(agent_data, batch_size, n_steps, rng,
+                         source="train"):
+    """(patch sequences, direction targets) for ``TracingTrainer``:
+    ``(n_steps, b, f, *patch)`` float32 views and ``(n_steps, b, 3)``
+    targets, for ``ScanN``.
+
+    For each sample: pick a skeleton and walk it; at each step cut the image
+    patch at the current position (``warp_slice``) and compute the direction
+    target along the walk's next hop. With ``agent_data.rotate_to_heading``
+    the view is cut in the flight frame of the previous hop
+    (``get_tracing_slice``) and the target is expressed in that frame.
+    ``source='valid'`` cuts from the held-out cubes. Skeletons pair with
+    cubes through ``agent_data.skeleton_cube`` (original-order cube
+    indices), by position when the counts match, or trivially with one
+    cube; anything else raises. Reference: ``skeleton.py::
+    sample_tracing_batch``, whose draws from ``rng`` this repeats exactly.
+    """
+    from .transformations import (WarpingOOBError, flight_frame,
+                                  get_tracing_slice, warp_slice)
+    rotate = bool(getattr(agent_data, "rotate_to_heading", False))
+    if not agent_data.skeletons:
+        raise ValueError("AgentData has no skeletons loaded")
+    if source == "valid":
+        vols = agent_data.valid_d
+        if not vols:
+            raise ValueError("no validation cubes configured")
+    else:
+        vols = agent_data.train_d
+    ps = agent_data.patch_size
+    seq_d = np.zeros((n_steps, batch_size, agent_data.n_ch, *ps), np.float32)
+    seq_t = np.zeros((n_steps, batch_size, 3), np.float32)
+    cubes = getattr(agent_data, "skeleton_cube", None)
+    n_sk = len(agent_data.skeletons)
+    eligible = None
+    orig2local = None
+    if cubes is not None:
+        # skeleton_cube holds original-order indices: map them into this
+        # source's split and draw only skeletons of its cubes
+        vset = sorted(set(getattr(agent_data, "valid_cubes", []) or []))
+        if source == "valid":
+            orig2local = {orig: k for k, orig in enumerate(vset)}
+        else:
+            orig2local = {}
+            k = 0
+            n_orig = len(vols) + len(vset)
+            for orig in range(n_orig):
+                if orig not in vset:
+                    orig2local[orig] = k
+                    k += 1
+        eligible = [j for j in range(n_sk)
+                    if int(cubes[j]) in orig2local]
+        if not eligible:
+            raise ValueError(
+                f"no skeletons annotate a {source} cube "
+                f"(skeleton_cube={list(map(int, cubes))}, "
+                f"valid_cubes={vset})")
+    for b in range(batch_size):
+        if eligible is not None:
+            j = eligible[rng.randint(len(eligible))]
+            sk = agent_data.skeletons[j]
+            ci = orig2local[int(cubes[j])]
+        else:
+            j = rng.randint(n_sk)
+            sk = agent_data.skeletons[j]
+            if len(vols) == 1:
+                ci = 0
+            elif len(vols) == n_sk:
+                ci = j
+            else:
+                raise ValueError(
+                    f"cannot pair {n_sk} skeletons with {len(vols)} "
+                    f"{source} cubes — pass AgentData(skeleton_cube=[...])"
+                    f" with one ORIGINAL-order cube index per skeleton")
+        vol = vols[ci]
+        path = sk.walk(sk.sample_node(rng), n_steps, rng)
+        prev_head = None
+        for t in range(n_steps):
+            pos = sk.positions[path[t]]
+            pos = np.clip(pos, np.asarray(ps) / 2 + 1,
+                          np.asarray(vol.shape[1:]) - np.asarray(ps) / 2 - 1)
+            # the target follows the flight direction (the walk's next hop)
+            nxt = sk.positions[path[min(t + 1, len(path) - 1)]]
+            head = nxt - sk.positions[path[t]]
+            if np.linalg.norm(head) == 0:
+                head = None
+            tgt = sk.direction_target(pos, heading=head)
+            if rotate:
+                # the view looks along the previous hop (where the agent
+                # came from); the target lives in that frame
+                view_dir = (prev_head if prev_head is not None
+                            else (head if head is not None
+                                  else (0.0, 0.0, 1.0)))
+                tgt = flight_frame(view_dir) @ tgt
+                try:
+                    seq_d[t, b] = get_tracing_slice(vol, ps, position=pos,
+                                                    direction=view_dir)
+                except WarpingOOBError:
+                    pass  # keep zeros for degenerate geometry
+            else:
+                try:
+                    seq_d[t, b] = warp_slice(vol, ps, position=pos)
+                except WarpingOOBError:
+                    pass  # keep zeros for degenerate geometry
+            seq_t[t, b] = tgt
+            if head is not None:
+                prev_head = head
+    return seq_d, seq_t
+
+
+def skeleton_distance_field(skeletons, shape, oversample=2.0):
+    """(n_skel, Z, X, Y) float32 stack of squared distances to each
+    skeleton's rasterised curve (edges sampled ``oversample`` points per
+    voxel of length), by a Euclidean distance transform on the host.
+    Reference: ``skeleton.py::skeleton_distance_field``."""
+    from scipy import ndimage
+    shape = tuple(int(s) for s in shape)
+    fields = []
+    for sk in skeletons:
+        mask = np.zeros(shape, bool)
+        pts_all = [sk.positions]
+        for a, b in sk.edges:
+            pa, pb = sk.positions[a], sk.positions[b]
+            n = max(2, int(np.ceil(np.linalg.norm(pb - pa) * oversample)))
+            t = np.linspace(0.0, 1.0, n)[:, None]
+            pts_all.append(pa[None] + t * (pb - pa)[None])
+        pts = np.concatenate(pts_all, axis=0)
+        ijk = np.clip(np.round(pts).astype(int), 0,
+                      np.asarray(shape) - 1)
+        mask[tuple(ijk.T)] = True
+        d = ndimage.distance_transform_edt(~mask)
+        fields.append((d.astype(np.float32)) ** 2)
+    return np.stack(fields)

@@ -337,9 +337,9 @@ def dilated_dense_forward(model, vol, batch=False):
 _CONV_DENSE_OK = {"Input", "Conv", "UpConv", "Crop", "Pool", "Concat",
                   "FaithlessMerge", "Softmax"}
 _CONV_DENSE_NOT_PORTED = {
-    "BatchNorm": "§1 item 6, training path", "Dropout": "§1 item 6",
-    "MultMerge": "§1 item 8b", "ApplyFunc": "§1 item 8b",
-    "LRN": "§1 item 8b", "FromTensor": "§1 item 8b"}
+    "BatchNorm": "§1 item 2, training path", "Dropout": "§1 item 2",
+    "MultMerge": "§1 item 7", "ApplyFunc": "§1 item 7",
+    "LRN": "§1 item 7", "FromTensor": "§1 item 7"}
 
 
 def _conv_dense_rejection(pred):

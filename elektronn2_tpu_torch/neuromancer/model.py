@@ -173,8 +173,8 @@ class Model:
         if bad:
             raise NotImplementedError(
                 f"set_dilated_impl: {', '.join(bad)} not ported to "
-                "elektronn2_tpu_torch (XLA/TPU lowerings; ROADMAP.md §1, "
-                "'Left out of the dense slice')")
+                "elektronn2_tpu_torch (XLA/TPU lowerings; ROADMAP.md §1 "
+                "item 7)")
         self._dilated_impl = impl
         self._dilated_ptail = bool(pallas_tail)
         return self
@@ -208,8 +208,8 @@ class Model:
         if isinstance(ptail, dict):
             raise NotImplementedError(
                 "set_convdense_impl: ptail knobs not ported to "
-                "elektronn2_tpu_torch (TPU kernel variants; ROADMAP.md §1, "
-                "'Left out of the dense slice')")
+                "elektronn2_tpu_torch (TPU kernel variants; ROADMAP.md §1 "
+                "item 7)")
         self._convdense_upconv = upconv
         self._convdense_zfold = bool(zfold)
         self._convdense_ptail = bool(ptail)

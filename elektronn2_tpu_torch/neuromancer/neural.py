@@ -15,7 +15,7 @@ the flags of the ``TraceCtx``; every other evaluation leaves them off.
 The dense and recurrent matmuls are ``torch.matmul`` (cuBLAS on the card),
 as the JAX package leaves them to XLA. Not in this slice, raising
 ``NotImplementedError``: batch normalisation, dropout and prelu (ROADMAP.md
-§1 item 2, which was item 6).
+§1 item 2).
 """
 
 from __future__ import annotations
@@ -75,11 +75,11 @@ class Perceptron(Node):
         if batch_normalisation or dropout_rate:
             raise NotImplementedError(
                 "Perceptron: batch_normalisation and dropout are not ported "
-                "yet (ROADMAP.md §1 item 6, training path)")
+                "yet (ROADMAP.md §1 item 2, training path)")
         if activation_func == "prelu":
             raise NotImplementedError(
                 "Perceptron: activation 'prelu' is not ported yet "
-                "(ROADMAP.md §1 item 6)")
+                "(ROADMAP.md §1 item 2)")
         super().__init__(parent, name, print_repr)
         self.n_f = int(n_f)
         self.activation_func = validate_activation(activation_func)
@@ -145,11 +145,11 @@ class Conv(Node):
         if batch_normalisation or dropout_rate:
             raise NotImplementedError(
                 "Conv: batch_normalisation and dropout are not ported yet "
-                "(ROADMAP.md §1 item 6, training path)")
+                "(ROADMAP.md §1 item 2, training path)")
         if activation_func == "prelu" or _maxout_factor(activation_func) > 1:
             raise NotImplementedError(
                 f"Conv: activation {activation_func!r} is not ported yet "
-                "(ROADMAP.md §1 item 6)")
+                "(ROADMAP.md §1 item 2)")
         super().__init__(parent, name, print_repr)
         ps = parent.shape
         nsp = len(ps.spatial_axes)

@@ -102,13 +102,15 @@ def _check_window(device, patch):
     _windows.add((device, patch))
 
 
-def check_tensor(t, name, ndim, like=None, what="patch extraction"):
-    """Raise unless ``t`` is a contiguous float32 tensor of rank ``ndim``
-    (on ``like``'s device, when given)."""
+def check_tensor(t, name, ndim, like=None, what="patch extraction",
+                 dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (float32) and
+    rank ``ndim`` (on ``like``'s device, when given)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: {name} must be a torch.Tensor")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: {name} must be {str(dtype)[6:]}, got "
+                        f"{t.dtype}")
     if like is not None and t.device != like.device:
         raise ValueError(f"{what}: {name} is on {t.device}, vol on "
                          f"{like.device}")

@@ -1,9 +1,10 @@
 """K3: frame-aligned (rotated) trilinear patch extraction, a CUDA kernel for
-Hopper.
+Hopper, in a float32 and a bf16 mode.
 
 Port of the Pallas TPU kernel ``elektronn2_tpu/ops/pallas_extract_rot.py::
-rotated_patches_pallas`` in its float32 mode, the patch cut of every step of
-the rotated tracing rollout (``DeviceTracer(rotate_to_heading=True)``).
+rotated_patches_pallas`` in both its modes, the patch cut of every step of
+the rotated tracing rollout (``DeviceTracer(rotate_to_heading=True)``;
+``rot_compute_dtype="bfloat16"`` takes the bf16 mode).
 Semantics are those of the JAX package's XLA oracle
 ``DeviceTracer._extract_rot_batch``: the sample of output voxel i lies at
 ``pos + F^T (i - (p-1)/2)``, where F holds the agent's flight-frame rows;
@@ -19,9 +20,19 @@ counterpart; its ``precision="high"`` (bf16x3) rung is an MXU workaround and
 maps to float32 here. :func:`rotated_ok` is the TPU kernel's 8-box-corner
 form of the ``ok`` test, kept in plain PyTorch.
 
-Dispatch: a CPU tensor runs :func:`rotated_patches_reference`, the plain
-PyTorch version; a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches.
+The bf16 mode (:func:`rotated_patches_bf16`) is the TPU kernel's
+``compute_dtype="bfloat16"`` arithmetic (``pallas_extract_rot.py:284-301``,
+``:370-377``): of its hat weights only the two neighbouring corners of each
+axis are non-zero, so a sample is ``sum_y wy[y] * sum_{z,x} bf16(wz*wx) *
+v[z,x,y]`` with bf16 volume values, products exact in float32 and float32
+sums. It reads a bf16 copy of the volume (the caller makes it once) and
+stages half-width values; its coordinates, weights and ``ok`` are the
+float32 mode's. :func:`rotated_patches_bf16_reference` is its plain
+version, bit for bit the kernel's arithmetic.
+
+Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
+launches the kernel or raises. ``launches`` and ``launches_bf16`` count
+kernel launches of each mode.
 """
 
 from __future__ import annotations
@@ -32,17 +43,18 @@ import math
 import torch
 
 from ..utils.cuda_build import load_cuda_library
-from .extract import check_patch, check_tensor, row_floats, shared_optin
+from .extract import check_patch, check_tensor, shared_optin
 
-#: kernel launches made by :func:`rotated_patches` in this process (a
-#: replayed CUDA graph adds the launches it captured, see
-#: ``data/tracing_utils.py``)
+#: kernel launches made by :func:`rotated_patches` (float32 mode) and by
+#: :func:`rotated_patches_bf16` in this process (a replayed CUDA graph adds
+#: the launches it captured, see ``data/tracing_utils.py``)
 launches = 0
+launches_bf16 = 0
 
 _fns = None
 _WHAT = "rotated patch extraction"
-_caps = {}           # (device, patch, volume) -> window floats
-_stats = {}          # device -> staging_stats(device)
+_caps = {}           # (device, patch, volume, dtype) -> window values
+_stats = {}          # (device, dtype) -> staging_stats(device, dtype)
 
 
 def build():
@@ -54,8 +66,10 @@ def build():
         c = lib.cdll
         P, I = ctypes.c_void_p, ctypes.c_int
         c.e2t_rotated_patches_init.argtypes = [P]
-        c.e2t_rotated_patches_f32.argtypes = [P] * 6 + [I] * 9 + [P]
-        for fn in (c.e2t_rotated_patches_init, c.e2t_rotated_patches_f32):
+        for fn in (c.e2t_rotated_patches_f32, c.e2t_rotated_patches_bf16):
+            fn.argtypes = [P] * 6 + [I] * 9 + [P]
+        for fn in (c.e2t_rotated_patches_init, c.e2t_rotated_patches_f32,
+                   c.e2t_rotated_patches_bf16):
             fn.restype = I
         _fns = c
     return lib
@@ -69,40 +83,52 @@ def box_edge(patch):
     return math.floor(math.sqrt(sum((p - 1) ** 2 for p in patch))) + 3
 
 
-def staging_stats(device):
-    """K3's running counts on ``device``, an int64 tensor of two, added to
-    by every launch: the items whose box outgrew the window, so their
-    corners were read from device memory (right, but slow; none for an
-    orthonormal frame), and the floats staged into shared memory.
-    ``zero_()`` it to start a count. Made on the first call for the device:
-    keep that outside a CUDA graph capture (the first launch makes it)."""
-    device = torch.device(device)
-    got = _stats.get(device)
+def row_values(n, elem_bytes=4):
+    """Values a staged row of ``n`` voxels takes in shared memory: the
+    16-byte pieces (4 floats or 8 bf16 values) that cover n values from any
+    offset within 16 bytes (``stage_rows16`` in ``csrc/cp_async.cuh``)."""
+    per = 16 // elem_bytes
+    return per * ((n + 2 * per - 2) // per)
+
+
+def staging_stats(device, dtype=torch.float32):
+    """K3's running counts on ``device`` for the mode of ``dtype`` (float32
+    or bfloat16), an int64 tensor of two, added to by every launch of that
+    mode: the items whose box outgrew the window, so their corners were read
+    from device memory (right, but slow; none for an orthonormal frame), and
+    the values staged into shared memory (4 bytes each in float32, 2 in
+    bf16). ``zero_()`` it to start a count. Made on the first call for the
+    pair: keep that outside a CUDA graph capture (the first launch makes
+    it)."""
+    key = (torch.device(device), dtype)
+    got = _stats.get(key)
     if got is None:
-        got = _stats[device] = torch.zeros(2, dtype=torch.int64,
-                                           device=device)
+        got = _stats[key] = torch.zeros(2, dtype=torch.int64, device=key[0])
     return got
 
 
-def window_floats(device, patch, vol_shape):
-    """Floats of the kernel's window for ``patch`` in a volume of
-    ``vol_shape`` (f, Z, X, Y) on ``device``: the largest box of an
-    orthonormal frame (``box_edge``, rows of ``row_floats``), or what the
-    opt-in allows. Queries the card on the first call for its key: keep
-    that call outside a CUDA graph capture."""
-    key = (device, patch, tuple(vol_shape[1:]))
+def window_values(device, patch, vol_shape, dtype=torch.float32):
+    """Values of the kernel's window for ``patch`` in a volume of
+    ``vol_shape`` (f, Z, X, Y) on ``device``, in the mode of ``dtype``: the
+    largest box of an orthonormal frame (``box_edge``, rows of
+    ``row_values``), or what the opt-in allows. Queries the card on the
+    first call for its key: keep that call outside a CUDA graph capture."""
+    key = (device, patch, tuple(vol_shape[1:]), dtype)
     got = _caps.get(key)
     if got is None:
+        elem = 2 if dtype == torch.bfloat16 else 4
+        per = 16 // elem
         optin = shared_optin(_fns.e2t_rotated_patches_init, device)
         ez, ex, ey = (min(box_edge(patch), d) for d in vol_shape[1:])
-        staging_stats(device)
-        got = _caps[key] = min(ez * ex * row_floats(ey), optin // 4) // 4 * 4
+        staging_stats(device, dtype)
+        got = _caps[key] = min(ez * ex * row_values(ey, elem),
+                               optin // elem) // per * per
     return got
 
 
-def _check_args(vol, pos, frames, patch):
+def _check_args(vol, pos, frames, patch, dtype=torch.float32):
     patch = check_patch(patch, _WHAT)
-    check_tensor(vol, "vol", 4, what=_WHAT)
+    check_tensor(vol, "vol", 4, what=_WHAT, dtype=dtype)
     check_tensor(pos, "pos", 2, like=vol, what=_WHAT)
     check_tensor(frames, "frames", 3, like=vol, what=_WHAT)
     B = pos.shape[0]
@@ -127,9 +153,37 @@ def rotated_patches(vol, pos, frames, patch):
     patch = _check_args(vol, pos, frames, patch)
     if vol.device.type == "cpu":
         return rotated_patches_reference(vol, pos, frames, patch)
+    out, ok = _launch(_fns_entry("e2t_rotated_patches_f32"), vol, pos, frames,
+                      patch, torch.float32)
+    launches += 1
+    return out, ok
+
+
+def rotated_patches_bf16(vol, pos, frames, patch):
+    """:func:`rotated_patches` in the bf16 mode: ``vol`` is the (f, Z, X,
+    Y) bfloat16 copy of the volume, contiguous; pos and frames float32 as
+    there. Returns float32 patches (bf16 operands, float32 sums) and the
+    float32 mode's ``ok``."""
+    global launches_bf16
+    patch = _check_args(vol, pos, frames, patch, dtype=torch.bfloat16)
+    if vol.device.type == "cpu":
+        return rotated_patches_bf16_reference(vol, pos, frames, patch)
+    out, ok = _launch(_fns_entry("e2t_rotated_patches_bf16"), vol, pos,
+                      frames, patch, torch.bfloat16)
+    launches_bf16 += 1
+    return out, ok
+
+
+def _fns_entry(name):
+    build()
+    return getattr(_fns, name)
+
+
+def _launch(fn, vol, pos, frames, patch, dtype):
+    """Launch one mode's entry point ``fn`` on the current stream; returns
+    ``(out, ok)``. A failed launch raises."""
     if vol.device.type != "cuda":
         raise ValueError(f"{_WHAT}: no kernel for device {vol.device}")
-    build()
     B = pos.shape[0]
     f, Z, X, Y = vol.shape
     out = torch.empty((B, f, *patch), dtype=torch.float32, device=vol.device)
@@ -140,17 +194,16 @@ def rotated_patches(vol, pos, frames, patch):
         # the kernel copies 16-byte pieces from 16-byte aligned addresses
         # of the volume: a view that starts mid-piece is copied first
         vol = vol.clone()
-    cap = window_floats(vol.device, patch, vol.shape)
+    cap = window_values(vol.device, patch, vol.shape, dtype)
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fns.e2t_rotated_patches_f32(
-            vol.data_ptr(), pos.data_ptr(), frames.data_ptr(), out.data_ptr(),
-            ok.data_ptr(), _stats[vol.device].data_ptr(), B, f, Z, X, Y,
-            *patch, cap, stream)
+        err = fn(vol.data_ptr(), pos.data_ptr(), frames.data_ptr(),
+                 out.data_ptr(), ok.data_ptr(),
+                 _stats[(vol.device, dtype)].data_ptr(), B, f, Z, X, Y,
+                 *patch, cap, stream)
     if err != 0:
         raise RuntimeError(f"rotated patch kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
     return out, ok
 
 
@@ -171,12 +224,11 @@ def rotated_coords(pos, frames, patch):
     return pos[:, :, None] + t
 
 
-def rotated_patches_reference(vol, pos, frames, patch):
-    """The plain PyTorch version of :func:`rotated_patches`: the 8-corner
-    sum as gathers from the flattened volume, vectorised over the agents.
-    Constants stay Python scalars, so nothing is copied from the host."""
+def _corners(vol, pos, frames, patch):
+    """The plain versions' shared part: ``ok``, and per axis the clipped
+    corner index and the fraction (taken before the clip) of every
+    sample."""
     f, Z, X, Y = vol.shape
-    B = pos.shape[0]
     coords = rotated_coords(pos, frames, patch)
     ok = None
     c0, fr = [], []
@@ -187,8 +239,23 @@ def rotated_patches_reference(vol, pos, frames, patch):
         fl = torch.floor(c)
         fr.append(c - fl)
         c0.append(torch.clamp(fl, 0.0, float(dim - 2)).long())
+    return ok, c0, fr
+
+
+def _gather(flat_vol, c0, X, Y, dz, dx, dy):
+    """(f, B, P) volume values at corner (dz, dx, dy) of every sample."""
+    return flat_vol[:, ((c0[0] + dz) * X + (c0[1] + dx)) * Y + (c0[2] + dy)]
+
+
+def rotated_patches_reference(vol, pos, frames, patch):
+    """The plain PyTorch version of :func:`rotated_patches`: the 8-corner
+    sum as gathers from the flattened volume, vectorised over the agents.
+    Constants stay Python scalars, so nothing is copied from the host."""
+    f, Z, X, Y = vol.shape
+    B = pos.shape[0]
+    ok, c0, fr = _corners(vol, pos, frames, patch)
     flat_vol = vol.reshape(f, -1)
-    acc = torch.zeros((f, B, coords.shape[2]), dtype=vol.dtype,
+    acc = torch.zeros((f, B, fr[0].shape[1]), dtype=vol.dtype,
                       device=vol.device)
     for dz in (0, 1):
         wz = fr[0] if dz else 1.0 - fr[0]
@@ -196,9 +263,34 @@ def rotated_patches_reference(vol, pos, frames, patch):
             wx = fr[1] if dx else 1.0 - fr[1]
             for dy in (0, 1):
                 wy = fr[2] if dy else 1.0 - fr[2]
-                idx = ((c0[0] + dz) * X + (c0[1] + dx)) * Y + (c0[2] + dy)
-                acc = acc + (wz * wx * wy)[None] * flat_vol[:, idx]
+                acc = acc + (wz * wx * wy)[None] * _gather(flat_vol, c0, X, Y,
+                                                           dz, dx, dy)
     return acc.transpose(0, 1).reshape(B, f, *patch), ok
+
+
+def rotated_patches_bf16_reference(vol, pos, frames, patch):
+    """The plain PyTorch version of :func:`rotated_patches_bf16`, in the
+    kernel's order: ``t[dy] = sum over (dz, dx) of bf16(wz*wx) * v`` from 0,
+    then ``out = wy0*t[0] + wy1*t[1]`` from 0, every sum in float32; ``vol``
+    is bfloat16, rounding by ``.to(torch.bfloat16).float()`` (to nearest
+    even, as the kernel's ``__float2bfloat16_rn``)."""
+    f, Z, X, Y = vol.shape
+    B = pos.shape[0]
+    ok, c0, fr = _corners(vol, pos, frames, patch)
+    flat_vol = vol.reshape(f, -1)
+    out = torch.zeros((f, B, fr[0].shape[1]), dtype=torch.float32,
+                      device=vol.device)
+    for dy in (0, 1):
+        t = torch.zeros_like(out)
+        for dz in (0, 1):
+            wz = fr[0] if dz else 1.0 - fr[0]
+            for dx in (0, 1):
+                wx = fr[1] if dx else 1.0 - fr[1]
+                w = (wz * wx).to(torch.bfloat16).float()
+                t = t + w[None] * _gather(flat_vol, c0, X, Y, dz, dx,
+                                          dy).float()
+        out = out + (fr[2] if dy else 1.0 - fr[2])[None] * t
+    return out.transpose(0, 1).reshape(B, f, *patch), ok
 
 
 def rotated_ok(vol_shape, pos, frames, patch):

@@ -44,6 +44,14 @@ slots used in turn; refilling a slot first waits on the event of that
 slot's last copy, so the host never overwrites bytes still being copied
 (``PinnedStage``, which also stages the Trainer's per-step batches).
 
+``HostFedFusedLoop(carry_map=...)`` is the fused truncated BPTT of the
+tracing trainer: the recurrent state of a ``ScanN`` rides the chunk. Each
+step feeds it under the state node's name and the next step takes the
+scan's last time slice (a detached value, so gradients stop at every step's
+boundary). The carry is a static buffer (``rnn_carry``): the chunk's first
+step reads it and its last step writes it, inside the graph, so it crosses
+replays.
+
 A failed capture or replay raises; there is no eager fallback on the card.
 A model on the CPU runs the chunk eagerly (there are no graphs there).
 """
@@ -191,6 +199,11 @@ class _ChunkLoop:
     def _owned(self):
         return []
 
+    def _restored(self):
+        """What a capture's eager warm-up step changes and puts back: what a
+        chunk writes."""
+        return self._written()
+
     def graph_key(self):
         """The key under which the captured chunk is kept: the loop's own
         head (B, K, switches), cuDNN's deterministic and benchmark flags,
@@ -246,7 +259,7 @@ class _ChunkLoop:
         (parameters, slots, step counter, the generator's state) are put
         back before the capture, which runs nothing."""
         dev = self.model.device
-        written = self._written()
+        written = self._restored()
         saved = [t.clone() for t in written]
         gen_state = self.generator.get_state()
         side = torch.cuda.Stream(dev)
@@ -322,25 +335,37 @@ class FusedTrainLoop(_ChunkLoop):
             return self._result()
 
 
-def make_fused_hostfed_trainstep(model, n_inner):
-    """Build ``chunk(feeds, gen, hyper, out, steps=n_inner)``: ``steps``
-    steps of forward -> backward -> update of ``model`` in place, step k fed
-    ``{name: feeds[name][k]}`` (each feed carries a leading (K,) axis of
-    stacked host batches), losses written into ``out[0, :steps]`` and errors
-    (0 without an error node) into ``out[1, :steps]``. No host sync, so a
-    CUDA graph can capture it. Port of the JAX package's
-    ``make_fused_hostfed_trainstep`` without its ``carry_specs``."""
+def make_fused_hostfed_trainstep(model, n_inner, carry_specs=None):
+    """Build ``chunk(feeds, gen, hyper, out, steps=n_inner, carry=None)``:
+    ``steps`` steps of forward -> backward -> update of ``model`` in place,
+    step k fed ``{name: feeds[name][k]}`` (each feed carries a leading (K,)
+    axis of stacked host batches), losses written into ``out[0, :steps]``
+    and errors (0 without an error node) into ``out[1, :steps]``. No host
+    sync, so a CUDA graph can capture it. Port of the JAX package's
+    ``make_fused_hostfed_trainstep``.
+
+    ``carry_specs``: ``(aux_index, state_name)`` pairs of the fused
+    truncated BPTT. Each step also feeds ``{state_name: carry}`` and the
+    next step's carry is the scan's last time slice ``aux[aux_index][-1]``
+    (detached: gradients stop at each step's boundary); the first step
+    reads ``carry[state_name]`` and the last writes it back in place."""
     model._check_trainable()
     has_err = model.error_node is not None
+    carry_specs = list(carry_specs or [])
 
-    def chunk(feeds, gen, hyper, out, steps=n_inner):
+    def chunk(feeds, gen, hyper, out, steps=n_inner, carry=None):
+        rnn = dict(carry or {})
         with f32_convs(), f32_matmuls():
             for k in range(steps):
                 feed = {name: v[k] for name, v in feeds.items()}
+                feed.update(rnn)
                 loss, aux, _ = model._train_step(feed, gen, hyper)
                 out[0, k] = loss
                 if has_err:
                     out[1, k] = aux[0][0]
+                rnn = {name: aux[idx][-1] for idx, name in carry_specs}
+            for name, v in rnn.items():
+                carry[name].copy_(v)
 
     return chunk
 
@@ -359,8 +384,13 @@ class HostFedFusedLoop(_ChunkLoop):
     any of the caller's (validation, preview, a chunk's tail), holds
     :attr:`data_lock`. The batches of every chunk keep one shape.
 
-    ``carry_map`` (the JAX package's fused truncated BPTT of the tracing
-    trainer) is not ported (ROADMAP.md item 3c)."""
+    ``carry_map``: ``{scan_node_name: state_node_name}``, the fused
+    truncated BPTT of the tracing trainer. Each scan node must be among the
+    model's ``debug_outputs``. The carry (:attr:`rnn_carry`, one static
+    buffer per state node on the model's device) starts as the state node's
+    learnable ``state0``, broadcast to the node's shape; so ``state0`` gets
+    no gradient from the first step, where the per-step path trains it on
+    its first batch (the JAX package's boundary note)."""
 
     _pool = _next = None
 
@@ -368,16 +398,29 @@ class HostFedFusedLoop(_ChunkLoop):
                  seed=0, prefetch=True, carry_map=None):
         if int(n_inner) < 1:
             raise ValueError(f"n_inner must be >= 1, got {n_inner}")
-        if carry_map:
-            raise NotImplementedError(
-                "HostFedFusedLoop(carry_map=...): the fused TBPTT carry of "
-                "the tracing trainer is not ported (ROADMAP.md item 3c)")
         self.model = model
         self.data = data
         self.batch_size = int(batch_size)
         self.n_inner = int(n_inner)
         self.batch_args = dict(batch_args or {})
-        self._chunk = make_fused_hostfed_trainstep(model, self.n_inner)
+        self._carry_specs, self.rnn_carry = [], {}
+        if carry_map:
+            aux_names = ([model.error_node.name]
+                         if model.error_node is not None else [])
+            aux_names += [n.name for n in model.debug_outputs]
+            for scan_name, state_name in carry_map.items():
+                if scan_name not in aux_names:
+                    raise ValueError(
+                        f"carry_map scan node {scan_name!r} must be in "
+                        "model.debug_outputs")
+                self._carry_specs.append((aux_names.index(scan_name),
+                                          state_name))
+                # made once, outside any capture
+                state0 = model.params[state_name]["state0"]
+                self.rnn_carry[state_name] = state0.detach().expand(
+                    tuple(model.nodes[state_name].shape)).clone()
+        self._chunk = make_fused_hostfed_trainstep(model, self.n_inner,
+                                                   self._carry_specs)
         self._inp = model.input_node.name
         self._tgt = (model.target_node.name if model.target_node is not None
                      else None)
@@ -442,13 +485,17 @@ class HostFedFusedLoop(_ChunkLoop):
 
     def _steps(self, hyper, steps):
         self._chunk(self._feeds, self.generator, hyper, self._out,
-                    steps=steps)
+                    steps=steps, carry=self.rnn_carry)
 
     def _inputs(self):
         return []
 
     def _owned(self):
-        return list(self._feeds.values()) if self._feeds else []
+        return (list(self._feeds.values()) if self._feeds else []) \
+            + list(self.rnn_carry.values())
+
+    def _restored(self):
+        return self._written() + list(self.rnn_carry.values())
 
     def _key_head(self):
         return (self.batch_size, self.n_inner)
@@ -484,6 +531,13 @@ class HostFedFusedLoop(_ChunkLoop):
             self._launch_graphed()
             self._prefetch()
             return self._result()
+
+    def settle(self):
+        """Wait for the prefetch in flight, so that the caller's own draws
+        from the data source (a tail of plain steps) follow the prefetched
+        chunk's in order instead of racing them."""
+        if self._next is not None:
+            self._next.result()
 
     def close(self):
         if self._pool is not None:

@@ -22,10 +22,15 @@ What differs from the JAX package:
   parent: a data source they run must be numpy only
   (``parallelisation``'s module docstring).
 - ``fused_steps`` runs ``FusedTrainLoop`` (a ``device_batch`` source) or
-  ``HostFedFusedLoop`` (a host source): one CUDA graph replay a chunk.
-- ``mesh_axes`` (ROADMAP.md item 8), ``TracingTrainer`` and
-  ``TracingTrainerRNN`` (item 3c) are not ported and raise; models are
+  ``HostFedFusedLoop`` (a host source): one CUDA graph replay a chunk. The
+  tracing trainer's state carry rides the host-fed chunk
+  (``HostFedFusedLoop(carry_map=...)``).
+- ``mesh_axes`` (ROADMAP.md item 8) is not ported and raises; models are
   saved as npz (orbax is a JAX format).
+
+``TracingTrainer`` and ``TracingTrainerRNN`` (the recurrent tracing
+workload over ``AgentData``) are the JAX package's, with the per-step
+truncated BPTT through ``feed_overrides`` and ``debug_outputs``.
 """
 
 from __future__ import annotations
@@ -418,7 +423,8 @@ class Trainer:
     def _run_fused(self, n_inner, t_start):
         """Launch-minimised loop: ``fused_steps`` training steps per CUDA
         graph replay (``training.fused_loop``). Schedules and
-        hyperparameters apply at chunk granularity."""
+        hyperparameters apply at chunk granularity; a truncated-BPTT state
+        carry rides the host-fed chunk (``_fused_carry_map``)."""
         if self._fused_incompatible():
             raise ValueError(
                 "fused_steps is incompatible with trainers that inject "
@@ -428,7 +434,11 @@ class Trainer:
         # fold the starting step in so a resumed run draws fresh batches
         loop_seed = (int(self.cfg.get("seed", 0))
                      + self.step * 2654435761) % (2 ** 31)
+        carry_map = self._fused_carry_map()
         if hasattr(self.data, "device_batch"):
+            if carry_map:
+                raise ValueError("TBPTT state carry requires a host-fed "
+                                 "data source (no device_batch)")
             warp = self.data_batch_args.get("warp", 0.5)
             flip = self.data_batch_args.get("flip", True)
             loop = FusedTrainLoop(model, self.data, self.batch_size,
@@ -438,9 +448,9 @@ class Trainer:
         else:
             loop = HostFedFusedLoop(model, self.data, self.batch_size,
                                     n_inner, batch_args=self.data_batch_args,
-                                    seed=loop_seed)
+                                    seed=loop_seed, carry_map=carry_map)
             self._data_lock = loop.data_lock
-            mode = "host-fed"
+            mode = "host-fed+TBPTT" if carry_map else "host-fed"
         self.fused_loop = loop
         logger.info(f"training {model.name} on {self.device}: "
                     f"{self.n_steps} steps in {mode} fused chunks of "
@@ -459,12 +469,24 @@ class Trainer:
                     continue
                 if self.n_steps - self.step < n_inner:
                     # tail shorter than a chunk: finish with plain steps so
-                    # the optimiser runs EXACTLY n_steps updates
+                    # the optimiser runs EXACTLY n_steps updates; a TBPTT
+                    # carry continues the chunked chain uninterrupted
+                    if isinstance(loop, HostFedFusedLoop):
+                        loop.settle()
                     while self.step < self.n_steps:
                         with self._data_guard():
                             batch = self.data.getbatch(
                                 self.batch_size, **self.data_batch_args)
-                        lv, aux = self._train_batch(batch)
+                        d, t = self.to_device(
+                            batch[0], batch[1] if len(batch) > 1 else None)
+                        ov = dict(getattr(loop, "rnn_carry", {}) or {})
+                        lv, aux = model.trainingstep(
+                            d, t, feed_overrides=ov or None)
+                        for scan_name, state_name in (carry_map
+                                                      or {}).items():
+                            ys = aux.get(scan_name)
+                            if ys is not None:
+                                loop.rnn_carry[state_name].copy_(ys[-1])
                         self.step += 1
                         self.history.update_timeline(self.step, float(lv))
                         for sched in self.schedules.values():
@@ -556,6 +578,11 @@ class Trainer:
         return (type(self)._step_kwargs is not Trainer._step_kwargs
                 or type(self)._post_step is not Trainer._post_step)
 
+    def _fused_carry_map(self):
+        """{scan_node_name: state_node_name} for fused TBPTT, or None
+        (hook for TracingTrainer's carry_state)."""
+        return None
+
     def save_history(self):
         prefix = os.path.join(self.save_path, self.save_name)
         self.history.save(prefix)
@@ -567,17 +594,108 @@ class Trainer:
 
 
 class TracingTrainer(Trainer):
-    """Trainer for the recurrent skeleton-tracing workload
-    (``elektronn2_tpu/training/trainer.py::TracingTrainer``). It trains on
-    ``AgentData``'s tracing batches, and its state carry rides the fused
-    chunk (``HostFedFusedLoop(carry_map=...)``); neither is ported yet."""
+    """Trainer for the recurrent skeleton-tracing workload.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet: it needs AgentData's "
-            "tracing batches and the fused state carry (ROADMAP.md item 3c)")
+    Reference: ``trainer.py::TracingTrainer``: drives ``AgentData`` tracing
+    batches (``get_tracing_batch``, ``n_scan_steps`` long) through a
+    ScanN/GRU model. With ``carry_state=True`` the scan's final hidden state
+    is fed back as the next batch's initial state, a detached value, so
+    gradients stop at batch boundaries (truncated BPTT). With
+    ``fused_steps`` the carry rides the host-fed chunk
+    (``HostFedFusedLoop(carry_map=...)``).
+    """
+
+    def __init__(self, exp_config=None, model=None, data=None,
+                 n_scan_steps=8, carry_state=False, **kwargs):
+        super().__init__(exp_config, model, data, **kwargs)
+        self.n_scan_steps = int(n_scan_steps)
+        self.carry_state = bool(carry_state)
+        self._carry = {}
+        self._carry_map = {}
+        if self.carry_state:
+            from ..neuromancer.various import ScanN
+            for node in self.model.nodes.values():
+                if (isinstance(node, ScanN) and len(node.in_memory) == 1
+                        and node.out_memory == [node.step_result]
+                        and not node.last_only):
+                    self._carry_map[node.name] = node.in_memory[0].name
+                    if node not in self.model.debug_outputs:
+                        self.model.debug_outputs.append(node)
+            if not self._carry_map:
+                logger.warning("carry_state=True but no carryable ScanN "
+                               "node found")
+
+    def _step_kwargs(self):
+        return ({"feed_overrides": dict(self._carry)} if self._carry
+                else {})
+
+    def _post_step(self, aux):
+        for scan_name, state_name in self._carry_map.items():
+            ys = aux.get(scan_name)
+            if ys is not None:
+                self._carry[state_name] = ys[-1].detach()   # truncation
+
+    def debug_getbatch(self):
+        return self.data.get_tracing_batch(self.batch_size,
+                                           n_steps=self.n_scan_steps)
+
+    def _fused_incompatible(self):
+        # the per-step hooks are inert without carry_state, and the carry
+        # itself rides the fused chunk (_fused_carry_map)
+        return False
+
+    def _fused_carry_map(self):
+        """carry_state=True in fused mode: the ScanN hidden state rides the
+        chunk and crosses chunks. The learnable initial state is fed as a
+        value at the very first step, so unlike the per-step path it gets
+        no gradient from the first batch (used once per run)."""
+        return dict(self._carry_map) if self.carry_state else None
+
+    def preview_rollout(self, n_agents=16, max_steps=128, seeds=None,
+                        cube=0):
+        """Roll the current model out as a batch of agents
+        (``DeviceTracer``, K2 on the card) over a training cube and log
+        simple quality statistics (mean length, mean tortuosity); returns
+        the traces."""
+        from ..data.tracing_utils import DeviceTracer
+        vol = np.asarray(self.data.train_d[int(cube)], np.float32)
+        tracer = DeviceTracer(self.model, vol, max_steps=int(max_steps))
+        if seeds is None:
+            rng = np.random.RandomState(self.step)
+            margin = np.asarray(tracer.patch_size) / 2 + 2
+            lo, hi = margin, np.asarray(vol.shape[1:]) - margin
+            seeds = rng.uniform(lo, hi, size=(int(n_agents), 3))
+        traces = tracer.trace_batch(seeds)
+        lens = [len(t.coords) for t in traces]
+        torts = [t.tortuosity() for t in traces if len(t.coords) > 2]
+        logger.info(
+            f"rollout preview @step {self.step}: {len(traces)} agents, "
+            f"mean length {np.mean(lens):.1f}, mean tortuosity "
+            f"{np.mean(torts) if torts else float('nan'):.2f}")
+        return traces
+
+    def run(self):
+        # tracing batches come from get_tracing_batch instead of getbatch
+        orig = self.data.getbatch if self.data is not None else None
+        if self.data is not None:
+            self.data.getbatch = (
+                lambda bs, **kw: self.data.get_tracing_batch(
+                    bs, n_steps=self.n_scan_steps,
+                    source=kw.get("source", "train")))
+        try:
+            return super().run()
+        finally:
+            if orig is not None:
+                self.data.getbatch = orig
 
 
 class TracingTrainerRNN(TracingTrainer):
-    """``TracingTrainer(carry_state=True)`` (not ported, ROADMAP.md item
-    3c)."""
+    """``trainer.py::TracingTrainerRNN``: ``TracingTrainer`` with
+    ``carry_state=True`` by default (truncated BPTT across batches; in fused
+    mode the state rides the chunk)."""
+
+    def __init__(self, exp_config=None, model=None, data=None,
+                 n_scan_steps=8, carry_state=True, **kwargs):
+        super().__init__(exp_config, model, data,
+                         n_scan_steps=n_scan_steps,
+                         carry_state=carry_state, **kwargs)

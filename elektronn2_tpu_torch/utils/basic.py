@@ -122,6 +122,12 @@ class DynamicKDT:
         self._points.append(np.asarray(point, np.float64))
         self._pending += 1
 
+    def extend(self, points):
+        """``append`` of every row of ``points`` (n, 3), in one copy."""
+        points = np.asarray(points, np.float64).reshape(-1, 3)
+        self._points.extend(points)
+        self._pending += len(points)
+
     def _ensure_tree(self):
         from scipy.spatial import cKDTree
         if self._tree is None or self._pending >= self._thresh:

@@ -30,7 +30,13 @@ its pinned slots; its replays over four chunks with the prefetch thread
 equal eager ``trainingstep`` calls on the recorded batches within rtol
 1e-5 (other buffer addresses may take other cuDNN algorithms). The
 Trainer's forked workers deliver batches with CUDA up in the parent, and
-its staged per-step path makes no host sync.
+its staged per-step path makes no host sync. K3's bf16 mode equals its
+plain version bit for bit (also in a volume NaN outside every staged box,
+with both row alignments); a pool wave replayed from its chunk graph equals
+the eager wave bit for bit and makes no host sync; the pools' traces equal
+``trace_batch``'s within 1e-5; ``tune_batch`` keeps the caller's graph; the
+fused TBPTT carry graphed equals it eager bit for bit and the per-step
+carry within 1e-5.
 """
 
 import os
@@ -910,3 +916,233 @@ def test_staged_training_steps_make_no_host_sync(cuda_device, tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     vals = [float(v) for v in losses]
     assert np.isfinite(vals).all() and m._step_count == 5
+
+
+# --------------------------------------------------------- K3's bf16 mode
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, shape, patch, B", [
+    (1, (40, 40, 48), (8, 8, 8), 64),          # Y % 8 == 0: aligned rows
+    (2, (30, 34, 42), (5, 7, 6), 40),          # Y % 8 != 0
+    (1, (24, 26, 29), (4, 4, 4), 33),          # Y odd, agents near borders
+])
+def test_k3_bf16_matches_plain(cuda_device, f, shape, patch, B):
+    """K3's bf16 mode equals its plain version (the same bf16 arithmetic in
+    PyTorch) bit for bit, ``ok`` included, and counts its launch."""
+    rng = np.random.RandomState(sum(shape) + B)
+    vol = torch.from_numpy(rng.rand(f, *shape).astype(np.float32)).to(
+        cuda_device).to(torch.bfloat16)
+    pos = torch.from_numpy(rng.uniform(-1.0, np.asarray(shape) + 1.0,
+                                       (B, 3)).astype(np.float32))
+    F = flight_frame(torch.from_numpy(rng.randn(B, 3).astype(np.float32)))
+    pos, F = pos.to(cuda_device), F.to(cuda_device)
+    before = extract_rot.launches_bf16
+    got, ok = extract_rot.rotated_patches_bf16(vol, pos, F, patch)
+    ref, ok_ref = extract_rot.rotated_patches_bf16_reference(vol, pos, F,
+                                                             patch)
+    torch.cuda.synchronize()
+    assert extract_rot.launches_bf16 == before + 1
+    assert torch.equal(ok, ok_ref) and bool(ok.any())
+    assert torch.equal(got[ok], ref[ok])
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Y", [72, 70])
+@pytest.mark.parametrize("heading", ["random", "axis", "diagonal"])
+def test_k3_bf16_staged_windows(cuda_device, heading, Y):
+    """The NaN trap in the bf16 mode: a volume NaN everywhere outside the
+    agents' staged boxes (bf16 rows of 8 values to a 16-byte piece, Y % 8
+    == 0 and not), half the agents at the ok bound: finite patches equal to
+    the plain version's, equal ok flags, every item staged, and the values
+    staged the boxes' own count."""
+    rng = np.random.RandomState(27)
+    B, patch, shape = 64, (16, 16, 16), (2, 60, 66, Y)
+    h = torch.from_numpy(_k3_headings(heading, B, rng).astype(np.float32))
+    F = flight_frame(h.to(cuda_device))
+    dims = np.asarray(shape[1:], np.float64)
+    pos = rng.uniform(15.0, dims - 15.0, (B, 3))
+    half = (np.asarray(patch) - 1) / 2.0
+    low = np.abs(F.double().cpu().numpy()).transpose(0, 2, 1) @ half
+    deltas = (-1e-3, -1e-5, 0.0, 1e-5, 1e-3, 0.25)
+    for i in range(0, B, 2):
+        d = (i // 2) % 3
+        pos[i, d] = low[i, d] + deltas[(i // 2) % len(deltas)]
+    pos = torch.from_numpy(pos.astype(np.float32)).to(cuda_device)
+    lo, hi = _staged_box(shape, pos, F, patch)
+    edges = (hi - lo + 1).cpu()
+    assert int(edges.max()) <= extract_rot.box_edge(patch)
+    values = shape[0] * int((edges[:, 0] * edges[:, 1] * (
+        (edges[:, 2] + 14) // 8 * 8)).sum())
+    keep = torch.zeros(shape[1:], dtype=torch.bool)
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        keep[a[0]:b[0] + 1, a[1]:b[1] + 1, a[2]:b[2] + 1] = True
+    vol = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    vol[:, ~keep] = float("nan")
+    vol = vol.to(cuda_device).to(torch.bfloat16)
+    stats = extract_rot.staging_stats(vol.device, torch.bfloat16)
+    stats.zero_()
+    got, ok = extract_rot.rotated_patches_bf16(vol, pos, F, patch)
+    ref, ok_ref = extract_rot.rotated_patches_bf16_reference(vol, pos, F,
+                                                             patch)
+    torch.cuda.synchronize()
+    assert stats.tolist() == [0, values]
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, ref)
+    assert torch.equal(ok, ok_ref) and bool(ok.any()) and not bool(ok.all())
+
+
+@pytest.mark.cuda
+def test_bf16_tracer_launches_the_bf16_kernel(cuda_device):
+    """``DeviceTracer(rot_compute_dtype="bfloat16")`` on the card rolls out
+    through K3's bf16 kernel (a graphed rollout), as its plain route does on
+    the same card, within 1e-4 over a short horizon."""
+    m = tracer_model((8, 8, 8), enc_w=16, gru_w=16, device=cuda_device)
+    rng = np.random.RandomState(28)
+    vol = torch.from_numpy(rng.rand(1, 48, 48, 48).astype(np.float32)).to(
+        cuda_device)
+    seeds = rng.uniform(12, 36, (32, 3)).astype(np.float32)
+    kw = dict(max_steps=6, min_step=0.0, rotate_to_heading=True,
+              rot_compute_dtype="bfloat16")
+    dt = DeviceTracer(m, vol, **kw)
+    assert dt._rot_kernel and dt._rot_bf16
+    dt.trace_batch(seeds)
+    before = (extract_rot.launches, extract_rot.launches_bf16)
+    got = dt.trace_batch(seeds)
+    assert (extract_rot.launches, extract_rot.launches_bf16) == (
+        before[0], before[1] + 6)
+    ref = DeviceTracer(m, vol, use_pallas_rot=False, **kw).trace_batch(seeds)
+    for g, r in zip(got, ref):
+        assert len(g.coords) == len(r.coords)
+        np.testing.assert_allclose(g.coords, r.coords, atol=1e-4)
+
+
+# ------------------------------------------------------------- the pools
+
+def _pool_tracer(device, rotate=False, mode="float32", K=8):
+    m = tracer_model((8, 8, 8), enc_w=16, gru_w=16, device=device)
+    rng = np.random.RandomState(29)
+    vol = torch.from_numpy(rng.rand(1, 40, 40, 40).astype(np.float32)).to(
+        device)
+    seeds = rng.uniform(8, 32, (40, 3)).astype(np.float32)
+    return m, DeviceTracer(m, vol, max_steps=K, min_step=0.0,
+                           rotate_to_heading=rotate,
+                           rot_compute_dtype=mode), seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rotate, mode", [(False, "float32"),
+                                          (True, "float32"),
+                                          (True, "bfloat16")])
+def test_graphed_pool_wave_equals_eager(cuda_device, rotate, mode):
+    """A pool wave replayed from the chunk graph (S = 5: the last replay
+    runs past the wave's end) equals the same wave launched eagerly, bit
+    for bit, outputs and final state; a replayed wave makes no host sync;
+    the pool keeps its graphs apart from the rollout's."""
+    m, dt, seeds = _pool_tracer(cuda_device, rotate, mode)
+    dt.POOL_CHUNK = 5
+    dt.trace_batch(seeds[:8])
+    kept = list(dt._graphs.items())
+    B, N, total = 8, len(seeds), 23
+    out = []
+    for graphed in (True, False):
+        st = dt._pool_setup(B, N)
+        traj = dt._pool_wave(m.params, st, seeds, N, total, total - 8, 0,
+                             graphed=graphed)
+        out.append(list(traj) + [x.clone() for x in st.tensors()])
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert len(dt._pool_graphs) == 1 and list(dt._graphs.items()) == kept
+    st = dt._pool_setup(B, N)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dt._pool_wave(m.params, st, seeds, N, total, total - 8, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pool_traces_equal_trace_batch_on_the_card(cuda_device):
+    """The respawning and chained pools on the card give each seed's own
+    rollout (``trace_batch``), within 1e-5, every consumed seed once."""
+    m, dt, seeds = _pool_tracer(cuda_device, K=6)
+    ref = dt.trace_batch(seeds)
+    got, st = dt.trace_pool(seeds, batch_size=8)
+    chain, cst = dt.trace_pool_chain(seeds, batch_size=8, wave_seeds=8,
+                                     wave_steps=4)
+    assert st["consumed"] == cst["consumed"] == len(seeds)
+    assert cst["waves"] >= 3
+    for traces in (got, chain):
+        for g, r in zip(traces, ref):
+            assert len(g.coords) == len(r.coords)
+            np.testing.assert_allclose(g.coords, r.coords, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tune_batch_restores_the_kept_graph(cuda_device):
+    m, dt, seeds = _pool_tracer(cuda_device, K=10)
+    dt.trace_batch(seeds[:8])
+    kept = list(dt._graphs.items())
+    res = dt.tune_batch(candidates=(8, 16, 32), steps=4)
+    assert set(res["table"]) == {8, 16, 32} and dt.max_steps == 10
+    assert list(dt._graphs.items()) == kept
+
+
+# --------------------------------------------------- the fused TBPTT carry
+
+@pytest.mark.cuda
+def test_graphed_fused_carry_equals_eager_and_per_step(cuda_device):
+    """``HostFedFusedLoop(carry_map=...)`` on the card: the carry is a static
+    buffer the chunk graph reads first and writes last. Two graphed chunks
+    equal two eager chunks from the same state bit for bit (losses, carry,
+    weights), and the per-step TBPTT on the same batches within 1e-5."""
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    T, B, K = 4, 8, 3
+    rng = np.random.RandomState(30)
+    feeds = [(rng.rand(T, B, 1, 8, 8, 8).astype(np.float32),
+              rng.rand(T, B, 3).astype(np.float32)) for _ in range(2 * K)]
+
+    class Stub:
+        def __init__(self):
+            self.items = list(feeds)
+
+        def getbatch(self, bs, **kw):
+            return self.items.pop(0)
+
+    def model():
+        m = tracer_model((8, 8, 8), enc_w=16, gru_w=16, batch=B, t=T,
+                         device=cuda_device)
+        m.set_params({n: {k: np.random.RandomState(31).standard_normal(
+            tuple(v.shape)) * 0.2 for k, v in d.items()}
+            for n, d in m.params.items()})
+        m.set_opt("Adam", lr=1e-3)
+        m.debug_outputs.append(m.nodes["scan"])
+        return m
+
+    runs = []
+    for graphed in (True, False):
+        m = model()
+        loop = HostFedFusedLoop(m, Stub(), B, K, prefetch=False,
+                                carry_map={"scan": "h0"})
+        losses = np.concatenate([
+            (loop.run_chunk() if graphed else loop._run_chunk_eager())[0]
+            for _ in range(2)])
+        runs.append((losses, loop.rnn_carry["h0"].clone(), m))
+    (gl, gh, gm), (el, eh, em) = runs
+    np.testing.assert_array_equal(gl, el)
+    assert torch.equal(gh, eh)
+    for n in gm.params:
+        for k in gm.params[n]:
+            assert torch.equal(gm.params[n][k], em.params[n][k]), (n, k)
+    m = model()
+    carry, ref = None, []
+    for d, t in feeds:
+        lv, aux = m.trainingstep(
+            torch.from_numpy(d).to(cuda_device),
+            torch.from_numpy(t).to(cuda_device),
+            feed_overrides=None if carry is None else {"h0": carry})
+        ref.append(float(lv))
+        carry = aux["scan"][-1]
+    np.testing.assert_allclose(gl, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gh, carry, atol=1e-5, rtol=0)

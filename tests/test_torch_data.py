@@ -488,10 +488,10 @@ def test_mnist_file_is_read(tmp_path):
 # ------------------------------------------------------------ the package
 
 def test_package_exports():
-    # the JAX package's data exports, less what needs the unported skeleton
-    # sampler; plus the generic datasets the Trainer resolves by name
+    # every one of the JAX package's data exports; plus the generic datasets
+    # the Trainer resolves by name
     missing = set(jdata.__all__) - set(tdata.__all__)
-    assert missing == {"SkeletonMFK"}, missing
+    assert missing == set(), missing
     for name in tdata.__all__:
         assert getattr(tdata, name) is not None
     for name in ("Data", "MNISTData", "PianoData"):
@@ -500,7 +500,7 @@ def test_package_exports():
 
 def test_unported_pieces_raise():
     raws, labs = make_dataset(n=1, size=16)
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        tdata.AgentData(input_data=raws, target_data=labs)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        tdata.skeleton.register_skeleton(None)
     with pytest.raises(NotImplementedError, match="item 6"):
         timage.make_affinities(labs[0])

@@ -155,6 +155,48 @@ def test_tracing_rollout_runs_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_tracing_campaign_runs_without_jax():
+    # the tracing campaign (the respawning and chained pools, the pooled
+    # registry drain, tune_batch, the host Tracer, the bf16 rotated mode)
+    # and tracing training (examples/tracing3d.py through the train CLI,
+    # AgentData, TracingTrainer) stay jax-free when they run
+    code = ("import os, sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import tracer_model\n"
+            "from elektronn2_tpu_torch.data.tracing_utils import (\n"
+            "    DeviceTracer, ShotgunRegistry, Tracer)\n"
+            "from elektronn2_tpu_torch.scripts.train import main\n"
+            "m = tracer_model((4, 4, 4), enc_w=8, gru_w=8, device='cpu')\n"
+            "vol = torch.rand(1, 16, 16, 16)\n"
+            "seeds = np.random.RandomState(0).uniform(6, 10, (5, 3))\n"
+            "for rot in (False, True):\n"
+            "    t = DeviceTracer(m, vol, max_steps=3, rotate_to_heading=rot,\n"
+            "                     rot_compute_dtype='bfloat16')\n"
+            "    tr, st = t.trace_pool(seeds, batch_size=2)\n"
+            "    assert st['consumed'] == 5 and len(tr) == 5\n"
+            "    tr, st = t.trace_pool_chain(seeds, batch_size=2,\n"
+            "                                wave_seeds=2, wave_steps=2)\n"
+            "    assert st['consumed'] == 5 and st['waves'] >= 3\n"
+            "    assert len(ShotgunRegistry(seeds, radius=0.01).run(\n"
+            "        t, batch_size=2, pool=True)) == 5\n"
+            "    assert Tracer(m, vol.numpy(), max_steps=2,\n"
+            "                  rotate_to_heading=rot).trace(seeds[0])\n"
+            "assert set(t.tune_batch((2,), steps=2)['table']) == {2}\n"
+            "d = tempfile.mkdtemp()\n"
+            "assert main(['--cpu', 'examples/tracing3d.py', '--n-steps', "
+            "'3', '--save-path', d]) == 0\n"
+            "assert os.path.exists(os.path.join(d, 'tracing3d-LAST.mdl'))\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'elektronn2_tpu'\n"
+            "             or k.startswith('elektronn2_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_k5_and_probes_run_without_jax():
     # K5 and the two probes of K1 (their wrappers' plain versions on the
     # CPU) stay jax-free when they run

@@ -222,7 +222,7 @@ def test_dot_matches_jax(shape, axis):
 def test_perceptron_unported_options_raise(kw):
     tnm.model_manager.reset()
     inp = tnm.Input([2, 3], "b,f", name="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
         tnm.Perceptron(inp, 4, **kw)
 
 

@@ -267,11 +267,10 @@ def test_cpu_route_launches_no_kernel(rng):
     (dict(use_pallas_extract=True), None, ValueError, "CUDA device"),
     (dict(rotate_to_heading=True, use_pallas_rot=True), None, ValueError,
      "CUDA device"),
-    (dict(rot_compute_dtype="bfloat16"), None, NotImplementedError,
-     "item 7b"),
+    (dict(rot_compute_dtype="float16"), None, ValueError,
+     "rot_compute_dtype"),
     (dict(rot_precision="hi"), None, ValueError, "rot_precision"),
-    ({}, "mesh", NotImplementedError, "item 11"),
-    ({}, "pool", NotImplementedError, "item 7b"),
+    ({}, "mesh", NotImplementedError, "item 8"),
     ({}, "headings", ValueError, "initial_headings"),
 ])
 def test_unported_and_invalid_options_raise(rng, kw, call, exc, match):
@@ -281,8 +280,6 @@ def test_unported_and_invalid_options_raise(rng, kw, call, exc, match):
         dt = DeviceTracer(tm, vol, max_steps=2, **kw)
         if call == "mesh":
             dt.trace_batch([[10.0, 10.0, 10.0]], mesh=object())
-        elif call == "pool":
-            ShotgunRegistry([[10.0, 10.0, 10.0]]).run(dt, pool=True)
         elif call == "headings":
             dt.trace_batch([[10.0, 10.0, 10.0]],
                            initial_headings=np.zeros((2, 3)))

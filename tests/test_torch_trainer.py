@@ -42,8 +42,7 @@ from elektronn2_tpu_torch.training import trainutils as ttu
 from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
 from elektronn2_tpu_torch.training.parallelisation import (BackgroundProc,
                                                            SharedMem)
-from elektronn2_tpu_torch.training.trainer import (Trainer, TracingTrainer,
-                                                   TracingTrainerRNN)
+from elektronn2_tpu_torch.training.trainer import Trainer
 
 torch.set_num_threads(2)
 
@@ -542,30 +541,14 @@ def test_entry_points_need_the_card_unless_asked(small_init, tmp_path):
 
 # ---------------------------------------------------------------- unported
 
-def _agent_trainer(tmp_path):
-    TracingTrainer(model=small_net(tnm), device="cpu",
-                   save_path=str(tmp_path))
-
-
-def _agent_trainer_rnn(tmp_path):
-    TracingTrainerRNN(model=small_net(tnm), device="cpu",
-                      save_path=str(tmp_path))
-
-
 def _mesh(tmp_path):
     Trainer(model=small_net(tnm), device="cpu", mesh_axes={"data": 4},
             save_path=str(tmp_path))
 
 
-def _carry(tmp_path):
-    HostFedFusedLoop(small_net(tnm), small_data(), 2, 2,
-                     carry_map={"scan": "h0"})
-
-
-def _agent_data(tmp_path):
-    from elektronn2_tpu_torch.data import AgentData
-    AgentData(input_data=[np.zeros((1, 8, 8, 8), np.float32)],
-              target_data=[np.zeros((8, 8, 8), np.int16)])
+def _skel_loss(tmp_path):
+    from elektronn2_tpu_torch.data.skeleton import skel_loss_callback
+    skel_loss_callback(torch.zeros(2, 3), torch.zeros(2, 4))
 
 
 def _affinities(tmp_path):
@@ -574,9 +557,7 @@ def _affinities(tmp_path):
 
 
 @pytest.mark.parametrize("what, item", [
-    (_agent_trainer, "item 3c"), (_agent_trainer_rnn, "item 3c"),
-    (_mesh, "item 8"), (_carry, "item 3c"), (_agent_data, "item 3c"),
-    (_affinities, "item 6")])
+    (_mesh, "item 8"), (_skel_loss, "item 2"), (_affinities, "item 6")])
 def test_unported_pieces_raise(what, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         what(tmp_path)
