@@ -5,9 +5,11 @@ Drives the port's paths at full width and checks them: the dense-serving
 deployment (whole KNOSSOS datasets swept slab by slab by ``sweep_knossos``,
 the flagship through K1, the wide U-Net, and the ``predict`` CLI); training
 of the bench's neuro3d net (the fused loop, one CUDA graph per chunk) with the
-trained weights served through K1 after it; the training entry point
-(the train CLI on three example configs, the neuro3d weights it saved
-served through K1); dense MFP inference
+trained weights served through K1 after it, its batch-normed dropout form
+(served densely after it), and its rows under the train lowerings and
+remat; the training entry point (the train CLI on four example configs,
+the neuro3d weights it saved served through K1); the tracer's prelu head
+and skeleton-field training; dense MFP inference
 of the flagship neuro3d-class net (20/30/40/40 channels) with the tail-conv
 kernel K1 (``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on ``wgmma``); the
 same request with the flagship's
@@ -192,7 +194,35 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     launches, which join the kernels line) equals its cuDNN route within
     ``SLICE_ATOL`` and differs from the same request served before
     training;
-21. train_cli (x3, ``train_cli_serve``): the training entry point, the
+20b. train_bn (``train_bn_row``, ``train_bn_checks`` per row,
+    ``train_bn_serve``): the same rows, cubes and loop for the batch-normed,
+    dropout net (``utils/convert.neuro3d_bn_train_model``: ``simple_cnn``
+    with batch norm on every conv and dropout 0.1 on the two (3,3,3)
+    convs): the running statistics are written in place inside the chunk
+    graph, the masks drawn from the loop's generator. Graph = eager bit for
+    bit (losses, parameters, running statistics), the b4 step's gradients
+    against float64 with its masks held (the conv biases before batch
+    norm, whose exact gradient is 0, against the largest leaf norm), no
+    host sync, the b4 loss falls; graphed and eager chunks in turns, a
+    profiled chunk. The b4 net is then served: rebuilt with MFP on, through
+    ``predict_dense_device`` with ``pallas_tail=True`` (K1 takes no
+    batch-normed conv: 0 launches) against the host-tiled MFP route
+    (``SLICE_ATOL``), and after ``save`` -> ``modelload`` the same map bit
+    for bit;
+20c. train_lowering (``train_lowering`` per row and mode,
+    ``train_lowering_serve``, ``train_lowering_unet``): the plain rows of
+    20. under the default trace, ``set_train_lowering(zfold=True)`` and
+    ``set_remat(True)`` from the same start: one step's gradients within
+    1e-4 per leaf and the first chunk's losses within 1e-5 of the default's
+    (the first chunk also reported under ``cudnn.deterministic``), it/s,
+    peak memory, a graphed chunk's
+    weight-gradient kernels and, from an eager chunk under the profiler
+    with ``record_shapes``, the weight-gradient ms by layer; the
+    zfold-trained b4 weights served through K1 (two launches into the
+    kernels line, each held against its plain version); the wide U-Net's
+    host-fed chunk under ``skipsum`` against the default trace (1e-5, under
+    ``cudnn.deterministic``, in each of three runs from fresh models);
+21. train_cli (x4, ``train_cli_serve``): the training entry point, the
     train CLI's ``main([...])`` (``elektronn2_tpu_torch/scripts/train.py``)
     on the unchanged example configs into a temporary directory:
     ``examples/neuro3d.py`` (20/30/40/40, 23x102x102, B=1, Adam, warp 0.5,
@@ -203,7 +233,9 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     ``HostFedFusedLoop``: 4 host batches a CUDA graph replay, the next
     chunk drawn by the prefetch thread) for 64 steps, and
     ``examples/neuro3d_fast.py`` (B=4, bf16 conv operands,
-    ``FusedTrainLoop`` on the card, 16 steps a replay) for 96. The calls
+    ``FusedTrainLoop`` on the card, 16 steps a replay) for 96 and
+    ``examples/mlp_mnist.py`` (Perceptrons with dropout on the synthetic
+    digits, one forked worker) for 300. The calls
     the trainer trains with are wrapped (``CliProbe``): steady-state it/s
     and ms a step from the end of the warm-up (20 steps, or 2 chunks) to a
     ``torch.profiler`` window over the last 20 steps (whole chunks), which
@@ -222,6 +254,17 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     float32 on the same input, within ``K1_SERVE_RTOL`` of the output's
     largest magnitude, with at least ``K1_SERVE_MIN_ACTIVE`` of its voxels
     past the ReLU, and no further from float64 than twice cuDNN's error;
+21b. tracing_nodes (``tracing_nodes_prelu`` with its ``_main_profile``,
+    ``_profile`` and ``_checks``, run after 7.; ``tracing_nodes_field``,
+    run after train_tracing): (a) the tracing model with a 64-wide prelu
+    layer between the GRU scan and the step head through every step and
+    check of 7. (B=1024, K=256; K2's launches counted by the device in
+    ``trace_batch`` and held against the wrapper's count, into the kernels
+    line);
+    (b) a step head (prelu layer included) trained on ``SkelLossField``
+    over the 256^3 field of a helix in ``HostFedFusedLoop`` chunks: graph =
+    eager bit for bit, the loss falls; (c) ``SkelLoss`` (the host KD-tree)
+    on one batch with the trained weights within 0.6 of ``SkelLossField``;
 22. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
     ``sweep_unet`` x2, ``sweep_unet_checks``): KNOSSOS datasets from numpy
     seeds written in 128^3 cubes by the port's ``save_knossos`` into a
@@ -292,6 +335,7 @@ from elektronn2_tpu_torch.scripts import (exp_convdense_headk,
                                           predict)
 from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
 from elektronn2_tpu_torch.utils.convert import (flagship_model,
+                                                neuro3d_bn_train_model,
                                                 neuro3d_train_model,
                                                 tracer_model,
                                                 wide_unet_model)
@@ -1296,7 +1340,11 @@ def profile_once(fn, kernel, top=10):
     device time of its kernels, the device idle share of the wall, the top
     device kernels, and the launches and device us per launch of ``kernel``
     (a substring of its name) as the device recorded them. A profile with
-    no device events reports None and the wall."""
+    no device events reports None and the wall. The counts fall short as
+    the process ages: after ``phase_trace_pool`` the same ``trace_batch``
+    profile lacks its first rollout step's kernels and the host copies
+    before it, so the rollouts whose launches the device counts run
+    before the pools."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1324,24 +1372,32 @@ def profile_once(fn, kernel, top=10):
                      for e in kernels[:top]])
 
 
-def phase_trace(rotate):
+def phase_trace(rotate, prelu_w=0):
     """One fused-tracing path at full width: the main path through
     ``trace_batch`` (one replay of the rollout's CUDA graph, profiled: the
     device counts the kernel's launches), the graphed route and the eager
     loop timed in turns, check (d) (the graphed rollout equals the eager
     kernel route bit for bit), a profile of one graphed rollout, and the
-    rollout checks (a), (b), (c) against the plain route. Returns the
-    device's count of the kernel's launches in the main path's run
-    (``launches``), the graphed rate (``agent_steps_s``) and the alive
-    fraction, which the pools' phases take."""
-    name = "trace_rot_rollout" if rotate else "trace_rollout"
+    rollout checks (a), (b), (c) against the plain route. With
+    ``prelu_w`` the model is the tracing head with a ``prelu_w``-wide
+    prelu Perceptron between the GRU scan and the step head
+    (``tracer_model(prelu_w=...)``, the structure of the JAX package's
+    tests/test_tracing.py:613). Returns the device's count of the kernel's
+    launches in the main path's run (``launches``), the graphed rate
+    (``agent_steps_s``) and the alive fraction, which the pools' phases
+    take."""
+    name = ("trace_rot_rollout" if rotate else "tracing_nodes_prelu"
+            if prelu_w else "trace_rollout")
     mod = extract_rot if rotate else extract
     B, K = (ROT_B, ROT_K) if rotate else (TRACE_B, TRACE_K)
     lo, hi = ROT_SEEDS if rotate else TRACE_SEEDS
     atol_a = K3_ATOL if rotate else K2_ATOL
-    rng = np.random.RandomState(SEED + 4)
-    model = tracer_model(TRACE_PATCH)
-    model.set_params(seeded_tracer_params(model, rng))
+    rng = np.random.RandomState(SEED + (12 if prelu_w else 4))
+    model = tracer_model(TRACE_PATCH, prelu_w=prelu_w)
+    params = seeded_tracer_params(model, rng)
+    if prelu_w:
+        params["mid"]["alpha"] = rng.uniform(0.05, 0.4, prelu_w)
+    model.set_params(params)
     vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
     seeds = rng.uniform(lo, hi, (B, 3)).astype(np.float32)
     kw = dict(rotate_to_heading=rotate)
@@ -1384,17 +1440,19 @@ def phase_trace(rotate):
                         kernel)
     counted = mod.launches
     launches = main["kernel_launches"]
+    staged = {}
+    if rotate:
+        unstaged, floats = stats.tolist()
+        staged = dict(unstaged_items=unstaged,
+                      staged_bytes_per_launch=4 * floats / K)
+    emit(name + "_main_profile", route="trace_batch", **main, **staged,
+         counted_launches=counted)
     if launches != K or counted != K:
         raise AssertionError(f"{name}: {launches} kernel launches on the "
                              f"device in trace_batch and {counted} counted, "
                              f"expected {K}")
-    staged = {}
-    if rotate:
-        unstaged, floats = stats.tolist()
-        if unstaged:
-            raise AssertionError(f"{name}: {unstaged} items not staged")
-        staged = dict(staged_bytes_per_launch=4 * floats / K)
-    emit(name + "_main_profile", route="trace_batch", **main, **staged)
+    if rotate and unstaged:
+        raise AssertionError(f"{name}: {unstaged} items not staged")
     if len(tracer._graphs) != 1:
         raise AssertionError(f"{name}: {len(tracer._graphs)} graphs kept, "
                              "expected the one captured")
@@ -2145,14 +2203,26 @@ GRAD_F64_TOL = 1e-4                     # check (a): relative L2 per leaf
 SERVE_SHAPE = (1, 64, 256, 256)         # check (e): one request
 
 
-def train_setup(B, patch, K, cube):
-    """The bench's training net at full width with He-normal weights from
-    numpy seed 0, two cubes from numpy seed 0 labelled by thresholding the
-    raw cube at 0.5 (labels the net can learn, so check (c) can see the
-    loss fall), the augmenter (warp amount 1, grey on channel 0) and the
-    fused loop (warp 0.5, flips on)."""
-    model = neuro3d_train_model(B, patch)
-    model.set_params(seeded_params(model, np.random.RandomState(SEED)))
+def full_params(model, params):
+    """``params`` completed with the model's own values of the leaves it
+    lacks (batch norm's gamma 1 and beta 0, prelu's slopes)."""
+    out = {n: dict(d) for n, d in params.items()}
+    for n, d in model.params.items():
+        for k, v in d.items():
+            out.setdefault(n, {}).setdefault(k, v)
+    return out
+
+
+def train_setup(B, patch, K, cube, build=neuro3d_train_model):
+    """The bench's training net at full width (or ``build``'s, e.g. its
+    batch-normed form) with He-normal weights from numpy seed 0 (batch
+    norm's gamma and beta left at 1 and 0), two cubes from numpy seed 0
+    labelled by thresholding the raw cube at 0.5 (labels the net can learn,
+    so check (c) can see the loss fall), the augmenter (warp amount 1, grey
+    on channel 0) and the fused loop (warp 0.5, flips on)."""
+    model = build(B, patch)
+    model.set_params(full_params(model, seeded_params(
+        model, np.random.RandomState(SEED))))
     rng = np.random.RandomState(SEED)
     raws = [rng.rand(*cube).astype(np.float32) for _ in range(2)]
     labs = [(r[0] > 0.5).astype(np.int16) for r in raws]
@@ -2205,28 +2275,36 @@ def grads_vs_f64(model, aug, B):
     return errs
 
 
+def trees_equal(a, b):
+    return set(a) == set(b) and all(
+        torch.equal(a[n][k], v) for n, d in b.items() for k, v in d.items())
+
+
+def clone_tree(tree):
+    return {n: {k: v.clone() for k, v in d.items()} for n, d in tree.items()}
+
+
 def graphed_equals_eager(model, loop):
     """Check (b): under cudnn.deterministic, a graphed chunk equals the
-    eager chunk from the same parameters, optimiser state and generator
-    state, bit for bit. Returns the chunk means of the two chunks that
-    trained on."""
+    eager chunk from the same parameters, optimiser state, aux state (batch
+    norm's running statistics) and generator state (batches, dropout's
+    masks), bit for bit: the losses, the parameters and the aux state.
+    Returns the chunk means of the two chunks that trained on."""
     torch.backends.cudnn.deterministic = True
     try:
         first, _ = loop.run_chunk()             # captured under the flag
         model.snapshot_good()
         state = loop.generator.get_state()
         eager_l, _ = loop._run_chunk_eager()
-        eager = {n: {k: v.clone() for k, v in d.items()}
-                 for n, d in model.params.items()}
+        eager_p, eager_s = clone_tree(model.params), clone_tree(model.state)
         model.repair_fuckup()
         loop.generator.set_state(state)
         graph_l, _ = loop.run_chunk()
     finally:
         torch.backends.cudnn.deterministic = False
-    same = np.array_equal(graph_l, eager_l) and all(
-        torch.equal(model.params[n][k], v)
-        for n, d in eager.items() for k, v in d.items())
-    if not same:
+    if not (np.array_equal(graph_l, eager_l)
+            and trees_equal(model.params, eager_p)
+            and trees_equal(model.state, eager_s)):
         raise AssertionError("train: the graphed chunk differs from the "
                              "eager chunk")
     return [float(first.mean()), float(graph_l.mean())]
@@ -2402,10 +2480,593 @@ def phase_train(smi):
     return k1_launches
 
 
+# ------------------------------------------- batch norm and dropout training
+
+BN_TURNS = ("graphed", "eager", "eager", "graphed")   # one chunk a turn
+BN_SERVE_SHAPE = (1, 32, 160, 160)     # the served BN net's request
+#: a leaf whose float64 gradient is below this share of the step's largest
+#: leaf norm has an exact gradient of 0 (a conv bias before batch norm):
+#: it is held to an absolute error instead of a relative one
+ZERO_GRAD_SHARE = 1e-6
+
+
+def bn_loss_f64(model, params, x, t, draws):
+    """The BN net's loss in plain float64 ops: conv + bias -> max pool ->
+    batch norm (the batch's mean and biased variance, eps 1e-5) -> ReLU ->
+    dropout with the f32 step's masks, the 1x1 conv, softmax, the sparse
+    NLL's mean."""
+    F = torch.nn.functional
+    h = x.double()
+    for i in range(4):
+        name = f"conv{i}"
+        node, p = model.nodes[name], params[name]
+        h = F.conv3d(h, p["w"], p["b"])
+        if any(q > 1 for q in node.pool_shape):
+            h = F.max_pool3d(h, node.pool_shape)
+        mean = h.mean(dim=(0, 2, 3, 4), keepdim=True)
+        var = ((h - mean) ** 2).mean(dim=(0, 2, 3, 4), keepdim=True)
+        shape = (1, -1, 1, 1, 1)
+        h = (p["bn_gamma"].reshape(shape) * (h - mean)
+             * torch.rsqrt(var + 1e-5) + p["bn_beta"].reshape(shape))
+        h = torch.relu(h)
+        if node.dropout_rate:
+            keep = 1.0 - node.dropout_rate
+            h = torch.where(draws[name], h / keep, 0.0)
+    probs = torch.softmax(F.conv3d(h, params["class"]["w"],
+                                   params["class"]["b"]), 1)
+    logp = torch.log(torch.clamp(probs, min=1e-10))
+    return -torch.gather(logp, 1, t.long()[:, None]).mean()
+
+
+def bn_grads_vs_f64(model, aug, B):
+    """One step's gradients of the BN net (float32 on the card, its dropout
+    masks drawn from a generator of its own) against the same step in
+    float64 with those masks: relative L2 per leaf (``GRAD_F64_TOL``); a
+    leaf whose exact gradient is 0 (``ZERO_GRAD_SHARE``) is held to
+    ``GRAD_F64_TOL`` times the largest leaf norm."""
+    data, tgt = aug.getbatch(B, warp=0.5)
+    gen = torch.Generator(model.device).manual_seed(SEED + 5)
+    draws = {}
+    _, _, grads, _ = model._loss_and_grads(model._feed(data, tgt), gen,
+                                           draws=draws)
+    p64 = {n: {k: v.detach().double().requires_grad_() for k, v in d.items()}
+           for n, d in model.params.items()}
+    names = [(n, k) for n in sorted(p64) for k in sorted(p64[n])]
+    g64 = torch.autograd.grad(bn_loss_f64(model, p64, data, tgt, draws),
+                              [p64[n][k] for n, k in names])
+    want = {}
+    for (n, k), g in zip(names, g64):
+        want.setdefault(n, {})[k] = g
+    rel, zero = grad_errs(grads, want, "train_bn: gradients off float64")
+    return dict(grad_f64_rel_l2=rel, grad_f64_zero_leaves_abs_l2=zero,
+                dropout_masks=sorted(draws))
+
+
+def grad_errs(grads, want, what):
+    """Each leaf of ``grads`` against ``want``'s: the relative L2 error
+    (``rel``), or for a leaf whose reference gradient is 0
+    (``ZERO_GRAD_SHARE`` of the largest leaf norm) the L2 error relative to
+    that largest norm (``zero``); raises ``what`` if one is over
+    ``GRAD_F64_TOL``. Returns (rel, zero)."""
+    top = max(g.norm().item() for d in want.values() for g in d.values())
+    rel, zero = {}, {}
+    for n, d in want.items():
+        for k, g in d.items():
+            err = (grads[n][k].double() - g.double()).norm().item()
+            if g.norm().item() < ZERO_GRAD_SHARE * top:
+                zero[f"{n}/{k}"] = err / top
+            else:
+                rel[f"{n}/{k}"] = err / g.norm().item()
+    bad = {k: v for k, v in {**rel, **zero}.items() if not v <= GRAD_F64_TOL}
+    if bad:
+        raise AssertionError(f"{what} by {bad} > {GRAD_F64_TOL}")
+    return rel, zero
+
+
+def serve_bn(model, path):
+    """The trained BN net served densely: rebuilt with MFP on at the
+    nearest valid MFP patch, through ``predict_dense_device`` under
+    ``set_dilated_impl("direct", pallas_tail=True)`` (batch norm as a
+    per-channel affine of the running statistics; K1 takes none of its
+    convs: 0 launches), against the host-tiled MFP route (``SLICE_ATOL``),
+    and again after ``save`` -> ``modelload``: the same map bit for bit."""
+    from elektronn2_tpu_torch.neuromancer.model import rebuild_model
+    from elektronn2_tpu_torch.utils.cnncalculator import cnncalculator
+    from elektronn2_tpu_torch.utils.convert import (NEURO3D_FILTERS,
+                                                    NEURO3D_POOLS)
+    patch = cnncalculator(NEURO3D_FILTERS, NEURO3D_POOLS,
+                          list(model.input_node.shape.spatial_shape),
+                          mfp=True, ndim=3).input
+    vol = torch.from_numpy(np.random.RandomState(SEED + 13).rand(
+        *BN_SERVE_SHAPE).astype(np.float32)).cuda()
+
+    def serve(m):
+        m.set_dilated_impl("direct", pallas_tail=True)
+        tailconv.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.predict_dense_device(vol, pad_raw=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, tailconv.launches
+
+    served = rebuild_model(model, override_mfp_to_active=True,
+                           imposed_patch_size=patch)
+    if inference._dilated_unsupported(served.prediction_node,
+                                      served.state) is not None:
+        raise AssertionError("train_bn serve: the dilated path refuses the "
+                             "trained BN net")
+    before, dt, k1 = serve(served)
+    t0 = time.perf_counter()
+    tiled = served.predict_dense(vol.cpu().numpy(), pad_raw=True,
+                                 prefer_device=False)
+    tiled_s = time.perf_counter() - t0
+    err = float(np.abs(before.cpu().numpy() - tiled).max())
+    model.save(path)
+    loaded = modelload(path, override_mfp_to_active=True,
+                       imposed_patch_size=patch)
+    after, _, k1_after = serve(loaded)
+    same = bool(torch.equal(before, after))
+    rec = dict(request=list(BN_SERVE_SHAPE), patch_mfp=list(patch),
+               seconds=dt, tiled_seconds=tiled_s, k1_launches=k1 + k1_after,
+               max_abs_vs_tiled_mfp=err, round_trip_bit_exact=same,
+               state_nodes=sorted(loaded.state),
+               channel_sum_dev=check_probs(before,
+                                           (2,) + BN_SERVE_SHAPE[1:]))
+    if k1 or k1_after:
+        raise AssertionError(f"train_bn serve: K1 took {k1 + k1_after} "
+                             "batch-normed convs")
+    if err > SLICE_ATOL:
+        raise AssertionError(f"train_bn serve: dense vs tiled MFP {err} > "
+                             f"{SLICE_ATOL}")
+    if not same:
+        raise AssertionError("train_bn serve: the map changed over the "
+                             "save/load round trip")
+    return rec
+
+
+def phase_train_bn(smi):
+    """The batch-normed, dropout neuro3d net (``neuro3d_bn_train_model``:
+    ``simple_cnn`` at 20/30/40/40, batch norm on every conv, dropout 0.1 on
+    the two (3,3,3) convs) at ``TRAIN_ROWS``' two rows through
+    ``FusedTrainLoop``: the running statistics live in the chunk graph and
+    are written in place, the masks come from the loop's generator. Checks:
+    graph = eager bit for bit (losses, parameters, running statistics), the
+    b4 step's gradients against float64 with its masks held, no host sync
+    in a chunk, the b4 loss falls over >= ``TRAIN_MIN_CHUNKS`` chunks;
+    graphed and eager chunks timed in turns (``BN_TURNS``), a profiled
+    graphed chunk (kernels a step). Then the b4 net served
+    (``serve_bn``)."""
+    for name, B, patch, K, cube in TRAIN_ROWS:
+        model, aug, loop = train_setup(B, patch, K, cube,
+                                       build=neuro3d_bn_train_model)
+        checks = {}
+        if name == "b4":
+            checks.update(bn_grads_vs_f64(model, aug, B))
+        history = graphed_equals_eager(model, loop)
+        capture = loop.capture_seconds
+        history += no_sync_chunks(loop)
+        walls = {"graphed": [], "eager": []}
+        routes = {"graphed": loop.run_chunk, "eager": loop._run_chunk_eager}
+        peak = {}
+        for route in BN_TURNS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses, _ = routes[route]()
+            walls[route].append(time.perf_counter() - t0)
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"train_bn {name}: non-finite loss")
+            history.append(float(losses.mean()))
+            peak[route] = max(peak.get(route, 0.0),
+                              torch.cuda.max_memory_allocated() / 2**30)
+        while name == "b4" and len(history) < TRAIN_MIN_CHUNKS:
+            history.append(float(loop.run_chunk()[0].mean()))
+        prof = profile_once(lambda: history.append(float(
+            loop.run_chunk()[0].mean())), "conv")
+        g, e = min(walls["graphed"]), min(walls["eager"])
+        mvox = B * float(np.prod(model.input_node.shape.spatial_shape)) * K
+        emit("train_bn_row", row=name, B=B, K=K,
+             patch_in=list(model.input_node.shape.spatial_shape),
+             patch_out=list(model.prediction_node.shape.spatial_shape),
+             dropout=[model.nodes[f"conv{i}"].dropout_rate for i in range(4)],
+             graphed_chunk_seconds=walls["graphed"],
+             eager_chunk_seconds=walls["eager"], it_s=K / g,
+             eager_it_s=K / e, mvox_in_s=mvox / 1e6 / g,
+             eager_mvox_in_s=mvox / 1e6 / e, graphed_speedup=e / g,
+             capture_seconds=capture, peak_gib=peak["graphed"],
+             eager_peak_gib=peak["eager"],
+             kernels_per_step=prof["device_kernels"] / K,
+             profile_device_ms=prof["device_ms"],
+             profile_idle_share=prof["idle_share"], top=prof["top"][:6],
+             nvidia_smi=smi)
+        checks.update(graphed_equals_eager=True, host_syncs_in_chunk=0,
+                      chunks=len(history), chunk_mean_losses=history,
+                      running_stats=sorted(model.state))
+        if name == "b4":
+            if not history[-1] < history[0]:
+                raise AssertionError(f"train_bn: last chunk's mean loss "
+                                     f"{history[-1]} not below the first's "
+                                     f"{history[0]}")
+            with tempfile.TemporaryDirectory() as tmp:
+                emit("train_bn_serve", **serve_bn(
+                    model, os.path.join(tmp, "bn.mdl")))
+        emit("train_bn_checks", row=name, **checks)
+        del model, aug, loop
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------- train lowerings and remat
+
+LOWERING_MODES = (("default", {}, False), ("zfold", dict(zfold=True), False),
+                  ("remat", {}, True))
+LOWERING_CHUNKS = 2                     # timed chunks a mode
+LOWERING_ATOL = 1e-5                    # tests/test_training.py:501
+UNET_CHUNK = 4                          # the wide U-Net's host-fed chunk
+UNET_GATE_RUNS = 3                      # the skipsum gate's runs
+
+
+def wgrad_by_layer(model, loop):
+    """One eager chunk under ``torch.profiler`` with ``record_shapes``: the
+    device ms of the weight-gradient kernels (names holding ``wgrad``) and
+    of all kernels under each ``aten::convolution_backward``, by layer (the
+    op's weight shape; a z-folded conv's 2-D weight maps to its layer). A
+    replay records no ops, so the per-layer split is read from the eager
+    chunk; the graphed chunk's own total is ``profile_once``'s."""
+    from torch.profiler import ProfilerActivity, profile
+    layers = {}
+    for n, d in model.params.items():
+        w = tuple(d["w"].shape)
+        layers[w] = n
+        if len(w) == 5 and w[2] == 1:
+            layers[w[:2] + w[3:]] = n
+
+    def kernels(evt):
+        ks = [(k.name, k.duration) for k in getattr(evt, "kernels", [])]
+        for c in evt.cpu_children:
+            ks += kernels(c)
+        return ks
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        loop._run_chunk_eager()
+        torch.cuda.synchronize()
+    wgrad, bwd = {}, {}
+    for evt in prof.events():
+        if evt.name != "aten::convolution_backward":
+            continue
+        shapes = evt.input_shapes or []
+        layer = layers.get(tuple(shapes[2]) if len(shapes) > 2 else None,
+                           "unmatched")
+        for kname, us in kernels(evt):
+            bwd[layer] = bwd.get(layer, 0.0) + us / 1e3
+            if "wgrad" in kname.lower():
+                wgrad[layer] = wgrad.get(layer, 0.0) + us / 1e3
+    return dict(wgrad_ms_per_chunk=wgrad or None,
+                conv_backward_ms_per_chunk=bwd or None)
+
+
+class UnetData:
+    """Seeded host batches for the wide U-Net: raw (B, 1, *patch) uniform,
+    labels raw > 0.5 at the output's centre (int32)."""
+
+    def __init__(self, model, seed):
+        self.rng = np.random.RandomState(seed)
+        self.patch = tuple(model.input_node.shape.spatial_shape)
+        self.out = tuple(model.prediction_node.shape.spatial_shape)
+
+    def getbatch(self, batch_size):
+        x = self.rng.rand(batch_size, 1, *self.patch).astype(np.float32)
+        lo = [(p - o) // 2 for p, o in zip(self.patch, self.out)]
+        c = x[:, 0, lo[0]:lo[0] + self.out[0], lo[1]:lo[1] + self.out[1],
+              lo[2]:lo[2] + self.out[2]]
+        return x, (c > 0.5).astype(np.int32)
+
+
+def unet_skipsum_chunks(smi):
+    """``examples/unet3d_wide.py``'s net at full width (64/128/256,
+    16x64x64, the example's own initial weights, its Adam lr 1e-3 clip 10)
+    through ``HostFedFusedLoop`` chunks of ``UNET_CHUNK``, under the default
+    trace and under ``set_train_lowering(skipsum=True)``, from the same
+    weights on the same batches, ``UNET_GATE_RUNS`` times from fresh
+    models. Each run's first chunk runs under ``cudnn.deterministic``, so
+    the gate reads skipsum's own rounding and not the order of cuDNN's
+    atomic adds: its losses within ``LOWERING_ATOL`` of the default
+    trace's in every run. In the first run the flag then goes off (the loop
+    recaptures) and a chunk is timed."""
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    res = {False: [], True: []}
+    for run in range(UNET_GATE_RUNS):
+        for skipsum in (False, True):
+            m = wide_unet_model(batch=1)
+            m.set_opt("Adam", lr=1e-3, clip=10.0)
+            m.set_train_lowering(skipsum=skipsum)
+            loop = HostFedFusedLoop(m, UnetData(m, SEED), 1, UNET_CHUNK,
+                                    prefetch=False)
+            torch.cuda.reset_peak_memory_stats()
+            torch.backends.cudnn.deterministic = True
+            try:
+                first, _ = loop.run_chunk()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            row = dict(losses=first.tolist(),
+                       capture_seconds=loop.capture_seconds)
+            if run == 0:
+                loop.run_chunk()                # recaptured without the flag
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.run_chunk()
+                wall = time.perf_counter() - t0
+                row.update(chunk_seconds=wall, it_s=UNET_CHUNK / wall,
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2**30)
+            res[skipsum].append(row)
+            del m, loop
+            torch.cuda.empty_cache()
+    errs = [float(np.abs(np.asarray(s["losses"])
+                         - np.asarray(d["losses"])).max())
+            for d, s in zip(res[False], res[True])]
+    emit("train_lowering_unet", config="examples/unet3d_wide.py",
+         chunk=UNET_CHUNK, runs=UNET_GATE_RUNS, default=res[False][0],
+         skipsum=res[True][0], loss_max_abs_vs_default=max(errs),
+         loss_max_abs_vs_default_by_run=errs,
+         default_losses_by_run=[r["losses"] for r in res[False]],
+         skipsum_losses_by_run=[r["losses"] for r in res[True]],
+         nvidia_smi=smi)
+    if not max(errs) <= LOWERING_ATOL:
+        raise AssertionError(f"train_lowering unet: skipsum's losses off "
+                             f"the default trace's by {errs}")
+
+
+def phase_train_lowering(smi):
+    """``phase_train``'s plain neuro3d rows under the default trace, under
+    ``set_train_lowering(zfold=True)`` and under ``set_remat(True)``, each
+    from the same weights, batches and draws. Checks: one step's gradients
+    (before any chunk, on one ``getbatch`` batch) against the default
+    trace's, per leaf as ``grad_errs`` (``GRAD_F64_TOL``), and the first
+    graphed chunk's losses within ``LOWERING_ATOL`` of the default trace's,
+    both with the algorithms training runs. The same first chunk is also
+    run under ``cudnn.deterministic`` from the same start and its distance
+    from the default's reported (cuDNN takes other algorithms there, and
+    Adam carries their rounding into later losses). Then it/s and peak GiB
+    over ``LOWERING_CHUNKS`` graphed chunks, one graphed chunk profiled
+    (the weight-gradient kernels' device ms) and the weight-gradient time
+    by layer (``wgrad_by_layer``). The zfold-trained b4 weights then serve
+    one request through K1, each launch held against its plain version.
+    Then the wide U-Net's skipsum chunk (``unet_skipsum_chunks``). Returns
+    K1's launches in the served request."""
+    k1_launches = 0
+    for name, B, patch, K, cube in TRAIN_ROWS:
+        ref = ref_det = ref_grads = None
+        for mode, lowering, remat in LOWERING_MODES:
+            model, aug, loop = train_setup(B, patch, K, cube)
+            model.set_train_lowering(**lowering)
+            model.set_remat(remat)
+            data, tgt = aug.getbatch(B, warp=0.5)
+            grads = model._loss_and_grads(model._feed(data, tgt), None)[2]
+            ref_grads = grads if ref_grads is None else ref_grads
+            g_rel, g_zero = grad_errs(grads, ref_grads,
+                                      f"train_lowering {name} {mode}: "
+                                      "gradients off the default trace's")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model.snapshot_good()
+            gen = loop.generator.get_state()
+            torch.backends.cudnn.deterministic = True
+            try:
+                first_det, _ = loop.run_chunk()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            model.repair_fuckup()
+            loop.generator.set_state(gen)
+            first, _ = loop.run_chunk()         # recaptured without the flag
+            ref = first if ref is None else ref
+            ref_det = first_det if ref_det is None else ref_det
+            err = float(np.abs(first - ref).max())
+            err_det = float(np.abs(first_det - ref_det).max())
+            walls = []
+            for _ in range(LOWERING_CHUNKS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.run_chunk()
+                walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            prof = profile_once(loop.run_chunk, "wgrad")
+            emit("train_lowering", row=name, mode=mode, B=B, K=K,
+                 chunk_seconds=walls, it_s=K / min(walls), peak_gib=peak,
+                 first_chunk_losses=first.tolist(),
+                 loss_max_abs_vs_default=err,
+                 grad_rel_l2_vs_default=g_rel,
+                 grad_zero_leaves_abs_l2_vs_default=g_zero,
+                 deterministic_first_chunk_losses=first_det.tolist(),
+                 deterministic_loss_max_abs_vs_default=err_det,
+                 graphed_wgrad_ms=(None if prof["kernel_us_per_launch"] is None
+                                   else prof["kernel_us_per_launch"]
+                                   * prof["kernel_launches"] / 1e3),
+                 graphed_wgrad_launches=prof["kernel_launches"],
+                 graphed_device_ms=prof["device_ms"],
+                 graphed_top=prof["top"][:6],
+                 **wgrad_by_layer(model, loop), nvidia_smi=smi)
+            if not err <= LOWERING_ATOL:
+                raise AssertionError(f"train_lowering {name} {mode}: the "
+                                     f"losses are off the default trace's by "
+                                     f"{err}")
+            if name == "b4" and mode == "zfold":
+                vol = torch.from_numpy(np.random.RandomState(SEED + 14).rand(
+                    *SERVE_SHAPE).astype(np.float32)).cuda()
+                out, dt, k1_launches, per_launch = k1_serve_recorded(
+                    model, vol, "train_lowering serve")
+                err_c = (out - serve_request(model, vol, ptail=False)).abs() \
+                    .max().item()
+                emit("train_lowering_serve", row=name, mode=mode,
+                     request=list(SERVE_SHAPE), seconds=dt,
+                     k1_launches=k1_launches, max_abs_vs_cudnn=err_c,
+                     channel_sum_dev=check_probs(out, (2,) + SERVE_SHAPE[1:]),
+                     k1_launches_vs_plain=per_launch)
+                if err_c > SLICE_ATOL:
+                    raise AssertionError(f"train_lowering serve: K1 vs cuDNN "
+                                         f"{err_c} > {SLICE_ATOL}")
+                del vol, out
+            del model, aug, loop
+            torch.cuda.empty_cache()
+    unet_skipsum_chunks(smi)
+    return k1_launches
+
+
+# ------------------------------------------- tracing heads
+
+TN_PRELU_W = 64                          # the prelu layer of head (a)
+TN_FIELD_B, TN_FIELD_K, TN_FIELD_CHUNKS = 256, 8, 12
+TN_FIELD_NOISE = 3.0                     # voxels off the helix, std
+SKEL_FIELD_TOL = 0.6                     # tests/test_tracing.py:680
+HELIX_NODES = 2000                       # ~0.4 voxel between nodes
+
+
+class FieldData:
+    """Host batches of the skeleton-field head: agents at helix points
+    moved off it by ``TN_FIELD_NOISE`` voxels, their ``TRACE_PATCH`` views
+    of ``vol`` and their [skel_id, z, x, y] rows."""
+
+    def __init__(self, vol, helix, seed):
+        self.vol, self.helix = vol, helix
+        self.rng = np.random.RandomState(seed)
+        self.half = np.asarray(TRACE_PATCH) // 2
+
+    def getbatch(self, batch_size):
+        idx = self.rng.randint(0, len(self.helix.positions), batch_size)
+        pos = self.helix.positions[idx] + self.rng.normal(
+            0, TN_FIELD_NOISE, (batch_size, 3))
+        lo = np.clip(np.round(pos).astype(int) - self.half, 0,
+                     np.asarray(self.vol.shape[1:]) - TRACE_PATCH)
+        x = np.stack([self.vol[:, a:a + TRACE_PATCH[0], b:b + TRACE_PATCH[1],
+                               c:c + TRACE_PATCH[2]] for a, b, c in lo])
+        rows = np.concatenate([np.zeros((batch_size, 1)), pos], 1)
+        return x.astype(np.float32), rows.astype(np.float32)
+
+
+def field_head(fields, loss):
+    """The skeleton head: a ``TRACE_PATCH`` view -> Perceptron(64, relu,
+    flatten) -> Perceptron(64, prelu) -> Perceptron(3, lin) step, under
+    ``SkelLossField`` (``fields``) or ``SkelLoss``; the skeleton rows are a
+    ``GenericInput`` fed as the target."""
+    from elektronn2_tpu_torch import neuromancer as nm
+    nm.model_manager.reset()
+    x = nm.Input([TN_FIELD_B, 1, *TRACE_PATCH], "b,f,z,x,y", name="x")
+    h = nm.Perceptron(x, 64, flatten=True, name="enc")
+    h = nm.Perceptron(h, 64, activation_func="prelu", name="mid")
+    step = nm.Perceptron(h, 3, activation_func="lin", name="step")
+    skel = nm.GenericInput(name="skel")
+    sl = (nm.SkelLossField(step, skel, fields, name="slf")
+          if loss == "field" else nm.SkelLoss(step, skel, name="skel_loss"))
+    m = nm.model_manager.getmodel("skel_head")
+    m.designate_nodes(input_node=x, target_node=skel,
+                      loss_node=nm.AggregateLoss(sl), prediction_node=step)
+    return m.to("cuda")
+
+
+def skel_field_training(smi):
+    """(b) The skeleton head trained on ``SkelLossField`` over the 256^3
+    field of a helix (``HELIX_NODES`` nodes) in ``HostFedFusedLoop``
+    chunks (B ``TN_FIELD_B``, K ``TN_FIELD_K``) on views of a volume that
+    shows the helix: a chunk graphed equals it eager bit for bit on the
+    same staged batches, the loss falls over ``TN_FIELD_CHUNKS`` chunks.
+    (c) ``SkelLoss`` (the host KD-tree) evaluated eagerly on one batch with
+    the trained weights: its loss within ``SKEL_FIELD_TOL`` of
+    ``SkelLossField``'s."""
+    from elektronn2_tpu_torch.data import skeleton as sk
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    helix = helix_skeleton(TRACE_VOL[1:], n=HELIX_NODES)
+    t0 = time.perf_counter()
+    fields = sk.skeleton_distance_field([helix], TRACE_VOL[1:])
+    field_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 15)
+    vol = (np.exp(-fields / 8.0) + 0.1 * rng.rand(*TRACE_VOL)).astype(
+        np.float32)
+    model = field_head(fields, "field")
+    params = {}
+    for n, fan_in in (("enc", int(np.prod(TRACE_PATCH))), ("mid", 64),
+                      ("step", 64)):
+        d = model.params[n]
+        params[n] = {"w": rng.standard_normal(tuple(d["w"].shape))
+                     / np.sqrt(fan_in), "b": np.zeros(tuple(d["b"].shape))}
+    params["mid"]["alpha"] = np.full(64, 0.25)
+    params["slf"] = {"fields": model.params["slf"]["fields"]}
+    model.set_params(params)
+    model.set_opt("Adam", lr=1e-3)
+    loop = HostFedFusedLoop(model, FieldData(vol, helix, SEED), TN_FIELD_B,
+                            TN_FIELD_K, prefetch=False)
+    history = [float(loop.run_chunk()[0].mean())]       # capture
+    torch.backends.cudnn.deterministic = True
+    try:
+        model.snapshot_good()
+        loop._upload(loop._fill())
+        loop._launch_eager()
+        eager = loop._result()[0]
+        eager_p = clone_tree(model.params)
+        model.repair_fuckup()
+        loop._launch_graphed()
+        graphed = loop._result()[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = bool(np.array_equal(eager, graphed)
+                and trees_equal(model.params, eager_p))
+    walls = []
+    for _ in range(TN_FIELD_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history.append(float(loop.run_chunk()[0].mean()))
+        walls.append(time.perf_counter() - t0)
+    # (c) the host query on one batch with the trained weights
+    sk.clear_skeleton_registry()
+    sk.register_skeleton(helix)
+    host = field_head(None, "callback")
+    host.set_params({n: d for n, d in model.params.items() if n != "slf"})
+    x, rows = FieldData(vol, helix, SEED + 1).getbatch(TN_FIELD_B)
+    x, rows = torch.from_numpy(x).cuda(), torch.from_numpy(rows).cuda()
+    l_field = float(model.loss(x, rows))
+    t0 = time.perf_counter()
+    l_host = float(host.loss(x, rows))
+    host_s = time.perf_counter() - t0
+    per = [m._apply([m.loss_node.parents[0]], m.params, m.state,
+                    m._feed(x, rows), None, train=False)[0][0]
+           for m in (model, host)]
+    diff = (per[0] - per[1]).abs()
+    sk.clear_skeleton_registry()
+    emit("tracing_nodes_field", B=TN_FIELD_B, K=TN_FIELD_K,
+         chunks=len(history), vol=list(TRACE_VOL), helix_nodes=HELIX_NODES,
+         field_seconds=field_s, chunk_seconds=walls,
+         it_s=TN_FIELD_K / min(walls), capture_seconds=loop.capture_seconds,
+         chunk_mean_losses=history, graphed_equals_eager=same,
+         skel_loss=l_host, skel_loss_field=l_field,
+         skel_loss_seconds=host_s,
+         per_agent_abs_diff=dict(median=diff.median().item(),
+                                 max=diff.max().item()),
+         nvidia_smi=smi)
+    if not same:
+        raise AssertionError("tracing_nodes: the graphed field chunk "
+                             "differs from the eager one")
+    if not history[-1] < history[0]:
+        raise AssertionError(f"tracing_nodes: the field loss {history[-1]} "
+                             f"did not fall below {history[0]}")
+    if not abs(l_host - l_field) <= SKEL_FIELD_TOL:
+        raise AssertionError(f"tracing_nodes: SkelLoss {l_host} vs "
+                             f"SkelLossField {l_field}")
+    del model, host, loop
+    torch.cuda.empty_cache()
+
+
+def phase_tracing_nodes(smi):
+    """The tracer's new heads, (b) and (c): ``skel_field_training``. Head
+    (a), the prelu head, is ``phase_trace(rotate=False,
+    prelu_w=TN_PRELU_W)``, run in ``main`` beside the other rollouts,
+    before the pools (``profile_once``)."""
+    skel_field_training(smi)
+
+
 TRAIN_CLI_RUNS = (                      # (config, steps, warm-up steps)
     ("neuro3d", 300, 20),                # per step, 2 forked workers
     ("unet3d_wide", 64, 8),              # host-fed chunks of 4
-    ("neuro3d_fast", 96, 32))            # device-sampled chunks of 16
+    ("neuro3d_fast", 96, 32),            # device-sampled chunks of 16
+    ("mlp_mnist", 300, 20))              # Perceptrons with dropout, 1 worker
 TRAIN_CLI_WINDOW = 20                   # steps profiled, at a run's end
 GETBATCH_N = 20                         # host getbatch calls timed
 
@@ -2528,11 +3189,12 @@ def getbatch_cost(trainer):
                                    n_steps=trainer.n_scan_steps)
         return (time.perf_counter() - t0) / GETBATCH_N * 1e3, None
     data.getbatch(trainer.batch_size, **trainer.data_batch_args)
-    failed = data._n_failed
+    failed = getattr(data, "_n_failed", None)     # image sources only
     t0 = time.perf_counter()
     for _ in range(GETBATCH_N):
         data.getbatch(trainer.batch_size, **trainer.data_batch_args)
     return ((time.perf_counter() - t0) / GETBATCH_N * 1e3,
+            None if failed is None else
             (data._n_failed - failed) / GETBATCH_N)
 
 
@@ -2612,7 +3274,7 @@ K1_SERVE_RTOL = 1e-4
 K1_SERVE_MIN_ACTIVE = 0.01
 
 
-def k1_calls_vs_plain(calls):
+def k1_calls_vs_plain(calls, what):
     """Each recorded K1 launch ``(x, w, b, dil, y)`` of a served request
     held against the plain version on the same input: the error relative
     to the activation's largest magnitude (``K1_SERVE_RTOL``), the share of
@@ -2633,16 +3295,42 @@ def k1_calls_vs_plain(calls):
                    cudnn_f64_max_abs=c64)
         recs.append(rec)
         if not active > K1_SERVE_MIN_ACTIVE or not scale > 0:
-            raise AssertionError(f"train_cli serve: K1 launch {i} is past "
+            raise AssertionError(f"{what}: K1 launch {i} is past "
                                  f"its ReLU at {active} of its voxels")
         if err > K1_SERVE_RTOL * scale:
-            raise AssertionError(f"train_cli serve: K1 launch {i} vs cuDNN "
+            raise AssertionError(f"{what}: K1 launch {i} vs cuDNN "
                                  f"{err} > {K1_SERVE_RTOL} x {scale}")
         if k64 > 2 * c64 + 1e-6 * scale:
-            raise AssertionError(f"train_cli serve: K1 launch {i} {k64} "
+            raise AssertionError(f"{what}: K1 launch {i} {k64} "
                                  f"from float64, over 2x cuDNN's {c64}")
         del ref
     return recs
+
+
+def k1_serve_recorded(model, vol, what):
+    """One request through the K1 route with every K1 launch recorded and
+    held against its plain version (``k1_calls_vs_plain``); two launches
+    expected. Returns the served map, its seconds, the launches and the
+    per-launch records."""
+    calls, k1_fn = [], tailconv.conv3x3_dilated
+
+    def recorded(x, w, b, dil=(1, 1, 1), relu=True):
+        y = k1_fn(x, w, b, dil, relu)
+        calls.append((x, w, b, tuple(dil), y))
+        return y
+    tailconv.launches = 0
+    tailconv.conv3x3_dilated = recorded
+    try:
+        t0 = time.perf_counter()
+        out = serve_request(model, vol, ptail=True)
+        dt = time.perf_counter() - t0
+    finally:
+        tailconv.conv3x3_dilated = k1_fn
+    launches = tailconv.launches
+    if launches != 2 or len(calls) != 2:
+        raise AssertionError(f"{what}: {launches} K1 launches, "
+                             f"{len(calls)} recorded, expected 2")
+    return out, dt, launches, k1_calls_vs_plain(calls, what)
 
 
 def phase_train_cli(smi):
@@ -2666,28 +3354,11 @@ def phase_train_cli(smi):
         vol = torch.from_numpy(np.random.RandomState(SEED + 11).rand(
             *SERVE_SHAPE).astype(np.float32)).cuda()
         ref = serve_request(model, vol, ptail=False)
-        calls, k1_fn = [], tailconv.conv3x3_dilated
-
-        def recorded(x, w, b, dil=(1, 1, 1), relu=True):
-            y = k1_fn(x, w, b, dil, relu)
-            calls.append((x, w, b, tuple(dil), y))
-            return y
-        tailconv.launches = 0
-        tailconv.conv3x3_dilated = recorded
-        try:
-            t0 = time.perf_counter()
-            k1 = serve_request(model, vol, ptail=True)
-            dt = time.perf_counter() - t0
-        finally:
-            tailconv.conv3x3_dilated = k1_fn
-        launches = tailconv.launches
+        k1, dt, launches, per_launch = k1_serve_recorded(model, vol,
+                                                         "train_cli serve")
         err = (k1 - ref).abs().max().item()
         unsaturated = ((k1 > 1e-3) & (k1 < 1 - 1e-3)).float().mean().item()
         probs_dev = check_probs(k1, (2,) + SERVE_SHAPE[1:])
-        per_launch = (k1_calls_vs_plain(calls)
-                      if launches == len(calls) == 2 else None)
-        n_recorded = len(calls)
-        del calls
         model.set_params(start)
         moved = (k1 - serve_request(model, vol, ptail=True)).abs().max(
             ).item()
@@ -2696,9 +3367,6 @@ def phase_train_cli(smi):
              max_abs_vs_cudnn=err, max_abs_vs_before_training=moved,
              unsaturated_share=unsaturated, channel_sum_dev=probs_dev,
              k1_launches_vs_plain=per_launch)
-        if launches != 2 or per_launch is None:
-            raise AssertionError(f"train_cli serve: {launches} K1 launches, "
-                                 f"{n_recorded} recorded, expected 2")
         if err > SLICE_ATOL:
             raise AssertionError(f"train_cli serve: K1 vs cuDNN {err} > "
                                  f"{SLICE_ATOL}")
@@ -3055,7 +3723,9 @@ def main():
     k1_launches += k1_chain + phase_convdense()
     raw = phase_trace(rotate=False)
     raw_rot = phase_trace(rotate=True)
-    k2_launches, k3_launches = raw["launches"], raw_rot["launches"]
+    prelu = phase_trace(rotate=False, prelu_w=TN_PRELU_W)   # tracing_nodes
+    k2_launches = raw["launches"] + prelu["launches"]
+    k3_launches = raw_rot["launches"]
     phase_trace_kzip()
     k3b = phase_kernel_k3_bf16()
     k2_launches += phase_trace_pool(raw)
@@ -3068,8 +3738,11 @@ def main():
     p1_launches, p1 = phase_probe_dot()
     p2_launches, p2 = phase_probe_ablate()
     k1_launches += phase_train(smi)
+    phase_train_bn(smi)
+    k1_launches += phase_train_lowering(smi)
     k1_launches += phase_train_cli(smi)
     k2_launches += phase_train_tracing(smi)
+    phase_tracing_nodes(smi)
     k1_launches += phase_sweep(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",

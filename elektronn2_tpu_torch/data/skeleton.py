@@ -4,10 +4,9 @@ Jax-free copy of ``Trace``, ``SkeletonMFK``, ``_parse_nml``, ``_build_nml``,
 ``_write_nml_file``, ``trace_to_kzip``, ``sample_tracing_batch`` and
 ``skeleton_distance_field`` in ``elektronn2_tpu/data/skeleton.py``
 (reference: ``elektronn2/data/skeleton.py``), plus :func:`read_nml_file`,
-the reading half of ``SkeletonMFK.load`` for NML and k.zip files. The
-skeleton loss helpers (``skel_loss_callback``, ``register_skeleton``,
-``clear_skeleton_registry``) belong to the ``SkelLoss`` nodes, which are not
-ported (ROADMAP.md §1 item 2): they raise.
+the reading half of ``SkeletonMFK.load`` for NML and k.zip files, and the
+skeleton loss helpers of the ``SkelLoss`` node (``skel_loss_callback``,
+``register_skeleton``, ``clear_skeleton_registry``).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import zipfile
 import xml.etree.ElementTree as ET
 
 import numpy as np
+import torch
 
 from ..utils.basic import AccumulationArray, DynamicKDT
 
@@ -307,20 +307,65 @@ class SkeletonMFK:
                 f"{len(self.edges)} edges>")
 
 
-def _skel_loss_not_ported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the skeleton losses (SkelLoss, SkelLossField) are not "
-            "ported (ROADMAP.md §1 item 2)")
-    fn.__name__ = name
-    fn.__doc__ = (f"The JAX package's ``skeleton.py::{name}``, a helper of "
-                  "the skeleton losses: not ported (ROADMAP.md §1 item 2).")
-    return fn
+def _skel_loss_host(skeletons, landing, skel_ids):
+    """Squared distance of each landing point to the nearest node of its
+    skeleton, and its gradient in the point, on the host (float64 query,
+    float32 results)."""
+    landing = np.asarray(landing, np.float64)
+    out_d = np.zeros(len(landing), np.float32)
+    out_g = np.zeros((len(landing), 3), np.float32)
+    for i, (p, sid) in enumerate(zip(landing, skel_ids)):
+        sk = skeletons[int(sid)]
+        idx, dist = sk.get_closest_node(p)
+        out_d[i] = dist ** 2
+        out_g[i] = 2.0 * (p - sk.positions[idx])
+    return out_d, out_g
 
 
-skel_loss_callback = _skel_loss_not_ported("skel_loss_callback")
-register_skeleton = _skel_loss_not_ported("register_skeleton")
-clear_skeleton_registry = _skel_loss_not_ported("clear_skeleton_registry")
+class _SkelLoss(torch.autograd.Function):
+    """The host KD-tree query as an autograd function: forward copies the
+    landing points to the host and the distances back; backward scales the
+    saved host gradient (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, pred, skel_feed, skeletons):
+        landing = (skel_feed[:, 1:4] + pred).detach().cpu().numpy()
+        ids = skel_feed[:, 0].detach().cpu().numpy().astype(np.int32)
+        d, g = _skel_loss_host(skeletons, landing, ids)
+        ctx.save_for_backward(torch.from_numpy(g).to(pred.device))
+        return torch.from_numpy(d).to(pred.device)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (g,) = ctx.saved_tensors
+        return ct[:, None] * g, None, None
+
+
+def skel_loss_callback(pred, skel_feed, positions=None, skeletons=None):
+    """Differentiable skeleton distance loss: ``pred`` (b, 3) step vectors,
+    ``skel_feed`` (b, 4) rows of [skel_id, z, x, y] positions; per sample
+    the squared distance of position + step to the nearest node of the
+    skeleton (by default from the registry, :func:`register_skeleton`).
+    The query runs on the host, so a call syncs it. Reference:
+    ``skeleton.py::skel_loss_callback``."""
+    if skeletons is None:
+        skeletons = _SKELETON_REGISTRY
+    return _SkelLoss.apply(pred, skel_feed, skeletons)
+
+
+#: registry of the skeletons ``SkelLoss`` nodes refer to by integer id
+#: (node specs stay JSON-serialisable)
+_SKELETON_REGISTRY = []
+
+
+def register_skeleton(sk):
+    """Add ``sk`` to the registry; returns its id."""
+    _SKELETON_REGISTRY.append(sk)
+    return len(_SKELETON_REGISTRY) - 1
+
+
+def clear_skeleton_registry():
+    _SKELETON_REGISTRY.clear()
 
 
 def sample_tracing_batch(agent_data, batch_size, n_steps, rng,

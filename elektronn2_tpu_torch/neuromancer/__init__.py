@@ -8,20 +8,26 @@ construction computes shapes (``TaggedShape``) and initial parameters;
 
 from .graphutils import TaggedShape, floatX, as_floatX
 from .graphmanager import GraphManager, model_manager
-from .node_basic import Node, Input, Concat, InitialState_like, Split, split
-from .neural import (Perceptron, Dot, Conv, Pool, UpConv, Crop,
-                     FaithlessMerge, FragmentsToDense, GRU, LSTM)
-from .various import ScanN
-from .loss import (Softmax, MultinoulliNLL, SquaredLoss, Errors,
-                   AggregateLoss)
-from .model import Model, modelload
+from .node_basic import (Node, Input, GenericInput, ValueNode, Concat,
+                         InitialState_like, Split, Reshape, Transpose, split)
+from .neural import (Perceptron, Dot, Conv, Pool, UpConv, Crop, Pad,
+                     Dropout, BatchNorm, FaithlessMerge, FragmentsToDense,
+                     GRU, LSTM)
+from .various import (GaussianRV, ScanN, SkelLoss, SkelLossField, SkelPrior,
+                      SkelGetBatch)
+from .loss import (Softmax, MultinoulliNLL, BinaryNLL, GaussianNLL,
+                   SquaredLoss, AbsLoss, Errors, AggregateLoss)
+from .model import Model, modelload, simple_cnn
 from . import optimiser
 
 __all__ = [
     "TaggedShape", "floatX", "as_floatX", "GraphManager", "model_manager",
-    "Node", "Input", "Concat", "InitialState_like", "Split", "split",
-    "Perceptron", "Dot", "Conv", "Pool", "UpConv", "Crop", "FaithlessMerge",
-    "FragmentsToDense", "GRU", "LSTM", "ScanN", "Softmax", "MultinoulliNLL",
-    "SquaredLoss", "Errors", "AggregateLoss", "Model", "modelload",
-    "optimiser",
+    "Node", "Input", "GenericInput", "ValueNode", "Concat",
+    "InitialState_like", "Split", "Reshape", "Transpose", "split",
+    "Perceptron", "Dot", "Conv", "Pool", "UpConv", "Crop", "Pad", "Dropout",
+    "BatchNorm", "FaithlessMerge", "FragmentsToDense", "GRU", "LSTM",
+    "GaussianRV", "ScanN", "SkelLoss", "SkelLossField", "SkelPrior",
+    "SkelGetBatch", "Softmax", "MultinoulliNLL", "BinaryNLL", "GaussianNLL",
+    "SquaredLoss", "AbsLoss", "Errors", "AggregateLoss", "Model",
+    "modelload", "simple_cnn", "optimiser",
 ]

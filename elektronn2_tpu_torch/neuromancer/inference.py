@@ -11,10 +11,12 @@ Port of ``dilated_dense_forward``, ``convolutional_dense_forward``,
 restitch) computes the network at every pooling offset; the identical dense
 form runs each conv dilated by the cumulative pool stride and each pool as a
 stride-1 dilated max window, over the whole volume, with no fragments and no
-stitching. Under ``Model.set_dilated_impl(pallas_tail=True)`` every conv
-that passes ``_ptail_node_ok`` (kernel (3,3,3), ReLU, no pooling) and sits
-at z-dilation 1 runs through the CUDA kernel ``ops.tailconv.conv3x3_dilated``
-(K1).
+stitching. Batch norm with running statistics is a per-channel affine there
+(after the dilated pool), prelu's slope applies per channel, and dropout is
+the identity. Under ``Model.set_dilated_impl(pallas_tail=True)`` every conv
+that passes ``_ptail_node_ok`` (kernel (3,3,3), ReLU, no pooling, no batch
+norm, no prelu) and sits at z-dilation 1 runs through the CUDA kernel
+``ops.tailconv.conv3x3_dilated`` (K1).
 
 *Convolutional path*. A valid-mode encoder/decoder graph whose UpConvs bring
 the output stride back to 1 is dense by construction on a larger input:
@@ -30,8 +32,9 @@ values of a wide U-Net slab add up to far more than the card holds.
 ``predict_dense_device``.
 
 ``predict_dense_device`` chooses the path from the graph's structure: a
-graph of Input, Conv, Pool, Softmax and FragmentsToDense nodes takes the
-dilated path; otherwise a graph that passes ``check_conv_dense_supported``
+graph of Input, Conv, Pool, BatchNorm, Dropout, Softmax and
+FragmentsToDense nodes, whose batch norms all have running statistics,
+takes the dilated path; otherwise a graph that passes ``check_conv_dense_supported``
 takes the convolutional one, unless the volume's shape makes that path
 refuse it; anything else takes the tiled fallback. All paths read and write
 NCDHW, so the prediction is always (f, Z, X, Y).
@@ -230,17 +233,34 @@ def dilated_pool(y, pool, dil, mode="max"):
     return acc / float(np.prod(pool)) if mode in ("avg", "mean") else acc
 
 
-def _dilated_unsupported(pred):
+def _dilated_unsupported(pred, state):
     """The first node of ``pred``'s graph the dilated path does not take,
-    or None."""
+    or None. A batch-normed node without running statistics in ``state``
+    is not taken (its evaluation normalises by the batch's statistics,
+    which the tiled path computes per tile, as the JAX package does)."""
     from . import loss as loss_mod, neural
     from .node_basic import Input
-    supported = (Input, neural.Conv, neural.Pool, loss_mod.Softmax,
-                 neural.FragmentsToDense)
+    supported = (Input, neural.Conv, neural.Pool, neural.BatchNorm,
+                 neural.Dropout, loss_mod.Softmax, neural.FragmentsToDense)
     for node in pred.all_parents():
         if not isinstance(node, supported):
             return node
+        if getattr(node, "_bn_nf", None) is not None \
+                and node.name not in state:
+            return node
     return None
+
+
+def _bn_affine(params, state, node, y):
+    """Evaluation-mode batch norm of the (b, f, ...) map ``y`` from the
+    node's running statistics: a per-channel affine, so it commutes with
+    the dilated form. Reference: ``inference.py::_bn_affine``."""
+    shape = (1, -1) + (1,) * (y.ndim - 2)
+    st = state[node.name]
+    gamma = params[node.name]["bn_gamma"].reshape(shape)
+    beta = params[node.name]["bn_beta"].reshape(shape)
+    return (gamma * (y - st["mean"].reshape(shape))
+            * torch.rsqrt(st["var"].reshape(shape) + 1e-5) + beta)
 
 
 def dilated_dense_forward(model, vol, batch=False):
@@ -248,8 +268,9 @@ def dilated_dense_forward(model, vol, batch=False):
 
     Output voxel j == MFP dense output voxel j (held by the tests against
     ``predict`` + ``fragments2dense``). Supports graphs of Input, Conv, Pool,
-    Softmax and FragmentsToDense nodes; others raise ``NotImplementedError``
-    before any work. ``vol``: (f, Z, X, Y) or, with ``batch=True``,
+    BatchNorm (with running statistics), Dropout, Softmax and
+    FragmentsToDense nodes; others raise ``NotImplementedError`` before any
+    work. ``vol``: (f, Z, X, Y) or, with ``batch=True``,
     (b, f, Z, X, Y). Call under ``torch.no_grad()`` and
     ``ops.conv.f32_convs()`` (``predict_dense_device`` does).
     """
@@ -267,9 +288,9 @@ def dilated_dense_forward(model, vol, batch=False):
             f"{', Z' if nsp == 3 else ''}, X, Y) for this "
             f"{nsp}-d model), got shape {tuple(vol.shape)}")
     pred = model.prediction_node
-    params = model.params
+    params, state = model.params, model.state
     use_ptail = model._dilated_ptail and nsp == 3
-    bad = _dilated_unsupported(pred)
+    bad = _dilated_unsupported(pred, state)
     if bad is not None:
         raise NotImplementedError(
             f"dilated dense path: node type {type(bad).__name__} is not "
@@ -278,13 +299,17 @@ def dilated_dense_forward(model, vol, batch=False):
     order = pred.all_parents()           # parents before children
 
     def _ptail_node_ok(node):
-        """Graph-level eligibility of one Conv for the tail kernel."""
+        """Graph-level eligibility of one Conv for the tail kernel: K1 fuses
+        bias + ReLU, so batch norm (between the pool and the activation)
+        and prelu's slope keep a conv on cuDNN."""
         if not isinstance(node, neural.Conv):
             return False
         w_ = params[node.name]["w"]
         return (w_.ndim == 5 and tuple(w_.shape[2:]) == (3, 3, 3)
                 and all(p == 1 for p in node.pool_shape)
-                and node.activation_func == "relu")
+                and node.activation_func == "relu"
+                and not node.batch_normalisation
+                and "alpha" not in node.params)
 
     x = vol if batch else vol[None]
     values = {}    # node name -> (tensor, dilation tuple)
@@ -305,13 +330,18 @@ def dilated_dense_forward(model, vol, batch=False):
             if any(p > 1 for p in node.pool_shape):
                 y = dilated_pool(y, node.pool_shape, dil)
                 dil = tuple(d * p for d, p in zip(dil, node.pool_shape))
-            return apply_activation(y, node.activation_func), dil
+            if node.batch_normalisation:
+                y = _bn_affine(params, state, node, y)
+            return apply_activation(y, node.activation_func,
+                                    alpha=params[node.name].get("alpha")), dil
         if isinstance(node, neural.Pool):
             y = dilated_pool(xin, node.pool_shape, dil, mode=node.mode)
             return y, tuple(d * p for d, p in zip(dil, node.pool_shape))
         if isinstance(node, loss_mod.Softmax):
             return loss_mod.grouped_softmax(xin, node.n_indep, 1), dil
-        return xin, dil                  # FragmentsToDense: already dense
+        if isinstance(node, neural.BatchNorm):
+            return _bn_affine(params, state, node, xin), dil
+        return xin, dil      # FragmentsToDense: already dense; Dropout
 
     # drop each value after its last consumer: eager PyTorch keeps every
     # live intermediate in device memory (several GB each at 120x496x496)
@@ -335,9 +365,8 @@ def dilated_dense_forward(model, vol, batch=False):
 # ``inference.py::_CONV_DENSE_OK``), split into the ported ones and those
 # whose port is still to come, with the ROADMAP.md item that brings them
 _CONV_DENSE_OK = {"Input", "Conv", "UpConv", "Crop", "Pool", "Concat",
-                  "FaithlessMerge", "Softmax"}
+                  "FaithlessMerge", "Softmax", "BatchNorm", "Dropout"}
 _CONV_DENSE_NOT_PORTED = {
-    "BatchNorm": "§1 item 2, training path", "Dropout": "§1 item 2",
     "MultMerge": "§1 item 7", "ApplyFunc": "§1 item 7",
     "LRN": "§1 item 7", "FromTensor": "§1 item 7"}
 
@@ -577,7 +606,7 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
             f"volume spatial shape {tuple(vol.shape[1:])} smaller than "
             f"the model fov {tuple(fov)}; pad_raw=True may help")
 
-    if _dilated_unsupported(pred) is not None:
+    if _dilated_unsupported(pred, model.state) is not None:
         if _conv_dense_rejection(pred) is None:
             try:
                 return convolutional_dense_forward(model, vol,
@@ -762,7 +791,7 @@ def _sweep_forward(model, batched):
     pred = model.prediction_node
     if not batched:
         return lambda x: predict_dense_device(model, x[0])[None]
-    if _dilated_unsupported(pred) is None:
+    if _dilated_unsupported(pred, model.state) is None:
         def dilated(x):
             with torch.no_grad(), f32_convs():
                 return dilated_dense_forward(model, x, batch=True)

@@ -1,7 +1,7 @@
 """Loss nodes.
 
-Port of ``Softmax``, ``MultinoulliNLL``, ``SquaredLoss``, ``Errors`` and
-``AggregateLoss`` in
+Port of ``Softmax``, ``MultinoulliNLL``, ``BinaryNLL``, ``GaussianNLL``,
+``SquaredLoss``, ``AbsLoss``, ``Errors`` and ``AggregateLoss`` in
 ``elektronn2_tpu/neuromancer/loss.py`` (reference:
 ``elektronn2/neuromancer/loss.py``). Autograd differentiates them for
 training (``Model.trainingstep``). Per-voxel losses return (b, *spatial)
@@ -142,6 +142,48 @@ class MultinoulliNLL(Node):
 
 
 @register_node_class
+class BinaryNLL(Node):
+    """Binary cross-entropy on probabilities, summed over features.
+
+    Reference: ``loss.py::BinaryNLL``.
+    """
+
+    def __init__(self, pred, target, name="binary_nll", print_repr=True):
+        super().__init__([pred, target], name, print_repr)
+        self.shape = _loss_map_shape(pred.shape)
+
+    def _compute(self, ctx, pred, target):
+        nll = -(target * torch.log(torch.clamp(pred, min=_EPS))
+                + (1 - target) * torch.log(torch.clamp(1 - pred, min=_EPS)))
+        return torch.sum(nll, dim=self.parents[0].shape.tag2index("f"))
+
+
+@register_node_class
+class GaussianNLL(Node):
+    """Gaussian negative log-likelihood of ``target`` under a predicted mean
+    and standard deviation (or its log, ``sig_is_log``), summed over
+    features, without the constant term.
+
+    Reference: ``loss.py::GaussianNLL``.
+    """
+
+    def __init__(self, mu, sig, target, sig_is_log=False, name="gaussian_nll",
+                 print_repr=True):
+        super().__init__([mu, sig, target], name, print_repr)
+        self.sig_is_log = bool(sig_is_log)
+        self.shape = _loss_map_shape(mu.shape)
+
+    def _compute(self, ctx, mu, sig, target):
+        if self.sig_is_log:
+            log_sig, sig = sig, torch.exp(sig)
+        else:
+            sig = torch.clamp(sig, min=_EPS)
+            log_sig = torch.log(sig)
+        nll = 0.5 * torch.square((target - mu) / sig) + log_sig
+        return torch.sum(nll, dim=self.parents[0].shape.tag2index("f"))
+
+
+@register_node_class
 class SquaredLoss(Node):
     """Squared error summed over features, per position; ``margin`` zeroes
     residuals smaller than it.
@@ -160,6 +202,22 @@ class SquaredLoss(Node):
         if self.margin is not None:
             r = torch.where(torch.abs(r) < self.margin, 0.0, r)
         return torch.sum(torch.square(r),
+                         dim=self.parents[0].shape.tag2index("f"))
+
+
+@register_node_class
+class AbsLoss(Node):
+    """L1 loss summed over features, per position.
+
+    Reference: ``loss.py::AbsLoss``.
+    """
+
+    def __init__(self, pred, target, name="abs_loss", print_repr=True):
+        super().__init__([pred, target], name, print_repr)
+        self.shape = _loss_map_shape(pred.shape)
+
+    def _compute(self, ctx, pred, target):
+        return torch.sum(torch.abs(pred - target),
                          dim=self.parents[0].shape.tag2index("f"))
 
 

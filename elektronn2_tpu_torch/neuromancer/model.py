@@ -5,8 +5,9 @@ Port of ``Model`` and ``modelload`` in ``elektronn2_tpu/neuromancer/model.py``
 forward ``_apply``, ``predict``, ``predict_dense_device``,
 ``set_dilated_impl``, ``set_convdense_impl``, the training half (``set_opt``,
 ``trainingstep``, ``loss``, ``test_error``, ``snapshot_good``,
-``repair_fuckup``, ``paramstats``) and the npz ``save``/``modelload`` format
-with the optimiser state.
+``repair_fuckup``, ``paramstats``, ``set_train_lowering``, ``set_remat``),
+the npz ``save``/``modelload`` format with the optimiser and aux state, and
+the stack constructor :func:`simple_cnn`.
 
 PyTorch idiom: parameters are a ``{node: {name: tensor}}`` dict on one
 device, moved explicitly with :meth:`Model.to`; calls that get data on
@@ -17,16 +18,17 @@ trainable leaves (the functional counterpart of ``jax.value_and_grad``) and
 runs forward, backward and update inside one pair of those contexts: the
 flags are global, and a backward run after the ``with`` block would take
 cuDNN's TF32 algorithms. The update writes into the parameter and slot
-tensors in place (``neuromancer/optimiser.py``), so a CUDA graph of steps
-(``training/fused_loop.py``) replays on fixed addresses.
+tensors in place (``neuromancer/optimiser.py``), and the step writes batch
+norm's running statistics (``Model.state``) in place too, so a CUDA graph
+of steps (``training/fused_loop.py``) replays on fixed addresses.
 
 ``predict_dense`` (host-tiled), ``sweep_knossos`` and :func:`rebuild_model`
 (``modelload``'s ``override_mfp_to_active`` / ``imposed_patch_size``) serve
 a trained net over whole volumes.
 
 Not in this slice (``NotImplementedError`` naming the ROADMAP.md item):
-compute dtypes other than float32, ``tune_serving``, orbax checkpoints,
-``set_train_lowering`` and remat.
+compute dtypes other than float32 and bf16 Conv operands, ``tune_serving``,
+orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ class Model:
         self.extra_inputs = []
         self.params = {n.name: {k: v.clone() for k, v in n.params.items()}
                        for n in self.nodes.values() if n.params}
-        self.state = {}                       # aux state (BN: not ported)
+        self.state = {}          # aux state: {node: {"mean", "var"}} of BN
         self.optimiser = None
         self.opt_state = None
         self._lr_mults = self._wd_mults = None
@@ -88,6 +90,9 @@ class Model:
         self._convdense_ptail = False
         self._convdense_poolslice = False
         self._convdense_skipsum = False
+        self._train_zfold = False
+        self._train_skipsum = False
+        self._remat = False
 
     # ------------------------------------------------------------ designation
     def designate_nodes(self, input_node=None, target_node=None,
@@ -124,10 +129,12 @@ class Model:
         return torch.device("cpu")
 
     def to(self, device):
-        """Move every parameter (and the optimiser state) to ``device``;
-        returns the model."""
+        """Move every parameter, the aux state and the optimiser state to
+        ``device``; returns the model."""
         self.params = {n: {k: v.to(device) for k, v in d.items()}
                        for n, d in self.params.items()}
+        self.state = {n: {k: v.to(device) for k, v in d.items()}
+                      for n, d in self.state.items()}
         if self.opt_state is not None:
             self.opt_state = {
                 "step": self.opt_state["step"].to(device),
@@ -217,6 +224,28 @@ class Model:
         self._convdense_skipsum = bool(skipsum)
         return self
 
+    def set_train_lowering(self, zfold=False, skipsum=False):
+        """Lowerings of the node trace (training and ``predict``), each the
+        same function: ``zfold`` runs kz=1 3D convs as 2D convs with z folded
+        into the batch (``ops.conv.conv_zfold2d``); ``skipsum`` lets a Conv
+        fed by a FaithlessMerge sum the convs of the merge's two pieces
+        instead of building their concat (it steps aside under
+        :meth:`set_remat` and for a batch-normed Conv). The training-side
+        siblings of :meth:`set_convdense_impl`. Reference:
+        ``Model.set_train_lowering``."""
+        self._train_zfold = bool(zfold)
+        self._train_skipsum = bool(skipsum)
+        return self
+
+    def set_remat(self, enabled=True):
+        """Rematerialisation: each parameterised node's activations are
+        recomputed in the backward pass instead of kept
+        (``torch.utils.checkpoint``, non-reentrant), trading operations for
+        device memory. Random draws are made once and reused by the
+        recomputation (``TraceCtx.draw``). Reference: ``Model.set_remat``."""
+        self._remat = bool(enabled)
+        return self
+
     def set_compute_dtype(self, dtype, activations=False):
         """Mixed precision for training and patch prediction: with
         ``'bfloat16'`` every Conv runs its operands in bf16 with float32
@@ -249,14 +278,23 @@ class Model:
                 "dense serving in bf16 is not ported (ROADMAP.md item 7): "
                 "call set_compute_dtype(None) first")
 
-    def _apply(self, out_nodes, params, state, feed, rng, train):
+    def _apply(self, out_nodes, params, state, feed, rng, train, noise=None,
+               draws=None):
         """Evaluate ``out_nodes`` eagerly; returns (outputs, state). With
         ``train`` autograd records (the caller takes the gradients inside
-        its own ``f32_convs``/``f32_matmuls``), else ``torch.no_grad()``."""
-        ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state)
+        its own ``f32_convs``/``f32_matmuls``), else ``torch.no_grad()``.
+        ``noise``: random draws to use, by node name (``TraceCtx.draw``);
+        ``draws``: a dict that receives the draws the evaluation used."""
+        ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state,
+                       noise_in=noise)
         ctx.compute_dtype = self._compute_dtype
+        ctx.remat = self._remat and train
+        ctx.convdense_zfold = self._train_zfold
+        ctx.convdense_skipsum = self._train_skipsum
         with torch.set_grad_enabled(train), f32_convs(), f32_matmuls():
             outs = [ctx.get(n) for n in out_nodes]
+        if draws is not None:
+            draws.update(ctx.noise_out)
         new_state = dict(state)
         new_state.update(ctx.state_out)
         return outs, new_state
@@ -345,11 +383,13 @@ class Model:
         if self.optimiser is None:
             self.set_opt("Adam")
 
-    def _loss_and_grads(self, feed, rng):
+    def _loss_and_grads(self, feed, rng, noise=None, draws=None):
         """Forward in training mode and the gradients of the loss with
         respect to every trainable parameter: (loss, aux outputs, grads
         tree, new aux state), all on the device, no host sync. Forward and
-        backward run inside one ``f32_convs``/``f32_matmuls``."""
+        backward run inside one ``f32_convs``/``f32_matmuls``. ``noise``
+        feeds random draws by node name and ``draws`` receives the ones
+        used (:meth:`_apply`)."""
         leaves = {n: {p: v.detach().requires_grad_() for p, v in d.items()}
                   for n, d in self._trainable(self.params).items()}
         merged = {n: {**d, **leaves.get(n, {})}
@@ -358,7 +398,8 @@ class Model:
         with f32_convs(), f32_matmuls():
             outs, new_state = self._apply([self.loss_node] + self._aux_nodes(),
                                           merged, self.state, feed, rng,
-                                          train=True)
+                                          train=True, noise=noise,
+                                          draws=draws)
             loss = outs[0][0]
             gs = torch.autograd.grad(loss, [leaves[n][p] for n, p in names],
                                      allow_unused=True)
@@ -369,21 +410,40 @@ class Model:
         return (loss.detach(), [o.detach() for o in outs[1:]], grads,
                 new_state)
 
-    def _train_step(self, feed, rng, hyper):
+    def _train_step(self, feed, rng, hyper, noise=None):
         """One step in place: forward, backward, the optimiser's update of
-        the parameter and slot tensors. ``hyper`` is the optimiser's
+        the parameter and slot tensors, and the aux state's new values
+        copied into its tensors. ``hyper`` is the optimiser's
         ``current_hyper`` dict (read, never written, so a CUDA graph of this
-        step reads the live values). Returns (loss, aux outputs, gradient
-        norm) as device tensors; no host sync."""
+        step reads the live values); ``noise`` feeds random draws
+        (:meth:`_apply`). Returns (loss, aux outputs, gradient norm) as
+        device tensors; no host sync."""
+        self.init_state()
         with f32_convs(), f32_matmuls():
-            loss, aux, grads, new_state = self._loss_and_grads(feed, rng)
+            loss, aux, grads, new_state = self._loss_and_grads(feed, rng,
+                                                               noise)
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
                                    for g in tree_leaves(grads)))
             self.optimiser.update(self._trainable(self.params), grads,
                                   self.opt_state, hyper, self._lr_mults,
                                   self._wd_mults)
-        self.state = new_state
+        with torch.no_grad():
+            for n, d in self.state.items():
+                for k, v in d.items():
+                    v.copy_(new_state[n][k])
         return loss, aux, gnorm
+
+    def init_state(self):
+        """Make the aux state a training step writes, where a node has none
+        yet: batch norm's running statistics start at zeros (mean) and ones
+        (variance), as in the JAX package. A training step (and a fused
+        loop, before it captures one) calls this; until then an evaluation
+        of a batch-normed node without running statistics normalises by the
+        batch's own. The tensors are made once and then updated in place."""
+        for name, node in self.nodes.items():
+            if (name not in self.state and getattr(node, "_bn_nf", None)
+                    is not None):
+                self.state[name] = node._fresh_bn_state(self.device)
 
     def trainingstep(self, data, target=None, extra=None,
                      feed_overrides=None):
@@ -432,7 +492,7 @@ class Model:
     def snapshot_good(self):
         """Record the current params / optimiser state / aux state as
         known-good: copies on the device, no host transfer.
-        :meth:`repair_fuckup` restores them."""
+        :meth:`repair_fuckup` copies them back in place."""
         self._good = (_tree_clone(self.params), _tree_clone(self.opt_state),
                       _tree_clone(self.state))
 
@@ -452,7 +512,14 @@ class Model:
             self.opt_state["step"].copy_(o["step"])
             for live, kept in zip(self.opt_state["slots"], o["slots"]):
                 _tree_copy_(live, kept)
-        self.state = _tree_clone(s)
+        for n in list(self.state):       # made after the snapshot
+            if n not in s:
+                del self.state[n]
+        for n, d in s.items():
+            if n in self.state:
+                _tree_copy_({n: self.state[n]}, {n: d})
+            else:
+                self.state[n] = _tree_clone(d)
         if lr_scale is not None and self.optimiser is not None:
             self.optimiser.setlr(float(self.optimiser.hyperparams["lr"])
                                  * float(lr_scale))
@@ -524,9 +591,11 @@ class Model:
         """Serialise spec + params (+ optimiser state) as the JAX package's
         ``Model.save`` does (``backend='npz'``): one ``.npz`` with the JSON
         node spec (``__spec__``), its arg arrays, ``param/<node>/<name>``,
-        and with an optimiser ``__opt__`` (class, hyperparams, nesterov,
-        step count) and its state's leaves ``opt/<i>`` in ``jax.tree_util``
-        order, so either package resumes the other's training."""
+        the aux state ``state/<node>/<key>`` (batch norm's running
+        statistics), and with an optimiser ``__opt__`` (class, hyperparams,
+        nesterov, step count) and its state's leaves ``opt/<i>`` in
+        ``jax.tree_util`` order, so either package resumes the other's
+        training."""
         if backend != "npz":
             raise NotImplementedError(
                 f"backend={backend!r}: only 'npz' is ported (orbax is a JAX "
@@ -537,6 +606,9 @@ class Model:
         for nname, pdict in self.params.items():
             for pname, v in pdict.items():
                 payload[f"param/{nname}/{pname}"] = v.detach().cpu().numpy()
+        for nname, st in self.state.items():
+            for k, v in st.items():
+                payload[f"state/{nname}/{k}"] = v.detach().cpu().numpy()
         if self.optimiser is not None:
             payload["__opt__"] = np.frombuffer(
                 json.dumps(self._opt_meta()).encode(), np.uint8)
@@ -611,8 +683,9 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
     package or by the JAX package) by replaying its node spec; the
     parameters land on ``device`` (see :func:`target_device`).
 
-    The optimiser and its state (``__opt__``, ``opt/…``), where the file
-    has them, are restored on ``device`` too. ``override_mfp_to_active`` /
+    The aux state (``state/…``) and the optimiser and its state
+    (``__opt__``, ``opt/…``), where the file has them, are restored on
+    ``device`` too. ``override_mfp_to_active`` /
     ``imposed_patch_size`` rebuild the graph after loading
     (:func:`rebuild_model`). Orbax checkpoint directories are not ported.
     """
@@ -627,7 +700,8 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
                 params.setdefault(nname, {})[pname] = z[k]
             elif k.startswith("state/"):
                 _, nname, sname = k.split("/", 2)
-                state.setdefault(nname, {})[sname] = torch.from_numpy(z[k])
+                state.setdefault(nname, {})[sname] = torch.from_numpy(
+                    np.array(z[k], dtype=np.float32))
             elif k.startswith("opt/"):
                 opt_leaves_[int(k.split("/")[1])] = z[k]
         opt_meta = (json.loads(bytes(z["__opt__"].tobytes()).decode())
@@ -636,8 +710,8 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
                         spec.get("designations", {}),
                         spec.get("graph", "model"))
     model.set_params(params)
-    model.to(device)
     model.state = state
+    model.to(device)
     if opt_meta is not None:
         model._load_opt(opt_meta, opt_leaves_)
     if override_mfp_to_active or imposed_patch_size is not None:
@@ -755,7 +829,8 @@ def rebuild_model(model, override_mfp_to_active=False,
     new._seed = model._seed
     for knob in ("_dilated_impl", "_dilated_ptail", "_convdense_upconv",
                  "_convdense_zfold", "_convdense_ptail",
-                 "_convdense_poolslice", "_convdense_skipsum"):
+                 "_convdense_poolslice", "_convdense_skipsum",
+                 "_train_zfold", "_train_skipsum", "_remat"):
         setattr(new, knob, getattr(model, knob))
     return new
 
@@ -778,3 +853,65 @@ def _tree_copy_(dst, src):
     for n, d in dst.items():
         for k, v in d.items():
             v.copy_(src[n][k])
+
+
+def simple_cnn(batch_size, n_ch, n_lab, desired_input, filters, pools,
+               nof_filters, activation_func="relu", mfp=False, ndim=3,
+               target="nll", dropout_rates=None, batch_normalisation=False):
+    """A designated Model of a plain conv stack: Convs ``conv<i>`` (with
+    ``dropout_rates`` and ``batch_normalisation``), a 1x1 ``class`` conv to
+    ``n_lab`` outputs and, for ``target='nll'``, Softmax ``probs``, a sparse
+    ``MultinoulliNLL``, ``AggregateLoss`` ``loss`` and ``Errors``; for
+    ``'regression'``/``'affinity'`` a ``SquaredLoss`` of the (softmaxed)
+    output. The patch is the valid size nearest ``desired_input``
+    (``cnncalculator``). Built on the current graph manager, which is reset;
+    the parameters are on the CPU. Reference: ``model.py::simple_cnn``."""
+    from ..utils.cnncalculator import cnncalculator
+    from . import graphmanager, loss as loss_mod, neural
+    from . import node_basic as nb
+
+    dropout_rates = dropout_rates or [0.0] * len(filters)
+    for what, seq in (("pools", pools), ("nof_filters", nof_filters),
+                      ("dropout_rates", dropout_rates)):
+        if len(seq) != len(filters):
+            raise ValueError(
+                f"simple_cnn: {what} has {len(seq)} entries but filters "
+                f"has {len(filters)}: per-layer lists must align")
+    calc = cnncalculator(filters, pools, desired_input, mfp=mfp, ndim=ndim)
+    patch = calc.input if ndim > 1 else [calc.input]
+    tags = ["b", "f"] + list("zxy"[:ndim] if ndim == 3 else "xy"[:ndim])
+    gm = graphmanager.current_manager()
+    gm.reset()
+    inp = nb.Input([batch_size, n_ch] + list(patch), tags, name="raw")
+    x = inp
+    for i, (f, p, nf, dr) in enumerate(
+            zip(filters, pools, nof_filters, dropout_rates)):
+        x = neural.Conv(x, nf, f, p, activation_func=activation_func,
+                        mfp=mfp, dropout_rate=dr,
+                        batch_normalisation=batch_normalisation,
+                        name=f"conv{i}")
+    out = neural.Conv(x, n_lab, 1, 1, activation_func="lin", name="class")
+    tgt_sp = list(out.shape.spatial_shape)
+    if target == "nll":
+        pred = loss_mod.Softmax(out, name="probs")
+        tgt = nb.Input([pred.shape["b"]] + tgt_sp, ["b"] + tags[2:],
+                       dtype="int32", name="target")
+        nll = loss_mod.MultinoulliNLL(pred, tgt, target_is_sparse=True,
+                                      name="nll")
+        agg = loss_mod.AggregateLoss(nll, name="loss")
+        err = loss_mod.Errors(pred, tgt, target_is_sparse=True)
+    elif target in ("regression", "affinity"):
+        pred = (loss_mod.Softmax(out, name="probs") if target == "affinity"
+                else out)
+        tgt = nb.Input([out.shape["b"], n_lab] + tgt_sp, tags,
+                       name="target")
+        agg = loss_mod.AggregateLoss(
+            loss_mod.SquaredLoss(pred, tgt, name="sq"), name="loss")
+        err = None
+    else:
+        raise ValueError(f"unknown simple_cnn target {target!r}; "
+                         "use 'nll', 'regression' or 'affinity'")
+    model = gm.getmodel("simple_cnn")
+    model.designate_nodes(input_node=inp, target_node=tgt, loss_node=agg,
+                          prediction_node=pred, error_node=err)
+    return model

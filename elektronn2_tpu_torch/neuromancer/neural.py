@@ -1,21 +1,28 @@
 """Neural layer nodes: dense, convolution, pooling, decoder nodes, fragment
 restitching, recurrent cells.
 
-Port of ``Perceptron``, ``Conv``, ``Pool``, ``UpConv``, ``Crop``,
-``FaithlessMerge``, ``FragmentsToDense``, ``GRU`` and ``LSTM`` in
-``elektronn2_tpu/neuromancer/neural.py`` (reference:
-``elektronn2/neuromancer/neural.py``). Semantics are the JAX
-package's: valid-mode convs, pooling applied *before* the activation, MFP
-valid-size arithmetic (see ops/mfp.py and utils/cnncalculator.py).
+Port of ``Perceptron``, ``Conv``, ``Pool``, ``UpConv``, ``Crop``, ``Pad``,
+``Dropout``, ``BatchNorm``, ``FaithlessMerge``, ``FragmentsToDense``,
+``GRU`` and ``LSTM`` in ``elektronn2_tpu/neuromancer/neural.py``
+(reference: ``elektronn2/neuromancer/neural.py``). Semantics are the JAX
+package's: valid-mode convs, conv -> +b -> pool/MFP -> batch norm ->
+activation -> dropout, MFP valid-size arithmetic (see ops/mfp.py and
+utils/cnncalculator.py).
+
+Batch norm's running statistics are the model's aux state
+(``Model.state``): a training step normalises by the batch's statistics
+and writes their moving average back in place (``Model._train_step``), an
+evaluation uses the running statistics, or the batch's where the node has
+none yet. Dropout is split into a draw (the mask, from the step's
+generator, :func:`dropout_mask`) and a map (:func:`dropout_map`), so a
+caller can feed the mask (``TraceCtx.noise_in``).
 
 The conv-dense serving lowerings of ``Model.set_convdense_impl`` (zfold,
 d2s, poolslice, skipsum and K1 on eligible convs) are chosen per node from
 the flags of the ``TraceCtx``; every other evaluation leaves them off.
 
 The dense and recurrent matmuls are ``torch.matmul`` (cuBLAS on the card),
-as the JAX package leaves them to XLA. Not in this slice, raising
-``NotImplementedError``: batch normalisation, dropout and prelu (ROADMAP.md
-§1 item 2).
+as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -41,6 +48,72 @@ def _maxout_factor(activation_func):
     return 1
 
 
+def dropout_mask(gen, shape, keep, device):
+    """The draw of inverted dropout: a boolean mask, True with probability
+    ``keep``, from the generator ``gen``."""
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout_map(x, mask, keep):
+    """The map of inverted dropout: ``x / keep`` where ``mask``, else 0."""
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _apply_dropout(x, rate, ctx, node):
+    """Inverted elementwise dropout, active only in training mode and with
+    a random stream (or a fed mask). Reference: ``neural.py::
+    _apply_dropout``."""
+    if not rate or not ctx.train:
+        return x
+    keep = 1.0 - rate
+    mask = ctx.draw(node, lambda g: dropout_mask(g, x.shape, keep, x.device))
+    return x if mask is None else dropout_map(x, mask, keep)
+
+
+class _BNMixin:
+    """Batch norm shared by ``Perceptron``, ``Conv`` and ``BatchNorm``.
+
+    Training: the batch's mean and biased variance over every axis but the
+    features, and the running statistics move to ``0.99 * old + 0.01 *
+    batch`` (from zeros and ones where the node has none yet). Evaluation:
+    the running statistics, or the batch's where there are none. eps 1e-5.
+    Reference: ``neural.py::_BNMixin``."""
+
+    BN_MOMENTUM = 0.99
+
+    def _init_bn(self, n_f):
+        self.register_param("bn_gamma", torch.ones(n_f))
+        self.register_param("bn_beta", torch.zeros(n_f))
+        self._bn_nf = n_f
+
+    def _fresh_bn_state(self, device):
+        return {"mean": torch.zeros(self._bn_nf, device=device),
+                "var": torch.ones(self._bn_nf, device=device)}
+
+    def _apply_bn(self, x, ctx, f_axis=1):
+        shape = [1] * x.ndim
+        shape[f_axis] = self._bn_nf
+        gamma = ctx.param(self, "bn_gamma").reshape(shape)
+        beta = ctx.param(self, "bn_beta").reshape(shape)
+        st = ctx.state(self)
+        if ctx.train or st is None:
+            red = tuple(i for i in range(x.ndim) if i != f_axis)
+            mean = torch.mean(x, dim=red)
+            var = torch.var(x, dim=red, correction=0)
+            if st is None:
+                st = self._fresh_bn_state(x.device)
+            m = self.BN_MOMENTUM
+            ctx.set_state(self, {
+                "mean": m * st["mean"] + (1 - m) * mean.detach(),
+                "var": m * st["var"] + (1 - m) * var.detach()})
+        else:
+            mean, var = st["mean"], st["var"]
+            ctx.set_state(self, st)
+        xn = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                     + 1e-5)
+        return gamma * xn + beta
+
+
 def _validate_cell_activation(name):
     """Recurrent cells need plain elementwise activations."""
     validate_activation(name)
@@ -48,6 +121,11 @@ def _validate_cell_activation(name):
                                   or name == "prelu"):
         raise ValueError(f"{name!r} is not usable inside GRU/LSTM cells")
     return name
+
+
+def _alpha(node, ctx):
+    """prelu's per-channel slope, or None for another activation."""
+    return ctx.param(node, "alpha") if "alpha" in node.params else None
 
 
 def _norm_spatial(v, nsp, what):
@@ -60,7 +138,7 @@ def _norm_spatial(v, nsp, what):
 
 
 @register_node_class
-class Perceptron(Node):
+class Perceptron(Node, _BNMixin):
     """Fully-connected layer over the feature axis.
 
     Reference: ``neural.py::Perceptron`` (alias ``Dot``). With
@@ -72,20 +150,12 @@ class Perceptron(Node):
     def __init__(self, parent, n_f, activation_func="relu", flatten=False,
                  batch_normalisation=False, dropout_rate=0, w=None, b=None,
                  name="dot", print_repr=True):
-        if batch_normalisation or dropout_rate:
-            raise NotImplementedError(
-                "Perceptron: batch_normalisation and dropout are not ported "
-                "yet (ROADMAP.md §1 item 2, training path)")
-        if activation_func == "prelu":
-            raise NotImplementedError(
-                "Perceptron: activation 'prelu' is not ported yet "
-                "(ROADMAP.md §1 item 2)")
         super().__init__(parent, name, print_repr)
         self.n_f = int(n_f)
         self.activation_func = validate_activation(activation_func)
         self.flatten = bool(flatten)
-        self.batch_normalisation = False
-        self.dropout_rate = 0.0
+        self.batch_normalisation = bool(batch_normalisation)
+        self.dropout_rate = float(dropout_rate)
 
         ps = parent.shape
         if self.flatten:
@@ -104,7 +174,12 @@ class Perceptron(Node):
                                                 activation_func)
         b = b if b is not None else init_bias(self.n_f, activation_func)
         self.register_param("w", w)
-        self.register_param("b", b)
+        self.register_param("b", b, wd_mult=0.0)
+        if activation_func == "prelu":
+            self.register_param("alpha", torch.full((self.n_f,), 0.25),
+                                wd_mult=0.0)
+        if self.batch_normalisation:
+            self._init_bn(self.n_f)          # before the activation
 
     def _compute(self, ctx, x):
         if self.flatten:
@@ -118,38 +193,32 @@ class Perceptron(Node):
             y = ops_dot(x, w, axis=ax) + b.reshape(
                 (1,) * ax + (-1,) + (1,) * (x.ndim - ax - 1))
         f_ax = 1 if self.flatten else self._f_ax
-        return apply_activation(y, self.activation_func, axis=f_ax)
+        if self.batch_normalisation:
+            y = self._apply_bn(y, ctx, f_axis=f_ax)
+        y = apply_activation(y, self.activation_func,
+                             alpha=_alpha(self, ctx), axis=f_ax)
+        return _apply_dropout(y, self.dropout_rate, ctx, self)
 
 
 Dot = Perceptron  # reference alias
 
 
 @register_node_class
-class Conv(Node):
+class Conv(Node, _BNMixin):
     """Valid-mode N-D convolution with optional fused pooling / MFP.
 
     Reference: ``neural.py::Conv`` — conv (+bias) → max-pool (plain or MFP)
-    → activation. With ``mfp=True`` the pooling evaluates all pool-offset
-    fragments and stacks them into the batch axis (see ops/mfp.py); the
-    TaggedShape tracks fragment offsets so ``FragmentsToDense`` and the dense
-    path can stitch a full-resolution map.
-
-    ``batch_normalisation`` and ``dropout_rate`` are accepted for spec
-    compatibility and raise ``NotImplementedError`` unless off.
+    → batch norm → activation (maxout, prelu included) → dropout. With
+    ``mfp=True`` the pooling evaluates all pool-offset fragments and stacks
+    them into the batch axis (see ops/mfp.py); the TaggedShape tracks
+    fragment offsets so ``FragmentsToDense`` and the dense path can stitch a
+    full-resolution map.
     """
 
     def __init__(self, parent, n_f, filter_shape, pool_shape=None,
                  activation_func="relu", mfp=False,
                  batch_normalisation=False, dropout_rate=0, w=None, b=None,
                  name="conv", print_repr=True):
-        if batch_normalisation or dropout_rate:
-            raise NotImplementedError(
-                "Conv: batch_normalisation and dropout are not ported yet "
-                "(ROADMAP.md §1 item 2, training path)")
-        if activation_func == "prelu" or _maxout_factor(activation_func) > 1:
-            raise NotImplementedError(
-                f"Conv: activation {activation_func!r} is not ported yet "
-                "(ROADMAP.md §1 item 2)")
         super().__init__(parent, name, print_repr)
         ps = parent.shape
         nsp = len(ps.spatial_axes)
@@ -161,8 +230,8 @@ class Conv(Node):
                                         else 1, nsp, "pool_shape")
         self.activation_func = validate_activation(activation_func)
         self.mfp = bool(mfp)
-        self.batch_normalisation = False
-        self.dropout_rate = 0.0
+        self.batch_normalisation = bool(batch_normalisation)
+        self.dropout_rate = float(dropout_rate)
 
         # ---- shape propagation (the cnncalculator arithmetic) ----
         sp = list(ps.spatial_shape)
@@ -201,9 +270,10 @@ class Conv(Node):
             batch = batch * int(np.prod(self.pool_shape))
         strides = [s * p for s, p in zip(strides, self.pool_shape)]
 
+        out_f = self.n_f // _maxout_factor(activation_func)
         shape = list(ps.shape)
         shape[ps.tag2index("b")] = batch
-        shape[ps.tag2index("f")] = self.n_f
+        shape[ps.tag2index("f")] = out_f
         for ax, s in zip(ps.spatial_axes, sp):
             shape[ax] = s
         self.shape = TaggedShape(shape, ps.tags, strides, fov, offsets)
@@ -213,7 +283,12 @@ class Conv(Node):
         w = w if w is not None else init_weight(rng, wshape, activation_func)
         b = b if b is not None else init_bias(self.n_f, activation_func)
         self.register_param("w", w)
-        self.register_param("b", b)
+        self.register_param("b", b, wd_mult=0.0)
+        if activation_func == "prelu":
+            self.register_param("alpha", torch.full((out_f,), 0.25),
+                                wd_mult=0.0)
+        if self.batch_normalisation:
+            self._init_bn(self.n_f)          # before the activation
         self._parent_offsets = np.asarray(ps.mfp_offsets)
 
     def _serving_conv_fn(self, ctx):
@@ -228,10 +303,14 @@ class Conv(Node):
     def _ptail_eligible(self, ctx):
         """Whether the conv-dense path runs this Conv through K1
         (``Model.set_convdense_impl(ptail=True)``): a (3,3,3) ReLU conv
-        without MFP. Max pooling is allowed: K1's fused ReLU commutes with a
-        max, ``max(relu(z)) == relu(max(z))``."""
+        without MFP, batch norm or prelu's slope. Max pooling is allowed:
+        K1's fused ReLU commutes with a max, ``max(relu(z)) ==
+        relu(max(z))``; batch norm sits between the pool and the ReLU, so K1
+        would compute another function."""
         return (ctx.convdense_ptail and tuple(self.filter_shape) == (3, 3, 3)
-                and self.activation_func == "relu" and not self.mfp)
+                and self.activation_func == "relu" and not self.mfp
+                and not self.batch_normalisation
+                and "alpha" not in self.params)
 
     def _compute(self, ctx, x):
         w, b = ctx.param(self, "w"), ctx.param(self, "b")
@@ -255,20 +334,24 @@ class Conv(Node):
         return ops_pooling(y, self.pool_shape)
 
     def _conv_epilogue(self, ctx, y):
-        """Pool (plain or MFP fragment pool), then the activation: the tail
-        shared by every conv lowering."""
+        """Pool (plain or MFP fragment pool), batch norm, the activation and
+        dropout: the tail shared by every conv lowering."""
         if any(p > 1 for p in self.pool_shape):
             if self.mfp:
                 y, _ = fragmentpool(y, self.pool_shape, self._parent_offsets,
                                     self._pre_pool_strides)
             else:
                 y = self._pool(ctx, y)
-        return apply_activation(y, self.activation_func)
+        if self.batch_normalisation:
+            y = self._apply_bn(y, ctx)
+        y = apply_activation(y, self.activation_func, alpha=_alpha(self, ctx))
+        return _apply_dropout(y, self.dropout_rate, ctx, self)
 
     def _fuses_merge(self, ctx):
         """Whether this Conv consumes its FaithlessMerge parent's pieces
         (``set_convdense_impl(skipsum=True)``) instead of their concat."""
         return (ctx.convdense_skipsum and not self.mfp
+                and not self.batch_normalisation
                 and isinstance(self.parents[0], FaithlessMerge)
                 and not self._ptail_eligible(ctx))
 
@@ -390,7 +473,7 @@ class UpConv(Node):
         w = w if w is not None else init_weight(rng, wshape, activation_func)
         b = b if b is not None else init_bias(self.n_f, activation_func)
         self.register_param("w", w)
-        self.register_param("b", b)
+        self.register_param("b", b, wd_mult=0.0)
 
     def _compute(self, ctx, x):
         fn = upconv_d2s if ctx.convdense_upconv_d2s else upconv
@@ -437,6 +520,84 @@ class Crop(Node):
         for ax, (lo, hi) in zip(self.parents[0].shape.spatial_axes, self.crop):
             idx[ax] = slice(lo, x.shape[ax] - hi)
         return x[tuple(idx)]
+
+
+@register_node_class
+class Pad(Node):
+    """Pad the spatial borders: ``pad`` per spatial dim, an int (both sides)
+    or a (lo, hi) pair; ``mode`` as ``numpy.pad``'s (constant zeros,
+    reflect, edge, ...).
+
+    Reference: ``neural.py::Pad``.
+    """
+
+    _MODES = {"constant": "constant", "reflect": "reflect", "edge":
+              "replicate", "wrap": "circular"}
+
+    def __init__(self, parent, pad, mode="constant", name="pad",
+                 print_repr=True):
+        super().__init__(parent, name, print_repr)
+        ps = parent.shape
+        nsp = len(ps.spatial_axes)
+        if np.isscalar(pad):
+            pad = [(int(pad), int(pad))] * nsp
+        else:
+            pad = [(int(p), int(p)) if np.isscalar(p)
+                   else (int(p[0]), int(p[1])) for p in pad]
+        if mode not in self._MODES:
+            raise ValueError(f"Pad mode {mode!r}: expected one of "
+                             f"{sorted(self._MODES)}")
+        self.pad = pad
+        self.mode = mode
+        shape = list(ps.shape)
+        for ax, s, (lo, hi) in zip(ps.spatial_axes, ps.spatial_shape, pad):
+            shape[ax] = s + lo + hi
+        self.shape = TaggedShape(shape, ps.tags, ps.strides, ps.fov,
+                                 ps.mfp_offsets)
+
+    def _compute(self, ctx, x):
+        axes = list(self.parents[0].shape.spatial_axes)
+        if self.mode != "constant" and axes != list(
+                range(x.ndim - len(axes), x.ndim)):
+            raise NotImplementedError(
+                f"Pad mode {self.mode!r} needs the spatial axes last")
+        widths = [0] * (2 * (x.ndim - axes[0]))    # F.pad: last axis first
+        for ax, (lo, hi) in zip(axes, self.pad):
+            widths[2 * (x.ndim - 1 - ax)] = lo
+            widths[2 * (x.ndim - 1 - ax) + 1] = hi
+        return torch.nn.functional.pad(x, widths, mode=self._MODES[self.mode])
+
+
+@register_node_class
+class Dropout(Node):
+    """Standalone inverted dropout (training mode only).
+
+    Reference: ``neural.py::Dropout``.
+    """
+
+    def __init__(self, parent, rate=0.5, name="dropout", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        self.rate = float(rate)
+        self.shape = parent.shape.copy()
+
+    def _compute(self, ctx, x):
+        return _apply_dropout(x, self.rate, ctx, self)
+
+
+@register_node_class
+class BatchNorm(Node, _BNMixin):
+    """Standalone batch normalisation over the feature axis.
+
+    Reference: ``neural.py::BatchNorm``.
+    """
+
+    def __init__(self, parent, name="batchnorm", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        self.shape = parent.shape.copy()
+        self._init_bn(parent.shape["f"])
+
+    def _compute(self, ctx, x):
+        return self._apply_bn(x, ctx, f_axis=self.shape.tag2index("f"))
 
 
 @register_node_class
@@ -538,10 +699,10 @@ class GRU(Node):
         rng = self._gm.init_rng()
         self.register_param("w_gates", init_weight(
             rng, (f_in + self.n_f, 2 * self.n_f), "sig"))
-        self.register_param("b_gates", torch.zeros(2 * self.n_f))
+        self.register_param("b_gates", torch.zeros(2 * self.n_f), wd_mult=0.0)
         self.register_param("w_cand", init_weight(
             rng, (f_in + self.n_f, self.n_f), activation_func))
-        self.register_param("b_cand", torch.zeros(self.n_f))
+        self.register_param("b_cand", torch.zeros(self.n_f), wd_mult=0.0)
 
     def _compute(self, ctx, x, h):
         gates = torch.sigmoid(

@@ -1,8 +1,9 @@
 """Node base class and basic graph nodes.
 
-Port of ``Node``, ``Input``, ``Concat``, ``InitialState_like``, ``Split``
-and ``split`` in ``elektronn2_tpu/neuromancer/node_basic.py`` and its
-module-global ``model_manager``. A Node eagerly computes only static things (TaggedShape,
+Port of ``Node``, ``Input``, ``GenericInput``, ``ValueNode``, ``Concat``,
+``InitialState_like``, ``Split``, ``Reshape``, ``Transpose`` and ``split`` in
+``elektronn2_tpu/neuromancer/node_basic.py`` and its module-global
+``model_manager``. A Node eagerly computes only static things (TaggedShape,
 initial parameter values) and defines ``_compute(ctx, *parent_values)`` on
 torch tensors; ``Model`` walks the graph eagerly. Construction args are
 captured so graphs are replayable (the GraphManager contract).
@@ -14,6 +15,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import graphmanager
 from .graphmanager import register_node_class
@@ -30,22 +32,29 @@ class TraceCtx:
       rng    : the step's ``torch.Generator`` or None (stochastic nodes)
       train  : training mode (``Model.trainingstep``)
       state_in/state_out : {node_name: value} aux state read and written
+      noise_in/noise_out : {node_name: tensor} random draws fed in and the
+               draws of this evaluation (:meth:`draw`)
+      remat  : recompute each parameterised node's output in the backward
+               pass (``Model.set_remat``)
 
     The ``convdense_*`` flags select the conv-dense serving lowerings
     (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
     sets them on its own context, every other evaluation leaves them off.
     ``compute_dtype`` (``Model.set_compute_dtype``) is the dtype of the
-    Conv operands, or None for float32.
+    Conv operands, or None for float32. ``Model.set_train_lowering`` sets
+    ``convdense_zfold`` and ``convdense_skipsum`` on the node trace too.
     """
 
     compute_dtype = None
+    remat = False
     convdense_zfold = False
     convdense_upconv_d2s = False
     convdense_poolslice = False
     convdense_skipsum = False
     convdense_ptail = False
 
-    def __init__(self, params, feed, rng=None, train=False, state_in=None):
+    def __init__(self, params, feed, rng=None, train=False, state_in=None,
+                 noise_in=None):
         self.params = params or {}
         self.feed = feed or {}
         self.values = {}
@@ -53,6 +62,8 @@ class TraceCtx:
         self.train = train
         self.state_in = state_in or {}
         self.state_out = {}
+        self.noise_in = noise_in or {}
+        self.noise_out = {}
 
     def get(self, node):
         """Memoised evaluation of ``node`` (and, recursively, its parents).
@@ -60,17 +71,31 @@ class TraceCtx:
         parents, if any, through ``_compute_lazy``. A node with a
         ``_compute_fused`` hook may claim the evaluation of its parents
         (the conv-dense ``skipsum`` lowering, where a Conv consumes its
-        FaithlessMerge parent's pieces); the hook returns None to decline."""
+        FaithlessMerge parent's pieces); the hook returns None to decline.
+
+        Under ``remat`` a parameterised node runs inside
+        ``torch.utils.checkpoint`` (non-reentrant), so its activations are
+        recomputed in the backward pass instead of kept; the fused hook
+        steps aside there, so the checkpoint stays whole-node. The
+        recomputation reads the node's random draws from ``noise_out``
+        (:meth:`draw`), so it sees the same masks and advances no
+        generator."""
         v = self.values.get(node.name)
         if v is None:
+            remat = self.remat and bool(node.params)
             if node._lazy:
                 v = node._compute_lazy(self)
             else:
                 fused = getattr(node, "_compute_fused", None)
-                v = fused(self) if fused is not None else None
+                v = fused(self) if fused is not None and not remat else None
                 if v is None:
-                    v = node._compute(self,
-                                      *[self.get(p) for p in node.parents])
+                    pv = [self.get(p) for p in node.parents]
+                    if remat:
+                        v = checkpoint(lambda *a: node._compute(self, *a),
+                                       *pv, use_reentrant=False,
+                                       preserve_rng_state=False)
+                    else:
+                        v = node._compute(self, *pv)
             self.values[node.name] = v
         return v
 
@@ -80,6 +105,36 @@ class TraceCtx:
         except KeyError:
             raise KeyError(f"missing param {node.name}/{pname}; model params "
                            "out of sync with graph") from None
+
+    def draw(self, node, fn):
+        """The random draw of a stochastic node in this evaluation: the
+        value fed under the node's name in ``noise_in`` if any, else
+        ``fn(rng)`` from the step's generator (None without one, and then
+        the node acts as the identity). A node draws once per evaluation:
+        the draw is kept in ``noise_out``, which a recomputation under
+        remat and the caller read.
+
+        The JAX package folds the node's index into the step's key
+        (``TraceCtx.rng_for``); here every stochastic node takes the next
+        values of the step's one generator, in the graph's evaluation
+        order, which is fixed for a graph."""
+        v = self.noise_out.get(node.name)
+        if v is None:
+            v = self.noise_in.get(node.name)
+            if v is None:
+                if self.rng is None:
+                    return None
+                v = fn(self.rng)
+            self.noise_out[node.name] = v
+        return v
+
+    def state(self, node, default=None):
+        """The aux state (e.g. batch norm's running statistics) of ``node``
+        this evaluation reads."""
+        return self.state_in.get(node.name, default)
+
+    def set_state(self, node, value):
+        self.state_out[node.name] = value
 
 
 class Node:
@@ -197,6 +252,42 @@ class Input(Node):
 
 
 @register_node_class
+class GenericInput(Node):
+    """Input without shape checking, for auxiliary feeds (e.g. the skeleton
+    rows of the skeleton losses).
+
+    Reference: ``node_basic.py::GenericInput``.
+    """
+
+    def __init__(self, name="generic_input", print_repr=False):
+        super().__init__(None, name, print_repr)
+        self.shape = TaggedShape((1,), ("b",))
+
+    def _compute(self, ctx):
+        return ctx.feed[self.name]
+
+
+@register_node_class
+class ValueNode(Node):
+    """A named value (trainable or not) of a fixed tagged shape, e.g. a
+    learnable initial state.
+
+    Reference: ``node_basic.py::ValueNode``.
+    """
+
+    def __init__(self, shape, tags, value=0.0, trainable=False, name="value",
+                 print_repr=True):
+        super().__init__(None, name, print_repr)
+        self.shape = TaggedShape(shape, tags)
+        init = np.broadcast_to(np.asarray(value, dtype=np.float32),
+                               tuple(self.shape)).copy()
+        self.register_param("value", init, trainable=trainable)
+
+    def _compute(self, ctx):
+        return ctx.param(self, "value")
+
+
+@register_node_class
 class Concat(Node):
     """Concatenate along a tagged axis (default features).
 
@@ -281,6 +372,42 @@ class Split(Node):
     def _compute(self, ctx, x):
         y = x.narrow(self.axis, self.start, self.stop - self.start)
         return y.squeeze(self.axis) if self._strip else y
+
+
+@register_node_class
+class Reshape(Node):
+    """Reshape to a new tagged shape of the same element count.
+
+    Reference: ``node_basic.py::Reshape``.
+    """
+
+    def __init__(self, parent, shape, tags, name="reshape", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        self.shape = TaggedShape(shape, tags)
+        if math.prod(tuple(self.shape)) != math.prod(tuple(parent.shape)):
+            raise ValueError(f"cannot reshape {tuple(parent.shape)} "
+                             f"to {tuple(self.shape)}")
+
+    def _compute(self, ctx, x):
+        return x.reshape(tuple(self.shape))
+
+
+@register_node_class
+class Transpose(Node):
+    """Permute axes (given as tags or indices); the tags follow.
+
+    Reference: ``node_basic.py::Transpose``.
+    """
+
+    def __init__(self, parent, perm, name="transpose", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        self.perm = [parent.shape.tag2index(p) if isinstance(p, str) else
+                     int(p) for p in perm]
+        self.shape = TaggedShape([parent.shape.shape[i] for i in self.perm],
+                                 [parent.shape.tags[i] for i in self.perm])
+
+    def _compute(self, ctx, x):
+        return x.permute(self.perm)
 
 
 def split(node, axis="f", index=None, n_out=None, strip_singleton_dims=False,

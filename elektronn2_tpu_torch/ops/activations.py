@@ -3,8 +3,9 @@
 Port of ``elektronn2_tpu/ops/activations.py``: the same names (the
 reference's lin, relu, tanh, sig, abs, plus the modern extras) on torch
 tensors, with the same validation. ``maxout`` and ``prelu`` pass validation
-as there; ``Perceptron`` takes ``maxout``, and no layer of this port takes
-``prelu`` yet.
+as there and are applied by the layers (``ops.conv.apply_activation``:
+maxout groups the features, prelu takes a per-channel ``alpha`` on the
+feature axis).
 """
 
 import torch

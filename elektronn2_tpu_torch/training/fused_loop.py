@@ -12,12 +12,15 @@ in one copy.
 
 What the graph holds, and why it stays right:
 - It reads and writes fixed memory: the parameters, the optimiser's slots
-  and step counter (updated in place by ``Optimiser.update``), the
+  and step counter (updated in place by ``Optimiser.update``), batch norm's
+  running statistics (``Model.state``, made before the capture by
+  ``Model.init_state`` and written in place by each step), the
   hyperparameters as 0-d tensors (``Optimiser.current_hyper``, refreshed
   before each replay, so a ``setlr`` between chunks takes effect with no
   recapture), the augmenter's cube stacks, and (2, K) loss/error buffers.
-- Its random draws come from the loop's own ``torch.Generator``,
-  registered with the graph, so every replay draws new batches: the state
+- Its random draws (the batches, dropout's masks, ``GaussianRV``'s noise)
+  come from the loop's own ``torch.Generator``, registered with the graph,
+  so every replay draws new batches and masks: the state
   advances by the graph's whole offset on each replay, and a replay draws
   what the eager chunk would from the same state.
 - A replay bumps no tensor's version, so after it the loop bumps the
@@ -53,6 +56,9 @@ step reads it and its last step writes it, inside the graph, so it crosses
 replays.
 
 A failed capture or replay raises; there is no eager fallback on the card.
+A graph holding a node that syncs the host (``SkelLoss``, whose KD-tree
+query runs on the host) is refused before the capture: such a model trains
+per step (``Model.trainingstep``), or on the device with ``SkelLossField``.
 A model on the CPU runs the chunk eagerly (there are no graphs there).
 """
 
@@ -187,14 +193,15 @@ class _ChunkLoop:
     # -- the tensors a chunk reads and writes ------------------------------
     def _written(self):
         """Every tensor a chunk updates in place: the trainable parameters,
-        the optimiser's slots and step counter."""
+        the optimiser's slots and step counter, the aux state."""
         m = self.model
-        return tree_leaves(m._trainable(m.params)) + opt_leaves(m.opt_state)
+        return (tree_leaves(m._trainable(m.params)) + opt_leaves(m.opt_state)
+                + tree_leaves(m.state))
 
     def _read(self):
         m = self.model
         return (tree_leaves(m.params) + opt_leaves(m.opt_state)
-                + self._inputs())
+                + tree_leaves(m.state) + self._inputs())
 
     def _owned(self):
         return []
@@ -207,13 +214,17 @@ class _ChunkLoop:
     def graph_key(self):
         """The key under which the captured chunk is kept: the loop's own
         head (B, K, switches), cuDNN's deterministic and benchmark flags,
-        and for every parameter, optimiser slot and step counter and input
-        the tensor's identity, ``_version`` and address (see
-        ``DeviceTracer.graph_key``). The loop's own replays bump the
+        the model's trace switches (compute dtype, ``set_train_lowering``,
+        ``set_remat``), and for every parameter, optimiser slot and step
+        counter and input the tensor's identity, ``_version`` and address
+        (see ``DeviceTracer.graph_key``). The loop's own replays bump the
         versions and move the kept key along with them."""
         cudnn = torch.backends.cudnn
+        m = self.model
         return (self._key_head(), bool(cudnn.deterministic),
                 bool(cudnn.benchmark),
+                (m._compute_dtype, m._train_zfold, m._train_skipsum,
+                 m._remat),
                 tuple((id(t), t._version, t.data_ptr())
                       for t in self._read()),
                 tuple((id(t), t.data_ptr()) for t in self._owned()))
@@ -256,9 +267,20 @@ class _ChunkLoop:
         the capture stream first loads the libraries, makes cuDNN's and
         cuBLAS's workspaces and the loss nodes' constants on the card, so
         none of that happens inside the capture; the values it changed
-        (parameters, slots, step counter, the generator's state) are put
-        back before the capture, which runs nothing."""
-        dev = self.model.device
+        (parameters, slots, step counter, aux state, the generator's state)
+        are put back before the capture, which runs nothing. A model whose
+        step syncs the host is refused first."""
+        m = self.model
+        sync = sorted(n.name for n in m.loss_node.all_parents()
+                      if getattr(n, "host_sync", False))
+        if sync:
+            raise NotImplementedError(
+                f"nodes {sync} query the host in every step (SkelLoss), "
+                "which a CUDA graph cannot hold: train with SkelLossField "
+                "(the same objective on the device) or per step "
+                "(Model.trainingstep)")
+        m.init_state()
+        dev = m.device
         written = self._restored()
         saved = [t.clone() for t in written]
         gen_state = self.generator.get_state()

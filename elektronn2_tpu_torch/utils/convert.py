@@ -6,7 +6,8 @@ parameters into the port's tensors. Every ported node keeps the JAX
 package's parameter layout (conv ``w`` ``(Cout, Cin, kz, kx, ky)``, UpConv
 ``w`` ``(f_out, f_in, *pool)``, Perceptron ``w`` ``(f_in, n_f)``, GRU
 ``w_gates``/``b_gates``/``w_cand``/``b_cand``, ``InitialState_like``
-``state0``), so the conversion is an exact copy.
+``state0``, batch norm's ``bn_gamma``/``bn_beta``, prelu's ``alpha``), so
+the conversion is an exact copy.
 
 ``opt_state_from_jax`` carries the JAX package's optimiser state (slots and
 step counter) into a port model the same way.
@@ -14,7 +15,9 @@ step counter) into a port model the same way.
 The builders have the arguments, node names and geometry of their
 counterparts: ``flagship_model`` of ``__graft_entry__._flagship_model`` (the
 neuro3d-class net), ``neuro3d_train_model`` of the bench's training net
-(``scripts/bench_tpu_pending.py::_neuro3d_model``), ``tracer_model`` of
+(``scripts/bench_tpu_pending.py::_neuro3d_model``; its batch-normed,
+dropout form ``neuro3d_bn_train_model`` through ``simple_cnn``),
+``tracer_model`` of
 ``scripts/exp_tracer_rollout.py::build_model`` (the tracing deployment's
 recurrent model), ``wide_unet_model`` of ``examples/unet3d_wide.py::
 create_model`` and ``unet3d_model`` of ``examples/unet3d.py::create_model``
@@ -135,6 +138,31 @@ def neuro3d_train_model(batch=4, patch=(15, 55, 55), widths=None,
     return model
 
 
+#: dropout of the BN training net: mlp_mnist's rate on the two (3,3,3) convs
+NEURO3D_BN_DROPOUT = (0.0, 0.0, 0.1, 0.1)
+
+
+def neuro3d_bn_train_model(batch=4, patch=(15, 55, 55), widths=None,
+                           device="cuda"):
+    """The bench's neuro3d training net with batch norm and dropout, built
+    by ``simple_cnn``: the convs of :func:`neuro3d_train_model`
+    (``NEURO3D_FILTERS``/``POOLS``/``WIDTHS``) each batch-normed between its
+    pool and its ReLU, dropout :data:`NEURO3D_BN_DROPOUT` after the ReLU, a
+    1x1 ``class`` conv to 2 classes, Softmax ``probs``, the sparse NLL's
+    ``loss`` and ``Errors``; ``Adam(lr=1e-3)``. ``patch`` is the desired
+    patch, ``widths`` narrows the convs (tests)."""
+    from ..neuromancer.model import simple_cnn, target_device
+
+    device = target_device(device)
+    model = simple_cnn(batch, 1, 2, list(patch), NEURO3D_FILTERS,
+                       NEURO3D_POOLS, list(widths or NEURO3D_WIDTHS),
+                       dropout_rates=list(NEURO3D_BN_DROPOUT),
+                       batch_normalisation=True)
+    model.to(device)
+    model.set_opt("Adam", lr=1e-3)
+    return model
+
+
 def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0,
                    device="cuda"):
     """neuro3d-style 3D EM segmentation net (the flagship workload).
@@ -176,7 +204,8 @@ def flagship_model(mfp=True, patch=None, batch=1, extra_convs=0,
     return model.to(device)
 
 
-def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4, device="cuda"):
+def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4, device="cuda",
+                 prelu_w=0):
     """The recurrent tracing model of the tracing deployment, with the JAX
     package's node names: ``x_t`` (one step's patch) →
     ``Perceptron(enc_w, flatten=True)`` ``enc`` → ``GRU(gru_w)`` ``gru``
@@ -184,7 +213,9 @@ def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4, device="cuda"):
     by ``ScanN`` ``scan`` → ``Perceptron(3, 'lin')`` ``step``, with
     ``SquaredLoss`` + ``AggregateLoss`` against ``target``. ``batch`` and
     ``t`` size the designated inputs; a rollout runs any batch. Weights come
-    from ``model_manager.reset()``'s generator.
+    from ``model_manager.reset()``'s generator. ``prelu_w`` > 0 puts a
+    ``Perceptron(prelu_w, 'prelu')`` ``mid`` between the scan and the step
+    head (the structure of the JAX test ``test_device_tracer_prelu_head``).
     """
     from .. import neuromancer as nm
     from ..neuromancer.model import target_device
@@ -198,7 +229,11 @@ def tracer_model(patch, enc_w=64, gru_w=64, batch=2, t=4, device="cuda"):
     gru = nm.GRU(enc, h0, n_f=gru_w, name="gru")
     scan = nm.ScanN(gru, in_memory=h0, in_iterate=x_t, in_iterate_0=seq,
                     n_steps=t, name="scan")
-    step_vec = nm.Perceptron(scan, 3, activation_func="lin", name="step")
+    head = scan
+    if prelu_w:
+        head = nm.Perceptron(scan, prelu_w, activation_func="prelu",
+                             name="mid")
+    step_vec = nm.Perceptron(head, 3, activation_func="lin", name="step")
     tgt = nm.Input([t, batch, 3], "s,b,f", name="target")
     loss = nm.AggregateLoss(nm.SquaredLoss(step_vec, tgt), name="loss")
     model = nm.model_manager.getmodel("tracer_bench")

@@ -1146,3 +1146,147 @@ def test_graphed_fused_carry_equals_eager_and_per_step(cuda_device):
         carry = aux["scan"][-1]
     np.testing.assert_allclose(gl, ref, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(gh, carry, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------- batch norm, dropout, remat
+
+def _bn_loop(device, remat=False, seed=11):
+    """The batch-normed, dropout neuro3d net at narrow widths on the card,
+    its augmenter and a fused loop of three steps."""
+    from elektronn2_tpu_torch.ops.warp import DeviceBatchAugmenter
+    from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
+    from elektronn2_tpu_torch.utils.convert import neuro3d_bn_train_model
+    m = neuro3d_bn_train_model(2, (7, 30, 30), widths=(4, 6, 8, 8),
+                               device=device)
+    m.set_remat(remat)
+    ps = m.prediction_node.shape
+    rng = np.random.RandomState(seed)
+    raws = [rng.rand(1, 20, 70, 70).astype(np.float32) for _ in range(2)]
+    aug = DeviceBatchAugmenter(
+        raws, [(r[0] > 0.5).astype(np.int16) for r in raws],
+        patch_size=m.input_node.shape.spatial_shape,
+        target_size=ps.spatial_shape, target_strides=ps.strides,
+        grey_channels=[0], device=device)
+    return m, FusedTrainLoop(m, aug, batch_size=2, n_inner=3, seed=seed)
+
+
+@pytest.mark.cuda
+def test_bn_dropout_graphed_chunk_equals_eager_chunk(cuda_device,
+                                                     deterministic_cudnn):
+    """Batch norm's running statistics and dropout's masks inside the chunk
+    graph: a replay equals the eager chunk bit for bit (losses, parameters,
+    running statistics), and two replays equal two eager chunks."""
+    m, loop = _bn_loop(cuda_device)
+    loop.run_chunk()                            # captured: a trained start
+    assert sorted(m.state) == ["conv0", "conv1", "conv2", "conv3"]
+    m.snapshot_good()
+    gen = loop.generator.get_state()
+    eager = [loop._run_chunk_eager()[0] for _ in range(2)]
+    want_p = {n: {k: v.clone() for k, v in d.items()}
+              for n, d in m.params.items()}
+    want_s = {n: {k: v.clone() for k, v in d.items()}
+              for n, d in m.state.items()}
+    m.repair_fuckup()
+    loop.generator.set_state(gen)
+    graphed = [loop.run_chunk()[0] for _ in range(2)]
+    for g, e in zip(graphed, eager):
+        np.testing.assert_array_equal(g, e)
+    for tree, want in ((m.params, want_p), (m.state, want_s)):
+        for n, d in want.items():
+            for k, v in d.items():
+                assert torch.equal(tree[n][k], v), (n, k)
+
+
+@pytest.mark.cuda
+def test_lowering_switch_on_a_live_loop_recaptures(cuda_device,
+                                                   deterministic_cudnn):
+    """``set_train_lowering``/``set_remat`` between two chunks of one loop:
+    the next chunk is a new capture under the new trace, and it equals the
+    eager chunk under that trace bit for bit."""
+    m, loop = _bn_loop(cuda_device)
+    loop.run_chunk()
+    for switch in (lambda: m.set_train_lowering(zfold=True),
+                   lambda: m.set_remat(True)):
+        switch()
+        old = loop._graph
+        m.snapshot_good()
+        gen = loop.generator.get_state()
+        eager = loop._run_chunk_eager()[0]
+        m.repair_fuckup()
+        loop.generator.set_state(gen)
+        graphed = loop.run_chunk()[0]
+        assert loop._graph is not old
+        np.testing.assert_array_equal(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_remat_under_capture_same_losses(cuda_device, deterministic_cudnn):
+    """Remat inside a CUDA graph (checkpoint without the CUDA generator's
+    state, the masks drawn once): the same chunk losses as without."""
+    losses = []
+    for remat in (False, True):
+        m, loop = _bn_loop(cuda_device, remat=remat)
+        losses.append(np.concatenate([loop.run_chunk()[0]
+                                      for _ in range(2)]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_skel_loss_capture_refused(cuda_device):
+    """A fused loop over a SkelLoss head raises before any capture, naming
+    SkelLossField; the same head trains per step on the card."""
+    from elektronn2_tpu_torch import neuromancer as nm
+    from elektronn2_tpu_torch.data import skeleton as sk
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    sk.clear_skeleton_registry()
+    line = sk.SkeletonMFK(np.stack([np.full(9, 5.0), np.full(9, 5.0),
+                                    np.arange(9.0) + 2], 1),
+                          [(i, i + 1) for i in range(8)])
+    sid = sk.register_skeleton(line)
+    nm.model_manager.reset()
+    feat = nm.Input([2, 8], "b,f", name="feat")
+    skel = nm.GenericInput(name="skel")
+    pred = nm.Perceptron(feat, 3, activation_func="lin", name="step")
+    m = nm.model_manager.getmodel()
+    m.designate_nodes(input_node=feat, prediction_node=pred,
+                      loss_node=nm.AggregateLoss(nm.SkelLoss(pred, skel)),
+                      target_node=skel)
+    m.to(cuda_device)
+    m.set_opt("Adam", lr=1e-2)
+
+    class Data:
+        def getbatch(self, batch_size):
+            return (np.ones((2, 8), np.float32),
+                    np.array([[sid, 5, 5, 4], [sid, 5, 6, 6]], np.float32))
+
+    loop = HostFedFusedLoop(m, Data(), 2, 2, prefetch=False)
+    with pytest.raises(NotImplementedError, match="SkelLossField"):
+        loop.run_chunk()
+    assert loop._graph is None
+    x, s = (torch.from_numpy(a).to(cuda_device) for a in Data().getbatch(2))
+    assert np.isfinite(float(m.trainingstep(x, s)[0]))
+    sk.clear_skeleton_registry()
+
+
+@pytest.mark.cuda
+def test_modelload_puts_bn_state_on_the_card(cuda_device, tmp_path):
+    """``modelload`` of a batch-normed model puts its running statistics on
+    the card with the parameters, and ``to`` moves them both ways."""
+    from elektronn2_tpu_torch.neuromancer.model import modelload
+    from elektronn2_tpu_torch.utils.convert import neuro3d_bn_train_model
+    m = neuro3d_bn_train_model(2, (7, 30, 30), widths=(4, 6, 8, 8),
+                               device="cpu")
+    x = torch.rand(*m.input_node.shape)
+    t = (torch.rand(*m.target_node.shape) > 0.5).int()
+    m.trainingstep(x, t)
+    path = str(tmp_path / "bn.mdl")
+    m.save(path)
+    card = modelload(path)
+    devs = {v.device.type for d in card.state.values() for v in d.values()}
+    assert devs == {"cuda"} and card.device.type == "cuda"
+    for n, d in m.state.items():
+        for k, v in d.items():
+            assert torch.equal(card.state[n][k].cpu(), v)
+    card.predict(x.to(cuda_device))         # no device mix in evaluation
+    assert {v.device.type for d in card.to("cpu").state.values()
+            for v in d.values()} == {"cpu"}

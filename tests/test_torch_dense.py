@@ -233,21 +233,24 @@ def test_error_paths(port_model):
 
 
 def test_unported_nodes_raise(tmp_path):
+    # a node class still to port (LRN, ROADMAP.md §1 item 7) raises on
+    # load, naming it; BatchNorm, and Conv's batch norm, are ported
     import elektronn2_tpu.neuromancer as jnm
     from elektronn2_tpu_torch import neuromancer as tnm
     with fresh_graph("elektronn2_tpu") as gm:
         inp = jnm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
-        bn = jnm.BatchNorm(jnm.Conv(inp, 3, 3, name="c"), name="bn")
+        lrn = jnm.LRN(jnm.Conv(inp, 3, 3, name="c"), name="lrn")
         m = gm.getmodel()
-        m.designate_nodes(input_node=inp, prediction_node=bn)
-        fname = str(tmp_path / "bn.mdl")
+        m.designate_nodes(input_node=inp, prediction_node=lrn)
+        fname = str(tmp_path / "lrn.mdl")
         m.save(fname)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
+    with pytest.raises(NotImplementedError, match="LRN"):
         modelload(fname, device="cpu")
     with fresh_graph("elektronn2_tpu_torch"):
         t_inp = tnm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
-        with pytest.raises(NotImplementedError, match="batch_normalisation"):
-            tnm.Conv(t_inp, 3, 3, batch_normalisation=True)
+        c = tnm.Conv(t_inp, 3, 3, batch_normalisation=True)
+        assert tnm.BatchNorm(c).shape == c.shape
+        assert {"bn_gamma", "bn_beta"} <= set(c.params)
 
 
 def test_batched_dense_forward_matches_single(port_model):

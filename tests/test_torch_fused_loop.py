@@ -118,6 +118,28 @@ def test_graph_key_moves_with_what_the_graph_reads():
         torch.backends.cudnn.deterministic = old
 
 
+@pytest.mark.parametrize("switch", [
+    lambda m: m.set_train_lowering(zfold=True),
+    lambda m: m.set_train_lowering(skipsum=True),
+    lambda m: m.set_remat(True),
+    lambda m: m.set_compute_dtype("bfloat16")],
+    ids=["zfold", "skipsum", "remat", "bf16"])
+def test_graph_key_moves_with_the_trace_switches(switch):
+    """A trace switch flipped on a live loop changes the key, so the card
+    recaptures the chunk under the new trace instead of replaying the old
+    one; switching back restores the key."""
+    m, aug = _setup()
+    loop = FusedTrainLoop(m, aug, batch_size=2, n_inner=2, seed=3)
+    loop.run_chunk()
+    k0 = loop.graph_key()
+    switch(m)
+    assert loop.graph_key() != k0
+    m.set_train_lowering(zfold=False, skipsum=False)
+    m.set_remat(False)
+    m.set_compute_dtype(None)
+    assert loop.graph_key() == k0
+
+
 def test_loop_checks_its_arguments():
     m, aug = _setup()
     with pytest.raises(ValueError, match="n_inner"):

@@ -362,3 +362,69 @@ def test_package_source_names_no_jax():
                             or s.startswith("from elektronn2_tpu.")):
                         offenders.append(f"{p}:{i}: {s}")
     assert not offenders, offenders
+
+
+def test_train_nodes_run_without_jax():
+    # the training nodes (batch norm, dropout, prelu, the skeleton losses),
+    # the lowerings and remat, the BN net's save/load and dense serving,
+    # and mlp_mnist through the train CLI stay jax-free when they run
+    code = ("import os, sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import (\n"
+            "    NEURO3D_FILTERS, NEURO3D_POOLS, neuro3d_bn_train_model,\n"
+            "    tracer_model)\n"
+            "from elektronn2_tpu_torch.utils.cnncalculator import "
+            "cnncalculator\n"
+            "from elektronn2_tpu_torch.neuromancer.model import modelload\n"
+            "from elektronn2_tpu_torch.data import skeleton as sk\n"
+            "import elektronn2_tpu_torch.neuromancer as nm\n"
+            "from elektronn2_tpu_torch.scripts.train import main\n"
+            "m = neuro3d_bn_train_model(2, (7, 25, 25), widths=(3, 3, 4, 4),"
+            " device='cpu')\n"
+            "x = torch.rand(*m.input_node.shape)\n"
+            "t = (torch.rand(*m.target_node.shape) > 0.5).int()\n"
+            "for kw, remat in ((dict(), False), (dict(zfold=True), True)):\n"
+            "    m.set_train_lowering(**kw)\n"
+            "    m.set_remat(remat)\n"
+            "    assert np.isfinite(float(m.trainingstep(x, t)[0]))\n"
+            "d = tempfile.mkdtemp()\n"
+            "m.save(os.path.join(d, 'bn.mdl'))\n"
+            "p = cnncalculator(NEURO3D_FILTERS, NEURO3D_POOLS, [7, 25, 25],\n"
+            "                  mfp=True, ndim=3).input\n"
+            "s = modelload(os.path.join(d, 'bn.mdl'), device='cpu',\n"
+            "              override_mfp_to_active=True, imposed_patch_size=p)\n"
+            "assert sorted(s.state) == ['conv0', 'conv1', 'conv2', 'conv3']\n"
+            "s.set_dilated_impl('direct', pallas_tail=True)\n"
+            "y = s.predict_dense_device(torch.rand(1, 9, 30, 30), "
+            "pad_raw=True)\n"
+            "assert tuple(y.shape) == (2, 9, 30, 30), y.shape\n"
+            "tm = tracer_model((4, 4, 4), enc_w=8, gru_w=8, prelu_w=6,\n"
+            "                  device='cpu')\n"
+            "sk.clear_skeleton_registry()\n"
+            "line = sk.SkeletonMFK(np.stack([np.full(9, 5.), np.full(9, 5.),\n"
+            "                      np.arange(9.) + 2], 1),\n"
+            "                      [(i, i + 1) for i in range(8)])\n"
+            "sid = sk.register_skeleton(line)\n"
+            "f = sk.skeleton_distance_field([line], (12, 12, 12))\n"
+            "nm.model_manager.reset()\n"
+            "a = nm.Input([2, 3], 'b,f', name='pred')\n"
+            "g = nm.GenericInput(name='skel')\n"
+            "o = nm.AggregateLoss([nm.SkelLoss(a, g),\n"
+            "                      nm.SkelLossField(a, g, f)])\n"
+            "h = nm.model_manager.getmodel()\n"
+            "h.designate_nodes(input_node=a, prediction_node=o,\n"
+            "                  extra_inputs=[g])\n"
+            "feed = torch.tensor([[sid, 5., 5., 4.], [sid, 5., 6., 6.]])\n"
+            "assert np.isfinite(float(h.predict(torch.rand(2, 3), "
+            "extra=[feed])[0]))\n"
+            "assert main(['--cpu', 'examples/mlp_mnist.py', '--n-steps', "
+            "'3', '--save-path', d]) == 0\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'elektronn2_tpu'\n"
+            "             or k.startswith('elektronn2_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

@@ -220,10 +220,16 @@ def test_dot_matches_jax(shape, axis):
                                 dict(dropout_rate=0.5),
                                 dict(activation_func="prelu")])
 def test_perceptron_unported_options_raise(kw):
+    # these options are ported now (tests/test_torch_train_nodes.py holds
+    # them against the JAX package): each builds, with the JAX package's
+    # parameters, and no option of Perceptron raises any more
     tnm.model_manager.reset()
-    inp = tnm.Input([2, 3], "b,f", name="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tnm.Perceptron(inp, 4, **kw)
+    jnm.model_manager.reset()
+    t = tnm.Perceptron(tnm.Input([2, 3], "b,f", name="x"), 4, **kw)
+    j = jnm.Perceptron(jnm.Input([2, 3], "b,f", name="x"), 4, **kw)
+    assert sorted(t.params) == sorted(j.params)
+    assert t.dropout_rate == j.dropout_rate
+    assert t.batch_normalisation == j.batch_normalisation
 
 
 def test_scan_rejects_sequence_of_wrong_length():

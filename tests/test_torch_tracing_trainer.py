@@ -147,8 +147,27 @@ def test_skeleton_distance_field_matches_jax():
 @pytest.mark.parametrize("fn", ["skel_loss_callback", "register_skeleton",
                                 "clear_skeleton_registry"])
 def test_skeleton_loss_helpers_raise_naming_item_2(fn):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        getattr(tsk, fn)(SkeletonMFK(np.zeros((1, 3)), []))
+    # the helpers are ported now (they raised while item 2 was open): each
+    # does what the JAX package's does, with the same registry ids
+    sks = [_line(SkeletonMFK), _line(jsk.SkeletonMFK)]
+    for mod, sk in zip((tsk, jsk), sks):
+        mod.clear_skeleton_registry()
+        assert mod.register_skeleton(sk) == 0
+    if fn == "register_skeleton":
+        assert [m.register_skeleton(sk) for m, sk in
+                zip((tsk, jsk), sks)] == [1, 1]
+    elif fn == "clear_skeleton_registry":
+        tsk.clear_skeleton_registry()
+        assert tsk._SKELETON_REGISTRY == []
+    else:
+        feed = np.array([[0, 5.0, 7.0, 2.0], [0, 5.0, 6.5, 4.0]], np.float32)
+        pred = np.array([[0.5, 1.0, 0.0], [0.0, -2.0, 1.0]], np.float32)
+        got = tsk.skel_loss_callback(torch.from_numpy(pred),
+                                     torch.from_numpy(feed))
+        ref = jsk.skel_loss_callback(jnp.asarray(pred), jnp.asarray(feed))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
+    for mod in (tsk, jsk):
+        mod.clear_skeleton_registry()
 
 
 # ------------------------------------------------------------ AgentData
