@@ -292,7 +292,36 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     and 2 (running out of memory at 2 falls back per slab and is reported,
     not failed); checks (b), (c) and the first slab against one
     ``predict_dense_device`` of the slab as staged (1e-4). K1's launches in
-    the timed sweeps and the CLI join the kernels line.
+    the timed sweeps and the CLI join the kernels line. Inside the sweep
+    phase, reduced-precision serving's entry points: after the flagship's
+    timed sweeps ``Model.tune_serving(apply=True)`` over every contender
+    (direct, direct + K1, bf16, int8 stored in bf16) at
+    ``DEFAULT_TUNE_STEPS_3D`` clamped to the dataset, slab batches 1 and 2,
+    K=4 (``tune_flagship_row``: one line a row, each with its largest map
+    and whether it passes 2^31; ``tune_flagship``), then the sweep with the
+    winner's step and slab batch beside the default sweep's Mvox/s, its
+    output within 1e-5 of the default's for a float32 winner, else at the
+    winner's argmax floor (``tune_flagship_sweep``); after ``sweep_cli``
+    the predict CLI with ``--tune``, ``--int8`` and ``--bf16`` (``-o ''``),
+    each CLI's maps equal to the API's sweep under the same settings byte
+    for byte (``cli_modes``), and ``elektronn2-torch-profile`` on the
+    flagship at two sizes (``cli_profile``); after the U-Net sweep its six
+    conv-dense contenders at one (128, 448, 448) slab, K=2, every one with
+    skipsum (``tune_unet_row``, ``tune_unet``: dilate against d2s);
+23. quant_conv (run before the sweep): ``ops.conv.quantized_conv`` at the
+    flagship's conv2 and conv3 and the wide U-Net's d1 conv (256 -> 128,
+    seven channel groups) and UpConv u0, random operands and every operand
+    +-127 with aligned signs (sums past 2^24 where the shapes allow), each
+    equal bit for bit, on ``QUANT_F64_PLANES`` output planes, to a float64
+    conv of the same int8 values times the scale; timed in turns beside
+    ``F.conv3d`` (``F.conv_transpose3d``) in float32 and bf16;
+24. serve_dtypes: one warm 120x496x496 flagship request in each of
+    ``SERVE_MODES`` (float32 cuDNN, K1, bf16, bf16 stored, int8, int8
+    stored, int8 calibrated) and a 128x448x448 wide U-Net slab in
+    ``UNET_SERVE_MODES`` (K1, bf16, int8): ms, Mvox/s, peak, max and
+    p99.9 abs deviation from the first mode, argmax agreement (above
+    ``ARGMAX_FLOOR``: bf16 0.95, int8 0.97), finite maps, K1's launches
+    (2 / 4 in the K1 modes, which join the kernels line, 0 in the others).
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
@@ -3566,7 +3595,7 @@ def phase_sweep_flagship(smi, model, tmp):
     if a_err > SLICE_ATOL or b_err > SLICE_ATOL:
         raise AssertionError(f"flagship sweep: seams vs request {a_err}, "
                              f"slab_batch 2 vs 1 {b_err} (> {SLICE_ATOL})")
-    return launches
+    return launches + tune_flagship(smi, model, path, outs, walls)
 
 
 def phase_sweep_unet(smi, tmp):
@@ -3687,6 +3716,375 @@ def phase_sweep_cli(smi, model, tmp):
     return launches
 
 
+# ------------------------------------------- reduced-precision serving
+
+QUANT_F64_PLANES = 4                    # output planes held against float64
+QUANT_CASES = [  # name, x shape, weight shape, conv kwargs, upconv
+    # the flagship's conv2 and conv3 of one 120x496x496 request (pad_raw)
+    ("flagship_conv2", (1, 30, 124, 512, 512), (40, 30, 3, 3, 3),
+     dict(dilation=(1, 4, 4)), False),
+    ("flagship_conv3", (1, 40, 122, 504, 504), (40, 40, 3, 3, 3),
+     dict(dilation=(1, 4, 4)), False),
+    # the wide U-Net's widest (3,3,3) conv (d1, 256 -> 128) and its UpConv
+    # u0 (128 -> 64, (1,2,2)) at one 128x448x448 slab
+    ("unet_d1", (1, 256, 130, 230, 230), (128, 256, 3, 3, 3), {}, False),
+    ("unet_u0", (1, 128, 128, 228, 228), (64, 128, 1, 2, 2),
+     dict(pool_shape=(1, 2, 2)), True),
+]
+#: argmax agreement floors of the lossy modes against the float32 route
+#: (tests/test_inference_device.py:590-620, :880-925)
+ARGMAX_FLOOR = {"bfloat16": 0.95, "int8": 0.97}
+SERVE_MODES = [  # name, dtype, activations, calibrated, K1
+    ("float32", None, False, False, False),
+    ("k1", None, False, False, True),
+    ("bf16", "bfloat16", False, False, False),
+    ("bf16_act", "bfloat16", True, False, False),
+    ("int8", "int8", False, False, False),
+    ("int8_act", "int8", True, False, False),
+    ("int8_calibrated", "int8", False, True, False),
+]
+UNET_SERVE_MODES = [("k1", None, False, False, True),
+                    ("bf16", "bfloat16", False, False, False),
+                    ("int8", "int8", False, False, False)]
+UNET_TUNE_STEP = (128, 448, 448)
+
+
+def int8_operands(x, w):
+    """The int8 values and the dequantising scale ``quantized_conv`` uses,
+    computed here on their own (per-output-channel weight scales, one
+    activation scale, half-to-even rounding, +-127)."""
+    c = torch.full((), 127.0, device=x.device)
+    s_x = torch.clamp(x.abs().max(), min=1e-12) / c
+    red = tuple(range(1, w.ndim))
+    s_w = torch.clamp(w.abs().amax(dim=red), min=1e-12) / c
+    xq = torch.clamp(torch.round(x / s_x), -127, 127)
+    wq = torch.clamp(torch.round(w / s_w.reshape((-1,) + (1,) * (w.ndim - 1))),
+                     -127, 127)
+    return xq, wq, (s_x * s_w).reshape((1, -1) + (1,) * (x.ndim - 2))
+
+
+def quant_f64_equal(x, w, got, kw, up):
+    """Whether ``got`` (quantized_conv's output) equals, on its first
+    ``QUANT_F64_PLANES`` z-planes bit for bit, the float64 conv of the same
+    int8 values times the scale; and the largest integer sum there."""
+    F = torch.nn.functional
+    xq, wq, scale = int8_operands(x, w)
+    if up:
+        xs = xq[:, :, :QUANT_F64_PLANES].double()
+        sums = F.conv_transpose3d(xs, wq.transpose(0, 1).double(),
+                                  stride=kw["pool_shape"])
+    else:
+        xs = xq[:, :, :QUANT_F64_PLANES + w.shape[2] - 1].double()
+        sums = F.conv3d(xs, wq.double(), **kw)
+    del xq, xs
+    want = sums.float() * scale
+    n = want.shape[2]
+    return (bool(torch.equal(got[:, :, :n], want)),
+            bool(torch.equal(sums, torch.round(sums))),
+            sums.abs().max().item())
+
+
+def phase_quant_conv(smi):
+    """``ops.conv.quantized_conv`` at the main paths' shapes (the
+    flagship's conv2 and conv3, the wide U-Net's widest conv and its
+    UpConv): random operands and an adversarial case (every operand +-127,
+    signs aligned), each held against a float64 conv of the same int8
+    values bit for bit on ``QUANT_F64_PLANES`` output planes, and timed in
+    turns against ``F.conv3d`` (``F.conv_transpose3d`` for the UpConv) in
+    float32 and bf16 on the same inputs."""
+    from elektronn2_tpu_torch.ops.conv import (EXACT_INT8_TERMS,
+                                               quantized_conv, upconv)
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for name, xs, ws, kw, up in QUANT_CASES:
+        taps = 1 if up else int(np.prod(ws[2:]))
+        groups = -(-ws[1] // (EXACT_INT8_TERMS // taps))
+        for case in ("random", "worst"):
+            if case == "random":
+                x = torch.rand(xs, device="cuda", generator=g) - 0.5
+                w = torch.randn(ws, device="cuda", generator=g)
+            else:
+                x = torch.ones(xs, device="cuda")
+                w = torch.ones(ws, device="cuda")
+                x[:, ::2] = -1.0
+                w[:, ::2] = -1.0
+            kwq = dict(kw, conv_fn=upconv) if up else kw
+            got = quantized_conv(x, w, **kwq)
+            exact, integral, top = quant_f64_equal(x, w, got, kw, up)
+            rec = dict(case=name, operands=case, x=list(xs), w=list(ws),
+                       channel_groups=groups, f64_bit_equal=exact,
+                       f64_sums_integral=integral, largest_sum=top,
+                       past_2_24=top > 2 ** 24)
+            if case == "random":
+                xb, wb = x.bfloat16(), w.bfloat16()
+                if up:
+                    fns = [lambda: quantized_conv(x, w, **kwq),
+                           lambda: F.conv_transpose3d(
+                               x, w.transpose(0, 1), stride=kw["pool_shape"]),
+                           lambda: F.conv_transpose3d(
+                               xb, wb.transpose(0, 1),
+                               stride=kw["pool_shape"])]
+                else:
+                    fns = [lambda: quantized_conv(x, w, **kwq),
+                           lambda: F.conv3d(x, w, **kw),
+                           lambda: F.conv3d(xb, wb, **kw)]
+                with f32_convs():
+                    ref = fns[1]()
+                    qerr = (got - ref).abs().max().item()
+                    scale = ref.abs().max().item()
+                    del ref
+                    ms, f32_ms, bf16_ms = palindrome_ms(fns, 1)
+                del xb, wb
+                rec.update(ms=ms, f32_conv_ms=f32_ms, bf16_conv_ms=bf16_ms,
+                           quantisation_max_abs=qerr, f32_max_abs=scale)
+            emit("quant_conv", nvidia_smi=smi, **rec)
+            if not (exact and integral):
+                raise AssertionError(f"quantized_conv {name} ({case}): not "
+                                     "equal to the float64 integer sums")
+            del x, w, got
+            torch.cuda.empty_cache()
+
+
+def serve_mode(model, vol, mode, convdense):
+    """Apply one serving mode ``(name, dtype, activations, calibrated, K1)``
+    to ``model``; the calibrated mode calibrates on ``vol``."""
+    name, dtype, act, calibrated, k1 = mode
+    model.set_compute_dtype(None)
+    if convdense:
+        model.set_convdense_impl(zfold=True, skipsum=True, ptail=k1)
+    else:
+        model.set_dilated_impl("direct", zfold=True, pallas_tail=k1)
+    model.set_compute_dtype(dtype, activations=act)
+    if calibrated:
+        model.calibrate_int8(vol)
+
+
+def deviation(out, ref):
+    """(max abs, 99.9th percentile of abs, argmax agreement) of ``out``
+    against ``ref`` ((f, ...) maps on the card)."""
+    d = (out - ref).abs().flatten()
+    k = max(1, int(np.ceil(d.numel() * 1e-3)))
+    p999 = torch.topk(d, k).values.min().item()
+    agree = (out.argmax(0) == ref.argmax(0)).float().mean().item()
+    return d.max().item(), p999, agree
+
+
+def serve_modes(smi, model, vol, modes, convdense, what):
+    """One warm request of ``vol`` under each serving mode: ms, Mvox/s,
+    peak GiB, deviation from the float32 route (the first mode), K1's
+    launches (2 on the flagship's K1 mode, 4 on the U-Net's, 0 on every
+    other); every map finite, each lossy mode at its argmax floor. Returns
+    K1's launches in the K1 modes."""
+    mvox = np.prod(vol.shape[1:]) / 1e6
+    ref, launches = None, 0
+    for mode in modes:
+        serve_mode(model, vol, mode, convdense)
+        model.predict_dense_device(vol, pad_raw=True)           # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = tailconv.launches
+        t0 = time.perf_counter()
+        out = model.predict_dense_device(vol, pad_raw=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k1 = tailconv.launches - before
+        rec = dict(model=what, mode=mode[0], dtype=mode[1],
+                   activations=mode[2], calibrated=mode[3], seconds=dt,
+                   ms=dt * 1e3, mvox_s=mvox / dt, k1_launches=k1,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   finite=bool(torch.isfinite(out).all()),
+                   out=list(out.shape), nvidia_smi=smi)
+        want_k1 = (4 if convdense else 2) if mode[4] else 0
+        if ref is None:
+            ref = out
+            rec["reference"] = True
+        else:
+            mx, p999, agree = deviation(out, ref)
+            rec.update(max_abs_dev=mx, p999_abs_dev=p999,
+                       argmax_agreement=agree,
+                       argmax_floor=ARGMAX_FLOOR.get(mode[1]))
+        emit("serve_dtypes", **rec)
+        if not rec["finite"]:
+            raise AssertionError(f"{what} {mode[0]}: non-finite output")
+        if k1 != want_k1:
+            raise AssertionError(f"{what} {mode[0]}: {k1} K1 launches, "
+                                 f"expected {want_k1}")
+        floor = ARGMAX_FLOOR.get(mode[1])
+        if floor is not None and not rec["argmax_agreement"] > floor:
+            raise AssertionError(f"{what} {mode[0]}: argmax agreement "
+                                 f"{rec['argmax_agreement']} <= {floor}")
+        if mode[4]:
+            launches += k1
+        del out
+    del ref
+    model.set_compute_dtype(None)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_dtypes(smi):
+    """Every serving mode of a warm 120x496x496 flagship request (float32
+    cuDNN, K1, bf16, bf16 stored, int8, int8 stored, int8 calibrated) and
+    of a 128x448x448 wide U-Net slab (K1, bf16, int8), each against the
+    float32 route. Returns K1's launches in the K1 modes."""
+    rng = np.random.RandomState(SEED)
+    model = flagship_model(mfp=True, patch=[23, 103, 103])
+    model.set_params(seeded_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*REQ_SHAPE).astype(np.float32)).cuda()
+    tailconv.launches = 0
+    launches = serve_modes(smi, model, vol, SERVE_MODES, False, "flagship")
+    del model, vol
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED + 7)
+    model = wide_unet_model()
+    model.set_params(seeded_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*SLAB_SHAPE).astype(np.float32)).cuda()
+    launches += serve_modes(smi, model, vol, UNET_SERVE_MODES, True,
+                            "wide_unet")
+    del model, vol
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tune_rows(smi, what, res, seconds):
+    for row in res["table"]:
+        emit(f"tune_{what}_row", nvidia_smi=smi, **row)
+    emit(f"tune_{what}", best=res["best"], rows=len(res["table"]),
+         seconds=seconds, nvidia_smi=smi)
+    if res["best"] is None:
+        raise AssertionError(f"tune {what}: no contender ran")
+
+
+def tune_flagship(smi, model, path, outs, walls):
+    """``Model.tune_serving(apply=True)`` on the sweep's flagship (every
+    contender, ``DEFAULT_TUNE_STEPS_3D`` clamped to the dataset, slab
+    batches 1 and 2, K=4), its table one line a row; then the sweep with
+    the winner's step and slab batch, timed beside the default sweep's, its
+    output held to the default sweep's (1e-5 for a float32 winner, the
+    argmax floor of a lossy one). Returns K1's launches in the tune and the
+    tuned sweep; the K1 route is put back."""
+    steps = [tuple(min(v, r) for v, r in zip(s, SWEEP_SHAPE))
+             for s in inference.DEFAULT_TUNE_STEPS_3D]
+    before = tailconv.launches
+    t0 = time.perf_counter()
+    res = model.tune_serving(steps=steps, slab_batches=(1, 2), K=4,
+                             apply=True, verbose=False)
+    tune_rows(smi, "flagship", res, time.perf_counter() - t0)
+    best = res["best"]
+    out, rec = timed_sweep(model, path, best["slab_batch"],
+                           step=list(best["step"]))
+    ref = torch.from_numpy(outs[1]).cuda()
+    got = torch.from_numpy(out).cuda()
+    del out
+    mx, p999, agree = deviation(got, ref)
+    emit("tune_flagship_sweep", best=best, dataset=list(SWEEP_SHAPE),
+         default_step=list(SWEEP_STEP),
+         default_mvox_s={b: float(np.prod(SWEEP_SHAPE)) / 1e6 / np.mean(w)
+                         for b, w in walls.items()}, max_abs_vs_default=mx,
+         p999_abs_vs_default=p999, argmax_agreement=agree,
+         nvidia_smi=smi, **rec)
+    del ref, got
+    if best["dtype"] is None and mx > SLICE_ATOL:
+        raise AssertionError(f"tuned float32 sweep vs default: {mx}")
+    floor = ARGMAX_FLOOR.get(best["dtype"])
+    if floor is not None and not agree > floor:
+        raise AssertionError(f"tuned {best['dtype']} sweep: argmax "
+                             f"agreement {agree} <= {floor}")
+    model.set_compute_dtype(None)
+    model.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    torch.cuda.empty_cache()
+    return tailconv.launches - before
+
+
+def tune_unet(smi):
+    """The wide U-Net's six conv-dense contenders at one (128, 448, 448)
+    slab, slab batch 1, K=2 (dilate against d2s for its transposed convs),
+    every contender with ``skipsum``. Returns K1's launches."""
+    rng = np.random.RandomState(SEED + 7)
+    model = wide_unet_model()
+    model.set_params(seeded_params(model, rng))
+    model.set_convdense_impl(skipsum=True)
+    before = tailconv.launches
+    t0 = time.perf_counter()
+    res = model.tune_serving(steps=[UNET_TUNE_STEP], slab_batches=(1,), K=2,
+                             apply=False, verbose=False)
+    tune_rows(smi, "unet", res, time.perf_counter() - t0)
+    if len(res["table"]) != 6:
+        raise AssertionError(f"tune unet: {len(res['table'])} rows, not 6")
+    del model
+    torch.cuda.empty_cache()
+    return tailconv.launches - before
+
+
+def cli_maps(kout, n=2):
+    return [KnossosArray(os.path.join(kout, f"c{c}"))[:, :, :]
+            for c in range(n)]
+
+
+def phase_cli_modes(smi, mdl, kdir, tmp):
+    """The predict CLI with ``--tune``, ``--int8`` and ``--bf16`` over the
+    ``sweep_cli`` dataset (``-o ''``: no HDF5 file; the maps through
+    ``--knossos-out``): each CLI's uint8 maps equal clip(255 x) of the API's
+    sweep under the same settings (for ``--tune``, the winner the CLI's own
+    tune picked, recorded), byte for byte; then ``elektronn2-torch-profile``
+    on the flagship at two sizes. Returns K1's launches in the CLIs."""
+    from elektronn2_tpu_torch.neuromancer.model import Model
+    from elektronn2_tpu_torch.scripts import profile
+    picked, tune = {}, Model.tune_serving
+
+    def recording(self, *a, **kw):
+        res = tune(self, *a, **kw)
+        picked.update(res["best"] or {})
+        return res
+    launches = 0
+    for flag in ("--tune", "--int8", "--bf16"):
+        kout = os.path.join(tmp, f"cli{flag[2:]}")
+        picked.clear()
+        before = tailconv.launches
+        Model.tune_serving = recording
+        try:
+            t0 = time.perf_counter()
+            rc = predict.main([mdl, kdir, flag, "-o", "",
+                               "--knossos-out", kout])
+            dt = time.perf_counter() - t0
+        finally:
+            Model.tune_serving = tune
+        launches += tailconv.launches - before
+        if rc != 0:
+            raise AssertionError(f"predict CLI {flag} exited with {rc}")
+        m = modelload(mdl)
+        step, sb = None, 1
+        if flag == "--tune":
+            m.set_dilated_impl(picked["impl"], zfold=picked["zfold"],
+                               pallas_tail=picked["ptail"])
+            m.set_compute_dtype(picked["dtype"], activations=picked["act"])
+            step, sb = list(picked["step"]), picked["slab_batch"]
+        else:
+            m.set_compute_dtype("int8" if flag == "--int8" else "bfloat16")
+        before = tailconv.launches
+        api = m.sweep_knossos(KnossosArray(kdir), step=step, slab_batch=sb)
+        launches += tailconv.launches - before
+        u8 = np.clip(api * 255.0, 0, 255).astype(np.uint8)
+        equal = [bool(np.array_equal(g, u8[c]))
+                 for c, g in enumerate(cli_maps(kout, u8.shape[0]))]
+        emit("cli_modes", flag=flag, seconds=dt, picked=dict(picked) or None,
+             maps_equal_api=equal, nvidia_smi=smi)
+        if not all(equal):
+            raise AssertionError(f"CLI {flag}: maps differ from the API's")
+        del m
+    torch.cuda.empty_cache()
+    csv_path = os.path.join(tmp, "profile.csv")
+    t0 = time.perf_counter()
+    rc = profile.main([mdl, "--sizes", "55,103", "--out", csv_path])
+    with open(csv_path) as f:
+        rows = f.read().strip().splitlines()
+    emit("cli_profile", rc=rc, seconds=time.perf_counter() - t0, csv=rows,
+         nvidia_smi=smi)
+    if rc != 0 or len(rows) != 3:
+        raise AssertionError(f"profile CLI: rc {rc}, {len(rows)} lines")
+    return launches
+
+
 def phase_sweep(smi):
     """The dense-serving deployment: KNOSSOS datasets written into a
     temporary directory (removed after the phase) and swept, the flagship
@@ -3701,8 +4099,11 @@ def phase_sweep(smi):
         launches += phase_sweep_cli(smi, model, tmp)
         del model
         torch.cuda.empty_cache()
+        launches += phase_cli_modes(smi, os.path.join(tmp, "flagship.mdl"),
+                                    os.path.join(tmp, "cli_raw"), tmp)
         launches += phase_sweep_unet(smi, tmp)
     torch.cuda.empty_cache()
+    launches += tune_unet(smi)
     return launches
 
 
@@ -3743,6 +4144,8 @@ def main():
     k1_launches += phase_train_cli(smi)
     k2_launches += phase_train_tracing(smi)
     phase_tracing_nodes(smi)
+    phase_quant_conv(smi)
+    k1_launches += phase_serve_dtypes(smi)
     k1_launches += phase_sweep(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",

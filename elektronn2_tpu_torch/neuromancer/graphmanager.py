@@ -119,6 +119,11 @@ class GraphManager:
         """Replayable spec: list of {name, cls, args, kwargs} + arg arrays."""
         descriptors, arrays = [], {}
         for node in self.nodes.values():
+            if node._init_args is None:
+                raise TypeError(
+                    f"node {node.name!r} ({type(node).__name__}) was not "
+                    "constructed through its public constructor and cannot "
+                    "be serialised")
             args, kwargs = node._init_args
             prefix = f"__spec__/{node.name}"
             descriptors.append({

@@ -43,9 +43,16 @@ NCDHW, so the prediction is always (f, Z, X, Y).
 runs them through those paths one or ``slab_batch`` at a time, and reads
 each chunk back while the next one computes.
 
+Every path serves the model's precision (``Model.set_compute_dtype``):
+float32, bf16 or float16 Conv operands, or int8 convs on the whole-volume
+paths (``ops.conv.quantized_conv``), with narrow inter-layer storage under
+``activations=True``; K1 at float32 only. ``tune_sweep`` (``Model.
+tune_serving``) times the serving contenders as ``sweep_knossos``
+dispatches them and applies the fastest.
+
 Not in this slice (``NotImplementedError``): the s2b/s2bg/ztap/zmajor/
-poolslice lowerings of the dilated path, reduced precision, sharded
-serving (ROADMAP.md §1 items 7 and 8).
+poolslice lowerings of the dilated path (ROADMAP.md §1 item 7's TPU
+lowerings), sharded serving (item 8).
 """
 
 from __future__ import annotations
@@ -233,21 +240,79 @@ def dilated_pool(y, pool, dil, mode="max"):
     return acc / float(np.prod(pool)) if mode in ("avg", "mean") else acc
 
 
+def _functor_spatially_elementwise(node, n_ch):
+    """Whether an ApplyFunc's functor is pointwise across space (channel
+    mixing, e.g. a per-voxel softmax, is fine): only then does its
+    evaluation on the dilated path's full-resolution maps equal the
+    fragment semantics. Probe: ``f(cat(x, y)) == cat(f(x), f(y))`` along
+    each spatial axis, on small random blocks at the node's rank (distinct
+    extents catch transposes); a functor that changes the spatial or batch
+    shape, or raises, is not. Cached on the node. Reference:
+    ``inference.py::_functor_spatially_elementwise``."""
+    cached = getattr(node, "_spatially_elementwise", None)
+    if cached is not None:
+        return cached
+    rng = np.random.RandomState(0)
+    nsp = len(node.parents[0].shape.spatial_axes)
+    shape = (1, int(n_ch)) + (3, 4, 5)[3 - nsp:]
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    y = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+
+    def f(a):
+        return node.functor(a, *node.args, **node.kwargs)
+    ok = True
+    try:
+        fx, fy = f(x), f(y)
+        if fx.shape[0] != 1 or tuple(fx.shape[2:]) != tuple(x.shape[2:]):
+            ok = False                   # a spatial or batch shape change
+        else:
+            for ax in range(2, 2 + nsp):
+                got = f(torch.cat([x, y], dim=ax))
+                want = torch.cat([fx, fy], dim=ax)
+                if got.shape != want.shape or not torch.allclose(
+                        got, want, rtol=1e-5, atol=1e-6):
+                    ok = False
+                    break
+    except Exception:        # noqa: BLE001 — a functor that fails the probe
+        ok = False           # is not taken; the tiled path evaluates it
+    node._spatially_elementwise = ok
+    return ok
+
+
 def _dilated_unsupported(pred, state):
     """The first node of ``pred``'s graph the dilated path does not take,
     or None. A batch-normed node without running statistics in ``state``
     is not taken (its evaluation normalises by the batch's statistics,
-    which the tiled path computes per tile, as the JAX package does)."""
+    which the tiled path computes per tile, as the JAX package does); nor
+    is a Concat off the feature axis or of parents at other dilations, nor
+    an ApplyFunc that is not spatially pointwise
+    (:func:`_functor_spatially_elementwise`)."""
     from . import loss as loss_mod, neural
-    from .node_basic import Input
+    from .node_basic import ApplyFunc, Concat, Input
     supported = (Input, neural.Conv, neural.Pool, neural.BatchNorm,
-                 neural.Dropout, loss_mod.Softmax, neural.FragmentsToDense)
+                 neural.Dropout, loss_mod.Softmax, neural.FragmentsToDense,
+                 Concat, ApplyFunc)
+    dil = {}
     for node in pred.all_parents():
         if not isinstance(node, supported):
             return node
         if getattr(node, "_bn_nf", None) is not None \
                 and node.name not in state:
             return node
+        if isinstance(node, Input):
+            d = (1,) * len(node.shape.spatial_axes)
+        else:
+            d = dil[node.parents[0].name]
+        if isinstance(node, (neural.Conv, neural.Pool)):
+            d = tuple(a * p for a, p in zip(d, node.pool_shape))
+        if isinstance(node, Concat) and (
+                node.axis not in (1, node.parents[0].shape.tag2index("f"))
+                or len({dil[p.name] for p in node.parents}) != 1):
+            return node
+        if isinstance(node, ApplyFunc) and not _functor_spatially_elementwise(
+                node, node.parents[0].shape["f"]):
+            return node
+        dil[node.name] = d
     return None
 
 
@@ -263,20 +328,29 @@ def _bn_affine(params, state, node, y):
             * torch.rsqrt(st["var"].reshape(shape) + 1e-5) + beta)
 
 
-def dilated_dense_forward(model, vol, batch=False):
+def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
     """Dense prediction via the à-trous (dilated convolution) identity.
 
     Output voxel j == MFP dense output voxel j (held by the tests against
     ``predict`` + ``fragments2dense``). Supports graphs of Input, Conv, Pool,
-    BatchNorm (with running statistics), Dropout, Softmax and
-    FragmentsToDense nodes; others raise ``NotImplementedError`` before any
-    work. ``vol``: (f, Z, X, Y) or, with ``batch=True``,
-    (b, f, Z, X, Y). Call under ``torch.no_grad()`` and
+    BatchNorm (with running statistics), Dropout, Softmax, FragmentsToDense,
+    feature-axis Concat and spatially pointwise ApplyFunc nodes; others
+    raise ``NotImplementedError`` before any work. ``vol``: (f, Z, X, Y) or,
+    with ``batch=True``, (b, f, Z, X, Y). Call under ``torch.no_grad()`` and
     ``ops.conv.f32_convs()`` (``predict_dense_device`` does).
+
+    The model's serving precision (``Model.set_compute_dtype``): bf16 or
+    float16 Conv operands; int8 through ``ops.conv.quantized_conv``, with
+    the calibrated scales where there are some; with ``activations=True``
+    the values between layers stored in the compute type (bf16 under int8),
+    epilogues and the softmax in float32. The result is float32. K1 runs
+    at float32 only. ``quant_calibrate``, a dict, gets each Conv's input
+    max-abs from a float32 evaluation (``Model.calibrate_int8``).
     """
     from . import loss as loss_mod, neural
-    from .node_basic import Input
-    from ..ops.conv import apply_activation, conv as ops_conv
+    from .node_basic import ApplyFunc, Concat, Input
+    from ..ops.conv import (absmax, apply_activation, conv as ops_conv,
+                            quantized_conv)
     from ..ops.tailconv import conv3x3_dilated
 
     nsp = len(model.input_node.shape.spatial_axes)
@@ -289,7 +363,16 @@ def dilated_dense_forward(model, vol, batch=False):
             f"{nsp}-d model), got shape {tuple(vol.shape)}")
     pred = model.prediction_node
     params, state = model.params, model.state
-    use_ptail = model._dilated_ptail and nsp == 3
+    quant = model._compute_dtype == "int8" and quant_calibrate is None
+    scales = (model._quant_scales or {}) if quant else {}
+    cdtype = (None if quant or quant_calibrate is not None
+              else model._trace_dtype())
+    sdtype = None                       # narrow inter-layer storage
+    if model._compute_act:
+        sdtype = torch.bfloat16 if quant else cdtype
+    use_ptail = (model._dilated_ptail and nsp == 3 and not quant
+                 and quant_calibrate is None and cdtype is None
+                 and sdtype is None)
     bad = _dilated_unsupported(pred, state)
     if bad is not None:
         raise NotImplementedError(
@@ -311,6 +394,9 @@ def dilated_dense_forward(model, vol, batch=False):
                 and not node.batch_normalisation
                 and "alpha" not in node.params)
 
+    def store(y):
+        return y if sdtype is None else y.to(sdtype)
+
     x = vol if batch else vol[None]
     values = {}    # node name -> (tensor, dilation tuple)
 
@@ -321,26 +407,42 @@ def dilated_dense_forward(model, vol, batch=False):
         if isinstance(node, neural.Conv):
             w = params[node.name]["w"]
             b = params[node.name]["b"]
+            if quant_calibrate is not None:
+                quant_calibrate[node.name] = float(absmax(xin))
             if use_ptail and dil[0] == 1 and _ptail_node_ok(node):
                 # bias + ReLU fused in the kernel; eligible convs never pool;
                 # the input may be the caller's strided view
                 return conv3x3_dilated(xin.contiguous(), w, b,
                                        dil=(1, dil[1], dil[2])), dil
-            y = ops_conv(xin, w, b, dilation=dil)
+            bias = b.reshape((1, -1) + (1,) * nsp)
+            if quant:
+                y = quantized_conv(xin, w, dilation=dil,
+                                   x_absmax=scales.get(node.name)) + bias
+            elif cdtype is not None:
+                y = ops_conv(xin.to(cdtype), w.to(cdtype),
+                             dilation=dil).float() + bias
+            else:
+                y = ops_conv(xin, w, b, dilation=dil)
             if any(p > 1 for p in node.pool_shape):
                 y = dilated_pool(y, node.pool_shape, dil)
                 dil = tuple(d * p for d, p in zip(dil, node.pool_shape))
             if node.batch_normalisation:
                 y = _bn_affine(params, state, node, y)
-            return apply_activation(y, node.activation_func,
-                                    alpha=params[node.name].get("alpha")), dil
+            return store(apply_activation(
+                y, node.activation_func,
+                alpha=params[node.name].get("alpha"))), dil
         if isinstance(node, neural.Pool):
             y = dilated_pool(xin, node.pool_shape, dil, mode=node.mode)
             return y, tuple(d * p for d, p in zip(dil, node.pool_shape))
         if isinstance(node, loss_mod.Softmax):
-            return loss_mod.grouped_softmax(xin, node.n_indep, 1), dil
+            return loss_mod.grouped_softmax(xin.float(), node.n_indep, 1), dil
         if isinstance(node, neural.BatchNorm):
-            return _bn_affine(params, state, node, xin), dil
+            return store(_bn_affine(params, state, node, xin)), dil
+        if isinstance(node, Concat):
+            return torch.cat([values[p.name][0] for p in node.parents],
+                             dim=1), dil
+        if isinstance(node, ApplyFunc):
+            return node.functor(xin, *node.args, **node.kwargs), dil
         return xin, dil      # FragmentsToDense: already dense; Dropout
 
     # drop each value after its last consumer: eager PyTorch keeps every
@@ -356,32 +458,25 @@ def dilated_dense_forward(model, vol, batch=False):
             if uses[p.name] == 0:
                 del values[p.name]
     y, _ = values.pop(pred.name)
+    y = y.float()                        # callers get float32 maps
     return y if batch else y[0]
 
 
 # ----------------------------------------------------- convolutional path
 
 # node types whose _compute takes any input size (reference:
-# ``inference.py::_CONV_DENSE_OK``), split into the ported ones and those
-# whose port is still to come, with the ROADMAP.md item that brings them
+# ``inference.py::_CONV_DENSE_OK``)
 _CONV_DENSE_OK = {"Input", "Conv", "UpConv", "Crop", "Pool", "Concat",
-                  "FaithlessMerge", "Softmax", "BatchNorm", "Dropout"}
-_CONV_DENSE_NOT_PORTED = {
-    "MultMerge": "§1 item 7", "ApplyFunc": "§1 item 7",
-    "LRN": "§1 item 7", "FromTensor": "§1 item 7"}
+                  "FaithlessMerge", "MultMerge", "Softmax", "BatchNorm",
+                  "Dropout", "ApplyFunc", "LRN", "FromTensor"}
 
 
 def _conv_dense_rejection(pred):
     """Why ``pred``'s graph cannot take the convolutional dense path, as a
-    string, or None when it can. A node type that path takes in the JAX
-    package but that is not ported raises ``NotImplementedError``."""
+    string, or None when it can."""
     has_upconv = False
     for node in pred.all_parents():
         tname = type(node).__name__
-        if tname in _CONV_DENSE_NOT_PORTED:
-            raise NotImplementedError(
-                f"convolutional dense path: node type {tname} is not ported "
-                f"yet (ROADMAP.md {_CONV_DENSE_NOT_PORTED[tname]})")
         if tname not in _CONV_DENSE_OK:
             return f"unsupported node type {tname}"
         if getattr(node, "mfp", False):
@@ -412,6 +507,12 @@ def conv_dense_shapes(pred, sp):
         tname = type(node).__name__
         if tname == "Input":
             s = [int(v) for v in sp]
+        elif tname == "FromTensor":     # a constant: its own extent
+            s = [int(v) for v in node.shape.spatial_shape]
+            s = s if len(s) == len(sp) else [1] * len(sp)
+        elif tname == "MultMerge":      # broadcasting
+            s = [max(a, b) for a, b in zip(shapes[node.parents[0].name],
+                                           shapes[node.parents[1].name])]
         else:
             s = shapes[node.parents[0].name]
             if tname == "Conv":
@@ -500,7 +601,30 @@ def _walk_freeing(ctx, pred):
     return ctx.values.pop(pred.name)
 
 
-def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
+def _convdense_ctx(model, feed, quant_calibrate=None):
+    """The ``TraceCtx`` of a conv-dense evaluation: the model's parameters,
+    aux state, serving precision and ``set_convdense_impl`` lowerings (K1
+    at float32 only)."""
+    from .node_basic import TraceCtx
+    ctx = TraceCtx(model.params, feed, state_in=model.state)
+    ctx.compute_dtype = model._trace_dtype()
+    ctx.quant_serving = (model._compute_dtype == "int8"
+                         and quant_calibrate is None)
+    ctx.quant_calibrate = quant_calibrate
+    ctx.quant_scales = model._quant_scales
+    ctx.convdense_upconv_d2s = model._convdense_upconv == "d2s"
+    ctx.convdense_zfold = model._convdense_zfold
+    ctx.convdense_poolslice = model._convdense_poolslice
+    ctx.convdense_skipsum = model._convdense_skipsum
+    ctx.convdense_ptail = (model._convdense_ptail
+                           and len(model.input_node.shape.spatial_axes) == 3
+                           and model._compute_dtype is None
+                           and quant_calibrate is None)
+    return ctx
+
+
+def convolutional_dense_forward(model, vol, pad_raw=False, batch=False,
+                                quant_calibrate=None):
     """Dense prediction of a decoder (U-Net) graph by running it once over
     the whole volume.
 
@@ -517,8 +641,13 @@ def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
     whose output the graph's merge crops under-produce (they lose more
     voxels the larger the input), raises :class:`ConvDenseShapeError`
     before any work.
+
+    The serving precision: bf16/float16 Conv operands, or int8 Conv and
+    UpConv through ``ops.conv.quantized_conv`` (one scale per volume, or
+    the calibrated ones); K1 (``ptail``) at float32 only.
+    ``quant_calibrate``, a dict, gets each Conv's and UpConv's input
+    max-abs from a float32 evaluation instead (``Model.calibrate_int8``).
     """
-    from .node_basic import TraceCtx
     from ..ops.conv import f32_convs
 
     inp, pred = model.input_node, model.prediction_node
@@ -539,7 +668,8 @@ def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
         lo, hi, off = front
         pads = [p for a, b in zip(reversed(lo), reversed(hi)) for p in (a, b)]
         y = convolutional_dense_forward(
-            model, F.pad(x, pads, mode="reflect"), batch=True)
+            model, F.pad(x, pads, mode="reflect"), batch=True,
+            quant_calibrate=quant_calibrate)
         y = y[(slice(None), slice(None)) + tuple(
             slice(a - o, a - o + v) for a, o, v in zip(lo, off, V))]
         y = y.contiguous()
@@ -555,12 +685,7 @@ def convolutional_dense_forward(model, vol, pad_raw=False, batch=False):
             f"required {want_out}: this graph's merge-crop deficit grows "
             f"with the input size (predict_dense_device serves it through "
             f"the tiled fallback)")
-    ctx = TraceCtx(model.params, {inp.name: x})
-    ctx.convdense_upconv_d2s = model._convdense_upconv == "d2s"
-    ctx.convdense_zfold = model._convdense_zfold
-    ctx.convdense_poolslice = model._convdense_poolslice
-    ctx.convdense_skipsum = model._convdense_skipsum
-    ctx.convdense_ptail = model._convdense_ptail
+    ctx = _convdense_ctx(model, {inp.name: x}, quant_calibrate)
     with torch.no_grad(), f32_convs():
         y = _walk_freeing(ctx, pred)
     y = y[(slice(None), slice(None)) + tuple(slice(0, w)
@@ -613,6 +738,15 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
                                                    pad_raw=pad_raw)
             except ConvDenseShapeError:
                 pass    # refused for the volume's shape: the tiled fallback
+        if model._compute_dtype == "int8" and not getattr(
+                model, "_warned_int8_tiled", False):
+            # int8 covers the whole-volume paths only: say so rather than
+            # let the user believe the tiled map is quantised
+            model._warned_int8_tiled = True
+            logger.warning(
+                "int8 serving requested, but this graph/volume routes to "
+                "the overlap-tiled fallback, which runs float32 (per-tile "
+                "scales would seam the stitched output)")
         return _tiled_sweep(model, vol, pad_raw, tile_batch)
 
     with torch.no_grad(), f32_convs():
@@ -840,6 +974,12 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     (``stage_s``, on the staging thread) and of writing into ``out``
     (``write_s``), and the chunk's slab count (``slabs``). ``mesh`` (slabs
     sharded over devices) is not ported.
+
+    Under ``set_compute_dtype('int8')`` without calibrated scales, the
+    sweep calibrates them on its first slab (``Model.calibrate_int8``), so
+    every slab quantises alike and the sweep equals the whole-volume int8
+    output; if that pass runs out of device memory the sweep goes on with
+    per-dispatch scales and a warning (any other error reaches the caller).
     """
     global sweep_oom_fallbacks
     if mesh is not None:
@@ -966,6 +1106,26 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
             logger.info(f"sweep_knossos: slab {chunk[-1]} done "
                         f"({len(chunk)} in the chunk)")
 
+    if (model._compute_dtype == "int8" and not model._quant_scales
+            and (_dilated_unsupported(pred, model.state) is None
+                 or _conv_dense_rejection(pred) is None)):
+        logger.info("sweep_knossos: calibrating int8 activation scales on "
+                    "the first slab (static scales: no seams)")
+        slab = read(origins[0])
+        slab = _U8_SCALE[slab] if slab.dtype == np.uint8 else slab
+        try:
+            model.calibrate_int8(torch.from_numpy(slab).to(dev))
+        except torch.cuda.OutOfMemoryError as e:
+            msg = f"{type(e).__name__}: {e}"
+        else:
+            msg = None
+        del slab
+        if msg is not None:
+            torch.cuda.empty_cache()
+            logger.warning(f"sweep_knossos: int8 calibration ran out of "
+                           f"device memory ({msg[:200]}); sweeping with "
+                           "per-dispatch scales")
+
     def run(B, forward):
         chunks = [origins[i:i + B] for i in range(0, len(origins), B)]
         writes = []      # write-backs in flight, oldest first
@@ -1009,3 +1169,346 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
                 f"step= or slab_batch for batched serving)")
     run(1, _sweep_forward(model, False))
     return out
+
+
+# ------------------------------------------------------------ serving tune
+
+#: default slab sizes of :func:`tune_sweep` for 3-D graphs, the JAX
+#: package's list: the sweep's defaults and larger slabs
+DEFAULT_TUNE_STEPS_3D = ((64, 384, 384), (96, 512, 512), (112, 496, 496),
+                         (128, 512, 512))
+
+#: the most elements a map may hold and keep cuDNN's int32-indexed kernels
+INT32_ELEMENTS = 2**31 - 1
+
+
+def _largest_map(model, path, ext, sb):
+    """Elements of the largest activation map (a Conv's output before its
+    pool included) of one forward over ``sb`` staged slabs of spatial
+    extent ``ext`` on ``path`` ('dilated' or 'convdense'), from the shapes
+    alone; a skip merge that ``skipsum`` never builds is not counted."""
+    from .neural import Conv, Pool
+    from .node_basic import Concat, Input
+    pred = model.prediction_node
+    big = 0
+    if path == "convdense":
+        N = conv_dense_extent(model, list(ext))[0]
+        shapes = conv_dense_shapes(pred, N)
+        ctx = _convdense_ctx(model, {})
+        for node in pred.all_parents():
+            if node.children and all(isinstance(c, Conv) and
+                                     c._fuses_merge(ctx)
+                                     for c in node.children):
+                continue
+            f = node.shape["f"] if "f" in node.shape.tags else 1
+            big = max(big, f * math.prod(shapes[node.name]))
+            if isinstance(node, Conv):
+                pre = [v - k + 1 for v, k in zip(shapes[node.parents[0].name],
+                                                 node.filter_shape)]
+                big = max(big, node.n_f * math.prod(pre))
+        return sb * big
+    ext_of, dil_of, ch_of = {}, {}, {}
+    for node in pred.all_parents():
+        if isinstance(node, Input):
+            e, d = list(ext), [1] * len(ext)
+            c = node.shape["f"]
+        else:
+            p = node.parents[0].name
+            e, d, c = list(ext_of[p]), list(dil_of[p]), ch_of[p]
+            if isinstance(node, Conv):
+                e = [v - a * (k - 1) for v, a, k in zip(e, d,
+                                                         node.filter_shape)]
+                big = max(big, node.n_f * math.prod(e))
+            if isinstance(node, (Conv, Pool)):
+                e = [v - a * (q - 1) for v, a, q in zip(e, d,
+                                                         node.pool_shape)]
+                d = [a * q for a, q in zip(d, node.pool_shape)]
+            if isinstance(node, Concat):
+                c = sum(ch_of[q.name] for q in node.parents)
+            elif "f" in node.shape.tags:
+                c = node.shape["f"]
+        ext_of[node.name], dil_of[node.name], ch_of[node.name] = e, d, c
+        big = max(big, c * math.prod(e))
+    return sb * big
+
+
+def _free_device(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _timed_dispatches(fn, vol, K):
+    """Two warm-ups, then ``K`` dispatches of ``fn(vol)`` whose sums add up
+    on the device, closed by one sync (reading the checksum). Returns
+    (checksum, seconds of the K dispatches)."""
+    for _ in range(2):               # the first dispatch after a change of
+        float(fn(vol).sum())         # mode carries one-off costs
+    t0 = time.perf_counter()
+    acc = None
+    for _ in range(K):
+        s = fn(vol).float().sum()
+        acc = s if acc is None else acc + s
+    checksum = float(acc)
+    return checksum, time.perf_counter() - t0
+
+
+def _tune_measure_grid(model, steps, halo, slab_batches, K, configs,
+                       apply_cfg, make_fn, row_tag, log_prefix, verbose,
+                       path):
+    """The protocol of both :func:`tune_sweep` legs. Per step and slab
+    batch: a staging volume of uniform values from a seeded generator on
+    the model's device (``sb`` slabs of the step plus its halo), then per
+    contender: its settings applied, two warm-ups, ``K`` dispatches of the
+    forward ``sweep_knossos`` runs at that slab batch, one sync. Each row
+    carries the largest activation map in elements (``largest_map``) and
+    whether it passes 2^31 (``past_2_31``: cuDNN leaves its int32 kernels
+    there).
+
+    Only three failures become a row (``failed``): the device running out
+    of memory, a contender the port does not have (``NotImplementedError``
+    naming its ROADMAP.md item), and a non-finite checksum from a bf16,
+    float16 or int8 contender. Anything else, a K1 launch error or a
+    non-finite float32 result included, reaches the caller. Reference:
+    ``inference.py::_tune_measure_grid``, which makes a row of every
+    exception."""
+    dev = model.device
+    f_in = int(model.input_node.shape["f"])
+    table = []
+    for step in steps:
+        ext = tuple(s + h for s, h in zip(step, halo))
+        for sb in slab_batches:
+            sb = max(1, int(sb))
+            big = _largest_map(model, path, ext, sb)
+            where = dict(slab_batch=sb, step=step, largest_map=big,
+                         past_2_31=big > INT32_ELEMENTS)
+            failed = None
+            try:
+                gen = torch.Generator(dev).manual_seed(0)
+                vol = torch.rand((sb, f_in) + ext, generator=gen, device=dev)
+            except torch.cuda.OutOfMemoryError as e:
+                failed = f"staging: out of memory: {e}"[:200]
+            if failed is not None:
+                _free_device(dev)
+                table.append(dict(where, failed=failed))
+                continue
+            for cfg in configs:
+                row = dict(cfg, **where)
+                failed = oom = None
+                try:
+                    apply_cfg(cfg)
+                    checksum, dt = _timed_dispatches(make_fn(cfg, sb), vol,
+                                                     K)
+                    if not math.isfinite(checksum):
+                        if cfg["dtype"] is None:
+                            raise FloatingPointError(
+                                f"{log_prefix}: non-finite checksum "
+                                f"({checksum}) from the float32 contender "
+                                f"{row_tag(cfg)} at {where}")
+                        failed = f"non-finite checksum ({checksum})"
+                except torch.cuda.OutOfMemoryError as e:
+                    failed = oom = f"out of memory: {e}"[:200]
+                except NotImplementedError as e:
+                    failed = str(e)[:200]
+                if oom is not None:       # the traceback's tensors are gone
+                    _free_device(dev)
+                if failed is not None:
+                    row["failed"] = failed
+                    table.append(row)
+                    continue
+                row["mvox_s"] = math.prod(step) * sb * K / dt / 1e6
+                table.append(row)
+                if verbose:
+                    logger.info(f"{log_prefix}: {row_tag(cfg)} slab_batch="
+                                f"{sb} step={step}: {row['mvox_s']:.2f} "
+                                "Mvox/s")
+            del vol
+            _free_device(dev)
+    return table
+
+
+def _tune_sweep_convdense(model, steps, halo, slab_batches=(1, 2), K=4,
+                          include_bf16=True, include_int8=True,
+                          lowerings=None, apply=False, verbose=True):
+    """:func:`tune_sweep`'s leg for decoder graphs: the conv-dense
+    contenders (``Model.set_convdense_impl`` upconv, zfold and K1 x
+    precision), the JAX package's grid whole: dilate, dilate+zfold,
+    d2s+zfold, d2s+zfold+ptail, d2s+zfold bf16, dilate int8 (act).
+    ``lowerings``: (upconv, zfold, dtype[, act[, ptail]]) tuples. Every
+    contender keeps the model's ``poolslice`` and ``skipsum``. Reference:
+    ``inference.py::_tune_sweep_convdense``."""
+    keep = dict(poolslice=model._convdense_poolslice,
+                skipsum=model._convdense_skipsum)
+
+    def _cfg(upconv, zfold, dtype, act=False, ptail=False):
+        return {"path": "convdense", "upconv": upconv, "zfold": bool(zfold),
+                "dtype": dtype, "act": bool(act), "ptail": ptail, **keep}
+
+    if lowerings is None:
+        configs = [_cfg("dilate", False, None), _cfg("dilate", True, None),
+                   _cfg("d2s", True, None), _cfg("d2s", True, None,
+                                                 ptail=True)]
+        if include_bf16:
+            configs += [_cfg("d2s", True, "bfloat16")]
+        if include_int8:
+            configs += [_cfg("dilate", False, "int8", act=True)]
+    else:
+        configs = [_cfg(*low) for low in lowerings]
+    saved = _cfg(model._convdense_upconv, model._convdense_zfold,
+                 model._compute_dtype, act=model._compute_act,
+                 ptail=model._convdense_ptail)
+    saved_scales = model._quant_scales
+    if saved not in configs:
+        configs.insert(0, saved)
+
+    def _apply_cfg(cfg, with_scales=False):
+        # contenders measure int8 with per-dispatch scales; restore and
+        # apply put the user's calibration back (same weights, same graph)
+        model.set_compute_dtype(None)
+        model.set_convdense_impl(cfg["upconv"], zfold=cfg["zfold"],
+                                 ptail=cfg["ptail"],
+                                 poolslice=cfg["poolslice"],
+                                 skipsum=cfg["skipsum"])
+        model.set_compute_dtype(cfg["dtype"], activations=cfg["act"])
+        if with_scales and cfg["dtype"] == "int8":
+            model._quant_scales = saved_scales
+
+    def _tag(cfg):
+        return (f"upconv={cfg['upconv']}"
+                f"{'+zfold' if cfg['zfold'] else ''}"
+                f"{'+ptail' if cfg['ptail'] else ''}"
+                f"{'+' + cfg['dtype'] if cfg['dtype'] else ''}"
+                f"{'+act' if cfg['act'] else ''}")
+
+    try:
+        table = _tune_measure_grid(
+            model, steps, halo, slab_batches, K, configs, _apply_cfg,
+            lambda cfg, sb: _sweep_forward(model, sb > 1), _tag,
+            "tune_sweep[convdense]", verbose, "convdense")
+    finally:
+        _apply_cfg(saved, with_scales=True)
+    return _tune_result(table, apply, _apply_cfg, "tune_sweep[convdense]",
+                        verbose)
+
+
+def _tune_result(table, apply, apply_cfg, log_prefix, verbose):
+    ok = [r for r in table if "mvox_s" in r]
+    if not ok:
+        return {"best": None, "table": table}
+    best = max(ok, key=lambda r: r["mvox_s"])
+    if apply:
+        apply_cfg(best, with_scales=True)
+    if verbose:
+        logger.info(f"{log_prefix}: best {best}")
+    return {"best": best, "table": table}
+
+
+def tune_sweep(model, steps=None, slab_batches=(1, 2), K=4,
+               include_bf16=True, include_int8=True, lowerings=None,
+               apply=False, verbose=True):
+    """Autotune the serving configuration of KNOSSOS sweeps on this device.
+
+    Measures every contender with the sustained-dispatch protocol of
+    :func:`_tune_measure_grid` (``K`` back-to-back forwards as
+    ``sweep_knossos`` dispatches them at each slab batch, one sync) over
+    each slab size of ``steps``, and returns the fastest. ``steps``
+    (default :data:`DEFAULT_TUNE_STEPS_3D` for 3-D graphs) are rounded up
+    to the valid-size period M and staged with the M-aligned halo, as the
+    sweep stages them. The model's own serving configuration always
+    competes, so ``apply=True`` (leave the winner applied; otherwise the
+    settings are restored, the int8 calibration kept) never leaves the
+    model slower than it was, as measured.
+
+    The dilated grid is the JAX package's mapped to what the port has:
+    its only dilated lowering is 'direct' (``'s2b'``/``'s2bg'`` stay
+    unported, ROADMAP.md §1 item 7, and ``zfold`` changes nothing there),
+    so 's2bg' reads as 'direct' and the duplicates go, leaving four
+    contenders: direct, direct + K1 (``pallas_tail``), direct bf16, and
+    direct int8 with ``activations=True``. ``lowerings`` gives others as
+    (impl, zfold, dtype[, ztap, zmajor, poolslice, act, ptail]) tuples; a
+    lowering the port lacks becomes a failed row naming its item.
+    ``include_bf16`` / ``include_int8`` drop the lossy contenders.
+
+    Decoder (UpConv) graphs take the conv-dense leg
+    (:func:`_tune_sweep_convdense`; ``best["path"] == "convdense"``). A
+    graph that only the tiled fallback serves has no lowering to tune:
+    ``best`` is None. Returns ``{"best": row, "table": [rows]}``; a row
+    holds the contender's settings, ``slab_batch``, ``step``,
+    ``largest_map``, ``past_2_31`` and ``mvox_s`` (output voxels a second)
+    or ``failed``. Reference: ``inference.py::tune_sweep``.
+    """
+    pred = model.prediction_node
+    fov = [int(f) for f in pred.shape.fov]
+    if steps is None:
+        steps = (list(DEFAULT_TUNE_STEPS_3D) if len(fov) == 3
+                 else [(256,) * len(fov), (512,) * len(fov)])
+    steps = [tuple(int(v) for v in s) for s in steps]
+    for s in steps:
+        if len(s) != len(fov):
+            raise ValueError(f"step {s} has {len(s)} dims; the model "
+                             f"graph has {len(fov)} spatial dims")
+    M = _valid_period(pred, len(fov))
+    steps = list(dict.fromkeys(
+        tuple(-(-v // m) * m for v, m in zip(s, M)) for s in steps))
+    halo = [-(-((f - 1) // 2) // m) * m + (f - 1 - (f - 1) // 2)
+            for f, m in zip(fov, M)]
+    if _dilated_unsupported(pred, model.state) is not None:
+        if _conv_dense_rejection(pred) is None:
+            return _tune_sweep_convdense(
+                model, steps, halo, slab_batches=slab_batches, K=K,
+                include_bf16=include_bf16, include_int8=include_int8,
+                lowerings=lowerings, apply=apply, verbose=verbose)
+        if verbose:
+            logger.info("tune_sweep: only the tiled fallback serves this "
+                        "graph; it has no lowering to tune")
+        return {"best": None, "table": []}
+
+    def _cfg(impl, zfold, dtype, ztap=False, zmajor=False, poolslice=False,
+             act=False, ptail=False):
+        return {"impl": impl, "zfold": bool(zfold), "dtype": dtype,
+                "ztap": ztap, "zmajor": bool(zmajor),
+                "poolslice": bool(poolslice), "act": bool(act),
+                "ptail": ptail}
+
+    if lowerings is None:
+        configs = [_cfg("direct", False, None),
+                   _cfg("direct", True, None, ptail=True)]
+        if include_bf16:
+            configs += [_cfg("direct", False, "bfloat16")]
+        if include_int8:
+            configs += [_cfg("direct", True, "int8", act=True)]
+    else:
+        configs = [_cfg(*low) for low in lowerings]
+    saved = _cfg(model._dilated_impl, model._dilated_zfold,
+                 model._compute_dtype, act=model._compute_act,
+                 ptail=model._dilated_ptail)
+    saved_scales = model._quant_scales
+    if saved not in configs:
+        configs.insert(0, saved)
+
+    def _apply_cfg(cfg, with_scales=False):
+        # contenders measure int8 with per-dispatch scales; restore and
+        # apply put the user's calibration back (same weights, same graph)
+        model.set_compute_dtype(None)
+        model.set_dilated_impl(cfg["impl"], zfold=cfg["zfold"],
+                               ztap=cfg["ztap"], zmajor=cfg["zmajor"],
+                               poolslice=cfg["poolslice"],
+                               pallas_tail=cfg["ptail"])
+        model.set_compute_dtype(cfg["dtype"], activations=cfg["act"])
+        if with_scales and cfg["dtype"] == "int8":
+            model._quant_scales = saved_scales
+
+    def _tag(cfg):
+        extras = "".join(f"+{k}" for k in ("zfold", "ztap", "zmajor",
+                                           "poolslice", "act", "ptail")
+                         if cfg[k])
+        return (f"{cfg['impl']}{extras}"
+                f"{'+' + cfg['dtype'] if cfg['dtype'] else ''}")
+
+    try:
+        table = _tune_measure_grid(
+            model, steps, halo, slab_batches, K, configs, _apply_cfg,
+            lambda cfg, sb: _sweep_forward(model, sb > 1), _tag,
+            "tune_sweep", verbose, "dilated")
+    finally:
+        _apply_cfg(saved, with_scales=True)
+    return _tune_result(table, apply, _apply_cfg, "tune_sweep", verbose)

@@ -3,11 +3,15 @@
 Port of ``Model`` and ``modelload`` in ``elektronn2_tpu/neuromancer/model.py``
 (reference: ``elektronn2/neuromancer/model.py``): node designation, the
 forward ``_apply``, ``predict``, ``predict_dense_device``,
-``set_dilated_impl``, ``set_convdense_impl``, the training half (``set_opt``,
-``trainingstep``, ``loss``, ``test_error``, ``snapshot_good``,
-``repair_fuckup``, ``paramstats``, ``set_train_lowering``, ``set_remat``),
-the npz ``save``/``modelload`` format with the optimiser and aux state, and
-the stack constructor :func:`simple_cnn`.
+``set_dilated_impl``, ``set_convdense_impl``, the serving precisions
+(``set_compute_dtype``: bf16, float16, int8, narrow activation storage;
+``calibrate_int8``) and the serving autotune (``tune_serving``), the
+training half (``set_opt``, ``trainingstep``, ``loss``, ``test_error``,
+``snapshot_good``, ``repair_fuckup``, ``paramstats``, ``set_train_lowering``,
+``set_remat``), the inspection API (``get_activations``, ``predict_ext``,
+``kernel_lists``, ``measure_exectimes``, ``summary``), the npz
+``save``/``modelload`` format with the optimiser and aux state,
+:func:`params_from_model_file` and the stack constructor :func:`simple_cnn`.
 
 PyTorch idiom: parameters are a ``{node: {name: tensor}}`` dict on one
 device, moved explicitly with :meth:`Model.to`; calls that get data on
@@ -27,8 +31,8 @@ of steps (``training/fused_loop.py``) replays on fixed addresses.
 a trained net over whole volumes.
 
 Not in this slice (``NotImplementedError`` naming the ROADMAP.md item):
-compute dtypes other than float32 and bf16 Conv operands, ``tune_serving``,
-orbax checkpoints.
+the bf16/float16 modes of Perceptron, GRU and LSTM (training only), orbax
+checkpoints.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
+import time
 
 import numpy as np
 import torch
@@ -82,8 +88,11 @@ class Model:
         self._step_count = 0
         self._seed = 0
         self._gen = None                      # made on first use, see seed
-        self._compute_dtype = None
+        self._compute_dtype = None        # None, 'bfloat16', 'float16', 'int8'
+        self._compute_act = False
+        self._quant_scales = None         # calibrate_int8's {node: max-abs}
         self._dilated_impl = "direct"
+        self._dilated_zfold = False        # accepted, changes nothing
         self._dilated_ptail = False
         self._convdense_upconv = "dilate"
         self._convdense_zfold = False
@@ -183,6 +192,7 @@ class Model:
                 "elektronn2_tpu_torch (XLA/TPU lowerings; ROADMAP.md §1 "
                 "item 7)")
         self._dilated_impl = impl
+        self._dilated_zfold = bool(zfold)
         self._dilated_ptail = bool(pallas_tail)
         return self
 
@@ -247,36 +257,99 @@ class Model:
         return self
 
     def set_compute_dtype(self, dtype, activations=False):
-        """Mixed precision for training and patch prediction: with
-        ``'bfloat16'`` every Conv runs its operands in bf16 with float32
-        accumulation, bias and epilogue in float32; None or ``'float32'``
-        restores full float32. As in the JAX package's mode, for graphs
-        whose weighted nodes are all Convs. The dense serving paths, and
-        the other dtypes and ``activations=True``, are not ported (ROADMAP.md
-        item 7) and raise."""
-        if dtype in (None, "float32"):
-            self._compute_dtype = None
-            return self
-        if dtype != "bfloat16" or activations:
-            raise NotImplementedError(
-                f"set_compute_dtype({dtype!r}, activations={activations}): "
-                "only 'bfloat16' operands in training are ported (ROADMAP.md "
-                "item 7)")
-        from .neural import Conv
-        other = sorted(n.name for n in self.nodes.values()
-                       if n.params and not isinstance(n, Conv))
-        if other:
-            raise NotImplementedError(
-                f"set_compute_dtype('bfloat16'): nodes {other} are not Convs; "
-                "their bf16 mode is not ported (ROADMAP.md item 7)")
-        self._compute_dtype = torch.bfloat16
+        """Reduced precision. ``'bfloat16'`` / ``'float16'``: every Conv
+        runs its operands in that type (the sums' result cast back to
+        float32, the bias and the epilogue in float32), in training, patch
+        prediction and dense serving; None or ``'float32'`` restores full
+        float32. K1 serves float32 only: under any other mode its convs run
+        on cuDNN.
+
+        ``'int8'``: quantised whole-volume dense serving, the dilated and
+        the convolutional path (``ops.conv.quantized_conv``: per-output-
+        channel weight scales, one activation scale per conv and volume,
+        exact integer sums). Training, ``predict`` and the overlap-tiled
+        fallback stay float32 (``TraceCtx`` reads the mode as None; per-tile
+        scales would seam a stitched map, and the fallback warns).
+        :meth:`calibrate_int8` fixes the activation scales.
+
+        ``activations=True`` also stores the dense paths' inter-layer
+        activations narrow: in the compute type, or in bf16 under
+        ``'int8'``; epilogues and the softmax still evaluate in float32,
+        and the result is float32.
+
+        Changing the mode clears the int8 calibration and K1's packed
+        weights of this model. Reference: ``Model.set_compute_dtype``.
+        """
+        if dtype not in (None, "bfloat16", "float16", "float32", "int8"):
+            raise ValueError(f"dtype={dtype!r}: expected None, 'bfloat16',"
+                             " 'float16', 'float32' or 'int8'")
+        dtype = None if dtype == "float32" else dtype
+        if dtype in ("bfloat16", "float16"):
+            from .neural import GRU, LSTM, Perceptron
+            other = sorted(n.name for n in self.nodes.values()
+                           if isinstance(n, (Perceptron, GRU, LSTM)))
+            if other:
+                raise NotImplementedError(
+                    f"set_compute_dtype({dtype!r}): nodes {other} are "
+                    "Perceptron/GRU/LSTM, whose reduced-precision matmuls "
+                    "are not ported (ROADMAP.md §1 item 7)")
+        from ..ops.tailconv import forget_packed
+        forget_packed(v for d in self.params.values() for v in d.values())
+        self._compute_dtype = dtype
+        self._compute_act = bool(activations) and dtype is not None
+        self._quant_scales = None         # int8: calibrate again
         return self
 
-    def _check_f32_serving(self):
-        if self._compute_dtype is not None:
-            raise NotImplementedError(
-                "dense serving in bf16 is not ported (ROADMAP.md item 7): "
-                "call set_compute_dtype(None) first")
+    def _trace_dtype(self):
+        """The torch dtype of the node trace's Conv operands, or None."""
+        return {"bfloat16": torch.bfloat16,
+                "float16": torch.float16}.get(self._compute_dtype)
+
+    def calibrate_int8(self, vol):
+        """Record each conv's input max-abs over a calibration volume
+        ((f, *spatial) or (b, f, *spatial), a tensor on the model's device
+        or an array) in one float32 pass, as the int8 mode's static
+        activation scales. Without them each dense dispatch scales by its
+        own maxima, so the slabs of a sweep quantise independently; with
+        them a sweep equals the whole-volume int8 output, whatever its slab
+        grid. Activations past a calibrated max clip at +-127. Call after
+        ``set_compute_dtype('int8')`` (which clears the calibration);
+        ``sweep_knossos`` calibrates on its first slab when there is none.
+        Returns the scales. Reference: ``Model.calibrate_int8``."""
+        from .inference import (_conv_dense_rejection, _dilated_unsupported,
+                                convolutional_dense_forward,
+                                dilated_dense_forward)
+        from ..ops.conv import f32_convs
+        if self._compute_dtype != "int8":
+            raise ValueError("calibrate_int8 requires "
+                             "set_compute_dtype('int8') first")
+        nsp = len(self.input_node.shape.spatial_axes)
+        if isinstance(vol, np.ndarray):
+            vol = torch.from_numpy(np.asarray(vol, np.float32)).to(self.device)
+        self._check_device(vol, "calibration volume")
+        vol = vol.float()
+        if vol.ndim not in (nsp + 1, nsp + 2):
+            raise ValueError(f"calibration volume rank {vol.ndim} does "
+                             f"not match the {nsp}-D graph")
+        pred = self.prediction_node
+        scales = {}
+        with torch.no_grad(), f32_convs():
+            if _dilated_unsupported(pred, self.state) is None:
+                dilated_dense_forward(self, vol, batch=vol.ndim == nsp + 2,
+                                      quant_calibrate=scales)
+            elif _conv_dense_rejection(pred) is None:
+                convolutional_dense_forward(
+                    self, vol[0] if vol.ndim == nsp + 2 else vol,
+                    pad_raw=True, quant_calibrate=scales)
+            else:
+                raise ValueError(
+                    "calibrate_int8: neither whole-volume dense path takes "
+                    "this graph; int8 serves those paths only (the tiled "
+                    "fallback runs float32)")
+        if not scales:
+            raise ValueError("calibration pass reached no Conv nodes")
+        self._quant_scales = scales
+        return dict(scales)
 
     def _apply(self, out_nodes, params, state, feed, rng, train, noise=None,
                draws=None):
@@ -287,7 +360,7 @@ class Model:
         ``draws``: a dict that receives the draws the evaluation used."""
         ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state,
                        noise_in=noise)
-        ctx.compute_dtype = self._compute_dtype
+        ctx.compute_dtype = self._trace_dtype()
         ctx.remat = self._remat and train
         ctx.convdense_zfold = self._train_zfold
         ctx.convdense_skipsum = self._train_skipsum
@@ -539,9 +612,30 @@ class Model:
         return stats
 
     # -------------------------------------------------------------- inference
+    def get_activations(self, data, nodes, target=None, extra=None,
+                        train=False):
+        """Evaluate any nodes of the graph on a batch, for inspection:
+        ``nodes`` are nodes or names; returns ``{name: tensor}``. Eval mode
+        by default (no dropout, batch norm's running statistics); with
+        ``train`` the model's random stream draws. Reference:
+        ``Model.get_activations``."""
+        nodes = [self.nodes[n] if isinstance(n, str) else n for n in nodes]
+        outs, _ = self._apply(nodes, self.params, self.state,
+                              self._feed(data, target, extra),
+                              self._next_rng() if train else None, train)
+        return {n.name: o.detach() for n, o in zip(nodes, outs)}
+
     def predict(self, raw, extra=None):
         """Forward pass to the prediction node (eval mode, no stitching)."""
         outs, _ = self._apply([self.prediction_node], self.params, self.state,
+                              self._feed(raw, extra=extra), None, train=False)
+        return outs[0]
+
+    def predict_ext(self, raw, extra=None):
+        """:meth:`predict` to the extended prediction node, or to the
+        prediction node where none is designated."""
+        node = self.prediction_ext_node or self.prediction_node
+        outs, _ = self._apply([node], self.params, self.state,
                               self._feed(raw, extra=extra), None, train=False)
         return outs[0]
 
@@ -554,7 +648,6 @@ class Model:
         ``prefer_device=False``) through the overlap-tiled sweep
         (``neuromancer/inference.py::predict_dense``)."""
         from .inference import predict_dense
-        self._check_f32_serving()
         return predict_dense(self, raw_img, pad_raw=pad_raw,
                              as_uint8=as_uint8, tile_batch=tile_batch,
                              verbose=verbose, prefer_device=prefer_device,
@@ -565,7 +658,6 @@ class Model:
         tensor on the model's device in, dense map (f_out, Z', X', Y') out
         (with ``pad_raw``, the volume's own spatial shape)."""
         from .inference import predict_dense_device
-        self._check_f32_serving()
         return predict_dense_device(self, vol, pad_raw=pad_raw,
                                     tile_batch=tile_batch)
 
@@ -575,16 +667,85 @@ class Model:
         ``slab_batch`` slabs per forward, each read back while the next
         computes (``neuromancer/inference.py::sweep_knossos``)."""
         from .inference import sweep_knossos
-        self._check_f32_serving()
         return sweep_knossos(self, karr, region=region, step=step, out=out,
                              verbose=verbose, mesh=mesh,
                              slab_batch=slab_batch, timings=timings)
+
+    def tune_serving(self, steps=None, slab_batches=(1, 2), K=4,
+                     include_bf16=True, include_int8=True, apply=True,
+                     verbose=True):
+        """Autotune dense serving on this device: the lowerings x precision
+        (float32, bf16, int8) x slab size x slab batch, timed as
+        ``sweep_knossos`` dispatches them, the winner applied (``apply``).
+        ``include_bf16=False, include_int8=False`` keeps to float32.
+        Returns ``{"best": ..., "table": [...]}``: feed ``best["step"]`` and
+        ``best["slab_batch"]`` to :meth:`sweep_knossos`
+        (``neuromancer/inference.py::tune_sweep``)."""
+        from .inference import tune_sweep
+        return tune_sweep(self, steps=steps, slab_batches=slab_batches, K=K,
+                          include_bf16=include_bf16,
+                          include_int8=include_int8, apply=apply,
+                          verbose=verbose)
 
     # ------------------------------------------------------------------ stats
     @property
     def param_count(self):
         return sum(math.prod(v.shape)
                    for nd in self.params.values() for v in nd.values())
+
+    @property
+    def kernel_lists(self):
+        """``(filter_shapes, pool_shapes, mfp_flags)`` of the Convs under the
+        prediction (or loss) node, in graph order: what
+        ``utils.cnncalculator.cnncalculator`` takes. Reference:
+        ``model.py::kernel_lists``."""
+        from .neural import Conv
+        root = self.prediction_node or self.loss_node
+        order = (root.all_parents() if root is not None
+                 else list(self.nodes.values()))
+        convs = [n for n in order if isinstance(n, Conv)]
+        return ([list(n.filter_shape) for n in convs],
+                [list(n.pool_shape) for n in convs],
+                [bool(n.mfp) for n in convs])
+
+    def measure_exectimes(self, data, target=None, n_warmup=2, n_runs=5):
+        """Seconds of an eager evaluation up to each node (its ancestors
+        included), by node name, in eval mode; CUDA events on the card, the
+        host clock on the CPU. Nodes that need a feed not given are
+        skipped. Reference: ``Model.measure_exectimes``."""
+        from .node_basic import Input
+        feed = self._feed(data, target)
+        order = (self.loss_node.all_parents() if self.loss_node is not None
+                 else list(self.nodes.values()))
+        cuda = self.device.type == "cuda"
+        times = {}
+        for node in order:
+            if isinstance(node, Input):
+                continue
+
+            def run(node=node):
+                return self._apply([node], self.params, self.state, feed,
+                                   None, train=False)[0][0]
+            try:
+                for _ in range(n_warmup):
+                    run()
+            except KeyError:
+                continue                 # the node needs a feed not given
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n_runs):
+                    run()
+                end.record()
+                end.synchronize()
+                times[node.name] = start.elapsed_time(end) / 1e3 / n_runs
+            else:
+                t0 = time.perf_counter()
+                for _ in range(n_runs):
+                    run()
+                times[node.name] = (time.perf_counter() - t0) / n_runs
+        return times
 
     # ---------------------------------------------------------------- save/load
     def save(self, fname, backend="npz"):
@@ -663,6 +824,19 @@ class Model:
         return (f"<Model {self.name!r}: {len(self.nodes)} nodes, "
                 f"{self.param_count} params>")
 
+    def summary(self):
+        """One line per node, the designated ones marked. Reference:
+        ``Model.summary``."""
+        lines = [f"Model {self.name!r}"]
+        for node in self.nodes.values():
+            mark = ""
+            for attr in ("input_node", "target_node", "loss_node",
+                         "prediction_node"):
+                if getattr(self, attr) is node:
+                    mark = f"  <- {attr}"
+            lines.append(f"  {node!r}{mark}")
+        return "\n".join(lines)
+
 
 def target_device(device):
     """``torch.device(device)`` for an entry point's ``device`` argument.
@@ -722,6 +896,29 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
     return model
 
 
+def params_from_model_file(fname):
+    """The parameter arrays of a model file (the npz of ``Model.save``):
+    ``{node: {name: ndarray}}``. Orbax checkpoint directories are a JAX
+    format and not ported (ROADMAP.md §1 item 7)."""
+    if os.path.isdir(fname):
+        raise NotImplementedError(
+            f"{fname!r} is a directory: orbax checkpoints are not ported "
+            "(ROADMAP.md §1 item 7); save as npz")
+    params = {}
+    with np.load(fname, allow_pickle=False) as z:
+        for k in z.files:
+            if k.startswith("param/"):
+                _, nname, pname = k.split("/", 2)
+                params.setdefault(nname, {})[pname] = z[k]
+    return params
+
+
+def kernel_lists(model):
+    """:attr:`Model.kernel_lists` as a function. Reference:
+    ``model.py::kernel_lists``."""
+    return model.kernel_lists
+
+
 def _designated(gm, designations, name):
     """A new Model over ``gm`` with ``designations`` (node names)."""
     model = Model(gm, name=name)
@@ -751,7 +948,8 @@ def rebuild_model(model, override_mfp_to_active=False,
     Port of ``model.py::rebuild_model`` (reference: ``elektronn2``'s).
     Parameters, aux state and the optimiser state are copied (clones, on
     the model's device) wherever their shapes still match, and the serving
-    lowerings (``set_dilated_impl``, ``set_convdense_impl``) carry over.
+    lowerings (``set_dilated_impl``, ``set_convdense_impl``), the serving
+    precision and the int8 calibration carry over.
     """
     def _input_fields(d):
         """(shape list, tag list) of an Input descriptor; writes the shape
@@ -827,10 +1025,11 @@ def rebuild_model(model, override_mfp_to_active=False,
                     if o.shape == n.shape:
                         n.copy_(o)
     new._seed = model._seed
-    for knob in ("_dilated_impl", "_dilated_ptail", "_convdense_upconv",
-                 "_convdense_zfold", "_convdense_ptail",
+    for knob in ("_dilated_impl", "_dilated_zfold", "_dilated_ptail",
+                 "_convdense_upconv", "_convdense_zfold", "_convdense_ptail",
                  "_convdense_poolslice", "_convdense_skipsum",
-                 "_train_zfold", "_train_skipsum", "_remat"):
+                 "_train_zfold", "_train_skipsum", "_remat",
+                 "_compute_dtype", "_compute_act", "_quant_scales"):
         setattr(new, knob, getattr(model, knob))
     return new
 

@@ -2,8 +2,9 @@
 restitching, recurrent cells.
 
 Port of ``Perceptron``, ``Conv``, ``Pool``, ``UpConv``, ``Crop``, ``Pad``,
-``Dropout``, ``BatchNorm``, ``FaithlessMerge``, ``FragmentsToDense``,
-``GRU`` and ``LSTM`` in ``elektronn2_tpu/neuromancer/neural.py``
+``Dropout``, ``BatchNorm``, ``LRN``, ``FaithlessMerge``,
+``FragmentsToDense``, ``GRU`` and ``LSTM`` in
+``elektronn2_tpu/neuromancer/neural.py``
 (reference: ``elektronn2/neuromancer/neural.py``). Semantics are the JAX
 package's: valid-mode convs, conv -> +b -> pool/MFP -> batch norm ->
 activation -> dropout, MFP valid-size arithmetic (see ops/mfp.py and
@@ -19,7 +20,12 @@ caller can feed the mask (``TraceCtx.noise_in``).
 
 The conv-dense serving lowerings of ``Model.set_convdense_impl`` (zfold,
 d2s, poolslice, skipsum and K1 on eligible convs) are chosen per node from
-the flags of the ``TraceCtx``; every other evaluation leaves them off.
+the flags of the ``TraceCtx``; every other evaluation leaves them off. So
+are the serving precisions: Conv operands in ``ctx.compute_dtype`` (bf16 or
+float16, the sums' result cast back to float32 before the bias and the
+epilogue; UpConv stays float32, as in the JAX package), and int8 through
+``ops.conv.quantized_conv`` for Conv and UpConv under
+``ctx.quant_serving``.
 
 The dense and recurrent matmuls are ``torch.matmul`` (cuBLAS on the card),
 as the JAX package leaves them to XLA.
@@ -35,9 +41,9 @@ from .graphutils import TaggedShape
 from .node_basic import Node
 from .variables import init_bias, init_weight
 from ..ops.activations import get_activation, validate_activation
-from ..ops.conv import (apply_activation, conv as ops_conv, conv_zfold2d,
-                        dot as ops_dot, pooling as ops_pooling,
-                        pooling_slices, upconv, upconv_d2s)
+from ..ops.conv import (absmax, apply_activation, conv as ops_conv,
+                        conv_zfold2d, dot as ops_dot, pooling as ops_pooling,
+                        pooling_slices, quantized_conv, upconv, upconv_d2s)
 from ..ops.mfp import fragmentpool, fragments2dense, mfp_offsets_product
 from ..ops.tailconv import conv3x3_dilated
 
@@ -126,6 +132,18 @@ def _validate_cell_activation(name):
 def _alpha(node, ctx):
     """prelu's per-channel slope, or None for another activation."""
     return ctx.param(node, "alpha") if "alpha" in node.params else None
+
+
+def _record_absmax(ctx, node, x):
+    """The int8 calibration pass (``ctx.quant_calibrate``): record the max-abs
+    of the node's input, a host sync by design."""
+    if ctx.quant_calibrate is not None:
+        ctx.quant_calibrate[node.name] = float(absmax(x))
+
+
+def _scale(ctx, node):
+    """The node's calibrated activation max-abs, or None (dynamic)."""
+    return (ctx.quant_scales or {}).get(node.name)
 
 
 def _norm_spatial(v, nsp, what):
@@ -319,6 +337,14 @@ class Conv(Node, _BNMixin):
             if any(p > 1 for p in self.pool_shape):
                 y = self._pool(ctx, y)
             return y
+        _record_absmax(ctx, self, x)
+        if ctx.quant_serving:
+            # int8 whole-volume serving: one scale per volume, or the
+            # calibrated one (the tiled path never sets the flag: per-tile
+            # scales would seam the stitched map)
+            y = quantized_conv(x, w, x_absmax=_scale(ctx, self))
+            y = y + b.reshape((1, -1) + (1,) * (x.ndim - 2))
+            return self._conv_epilogue(ctx, y)
         cd = ctx.compute_dtype
         if cd is not None:
             # mixed precision: operands in ``cd``, float32 accumulation,
@@ -351,7 +377,8 @@ class Conv(Node, _BNMixin):
         """Whether this Conv consumes its FaithlessMerge parent's pieces
         (``set_convdense_impl(skipsum=True)``) instead of their concat."""
         return (ctx.convdense_skipsum and not self.mfp
-                and not self.batch_normalisation
+                and not self.batch_normalisation and not ctx.quant_serving
+                and ctx.quant_calibrate is None
                 and isinstance(self.parents[0], FaithlessMerge)
                 and not self._ptail_eligible(ctx))
 
@@ -371,6 +398,12 @@ class Conv(Node, _BNMixin):
         w, bias = ctx.param(self, "w"), ctx.param(self, "b")
         ca = int(p.parents[0].shape["f"])
         cfn = self._serving_conv_fn(ctx)
+        cd = ctx.compute_dtype
+        if cd is not None:
+            y = (cfn(a.to(cd), w[:, :ca].to(cd))
+                 + cfn(bb.to(cd), w[:, ca:].to(cd))).float()
+            y += bias.reshape((1, -1) + (1,) * (a.ndim - 2))
+            return self._conv_epilogue(ctx, y)
         y = cfn(a, w[:, :ca], bias)
         y += cfn(bb, w[:, ca:])             # in place: one full map less
         return self._conv_epilogue(ctx, y)
@@ -476,8 +509,15 @@ class UpConv(Node):
         self.register_param("b", b, wd_mult=0.0)
 
     def _compute(self, ctx, x):
-        fn = upconv_d2s if ctx.convdense_upconv_d2s else upconv
-        y = fn(x, ctx.param(self, "w"), self.pool_shape)
+        w = ctx.param(self, "w")
+        _record_absmax(ctx, self, x)
+        if ctx.quant_serving:        # int8 serving (see Conv._compute)
+            y = quantized_conv(x, w, conv_fn=upconv,
+                               pool_shape=self.pool_shape,
+                               x_absmax=_scale(ctx, self))
+        else:
+            fn = upconv_d2s if ctx.convdense_upconv_d2s else upconv
+            y = fn(x, w, self.pool_shape)
         y += ctx.param(self, "b").reshape((1, -1) + (1,) * (x.ndim - 2))
         return apply_activation(y, self.activation_func)
 
@@ -598,6 +638,29 @@ class BatchNorm(Node, _BNMixin):
 
     def _compute(self, ctx, x):
         return self._apply_bn(x, ctx, f_axis=self.shape.tag2index("f"))
+
+
+@register_node_class
+class LRN(Node):
+    """Local response normalisation across the features:
+    ``x / (k + alpha * s)**beta``, ``s`` the sum of ``x**2`` over a window of
+    ``size`` channels centred on each (zero outside).
+
+    Reference: ``neural.py::LRN``.
+    """
+
+    def __init__(self, parent, size=5, alpha=1e-4, beta=0.75, k=2.0,
+                 name="lrn", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        self.size, self.alpha, self.beta, self.k = int(size), alpha, beta, k
+        self.shape = parent.shape.copy()
+
+    def _compute(self, ctx, x):
+        half = self.size // 2
+        sq = torch.nn.functional.pad(
+            (x * x).transpose(1, -1), (half, half)).transpose(1, -1)
+        s = sq.unfold(1, self.size, 1).sum(-1)
+        return x / torch.pow(self.k + self.alpha * s, self.beta)
 
 
 @register_node_class

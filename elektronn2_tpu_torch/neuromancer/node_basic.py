@@ -1,6 +1,7 @@
 """Node base class and basic graph nodes.
 
-Port of ``Node``, ``Input``, ``GenericInput``, ``ValueNode``, ``Concat``,
+Port of ``Node``, ``Input``, ``GenericInput``, ``FromTensor``,
+``ValueNode``, ``Concat``, ``MultMerge``, ``ApplyFunc``,
 ``InitialState_like``, ``Split``, ``Reshape``, ``Transpose`` and ``split`` in
 ``elektronn2_tpu/neuromancer/node_basic.py`` and its module-global
 ``model_manager``. A Node eagerly computes only static things (TaggedShape,
@@ -40,12 +41,22 @@ class TraceCtx:
     The ``convdense_*`` flags select the conv-dense serving lowerings
     (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
     sets them on its own context, every other evaluation leaves them off.
-    ``compute_dtype`` (``Model.set_compute_dtype``) is the dtype of the
-    Conv operands, or None for float32. ``Model.set_train_lowering`` sets
+    ``compute_dtype`` (``Model.set_compute_dtype``) is the torch dtype of the
+    Conv operands, or None for float32; the int8 mode is dense serving only
+    and leaves it None. ``Model.set_train_lowering`` sets
     ``convdense_zfold`` and ``convdense_skipsum`` on the node trace too.
+    The ``quant_*`` fields belong to int8 whole-volume serving
+    (``inference.convolutional_dense_forward``): ``quant_serving`` runs the
+    Conv and UpConv nodes through ``ops.conv.quantized_conv`` with the
+    calibrated activation scales of ``quant_scales`` (by node name) where
+    given; ``quant_calibrate``, a dict, makes them record their input's
+    max-abs there instead, in a float32 evaluation.
     """
 
     compute_dtype = None
+    quant_serving = False
+    quant_scales = None
+    quant_calibrate = None
     remat = False
     convdense_zfold = False
     convdense_upconv_d2s = False
@@ -268,6 +279,24 @@ class GenericInput(Node):
 
 
 @register_node_class
+class FromTensor(Node):
+    """A constant array as a node, with its tags: a parameter ``value``
+    that no optimiser updates.
+
+    Reference: ``node_basic.py::FromTensor``.
+    """
+
+    def __init__(self, tensor, tags, name="from_tensor", print_repr=True):
+        super().__init__(None, name, print_repr)
+        tensor = np.asarray(tensor, dtype=np.float32)
+        self.shape = TaggedShape(tensor.shape, tags)
+        self.register_param("value", tensor, trainable=False)
+
+    def _compute(self, ctx):
+        return ctx.param(self, "value")
+
+
+@register_node_class
 class ValueNode(Node):
     """A named value (trainable or not) of a fixed tagged shape, e.g. a
     learnable initial state.
@@ -312,6 +341,49 @@ class Concat(Node):
 
     def _compute(self, ctx, *parent_values):
         return torch.cat(parent_values, dim=self.axis)
+
+
+@register_node_class
+class MultMerge(Node):
+    """Elementwise product of two nodes, broadcasting.
+
+    Reference: ``node_basic.py::MultMerge``.
+    """
+
+    def __init__(self, n1, n2, name="multmerge", print_repr=True):
+        super().__init__([n1, n2], name, print_repr)
+        s1, s2 = n1.shape, n2.shape
+        big = s1 if s1.ndim >= s2.ndim else s2
+        self.shape = big.copy(shape=np.broadcast_shapes(tuple(s1), tuple(s2)))
+
+    def _compute(self, ctx, a, b):
+        return a * b
+
+
+@register_node_class
+class ApplyFunc(Node):
+    """A function on tensors applied to the parent's output:
+    ``functor(x, *args, **kwargs)``, with ``new_shape`` / ``new_tags`` where
+    it changes the shape.
+
+    Reference: ``node_basic.py::ApplyFunc``. A graph holding one cannot be
+    saved (a Python callable has no node spec), as in the JAX package.
+    """
+
+    def __init__(self, parent, functor, new_shape=None, new_tags=None,
+                 args=(), kwargs=None, name="applyfunc", print_repr=True):
+        super().__init__(parent, name, print_repr)
+        self.functor = functor
+        self.args = tuple(args)
+        self.kwargs = dict(kwargs or {})
+        if new_shape is not None:
+            self.shape = TaggedShape(new_shape, new_tags or parent.shape.tags)
+        else:
+            self.shape = parent.shape.copy()
+        self._init_args = None           # no spec: see the class docstring
+
+    def _compute(self, ctx, x):
+        return self.functor(x, *self.args, **self.kwargs)
 
 
 @register_node_class

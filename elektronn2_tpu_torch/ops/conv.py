@@ -1,8 +1,9 @@
 """Convolution / pooling / dense / softmax primitives.
 
-Port of ``conv``, ``upconv``, ``upconv_d2s``, ``conv_zfold2d``, ``dot``,
-``pooling``, ``pooling_slices``, ``unpooling``, ``maxout``, ``softmax`` and
-``apply_activation`` in ``elektronn2_tpu/ops/conv.py``. The JAX package
+Port of ``conv``, ``upconv``, ``upconv_d2s``, ``conv_zfold2d``,
+``quantized_conv``, ``dot``, ``pooling``, ``pooling_slices``, ``unpooling``
+(alias ``upsampling``), ``maxout``, ``softmax`` and ``apply_activation`` in
+``elektronn2_tpu/ops/conv.py``. The JAX package
 leaves these ops to XLA; here they are PyTorch's own (cuDNN on the card).
 The array layout ``(b, f, *spatial)`` is torch's NCDHW / NCHW / NCL, so
 ``F.conv{1,2,3}d`` and ``F.max_pool{1,2,3}d`` take it as it is.
@@ -125,6 +126,80 @@ def upconv(x, w, pool_shape):
     return _CONV_T[nsp](x, w.transpose(0, 1), stride=pool_shape)
 
 
+def absmax(x):
+    """``max(|x|)`` as a 0-d tensor on x's device, without a map-sized
+    copy."""
+    lo, hi = torch.aminmax(x)
+    return torch.maximum(-lo, hi)
+
+
+#: the most products of int8 values (|q| <= 127) one float32 sum may hold
+#: and stay exact in any order: 1040 * 127**2 < 2**24
+EXACT_INT8_TERMS = 1040
+
+
+def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None, **kw):
+    """int8 serving convolution: per-output-channel symmetric weight scales
+    and one per-tensor activation scale, operands rounded to int8 values
+    half to even and clipped to +-127, their products summed exactly, the
+    integer sums dequantised with one float32 multiply. The caller adds the
+    bias after. Reference: ``ops/conv.py::quantized_conv``.
+
+    PyTorch has no CUDA int8 convolution, so the int8 values go to cuDNN as
+    integer-valued float32 operands under :func:`f32_convs` (no TF32). A
+    partial sum of at most :data:`EXACT_INT8_TERMS` such products stays
+    below 2^24, where float32 holds every integer, so each conv over a group
+    of at most ``EXACT_INT8_TERMS // taps`` input channels is exact in any
+    summation order; each group's sums are rounded to the nearest integer (a
+    no-op for a direct algorithm) and the groups are added in int32, as the
+    reference's int32 accumulation does.
+
+    ``conv_fn``: :func:`conv` (default) or :func:`upconv` (the UpConv, whose
+    output takes one tap per input channel); ``kw`` goes to it (``dilation``,
+    ``pool_shape``). ``x_absmax`` replaces the activation's own max-abs (the
+    calibrated static scales of ``Model.calibrate_int8``). ``x`` may be
+    bf16 (narrow inter-layer storage): the scale arithmetic is float32.
+    ``axis_name`` (a scale reduced over a device mesh) belongs to sharded
+    serving, which is not ported.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "quantized_conv(axis_name=...): sharded serving is not ported "
+            "(ROADMAP.md §1 item 8)")
+    conv_fn = conv_fn or conv
+    x = x.float()
+    # every divisor is a tensor on x's device: PyTorch's CUDA division by a
+    # host scalar multiplies by its reciprocal, one bit off the quotient;
+    # ``full`` writes its value on the device, with no host copy
+    c127 = torch.full((), 127.0, device=x.device)
+    s_x = (absmax(x) if x_absmax is None
+           else torch.full((), float(x_absmax), device=x.device))
+    s_x = torch.clamp(s_x, min=1e-12) / c127
+    red = tuple(range(1, w.ndim))
+    s_w = torch.clamp(torch.amax(torch.abs(w), dim=red), min=1e-12) / c127
+    xq = torch.div(x, s_x).round_().clamp_(-127, 127)    # one map's copy
+    del x
+    wq = torch.clamp(torch.round(w / s_w.reshape((-1,) + (1,) * (w.ndim - 1))),
+                     -127, 127)
+    taps = 1 if conv_fn is upconv else math.prod(w.shape[2:])
+    group = max(1, EXACT_INT8_TERMS // taps)
+    cin = w.shape[1]
+    yq = None
+    with f32_convs():
+        for c0 in range(0, cin, group):
+            part = conv_fn(xq[:, c0:c0 + group], wq[:, c0:c0 + group],
+                           **kw).round_()
+            if cin <= group:
+                yq = part            # one group: exact as it is
+            elif yq is None:
+                yq = part.to(torch.int32)
+            else:
+                yq += part.to(torch.int32)
+            del part
+    scale = (s_x * s_w).reshape((1, -1) + (1,) * (yq.ndim - 2))
+    return yq.float().mul_(scale)
+
+
 def upconv_d2s(x, w, pool_shape):
     """``upconv`` as a 1x1 conv to ``f_out * prod(pool)`` channels followed
     by depth-to-space: with kernel == stride every output position receives
@@ -228,6 +303,9 @@ def unpooling(x, pool_shape):
     for i, p in enumerate(pool_shape):
         x = torch.repeat_interleave(x, int(p), dim=2 + i)
     return x
+
+
+upsampling = unpooling  # reference alias
 
 
 def maxout(x, factor, axis=1):

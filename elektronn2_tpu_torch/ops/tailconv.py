@@ -205,6 +205,14 @@ def packed_weights(w, NP, pack=None):
     return wp
 
 
+def forget_packed(tensors):
+    """Drop the packed copies of ``tensors`` from :func:`packed_weights`'
+    cache (a model's serving mode changed: its next K1 call packs anew)."""
+    ids = {id(t) for t in tensors}
+    for k in [k for k, hit in _packed.items() if id(hit[0]) in ids]:
+        del _packed[k]
+
+
 def regroup_weights(w, T, b=None):
     """(Cout, Cin, 3,3,3) weights and (Cout,) bias -> (G, Cin, 27, T) and
     (G*T,), G = ceil(Cout/T): per channel group, per input channel, the 27

@@ -10,12 +10,20 @@ through ``Model.predict_dense``. ``--trace`` rolls out a tracing model from
 seed positions instead (``DeviceTracer.trace_batch``) and writes a
 ``.k.zip``. Everything runs on the card unless ``--cpu`` is given.
 
-``--bf16``, ``--int8`` (reduced precision), ``--tune`` (serving autotune)
-and ``--mesh`` (sharded serving) are not ported and raise
-``NotImplementedError`` naming their ROADMAP.md items.
+``--bf16`` / ``--int8`` serve in reduced precision
+(``Model.set_compute_dtype``; int8 calibrates its scales on the first slab
+of a KNOSSOS sweep). ``--tune`` times the serving contenders on the device
+before a KNOSSOS sweep (``Model.tune_serving``) and sweeps with the
+fastest: a bare ``--tune`` keeps to float32 contenders, ``--tune --bf16``
+or ``--tune --int8`` adds that lossy one; ``--step`` competes with the
+default slab sizes, each clamped to the dataset. ``-o ''`` writes no HDF5
+file (``--knossos-out`` then holds the maps; the module needs h5py only
+for HDF5). ``--mesh`` (sharded serving) is not ported and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Usage: ``python -m elektronn2_tpu_torch.scripts.predict model.mdl
-<knossos dir | in.h5[:dataset]> [--ptail] [--knossos-out DIR] [-o out.h5]``.
+<knossos dir | in.h5[:dataset]> [--ptail] [--tune] [--bf16 | --int8]
+[--knossos-out DIR] [-o out.h5]``.
 """
 
 from __future__ import annotations
@@ -25,9 +33,6 @@ import os
 
 #: the flags whose features are not ported, with the ROADMAP.md item of each
 NOT_PORTED = {
-    "bf16": "reduced-precision serving (ROADMAP.md §1 item 7)",
-    "int8": "reduced-precision serving (ROADMAP.md §1 item 7)",
-    "tune": "the serving autotune, tune_sweep (ROADMAP.md §1 item 5)",
     "mesh": "sharded serving (ROADMAP.md §1 item 8)",
 }
 
@@ -42,13 +47,44 @@ def _ints(ap, flag, text, n):
     return vals
 
 
+def _tune(model, ka, step, slab_batch, args):
+    """``--tune``: the serving contenders timed over the default slab sizes
+    and ``--step``, each clamped to the dataset, the winner applied; returns
+    the (step, slab_batch) to sweep with. Lossy contenders only as the user
+    asked for them: a bare ``--tune`` must not switch the output's
+    numerics because bf16 or int8 ran faster."""
+    from ..log import logger
+    from ..neuromancer.inference import DEFAULT_TUNE_STEPS_3D
+    rshape = [int(v) for v in ka.shape[-3:]]
+    cand = []
+    for c in ([tuple(step)] if step else []) + list(DEFAULT_TUNE_STEPS_3D):
+        c = tuple(min(int(v), r) for v, r in zip(c, rshape))
+        if c not in cand:
+            cand.append(c)
+    tuned = model.tune_serving(steps=cand, apply=True,
+                               include_bf16=args.bf16,
+                               include_int8=args.int8)
+    best = tuned["best"]
+    if best is None:
+        logger.warning("--tune: no contender ran (a graph only the tiled "
+                       "fallback serves); sweeping with the CLI settings")
+        return step, slab_batch
+    logger.info(f"--tune picked {best}")
+    asked = "bfloat16" if args.bf16 else "int8" if args.int8 else None
+    if asked and best["dtype"] != asked:
+        logger.info(f"--tune overrode the requested {asked}: the measured "
+                    f"winner runs {best['dtype'] or 'float32'}")
+    return list(best["step"]), int(best["slab_batch"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="elektronn2-torch-predict",
         description="Dense (MFP/dilated) prediction over a volume")
     ap.add_argument("model", help="saved .mdl file")
     ap.add_argument("input", help="INPUT.h5[:dataset] or a KNOSSOS dir")
-    ap.add_argument("-o", "--out", default="prediction.h5")
+    ap.add_argument("-o", "--out", default="prediction.h5",
+                    help="HDF5 output ('' for none)")
     ap.add_argument("--knossos-out", default=None,
                     help="also write a KNOSSOS dataset of uint8 maps")
     ap.add_argument("--mfp", action="store_true",
@@ -79,9 +115,14 @@ def main(argv=None):
                     "trajectories as a KNOSSOS skeleton (.k.zip) to --out")
     ap.add_argument("--trace-steps", type=int, default=256,
                     help="tracing mode: maximum rollout length per agent")
-    for flag in ("bf16", "int8", "tune"):
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help=f"not ported: {NOT_PORTED[flag]}")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 serving (Conv operands in bf16)")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 quantised serving of the whole-volume paths")
+    ap.add_argument("--tune", action="store_true",
+                    help="KNOSSOS sweeps: autotune the serving "
+                    "configuration on the device first (float32 contenders; "
+                    "with --bf16 / --int8 that lossy one too)")
     ap.add_argument("--mesh", default=None, metavar="AXES",
                     help=f"not ported: {NOT_PORTED['mesh']}")
     args = ap.parse_args(argv)
@@ -105,7 +146,16 @@ def main(argv=None):
                               imposed_patch_size=patch)
         logger.info(f"rebuilt for inference: patch="
                     f"{model.input_node.shape.spatial_shape}")
+    if args.bf16 and args.int8:
+        ap.error("--bf16 and --int8 are mutually exclusive")
+    if args.bf16:
+        model.set_compute_dtype("bfloat16")
+    elif args.int8:
+        model.set_compute_dtype("int8")
     if args.ptail:
+        if args.bf16 or args.int8:
+            ap.error("--ptail is a float32 mode (K1 serves float32 only); "
+                     "drop --bf16/--int8")
         model.set_dilated_impl("direct", zfold=True, pallas_tail=True)
     if args.convdense:
         knobs = {k.strip() for k in args.convdense.split(",") if k.strip()}
@@ -113,6 +163,9 @@ def main(argv=None):
         if bad:
             ap.error(f"--convdense: unknown knob(s) {sorted(bad)} "
                      "(expected 'd2s', 'zfold' and/or 'ptail')")
+        if "ptail" in knobs and (args.bf16 or args.int8):
+            ap.error("--convdense ptail is a float32 mode; drop "
+                     "--bf16/--int8")
         model.set_convdense_impl(upconv="d2s" if "d2s" in knobs else "dilate",
                                  zfold="zfold" in knobs,
                                  ptail="ptail" in knobs)
@@ -149,18 +202,25 @@ def main(argv=None):
                     f"({[len(t) for t in traces]} nodes) -> {out_name}")
         return 0
 
+    if not args.out and not args.knossos_out:
+        ap.error("-o '' writes no HDF5 file: give --knossos-out")
     if os.path.isdir(args.input):
+        ka = KnossosArray(args.input)
         step = _ints(ap, "--step", args.step, 3) if args.step else None
-        out = model.sweep_knossos(KnossosArray(args.input), step=step,
-                                  verbose=True, slab_batch=args.slab_batch)
+        slab_batch = args.slab_batch
+        if args.tune:
+            step, slab_batch = _tune(model, ka, step, slab_batch, args)
+        out = model.sweep_knossos(ka, step=step, verbose=True,
+                                  slab_batch=slab_batch)
     else:
         path, _, key = args.input.partition(":")
         out = model.predict_dense(np.asarray(h5load(path, key or None)),
                                   pad_raw=not args.no_pad,
                                   as_uint8=args.uint8, verbose=True)
 
-    h5save({"prediction": out}, args.out)
-    logger.info(f"wrote {args.out} {out.shape} {out.dtype}")
+    if args.out:
+        h5save({"prediction": out}, args.out)
+        logger.info(f"wrote {args.out} {out.shape} {out.dtype}")
     if args.knossos_out:
         u8 = (out if out.dtype == np.uint8
               else np.clip(out * 255.0, 0, 255).astype(np.uint8))

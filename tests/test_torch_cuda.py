@@ -1290,3 +1290,88 @@ def test_modelload_puts_bn_state_on_the_card(cuda_device, tmp_path):
     card.predict(x.to(cuda_device))         # no device mix in evaluation
     assert {v.device.type for d in card.to("cpu").state.values()
             for v in d.values()} == {"cpu"}
+
+
+def _int8_operands(x, w):
+    """The int8 values and scales ``quantized_conv`` takes, computed here
+    on their own: per-output-channel weight scales, one activation scale,
+    half-to-even rounding, +-127."""
+    c = torch.full((), 127.0, device=x.device)
+    s_x = torch.clamp(torch.amax(torch.abs(x)), min=1e-12) / c
+    s_w = torch.clamp(torch.amax(torch.abs(w), dim=(1, 2, 3, 4)),
+                      min=1e-12) / c
+    xq = torch.clamp(torch.round(x / s_x), -127, 127)
+    wq = torch.clamp(torch.round(w / s_w.reshape(-1, 1, 1, 1, 1)), -127, 127)
+    return xq, wq, (s_x * s_w).reshape(1, -1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "worst"])
+def test_quantized_conv_exact_at_the_flagship_conv3(cuda_device, case):
+    """``ops.conv.quantized_conv`` on the card at the flagship's conv3
+    (40 -> 40 channels, (3,3,3), dilation (1,4,4), a full-width x-y plane,
+    4 output planes): its integer sums equal a float64 conv of the same
+    int8 values bit for bit. ``worst``: every operand +-127 with aligned
+    signs, 1080 products of 127^2 a sum, past 2^24 (two channel groups
+    added in int32)."""
+    from elektronn2_tpu_torch.ops.conv import quantized_conv
+    rng = np.random.RandomState(21)
+    if case == "random":
+        x = rng.randn(1, 40, 6, 478, 478).astype(np.float32)
+        w = rng.randn(40, 40, 3, 3, 3).astype(np.float32)
+    else:
+        x = np.ones((1, 40, 6, 478, 478), np.float32)
+        w = np.ones((40, 40, 3, 3, 3), np.float32)
+        x[:, ::2] = w[:, ::2] = -1.0
+    x, w = (torch.from_numpy(a).to(cuda_device) for a in (x, w))
+    got = quantized_conv(x, w, dilation=(1, 4, 4))
+    xq, wq, scale = _int8_operands(x, w)
+    sums = torch.nn.functional.conv3d(xq.double(), wq.double(),
+                                      dilation=(1, 4, 4))
+    assert torch.equal(sums, torch.round(sums))
+    want = sums.float() * scale
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "worst":
+        assert float(sums.max()) == 40 * 27 * 127 * 127 > 2 ** 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bfloat16", "int8", "int8_calibrated"])
+def test_reduced_precision_request_makes_no_host_sync(cuda_device, mode):
+    """A dense request under bf16, int8 (per-dispatch scales) and int8
+    with calibrated scales runs without a host sync, finite and float32."""
+    rng = np.random.RandomState(22)
+    m = flagship_model(mfp=True, patch=[9, 41, 41], device=cuda_device)
+    m.set_params({n: {k: rng.standard_normal(tuple(v.shape)) * 0.1
+                      for k, v in d.items()} for n, d in m.params.items()})
+    vol = torch.rand(1, 16, 96, 96, device=cuda_device)
+    m.set_compute_dtype(mode[:4] if mode.startswith("int8") else mode,
+                        activations=True)
+    if mode == "int8_calibrated":
+        m.calibrate_int8(vol)
+    want = m.predict_dense_device(vol, pad_raw=True)        # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = m.predict_dense_device(vol, pad_raw=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k1_failure_inside_tune_sweep_reaches_the_caller(cuda_device,
+                                                         monkeypatch):
+    """A K1 launch that fails inside a tuner contender is not a failed row:
+    the error reaches the caller, and the model's settings are restored."""
+    from elektronn2_tpu_torch.neuromancer.inference import tune_sweep
+    m = flagship_model(mfp=True, patch=[9, 41, 41], device=cuda_device)
+    tailconv.build()
+    monkeypatch.setattr(tailconv, "_fn", lambda *a: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tune_sweep(m, steps=[(8, 64, 64)], slab_batches=(1,), K=1,
+                   verbose=False)
+    assert not m._dilated_ptail and m._compute_dtype is None

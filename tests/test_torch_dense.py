@@ -211,16 +211,21 @@ def test_error_paths(port_model):
             port_model.set_dilated_impl(**kw)
     with pytest.raises(ValueError, match="impl"):
         port_model.set_dilated_impl("nope")
-    # bf16 Conv operands are ported for training, not for dense serving
-    port_model.set_compute_dtype("bfloat16")
+    # every serving precision serves: finite float32 maps of the float32
+    # route's shape, and an unknown dtype names the ones there are
+    vol = torch.rand(1, 9, 40, 40)
+    ref = port_model.predict_dense_device(vol)
     try:
-        with pytest.raises(NotImplementedError, match="bf16"):
-            port_model.predict_dense_device(torch.rand(1, 9, 40, 40))
+        for dt, act in (("bfloat16", False), ("float16", False),
+                        ("int8", False), ("int8", True)):
+            port_model.set_compute_dtype(dt, activations=act)
+            got = port_model.predict_dense_device(vol)
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            assert torch.isfinite(got).all(), dt
+        with pytest.raises(ValueError, match="expected None"):
+            port_model.set_compute_dtype("float8")
     finally:
         port_model.set_compute_dtype(None)
-    for dt in ("float16", "int8"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            port_model.set_compute_dtype(dt)
     # training is ported: a training-mode evaluation without a feed names
     # the input it lacks
     with pytest.raises(KeyError, match="no value fed"):
@@ -233,8 +238,9 @@ def test_error_paths(port_model):
 
 
 def test_unported_nodes_raise(tmp_path):
-    # a node class still to port (LRN, ROADMAP.md §1 item 7) raises on
-    # load, naming it; BatchNorm, and Conv's batch norm, are ported
+    # LRN (ROADMAP.md §1 item 7's node types) now loads from a JAX-saved
+    # file and its dense map matches the JAX package's (atol 1e-5, float32
+    # sums in another order); BatchNorm, and Conv's batch norm, are ported
     import elektronn2_tpu.neuromancer as jnm
     from elektronn2_tpu_torch import neuromancer as tnm
     with fresh_graph("elektronn2_tpu") as gm:
@@ -244,8 +250,12 @@ def test_unported_nodes_raise(tmp_path):
         m.designate_nodes(input_node=inp, prediction_node=lrn)
         fname = str(tmp_path / "lrn.mdl")
         m.save(fname)
-    with pytest.raises(NotImplementedError, match="LRN"):
-        modelload(fname, device="cpu")
+    tm = modelload(fname, device="cpu")
+    assert type(tm.nodes["lrn"]).__name__ == "LRN"
+    v = np.random.RandomState(2).rand(1, 12, 13).astype(np.float32)
+    np.testing.assert_allclose(
+        tm.predict_dense_device(torch.from_numpy(v)).numpy(),
+        np.asarray(m.predict_dense_device(jnp.asarray(v))), atol=ATOL)
     with fresh_graph("elektronn2_tpu_torch"):
         t_inp = tnm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
         c = tnm.Conv(t_inp, 3, 3, batch_normalisation=True)
@@ -342,9 +352,11 @@ def test_dense_geometry_matches_jax(jax_model, port_model):
 
 
 def test_dense_path_rejects_unported_nodes():
-    """The port's dilated path takes no Concat (the JAX package's does):
-    it raises naming the node, and predict_dense_device serves the graph
-    through the tiled fallback, equal to the JAX package's dilated path."""
+    """The dilated path takes a feature-axis Concat, as the JAX package's
+    does (equal to its dilated output); a node it does not take, here an
+    ApplyFunc that is not spatially pointwise (a flip), raises naming the
+    node, and predict_dense_device serves that graph through the tiled
+    fallback, equal to the JAX package's tiled fallback."""
     import elektronn2_tpu.neuromancer as jnm
     from elektronn2_tpu_torch import neuromancer as tnm
     from elektronn2_tpu_torch.neuromancer.inference import \
@@ -363,9 +375,24 @@ def test_dense_path_rejects_unported_nodes():
     m.set_params(params_from_jax(jm.params, m))
     y = m.predict(torch.rand(1, 1, 9, 9))      # node path: Concat works
     assert tuple(y.shape) == (1, 4, 7, 7)
-    with pytest.raises(NotImplementedError, match="Concat"):
-        dilated_dense_forward(m, torch.rand(1, 12, 12))
     v = np.random.RandomState(6).rand(1, 12, 12).astype(np.float32)
+    np.testing.assert_allclose(
+        dilated_dense_forward(m, torch.from_numpy(v)).numpy(),
+        np.asarray(jm.predict_dense_device(jnp.asarray(v))), atol=ATOL)
+    models = []
+    for pkg, nm, flip in (
+            ("elektronn2_tpu", jnm, lambda x: jnp.flip(x, -1)),
+            ("elektronn2_tpu_torch", tnm, lambda x: torch.flip(x, (-1,)))):
+        with fresh_graph(pkg) as gm:
+            inp = nm.Input([1, 1, 9, 9], "b,f,x,y", name="raw")
+            a = nm.ApplyFunc(nm.Conv(inp, 2, 3, name="a"), flip, name="fl")
+            m = gm.getmodel()
+            m.designate_nodes(input_node=inp, prediction_node=a)
+        models.append(m)
+    jm, m = models
+    m.set_params(params_from_jax(jm.params, m))
+    with pytest.raises(NotImplementedError, match="ApplyFunc"):
+        dilated_dense_forward(m, torch.rand(1, 12, 12))
     np.testing.assert_allclose(
         m.predict_dense_device(torch.from_numpy(v)).numpy(),
         np.asarray(jm.predict_dense_device(jnp.asarray(v))), atol=ATOL)

@@ -22,6 +22,13 @@ MODULES = [
     "elektronn2_tpu_torch.utils.basic",
     "elektronn2_tpu_torch.utils.native_build",
     "elektronn2_tpu_torch.utils.plotting",
+    "elektronn2_tpu_torch.utils.profiling",
+    "elektronn2_tpu_torch.utils.gpu",
+    "elektronn2_tpu_torch.utils.legacy",
+    "elektronn2_tpu_torch.utils.locking",
+    "elektronn2_tpu_torch.utils.d3viz",
+    "elektronn2_tpu_torch.utils.ptk_completions",
+    "elektronn2_tpu_torch.utils.utils_basic",
     "elektronn2_tpu_torch.ops",
     "elektronn2_tpu_torch.ops.activations",
     "elektronn2_tpu_torch.ops.conv",
@@ -42,6 +49,7 @@ MODULES = [
     "elektronn2_tpu_torch.neuromancer.loss",
     "elektronn2_tpu_torch.neuromancer.model",
     "elektronn2_tpu_torch.neuromancer.inference",
+    "elektronn2_tpu_torch.neuromancer.computations",
     "elektronn2_tpu_torch.neuromancer.various",
     "elektronn2_tpu_torch.training",
     "elektronn2_tpu_torch.training.fused_loop",
@@ -65,6 +73,7 @@ MODULES = [
     "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
     "elektronn2_tpu_torch.scripts.exp_wrapper_host",
     "elektronn2_tpu_torch.scripts.predict",
+    "elektronn2_tpu_torch.scripts.profile",
     "elektronn2_tpu_torch.scripts.train",
 ]
 
@@ -131,6 +140,47 @@ def test_unet_conv_dense_runs_without_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_serving_tune_runs_without_jax():
+    # reduced-precision serving, the serving autotune through the predict
+    # CLI (--tune --int8, no HDF5 output), calibrate_int8 and the profile
+    # CLI stay jax-free when they run
+    code = ("import os, sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.utils.convert import flagship_model\n"
+            "from elektronn2_tpu_torch.data.knossos_array import (\n"
+            "    KnossosArray, save_knossos)\n"
+            "from elektronn2_tpu_torch.scripts import predict, profile\n"
+            "d = tempfile.mkdtemp()\n"
+            "m = flagship_model(mfp=True, patch=[9, 41, 41], device='cpu')\n"
+            "mdl = os.path.join(d, 'f.mdl')\n"
+            "m.save(mdl)\n"
+            "raw = (np.random.RandomState(0).rand(10, 40, 40) * 255"
+            ").astype(np.uint8)\n"
+            "save_knossos(raw, os.path.join(d, 'raw'), exp_name='raw',\n"
+            "             cube_edge=16)\n"
+            "assert predict.main([mdl, os.path.join(d, 'raw'), '--cpu',\n"
+            "    '--tune', '--int8', '--step', '6,20,20', '-o', '',\n"
+            "    '--knossos-out', os.path.join(d, 'out')]) == 0\n"
+            "assert KnossosArray(os.path.join(d, 'out', 'c0')).shape[-3:]"
+            " == (10, 40, 40)\n"
+            "m.set_compute_dtype('int8', activations=True)\n"
+            "m.calibrate_int8(torch.rand(1, 10, 40, 40))\n"
+            "m.set_compute_dtype('bfloat16')\n"
+            "assert torch.isfinite(m.predict_dense_device(\n"
+            "    torch.rand(1, 7, 30, 30), pad_raw=True)).all()\n"
+            "assert profile.main([mdl, '--sizes', '41', '--out',\n"
+            "    os.path.join(d, 'p.csv'), '--cpu']) == 0\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'elektronn2_tpu'\n"
+            "             or k.startswith('elektronn2_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_tracing_rollout_runs_without_jax():

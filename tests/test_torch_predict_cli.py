@@ -202,8 +202,112 @@ def test_trace_knossos_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--bf16"], "item 7"), (["--int8"], "item 7"), (["--tune"], "item 5"),
     (["--mesh", "data=2"], "item 8")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         main([str(tmp_path / "none.mdl"), str(tmp_path), "--cpu"] + flag)
+
+
+def mfp_graph(nm):
+    """tests/test_utils_misc.py::test_predict_cli_tune_sweep's graph."""
+    inp = nm.Input([1, 1, 9, 17, 17], "b,f,z,x,y", name="raw")
+    c1 = nm.Conv(inp, 4, 3, 2, mfp=True, name="c1")
+    return inp, nm.Softmax(nm.Conv(c1, 2, 1, 1, activation_func="lin"))
+
+
+def _knossos(tmp_path, shape, seed):
+    raw = (np.random.RandomState(seed).rand(*shape) * 255).astype(np.uint8)
+    kdir = str(tmp_path / "raw")
+    jax_save_knossos(raw, kdir, exp_name="raw", cube_edge=8)
+    return raw, kdir
+
+
+def _both(tmp_path, mdl, kdir, flags, jflags=None):
+    """Both CLIs on a KNOSSOS directory: (JAX map, port map)."""
+    a, b = str(tmp_path / "a.h5"), str(tmp_path / "b.h5")
+    assert jax_main([mdl, kdir, "-o", a, "--cpu"]
+                    + (flags if jflags is None else jflags)) == 0
+    assert main([mdl, kdir, "-o", b, "--cpu"] + flags) == 0
+    return h5load(a, "prediction"), h5load(b, "prediction")
+
+
+@pytest.mark.parametrize("flags", [["--tune"], ["--tune", "--slab-batch",
+                                                "2"]])
+def test_predict_cli_tune_matches_jax(tmp_path, flags):
+    """tests/test_utils_misc.py:270 on the port: a bare ``--tune`` tunes
+    float32 contenders only, so its map equals the untuned float32 map and
+    the JAX CLI's (1e-5); ``--step`` competes with the defaults."""
+    mdl, jm = save_jax(tmp_path, mfp_graph)
+    raw, kdir = _knossos(tmp_path, (24, 32, 32), 4)
+    want, got = _both(tmp_path, mdl, kdir, flags + ["--step", "12,16,16"])
+    ref = np.asarray(jm.predict_dense_device(
+        jnp.asarray(raw[None].astype(np.float32) / 255.0), pad_raw=True))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("lossy", ["--int8", "--bf16"])
+def test_predict_cli_reduced_precision_matches_jax(tmp_path, lossy):
+    """:313 on the port: ``--int8`` (calibrated on the first slab) and
+    ``--bf16`` sweeps against the JAX CLI's (the tolerances of
+    tests/test_torch_quant.py: 5e-2) and against the float32 map (int8:
+    1e-1 and argmax > 0.97, as the JAX test)."""
+    mdl, jm = save_jax(tmp_path, mfp_graph)
+    raw, kdir = _knossos(tmp_path, (24, 32, 32), 5)
+    want, got = _both(tmp_path, mdl, kdir, [lossy, "--step", "12,16,16"])
+    np.testing.assert_allclose(got, want, atol=5e-2, rtol=0)
+    ref = np.asarray(jm.predict_dense_device(
+        jnp.asarray(raw[None].astype(np.float32) / 255.0), pad_raw=True))
+    assert float(np.abs(got - ref).max()) < 0.1
+    assert (got.argmax(0) == ref.argmax(0)).mean() > 0.97
+    with pytest.raises(SystemExit):
+        main([mdl, kdir, "--cpu", "--int8", "--bf16"])
+    with pytest.raises(SystemExit):
+        main([mdl, kdir, "--cpu", lossy, "--ptail"])
+
+
+def test_predict_cli_tune_with_a_lossy_mode(tmp_path):
+    """``--tune --int8`` adds the int8 contender: whichever wins, the map
+    stays within the int8 bound of the float32 map."""
+    mdl, jm = save_jax(tmp_path, mfp_graph)
+    raw, kdir = _knossos(tmp_path, (24, 32, 32), 6)
+    b = str(tmp_path / "b.h5")
+    assert main([mdl, kdir, "-o", b, "--cpu", "--tune", "--int8", "--step",
+                 "12,16,16"]) == 0
+    ref = np.asarray(jm.predict_dense_device(
+        jnp.asarray(raw[None].astype(np.float32) / 255.0), pad_raw=True))
+    got = h5load(b, "prediction")
+    assert float(np.abs(got - ref).max()) < 0.1
+    assert (got.argmax(0) == ref.argmax(0)).mean() > 0.97
+
+
+def test_predict_cli_convdense_tune_matches_jax(tmp_path):
+    """:343 on the port: ``--tune`` routes a decoder graph to the conv-dense
+    leg (float32 contenders), equal to the reference and the JAX CLI's
+    (1e-5); a bad ``--convdense`` knob and ``--convdense ptail --int8``
+    are refused."""
+    mdl, jm = save_jax(tmp_path, decoder_graph)
+    raw, kdir = _knossos(tmp_path, (16, 24, 24), 7)
+    want, got = _both(tmp_path, mdl, kdir, ["--tune", "--step", "8,12,12"])
+    ref = np.asarray(jm.predict_dense_device(
+        jnp.asarray(raw[None].astype(np.float32) / 255.0), pad_raw=True))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    for bad in (["--convdense", "bogus"], ["--convdense", "ptail", "--int8"]):
+        with pytest.raises(SystemExit):
+            main([mdl, kdir, "--cpu"] + bad)
+
+
+def test_predict_cli_without_hdf5_output(tmp_path):
+    """``-o ''`` writes no HDF5 file (the maps go to ``--knossos-out``,
+    equal to the HDF5 run's); without ``--knossos-out`` it is refused."""
+    mdl, _ = save_jax(tmp_path, mfp_graph)
+    _, kdir = _knossos(tmp_path, (12, 24, 24), 8)
+    ka, kb = str(tmp_path / "ka"), str(tmp_path / "kb")
+    b = str(tmp_path / "b.h5")
+    assert main([mdl, kdir, "-o", b, "--cpu", "--knossos-out", ka]) == 0
+    assert main([mdl, kdir, "-o", "", "--cpu", "--knossos-out", kb]) == 0
+    for g, w in zip(_cubes(kb, 2), _cubes(ka, 2)):
+        assert np.array_equal(g, w)
+    with pytest.raises(SystemExit):
+        main([mdl, kdir, "-o", "", "--cpu"])

@@ -613,5 +613,8 @@ def test_bf16_conv_operands_match_jax():
     jl, tl = float(jm.loss(x, t)), float(tmdl.loss(x, t))
     np.testing.assert_allclose(tl, jl, rtol=1e-2)
     assert tl != f32
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tmdl.predict_dense(x[0])
+    # dense serving takes the mode too: the map within the bf16 tolerance of
+    # the JAX package's (5e-2, tests/test_torch_quant.py)
+    np.testing.assert_allclose(tmdl.predict_dense(x[0]),
+                               np.asarray(jm.predict_dense(x[0])),
+                               atol=5e-2, rtol=0)
