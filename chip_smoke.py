@@ -222,7 +222,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     kernels line, each held against its plain version); the wide U-Net's
     host-fed chunk under ``skipsum`` against the default trace (1e-5, under
     ``cudnn.deterministic``, in each of three runs from fresh models);
-21. train_cli (x4, ``train_cli_serve``): the training entry point, the
+21. train_cli (x5, ``train_cli_serve``): the training entry point, the
     train CLI's ``main([...])`` (``elektronn2_tpu_torch/scripts/train.py``)
     on the unchanged example configs into a temporary directory:
     ``examples/neuro3d.py`` (20/30/40/40, 23x102x102, B=1, Adam, warp 0.5,
@@ -233,9 +233,11 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     ``HostFedFusedLoop``: 4 host batches a CUDA graph replay, the next
     chunk drawn by the prefetch thread) for 64 steps, and
     ``examples/neuro3d_fast.py`` (B=4, bf16 conv operands,
-    ``FusedTrainLoop`` on the card, 16 steps a replay) for 96 and
+    ``FusedTrainLoop`` on the card, 16 steps a replay) for 96,
     ``examples/mlp_mnist.py`` (Perceptrons with dropout on the synthetic
-    digits, one forked worker) for 300. The calls
+    digits, one forked worker) for 300 and ``examples/malis3d.py``
+    (``MalisNLL``, per step, the pair counting on the host) for 300. The
+    calls
     the trainer trains with are wrapped (``CliProbe``): steady-state it/s
     and ms a step from the end of the warm-up (20 steps, or 2 chunks) to a
     ``torch.profiler`` window over the last 20 steps (whole chunks), which
@@ -265,6 +267,26 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     over the 256^3 field of a helix in ``HostFedFusedLoop`` chunks: graph =
     eager bit for bit, the loss falls; (c) ``SkelLoss`` (the host KD-tree)
     on one batch with the trained weights within 0.6 of ``SkelLossField``;
+21c. malis (run after tracing_nodes): the native MALIS core must be the
+    one taken and equal the numpy fallback at (6, 20, 20);
+    ``examples/malis3d.py``'s net at its own widths on a (1, 1, 16, 128,
+    128) input ((14, 124, 124) out, 215k voxels, 646k edges), labels as the
+    example makes them: 10 eager ``trainingstep`` calls under the profiler,
+    each split into the device forward, the prediction's copy to the host,
+    the host pair counting, the weights' copy back and the device backward
+    and update (ms a step), the device's idle share, the loss first and
+    last (finite), and the loss's gradient in the prediction against
+    float64 on the CPU with the same weights (rel L2 <= 1e-5);
+21d. reduced_matmuls (``reduced_matmuls_mlp`` x4,
+    ``reduced_matmuls_tracer``): ``examples/mlp_mnist.py``'s net in
+    graphed ``HostFedFusedLoop`` chunks under float32, bf16, float16 and
+    float32 again (each mode recaptures; it/s, losses finite); the bench's
+    tracer model (16^3, 64/64, GRU + Perceptron head) in
+    ``TracingTrainerRNN`` fused chunks at float32 and bf16 from the same
+    weights and batches (it/s, the first chunk's loss deviation, the GRU
+    output's deviation, a recapture on each dtype change), and
+    ``DeviceTracer`` rollouts of the bf16-set model bit for bit its float32
+    rollout;
 22. sweep (``sweep_flagship`` x4, ``sweep_flagship_checks``, ``sweep_cli``,
     ``sweep_unet`` x2, ``sweep_unet_checks``): KNOSSOS datasets from numpy
     seeds written in 128^3 cubes by the port's ``save_knossos`` into a
@@ -3095,7 +3117,8 @@ TRAIN_CLI_RUNS = (                      # (config, steps, warm-up steps)
     ("neuro3d", 300, 20),                # per step, 2 forked workers
     ("unet3d_wide", 64, 8),              # host-fed chunks of 4
     ("neuro3d_fast", 96, 32),            # device-sampled chunks of 16
-    ("mlp_mnist", 300, 20))              # Perceptrons with dropout, 1 worker
+    ("mlp_mnist", 300, 20),              # Perceptrons with dropout, 1 worker
+    ("malis3d", 300, 20))                # MalisNLL, per step
 TRAIN_CLI_WINDOW = 20                   # steps profiled, at a run's end
 GETBATCH_N = 20                         # host getbatch calls timed
 
@@ -3716,6 +3739,369 @@ def phase_sweep_cli(smi, model, tmp):
     return launches
 
 
+# ------------------------------------------------------------------ MALIS
+
+MALIS_PATCH = (16, 128, 128)            # input; output (14, 124, 124)
+MALIS_STEPS = 10                        # eager trainingsteps, timed
+MALIS_SMALL = (6, 20, 20)               # native core vs the numpy fallback
+MALIS_GRAD_RTOL = 1e-5                  # rel L2, card vs float64 on the CPU
+
+
+def malis3d_model(patch):
+    """``examples/malis3d.py``'s ``create_model`` (its layers and widths:
+    (1,3,3) 12, (3,3,3) 24, 1x1 3 sigmoid affinities, ``MalisNLL``), loaded
+    as the train CLI loads the file, on an input of ``patch``, on the
+    card."""
+    from elektronn2_tpu_torch.config import ExperimentConfig
+    cfg = ExperimentConfig.from_file(os.path.join("examples", "malis3d.py"))
+    cfg.create_model.__globals__["PATCH"] = tuple(patch)
+    return cfg.create_model().to("cuda")
+
+
+def malis_volume(patch, out, rng):
+    """Raw and labels as ``examples/malis3d.py::_synth_data`` makes them, at
+    the input ``patch``: a seeded field smoothed by (2, 4, 4), the raw a
+    noisy tanh of it, the labels ``ndimage.label`` of its positive part on
+    the output's central crop ``out``."""
+    from scipy import ndimage
+    field = ndimage.gaussian_filter(rng.randn(*patch), (2, 4, 4))
+    raw = (0.5 + 0.4 * np.tanh(field * 3) + 0.05 * rng.randn(*patch)
+           ).clip(0, 1).astype(np.float32)
+    crop = tuple(slice((p - o) // 2, (p - o) // 2 + o)
+                 for p, o in zip(patch, out))
+    seg, n = ndimage.label(field[crop] > 0)
+    return raw[None, None], seg[None].astype(np.int32), n
+
+
+class MalisSplit:
+    """Times the stages of MALIS steps by wrapping the three host stages of
+    ``malis.malis_weighted_nll``: CUDA events from the step's start to the
+    prediction's copy (the forward) and from the weights' return to the
+    step's end (the backward and the update); host clocks around the copy
+    to the host (after a sync, so the forward is done), the pair counting
+    and the copy back (synced). ``weights`` keeps the last weights sent."""
+
+    def __init__(self):
+        from elektronn2_tpu_torch import malis
+        self.malis, self.rows, self.cur, self.weights = malis, [], None, None
+
+    def patches(self):
+        m = self.malis
+        to_host, count, to_device = m._to_host, m.batch_weights, m._to_device
+
+        def timed_to_host(tensors):
+            self.cur["fwd_end"].record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = to_host(tensors)
+            self.cur["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def timed_count(*a, **kw):
+            t0 = time.perf_counter()
+            out = count(*a, **kw)
+            self.cur["pairs_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def timed_to_device(w, like):
+            t0 = time.perf_counter()
+            out = to_device(w, like)
+            torch.cuda.synchronize()
+            self.cur["h2d_ms"] = (time.perf_counter() - t0) * 1e3
+            self.cur["bwd_start"].record()
+            self.weights = out
+            return out
+        return [(m, "_to_host", timed_to_host),
+                (m, "batch_weights", timed_count),
+                (m, "_to_device", timed_to_device)]
+
+    def step(self, model, x, seg):
+        """One timed ``trainingstep``; returns its loss."""
+        self.cur = {k: torch.cuda.Event(enable_timing=True)
+                    for k in ("start", "fwd_end", "bwd_start", "end")}
+        self.cur["start"].record()
+        t0 = time.perf_counter()
+        loss, _ = model.trainingstep(x, seg)
+        self.cur["end"].record()
+        lv = float(loss)
+        self.cur["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        ev = self.cur
+        self.rows.append(dict(
+            wall_ms=ev["wall_ms"],
+            device_forward_ms=ev["start"].elapsed_time(ev["fwd_end"]),
+            d2h_ms=ev["d2h_ms"], pairs_ms=ev["pairs_ms"],
+            h2d_ms=ev["h2d_ms"],
+            device_backward_ms=ev["bwd_start"].elapsed_time(ev["end"])))
+        return lv
+
+
+def malis_grad_vs_f64(model, x, seg, split):
+    """The gradient of the MALIS loss (``AggregateLoss``'s mean of the
+    ``MalisNLL`` map) in the prediction, on the card, against the same
+    function in float64 on the CPU with the same pair weights: relative L2
+    error."""
+    from elektronn2_tpu_torch.malis import malis_weighted_nll
+    node = model.nodes["malis"]
+    pred = model.get_activations(x, ["aff"])["aff"].requires_grad_(True)
+    malis_weighted_nll(pred, None, seg, node.nhood,
+                       node.unrestrict_neg).mean().backward()
+    w = split.weights.double().cpu()
+    p64 = pred.detach().double().cpu().requires_grad_(True)
+    eps = torch.tensor(1e-10, dtype=torch.float64)
+    nll = -(w[0] * torch.log(torch.maximum(p64, eps))
+            + w[1] * torch.log(torch.maximum(1.0 - p64, eps)))
+    nll.sum(dim=1).mean().backward()
+    g, g64 = pred.grad.double().cpu(), p64.grad
+    return ((g - g64).norm() / g64.norm()).item()
+
+
+def phase_malis(smi):
+    """MALIS on the card. The native pair-counting core must be the one
+    taken (``HAVE_NATIVE``) and equal the numpy fallback at a small size,
+    both passes. Then ``examples/malis3d.py``'s net at its own widths on a
+    (1, 1, 16, 128, 128) input, a (14, 124, 124) output (215k voxels, 646k
+    edges), labels made as the example makes them: ``MALIS_STEPS`` eager
+    ``trainingstep`` calls after one warm-up, under ``torch.profiler``,
+    each split into the device forward, the prediction's copy to the host,
+    the host pair counting, the weights' copy back and the device backward
+    with the update (``MalisSplit``); the device's idle share over the
+    steps; the loss first and last (finite); the loss's gradient in the
+    prediction against float64 (``MALIS_GRAD_RTOL``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from elektronn2_tpu_torch import malis
+    if not malis.HAVE_NATIVE or malis._malis_cpp is None:
+        raise AssertionError("malis: the native pair-counting core did not "
+                             "build")
+    rng = np.random.RandomState(SEED + 30)
+    _, seg_s, _ = malis_volume(MALIS_SMALL, MALIS_SMALL, rng)
+    nh = malis.mknhood3d(1)
+    aff_s = rng.rand(len(nh), *MALIS_SMALL).astype(np.float32)
+    native_equal = all(np.array_equal(
+        malis._malis_cpp.malis_pass(aff_s, seg_s[0], nh, pos),
+        malis._malis_pass_np(aff_s, seg_s[0], nh, pos)) for pos in (1, 0))
+    model = malis3d_model(MALIS_PATCH)
+    out = tuple(model.prediction_node.shape.spatial_shape)
+    raw, seg, n_seg = malis_volume(MALIS_PATCH, out, rng)
+    x, t = torch.from_numpy(raw).cuda(), torch.from_numpy(seg).cuda()
+    model.set_opt("Adam", lr=1e-3)
+    split = MalisSplit()
+    saved = [(o, a, getattr(o, a)) for o, a, _ in split.patches()]
+    for o, a, f in split.patches():
+        setattr(o, a, f)
+    try:
+        split.step(model, x, t)                      # warm-up
+        split.rows.clear()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            losses = [split.step(model, x, t) for _ in range(MALIS_STEPS)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        grad_err = malis_grad_vs_f64(model, x, t, split)
+    finally:
+        for o, a, f in saved:
+            setattr(o, a, f)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    mean = {k: float(np.mean([r[k] for r in split.rows]))
+            for k in split.rows[0]}
+    edges = sum(int(np.prod([s - abs(int(o)) for s, o in zip(out, off)]))
+                for off in model.nodes["malis"].nhood)
+    emit("malis", config="examples/malis3d.py", patch_in=list(MALIS_PATCH),
+         out=list(out), voxels=int(np.prod(out)), edges=edges,
+         segments=n_seg, steps=MALIS_STEPS, have_native=malis.HAVE_NATIVE,
+         native_equals_fallback=native_equal, ms_per_step=mean["wall_ms"],
+         split_ms=mean, pairs_share=mean["pairs_ms"] / mean["wall_ms"],
+         idle_share=1.0 - busy_ms / (wall * 1e3), device_busy_ms=busy_ms,
+         profiled_wall_ms=wall * 1e3, loss_first=losses[0],
+         loss_last=losses[-1], grad_rel_l2_vs_f64=grad_err,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         nvidia_smi=smi)
+    if not native_equal:
+        raise AssertionError("malis: the native core differs from the numpy "
+                             "fallback")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"malis: non-finite losses {losses}")
+    if not grad_err <= MALIS_GRAD_RTOL:
+        raise AssertionError(f"malis: gradient rel L2 {grad_err} vs float64 "
+                             f"> {MALIS_GRAD_RTOL}")
+    del model, x, t
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------ reduced-precision matmuls
+
+RM_MODES = (None, "bfloat16", "float16", None)   # float32 in turns
+RM_CHUNK = 16                           # mlp_mnist: steps a graphed chunk
+RM_TIMED = 3                            # chunks timed after the capture
+RM_VOL = (1, 128, 128, 128)             # the tracer phase's volume
+RM_ROLLOUT_B, RM_ROLLOUT_K = 256, 64
+
+
+def timed_chunks(loop, n):
+    """``n`` chunks of ``loop`` after the one that captured: it/s and the
+    last chunk's losses."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses, _ = loop.run_chunk()
+    return n * loop.n_inner / (time.perf_counter() - t0), losses
+
+
+def recaptures(loop, model, mode):
+    """Set ``mode`` on ``model``, run one chunk of ``loop``: whether it ran
+    on a new graph (a capture) and that chunk's losses."""
+    before = loop._graph
+    model.set_compute_dtype(mode)
+    losses, _ = loop.run_chunk()
+    return loop._graph is not before, losses
+
+
+def agent_data(vol):
+    """``AgentData`` over ``vol`` with ``examples/tracing3d.py``'s helix, its
+    stream seeded from ``SEED``."""
+    from elektronn2_tpu_torch.data import AgentData
+    ad = AgentData(input_data=[vol], target_data=[
+        (vol[0] > 0.5).astype(np.int16)])
+    ad.set_geometry(TRACE_PATCH)
+    ad.skeletons = [helix_skeleton(vol.shape[1:])]
+    ad.rng = np.random.RandomState(SEED)
+    return ad
+
+
+def tracer_trainer(vol, weights, mode, tmp):
+    """``TracingTrainerRNN`` with fused chunks of ``TT_K`` on the tracing
+    deployment's model (16^3, 64/64) from ``weights`` under ``mode``, run
+    for one chunk on seeded batches. Its data source keeps serving tracing
+    batches to the loop's later chunks (``TracingTrainer.run`` does so only
+    while it runs)."""
+    from elektronn2_tpu_torch.training.trainer import TracingTrainerRNN
+    m = tracer_model(TRACE_PATCH, batch=TT_B, t=TT_T)
+    m.set_params(weights)
+    m.set_compute_dtype(mode)
+    ad = agent_data(vol)
+    ad.getbatch = lambda bs, **kw: ad.get_tracing_batch(bs, n_steps=TT_T)
+    tr = TracingTrainerRNN(model=m, data=ad, n_scan_steps=TT_T,
+                           batch_size=TT_B, fused_steps=TT_K, n_steps=TT_K,
+                           n_workers=0, history_freq=0, save_freq=0,
+                           save_path=tmp, optimiser="Adam",
+                           optimiser_params={"lr": 1e-3})
+    tr.run()
+    return tr
+
+
+def phase_reduced_matmuls(smi):
+    """Perceptron, GRU and LSTM matmuls under ``set_compute_dtype``. (a)
+    ``examples/mlp_mnist.py``'s net (loaded as the train CLI loads it) in
+    ``HostFedFusedLoop`` chunks of ``RM_CHUNK`` on its synthetic digits
+    under float32, bf16, float16 and float32 again: each mode's first
+    chunk must recapture the graph, then ``RM_TIMED`` chunks are timed
+    (it/s), losses finite. (b) The bench's tracer model (16^3, Perceptron
+    64 -> GRU 64 -> 3-vector) in ``TracingTrainerRNN`` fused chunks from
+    the same weights on the same seeded batches, float32 and bf16: the first chunk's losses'
+    max deviation, then ``RM_TIMED`` more chunks each, twice, in turns
+    (it/s); the GRU scan's
+    output on one batch, bf16 against float32; the bf16 trainer's chunk
+    graph recaptures when the dtype goes back to float32, and again when it
+    returns to bf16. (c) ``DeviceTracer`` rollouts of that model set to
+    bf16, the float32 rollout's graph replayed (its key unchanged) and a
+    new tracer's own capture, are bit for bit the float32 rollout."""
+    from elektronn2_tpu_torch.config import ExperimentConfig
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    cfg = ExperimentConfig.from_file(os.path.join("examples",
+                                                  "mlp_mnist.py"))
+    model = cfg.create_model().to("cuda")
+    model.set_opt("Adam", lr=1e-3)
+    loop = HostFedFusedLoop(model, cfg.data_instance, cfg.batch_size,
+                            RM_CHUNK, seed=SEED)
+    try:
+        for mode in RM_MODES:
+            new_graph, first = recaptures(loop, model, mode)
+            it_s, last = timed_chunks(loop, RM_TIMED)
+            emit("reduced_matmuls_mlp", config="examples/mlp_mnist.py",
+                 dtype=mode or "float32", batch=cfg.batch_size,
+                 chunk=RM_CHUNK, recaptured=new_graph,
+                 capture_seconds=loop.capture_seconds, it_s=it_s,
+                 loss_first=float(first[0]), loss_last=float(last[-1]),
+                 nvidia_smi=smi)
+            if not new_graph:
+                raise AssertionError(f"reduced_matmuls: mlp_mnist under "
+                                     f"{mode} replayed the old graph")
+            if not (np.isfinite(first).all() and np.isfinite(last).all()):
+                raise AssertionError(f"reduced_matmuls: mlp_mnist under "
+                                     f"{mode}: non-finite losses")
+    finally:
+        loop.close()
+    model.set_compute_dtype(None)
+    del loop, model
+
+    rng = np.random.RandomState(SEED + 40)
+    vol = rng.rand(*RM_VOL).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = seeded_tracer_params(
+            tracer_model(TRACE_PATCH, batch=TT_B, t=TT_T), rng)
+        trs = {mode: tracer_trainer(vol, weights, mode, tmp)
+               for mode in (None, "bfloat16")}
+        first = {k: tr.history.timeline.data[:, 2].copy()
+                 for k, tr in trs.items()}
+        rates = {k: [] for k in trs}
+        for k in (None, "bfloat16", "bfloat16", None):       # in turns
+            rates[k].append(timed_chunks(trs[k].fused_loop, RM_TIMED)[0])
+        tb = trs["bfloat16"]
+        back, _ = recaptures(tb.fused_loop, tb.model, None)
+        again, _ = recaptures(tb.fused_loop, tb.model, "bfloat16")
+        probe = tracer_model(TRACE_PATCH, batch=TT_B, t=TT_T)
+        probe.set_params(weights)
+        d, _ = agent_data(vol).get_tracing_batch(TT_B, n_steps=TT_T)
+        d = torch.from_numpy(d).cuda()
+        scan32 = probe.get_activations(d, ["scan"])["scan"]
+        probe.set_compute_dtype("bfloat16")
+        scan16 = probe.get_activations(d, ["scan"])["scan"]
+        probe.set_compute_dtype(None)
+        tracer = make_tracer(probe, torch.from_numpy(vol).cuda(),
+                             max_steps=RM_ROLLOUT_K)
+        seeds = rng.uniform(20, RM_VOL[1] - 20, (RM_ROLLOUT_B, 3))
+        key = tracer.graph_key(probe.params, RM_ROLLOUT_B)
+        ref = tracer.trace_batch(seeds)
+        probe.set_compute_dtype("bfloat16")
+        same_key = tracer.graph_key(probe.params, RM_ROLLOUT_B) == key
+        got = tracer.trace_batch(seeds)         # a replay of ref's graph
+        fresh = make_tracer(probe, torch.from_numpy(vol).cuda(),
+                            max_steps=RM_ROLLOUT_K).trace_batch(seeds)
+        rollout_equal = all(np.array_equal(a.coords, b.coords)
+                            and np.array_equal(c.coords, b.coords)
+                            for a, c, b in zip(got, fresh, ref))
+        loss_dev = float(np.abs(first["bfloat16"] - first[None]).max())
+        emit("reduced_matmuls_tracer", model="tracer_model",
+             patch=list(TRACE_PATCH), batch=TT_B, scan_steps=TT_T,
+             fused_steps=TT_K, it_s_float32=rates[None],
+             it_s_bfloat16=rates["bfloat16"],
+             capture_seconds_bfloat16=tb.fused_loop.capture_seconds,
+             loss_first_float32=float(first[None][0]),
+             loss_max_abs_dev=loss_dev,
+             gru_out_max_abs_dev=(scan16 - scan32).abs().max().item(),
+             gru_out_max_abs=scan32.abs().max().item(),
+             recaptured_to_float32=back, recaptured_to_bfloat16=again,
+             rollout_agents=RM_ROLLOUT_B, rollout_steps=RM_ROLLOUT_K,
+             rollout_bit_equal=rollout_equal, rollout_same_key=same_key,
+             nvidia_smi=smi)
+        if not (back and again):
+            raise AssertionError("reduced_matmuls: the tracer's chunk graph "
+                                 "did not recapture on a dtype change")
+        if not all(np.isfinite(v).all() for v in first.values()):
+            raise AssertionError("reduced_matmuls: non-finite tracer loss")
+        if torch.equal(scan16, scan32):
+            raise AssertionError("reduced_matmuls: bf16 did not reach the "
+                                 "GRU's matmuls")
+        if not (rollout_equal and same_key):
+            raise AssertionError("reduced_matmuls: the bf16-set model's "
+                                 "rollout is not its float32 rollout")
+        del trs, tb, probe, tracer
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------- reduced-precision serving
 
 QUANT_F64_PLANES = 4                    # output planes held against float64
@@ -4144,6 +4530,8 @@ def main():
     k1_launches += phase_train_cli(smi)
     k2_launches += phase_train_tracing(smi)
     phase_tracing_nodes(smi)
+    phase_malis(smi)
+    phase_reduced_matmuls(smi)
     phase_quant_conv(smi)
     k1_launches += phase_serve_dtypes(smi)
     k1_launches += phase_sweep(smi)

@@ -2,8 +2,7 @@
 
 Jax-free copy of ``elektronn2_tpu/data/image.py`` (reference:
 ``elektronn2/data/image.py::greyAugment, ids2barriers, smearbarriers,
-center_cubes``). ``make_affinities`` needs MALIS, which is not ported yet
-(ROADMAP.md item 6), and raises.
+center_cubes, make_affinities``).
 """
 
 from __future__ import annotations
@@ -105,13 +104,39 @@ def center_cubes(cube1, cube2, crop=True):
 
 
 def make_affinities(labels, nhood=None, size_thresh=1):
-    """Segmentation labels -> affinity graphs + component-relabelled segs
-    (``elektronn2_tpu/data/image.py::make_affinities``). It builds on
-    MALIS's affinity graph and connected components, which the port does
-    not have yet."""
-    raise NotImplementedError(
-        "make_affinities needs MALIS, which is not ported yet (ROADMAP.md "
-        "item 6)")
+    """Segmentation labels -> affinity graphs + component-relabelled segs.
+
+    Reference: ``image.py::make_affinities`` — the label encoding MALIS /
+    affinity nets train on. For each label cube: build the ground-truth
+    affinity graph (:func:`elektronn2_tpu_torch.malis.seg_to_affgraph`,
+    nearest-neighbour ``nhood`` by default), re-derive the segmentation as
+    the affinity graph's connected components (splits accidentally-touching
+    same-id objects exactly like the reference), and zero out components
+    smaller than ``size_thresh`` voxels in both the seg and its affinities.
+
+    ``labels``: (z, x, y) or (n, z, x, y) int array. Returns
+    ``(affinities, segs)`` with the leading n axis matching the input.
+    """
+    from .. import malis as _malis
+    labels = np.asarray(labels)
+    single = labels.ndim == 3
+    if single:
+        labels = labels[None]
+    if nhood is None:
+        nhood = _malis.mknhood3d(1)
+    affs, segs = [], []
+    for lab in labels:
+        aff = np.asarray(_malis.seg_to_affgraph(lab, nhood), np.float32)
+        seg, sizes = _malis.connected_components(aff, nhood, threshold=0.5)
+        seg = seg * (lab != 0)            # background stays background
+        small = np.flatnonzero(sizes < int(size_thresh)) + 1
+        if small.size:
+            seg[np.isin(seg, small)] = 0
+            aff = np.asarray(_malis.seg_to_affgraph(seg, nhood), np.float32)
+        affs.append(aff)
+        segs.append(seg.astype(np.int32))
+    affs, segs = np.stack(affs), np.stack(segs)
+    return (affs[0], segs[0]) if single else (affs, segs)
 
 
 def downsample_xy(d, l, factor=2):

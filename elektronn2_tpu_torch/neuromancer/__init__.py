@@ -17,7 +17,7 @@ from .neural import (Perceptron, Dot, Conv, Pool, UpConv, Crop, Pad,
 from .various import (GaussianRV, ScanN, SkelLoss, SkelLossField, SkelPrior,
                       SkelGetBatch)
 from .loss import (Softmax, MultinoulliNLL, BinaryNLL, GaussianNLL,
-                   SquaredLoss, AbsLoss, Errors, AggregateLoss)
+                   SquaredLoss, AbsLoss, Errors, MalisNLL, AggregateLoss)
 from .model import (Model, kernel_lists, modelload, params_from_model_file,
                     simple_cnn)
 from . import optimiser
@@ -31,7 +31,7 @@ __all__ = [
     "FragmentsToDense", "GRU", "LSTM",
     "GaussianRV", "ScanN", "SkelLoss", "SkelLossField", "SkelPrior",
     "SkelGetBatch", "Softmax", "MultinoulliNLL", "BinaryNLL", "GaussianNLL",
-    "SquaredLoss", "AbsLoss", "Errors", "AggregateLoss", "Model",
+    "SquaredLoss", "AbsLoss", "Errors", "MalisNLL", "AggregateLoss", "Model",
     "kernel_lists", "modelload", "params_from_model_file", "simple_cnn",
     "optimiser",
 ]

@@ -1,7 +1,8 @@
 """Loss nodes.
 
 Port of ``Softmax``, ``MultinoulliNLL``, ``BinaryNLL``, ``GaussianNLL``,
-``SquaredLoss``, ``AbsLoss``, ``Errors`` and ``AggregateLoss`` in
+``SquaredLoss``, ``AbsLoss``, ``Errors``, ``MalisNLL`` and ``AggregateLoss``
+in
 ``elektronn2_tpu/neuromancer/loss.py`` (reference:
 ``elektronn2/neuromancer/loss.py``). Autograd differentiates them for
 training (``Model.trainingstep``). Per-voxel losses return (b, *spatial)
@@ -241,6 +242,42 @@ class Errors(Node):
         t = target.long() if self.target_is_sparse \
             else torch.argmax(target, dim=f_ax)
         return torch.mean((cls != t).float()).reshape(1)
+
+
+@register_node_class
+class MalisNLL(Node):
+    """MALIS structured loss (maximin affinity): the binary NLL of affinity
+    predictions, each edge weighted by the voxel pairs whose maximin edge it
+    is (``malis.malis_weighted_nll``; the pair counting runs on the host).
+
+    Reference: ``loss.py::MalisNLL``. ``aff_gt`` may be None: the
+    ground-truth affinities are then derived from ``seg_gt``. A step with
+    this node syncs the host; the fused loops refuse to capture it, and it
+    has no device twin: train it per step (``Model.trainingstep``).
+    """
+
+    host_sync = True
+
+    def __init__(self, pred, aff_gt, seg_gt, nhood=None, unrestrict_neg=True,
+                 name="malis_nll", print_repr=True):
+        parents = [pred, seg_gt] if aff_gt is None else [pred, aff_gt,
+                                                         seg_gt]
+        self._has_aff_gt = aff_gt is not None
+        super().__init__(parents, name, print_repr)
+        from ..malis import default_nhood
+        self.nhood = (np.asarray(nhood, dtype=np.int32) if nhood is not None
+                      else default_nhood(3))
+        self.unrestrict_neg = bool(unrestrict_neg)
+        self.shape = _loss_map_shape(pred.shape)
+
+    def _compute(self, ctx, *pv):
+        from ..malis import malis_weighted_nll
+        if self._has_aff_gt:
+            pred, aff_gt, seg_gt = pv
+        else:
+            (pred, seg_gt), aff_gt = pv, None
+        return malis_weighted_nll(pred, aff_gt, seg_gt, self.nhood,
+                                  self.unrestrict_neg)
 
 
 @register_node_class

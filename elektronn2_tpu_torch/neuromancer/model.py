@@ -30,9 +30,9 @@ of steps (``training/fused_loop.py``) replays on fixed addresses.
 (``modelload``'s ``override_mfp_to_active`` / ``imposed_patch_size``) serve
 a trained net over whole volumes.
 
-Not in this slice (``NotImplementedError`` naming the ROADMAP.md item):
-the bf16/float16 modes of Perceptron, GRU and LSTM (training only), orbax
-checkpoints.
+Not ported (``NotImplementedError`` naming the ROADMAP.md item): orbax
+checkpoints and the TPU lowerings of ``set_dilated_impl`` /
+``set_convdense_impl``.
 """
 
 from __future__ import annotations
@@ -260,9 +260,13 @@ class Model:
         """Reduced precision. ``'bfloat16'`` / ``'float16'``: every Conv
         runs its operands in that type (the sums' result cast back to
         float32, the bias and the epilogue in float32), in training, patch
-        prediction and dense serving; None or ``'float32'`` restores full
-        float32. K1 serves float32 only: under any other mode its convs run
-        on cuDNN.
+        prediction and dense serving; so do the matmuls of Perceptron, GRU
+        and LSTM (their product kept in that type, then cast to float32
+        before the bias; the recurrent state stays float32). None or
+        ``'float32'`` restores full float32. K1 serves float32 only: under
+        any other mode its convs run on cuDNN. The tracer's rollouts
+        (``data.tracing_utils.DeviceTracer``) stay float32 under any mode,
+        as in the JAX package.
 
         ``'int8'``: quantised whole-volume dense serving, the dilated and
         the convolutional path (``ops.conv.quantized_conv``: per-output-
@@ -284,15 +288,6 @@ class Model:
             raise ValueError(f"dtype={dtype!r}: expected None, 'bfloat16',"
                              " 'float16', 'float32' or 'int8'")
         dtype = None if dtype == "float32" else dtype
-        if dtype in ("bfloat16", "float16"):
-            from .neural import GRU, LSTM, Perceptron
-            other = sorted(n.name for n in self.nodes.values()
-                           if isinstance(n, (Perceptron, GRU, LSTM)))
-            if other:
-                raise NotImplementedError(
-                    f"set_compute_dtype({dtype!r}): nodes {other} are "
-                    "Perceptron/GRU/LSTM, whose reduced-precision matmuls "
-                    "are not ported (ROADMAP.md §1 item 7)")
         from ..ops.tailconv import forget_packed
         forget_packed(v for d in self.params.values() for v in d.values())
         self._compute_dtype = dtype

@@ -28,7 +28,9 @@ epilogue; UpConv stays float32, as in the JAX package), and int8 through
 ``ctx.quant_serving``.
 
 The dense and recurrent matmuls are ``torch.matmul`` (cuBLAS on the card),
-as the JAX package leaves them to XLA.
+as the JAX package leaves them to XLA. Under ``ctx.compute_dtype`` their
+operands and product are in that type, cast to float32 before the bias;
+the recurrent state stays float32.
 """
 
 from __future__ import annotations
@@ -204,12 +206,18 @@ class Perceptron(Node, _BNMixin):
             x = x.reshape(x.shape[0], -1)
         w = ctx.param(self, "w")
         b = ctx.param(self, "b")
+        # mixed precision: the operands and the product in ``cd`` (as
+        # ``preferred_element_type=xm.dtype`` in the JAX package), cast to
+        # float32 before the bias, batch norm and the activation
+        cd = ctx.compute_dtype
+        xm = x.to(cd) if cd is not None else x
         if x.ndim == 2 or self._f_ax == x.ndim - 1:
-            y = torch.matmul(x, w) + b
+            y = torch.matmul(xm, w.to(xm.dtype))
         else:
             ax = 1 if self._f_ax is None else self._f_ax
-            y = ops_dot(x, w, axis=ax) + b.reshape(
-                (1,) * ax + (-1,) + (1,) * (x.ndim - ax - 1))
+            y = ops_dot(xm, w, axis=ax)
+            b = b.reshape((1,) * ax + (-1,) + (1,) * (x.ndim - ax - 1))
+        y = (y.float() if cd is not None else y) + b
         f_ax = 1 if self.flatten else self._f_ax
         if self.batch_normalisation:
             y = self._apply_bn(y, ctx, f_axis=f_ax)
@@ -739,6 +747,17 @@ class FragmentsToDense(Node):
 
 # --------------------------------------------------------------- recurrent
 
+def _cell_matmul(ctx, a, w):
+    """A recurrent cell's fused-gate matmul: under ``ctx.compute_dtype`` the
+    operands and the product in that type, the result cast to float32, so
+    the gates and the state stay float32 (``neural.py::GRU._compute``'s
+    ``mm`` in the JAX package)."""
+    cd = ctx.compute_dtype
+    if cd is None:
+        return torch.matmul(a, w)
+    return torch.matmul(a.to(cd), w.to(cd)).float()
+
+
 @register_node_class
 class GRU(Node):
     """Gated recurrent unit cell: one step, (b, f) in, (b, n_f) out.
@@ -769,11 +788,12 @@ class GRU(Node):
 
     def _compute(self, ctx, x, h):
         gates = torch.sigmoid(
-            torch.matmul(torch.cat([x, h], dim=-1), ctx.param(self, "w_gates"))
+            _cell_matmul(ctx, torch.cat([x, h], dim=-1),
+                         ctx.param(self, "w_gates"))
             + ctx.param(self, "b_gates"))
         z, r = torch.chunk(gates, 2, dim=-1)
         cand = get_activation(self.activation_func)(
-            torch.matmul(torch.cat([x, r * h], dim=-1),
+            _cell_matmul(ctx, torch.cat([x, r * h], dim=-1),
                          ctx.param(self, "w_cand"))
             + ctx.param(self, "b_cand"))
         return (1.0 - z) * h + z * cand
@@ -807,7 +827,8 @@ class LSTM(Node):
 
     def _compute(self, ctx, x, hc):
         h, c = torch.chunk(hc, 2, dim=-1)
-        z = (torch.matmul(torch.cat([x, h], dim=-1), ctx.param(self, "w"))
+        z = (_cell_matmul(ctx, torch.cat([x, h], dim=-1),
+                          ctx.param(self, "w"))
              + ctx.param(self, "b"))
         i, f, g, o = torch.chunk(z, 4, dim=-1)
         act = get_activation(self.activation_func)

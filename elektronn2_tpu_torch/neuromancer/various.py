@@ -123,6 +123,7 @@ class ScanN(Node):
             sub = TraceCtx(ctx.params, ctx.feed, rng=ctx.rng,
                            train=ctx.train, state_in=ctx.state_in)
             sub.remat = ctx.remat
+            sub.compute_dtype = ctx.compute_dtype
             for m, c in zip(self.in_memory, carry):
                 sub.values[m.name] = c
             for it, x in zip(self.in_iterate, seqs):

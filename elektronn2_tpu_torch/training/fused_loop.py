@@ -180,6 +180,16 @@ class PinnedStage:
         return self.copy(list(arrays))
 
 
+#: what to train instead, for each node class that syncs the host
+_HOST_SYNC_ADVICE = {
+    "SkelLoss": "train with SkelLossField (the same objective on the "
+                "device) or per step (Model.trainingstep)",
+    "MalisNLL": "train per step (Model.trainingstep, or the Trainer "
+                "without fused_steps); MALIS counts its pairs on the host "
+                "and has no device twin",
+}
+
+
 class _ChunkLoop:
     """What both fused loops share: the chunk's CUDA graph, its key, the
     capture and the replay. A subclass sets ``model``, ``n_inner``,
@@ -271,14 +281,14 @@ class _ChunkLoop:
         are put back before the capture, which runs nothing. A model whose
         step syncs the host is refused first."""
         m = self.model
-        sync = sorted(n.name for n in m.loss_node.all_parents()
+        sync = sorted((type(n).__name__, n.name)
+                      for n in m.loss_node.all_parents()
                       if getattr(n, "host_sync", False))
         if sync:
             raise NotImplementedError(
-                f"nodes {sync} query the host in every step (SkelLoss), "
-                "which a CUDA graph cannot hold: train with SkelLossField "
-                "(the same objective on the device) or per step "
-                "(Model.trainingstep)")
+                "a CUDA graph cannot hold a step that queries the host, as "
+                + "; ".join(f"{c} node {n!r} does: {_HOST_SYNC_ADVICE[c]}"
+                            for c, n in sync))
         m.init_state()
         dev = m.device
         written = self._restored()

@@ -66,6 +66,10 @@ MODULES = [
     "elektronn2_tpu_torch.data.image",
     "elektronn2_tpu_torch.data.cnndata",
     "elektronn2_tpu_torch.data.traindata",
+    "elektronn2_tpu_torch.malis",
+    "elektronn2_tpu_torch.malis.native",
+    "elektronn2_tpu_torch.malis.malis_utils",
+    "elektronn2_tpu_torch.malis.malisop",
     "elektronn2_tpu_torch.scripts",
     "elektronn2_tpu_torch.scripts.exp_convdense_headk",
     "elektronn2_tpu_torch.scripts.exp_headconv_tc",
@@ -478,3 +482,69 @@ def test_train_nodes_run_without_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_malis_and_reduced_matmuls_run_without_jax():
+    # MALIS (the native core, make_affinities, malis3d through the train
+    # CLI) and a bf16 step of the GRU tracer model stay jax-free when they
+    # run
+    code = ("import os, sys, tempfile, numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch import malis\n"
+            "from elektronn2_tpu_torch.data.image import make_affinities\n"
+            "from elektronn2_tpu_torch.scripts.train import main\n"
+            "from elektronn2_tpu_torch.utils.convert import tracer_model\n"
+            "assert malis.HAVE_NATIVE\n"
+            "seg = np.zeros((3, 6, 6), np.int32)\n"
+            "seg[:, :3] = 1\n"
+            "seg[:, 3:] = 2\n"
+            "aff, cc = make_affinities(seg)\n"
+            "pos, neg = malis.malis_weights(np.random.rand(*aff.shape), cc)\n"
+            "assert pos.sum() > 0 and neg.sum() > 0\n"
+            "d = tempfile.mkdtemp()\n"
+            "assert main(['--cpu', 'examples/malis3d.py', '--n-steps', "
+            "'3', '--save-path', d]) == 0\n"
+            "assert os.path.exists(os.path.join(d, 'malis3d-LAST.mdl'))\n"
+            "m = tracer_model((4, 4, 4), enc_w=8, gru_w=8, device='cpu')\n"
+            "m.set_compute_dtype('bfloat16')\n"
+            "m.set_opt('SGD', lr=0.01)\n"
+            "x = torch.rand(*m.input_node.shape)\n"
+            "t = torch.rand(*m.target_node.shape)\n"
+            "assert np.isfinite(float(m.trainingstep(x, t)[0]))\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'elektronn2_tpu'\n"
+            "             or k.startswith('elektronn2_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_no_unported_error_cites_items_6_or_7_outside_the_tpu_lowerings():
+    # MALIS (item 6) and the reduced-precision matmuls (item 7) are ported:
+    # no line of the package cites item 6, and item 7 is cited only where
+    # its do-not-port list is (the TPU lowerings of set_dilated_impl /
+    # set_convdense_impl, orbax checkpoints, the dilated path's docs)
+    import inspect
+    from elektronn2_tpu_torch.neuromancer.model import Model
+    allowed7 = {os.path.join("neuromancer", f) for f in (
+        "model.py", "inference.py", "computations.py")}
+    root = os.path.join(REPO, "elektronn2_tpu_torch")
+    cites6, cites7 = [], []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            p = os.path.join(dirpath, f)
+            rel = os.path.relpath(p, root)
+            with open(p) as fh:
+                for i, line in enumerate(fh, 1):
+                    if "item 6" in line:
+                        cites6.append(f"{rel}:{i}")
+                    if "item 7" in line and rel not in allowed7:
+                        cites7.append(f"{rel}:{i}")
+    assert not cites6 and not cites7, (cites6, cites7)
+    src = inspect.getsource(Model.set_compute_dtype)
+    assert "NotImplementedError" not in src and "item 7" not in src

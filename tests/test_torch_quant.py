@@ -517,17 +517,21 @@ def test_rebuild_carries_the_serving_precision(tmp_path):
 
 
 def test_reduced_precision_guards_training_nodes():
-    """bf16/float16 reach Conv operands only: a graph with a Perceptron,
-    GRU or LSTM (whose reduced-precision matmuls are not ported) raises
-    naming them; int8 leaves every node trace float32 and is allowed."""
+    """bf16/float16 reach the Perceptron's matmul too (its operands and
+    product in that type, the result float32, within the type's rounding of
+    float32); int8 leaves every node trace float32."""
     with graph("elektronn2_tpu_torch") as gm:
         inp = tnm.Input([2, 6], "b,f", name="raw")
         d = tnm.Perceptron(inp, 4, name="dot")
         m = gm.getmodel()
         m.designate_nodes(input_node=inp, prediction_node=d)
+    x = torch.rand(2, 6)
+    f32 = m.predict(x)
     for dt in ("bfloat16", "float16"):
-        with pytest.raises(NotImplementedError, match="dot"):
-            m.set_compute_dtype(dt)
+        m.set_compute_dtype(dt)
+        y = m.predict(x)
+        assert y.dtype == torch.float32 and not torch.equal(y, f32)
+        torch.testing.assert_close(y, f32, rtol=2e-2, atol=2e-2)
     m.set_compute_dtype("int8")
     x = torch.rand(2, 6)
     y = m.predict(x)

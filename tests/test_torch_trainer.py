@@ -584,14 +584,8 @@ def _skel_loss(tmp_path):
     loop._capture(m.optimiser.current_hyper(m.device))
 
 
-def _affinities(tmp_path):
-    from elektronn2_tpu_torch.data.image import make_affinities
-    make_affinities(np.zeros((4, 4, 4), np.int32))
-
-
 @pytest.mark.parametrize("what, item", [
-    (_mesh, "item 8"), (_skel_loss, "SkelLossField"),
-    (_affinities, "item 6")])
+    (_mesh, "item 8"), (_skel_loss, "SkelLossField")])
 def test_unported_pieces_raise(what, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         what(tmp_path)
