@@ -343,7 +343,14 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     ``UNET_SERVE_MODES`` (K1, bf16, int8): ms, Mvox/s, peak, max and
     p99.9 abs deviation from the first mode, argmax agreement (above
     ``ARGMAX_FLOOR``: bf16 0.95, int8 0.97), finite maps, K1's launches
-    (2 / 4 in the K1 modes, which join the kernels line, 0 in the others).
+    (2 / 4 in the K1 modes, which join the kernels line, 0 in the others);
+25. train_dp (after reduced_matmuls): ``examples/neuro3d_pod.py``
+    through the train CLI under a mesh of one (NCCL, graphed chunks of 8),
+    a mesh of one against no mesh (eager steps and graphed chunks, equal
+    to 1e-6; the NCCL kernels counted in a profiled replay, at least one a
+    step; both timed in turns), two gloo ranks on CUDA tensors against one
+    process, and the trained weights served through K1 (one launch, which
+    joins the kernels line).
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
@@ -3134,7 +3141,7 @@ class CliProbe:
         self.n_steps, self.window = n_steps, window
         self.data_seed = data_seed
         self.steps, self.stamps = 0, []
-        self.prof = self.trainer = self.window_at = None
+        self.prof = self.trainer = self.window_at = self.rate_at = None
         self.initial = None             # the parameters before Trainer.run
         self.window_wall = self.window_steps = None
         self.batch_waits = []           # seconds in BackgroundProc.get
@@ -3153,6 +3160,7 @@ class CliProbe:
             if self.window_at is None and \
                     self.steps + n > self.n_steps - self.window:
                 from torch.profiler import ProfilerActivity, profile
+                self.rate_at = (self.steps, time.perf_counter())
                 torch.cuda.synchronize()
                 self.prof = profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA])
@@ -3196,9 +3204,10 @@ class CliProbe:
 
     def rate(self, warm):
         """Steps a second from the end of the call that finished the
-        ``warm``-th step to the start of the profiled window."""
+        ``warm``-th step to the start of the profiled window (before the
+        profiler starts: its first start in a process takes seconds)."""
         s0, t0 = next((s, t) for s, t in self.stamps if s >= warm)
-        s1, t1 = self.window_at
+        s1, t1 = self.rate_at
         return (s1 - s0) / (t1 - t0)
 
     def window_profile(self, top=6):
@@ -3303,6 +3312,8 @@ def train_cli_run(smi, name, n_steps, warm, tmp, fall_window=None,
              loss_mean_last=float(tl[-fall_window:, 2].mean()))),
          data_seed=data_seed,
          capture_seconds=None if loop is None else loop.capture_seconds,
+         call_ms=(np.diff([t for _, t in probe.stamps]) * 1e3).round(
+             3).tolist() if loop is not None else None,
          wall_seconds=wall, nvidia_smi=smi)
     if len(tl) != n_steps or tr.step != n_steps:
         raise AssertionError(f"train_cli {name}: {len(tl)} steps recorded, "
@@ -3359,11 +3370,11 @@ def k1_calls_vs_plain(calls, what):
     return recs
 
 
-def k1_serve_recorded(model, vol, what):
+def k1_serve_recorded(model, vol, what, expect=2):
     """One request through the K1 route with every K1 launch recorded and
-    held against its plain version (``k1_calls_vs_plain``); two launches
-    expected. Returns the served map, its seconds, the launches and the
-    per-launch records."""
+    held against its plain version (``k1_calls_vs_plain``); ``expect``
+    launches (the flagship-class nets' two). Returns the served map, its
+    seconds, the launches and the per-launch records."""
     calls, k1_fn = [], tailconv.conv3x3_dilated
 
     def recorded(x, w, b, dil=(1, 1, 1), relu=True):
@@ -3379,9 +3390,9 @@ def k1_serve_recorded(model, vol, what):
     finally:
         tailconv.conv3x3_dilated = k1_fn
     launches = tailconv.launches
-    if launches != 2 or len(calls) != 2:
+    if launches != expect or len(calls) != expect:
         raise AssertionError(f"{what}: {launches} K1 launches, "
-                             f"{len(calls)} recorded, expected 2")
+                             f"{len(calls)} recorded, expected {expect}")
     return out, dt, launches, k1_calls_vs_plain(calls, what)
 
 
@@ -3427,6 +3438,260 @@ def phase_train_cli(smi):
                                  f"the weights it started from ({moved})")
         del model, vol, ref, k1
     torch.cuda.empty_cache()
+    return launches
+
+
+DP_CLI_STEPS = 96       # neuro3d_pod through the CLI: 12 graphed chunks of 8
+DP_CLI_WARM = 16        # steps before the CLI's it/s is taken
+DP_FALL_WINDOW = 16     # the loss falls: mean of the last 16 vs the first
+DP_EAGER_STEPS = 4      # (b): eager trainingsteps, mesh of one vs none
+DP_CHUNKS = 2           # (b): graphed chunks each
+DP_RTOL = 1e-6          # (b): losses and parameters, relative
+DP_TIMED_CHUNKS = 5     # (b): chunks timed in turns, mesh and no mesh
+DP_RANK_STEPS = 3       # (c): eager steps on two gloo ranks
+DP_RANK_LOSS_RTOL = 1e-5            # (c): as tests/test_torch_parallel.py
+DP_RANK_W_RTOL, DP_RANK_W_ATOL = 1e-4, 1e-6
+
+
+def pod_setup():
+    """neuro3d_pod's model (its config's seed-0 weights, optimiser) and
+    augmenter on the card, built from the unchanged config file."""
+    from elektronn2_tpu_torch.config import ExperimentConfig
+    exp = ExperimentConfig.from_file(os.path.join("examples",
+                                                  "neuro3d_pod.py"))
+    model = exp.create_model().to("cuda")
+    model.set_opt(exp.optimiser, **exp.optimiser_params)
+    aug = DeviceBatchAugmenter(**exp.data_init_kwargs, device="cuda")
+    return exp, model, aug
+
+
+def rel_tree_err(a, b):
+    """The largest relative difference of two parameter trees (per leaf,
+    over the leaf's largest magnitude)."""
+    return max(((a[n][k] - b[n][k]).abs().max()
+                / b[n][k].abs().max().clamp_min(1e-30)).item()
+               for n in b for k in b[n])
+
+
+#: what names NCCL's kernels (at one rank, ``oneRankReduce``)
+NCCL_KERNEL_KEYS = ("nccl", "onerank")
+
+
+def device_kernels(prof):
+    """``{kernel name: (launches, device ms)}`` of a profile."""
+    from torch.autograd import DeviceType
+    return {e.key: (e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def nccl_kernels(kernels):
+    """(launches, device ms, names) of the NCCL kernels among
+    ``device_kernels``' result."""
+    ev = {k: v for k, v in kernels.items()
+          if any(t in k.lower() for t in NCCL_KERNEL_KEYS)}
+    return (sum(n for n, _ in ev.values()),
+            sum(ms for _, ms in ev.values()), sorted(ev))
+
+
+def dp_mesh_of_one(smi):
+    """(b): neuro3d_pod under a mesh of one (NCCL) against no mesh, from
+    the same weights and batches: ``DP_EAGER_STEPS`` eager trainingsteps,
+    then ``DP_CHUNKS`` graphed FusedTrainLoop chunks each, losses and
+    parameters within ``DP_RTOL``; the NCCL kernels counted in one
+    profiled replay of the meshed chunk (at least one a step: the gradient
+    all-reduce is in the graph, not skipped at world size 1); both loops'
+    chunks timed in turns."""
+    from torch.profiler import ProfilerActivity, profile
+    from elektronn2_tpu_torch.parallel import make_mesh
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exp, plain, aug = pod_setup()
+        _, meshed, aug_m = pod_setup()
+        meshed.set_params(plain.params)
+        meshed.use_mesh(make_mesh({"data": 1}))
+        B, K = exp.batch_size, exp.fused_steps
+        warp = exp.data_batch_args.get("warp", 0.5)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        eager = []
+        for _ in range(DP_EAGER_STEPS):
+            d, t = aug.device_batch(gen, B, warp=warp)
+            eager.append([float(m.trainingstep(d, t)[0])
+                          for m in (plain, meshed)])
+        loops = [FusedTrainLoop(m, a, B, K, warp=warp, seed=SEED)
+                 for m, a in ((plain, aug), (meshed, aug_m))]
+        chunks = [[loop.run_chunk()[0] for loop in loops]
+                  for _ in range(DP_CHUNKS)]
+        loss_err = max([abs(a - b) / abs(a) for a, b in eager]
+                       + [float(np.max(np.abs(a - b) / np.abs(a)))
+                          for a, b in chunks])
+        w_err = rel_tree_err(meshed.params, plain.params)
+        times = {"none": [], "mesh": []}
+        for _ in range(DP_TIMED_CHUNKS):
+            for name, loop in zip(("none", "mesh"), loops):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.run_chunk()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        kernels = []
+        for loop in loops:             # one profiled replay each
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                loop.run_chunk()
+                torch.cuda.synchronize()
+            kernels.append(device_kernels(prof))
+        n_nccl, nccl_ms, names = nccl_kernels(kernels[1])
+        busy = sum(ms for _, ms in kernels[1].values())
+        mesh_only = {k: v for k, v in kernels[1].items()
+                     if v[0] != kernels[0].get(k, (0, 0))[0]}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    none_ms, mesh_ms = np.median(times["none"]), np.median(times["mesh"])
+    emit("train_dp_mesh_of_one", config="examples/neuro3d_pod.py", batch=B,
+         fused_steps=K, eager_steps=DP_EAGER_STEPS, graphed_chunks=DP_CHUNKS,
+         eager_losses=eager, chunk_losses=[[a.tolist(), b.tolist()]
+                                           for a, b in chunks],
+         max_rel_loss_err=loss_err, max_rel_param_err=w_err,
+         chunk_ms_no_mesh=times["none"], chunk_ms_mesh=times["mesh"],
+         it_s_no_mesh=K / none_ms * 1e3, it_s_mesh=K / mesh_ms * 1e3,
+         mesh_overhead=mesh_ms / none_ms - 1,
+         nccl_kernels_in_replay=n_nccl, nccl_ms_in_replay=nccl_ms,
+         nccl_kernel_names=names, replay_device_ms=busy,
+         replay_device_ms_no_mesh=sum(ms for _, ms in kernels[0].values()),
+         kernels_added_by_mesh={k: list(v) for k, v in mesh_only.items()},
+         nccl_share_of_replay=nccl_ms / busy if busy else None,
+         capture_seconds=loops[1].capture_seconds, nvidia_smi=smi)
+    if not loss_err <= DP_RTOL or not w_err <= DP_RTOL:
+        raise AssertionError(f"train_dp: mesh of one vs no mesh: losses "
+                             f"{loss_err}, parameters {w_err} > {DP_RTOL}")
+    if n_nccl < K:
+        raise AssertionError(f"train_dp: {n_nccl} NCCL kernels in a replay "
+                             f"of {K} steps; the all-reduce is not in the "
+                             "graph")
+
+
+def dp_rank(rank, world, port, inputs, out_dir):
+    """(c): one of two gloo ranks on the one card: neuro3d_pod's model
+    from ``inputs`` (weights and global batches), a mesh over the two
+    ranks, eager trainingsteps; writes its losses and parameters."""
+    import torch.distributed as dist
+    from elektronn2_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        _, model, _ = pod_setup()
+        with np.load(inputs) as z:
+            model.set_params({n: {k: z[f"w/{n}/{k}"]
+                                  for k in model.params[n]}
+                              for n in model.params})
+            batches = [(torch.from_numpy(z[f"d{i}"]).cuda(),
+                        torch.from_numpy(z[f"t{i}"]).cuda())
+                       for i in range(DP_RANK_STEPS)]
+        model.use_mesh(make_mesh({"data": world}))
+        losses = [float(model.trainingstep(d, t)[0]) for d, t in batches]
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 losses=np.asarray(losses),
+                 **{f"w/{n}/{k}": v.cpu().numpy()
+                    for n, d in model.params.items() for k, v in d.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks(smi, tmp):
+    """(c): two gloo ranks on CUDA tensors (eager steps) against the
+    single-process run of the same weights and global batches."""
+    import torch.multiprocessing as mp
+    from elektronn2_tpu_torch.parallel.mesh import free_port
+    exp, model, aug = pod_setup()
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    warp = exp.data_batch_args.get("warp", 0.5)
+    batches = [aug.device_batch(gen, exp.batch_size, warp=warp)
+               for _ in range(DP_RANK_STEPS)]
+    inputs = os.path.join(tmp, "dp_inputs.npz")
+    np.savez(inputs, **{f"w/{n}/{k}": v.cpu().numpy()
+                        for n, d in model.params.items()
+                        for k, v in d.items()},
+             **{f"d{i}": d.cpu().numpy() for i, (d, _) in enumerate(batches)},
+             **{f"t{i}": t.cpu().numpy() for i, (_, t) in enumerate(batches)})
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank, args=(2, free_port(), inputs, tmp),
+                       nprocs=2, join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ref = [float(model.trainingstep(d, t)[0]) for d, t in batches]
+    ranks = [np.load(os.path.join(tmp, f"rank{r}.npz")) for r in range(2)]
+    loss_err = max(float(np.max(np.abs(r["losses"] - ref) / np.abs(ref)))
+                   for r in ranks)
+    w_err, same = 0.0, True
+    for n, d in model.params.items():
+        for k, v in d.items():
+            want = v.cpu().numpy()
+            for r in ranks:
+                got = r[f"w/{n}/{k}"]
+                w_err = max(w_err, float(np.max(np.abs(got - want)
+                                                - DP_RANK_W_RTOL
+                                                * np.abs(want))))
+            same &= np.array_equal(ranks[0][f"w/{n}/{k}"],
+                                   ranks[1][f"w/{n}/{k}"])
+    emit("train_dp_two_ranks", backend="gloo", tensors="cuda", ranks=2,
+         steps=DP_RANK_STEPS, global_batch=exp.batch_size,
+         losses=[r["losses"].tolist() for r in ranks], losses_single=ref,
+         max_rel_loss_err=loss_err, max_excess_param_err=w_err,
+         ranks_equal=bool(same), seconds=spawn_s, nvidia_smi=smi)
+    if not loss_err <= DP_RANK_LOSS_RTOL or not w_err <= DP_RANK_W_ATOL \
+            or not same:
+        raise AssertionError(f"train_dp: two gloo ranks vs one process: "
+                             f"losses {loss_err}, parameters {w_err}, "
+                             f"ranks equal {same}")
+
+
+def phase_train_dp(smi):
+    """Data-parallel training on the card (``Model.use_mesh``):
+    (a) ``examples/neuro3d_pod.py`` unchanged through the train CLI
+    (``mesh_axes`` {"data": 1} from the loader's device count, a process
+    group of one on NCCL, ``fused_steps`` 8: ``DP_CLI_STEPS`` steps in
+    graphed chunks), the loss falling; (b) a mesh of one against no mesh
+    (``dp_mesh_of_one``); (c) two gloo ranks on CUDA tensors against one
+    process (``dp_two_ranks``); (d) the trained weights served through K1
+    (its conv1, (3,3,3) at xy-dilation 2), each launch held against its
+    plain version and the map against the cuDNN route. Returns K1's
+    launches in (d)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, mdl, initial = train_cli_run(smi, "neuro3d_pod", DP_CLI_STEPS,
+                                        DP_CLI_WARM, tmp,
+                                        fall_window=DP_FALL_WINDOW)
+        torch.cuda.empty_cache()
+        dp_mesh_of_one(smi)
+        dp_two_ranks(smi, tmp)
+        model = modelload(mdl)
+        vol = torch.from_numpy(np.random.RandomState(SEED + 12).rand(
+            *SERVE_SHAPE).astype(np.float32)).cuda()
+        ref = serve_request(model, vol, ptail=False)
+        k1, dt, launches, per_launch = k1_serve_recorded(
+            model, vol, "train_dp serve", expect=1)
+        err = (k1 - ref).abs().max().item()
+        probs_dev = check_probs(k1, (2,) + SERVE_SHAPE[1:])
+        model.set_params(initial)
+        moved = (k1 - serve_request(model, vol, ptail=True)).abs().max(
+            ).item()
+        emit("train_dp_serve", model=os.path.basename(mdl),
+             request=list(SERVE_SHAPE), seconds=dt, k1_launches=launches,
+             max_abs_vs_cudnn=err, max_abs_vs_before_training=moved,
+             channel_sum_dev=probs_dev, k1_launches_vs_plain=per_launch)
+        if err > SLICE_ATOL:
+            raise AssertionError(f"train_dp serve: K1 vs cuDNN {err} > "
+                                 f"{SLICE_ATOL}")
+        if not moved > 100 * SLICE_ATOL:
+            raise AssertionError("train_dp serve: the trained model serves "
+                                 f"the weights it started from ({moved})")
+        del model, vol, ref, k1
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    if dist.is_initialized():               # the CLI's mesh of one
+        dist.destroy_process_group()
     return launches
 
 
@@ -4532,6 +4797,7 @@ def main():
     phase_tracing_nodes(smi)
     phase_malis(smi)
     phase_reduced_matmuls(smi)
+    k1_launches += phase_train_dp(smi)
     phase_quant_conv(smi)
     k1_launches += phase_serve_dtypes(smi)
     k1_launches += phase_sweep(smi)

@@ -17,8 +17,9 @@ on-device augmentation in ``ops/warp.py`` and ``training/fused_loop.py``,
 one CUDA graph per chunk of K steps), whose convs stay cuDNN's as the JAX
 package leaves them to XLA; the training entry point (``scripts/train.py``
 on the example configs through ``config.py``, ``training/trainer.py``, the
-host data pipeline in ``data/`` and ``HostFedFusedLoop``). ROADMAP.md lists
-what is still to come.
+host data pipeline in ``data/`` and ``HostFedFusedLoop``); data-parallel
+training over a ``torch.distributed`` mesh (``parallel/``,
+``Model.use_mesh``). ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

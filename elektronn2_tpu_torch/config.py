@@ -7,25 +7,32 @@ variables and ``create_model()``. ``Config.device`` defaults to ``"cuda"``:
 the Trainer runs on the card unless it is asked for the CPU.
 
 The example configs import the JAX package inside their functions
-(``import elektronn2_tpu.neuromancer as nm`` in ``create_model``). So
+(``import elektronn2_tpu.neuromancer as nm`` in ``create_model``), and
+reference-style configs import ``elektronn2.*``. So
 :meth:`ExperimentConfig.from_file` execs a file with builtins of its own
-whose ``__import__`` maps the top-level name ``elektronn2_tpu`` to
-``elektronn2_tpu_torch``; the functions the file defines keep those
-globals, so their imports resolve to the port too. ``sys.modules`` is not
-touched: both packages can live in one process.
+whose ``__import__`` maps the top-level names ``elektronn2_tpu`` and
+``elektronn2`` to ``elektronn2_tpu_torch``; the functions the file defines
+keep those globals, so their imports resolve to the port too. A config's
+``import jax`` (``examples/neuro3d_pod.py`` counts its devices that way)
+gets :data:`JAX_STAND_IN`, whose ``devices()`` and ``device_count()`` list
+the port's devices; any other name taken from it raises ``ImportError``.
+``sys.modules`` is not touched: both packages can live in one process.
 """
 
 from __future__ import annotations
 
 import builtins
 import os
+import types
 
 from .log import logger
 
 RC_PATHS = (os.path.expanduser("~/.elektronn2_tpurc"),
             os.path.expanduser("~/.elektronn2rc"))
 
-_JAX_PKG, _PORT_PKG = "elektronn2_tpu", "elektronn2_tpu_torch"
+_PORT_PKG = "elektronn2_tpu_torch"
+#: top-level packages a config may import, read as the port
+_MAPPED = ("elektronn2_tpu", "elektronn2")
 
 
 class Config:
@@ -70,11 +77,50 @@ EXPERIMENT_KEYS = (
 )
 
 
+_STAND_IN_ONLY = ("a config exec'd by elektronn2_tpu_torch's loader "
+                  "(config.ExperimentConfig.from_file) gets a stand-in for "
+                  "jax with devices() and device_count() only")
+
+
+class _JaxStandIn(types.ModuleType):
+    """What a config's ``import jax`` gets: ``devices()`` and
+    ``device_count()`` over the port's devices, nothing else."""
+
+    def devices(self):
+        """The process group's ranks when one is up (one device each),
+        else the visible cards, else the CPU."""
+        import torch
+        import torch.distributed as dist
+        kind = "cuda" if torch.cuda.is_available() else "cpu"
+        if dist.is_available() and dist.is_initialized():
+            n = dist.get_world_size()
+        else:
+            n = torch.cuda.device_count() if kind == "cuda" else 1
+        return [torch.device(kind, i) for i in range(n)]
+
+    def device_count(self):
+        return len(self.devices())
+
+    def __getattr__(self, name):
+        raise ImportError(f"jax.{name}: {_STAND_IN_ONLY}")
+
+
+JAX_STAND_IN = _JaxStandIn("jax")
+
+
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    """``__import__`` that reads an absolute import of the JAX package as
-    one of the port."""
-    if level == 0 and (name == _JAX_PKG or name.startswith(_JAX_PKG + ".")):
-        name = _PORT_PKG + name[len(_JAX_PKG):]
+    """``__import__`` that reads an absolute import of the JAX package or
+    of the reference's ``elektronn2`` as one of the port, and ``jax`` as
+    :data:`JAX_STAND_IN`."""
+    if level == 0:
+        if name == "jax":
+            return JAX_STAND_IN
+        if name.startswith("jax."):
+            raise ImportError(f"{name}: {_STAND_IN_ONLY}")
+        for pkg in _MAPPED:
+            if name == pkg or name.startswith(pkg + "."):
+                name = _PORT_PKG + name[len(pkg):]
+                break
     return builtins.__import__(name, globals, locals, fromlist, level)
 
 

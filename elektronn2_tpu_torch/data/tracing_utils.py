@@ -28,7 +28,7 @@ chunk of S steps (S <= ``POOL_CHUNK``); the step index, the wave's length,
 its consumption cut, queue length and id offset are device scalars, so one
 graph serves every wave of a (B, queue, S), a step past the wave's end is a
 no-op, and each replay's rows are copied on the device into the wave's
-trajectory. ``trace_batch(mesh=...)`` is not ported (ROADMAP.md §1 item 8).
+trajectory. ``trace_batch(mesh=...)`` is not ported (ROADMAP.md §1 item 8c).
 """
 
 from __future__ import annotations
@@ -677,7 +677,7 @@ class DeviceTracer(_AgentStepper):
         if mesh is not None:
             raise NotImplementedError(
                 "trace_batch(mesh=...): sharding agents over devices is not "
-                "ported (ROADMAP.md §1 item 8)")
+                "ported (ROADMAP.md §1 item 8c)")
         seeds = np.asarray(seeds, np.float32).reshape(-1, 3)
         heads = (np.broadcast_to(np.asarray([0.0, 0.0, 1.0], np.float32),
                                  seeds.shape).copy()

@@ -8,7 +8,7 @@ construction computes shapes (``TaggedShape``) and initial parameters;
 
 from .graphutils import TaggedShape, floatX, as_floatX
 from .graphmanager import GraphManager, model_manager
-from .node_basic import (Node, Input, GenericInput, FromTensor, ValueNode,
+from .node_basic import (Node, Input, Input_like, GenericInput, FromTensor, ValueNode,
                          Concat, MultMerge, ApplyFunc, InitialState_like,
                          Split, Reshape, Transpose, split)
 from .neural import (Perceptron, Dot, Conv, Pool, UpConv, Crop, Pad,
@@ -19,12 +19,12 @@ from .various import (GaussianRV, ScanN, SkelLoss, SkelLossField, SkelPrior,
 from .loss import (Softmax, MultinoulliNLL, BinaryNLL, GaussianNLL,
                    SquaredLoss, AbsLoss, Errors, MalisNLL, AggregateLoss)
 from .model import (Model, kernel_lists, modelload, params_from_model_file,
-                    simple_cnn)
+                    rebuild_model, simple_cnn)
 from . import optimiser
 
 __all__ = [
     "TaggedShape", "floatX", "as_floatX", "GraphManager", "model_manager",
-    "Node", "Input", "GenericInput", "FromTensor", "ValueNode", "Concat",
+    "Node", "Input", "Input_like", "GenericInput", "FromTensor", "ValueNode", "Concat",
     "MultMerge", "ApplyFunc", "InitialState_like", "Split", "Reshape",
     "Transpose", "split", "Perceptron", "Dot", "Conv", "Pool", "UpConv",
     "Crop", "Pad", "Dropout", "BatchNorm", "LRN", "FaithlessMerge",
@@ -32,6 +32,7 @@ __all__ = [
     "GaussianRV", "ScanN", "SkelLoss", "SkelLossField", "SkelPrior",
     "SkelGetBatch", "Softmax", "MultinoulliNLL", "BinaryNLL", "GaussianNLL",
     "SquaredLoss", "AbsLoss", "Errors", "MalisNLL", "AggregateLoss", "Model",
-    "kernel_lists", "modelload", "params_from_model_file", "simple_cnn",
+    "kernel_lists", "modelload", "params_from_model_file", "rebuild_model",
+    "simple_cnn",
     "optimiser",
 ]

@@ -78,6 +78,7 @@ class GraphManager:
         self._name_counters = {}
         self._rng = torch.Generator().manual_seed(0)
         self.designations = {}
+        self._models = []        # weak references to the Models built here
 
     # -- construction-time services ----------------------------------------
     def reset(self, seed=0):
@@ -85,6 +86,23 @@ class GraphManager:
         self._name_counters.clear()
         self.designations = {}
         self._rng = torch.Generator().manual_seed(int(seed))
+        self._models = []
+
+    def register_model(self, model):
+        import weakref
+        self._models.append(weakref.ref(model))
+
+    def last_model(self, node_name=None):
+        """The most recently built Model of this graph that is still alive
+        (and, with ``node_name``, that held that node when it was built),
+        or None. ``Node.predict_dense`` serves through it. Reference:
+        ``GraphManager.last_model``."""
+        for ref in reversed(self._models):
+            m = ref()
+            if m is not None and (node_name is None
+                                  or node_name in m._node_names):
+                return m
+        return None
 
     def unique_name(self, name):
         if name not in self.nodes and name not in self._name_counters:

@@ -9,9 +9,8 @@ math and dense-inference stitching.
 
 Port: a copy of ``TaggedShape`` in ``elektronn2_tpu/neuromancer/graphutils.py``
 (numpy only). Shapes are plain static Python data and TaggedShape is
-immutable-ish (mutating helpers return updated copies). ``make_func`` is
-left out: PyTorch runs eagerly, and ``Model.predict`` is the compiled-function
-surface of this package.
+immutable-ish (mutating helpers return updated copies). ``make_func``
+gives an eager callable (PyTorch has no compile step to defer).
 """
 
 from __future__ import annotations
@@ -245,3 +244,76 @@ class TaggedShape:
     def from_dict(cls, d):
         return cls(d["shape"], d["tags"], d.get("strides"), d.get("fov"),
                    d.get("mfp_offsets"))
+
+
+def make_func(inputs, outputs, name="func", profile_execution=False,
+              train=False, device=None):
+    """A callable evaluating ``outputs`` (a Node or a list) from fed
+    ``inputs`` (the same), eagerly on ``device``.
+
+    Reference: ``graphutils.py::make_func``. The parameters are the
+    ancestor nodes' registered initial values, moved to ``device`` (the
+    card unless the CPU is asked for) once; ``f(*arrays, params=None)``
+    takes tensors or arrays (moved to the device) and a ``params`` tree
+    (``{node: {name: tensor}}``, e.g. a Model's) to evaluate with instead.
+    With ``profile_execution`` the seconds of each call (CUDA events on the
+    card, the host clock on the CPU) are appended to ``f.exec_times``.
+    """
+    import time
+
+    import torch
+
+    from ..ops.conv import f32_convs, f32_matmuls
+    from .model import target_device
+    from .node_basic import Node, TraceCtx
+
+    dev = target_device(device or "cuda")
+    single = isinstance(outputs, Node)
+    outs = [outputs] if single else list(outputs)
+    ins = [inputs] if isinstance(inputs, Node) else list(inputs)
+    for n in ins + outs:
+        if not isinstance(n, Node):
+            raise TypeError(f"make_func takes Nodes, got {n!r}")
+    seen, order = set(), []
+    for o in outs:
+        for n in o.all_parents():
+            if n.name not in seen:
+                seen.add(n.name)
+                order.append(n)
+    missing = [n.name for n in ins if n.name not in seen]
+    if missing:
+        raise ValueError(f"inputs {missing} are not ancestors of the "
+                         "requested outputs")
+    init_params = {n.name: {k: v.to(dev) for k, v in n.params.items()}
+                   for n in order if n.params}
+
+    def f(*arrays, params=None):
+        if len(arrays) != len(ins):
+            raise TypeError(f"{name} expects {len(ins)} input(s) "
+                            f"({[n.name for n in ins]}), got {len(arrays)}")
+        feed = {n.name: torch.as_tensor(a).to(dev)
+                for n, a in zip(ins, arrays)}
+        cuda = profile_execution and dev.type == "cuda"
+        if cuda:
+            t0, t1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            t0.record()
+        elif profile_execution:
+            t0 = time.perf_counter()
+        ctx = TraceCtx(init_params if params is None else params, feed,
+                       train=train)
+        with torch.no_grad(), f32_convs(), f32_matmuls():
+            vals = [ctx.get(o) for o in outs]
+        if cuda:
+            t1.record()
+            t1.synchronize()
+            f.exec_times.append(t0.elapsed_time(t1) / 1e3)
+        elif profile_execution:
+            f.exec_times.append(time.perf_counter() - t0)
+        return vals[0] if single else tuple(vals)
+
+    f.__name__ = name
+    f.exec_times = []
+    f.input_nodes = ins
+    f.output_nodes = outs
+    return f

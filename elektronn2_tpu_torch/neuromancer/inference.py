@@ -52,7 +52,7 @@ dispatches them and applies the fastest.
 
 Not in this slice (``NotImplementedError``): the s2b/s2bg/ztap/zmajor/
 poolslice lowerings of the dilated path (ROADMAP.md §1 item 7's TPU
-lowerings), sharded serving (item 8).
+lowerings), sharded serving (item 8b).
 """
 
 from __future__ import annotations
@@ -985,7 +985,7 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     if mesh is not None:
         raise NotImplementedError(
             "sweep_knossos(mesh=...): sharded serving is not ported "
-            "(ROADMAP.md §1 item 8)")
+            "(ROADMAP.md §1 item 8b)")
     pred = model.prediction_node
     if region is None:
         region = tuple((0, s) for s in karr.shape[-3:])

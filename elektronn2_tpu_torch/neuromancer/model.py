@@ -30,6 +30,12 @@ of steps (``training/fused_loop.py``) replays on fixed addresses.
 (``modelload``'s ``override_mfp_to_active`` / ``imposed_patch_size``) serve
 a trained net over whole volumes.
 
+:meth:`Model.use_mesh` trains data-parallel over a ``torch.distributed``
+mesh (``parallel/``): every rank is fed the global batch and keeps its
+rows, the gradients are averaged with one all-reduce a step, and the
+update runs on every rank; a step under a mesh computes what the unsharded
+step computes on the same global batch (``parallel/data_parallel.py``).
+
 Not ported (``NotImplementedError`` naming the ROADMAP.md item): orbax
 checkpoints and the TPU lowerings of ``set_dilated_impl`` /
 ``set_convdense_impl``.
@@ -102,6 +108,10 @@ class Model:
         self._train_zfold = False
         self._train_skipsum = False
         self._remat = False
+        self._mesh = None                 # use_mesh: the mesh and the
+        self._dp = None                   # group over its data axis
+        self._node_names = frozenset(self.nodes)
+        graph_manager.register_model(self)
 
     # ------------------------------------------------------------ designation
     def designate_nodes(self, input_node=None, target_node=None,
@@ -347,14 +357,17 @@ class Model:
         return dict(scales)
 
     def _apply(self, out_nodes, params, state, feed, rng, train, noise=None,
-               draws=None):
+               draws=None, dp=None):
         """Evaluate ``out_nodes`` eagerly; returns (outputs, state). With
         ``train`` autograd records (the caller takes the gradients inside
         its own ``f32_convs``/``f32_matmuls``), else ``torch.no_grad()``.
         ``noise``: random draws to use, by node name (``TraceCtx.draw``);
-        ``draws``: a dict that receives the draws the evaluation used."""
+        ``draws``: a dict that receives the draws the evaluation used;
+        ``dp``: the data-parallel group of a step under a mesh
+        (``TraceCtx.dp``)."""
         ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state,
                        noise_in=noise)
+        ctx.dp = dp
         ctx.compute_dtype = self._trace_dtype()
         ctx.remat = self._remat and train
         ctx.convdense_zfold = self._train_zfold
@@ -451,13 +464,14 @@ class Model:
         if self.optimiser is None:
             self.set_opt("Adam")
 
-    def _loss_and_grads(self, feed, rng, noise=None, draws=None):
+    def _loss_and_grads(self, feed, rng, noise=None, draws=None, dp=None):
         """Forward in training mode and the gradients of the loss with
         respect to every trainable parameter: (loss, aux outputs, grads
         tree, new aux state), all on the device, no host sync. Forward and
         backward run inside one ``f32_convs``/``f32_matmuls``. ``noise``
         feeds random draws by node name and ``draws`` receives the ones
-        used (:meth:`_apply`)."""
+        used, ``dp`` is a mesh's data-parallel group (:meth:`_apply`);
+        under it the values are this rank's."""
         leaves = {n: {p: v.detach().requires_grad_() for p, v in d.items()}
                   for n, d in self._trainable(self.params).items()}
         merged = {n: {**d, **leaves.get(n, {})}
@@ -467,7 +481,7 @@ class Model:
             outs, new_state = self._apply([self.loss_node] + self._aux_nodes(),
                                           merged, self.state, feed, rng,
                                           train=True, noise=noise,
-                                          draws=draws)
+                                          draws=draws, dp=dp)
             loss = outs[0][0]
             gs = torch.autograd.grad(loss, [leaves[n][p] for n, p in names],
                                      allow_unused=True)
@@ -485,11 +499,21 @@ class Model:
         ``current_hyper`` dict (read, never written, so a CUDA graph of this
         step reads the live values); ``noise`` feeds random draws
         (:meth:`_apply`). Returns (loss, aux outputs, gradient norm) as
-        device tensors; no host sync."""
+        device tensors; no host sync.
+
+        Under :meth:`use_mesh` the feed is the global batch: this rank
+        keeps its rows, and the gradients, the loss and the aux outputs are
+        the global batch's again (:meth:`_dp_reduce`) before the gradient
+        norm and the update."""
         self.init_state()
+        dp = self._dp
+        if dp is not None:
+            feed = self._dp_rows(feed)
         with f32_convs(), f32_matmuls():
-            loss, aux, grads, new_state = self._loss_and_grads(feed, rng,
-                                                               noise)
+            loss, aux, grads, new_state = self._loss_and_grads(
+                feed, rng, noise, dp=dp)
+            if dp is not None:
+                loss, aux = self._dp_reduce(grads, loss, aux)
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
                                    for g in tree_leaves(grads)))
             self.optimiser.update(self._trainable(self.params), grads,
@@ -512,6 +536,105 @@ class Model:
             if (name not in self.state and getattr(node, "_bn_nf", None)
                     is not None):
                 self.state[name] = node._fresh_bn_state(self.device)
+
+    # ------------------------------------------------------------- scale-out
+    def use_mesh(self, mesh, data_axis="data", model_axis=None):
+        """Train data-parallel over ``mesh`` (``parallel.make_mesh``), the
+        batch sharded over ``data_axis``.
+
+        Every rank calls :meth:`trainingstep` (or runs a fused loop) with
+        the *global* batch and keeps its rows; batch norm takes the global
+        batch's moments and dropout and ``GaussianRV`` the global batch's
+        draws; the gradients are averaged over the axis with one all-reduce
+        a step, then the update runs on every rank, so the parameters and
+        the optimiser state stay equal on every rank (rank 0's values are
+        broadcast here). ``trainingstep`` returns the global batch's loss,
+        error and debug outputs. ``predict`` and the dense paths run
+        unsharded on each rank; :meth:`save` writes from rank 0.
+
+        ``model_axis`` (tensor parallelism) and meshes with a ``model``,
+        ``space`` or ``pipe`` axis are not ported (ROADMAP.md item 8d/8e).
+        Losses that query the host (``MalisNLL``, ``SkelLoss``) are refused
+        on more than one rank. Reference: ``Model.use_mesh``.
+        """
+        from ..parallel import DataGroup
+        if model_axis is not None:
+            raise NotImplementedError(
+                f"use_mesh(model_axis={model_axis!r}): tensor parallelism is "
+                "not ported to elektronn2_tpu_torch (ROADMAP.md item 8d)")
+        names = tuple(mesh.mesh_dim_names or ())
+        other = [a for a in names if a in ("model", "space", "pipe")]
+        if other:
+            raise NotImplementedError(
+                f"use_mesh: mesh axes {other} (tensor, spatial or pipeline "
+                "parallelism) are not ported to elektronn2_tpu_torch "
+                "(ROADMAP.md item 8d/8e); give a mesh of a data axis only")
+        if data_axis not in names:
+            raise ValueError(f"data_axis={data_axis!r} is not an axis of the "
+                             f"mesh {names}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh for a model on {self.device}: "
+                "move the model (Model.to) or make the mesh on its device")
+        dp = DataGroup(mesh, data_axis)
+        if dp.world > 1 and self.loss_node is not None:
+            sync = sorted((type(n).__name__, n.name)
+                          for n in self.loss_node.all_parents()
+                          if getattr(n, "host_sync", False))
+            if sync:
+                raise NotImplementedError(
+                    "use_mesh over more than one rank: "
+                    + ", ".join(f"{c} node {n!r}" for c, n in sync)
+                    + " queries the host each step, which is not ported "
+                    "under a mesh (ROADMAP.md item 8f)")
+        self.init_state()
+        dp.broadcast_(tree_leaves(self.params) + tree_leaves(self.state)
+                      + (opt_leaves(self.opt_state)
+                         if self.opt_state is not None else []))
+        self._mesh, self._dp = mesh, dp
+        return self
+
+    def _dp_rows(self, feed):
+        """This rank's rows of every fed value with a batch axis (a view)."""
+        out = {}
+        for name, v in feed.items():
+            node = self.nodes.get(name)
+            if (node is not None and node.shape.hastag("b")
+                    and v.ndim == node.shape.ndim):
+                v = self._dp.rows(v, node.shape.tag2index("b"))
+            out[name] = v
+        return out
+
+    def _dp_reduce(self, grads, loss, aux):
+        """Average the gradients (in place in ``grads``), the loss and the
+        error over the data group with one all-reduce of a flat buffer;
+        gather the debug outputs with a batch axis and average the others.
+        Returns the global (loss, aux)."""
+        dp = self._dp
+        leaves = tree_leaves(grads)
+        n_err = 1 if self.error_node is not None else 0
+        flat = torch.cat([g.reshape(-1) for g in leaves]
+                         + [loss.reshape(1)]
+                         + [a.reshape(-1).float() for a in aux[:n_err]])
+        dp.mean_(flat)
+        off = 0
+        for n in sorted(grads):
+            for p in sorted(grads[n]):
+                g = grads[n][p]
+                grads[n][p] = flat[off:off + g.numel()].view_as(g)
+                off += g.numel()
+        loss = flat[off].reshape(loss.shape)
+        off += 1
+        out = []
+        for node, v in zip(self._aux_nodes(), aux):
+            if node is self.error_node:
+                out.append(flat[off:off + v.numel()].view_as(v).to(v.dtype))
+                off += v.numel()
+            elif node.shape.hastag("b") and v.ndim == node.shape.ndim:
+                out.append(dp.gather(v, node.shape.tag2index("b")))
+            else:
+                out.append(dp.mean_(v.float().clone()))
+        return loss, out
 
     def trainingstep(self, data, target=None, extra=None,
                      feed_overrides=None):
@@ -751,11 +874,20 @@ class Model:
         statistics), and with an optimiser ``__opt__`` (class, hyperparams,
         nesterov, step count) and its state's leaves ``opt/<i>`` in
         ``jax.tree_util`` order, so either package resumes the other's
-        training."""
+        training. Under :meth:`use_mesh` rank 0 of the data axis writes
+        (every rank holds the same values) and then every rank of the axis
+        waits at a barrier, so the file is whole when ``save`` returns."""
         if backend != "npz":
             raise NotImplementedError(
                 f"backend={backend!r}: only 'npz' is ported (orbax is a JAX "
                 "checkpoint format)")
+        if self._dp is None or self._dp.rank == 0:
+            self._write(fname)
+        if self._dp is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self._dp.group)
+
+    def _write(self, fname):
         spec_json, arg_arrays = self.gm.spec_json()
         payload = {"__spec__": np.frombuffer(spec_json.encode(), np.uint8)}
         payload.update(arg_arrays)
@@ -796,9 +928,10 @@ class Model:
 
     def set_params(self, params):
         """Replace the parameters; ``params`` is ``{node: {name: array}}``
-        (tensors or ndarrays), converted to contiguous float32 tensors on
-        the model's current device (the hand kernels take no strided view).
-        Shapes must match the graph's."""
+        (tensors or ndarrays), copied into new contiguous float32 tensors
+        on the model's current device (the hand kernels take no strided
+        view; training updates them in place, so they must not share the
+        caller's memory). Shapes must match the graph's."""
         dev = self.device
         new = {}
         for nname, d in params.items():
@@ -807,7 +940,8 @@ class Model:
                 t = torch.as_tensor(np.asarray(v, dtype=np.float32)
                                     if not isinstance(v, torch.Tensor) else v,
                                     dtype=torch.float32,
-                                    device=dev).contiguous()
+                                    device=dev).clone(
+                                        memory_format=torch.contiguous_format)
                 want = tuple(self.nodes[nname].params[pname].shape)
                 if tuple(t.shape) != want:
                     raise ValueError(f"param {nname}/{pname}: shape "
@@ -944,7 +1078,8 @@ def rebuild_model(model, override_mfp_to_active=False,
     Parameters, aux state and the optimiser state are copied (clones, on
     the model's device) wherever their shapes still match, and the serving
     lowerings (``set_dilated_impl``, ``set_convdense_impl``), the serving
-    precision and the int8 calibration carry over.
+    precision, the int8 calibration and the mesh (:meth:`Model.use_mesh`)
+    carry over.
     """
     def _input_fields(d):
         """(shape list, tag list) of an Input descriptor; writes the shape
@@ -1024,7 +1159,8 @@ def rebuild_model(model, override_mfp_to_active=False,
                  "_convdense_upconv", "_convdense_zfold", "_convdense_ptail",
                  "_convdense_poolslice", "_convdense_skipsum",
                  "_train_zfold", "_train_skipsum", "_remat",
-                 "_compute_dtype", "_compute_act", "_quant_scales"):
+                 "_compute_dtype", "_compute_act", "_quant_scales",
+                 "_mesh", "_dp"):
         setattr(new, knob, getattr(model, knob))
     return new
 

@@ -74,7 +74,8 @@ def _apply_dropout(x, rate, ctx, node):
     if not rate or not ctx.train:
         return x
     keep = 1.0 - rate
-    mask = ctx.draw(node, lambda g: dropout_mask(g, x.shape, keep, x.device))
+    mask = ctx.draw(node, lambda g, shape: dropout_mask(g, shape, keep,
+                                                        x.device), x.shape)
     return x if mask is None else dropout_map(x, mask, keep)
 
 
@@ -85,6 +86,10 @@ class _BNMixin:
     features, and the running statistics move to ``0.99 * old + 0.01 *
     batch`` (from zeros and ones where the node has none yet). Evaluation:
     the running statistics, or the batch's where there are none. eps 1e-5.
+    Under a data-parallel step (``ctx.dp``) the moments are the global
+    batch's: the sum and then the sum of squared deviations are summed over
+    the group by a differentiable all-reduce, so forward and backward are
+    the unsharded step's, as GSPMD takes them in the JAX package.
     Reference: ``neural.py::_BNMixin``."""
 
     BN_MOMENTUM = 0.99
@@ -106,8 +111,14 @@ class _BNMixin:
         st = ctx.state(self)
         if ctx.train or st is None:
             red = tuple(i for i in range(x.ndim) if i != f_axis)
-            mean = torch.mean(x, dim=red)
-            var = torch.var(x, dim=red, correction=0)
+            if ctx.dp is not None and ctx.train:
+                n = x.numel() // self._bn_nf * ctx.dp.world
+                mean = ctx.dp.sum_(torch.sum(x, dim=red)) / n
+                dev = x - mean.reshape(shape)
+                var = ctx.dp.sum_(torch.sum(dev * dev, dim=red)) / n
+            else:
+                mean = torch.mean(x, dim=red)
+                var = torch.var(x, dim=red, correction=0)
             if st is None:
                 st = self._fresh_bn_state(x.device)
             m = self.BN_MOMENTUM
@@ -573,14 +584,30 @@ class Crop(Node):
 @register_node_class
 class Pad(Node):
     """Pad the spatial borders: ``pad`` per spatial dim, an int (both sides)
-    or a (lo, hi) pair; ``mode`` as ``numpy.pad``'s (constant zeros,
-    reflect, edge, ...).
+    or a (lo, hi) pair; ``mode`` is any mode of ``numpy.pad``, with its
+    rules, also for pads wider than the extent.
 
-    Reference: ``neural.py::Pad``.
+    - ``constant`` (zeros) and ``empty`` (any values; zeros here):
+      ``F.pad``.
+    - ``edge``, ``reflect``, ``symmetric``, ``wrap``: a gather along each
+      spatial axis in turn, with the index vector ``numpy.pad`` makes of
+      ``arange(n)`` (so a pad past the extent repeats the reflection or the
+      wrap as numpy does). Each index vector is made once per axis, extent
+      and device and kept, so a step inside a CUDA graph copies nothing
+      from the host.
+    - ``maximum``, ``minimum``, ``mean``, ``median`` and ``linear_ramp``
+      (to 0): axis by axis in increasing order, each axis's statistic or
+      ramp taken over the array padded so far, as numpy and ``jnp.pad`` do.
+
+    Any axis order: the spatial axes need not be last.
+
+    Reference: ``neural.py::Pad`` (``jnp.pad``).
     """
 
-    _MODES = {"constant": "constant", "reflect": "reflect", "edge":
-              "replicate", "wrap": "circular"}
+    _INDEX_MODES = ("edge", "reflect", "symmetric", "wrap")
+    _STAT_MODES = ("maximum", "minimum", "mean", "median")
+    _MODES = ("constant", "empty") + _INDEX_MODES + _STAT_MODES \
+        + ("linear_ramp",)
 
     def __init__(self, parent, pad, mode="constant", name="pad",
                  print_repr=True):
@@ -592,28 +619,90 @@ class Pad(Node):
         else:
             pad = [(int(p), int(p)) if np.isscalar(p)
                    else (int(p[0]), int(p[1])) for p in pad]
-        if mode not in self._MODES:
-            raise ValueError(f"Pad mode {mode!r}: expected one of "
-                             f"{sorted(self._MODES)}")
         self.pad = pad
         self.mode = mode
+        self._index = {}          # (axis, extent, pad, device) -> index
         shape = list(ps.shape)
         for ax, s, (lo, hi) in zip(ps.spatial_axes, ps.spatial_shape, pad):
             shape[ax] = s + lo + hi
         self.shape = TaggedShape(shape, ps.tags, ps.strides, ps.fov,
                                  ps.mfp_offsets)
 
+    def _pads(self):
+        """(axis, lo, hi) of each padded spatial axis, in increasing axis
+        order (numpy's)."""
+        return sorted((ax, lo, hi) for ax, (lo, hi) in
+                      zip(self.parents[0].shape.spatial_axes, self.pad)
+                      if lo or hi)
+
+    def _gather_index(self, ax, n, lo, hi, device):
+        key = (ax, n, lo, hi, str(device))
+        idx = self._index.get(key)
+        if idx is None:
+            idx = self._index[key] = torch.as_tensor(
+                np.pad(np.arange(n), (lo, hi), mode=self.mode),
+                dtype=torch.long, device=device)
+        return idx
+
     def _compute(self, ctx, x):
-        axes = list(self.parents[0].shape.spatial_axes)
-        if self.mode != "constant" and axes != list(
-                range(x.ndim - len(axes), x.ndim)):
-            raise NotImplementedError(
-                f"Pad mode {self.mode!r} needs the spatial axes last")
-        widths = [0] * (2 * (x.ndim - axes[0]))    # F.pad: last axis first
-        for ax, (lo, hi) in zip(axes, self.pad):
-            widths[2 * (x.ndim - 1 - ax)] = lo
-            widths[2 * (x.ndim - 1 - ax) + 1] = hi
-        return torch.nn.functional.pad(x, widths, mode=self._MODES[self.mode])
+        mode = self.mode
+        if mode not in self._MODES:
+            raise ValueError(f"Pad mode {mode!r}: expected one of "
+                             f"{sorted(self._MODES)} (numpy.pad's)")
+        pads = self._pads()
+        if not pads:
+            return x
+        if mode in ("constant", "empty"):
+            first = pads[0][0]
+            widths = [0] * (2 * (x.ndim - first))   # F.pad: last axis first
+            for ax, lo, hi in pads:
+                widths[2 * (x.ndim - 1 - ax)] = lo
+                widths[2 * (x.ndim - 1 - ax) + 1] = hi
+            return torch.nn.functional.pad(x, widths)
+        for ax, lo, hi in pads:
+            n = x.shape[ax]
+            if mode in self._INDEX_MODES:
+                x = x.index_select(ax, self._gather_index(ax, n, lo, hi,
+                                                          x.device))
+                continue
+            if mode == "linear_ramp":
+                before = _ramp(x.narrow(ax, 0, 1), lo, ax)
+                after = _ramp(x.narrow(ax, n - 1, 1), hi, ax).flip(ax)
+            else:
+                s = _pad_stat(x, ax, mode)
+                before = s.expand(*[lo if i == ax else -1
+                                    for i in range(x.ndim)])
+                after = s.expand(*[hi if i == ax else -1
+                                   for i in range(x.ndim)])
+            x = torch.cat([before, x, after], dim=ax)
+        return x
+
+
+def _pad_stat(x, ax, mode):
+    """``numpy.pad``'s statistic of ``x`` along ``ax`` (keepdim)."""
+    if mode == "maximum":
+        return torch.amax(x, dim=ax, keepdim=True)
+    if mode == "minimum":
+        return torch.amin(x, dim=ax, keepdim=True)
+    if mode == "mean":
+        return torch.mean(x, dim=ax, keepdim=True)
+    # median: at an even extent, the mean of the two middle values
+    n = x.shape[ax]
+    srt = torch.sort(x, dim=ax).values
+    if n % 2:
+        return srt.narrow(ax, n // 2, 1)
+    return (srt.narrow(ax, n // 2 - 1, 1) + srt.narrow(ax, n // 2, 1)) / 2
+
+
+def _ramp(edge, num, ax):
+    """``jnp.linspace(0, edge, num, endpoint=False, axis=ax)``: the linear
+    ramp from 0 to the edge slice ``edge`` (size 1 on ``ax``), computed as
+    ``start * (1 - t) + stop * t`` with ``t = i / num``, as there."""
+    shape = [1] * edge.ndim
+    shape[ax] = num
+    t = (torch.arange(num, dtype=edge.dtype, device=edge.device)
+         / num).reshape(shape)
+    return 0.0 * (1 - t) + edge * t
 
 
 @register_node_class

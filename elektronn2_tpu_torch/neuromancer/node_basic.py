@@ -1,6 +1,6 @@
 """Node base class and basic graph nodes.
 
-Port of ``Node``, ``Input``, ``GenericInput``, ``FromTensor``,
+Port of ``Node``, ``Input``, ``Input_like``, ``GenericInput``, ``FromTensor``,
 ``ValueNode``, ``Concat``, ``MultMerge``, ``ApplyFunc``,
 ``InitialState_like``, ``Split``, ``Reshape``, ``Transpose`` and ``split`` in
 ``elektronn2_tpu/neuromancer/node_basic.py`` and its module-global
@@ -37,6 +37,11 @@ class TraceCtx:
                draws of this evaluation (:meth:`draw`)
       remat  : recompute each parameterised node's output in the backward
                pass (``Model.set_remat``)
+      dp     : the data-parallel group of a training step under a mesh
+               (``parallel.DataGroup``, ``Model.use_mesh``) or None; the
+               step's feed holds this rank's rows, random draws with a batch
+               axis are made at the global batch's shape and batch norm
+               takes its moments over the group
 
     The ``convdense_*`` flags select the conv-dense serving lowerings
     (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
@@ -54,6 +59,7 @@ class TraceCtx:
     """
 
     compute_dtype = None
+    dp = None
     quant_serving = False
     quant_scales = None
     quant_calibrate = None
@@ -117,13 +123,26 @@ class TraceCtx:
             raise KeyError(f"missing param {node.name}/{pname}; model params "
                            "out of sync with graph") from None
 
-    def draw(self, node, fn):
+    def local_shape(self, ts):
+        """The node shape ``ts`` (a TaggedShape) as this rank computes it:
+        under a data-parallel step its batch axis holds this rank's rows."""
+        shape = list(ts.shape)
+        if self.dp is not None and ts.hastag("b"):
+            shape[ts.tag2index("b")] //= self.dp.world
+        return tuple(shape)
+
+    def draw(self, node, fn, shape=None):
         """The random draw of a stochastic node in this evaluation: the
         value fed under the node's name in ``noise_in`` if any, else
         ``fn(rng)`` from the step's generator (None without one, and then
         the node acts as the identity). A node draws once per evaluation:
         the draw is kept in ``noise_out``, which a recomputation under
         remat and the caller read.
+
+        With ``shape`` (the draw's shape, the node's output shape) the draw
+        is ``fn(rng, shape)``; under a data-parallel step (``dp``) it is
+        made at the global batch's shape and this rank keeps its rows, so
+        every rank holds its part of the unsharded step's draw.
 
         The JAX package folds the node's index into the step's key
         (``TraceCtx.rng_for``); here every stochastic node takes the next
@@ -135,7 +154,16 @@ class TraceCtx:
             if v is None:
                 if self.rng is None:
                     return None
-                v = fn(self.rng)
+                if shape is None:
+                    v = fn(self.rng)
+                elif (self.dp is not None and node.shape.hastag("b")
+                      and len(shape) == node.shape.ndim):
+                    b = node.shape.tag2index("b")
+                    full = list(shape)
+                    full[b] *= self.dp.world
+                    v = self.dp.rows(fn(self.rng, tuple(full)), b)
+                else:
+                    v = fn(self.rng, tuple(shape))
             self.noise_out[node.name] = v
         return v
 
@@ -190,7 +218,13 @@ class Node:
                        wd_mult=1.0):
         """Register a parameter's initial value (ndarray or tensor), stored
         as a float32 CPU tensor, with its training flags (the optimiser
-        skips a parameter that is not ``trainable``)."""
+        skips a parameter that is not ``trainable``). A ``VariableParam``
+        container (``neuromancer/variables.py``) brings its own flags."""
+        from .variables import VariableParam
+        if isinstance(value, VariableParam):
+            trainable, lr_mult, wd_mult = (value.trainable, value.lr_mult,
+                                           value.wd_mult)
+            value = value.value
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(np.array(value, dtype=np.float32))
         self.params[pname] = torch.as_tensor(value, dtype=torch.float32)
@@ -217,6 +251,35 @@ class Node:
 
         visit(self)
         return order
+
+    @property
+    def input_nodes(self):
+        """The ``Input`` nodes among the ancestors."""
+        return [n for n in self.all_parents() if isinstance(n, Input)]
+
+    def predict_dense(self, raw_img, pad_raw=False, as_uint8=False,
+                      tile_batch=1, verbose=False, prefer_device=True,
+                      device_budget=4 << 30):
+        """Dense prediction with this node as the output map: the most
+        recent live ``Model`` of this node's graph that holds the node
+        serves it (``Model.predict_dense``), with this node standing in for
+        its prediction node for the call. Reference:
+        ``node_basic.py::Node.predict_dense``."""
+        model = self._gm.last_model(node_name=self.name)
+        if model is None:
+            raise RuntimeError(
+                f"no Model containing node {self.name!r} has been built on "
+                "its graph; call model_manager.getmodel() (and "
+                "designate_nodes) before node-level predict_dense")
+        kw = dict(pad_raw=pad_raw, as_uint8=as_uint8, tile_batch=tile_batch,
+                  verbose=verbose, prefer_device=prefer_device,
+                  device_budget=device_budget)
+        prev = model.prediction_node
+        model.prediction_node = self
+        try:
+            return model.predict_dense(raw_img, **kw)
+        finally:
+            model.prediction_node = prev
 
     # -- compute -------------------------------------------------------------
     def _compute(self, ctx, *parent_values):
@@ -260,6 +323,20 @@ class Input(Node):
                 f"input {self.name!r}: fed rank {v.ndim} != declared "
                 f"{self.shape.ndim}")
         return v.to(_DTYPES[self.dtype])
+
+
+def Input_like(ref, dtype=None, name="input", print_repr=True,
+               override_f=None):
+    """An ``Input`` with the TaggedShape of ``ref`` (a Node or a
+    TaggedShape), its feature count replaced by ``override_f`` if given.
+
+    Reference: ``node_basic.py::Input_like``.
+    """
+    ts = ref.shape if isinstance(ref, Node) else ref
+    if override_f:
+        ts = ts.updateshape("f", override_f)
+    return Input(list(ts.shape), list(ts.tags), dtype=dtype, name=name,
+                 print_repr=print_repr)
 
 
 @register_node_class
@@ -416,7 +493,7 @@ class InitialState_like(Node):
     def _compute_lazy(self, ctx):
         if self.name in ctx.feed:
             return torch.as_tensor(ctx.feed[self.name])
-        return ctx.param(self, "state0").expand(tuple(self.shape))
+        return ctx.param(self, "state0").expand(ctx.local_shape(self.shape))
 
 
 @register_node_class
@@ -461,7 +538,7 @@ class Reshape(Node):
                              f"to {tuple(self.shape)}")
 
     def _compute(self, ctx, x):
-        return x.reshape(tuple(self.shape))
+        return x.reshape(ctx.local_shape(self.shape))
 
 
 @register_node_class

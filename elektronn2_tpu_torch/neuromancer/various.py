@@ -52,8 +52,8 @@ class GaussianRV(Node):
     def _compute(self, ctx, mu, sig):
         if not ctx.train:
             return mu
-        eps = ctx.draw(self, lambda g: gaussian_noise(
-            g, mu.shape, self.n_samples, mu.device))
+        eps = ctx.draw(self, lambda g, shape: gaussian_noise(
+            g, shape, self.n_samples, mu.device), mu.shape)
         return mu if eps is None else mu + sig * eps
 
 

@@ -6,11 +6,12 @@ CUDA kernels (``tailconv``, ``extract``, ``extract_rot`` so far).
 """
 
 from .activations import get_activation, ACTIVATIONS
-from .conv import conv, pooling, maxout, softmax, apply_activation
+from .conv import (conv, dot, upconv, pooling, unpooling, upsampling, maxout,
+                   softmax, apply_activation)
 from .mfp import fragmentpool, fragments2dense, mfp_offsets_product
 
 __all__ = [
-    "get_activation", "ACTIVATIONS", "conv", "pooling", "maxout", "softmax",
-    "apply_activation", "fragmentpool", "fragments2dense",
+    "get_activation", "ACTIVATIONS", "conv", "dot", "upconv", "pooling",
+    "unpooling", "upsampling", "maxout", "softmax", "apply_activation", "fragmentpool", "fragments2dense",
     "mfp_offsets_product",
 ]

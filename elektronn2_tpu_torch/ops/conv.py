@@ -165,7 +165,7 @@ def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None, **kw):
     if axis_name is not None:
         raise NotImplementedError(
             "quantized_conv(axis_name=...): sharded serving is not ported "
-            "(ROADMAP.md §1 item 8)")
+            "(ROADMAP.md §1 item 8b)")
     conv_fn = conv_fn or conv
     x = x.float()
     # every divisor is a tensor on x's device: PyTorch's CUDA division by a

@@ -33,7 +33,7 @@ import os
 
 #: the flags whose features are not ported, with the ROADMAP.md item of each
 NOT_PORTED = {
-    "mesh": "sharded serving (ROADMAP.md §1 item 8)",
+    "mesh": "sharded serving (ROADMAP.md §1 item 8b)",
 }
 
 

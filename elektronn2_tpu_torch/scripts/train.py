@@ -16,6 +16,13 @@ stopped and written on exit also when the run is shorter.
 
 Usage: ``python -m elektronn2_tpu_torch.scripts.train
 examples/neuro3d.py [--cpu] [--n-steps N] [--save-path DIR]``.
+
+Data-parallel training (a config with ``mesh_axes``, e.g.
+``examples/neuro3d_pod.py``) over N processes: ``torchrun
+--nproc_per_node=N -m elektronn2_tpu_torch.scripts.train cfg.py``; under
+torchrun the process group is started first (``parallel.multihost.
+initialize``: NCCL, one card a process; gloo with ``--cpu``), so the
+config's device count is the group's.
 """
 
 from __future__ import annotations
@@ -40,13 +47,31 @@ def main(argv=None):
 
     import torch
 
+    from ..neuromancer.model import target_device
+    from ..parallel import multihost
+
+    device = target_device("cpu" if args.cpu else "cuda")
+    if multihost.under_torchrun():
+        multihost.initialize(device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        try:
+            return _run(args, device)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _run(args, device)
+
+
+def _run(args, device):
+    """Build the trainer from the config and run it (``--profile``: with a
+    trace of a window of its calls)."""
+    import torch
+
     from ..config import ExperimentConfig
     from ..log import logger
-    from ..neuromancer.model import target_device
     from ..training import fused_loop
     from ..training.trainer import Trainer
 
-    device = target_device("cpu" if args.cpu else "cuda")
     override = {}
     if args.n_steps is not None:
         override["n_steps"] = args.n_steps

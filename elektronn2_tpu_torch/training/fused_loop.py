@@ -36,6 +36,14 @@ What the graph holds, and why it stays right:
 - Augmentation, forward, backward and update run inside
   ``f32_convs``/``f32_matmuls``, during capture too, so cuDNN and cuBLAS
   record their full float32 algorithms and not TF32 ones.
+- Under ``Model.use_mesh`` every rank draws the global batch from the
+  loop's generator, seeded alike on every rank, and each step keeps this
+  rank's rows (``Model._train_step``); the gradient all-reduce is inside
+  the captured steps (on the card an NCCL collective in the graph: the
+  communicator exists since ``use_mesh`` and the capture's eager warm-up
+  step runs the collective once). The mesh's data group is part of
+  :meth:`_ChunkLoop.graph_key`, so a loop whose model moves onto a mesh
+  recaptures.
 
 ``HostFedFusedLoop`` (JAX ``make_fused_hostfed_trainstep`` and
 ``HostFedFusedLoop``) runs the same machinery over a host data source: K
@@ -225,16 +233,17 @@ class _ChunkLoop:
         """The key under which the captured chunk is kept: the loop's own
         head (B, K, switches), cuDNN's deterministic and benchmark flags,
         the model's trace switches (compute dtype, ``set_train_lowering``,
-        ``set_remat``), and for every parameter, optimiser slot and step
-        counter and input the tensor's identity, ``_version`` and address
-        (see ``DeviceTracer.graph_key``). The loop's own replays bump the
-        versions and move the kept key along with them."""
+        ``set_remat``, the mesh's data group: its identity, size and this
+        rank, ``Model.use_mesh``), and for every parameter, optimiser slot
+        and step counter and input the tensor's identity, ``_version`` and
+        address (see ``DeviceTracer.graph_key``). The loop's own replays
+        bump the versions and move the kept key along with them."""
         cudnn = torch.backends.cudnn
         m = self.model
         return (self._key_head(), bool(cudnn.deterministic),
                 bool(cudnn.benchmark),
                 (m._compute_dtype, m._train_zfold, m._train_skipsum,
-                 m._remat),
+                 m._remat, m._dp.key() if m._dp is not None else None),
                 tuple((id(t), t._version, t.data_ptr())
                       for t in self._read()),
                 tuple((id(t), t.data_ptr()) for t in self._owned()))

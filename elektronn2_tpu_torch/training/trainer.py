@@ -25,8 +25,14 @@ What differs from the JAX package:
   ``HostFedFusedLoop`` (a host source): one CUDA graph replay a chunk. The
   tracing trainer's state carry rides the host-fed chunk
   (``HostFedFusedLoop(carry_map=...)``).
-- ``mesh_axes`` (ROADMAP.md item 8) is not ported and raises; models are
-  saved as npz (orbax is a JAX format).
+- ``mesh_axes`` (``{"data": n}``) trains data-parallel through
+  ``Model.use_mesh`` over a ``torch.distributed`` mesh: every rank draws
+  the same global batch (the same seeds; no background workers on more
+  than one rank, whose queue order would differ by rank) and keeps its
+  rows. Checkpoints are npz (orbax is a JAX format) written by rank 0;
+  ``resume=True`` reloads on every rank and meshes again. Logging, the
+  log file and the history come from rank 0 only. Tensor, spatial and
+  pipeline axes are not ported (ROADMAP.md item 8d/8e).
 
 ``TracingTrainer`` and ``TracingTrainerRNN`` (the recurrent tracing
 workload over ``AgentData``) are the JAX package's, with the per-step
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import logging
 import os
 import time
 
@@ -45,6 +52,7 @@ import numpy as np
 from ..config import config
 from ..log import add_file_handler, logger
 from ..neuromancer.model import modelload, target_device
+from ..parallel.multihost import is_main_process
 from .fused_loop import FusedTrainLoop, HostFedFusedLoop, PinnedStage
 from .parallelisation import BackgroundProc
 from .trainutils import (ConsoleControl, HistoryTracker, Schedule, TBWriter,
@@ -84,10 +92,9 @@ class Trainer:
         self.preview_data = cfg.get("preview_data")
         self.preview_kwargs = dict(cfg.get("preview_kwargs", {}))
         self.schedules = dict(cfg.get("schedules", {}))
-        if cfg.get("mesh_axes"):
-            raise NotImplementedError(
-                "mesh_axes: multi-device training is not ported yet "
-                "(ROADMAP.md item 8)")
+        self.is_main = is_main_process()
+        if not self.is_main:             # rank 0 logs for the group
+            logger.setLevel(logging.WARNING)
 
         # crash recovery: resume=True picks up the rolling -LAST.mdl
         # (params, optimiser state, step counter) when one exists
@@ -116,6 +123,18 @@ class Trainer:
             opt_name = cfg.get("optimiser", "Adam")
             self.model.set_opt(opt_name, **dict(cfg.get("optimiser_params",
                                                         {})))
+        # scale-out from the config surface: mesh_axes = {"data": n}
+        if cfg.get("mesh_axes"):
+            from ..parallel import make_mesh
+            axes = dict(cfg["mesh_axes"])
+            self.model.use_mesh(
+                make_mesh(axes, devices=self.device.type),
+                model_axis="model" if "model" in axes else None)
+            if self.model._dp.world > 1 and self.n_workers:
+                logger.info("mesh of more than one rank: no background "
+                            "workers (every rank draws the same batches)")
+                self.n_workers = 0
+            logger.info(f"training mesh: {axes}")
 
         # data: direct or from config
         self.data = data
@@ -134,8 +153,9 @@ class Trainer:
                 self.data.link_model_geometry(self.model)
 
         os.makedirs(self.save_path, exist_ok=True)
-        add_file_handler(os.path.join(self.save_path,
-                                      self.save_name + ".log"))
+        if self.is_main:
+            add_file_handler(os.path.join(self.save_path,
+                                          self.save_name + ".log"))
         self.history = HistoryTracker()
         self.console = None
         self.step = getattr(self.model, "_step_count", 0)
@@ -584,6 +604,8 @@ class Trainer:
         return None
 
     def save_history(self):
+        if not self.is_main:
+            return
         prefix = os.path.join(self.save_path, self.save_name)
         self.history.save(prefix)
         try:

@@ -1,9 +1,10 @@
-"""Host-side helpers: HDF5 save and load, a growing array buffer, a
-KD-tree over a growing point set and ``as_list``.
+"""Host-side helpers: HDF5 and pickle save and load, timing and caching
+decorators, a growing array buffer, a KD-tree over a growing point set, a
+ring buffer and small helpers.
 
-Jax-free copy of ``as_list``, ``h5save``, ``h5load``, ``AccumulationArray``
-and ``DynamicKDT`` in ``elektronn2_tpu/utils/basic.py`` (reference:
-``elektronn2/utils``); the predict CLI and ``HistoryTracker`` write through
+Jax-free copy of ``elektronn2_tpu/utils/basic.py`` (reference:
+``elektronn2/utils`` and ``utils_basic.py``); the predict CLI and
+``HistoryTracker`` write through
 ``h5save``, ``data/cnndata.py`` reads through ``h5load`` and ``as_list``,
 ``data/skeleton.py::Trace`` and ``data/tracing_utils.py::ShotgunRegistry``
 need the other two. ``AccumulationArray.extend`` copies a block at once
@@ -13,7 +14,13 @@ imported when a file is read or written, not with this module.
 
 from __future__ import annotations
 
+import functools
+import pickle
+import time
+
 import numpy as np
+
+from ..log import logger
 
 
 def as_list(x):
@@ -54,6 +61,32 @@ def h5load(path, keys=None):
         if keys is None and len(out) == 1:
             return out[0]
         return out
+
+
+def picklesave(obj, path):
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def pickleload(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def timeit(fn):
+    """Decorator logging call duration. Reference: ``utils::timeit``."""
+    @functools.wraps(fn)
+    def wrap(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        logger.debug(f"{fn.__name__}: {time.perf_counter() - t0:.4f}s")
+        return out
+    return wrap
+
+
+def cache(fn):
+    """Unbounded memoisation decorator. Reference: ``utils::cache``."""
+    return functools.lru_cache(maxsize=None)(fn)
 
 
 class AccumulationArray:
@@ -166,3 +199,108 @@ class DynamicKDT:
 
     def __len__(self):
         return len(self._points)
+
+
+def unique_rows(a):
+    """Unique rows of a 2D array (order of first occurrence preserved).
+    Reference: ``utils_basic.py::unique_rows``."""
+    a = np.ascontiguousarray(a)
+    if a.ndim != 2:
+        raise ValueError(f"unique_rows expects a 2D array, got {a.shape}")
+    view = a.view([("", a.dtype)] * a.shape[1]).reshape(-1)
+    _, first = np.unique(view, return_index=True)
+    return a[np.sort(first)]
+
+
+def makeversiondir(path, dir_name=None):
+    """Create a directory; if it already exists, create a versioned
+    sibling (``...-v2``, ``-v3``, …) instead and return the path actually
+    created. Reference: ``utils_basic.py::makeversiondir`` (guards the
+    trainer save root against clobbering an earlier run)."""
+    import os
+    base = os.path.join(path, dir_name) if dir_name else path
+    candidate = base
+    v = 1
+    while os.path.exists(candidate):
+        v += 1
+        candidate = f"{base}-v{v}"
+    os.makedirs(candidate)
+    return candidate
+
+
+def import_variable_from_file(file_path, class_name):
+    """Exec a Python source file and return one symbol from its namespace.
+    Reference: ``utils_basic.py::import_variable_from_file`` (how the
+    reference pulled ``create_model``-style callables out of standalone
+    files)."""
+    ns = {"__file__": str(file_path), "__name__": "__elektronn2_import__"}
+    with open(file_path) as f:
+        code = compile(f.read(), str(file_path), "exec")
+    exec(code, ns)
+    try:
+        return ns[class_name]
+    except KeyError:
+        raise AttributeError(
+            f"{file_path} defines no symbol {class_name!r}") from None
+
+
+def pretty_string_ops(n):
+    """Format an op count: ``1234567890 → '1.23 GOp'``. Reference:
+    ``utils_basic.py::pretty_string_ops``."""
+    n = float(n)
+    for unit in ("", "k", "M", "G", "T", "P"):
+        if abs(n) < 1000.0 or unit == "P":
+            return f"{n:.2f} {unit}Op".replace(".00 ", " ")
+        n /= 1000.0
+
+
+def get_free_cpu_count(safety=1):
+    """CPUs not currently busy (cpu_count minus 1-min load average, at
+    least 1). Reference: ``utils_basic.py::get_free_cpu_count`` — sizes
+    the background data-worker pool."""
+    import os
+    total = os.cpu_count() or 1
+    try:
+        load = os.getloadavg()[0]
+    except OSError:
+        load = 0.0
+    return max(1, int(total - load - safety))
+
+
+class CircularBuffer:
+    """Fixed-capacity ring buffer over scalars/arrays with ``data`` /
+    ``mean`` views in insertion order. Reference:
+    ``utils_basic.py::CircularBuffer`` (the HistoryTracker's smoothing
+    window there)."""
+
+    def __init__(self, buffer_len):
+        self.buffer_len = int(buffer_len)
+        self._buf = None
+        self._n = 0          # total appends
+        self._i = 0          # next write slot
+
+    def append(self, value):
+        value = np.asarray(value)
+        if self._buf is None:
+            self._buf = np.zeros((self.buffer_len,) + value.shape,
+                                 value.dtype if value.dtype.kind == "f"
+                                 else np.float64)
+        self._buf[self._i] = value
+        self._i = (self._i + 1) % self.buffer_len
+        self._n += 1
+
+    @property
+    def data(self):
+        if self._buf is None:
+            return np.zeros((0,))
+        if self._n < self.buffer_len:
+            return self._buf[:self._n].copy()
+        # oldest → newest
+        return np.concatenate([self._buf[self._i:], self._buf[:self._i]])
+
+    def mean(self):
+        d = self.data
+        return d.mean(axis=0) if len(d) else 0.0
+
+    def __len__(self):
+        return min(self._n, self.buffer_len)

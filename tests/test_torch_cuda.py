@@ -1375,3 +1375,30 @@ def test_k1_failure_inside_tune_sweep_reaches_the_caller(cuda_device,
         tune_sweep(m, steps=[(8, 64, 64)], slab_batches=(1,), K=1,
                    verbose=False)
     assert not m._dilated_ptail and m._compute_dtype is None
+
+
+@pytest.mark.cuda
+def test_graphed_chunk_under_a_mesh_of_one_equals_no_mesh(cuda_device,
+                                                          deterministic_cudnn):
+    """A world-size-1 NCCL mesh (``Model.use_mesh``): one graphed
+    FusedTrainLoop chunk, whose captured steps hold the gradient
+    all-reduce, equals the same chunk without a mesh from the same weights
+    and generator, bit for bit (the average over one rank multiplies by
+    1)."""
+    from elektronn2_tpu_torch.parallel import make_mesh
+    from elektronn2_tpu_torch.training.fused_loop import FusedTrainLoop
+    outs = []
+    for mesh in (False, True):
+        m, aug = _train_net(cuda_device)
+        if mesh:
+            m.use_mesh(make_mesh({"data": 1}))
+        loop = FusedTrainLoop(m, aug, batch_size=2, n_inner=3, seed=7)
+        outs.append((loop.run_chunk(), {n: {k: v.clone() for k, v in
+                                            d.items()}
+                                        for n, d in m.params.items()}))
+    (a, pa), (b, pb) = outs
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    for n, d in pa.items():
+        for k, v in d.items():
+            assert torch.equal(pb[n][k], v), (n, k)

@@ -79,7 +79,22 @@ MODULES = [
     "elektronn2_tpu_torch.scripts.predict",
     "elektronn2_tpu_torch.scripts.profile",
     "elektronn2_tpu_torch.scripts.train",
+    "elektronn2_tpu_torch.parallel",
+    "elektronn2_tpu_torch.parallel.mesh",
+    "elektronn2_tpu_torch.parallel.multihost",
+    "elektronn2_tpu_torch.parallel.data_parallel",
 ]
+
+#: a meta-path finder that refuses jax, the JAX package and the reference
+#: shim: what a machine without them does (the card's has no jax)
+BLOCK = ("import sys\n"
+         "class _Block:\n"
+         "    def find_spec(self, name, path=None, target=None):\n"
+         "        top = name.split('.')[0]\n"
+         "        if top in ('jax', 'jaxlib', 'elektronn2_tpu', "
+         "'elektronn2'):\n"
+         "            raise ImportError('blocked: ' + name)\n"
+         "sys.meta_path.insert(0, _Block())\n")
 
 
 def _run(code):
@@ -548,3 +563,83 @@ def test_no_unported_error_cites_items_6_or_7_outside_the_tpu_lowerings():
     assert not cites6 and not cites7, (cites6, cites7)
     src = inspect.getsource(Model.set_compute_dtype)
     assert "NotImplementedError" not in src and "item 7" not in src
+
+
+def test_new_surface_names_import_without_jax():
+    # the reference import surface the port gained (ROADMAP.md item 9) and
+    # the parallel package import with jax and the JAX package blocked
+    code = (BLOCK + "from elektronn2_tpu_torch.utils import (h5save, h5load,\n"
+            "    picklesave, pickleload, timeit, cache, AccumulationArray,\n"
+            "    DynamicKDT)\n"
+            "from elektronn2_tpu_torch.utils.utils_basic import (\n"
+            "    unique_rows, makeversiondir, import_variable_from_file,\n"
+            "    pretty_string_ops, get_free_cpu_count, CircularBuffer)\n"
+            "from elektronn2_tpu_torch.neuromancer import (Input_like,\n"
+            "    rebuild_model)\n"
+            "from elektronn2_tpu_torch.neuromancer.variables import (\n"
+            "    VariableParam, VariableWeight, ConstantParam)\n"
+            "from elektronn2_tpu_torch.neuromancer.graphutils import "
+            "make_func\n"
+            "from elektronn2_tpu_torch.ops import dot, upconv, unpooling, "
+            "upsampling\n"
+            "from elektronn2_tpu_torch.parallel import make_mesh, mesh_info\n"
+            "from elektronn2_tpu_torch.parallel.multihost import (\n"
+            "    initialize, global_mesh, is_main_process)\n"
+            "initialize()\n"
+            "m = global_mesh(device='cpu')\n"
+            "assert mesh_info(m) == {'axes': {'data': 1}, 'n_devices': 1,\n"
+            "                        'platform': 'cpu'}, mesh_info(m)\n"
+            "assert is_main_process()\n"
+            "assert not [k for k in sys.modules if k.split('.')[0] in\n"
+            "            ('jax', 'elektronn2_tpu', 'elektronn2')]\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_reference_style_config_trains_without_jax(tmp_path):
+    # a config that imports only elektronn2.* builds the port's Model and
+    # trains through the port's Trainer, with jax and the JAX package (and
+    # the elektronn2 shim over it) blocked
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_compat_shim import REFERENCE_STYLE_CONFIG
+    cfg = tmp_path / "refstyle_config.py"
+    cfg.write_text(REFERENCE_STYLE_CONFIG)
+    code = (BLOCK + "import numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.config import ExperimentConfig\n"
+            "from elektronn2_tpu_torch.neuromancer.model import Model\n"
+            "from elektronn2_tpu_torch.training.trainer import Trainer\n"
+            f"exp = ExperimentConfig.from_file({str(cfg)!r}, override={{\n"
+            f"    'save_path': {str(tmp_path)!r}}})\n"
+            "assert type(exp.create_model()) is Model\n"
+            "tr = Trainer(exp, device='cpu')\n"
+            "hist = tr.run()\n"
+            "assert tr.step == 4\n"
+            "assert np.isfinite([r[2] for r in hist.timeline]).all()\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_neuro3d_pod_loads_and_trains_without_jax(tmp_path):
+    # examples/neuro3d_pod.py counts its devices with `import jax` while it
+    # is exec'd: the loader's stand-in answers (one device on the CPU), and
+    # the CLI trains it under a mesh of one
+    code = (BLOCK + "import os, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.config import ExperimentConfig\n"
+            "from elektronn2_tpu_torch.scripts.train import main\n"
+            "exp = ExperimentConfig.from_file('examples/neuro3d_pod.py')\n"
+            "assert exp.mesh_axes == {'data': 1}, exp.mesh_axes\n"
+            "assert exp.batch_size == 4 and exp.fused_steps == 8\n"
+            f"d = {str(tmp_path)!r}\n"
+            "assert main(['--cpu', 'examples/neuro3d_pod.py', '--n-steps',\n"
+            "             '2', '--save-path', d]) == 0\n"
+            "assert os.path.exists(os.path.join(d, 'neuro3d_pod-LAST.mdl'))\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

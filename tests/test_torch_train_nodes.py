@@ -199,6 +199,9 @@ CASES = {
     "pad_bn_dropout": (standalone_net, {}),
     "pad_reflect": (standalone_net, dict(mode="reflect")),
     "pad_edge": (standalone_net, dict(mode="edge")),
+    "pad_symmetric": (standalone_net, dict(mode="symmetric")),
+    "pad_wrap": (standalone_net, dict(mode="wrap")),
+    "pad_linear_ramp": (standalone_net, dict(mode="linear_ramp")),
     "basic_nodes": (basic_nodes_net, {}),
     "binary_nll": (binary_net, {}),
     "gaussian_nll": (gaussian_net, {}),
