@@ -3,7 +3,8 @@
 
 Drives the port's paths at full width and checks them: the dense-serving
 deployment (whole KNOSSOS datasets swept slab by slab by ``sweep_knossos``,
-the flagship through K1, the wide U-Net, and the ``predict`` CLI); training
+the flagship through K1, the wide U-Net, and the ``predict`` CLI), and the
+same serving z-sharded over a mesh with halo exchange; training
 of the bench's neuro3d net (the fused loop, one CUDA graph per chunk) with the
 trained weights served through K1 after it, its batch-normed dropout form
 (served densely after it), and its rows under the train lowerings and
@@ -350,7 +351,26 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     to 1e-6; the NCCL kernels counted in a profiled replay, at least one a
     step; both timed in turns), two gloo ranks on CUDA tensors against one
     process, and the trained weights served through K1 (one launch, which
-    joins the kernels line).
+    joins the kernels line);
+26. serve_sharded (after serve_dtypes, before the sweep): (a) a NCCL mesh
+    of one (``{"space": 1}``): the flagship request of 4. through
+    ``predict_dense_sharded(pad_raw=True)`` with K1 against
+    ``predict_dense_device`` (``SLICE_ATOL``), K1's two launches counted by
+    the device under ``torch.profiler`` and each held against its plain
+    version, the halo exchange's CUDA-event ms and its share of the
+    request, both routes timed in turns; the wide U-Net slab of 6. through
+    the conv-dense sharded leg (four K1 launches, ``CONVDENSE_ATOL``);
+    (c) ``trace_batch(mesh={"data": 1})`` at 7.'s and 8.'s B and K, equal
+    to the unsharded traces point for point, K2 and K3 counted; (b) two
+    spawned gloo ranks on CUDA tensors: the same request on ``{"space":
+    2}`` within ``SLICE_ATOL`` of (a)'s unsharded map and in int8 bit for
+    bit the one-process int8 map (the scale's MAX over the group), a
+    ``sweep_knossos(mesh=...)`` of a 128x496x496 dataset against the
+    one-process sweep, odd-B rollouts (1023 and 511 agents) on ``{"data":
+    2}`` against one process's rollouts of the same padded shards
+    (``POOL_ATOL``), the ranks' results equal; (d) ``predict --ptail
+    --mesh space=1`` against the CLI without ``--mesh`` (uint8 maps at
+    most 1 apart). K1's, K2's and K3's launches join the kernels line.
 
 Each phase prints JSON lines; then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
@@ -377,7 +397,7 @@ import numpy as np
 import torch
 
 from elektronn2_tpu_torch.data.knossos_array import KnossosArray, save_knossos
-from elektronn2_tpu_torch.data.skeleton import read_nml_file
+from elektronn2_tpu_torch.data.skeleton import Trace, read_nml_file
 from elektronn2_tpu_torch.data.tracing_utils import (DeviceTracer,
                                                      ShotgunRegistry,
                                                      flight_frame)
@@ -1307,10 +1327,12 @@ def profile_slab(model, vol, top=12):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(profile_margin())
         t0 = time.perf_counter()
         model.predict_dense_device(vol, pad_raw=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(profile_margin())
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
@@ -1393,25 +1415,73 @@ def teacher_forced_err(log, vol, rotate):
 ROLLOUT_TURNS = ("graphed", "eager", "eager", "graphed", "graphed", "eager")
 
 
+#: The profiler's capture window opens late by a time that grows with the
+#: process's age, and it drops the device events that fall before it: a
+#: call's first kernels (``elektronn2_tpu_torch/scripts/
+#: exp_profiler_window.py`` measures it; PERF.md gives the rates). So every
+#: profiled window opens and closes with idle time: ``PROFILE_MARGIN_S``
+#: plus ``PROFILE_DRIFT`` seconds for each second since this module was
+#: imported, about three times the fastest rate measured. A margin makes a
+#: drop rarer, not impossible: ``profile_once`` reports the launches left
+#: without a kernel, and a count that is checked comes from a profile
+#: that has none (``PROFILE_ATTEMPTS``).
+T_IMPORT = time.monotonic()
+PROFILE_MARGIN_S = 0.5
+PROFILE_DRIFT = 0.003
+
+
+#: profiles of an idempotent call taken until one holds every launch's
+#: kernel (``launches_unrecorded`` 0), before a count from it is checked
+PROFILE_ATTEMPTS = 4
+
+
+def profile_margin():
+    """Seconds of idle time to keep inside a profiled window at each end."""
+    return PROFILE_MARGIN_S + PROFILE_DRIFT * (time.monotonic() - T_IMPORT)
+
+
+#: the host calls that launch one kernel, which the device records under
+#: the same correlation id
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def unrecorded_launches(prof):
+    """Kernel launches of a profile whose kernel the device did not record
+    (0 where the window held them all; None where this torch does not
+    expose the profiler's raw events)."""
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None or not hasattr(results, "events"):
+        return None
+    events = list(results.events())
+    seen = {e.correlation_id() for e in events
+            if str(e.device_type()).endswith("CUDA")}
+    return sum(1 for e in events if e.name() in KERNEL_LAUNCH_CALLS
+               and e.correlation_id() not in seen)
+
+
 def profile_once(fn, kernel, top=10):
     """One call of ``fn`` under ``torch.profiler``: its wall time, the
     device time of its kernels, the device idle share of the wall, the top
-    device kernels, and the launches and device us per launch of ``kernel``
-    (a substring of its name) as the device recorded them. A profile with
-    no device events reports None and the wall. The counts fall short as
-    the process ages: after ``phase_trace_pool`` the same ``trace_batch``
-    profile lacks its first rollout step's kernels and the host copies
-    before it, so the rollouts whose launches the device counts run
-    before the pools."""
+    device kernels, the launches and device us per launch of ``kernel``
+    (a substring of its name) as the device recorded them, and the launches
+    whose kernel it did not record. A profile with no device events reports
+    None and the wall. The window opens ``profile_margin()`` before the
+    call and closes as long after it (without the margin the counts fell
+    short as the process aged: a late ``trace_batch`` profile lacked its
+    first rollout step's kernels, a late ``serve_sharded`` profile one of
+    its two K1 launches); the wall is the call's alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(profile_margin())
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(profile_margin())
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
                       and e.self_device_time_total > 0),
@@ -1425,6 +1495,7 @@ def profile_once(fn, kernel, top=10):
                                          for e in mine) / n if n else None,
                 kernel_launches=n, device_kernels=sum(e.count
                                                       for e in kernels),
+                launches_unrecorded=unrecorded_launches(prof),
                 top=[dict(kernel=e.key[:90],
                           ms=e.self_device_time_total / 1e3, calls=e.count)
                      for e in kernels[:top]])
@@ -2786,8 +2857,10 @@ def wgrad_by_layer(model, loop):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
+        time.sleep(profile_margin())
         loop._run_chunk_eager()
         torch.cuda.synchronize()
+        time.sleep(profile_margin())
     wgrad, bwd = {}, {}
     for evt in prof.events():
         if evt.name != "aten::convolution_backward":
@@ -3165,6 +3238,7 @@ class CliProbe:
                 self.prof = profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA])
                 self.prof.start()
+                time.sleep(profile_margin())
                 self.window_at = (self.steps, time.perf_counter())
             out = orig(obj, *a, **kw)
             self.steps += n
@@ -3173,6 +3247,7 @@ class CliProbe:
                 torch.cuda.synchronize()
                 self.window_wall = time.perf_counter() - self.window_at[1]
                 self.window_steps = self.steps - self.window_at[0]
+                time.sleep(profile_margin())
                 self.prof.stop()
             return out
         return call
@@ -3540,8 +3615,10 @@ def dp_mesh_of_one(smi):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                time.sleep(profile_margin())
                 loop.run_chunk()
                 torch.cuda.synchronize()
+                time.sleep(profile_margin())
             kernels.append(device_kernels(prof))
         n_nccl, nccl_ms, names = nccl_kernels(kernels[1])
         busy = sum(ms for _, ms in kernels[1].values())
@@ -3695,6 +3772,465 @@ def phase_train_dp(smi):
     return launches
 
 
+SHARD_TURNS = ("unsharded", "sharded", "sharded", "unsharded",
+               "unsharded", "sharded")          # (a): requests in turns
+SHARD_SWEEP_SHAPE = (128, 496, 496)     # (b), (d): two slabs at SWEEP_STEP
+SHARD_TRACE_B = (1023, 511)             # (c): odd B over two ranks (K2, K3)
+SHARD_RANKS = 2                         # (b): gloo ranks on the one card
+
+
+def sharded_flagship():
+    """The flagship at full width with ``phase_slice``'s weights (numpy
+    seed ``SEED``) on the K1 route."""
+    model = flagship_model(mfp=True, patch=[23, 103, 103])
+    model.set_params(seeded_params(model, np.random.RandomState(SEED)))
+    model.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+    return model
+
+
+def sharded_request():
+    """(b)'s and (a)'s 120x496x496 request, made from numpy seed
+    ``SEED + 13``, on the card."""
+    return torch.from_numpy(np.random.RandomState(SEED + 13).rand(
+        *REQ_SHAPE).astype(np.float32)).cuda()
+
+
+def sharded_tracer(rotate):
+    """The tracing deployment's model and volume (numpy seed ``SEED +
+    20``), a tracer on the K2 or K3 route, and (c)'s seeds: B and K of the
+    rollout phase (``TRACE_B``/``ROT_B``) and the odd B of
+    ``SHARD_TRACE_B``."""
+    rng = np.random.RandomState(SEED + 20 + rotate)
+    model = tracer_model(TRACE_PATCH)
+    model.set_params(seeded_tracer_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
+    lo, hi = ROT_SEEDS if rotate else TRACE_SEEDS
+    B, K = (ROT_B, ROT_K) if rotate else (TRACE_B, TRACE_K)
+    tracer = make_tracer(model, vol, max_steps=K,
+                         rotate_to_heading=bool(rotate))
+    return (tracer, rng.uniform(lo, hi, (B, 3)).astype(np.float32),
+            rng.uniform(lo, hi, (SHARD_TRACE_B[rotate], 3)).astype(
+                np.float32))
+
+
+def map_digest(a):
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def sharded_rank(rank, world, port, kdir, out_dir):
+    """(b), (c): one of two gloo ranks on the one card, the whole request
+    given to each: the flagship request on a ``{"space": 2}`` mesh in
+    float32 (K1 counted) and int8, a ``sweep_knossos(mesh=...)`` of
+    ``kdir``, and the odd-B rollouts of both tracers on a ``{"data": 2}``
+    mesh (K2 and K3 counted). Writes its digests, counts and seconds;
+    rank 0 also its maps and traces."""
+    import pickle
+    import torch.distributed as dist
+    from elektronn2_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        res, maps = {}, {}
+        mesh = make_mesh({"space": world})
+        model = sharded_flagship()
+        vol = sharded_request()
+        model.predict_dense_sharded(vol, mesh, pad_raw=True)     # warm
+        for mode in ("f32", "int8"):
+            model.set_compute_dtype("int8" if mode == "int8" else None)
+            before = tailconv.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = model.predict_dense_sharded(vol, mesh, pad_raw=True)
+            torch.cuda.synchronize()
+            res[f"{mode}_seconds"] = time.perf_counter() - t0
+            res[f"{mode}_k1"] = tailconv.launches - before
+            maps[mode] = y.cpu().numpy()
+            del y
+        model.set_compute_dtype(None)
+        t0 = time.perf_counter()
+        maps["sweep"] = model.sweep_knossos(KnossosArray(kdir), mesh=mesh)
+        res["sweep_seconds"] = time.perf_counter() - t0
+        del model, vol
+        torch.cuda.empty_cache()
+        tmesh = make_mesh({"data": world})
+        for rotate, mod in ((0, extract), (1, extract_rot)):
+            tracer, _, seeds = sharded_tracer(rotate)
+            tracer.trace_batch(seeds, mesh=tmesh)         # capture
+            before = mod.launches
+            t0 = time.perf_counter()
+            traces = tracer.trace_batch(seeds, mesh=tmesh)
+            res[f"trace{rotate}_seconds"] = time.perf_counter() - t0
+            res[f"trace{rotate}_launches"] = mod.launches - before
+            maps[f"trace{rotate}"] = [t.coords for t in traces]
+            del tracer
+            torch.cuda.empty_cache()
+        res["digests"] = {k: map_digest(np.concatenate(
+            [np.asarray(c).ravel() for c in v]) if isinstance(v, list)
+            else v) for k, v in maps.items()}
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(out_dir, f"shard_rank{rank}.pkl"), "wb") as f:
+            pickle.dump((res, maps if rank == 0 else None), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def halo_timed(calls):
+    """Wrap ``parallel.halo.halo_gather`` to time each call with CUDA
+    events (its all_gather and the concatenation) into ``calls``; returns
+    the original to put back."""
+    from elektronn2_tpu_torch.parallel import halo
+    orig = halo.halo_gather
+
+    def timed(x, h, group):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = orig(x, h, group)
+        b.record()
+        calls.append((a, b, int(h), tuple(x.shape)))
+        return y
+    halo.halo_gather = timed
+    return orig
+
+
+def shard_one_flagship(smi, mesh):
+    """(a): the flagship request through ``predict_dense_sharded`` on a
+    NCCL mesh of one against ``predict_dense_device``: the map within
+    ``SLICE_ATOL``, K1's launches counted by the device under
+    ``torch.profiler`` (in the first of ``PROFILE_ATTEMPTS`` profiles that
+    holds every launch's kernel) and each held against its plain version,
+    the halo exchange's CUDA-event ms, and both routes timed in turns.
+    Returns K1's launches of the sharded request and the unsharded map."""
+    from elektronn2_tpu_torch.parallel import halo
+    model = sharded_flagship()
+    vol = sharded_request()
+    out_shape = (2,) + REQ_SHAPE[1:]
+    ref = model.predict_dense_device(vol, pad_raw=True)
+    check_probs(model.predict_dense_sharded(vol, mesh, pad_raw=True),
+                out_shape)                                   # warm
+    calls, k1_fn = [], tailconv.conv3x3_dilated
+
+    def recorded(x, w, b, dil=(1, 1, 1), relu=True):
+        y = k1_fn(x, w, b, dil, relu)
+        calls.append((x, w, b, tuple(dil), y))
+        return y
+    tailconv.launches = 0
+    tailconv.conv3x3_dilated = recorded
+    try:
+        got = model.predict_dense_sharded(vol, mesh, pad_raw=True)
+        torch.cuda.synchronize()
+    finally:
+        tailconv.conv3x3_dilated = k1_fn
+    launches = tailconv.launches
+    per_launch = k1_calls_vs_plain(calls, "serve_sharded (a)")
+    del calls
+    dev = check_probs(got, out_shape)
+    err = (got - ref).abs().max().item()
+    del got
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof = profile_once(lambda: model.predict_dense_sharded(
+            vol, mesh, pad_raw=True), "tailconv_tc_kernel")
+        if not prof["launches_unrecorded"]:
+            break
+    halos = []
+    orig = halo_timed(halos)
+    try:
+        t0 = time.perf_counter()
+        model.predict_dense_sharded(vol, mesh, pad_raw=True)
+        torch.cuda.synchronize()
+        halo_req = time.perf_counter() - t0
+    finally:
+        halo.halo_gather = orig
+    halo_ms = sum(a.elapsed_time(b) for a, b, _, _ in halos)
+    times = {"unsharded": [], "sharded": []}
+    for turn in SHARD_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "sharded":
+            model.predict_dense_sharded(vol, mesh, pad_raw=True)
+        else:
+            model.predict_dense_device(vol, pad_raw=True)
+        torch.cuda.synchronize()
+        times[turn].append(time.perf_counter() - t0)
+    mvox = np.prod(REQ_SHAPE[1:]) / 1e6
+    un, sh = np.median(times["unsharded"]), np.median(times["sharded"])
+    emit("serve_sharded_flagship", mesh={"space": 1}, backend="nccl",
+         request=list(REQ_SHAPE), max_abs_vs_unsharded=err,
+         tolerance=SLICE_ATOL, channel_sum_dev=dev, k1_launches=launches,
+         k1_launches_profiled=prof["kernel_launches"],
+         profile_launches_unrecorded=prof["launches_unrecorded"],
+         profile_attempts=attempt,
+         profile_margin_s=profile_margin(),
+         k1_us_per_launch=prof["kernel_us_per_launch"],
+         profile_device_ms=prof["device_ms"], idle_share=prof["idle_share"],
+         k1_launches_vs_plain=per_launch,
+         halo_calls=[dict(halo=h, x=list(x)) for _, _, h, x in halos],
+         halo_ms=halo_ms, halo_request_seconds=halo_req,
+         halo_share=halo_ms / 1e3 / halo_req,
+         seconds_unsharded=times["unsharded"],
+         seconds_sharded=times["sharded"], mvox_s_unsharded=mvox / un,
+         mvox_s_sharded=mvox / sh, sharded_over_unsharded=sh / un,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, nvidia_smi=smi)
+    if err > SLICE_ATOL:
+        raise AssertionError(f"serve_sharded (a): sharded vs unsharded "
+                             f"{err} > {SLICE_ATOL}")
+    if prof["launches_unrecorded"]:
+        raise AssertionError(f"serve_sharded (a): each of {attempt} "
+                             "profiles lacks a launch's kernel "
+                             f"({prof['launches_unrecorded']} in the last)")
+    if launches != 2 or prof["kernel_launches"] != 2:
+        raise AssertionError(f"serve_sharded (a): {launches} K1 launches "
+                             f"({prof['kernel_launches']} profiled), "
+                             "expected 2")
+    return launches, ref.cpu().numpy()
+
+
+def shard_one_unet(smi, mesh):
+    """(a): ``phase_convdense``'s wide U-Net slab through the conv-dense
+    sharded leg (one input halo, the whole program per rank) under
+    ``set_convdense_impl(zfold, skipsum, ptail)`` on the NCCL mesh of one:
+    four K1 launches, the map within ``CONVDENSE_ATOL`` of the unsharded
+    one. Returns K1's launches."""
+    rng = np.random.RandomState(SEED + 7)
+    model = wide_unet_model()
+    model.set_params(seeded_params(model, rng))
+    model.set_convdense_impl(zfold=True, skipsum=True, ptail=True)
+    vol = torch.from_numpy(rng.rand(*SLAB_SHAPE).astype(np.float32)).cuda()
+    ref = model.predict_dense_device(vol, pad_raw=True)
+    torch.cuda.synchronize()
+    tailconv.launches = 0
+    t0 = time.perf_counter()
+    got = model.predict_dense_sharded(vol, mesh, pad_raw=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = tailconv.launches
+    dev = check_probs(got, (2,) + SLAB_SHAPE[1:])
+    err = (got - ref).abs().max().item()
+    t0 = time.perf_counter()
+    model.predict_dense_device(vol, pad_raw=True)
+    torch.cuda.synchronize()
+    un = time.perf_counter() - t0
+    emit("serve_sharded_unet", mesh={"space": 1}, backend="nccl",
+         slab=list(SLAB_SHAPE), max_abs_vs_unsharded=err,
+         tolerance=CONVDENSE_ATOL, channel_sum_dev=dev, k1_launches=launches,
+         seconds_sharded=dt, seconds_unsharded=un,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, nvidia_smi=smi)
+    if err > CONVDENSE_ATOL:
+        raise AssertionError(f"serve_sharded (a) U-Net: {err} > "
+                             f"{CONVDENSE_ATOL}")
+    if launches != 4:
+        raise AssertionError(f"serve_sharded (a) U-Net: {launches} K1 "
+                             "launches, expected 4")
+    return launches
+
+
+def shard_one_traces(smi, mesh):
+    """(c): ``trace_batch(mesh={"data": 1})`` on NCCL at the rollout
+    phases' B and K (K2; K3 rotated), equal to the unsharded traces point
+    for point; the sharded call's K2 / K3 launches (one replay of its own
+    graph: K). Returns (K2 launches, K3 launches)."""
+    out = []
+    for rotate, mod in ((0, extract), (1, extract_rot)):
+        tracer, seeds, _ = sharded_tracer(rotate)
+        ref = tracer.trace_batch(seeds)
+        tracer.trace_batch(seeds, mesh=mesh)          # capture
+        before = mod.launches
+        t0 = time.perf_counter()
+        got = tracer.trace_batch(seeds, mesh=mesh)
+        dt = time.perf_counter() - t0
+        n = mod.launches - before
+        t0 = time.perf_counter()
+        tracer.trace_batch(seeds)
+        un = time.perf_counter() - t0
+        err = same_traces(got, ref)
+        emit("serve_sharded_trace", rotate=bool(rotate), mesh={"data": 1},
+             backend="nccl", B=len(seeds), K=tracer.max_steps,
+             max_abs_vs_unsharded=err, launches=n, seconds_sharded=dt,
+             seconds_unsharded=un, graphs=len(tracer._graphs),
+             nvidia_smi=smi)
+        if err != 0.0:
+            raise AssertionError(f"serve_sharded (c): sharded traces differ "
+                                 f"from unsharded by {err}")
+        if n != tracer.max_steps:
+            raise AssertionError(f"serve_sharded (c): {n} launches, "
+                                 f"expected {tracer.max_steps}")
+        out.append(n)
+        del tracer
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_two_ranks(smi, tmp, ref_f32):
+    """(b), (c): two gloo ranks on CUDA tensors (``sharded_rank``) against
+    this process: the float32 map within 1e-5 of (a)'s unsharded map, the
+    int8 map equal to the one-process int8 map bit for bit, the sweep
+    within ``SLICE_ATOL`` of the one-process sweep, the odd-B traces within
+    ``POOL_ATOL`` of one process's rollouts of the same padded shards (a
+    rollout's GEMMs sum in another order at another B, and 256 recurrent
+    steps amplify that: the whole batch at once is reported, not held),
+    the ranks' results equal bit for bit, K1 (2 a float32 request, 0 in
+    int8), K2 and K3 (one replay: K) counted on each rank. Returns (K1,
+    K2, K3) launches of both ranks."""
+    import pickle
+    import torch.multiprocessing as mp
+    from elektronn2_tpu_torch.parallel.mesh import free_port
+    kdir = os.path.join(tmp, "shard_raw")
+    write_dataset(kdir, SHARD_SWEEP_SHAPE, SEED + 21)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(sharded_rank, args=(SHARD_RANKS, free_port(),
+                                           kdir, tmp),
+                       nprocs=SHARD_RANKS, join=True,
+                       start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(tmp, f"shard_rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    maps = ranks[0][1]
+    same = all(r[0]["digests"] == ranks[0][0]["digests"] for r in ranks)
+    f32_err = float(np.abs(maps["f32"] - ref_f32).max())
+    model = sharded_flagship()
+    vol = sharded_request()
+    model.set_compute_dtype("int8")
+    int8_ref = model.predict_dense_device(vol, pad_raw=True).cpu().numpy()
+    int8_equal = bool(np.array_equal(maps["int8"], int8_ref))
+    int8_err = float(np.abs(maps["int8"] - int8_ref).max())
+    model.set_compute_dtype(None)
+    sweep_ref = model.sweep_knossos(KnossosArray(kdir))
+    sweep_err = float(np.abs(maps["sweep"] - sweep_ref).max())
+    del model, vol
+    torch.cuda.empty_cache()
+    trace_err, whole_b = [], []
+    for rotate in (0, 1):
+        tracer, _, seeds = sharded_tracer(rotate)
+        got = [Trace(c) for c in maps[f"trace{rotate}"]]
+        # one process over each rank's padded shard: the same B a graph
+        pad = np.concatenate([seeds, np.repeat(seeds[-1:], -len(seeds)
+                                               % SHARD_RANKS, 0)])
+        k = len(pad) // SHARD_RANKS
+        ref = [t for r in range(SHARD_RANKS)
+               for t in tracer.trace_batch(pad[r * k:(r + 1) * k])]
+        trace_err.append(same_traces(got, ref[:len(seeds)]))
+        # and over all of them at once: the GEMMs of another batch sum in
+        # another order, which the recurrent rollout amplifies
+        whole = tracer.trace_batch(seeds)
+        n = [len(g) == len(t) for g, t in zip(got, whole)]
+        whole_b.append(dict(
+            same_length=float(np.mean(n)),
+            within_1e_3=float(np.mean([
+                ok and float(np.abs(g.coords - t.coords).max()) <= 1e-3
+                for ok, g, t in zip(n, got, whole)]))))
+        del tracer
+    res = [r[0] for r in ranks]
+    emit("serve_sharded_two_ranks", backend="gloo", tensors="cuda",
+         ranks=SHARD_RANKS, mesh={"space": SHARD_RANKS},
+         request=list(REQ_SHAPE), f32_max_abs_vs_unsharded=f32_err,
+         int8_bit_for_bit=int8_equal, int8_max_abs=int8_err,
+         sweep=list(SHARD_SWEEP_SHAPE), sweep_max_abs=sweep_err,
+         trace_B=list(SHARD_TRACE_B), trace_max_abs=trace_err,
+         trace_vs_whole_batch=whole_b,
+         ranks_equal=bool(same),
+         k1_launches=[[r["f32_k1"], r["int8_k1"]] for r in res],
+         k2_launches=[r["trace0_launches"] for r in res],
+         k3_launches=[r["trace1_launches"] for r in res],
+         seconds_f32=[r["f32_seconds"] for r in res],
+         seconds_int8=[r["int8_seconds"] for r in res],
+         seconds_sweep=[r["sweep_seconds"] for r in res],
+         seconds_trace=[[r["trace0_seconds"], r["trace1_seconds"]]
+                        for r in res],
+         peak_gib=[r["peak_gib"] for r in res], spawn_seconds=spawn_s,
+         nvidia_smi=smi)
+    if f32_err > SLICE_ATOL or not int8_equal or sweep_err > SLICE_ATOL \
+            or max(trace_err) > POOL_ATOL or not same:
+        raise AssertionError(
+            f"serve_sharded (b): two ranks vs one process: f32 {f32_err}, "
+            f"int8 bit for bit {int8_equal} ({int8_err}), sweep "
+            f"{sweep_err}, traces {trace_err}, ranks equal {same}")
+    for r in res:
+        if (r["f32_k1"], r["int8_k1"]) != (2, 0):
+            raise AssertionError(f"serve_sharded (b): K1 launches "
+                                 f"{r['f32_k1']}, {r['int8_k1']}")
+        if r["trace0_launches"] != TRACE_K or r["trace1_launches"] != ROT_K:
+            raise AssertionError("serve_sharded (c): K2/K3 launches "
+                                 f"{r['trace0_launches']}, "
+                                 f"{r['trace1_launches']}")
+    return (sum(r["f32_k1"] for r in res),
+            sum(r["trace0_launches"] for r in res),
+            sum(r["trace1_launches"] for r in res))
+
+
+def shard_cli(smi, tmp):
+    """(d): ``predict --ptail --mesh space=1`` over (b)'s dataset against
+    the CLI without ``--mesh``, both writing KNOSSOS uint8 maps
+    (``-o ''``): equal byte for byte but for truncation flips of values
+    within 1e-5 of each other (counted; at most 1 apart). Returns K1's
+    launches of the sharded CLI."""
+    kdir = os.path.join(tmp, "shard_raw")
+    mdl = os.path.join(tmp, "shard_flagship.mdl")
+    sharded_flagship().save(mdl)
+    outs, launches = {}, 0
+    for name, extra in (("plain", []), ("mesh", ["--mesh", "space=1"])):
+        kout = os.path.join(tmp, f"shard_cli_{name}")
+        tailconv.launches = 0
+        t0 = time.perf_counter()
+        rc = predict.main([mdl, kdir, "--ptail", "-o", "", "--knossos-out",
+                           kout] + extra)
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"predict CLI {name} exited with {rc}")
+        outs[name] = (np.stack([KnossosArray(os.path.join(kout, f"c{c}"))[
+            :, :, :] for c in range(2)]).astype(np.int16), dt,
+            tailconv.launches)
+    diff = np.abs(outs["mesh"][0] - outs["plain"][0])
+    launches = outs["mesh"][2]
+    emit("serve_sharded_cli", dataset=list(SHARD_SWEEP_SHAPE),
+         max_byte_diff=int(diff.max()), bytes_differing=int((diff > 0).sum()),
+         seconds_plain=outs["plain"][1], seconds_mesh=outs["mesh"][1],
+         k1_launches_plain=outs["plain"][2], k1_launches_mesh=launches,
+         nvidia_smi=smi)
+    if diff.max() > 1 or launches != outs["plain"][2] or launches < 2:
+        raise AssertionError(f"serve_sharded (d): CLI maps {diff.max()} "
+                             f"apart, K1 {launches} vs "
+                             f"{outs['plain'][2]}")
+    return launches
+
+
+def phase_serve_sharded(smi):
+    """Sharded serving on the card: (a) a NCCL mesh of one (``{"space":
+    1}``): the flagship request (``shard_one_flagship``) and the wide U-Net
+    slab (``shard_one_unet``) through ``predict_dense_sharded`` with K1;
+    (c) ``trace_batch(mesh=...)`` of both tracers (``shard_one_traces``);
+    (b) two gloo ranks on CUDA tensors (``shard_two_ranks``); (d) the
+    predict CLI with ``--mesh`` (``shard_cli``). Returns K1's, K2's and
+    K3's launches."""
+    import torch.distributed as dist
+    from elektronn2_tpu_torch.parallel import make_mesh
+    t0 = time.perf_counter()
+    started = not dist.is_initialized()
+    try:
+        space = make_mesh({"space": 1})
+        k1, ref = shard_one_flagship(smi, space)
+        torch.cuda.empty_cache()
+        k1 += shard_one_unet(smi, space)
+        torch.cuda.empty_cache()
+        k2, k3 = shard_one_traces(smi, make_mesh({"data": 1}))
+        with tempfile.TemporaryDirectory() as tmp:
+            r1, r2, r3 = shard_two_ranks(smi, tmp, ref)
+            del ref
+            k1 += r1 + shard_cli(smi, tmp)
+        k2, k3 = k2 + r2, k3 + r3
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("serve_sharded", seconds=time.perf_counter() - t0,
+         k1_launches=k1, k2_launches=k2, k3_launches=k3, nvidia_smi=smi)
+    return k1, k2, k3
+
+
 SWEEP_SHAPE = (224, 992, 992)           # the flagship sweep's dataset
 SWEEP_STEP = (112, 496, 496)            # sweep_knossos' default under ptail
 UNET_SWEEP_SHAPE = (256, 512, 512)      # the U-Net sweep's dataset
@@ -3784,11 +4320,14 @@ def profile_sweep(model, path, slab_batch, step=None, top=8):
     t = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(profile_margin())
         t0 = time.perf_counter()
         with record_function("chip_smoke.sweep"):
             model.sweep_knossos(KnossosArray(path), step=step,
                                 slab_batch=slab_batch, timings=t)
         wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        time.sleep(profile_margin())
     # the spans' device-side annotations would count their kernels twice
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
            and not e.key.startswith(("chip_smoke.", "sweep_knossos."))]
@@ -4160,10 +4699,12 @@ def phase_malis(smi):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(profile_margin())
             t0 = time.perf_counter()
             losses = [split.step(model, x, t) for _ in range(MALIS_STEPS)]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            time.sleep(profile_margin())
         grad_err = malis_grad_vs_f64(model, x, t, split)
     finally:
         for o, a, f in saved:
@@ -4800,6 +5341,10 @@ def main():
     k1_launches += phase_train_dp(smi)
     phase_quant_conv(smi)
     k1_launches += phase_serve_dtypes(smi)
+    k1_sh, k2_sh, k3_sh = phase_serve_sharded(smi)
+    k1_launches += k1_sh
+    k2_launches += k2_sh
+    k3_launches += k3_sh
     k1_launches += phase_sweep(smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",

@@ -28,7 +28,9 @@ chunk of S steps (S <= ``POOL_CHUNK``); the step index, the wave's length,
 its consumption cut, queue length and id offset are device scalars, so one
 graph serves every wave of a (B, queue, S), a step past the wave's end is a
 no-op, and each replay's rows are copied on the device into the wave's
-trajectory. ``trace_batch(mesh=...)`` is not ported (ROADMAP.md §1 item 8c).
+trajectory. ``trace_batch(mesh=...)`` splits the agents over a mesh axis:
+each rank replays its own shard's rollout and the trajectories are gathered
+after the replay, so every rank returns every trace.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..log import logger
 from ..ops import extract, extract_rot
@@ -570,11 +573,13 @@ class DeviceTracer(_AgentStepper):
         return torch.stack(traj), torch.stack(moves)
 
     # -- the rollout as one CUDA graph -----------------------------------------
-    def graph_key(self, params, B):
+    def graph_key(self, params, B, group=None):
         """The key under which a captured rollout of ``B`` agents with
         ``params`` is kept: B, the horizon and step rules, the route (bf16
-        mode included), and for the volume (and its bf16 copy) and every
-        parameter tensor its identity, ``_version`` and address. A graph
+        mode included), the process group of a sharded ``trace_batch``
+        (``group``: its identity, size and this rank), and for the volume
+        (and its bf16 copy) and every parameter tensor its identity,
+        ``_version`` and address. A graph
         reads its tensors' memory as it was at capture, so
         - ``Model.set_params`` makes new tensors: new ids, a new graph (ids
           are compared only while the kept graph holds the old tensors, so
@@ -585,9 +590,11 @@ class DeviceTracer(_AgentStepper):
           a new graph. A write through ``p.data`` in place (``p.data.copy_``)
           changes neither, and needs none: the graph reads the same memory.
         """
+        mesh_key = () if group is None else (
+            id(group), dist.get_world_size(group), dist.get_rank(group))
         return (int(B), self.max_steps, self.step_scale, self.min_step,
                 self.rotate_to_heading, self._extract_kernel, self._rot_kernel,
-                self._rot_bf16,
+                self._rot_bf16, mesh_key,
                 tuple((id(t), t._version, t.data_ptr())
                       for t in self._read_tensors(params)))
 
@@ -638,7 +645,7 @@ class DeviceTracer(_AgentStepper):
                                   entry.heads, steps=1))
         return entry
 
-    def _rollout_graphed(self, params, seeds, headings0):
+    def _rollout_graphed(self, params, seeds, headings0, group=None):
         """``_rollout`` of ``max_steps`` steps as one replay of a CUDA graph,
         captured on the first call for :meth:`graph_key`. ``seeds`` and
         ``headings0`` (B, 3) may lie on the host or the card; they are copied
@@ -647,7 +654,7 @@ class DeviceTracer(_AgentStepper):
         holds. A failed capture or replay raises: there is no eager
         fallback."""
         with torch.cuda.device(self.volume.device):
-            key = self.graph_key(params, seeds.shape[0])
+            key = self.graph_key(params, seeds.shape[0], group)
             entry = self._graphs.get(key)
             if entry is None:
                 entry = self._graphs[key] = self._capture(params, seeds,
@@ -670,14 +677,18 @@ class DeviceTracer(_AgentStepper):
         (``skeleton.trace_to_kzip``). ``initial_headings``: (B, 3) world
         headings orienting the first frame-aligned views when
         ``rotate_to_heading=True`` (default (0, 0, 1); ignored otherwise).
-        ``mesh`` (sharding agents over devices) is not ported. On the card
-        the rollout is a replay of its CUDA graph (:meth:`graph_key`), and
-        its outputs are copied to the host at once; a CPU volume, no seeds
-        or ``max_steps=0`` take the eager loop."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "trace_batch(mesh=...): sharding agents over devices is not "
-                "ported (ROADMAP.md §1 item 8c)")
+        On the card the rollout is a replay of its CUDA graph
+        (:meth:`graph_key`), and its outputs are copied to the host at once;
+        a CPU volume, no seeds or ``max_steps=0`` take the eager loop.
+
+        ``mesh``: split the agents over the mesh axis ``axis_name``. Every
+        rank is given all the seeds, pads them (and the headings) to a
+        multiple of the axis size by repeating the last one, rolls out its
+        own shard against its own copy of the volume and parameters (no
+        collective inside the rollout, which is the shard's CUDA graph on
+        the card), and gathers the trajectories over the axis's group after
+        the replay; every rank returns all the traces, equal to the
+        unsharded call's. Only global rank 0 writes ``save_kzip``."""
         seeds = np.asarray(seeds, np.float32).reshape(-1, 3)
         heads = (np.broadcast_to(np.asarray([0.0, 0.0, 1.0], np.float32),
                                  seeds.shape).copy()
@@ -686,24 +697,43 @@ class DeviceTracer(_AgentStepper):
         if len(heads) != len(seeds):
             raise ValueError(f"initial_headings: {len(heads)} headings "
                              f"for {len(seeds)} seeds")
-        dev = self.volume.device
-        if dev.type == "cuda" and len(seeds) and self.max_steps:
-            traj, moved = self._rollout_graphed(self.model.params,
-                                                torch.from_numpy(seeds),
-                                                torch.from_numpy(heads))
-        else:
-            traj, moved = self._rollout(self.model.params, self.volume,
-                                        torch.from_numpy(seeds).to(dev),
-                                        torch.from_numpy(heads).to(dev))
+        n_real = len(seeds)
+        group = None
+        run_s, run_h = seeds, heads
+        if mesh is not None and n_real:
+            from ..parallel.halo import axis_group, shard
+            group = axis_group(mesh, axis_name)
+            pad = -n_real % dist.get_world_size(group)
+            run_s, run_h = (shard(torch.from_numpy(np.concatenate(
+                [a, np.repeat(a[-1:], pad, axis=0)])), group, 0).numpy()
+                for a in (seeds, heads))
+        traj, moved = self._rollout_any(run_s, run_h, group)
+        if group is not None:
+            from ..parallel.halo import gather
+            traj = gather(traj, group, 1)[:, :n_real]
+            moved = gather(moved.to(torch.uint8), group, 1)[:, :n_real].bool()
         traj = traj.cpu().numpy().transpose(1, 0, 2)     # (B, K, 3)
         moved = moved.cpu().numpy().T                    # (B, K)
         traces = [Trace(np.concatenate([seeds[b:b + 1].astype(np.float64),
                                         traj[b][moved[b]]], axis=0))
-                  for b in range(len(seeds))]
-        if save_kzip:
+                  for b in range(n_real)]
+        if save_kzip and (group is None or dist.get_rank() == 0):
             from .skeleton import trace_to_kzip
             trace_to_kzip(traces, save_kzip)
         return traces
+
+    def _rollout_any(self, seeds, heads, group=None):
+        """``_rollout`` of the (B, 3) numpy ``seeds`` and ``heads``: a replay
+        of its CUDA graph on the card, else the eager loop (a CPU volume, no
+        seeds, ``max_steps=0``); returns the device tensors (traj, moved)."""
+        dev = self.volume.device
+        if dev.type == "cuda" and len(seeds) and self.max_steps:
+            return self._rollout_graphed(self.model.params,
+                                         torch.from_numpy(seeds),
+                                         torch.from_numpy(heads), group)
+        return self._rollout(self.model.params, self.volume,
+                             torch.from_numpy(seeds).to(dev),
+                             torch.from_numpy(heads).to(dev))
 
     def trace(self, seed_position, initial_heading=None):
         """Single-agent convenience wrapper (host ``Tracer`` interface)."""

@@ -50,9 +50,17 @@ paths (``ops.conv.quantized_conv``), with narrow inter-layer storage under
 tune_serving``) times the serving contenders as ``sweep_knossos``
 dispatches them and applies the fastest.
 
+*Sharded serving* (``predict_dense_sharded``, ``predict_dense_sharded_batch``,
+``sweep_knossos(mesh=...)``): each slab's z extent split over a ``space``
+mesh axis, with halo exchange before every conv and pool
+(``parallel/halo.py``), and a slab batch over a ``data`` axis; decoder graphs
+take one input-level halo and the whole conv-dense program per rank. Every
+rank is given the whole input and returns the whole result, equal to the
+unsharded call (int8 bit for bit).
+
 Not in this slice (``NotImplementedError``): the s2b/s2bg/ztap/zmajor/
 poolslice lowerings of the dilated path (ROADMAP.md §1 item 7's TPU
-lowerings), sharded serving (item 8b).
+lowerings).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -72,6 +81,12 @@ from ..log import logger
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 _TILED = "predict_dense_device serves such graphs through its tiled fallback"
+
+
+class UnsupportedGraphError(ValueError):
+    """A graph a dense path can never take, whatever the volume (the
+    sharded conv-dense leg's z-pooled or z-undercovering decoders).
+    Reference: ``inference.py::UnsupportedGraphError``."""
 
 
 class ConvDenseShapeError(ValueError):
@@ -328,7 +343,9 @@ def _bn_affine(params, state, node, y):
             * torch.rsqrt(st["var"].reshape(shape) + 1e-5) + beta)
 
 
-def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
+def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
+                          halo_axis=None, mesh=None, quant_scale_axes=None,
+                          quant_shard=None):
     """Dense prediction via the à-trous (dilated convolution) identity.
 
     Output voxel j == MFP dense output voxel j (held by the tests against
@@ -346,12 +363,24 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
     epilogues and the softmax in float32. The result is float32. K1 runs
     at float32 only. ``quant_calibrate``, a dict, gets each Conv's input
     max-abs from a float32 evaluation (``Model.calibrate_int8``).
+
+    With ``halo_axis`` (a z-sharded volume: ``vol`` is this rank's shard of
+    ``mesh``'s ``halo_axis``), every conv and pool first fetches its
+    ``dilation·(k-1)`` z rows from the next ranks (``parallel.halo.
+    halo_gather``), K1 included, which then runs per shard on the gathered
+    input; each rank keeps z_local output rows, and the global trailing
+    ``fov_z - 1`` rows are invalid (the caller trims them). int8 scales are
+    reduced over ``quant_scale_axes`` (default ``halo_axis``); a dynamic
+    scale leaves out the rows past the global valid extent and the z pad
+    rows (``quant_shard``: ``{"n_z": axis size, "pad_z": pad rows}``), so
+    the result is the unsharded int8 program's bit for bit.
     """
     from . import loss as loss_mod, neural
     from .node_basic import ApplyFunc, Concat, Input
     from ..ops.conv import (absmax, apply_activation, conv as ops_conv,
                             quantized_conv)
     from ..ops.tailconv import conv3x3_dilated
+    from ..parallel.halo import axis_group, halo_gather
 
     nsp = len(model.input_node.shape.spatial_axes)
     want = nsp + (2 if batch else 1)
@@ -380,6 +409,33 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
             "taken; decoder graphs take convolutional_dense_forward, and "
             + _TILED)
     order = pred.all_parents()           # parents before children
+    group = (axis_group(mesh, halo_axis)
+             if halo_axis is not None and nsp == 3 else None)
+    q_axes = quant_scale_axes if quant_scale_axes is not None else halo_axis
+    # z rows consumed before each node's output: under the halo the last
+    # ranks' trailing rows past the global valid extent hold what the zero
+    # halo made, which a dynamic int8 scale must leave out
+    zcons = {}
+
+    def halo(y, n_rows):
+        return y if group is None or n_rows == 0 else \
+            halo_gather(y, n_rows, group)
+
+    def pool(y, pool_shape, dil, mode="max"):
+        y = halo(y, dil[0] * (pool_shape[0] - 1))
+        return dilated_pool(y, pool_shape, dil, mode=mode)
+
+    def masked_absmax(y, zl, consumed):
+        """max |y| over the rows of this rank's (halo-extended) input that
+        lie inside the global valid extent: a prefix of its rows."""
+        qi = quant_shard or {}
+        r = dist.get_rank(group)
+        valid = (zl * int(qi.get("n_z", 1)) - int(qi.get("pad_z", 0))
+                 - consumed - r * zl)
+        valid = max(0, min(int(y.shape[2]), valid))
+        if valid == 0:
+            return torch.zeros((), device=y.device)
+        return absmax(y[:, :, :valid]).float()
 
     def _ptail_node_ok(node):
         """Graph-level eligibility of one Conv for the tail kernel: K1 fuses
@@ -402,13 +458,21 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
 
     def evaluate(node):
         if isinstance(node, Input):
+            zcons[node.name] = 0
             return x, (1,) * nsp
         xin, dil = values[node.parents[0].name]
+        zin = zcons[node.parents[0].name]
+        zcons[node.name] = zin
+        if isinstance(node, (neural.Conv, neural.Pool)):
+            zcons[node.name] += dil[0] * (node.pool_shape[0] - 1)
         if isinstance(node, neural.Conv):
             w = params[node.name]["w"]
             b = params[node.name]["b"]
+            zcons[node.name] += dil[0] * (w.shape[2] - 1)
             if quant_calibrate is not None:
                 quant_calibrate[node.name] = float(absmax(xin))
+            zl = int(xin.shape[2])
+            xin = halo(xin, dil[0] * (w.shape[2] - 1))
             if use_ptail and dil[0] == 1 and _ptail_node_ok(node):
                 # bias + ReLU fused in the kernel; eligible convs never pool;
                 # the input may be the caller's strided view
@@ -416,15 +480,20 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
                                        dil=(1, dil[1], dil[2])), dil
             bias = b.reshape((1, -1) + (1,) * nsp)
             if quant:
-                y = quantized_conv(xin, w, dilation=dil,
-                                   x_absmax=scales.get(node.name)) + bias
+                sx = scales.get(node.name)
+                if sx is None and group is not None:
+                    sx = masked_absmax(xin, zl, zin)
+                y = quantized_conv(
+                    xin, w, dilation=dil, x_absmax=sx,
+                    axis_name=q_axes if group is not None else None,
+                    mesh=mesh) + bias
             elif cdtype is not None:
                 y = ops_conv(xin.to(cdtype), w.to(cdtype),
                              dilation=dil).float() + bias
             else:
                 y = ops_conv(xin, w, b, dilation=dil)
             if any(p > 1 for p in node.pool_shape):
-                y = dilated_pool(y, node.pool_shape, dil)
+                y = pool(y, node.pool_shape, dil)
                 dil = tuple(d * p for d, p in zip(dil, node.pool_shape))
             if node.batch_normalisation:
                 y = _bn_affine(params, state, node, y)
@@ -432,7 +501,7 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None):
                 y, node.activation_func,
                 alpha=params[node.name].get("alpha"))), dil
         if isinstance(node, neural.Pool):
-            y = dilated_pool(xin, node.pool_shape, dil, mode=node.mode)
+            y = pool(xin, node.pool_shape, dil, mode=node.mode)
             return y, tuple(d * p for d, p in zip(dil, node.pool_shape))
         if isinstance(node, loss_mod.Softmax):
             return loss_mod.grouped_softmax(xin.float(), node.n_indep, 1), dil
@@ -900,6 +969,160 @@ def predict_dense(model, raw_img, pad_raw=False, as_uint8=False,
     return out
 
 
+# ----------------------------------------------------------- sharded serving
+
+def _sharded_input(model, vols, mesh, axis_name, batch_axis):
+    """Check a sharded call's (B, f, Z, X, Y) float32 volumes on the model's
+    device; returns the ``space`` group, its size and the ``data`` group
+    (None without ``batch_axis``). A slab batch the ``data`` axis does not
+    divide raises ``ValueError``."""
+    from ..parallel.halo import axis_group
+    if len(model.input_node.shape.spatial_axes) != 3 or vols.ndim != 5:
+        raise ValueError("sharded dense serving expects a 3D model and "
+                         f"(B, f, Z, X, Y) volumes; got rank {vols.ndim}")
+    if not isinstance(vols, torch.Tensor) or vols.dtype != torch.float32:
+        raise TypeError("sharded dense serving takes a float32 tensor")
+    model._check_device(vols, "volume")
+    space = axis_group(mesh, axis_name)
+    data = None
+    if batch_axis is not None:
+        data = axis_group(mesh, batch_axis)
+        b = dist.get_world_size(data)
+        if vols.shape[0] % b:
+            raise ValueError(f"slab batch {vols.shape[0]} not divisible by "
+                             f"mesh axis {batch_axis!r}={b}")
+    return space, dist.get_world_size(space), data
+
+
+def _pad_z(vols, n):
+    """``vols`` reflect-padded in z to a multiple of ``n``; the pad."""
+    pad_z = (n - vols.shape[2] % n) % n
+    if pad_z:
+        vols = F.pad(vols, (0, 0, 0, 0, 0, pad_z), mode="reflect")
+    return vols, pad_z
+
+
+def _sharded_run(vols, space, data, forward):
+    """This rank's block of ``vols`` (its slabs of ``data``, its z rows of
+    ``space``) through ``forward``, the results gathered over both axes."""
+    from ..parallel.halo import gather, shard
+    x = shard(vols, space, 2)
+    if data is not None:
+        x = shard(x, data, 0)
+    y = gather(forward(x), space, 2)
+    return y if data is None else gather(y, data, 0)
+
+
+def _sharded_batch_convdense(model, vols, mesh, axis_name, batch_axis):
+    """``predict_dense_sharded_batch``'s decoder-graph leg: one input-level
+    halo of ``fov_z - 1`` rows from the next ranks, then the whole local
+    conv-dense program per rank (valid in z). Decoders that pool only in
+    x/y have a z receptive field of exactly ``fov_z``, so this equals the
+    unsharded batched run. Graphs that pool or stride in z (``M_z > 1``) or
+    whose FaithlessMerge under-covers z (``delta_z > 0``: per-rank reflect
+    pads would change interior voxels) raise ``UnsupportedGraphError``;
+    int8 without calibrated scales, and a local shard plus halo smaller
+    than the z patch, raise ``ValueError``. Reference:
+    ``inference.py::_sharded_batch_convdense``."""
+    from ..parallel.halo import halo_gather
+    inp, pred = model.input_node, model.prediction_node
+    space, n, data = _sharded_input(model, vols, mesh, axis_name, batch_axis)
+    fov = [int(f) for f in pred.shape.fov]
+    patch0 = [int(s) for s in inp.shape.spatial_shape]
+    out0 = [int(s) for s in pred.shape.spatial_shape]
+    M_z = _valid_period(pred, 3)[0]
+    delta_z = max(0, (patch0[0] - fov[0] + 1) - out0[0])
+    if M_z != 1 or delta_z:
+        raise UnsupportedGraphError(
+            f"z-sharded conv-dense serving requires an unpooled z axis "
+            f"(M_z={M_z}) and full z fov coverage (delta_z={delta_z}); "
+            "this graph needs per-rank z padding that would decohere "
+            "voxels from the unsharded run — use per-slab unsharded "
+            "sweeps")
+    if model._compute_dtype == "int8" and not model._quant_scales:
+        raise ValueError(
+            "z-sharded int8 conv-dense serving needs calibrated static "
+            "activation scales (Model.calibrate_int8) — dynamic per-rank "
+            "scales would seam values at shard boundaries "
+            "(sweep_knossos calibrates on its first slab)")
+    Z = int(vols.shape[2])
+    vols, pad_z = _pad_z(vols, n)
+    z_loc = (Z + pad_z) // n
+    if z_loc + fov[0] - 1 < patch0[0]:
+        raise ValueError(
+            f"local z shard {z_loc} (+{fov[0] - 1} halo) is smaller than "
+            f"the model's z patch {patch0[0]}: per-rank padding would "
+            f"decohere the output — use fewer z shards or taller slabs")
+    y = _sharded_run(vols, space, data, lambda x: convolutional_dense_forward(
+        model, halo_gather(x, fov[0] - 1, space), batch=True))
+    return y[:, :, :Z - fov[0] + 1]
+
+
+def predict_dense_sharded_batch(model, vols, mesh, axis_name="space",
+                                batch_axis="data"):
+    """DP x SP dense serving: a batch of slabs split over ``batch_axis``
+    while each slab's z extent is split over ``axis_name`` (halo exchange).
+
+    ``vols``: (B, f, Z, X, Y) float32 on the model's device, the whole
+    batch on every rank; B must be divisible by the ``batch_axis`` size, and
+    z is reflect-padded to a multiple of the ``axis_name`` size.
+    ``batch_axis=None`` leaves the batch unsplit (``predict_dense_sharded``
+    is its B=1 case). Every rank returns the whole (B, f_out, Z - fov_z + 1,
+    X', Y') result, equal to the unsharded batched forward (int8 bit for
+    bit: the scales are reduced over both axes). Decoder (UpConv) graphs
+    take :func:`_sharded_batch_convdense`; the dilated path serves the
+    others, K1 per shard under ``set_dilated_impl(pallas_tail=True)``. 3D
+    models only. Reference: ``inference.py::predict_dense_sharded_batch``.
+    """
+    from ..ops.conv import f32_convs
+    pred = model.prediction_node
+    if _conv_dense_rejection(pred) is None:
+        return _sharded_batch_convdense(model, vols, mesh, axis_name,
+                                        batch_axis)
+    _check_dense_geometry(pred)
+    space, n, data = _sharded_input(model, vols, mesh, axis_name, batch_axis)
+    fov = list(pred.shape.fov)
+    Z = int(vols.shape[2])
+    vols, pad_z = _pad_z(vols, n)
+    qaxes = (batch_axis, axis_name) if batch_axis is not None else axis_name
+    with torch.no_grad(), f32_convs():
+        y = _sharded_run(vols, space, data, lambda x: dilated_dense_forward(
+            model, x, batch=True, halo_axis=axis_name, mesh=mesh,
+            quant_scale_axes=qaxes, quant_shard={"n_z": n, "pad_z": pad_z}))
+    return y[:, :, :Z - fov[0] + 1]
+
+
+def predict_dense_sharded(model, vol, mesh, axis_name="space",
+                          pad_raw=False):
+    """Dense sweep of one (f, Z, X, Y) volume with its z axis split over
+    the mesh axis ``axis_name`` (halo exchange over the axis's group):
+    :func:`predict_dense_sharded_batch` of a batch of one. ``pad_raw``
+    reflect-pads by the fov first (decoder graphs: the front pad rounded up
+    to their valid-size period and the surplus trimmed after), so the output
+    has the volume's own spatial shape. Equal to ``predict_dense_device``'s
+    output. Reference: ``inference.py::predict_dense_sharded``."""
+    if not pad_raw:
+        return predict_dense_sharded_batch(model, vol[None], mesh,
+                                           axis_name=axis_name,
+                                           batch_axis=None)[0]
+    pred = model.prediction_node
+    fov = [int(f) for f in pred.shape.fov]
+    off = [(f - 1) // 2 for f in fov]
+    lo = list(off)
+    if _conv_dense_rejection(pred) is None:
+        # decoders are shift-equivariant only modulo M: an unrounded front
+        # pad would shift every slab's pooling grid
+        lo = [-(-o // m) * m for o, m in zip(off, _valid_period(pred, 3))]
+    V = [int(s) for s in vol.shape[1:]]
+    pads = [p for l, o, f in zip(reversed(lo), reversed(off), reversed(fov))
+            for p in (l, f - 1 - o)]
+    y = predict_dense_sharded_batch(
+        model, F.pad(vol[None], pads, mode="reflect"), mesh,
+        axis_name=axis_name, batch_axis=None)[0]
+    return y[(slice(None),) + tuple(slice(l - o, l - o + v)
+                                    for l, o, v in zip(lo, off, V))]
+
+
 # ------------------------------------------------------ whole-dataset sweep
 
 #: sweeps that fell back to per-slab forwards after a batched chunk ran out
@@ -916,13 +1139,23 @@ WRITE_DEPTH = 2
 _U8_SCALE = np.arange(256, dtype=np.float32) / 255.0
 
 
-def _sweep_forward(model, batched):
+def _sweep_forward(model, batched, mesh=None, axis_name="space",
+                   batch_axis="data"):
     """The forward of one chunk of staged slabs, (B, f, *slab) float32 ->
     (B, f_out, *out), or None when ``batched`` and neither whole-volume
     path takes the graph. Per slab (``batched=False``) it is
-    :func:`predict_dense_device`, which serves every graph."""
+    :func:`predict_dense_device`, which serves every graph. Under ``mesh``
+    the chunk goes through the sharded program instead
+    (:func:`predict_dense_sharded_batch`, or per slab
+    :func:`predict_dense_sharded`)."""
     from ..ops.conv import f32_convs
     pred = model.prediction_node
+    if mesh is not None:
+        if batched:
+            return lambda x: predict_dense_sharded_batch(
+                model, x, mesh, axis_name=axis_name, batch_axis=batch_axis)
+        return lambda x: predict_dense_sharded(model, x[0], mesh,
+                                               axis_name=axis_name)[None]
     if not batched:
         return lambda x: predict_dense_device(model, x[0])[None]
     if _dilated_unsupported(pred, model.state) is None:
@@ -936,7 +1169,8 @@ def _sweep_forward(model, batched):
 
 
 def sweep_knossos(model, karr, region=None, step=None, out=None,
-                  verbose=False, mesh=None, slab_batch=1, timings=None):
+                  verbose=False, mesh=None, axis_name="space", slab_batch=1,
+                  batch_axis="data", timings=None):
     """Dense-predict a whole KNOSSOS dataset (or a region of it), slab by
     staged slab, on the model's device.
 
@@ -972,8 +1206,17 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
 
     ``timings``, when a dict, gets per chunk the host seconds of staging
     (``stage_s``, on the staging thread) and of writing into ``out``
-    (``write_s``), and the chunk's slab count (``slabs``). ``mesh`` (slabs
-    sharded over devices) is not ported.
+    (``write_s``), and the chunk's slab count (``slabs``).
+
+    With ``mesh``, each slab's z extent is split over the mesh axis
+    ``axis_name`` (:func:`predict_dense_sharded`: halo exchange); with
+    ``slab_batch`` > 1 too, the chunk's slabs are split over ``batch_axis``
+    (:func:`predict_dense_sharded_batch`), which must then divide
+    ``slab_batch`` (else ``ValueError``); a mesh without that axis sweeps
+    slab by slab, with a warning. Every rank stages and writes the whole
+    dataset into its own ``out``, which is filled on every rank. Under a
+    mesh a chunk that runs out of device memory raises (a rank that went on
+    per slab alone would leave the others waiting in a collective).
 
     Under ``set_compute_dtype('int8')`` without calibrated scales, the
     sweep calibrates them on its first slab (``Model.calibrate_int8``), so
@@ -982,10 +1225,6 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     per-dispatch scales and a warning (any other error reaches the caller).
     """
     global sweep_oom_fallbacks
-    if mesh is not None:
-        raise NotImplementedError(
-            "sweep_knossos(mesh=...): sharded serving is not ported "
-            "(ROADMAP.md §1 item 8b)")
     pred = model.prediction_node
     if region is None:
         region = tuple((0, s) for s in karr.shape[-3:])
@@ -1150,15 +1389,30 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
             for w in writes:
                 w.result()
 
-    forward = _sweep_forward(model, slab_batch > 1)
-    if slab_batch > 1 and forward is None:
+    use_batch = slab_batch > 1
+    if use_batch and mesh is not None:
+        names = tuple(mesh.mesh_dim_names or ())
+        if batch_axis not in names:
+            logger.warning(
+                f"sweep_knossos: slab_batch under a mesh needs a "
+                f"{batch_axis!r} mesh axis (have {names}) — falling back to "
+                f"per-slab z-sharded sweeps")
+            use_batch = False
+        elif slab_batch % mesh.size(names.index(batch_axis)):
+            raise ValueError(
+                f"slab_batch={slab_batch} must be a multiple of mesh axis "
+                f"{batch_axis!r}={mesh.size(names.index(batch_axis))}")
+    forward = _sweep_forward(model, use_batch, mesh, axis_name, batch_axis)
+    if use_batch and forward is None:
         logger.warning("sweep_knossos: neither batched path takes this "
                        "graph — sweeping per slab")
-    if slab_batch > 1 and forward is not None:
+    if use_batch and forward is not None:
         try:
             run(int(slab_batch), forward)
             return out
         except torch.cuda.OutOfMemoryError:
+            if mesh is not None:
+                raise
             # slab_batch multiplies activation memory; writes are
             # idempotent, so sweep everything again per slab
             sweep_oom_fallbacks += 1
@@ -1167,7 +1421,7 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
                 f"sweep_knossos: slab_batch={slab_batch} exhausted device "
                 f"memory — falling back to per-slab sweeps (use a smaller "
                 f"step= or slab_batch for batched serving)")
-    run(1, _sweep_forward(model, False))
+    run(1, _sweep_forward(model, False, mesh, axis_name))
     return out
 
 

@@ -779,15 +779,39 @@ class Model:
         return predict_dense_device(self, vol, pad_raw=pad_raw,
                                     tile_batch=tile_batch)
 
+    def predict_dense_sharded(self, vol, mesh, axis_name="space",
+                              pad_raw=False):
+        """Dense sweep of a (f, Z, X, Y) volume with its z axis split over
+        the mesh axis ``axis_name`` (halo exchange); every rank is given the
+        whole volume and returns the whole map
+        (``neuromancer/inference.py::predict_dense_sharded``)."""
+        from .inference import predict_dense_sharded
+        return predict_dense_sharded(self, vol, mesh, axis_name=axis_name,
+                                     pad_raw=pad_raw)
+
+    def predict_dense_sharded_batch(self, vols, mesh, axis_name="space",
+                                    batch_axis="data"):
+        """DP x SP dense serving: the slab batch over ``batch_axis``, each
+        slab's z extent over ``axis_name`` (halo exchange)
+        (``neuromancer/inference.py::predict_dense_sharded_batch``)."""
+        from .inference import predict_dense_sharded_batch
+        return predict_dense_sharded_batch(self, vols, mesh,
+                                           axis_name=axis_name,
+                                           batch_axis=batch_axis)
+
     def sweep_knossos(self, karr, region=None, step=None, out=None,
-                      verbose=False, mesh=None, slab_batch=1, timings=None):
+                      verbose=False, mesh=None, axis_name="space",
+                      slab_batch=1, batch_axis="data", timings=None):
         """Dense-predict a whole KNOSSOS dataset slab by staged slab, one or
         ``slab_batch`` slabs per forward, each read back while the next
-        computes (``neuromancer/inference.py::sweep_knossos``)."""
+        computes; under ``mesh`` each slab z-sharded over ``axis_name`` and
+        the slab batch over ``batch_axis``
+        (``neuromancer/inference.py::sweep_knossos``)."""
         from .inference import sweep_knossos
         return sweep_knossos(self, karr, region=region, step=step, out=out,
-                             verbose=verbose, mesh=mesh,
-                             slab_batch=slab_batch, timings=timings)
+                             verbose=verbose, mesh=mesh, axis_name=axis_name,
+                             slab_batch=slab_batch, batch_axis=batch_axis,
+                             timings=timings)
 
     def tune_serving(self, steps=None, slab_batches=(1, 2), K=4,
                      include_bf16=True, include_int8=True, apply=True,

@@ -2,8 +2,8 @@
 
 Port of ``conv``, ``upconv``, ``upconv_d2s``, ``conv_zfold2d``,
 ``quantized_conv``, ``dot``, ``pooling``, ``pooling_slices``, ``unpooling``
-(alias ``upsampling``), ``maxout``, ``softmax`` and ``apply_activation`` in
-``elektronn2_tpu/ops/conv.py``. The JAX package
+(alias ``upsampling``), ``maxout``, ``softmax``, ``apply_activation`` and
+``apply_layer`` in ``elektronn2_tpu/ops/conv.py``. The JAX package
 leaves these ops to XLA; here they are PyTorch's own (cuDNN on the card).
 The array layout ``(b, f, *spatial)`` is torch's NCDHW / NCHW / NCL, so
 ``F.conv{1,2,3}d`` and ``F.max_pool{1,2,3}d`` take it as it is.
@@ -138,7 +138,8 @@ def absmax(x):
 EXACT_INT8_TERMS = 1040
 
 
-def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None, **kw):
+def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None,
+                   mesh=None, **kw):
     """int8 serving convolution: per-output-channel symmetric weight scales
     and one per-tensor activation scale, operands rounded to int8 values
     half to even and clipped to +-127, their products summed exactly, the
@@ -156,24 +157,39 @@ def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None, **kw):
 
     ``conv_fn``: :func:`conv` (default) or :func:`upconv` (the UpConv, whose
     output takes one tap per input channel); ``kw`` goes to it (``dilation``,
-    ``pool_shape``). ``x_absmax`` replaces the activation's own max-abs (the
-    calibrated static scales of ``Model.calibrate_int8``). ``x`` may be
-    bf16 (narrow inter-layer storage): the scale arithmetic is float32.
-    ``axis_name`` (a scale reduced over a device mesh) belongs to sharded
-    serving, which is not ported.
+    ``pool_shape``). ``x_absmax`` replaces the activation's own max-abs: a
+    number (the calibrated static scales of ``Model.calibrate_int8``) or a
+    0-d tensor (the sharded dense path's masked max). ``x`` may be bf16
+    (narrow inter-layer storage): the scale arithmetic is float32.
+
+    ``axis_name``, a name or a tuple of names of ``mesh``'s axes (sharded
+    serving): a dynamic activation max-abs (none given, or a tensor) is
+    reduced with ``all_reduce(MAX)`` over the process group of each named
+    axis, so every shard quantises with the global scale, as the JAX
+    package's ``lax.pmax`` does; a number is the same on every rank and is
+    taken as it is.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "quantized_conv(axis_name=...): sharded serving is not ported "
-            "(ROADMAP.md §1 item 8b)")
     conv_fn = conv_fn or conv
     x = x.float()
     # every divisor is a tensor on x's device: PyTorch's CUDA division by a
     # host scalar multiplies by its reciprocal, one bit off the quotient;
     # ``full`` writes its value on the device, with no host copy
     c127 = torch.full((), 127.0, device=x.device)
-    s_x = (absmax(x) if x_absmax is None
-           else torch.full((), float(x_absmax), device=x.device))
+    if x_absmax is None or isinstance(x_absmax, torch.Tensor):
+        s_x = (absmax(x) if x_absmax is None
+               else x_absmax.float().reshape(()).clone())
+        if axis_name is not None:
+            import torch.distributed as dist
+            from ..parallel.halo import axis_group
+            if mesh is None:
+                raise ValueError("quantized_conv(axis_name=...) needs the "
+                                 "mesh whose axes it names")
+            names = (axis_name,) if isinstance(axis_name, str) else axis_name
+            for name in names:
+                dist.all_reduce(s_x, op=dist.ReduceOp.MAX,
+                                group=axis_group(mesh, name))
+    else:
+        s_x = torch.full((), float(x_absmax), device=x.device)
     s_x = torch.clamp(s_x, min=1e-12) / c127
     red = tuple(range(1, w.ndim))
     s_w = torch.clamp(torch.amax(torch.abs(w), dim=red), min=1e-12) / c127
@@ -306,6 +322,22 @@ def unpooling(x, pool_shape):
 
 
 upsampling = unpooling  # reference alias
+
+
+def apply_layer(x, w, b=None, activation=None, pool=None, conv_fn=None):
+    """One {conv + bias -> pool -> activation} layer of a layer-dict stack,
+    in the canonical order of ``neural.Conv`` (pooling before the
+    activation; the two commute only for monotonic activations).
+    ``conv_fn`` replaces :func:`conv`. Reference: ``ops/conv.py::
+    apply_layer``."""
+    y = (conv_fn or conv)(x, w)
+    if b is not None:
+        y = y + b.reshape((1, -1) + (1,) * (y.ndim - 2))
+    if pool is not None and any(p > 1 for p in pool):
+        y = pooling(y, pool)
+    if activation is not None:
+        y = get_activation(activation)(y)
+    return y
 
 
 def maxout(x, factor, axis=1):

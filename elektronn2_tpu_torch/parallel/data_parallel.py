@@ -33,6 +33,13 @@ import torch
 import torch.distributed as dist
 
 
+def gather(x, group, dim):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
 class _SumAllReduce(torch.autograd.Function):
     """All-reduce (sum) whose backward all-reduces the incoming gradient:
     every rank's loss depends on every rank's rows through the sum."""
@@ -91,9 +98,7 @@ class DataGroup:
 
     def gather(self, t, axis):
         """Every rank's ``t`` concatenated along ``axis``, rank order."""
-        parts = [torch.empty_like(t) for _ in range(self.world)]
-        dist.all_gather(parts, t.contiguous(), group=self.group)
-        return torch.cat(parts, dim=axis)
+        return gather(t, self.group, axis)
 
     def broadcast_(self, tensors):
         """Rank 0's values of ``tensors`` on every rank, in place."""

@@ -18,23 +18,29 @@ fastest: a bare ``--tune`` keeps to float32 contenders, ``--tune --bf16``
 or ``--tune --int8`` adds that lossy one; ``--step`` competes with the
 default slab sizes, each clamped to the dataset. ``-o ''`` writes no HDF5
 file (``--knossos-out`` then holds the maps; the module needs h5py only
-for HDF5). ``--mesh`` (sharded serving) is not ported and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+for HDF5).
+
+``--mesh AXES`` serves over a device mesh (``parallel.make_mesh``): a
+KNOSSOS sweep splits each slab's z extent over the ``space`` axis (halo
+exchange) and, with ``--slab-batch``, the slab batch over ``data``
+(``Model.sweep_knossos(mesh=...)``); ``--trace`` splits the agents over the
+first axis given. Under torchrun the processes join one group first
+(``parallel.multihost.initialize``: NCCL, one card a process; gloo with
+``--cpu``); without it the mesh is a group of one. Every rank computes the
+whole result and only rank 0 writes the output files. ``--tune`` is skipped
+under ``--mesh``, with a warning, as in the JAX package.
 
 Usage: ``python -m elektronn2_tpu_torch.scripts.predict model.mdl
 <knossos dir | in.h5[:dataset]> [--ptail] [--tune] [--bf16 | --int8]
-[--knossos-out DIR] [-o out.h5]``.
+[--knossos-out DIR] [-o out.h5]``; sharded: ``torchrun
+--nproc_per_node=N -m elektronn2_tpu_torch.scripts.predict model.mdl
+<knossos dir> --mesh data=2,space=2 --slab-batch 2``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-
-#: the flags whose features are not ported, with the ROADMAP.md item of each
-NOT_PORTED = {
-    "mesh": "sharded serving (ROADMAP.md §1 item 8b)",
-}
 
 
 def _ints(ap, flag, text, n):
@@ -124,21 +130,54 @@ def main(argv=None):
                     "configuration on the device first (float32 contenders; "
                     "with --bf16 / --int8 that lossy one too)")
     ap.add_argument("--mesh", default=None, metavar="AXES",
-                    help=f"not ported: {NOT_PORTED['mesh']}")
+                    help="serve over a device mesh: 'space=N' (z-sharded "
+                    "slabs, halo exchange) or 'data=2,space=2' (+ the slab "
+                    "batch over 'data' with --slab-batch); with --trace the "
+                    "agents are split over the first axis given")
     args = ap.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag}: {NOT_PORTED[flag]} is not ported to "
-                "elektronn2_tpu_torch")
+    axes = None
+    if args.mesh:
+        try:
+            axes = {k: int(v) for k, v in
+                    (kv.split("=") for kv in args.mesh.split(","))}
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r}: expected 'axis=N[,axis=N]', "
+                     "e.g. data=2,space=4")
 
+    import torch.distributed as dist
+    from ..neuromancer.model import target_device
+    from ..parallel import multihost
+
+    device = target_device("cpu" if args.cpu else "cuda")
+    started = False
+    if axes is not None:
+        started = not dist.is_initialized()
+        multihost.initialize(device=device.type)
+        if device.type == "cuda" and dist.is_initialized():
+            import torch
+            device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return _run(args, ap, axes, device)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, ap, axes, device):
+    """The body of :func:`main` on ``device``, under a mesh of ``axes``
+    (None: no mesh)."""
     import numpy as np
     from ..log import logger
     from ..neuromancer.model import modelload, rebuild_model
+    from ..parallel import make_mesh, multihost
     from ..utils.basic import h5load, h5save
     from ..data.knossos_array import KnossosArray, save_knossos
 
-    model = modelload(args.model, device="cpu" if args.cpu else "cuda")
+    mesh = None
+    if axes is not None:
+        mesh = make_mesh(axes, devices=device.type)
+    main_rank = multihost.is_main_process()
+    model = modelload(args.model, device=device)
     if args.mfp or args.patch:
         nsp = len(model.input_node.shape.spatial_axes)
         patch = _ints(ap, "--patch", args.patch, nsp) if args.patch else None
@@ -197,7 +236,9 @@ def main(argv=None):
         out_name = args.out
         if out_name.endswith(".h5"):        # the default --out is a dense name
             out_name = out_name[:-3] + ".k.zip"
-        traces = tracer.trace_batch(seeds, save_kzip=out_name)
+        traces = tracer.trace_batch(seeds, save_kzip=out_name, mesh=mesh,
+                                    axis_name=next(iter(axes)) if axes
+                                    else "data")
         logger.info(f"traced {len(traces)} agent(s) "
                     f"({[len(t) for t in traces]} nodes) -> {out_name}")
         return 0
@@ -208,9 +249,15 @@ def main(argv=None):
         ka = KnossosArray(args.input)
         step = _ints(ap, "--step", args.step, 3) if args.step else None
         slab_batch = args.slab_batch
-        if args.tune:
+        if args.tune and mesh is not None:
+            # the tuner times single-device programs; the sharded sweep
+            # runs its own, so its pick would not carry over
+            logger.warning("--tune measures the single-device serving "
+                           "path and does not transfer to --mesh sweeps — "
+                           "skipping autotune")
+        elif args.tune:
             step, slab_batch = _tune(model, ka, step, slab_batch, args)
-        out = model.sweep_knossos(ka, step=step, verbose=True,
+        out = model.sweep_knossos(ka, step=step, verbose=True, mesh=mesh,
                                   slab_batch=slab_batch)
     else:
         path, _, key = args.input.partition(":")
@@ -218,6 +265,8 @@ def main(argv=None):
                                   pad_raw=not args.no_pad,
                                   as_uint8=args.uint8, verbose=True)
 
+    if not main_rank:
+        return 0
     if args.out:
         h5save({"prediction": out}, args.out)
         logger.info(f"wrote {args.out} {out.shape} {out.dtype}")

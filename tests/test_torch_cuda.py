@@ -1402,3 +1402,37 @@ def test_graphed_chunk_under_a_mesh_of_one_equals_no_mesh(cuda_device,
     for n, d in pa.items():
         for k, v in d.items():
             assert torch.equal(pb[n][k], v), (n, k)
+
+
+@pytest.mark.cuda
+def test_sharded_flagship_on_a_mesh_of_one_equals_unsharded(cuda_device):
+    """``predict_dense_sharded`` on a world-size-1 NCCL mesh (``{"space":
+    1}``): the flagship's map through K1 (one launch each for conv2 and
+    conv3, on the shard plus its halo) equals ``predict_dense_device``
+    within 1e-5 (the halo-extended input may take other cuDNN algorithms);
+    after an in-place weight update both serve the new weights (K1's
+    packed-weight cache keys on the tensor's version)."""
+    import torch.distributed as dist
+    from elektronn2_tpu_torch.parallel import make_mesh
+    started = not dist.is_initialized()
+    try:
+        mesh = make_mesh({"space": 1})
+        m = flagship_model(mfp=True, patch=[9, 41, 41], device=cuda_device)
+        m.set_dilated_impl("direct", zfold=True, pallas_tail=True)
+        vol = torch.rand(1, 12, 64, 64, device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(0))
+        for step in range(2):
+            before = tailconv.launches
+            got = m.predict_dense_sharded(vol, mesh, pad_raw=True)
+            assert tailconv.launches == before + 2
+            want = m.predict_dense_device(vol, pad_raw=True)
+            assert got.shape == want.shape == (2, 12, 64, 64)
+            assert (got - want).abs().max().item() <= 1e-5
+            if step == 0:
+                first = got
+                with torch.no_grad():
+                    m.params["conv3"]["w"].mul_(1.5)
+        assert (got - first).abs().max().item() > 1e-4
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

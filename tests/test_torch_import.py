@@ -76,6 +76,7 @@ MODULES = [
     "elektronn2_tpu_torch.scripts.exp_ptail_dot",
     "elektronn2_tpu_torch.scripts.exp_ptail_ablate",
     "elektronn2_tpu_torch.scripts.exp_wrapper_host",
+    "elektronn2_tpu_torch.scripts.exp_profiler_window",
     "elektronn2_tpu_torch.scripts.predict",
     "elektronn2_tpu_torch.scripts.profile",
     "elektronn2_tpu_torch.scripts.train",
@@ -83,6 +84,7 @@ MODULES = [
     "elektronn2_tpu_torch.parallel.mesh",
     "elektronn2_tpu_torch.parallel.multihost",
     "elektronn2_tpu_torch.parallel.data_parallel",
+    "elektronn2_tpu_torch.parallel.halo",
 ]
 
 #: a meta-path finder that refuses jax, the JAX package and the reference
@@ -596,6 +598,59 @@ def test_new_surface_names_import_without_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_sharded_serving_runs_without_jax():
+    # the sharded-serving names import, and a mesh of one serves the
+    # dilated and decoder legs and traces, with jax and the JAX package
+    # blocked; each equals its unsharded call
+    code = (BLOCK + "import numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.ops.conv import apply_layer\n"
+            "from elektronn2_tpu_torch.neuromancer.inference import (\n"
+            "    predict_dense_sharded, predict_dense_sharded_batch)\n"
+            "from elektronn2_tpu_torch.parallel import (make_mesh,\n"
+            "    halo_gather, cp_conv_z, spatial_cp_stack)\n"
+            "from elektronn2_tpu_torch.utils.convert import (\n"
+            "    flagship_model, tracer_model)\n"
+            "from elektronn2_tpu_torch.data.tracing_utils import "
+            "DeviceTracer\n"
+            "mesh = make_mesh({'data': 1, 'space': 1}, devices='cpu')\n"
+            "r = np.random.RandomState(0)\n"
+            "m = flagship_model(mfp=True, patch=[9, 41, 41], device='cpu')\n"
+            "v = torch.from_numpy(r.rand(1, 10, 44, 44).astype('f4'))\n"
+            "a = m.predict_dense_sharded(v, mesh, pad_raw=True)\n"
+            "assert (a - m.predict_dense_device(v, pad_raw=True)).abs()"
+            ".max() < 1e-6\n"
+            "t = tracer_model((5, 5, 5), enc_w=8, gru_w=8, batch=2, t=3,\n"
+            "                 device='cpu')\n"
+            "dt = DeviceTracer(t, r.rand(1, 20, 20, 20).astype('f4'),\n"
+            "                  max_steps=3)\n"
+            "s = r.uniform(8, 12, (3, 3)).astype('f4')\n"
+            "for p, q in zip(dt.trace_batch(s, mesh=mesh),\n"
+            "                dt.trace_batch(s)):\n"
+            "    assert np.array_equal(p.coords, q.coords)\n"
+            "assert not [k for k in sys.modules if k.split('.')[0] in\n"
+            "            ('jax', 'elektronn2_tpu', 'elektronn2')]\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_no_error_cites_items_8b_or_8c():
+    # sharded serving (8b) and agent-parallel tracing (8c) are ported: no
+    # line of the package cites either item
+    root = os.path.join(REPO, "elektronn2_tpu_torch")
+    cites = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    cites += [f"{f}:{i}" for i, line in enumerate(fh, 1)
+                              if "item 8b" in line or "item 8c" in line
+                              or "8b)" in line or "8c)" in line]
+    assert not cites, cites
 
 
 def test_reference_style_config_trains_without_jax(tmp_path):

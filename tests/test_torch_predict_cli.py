@@ -202,10 +202,32 @@ def test_trace_knossos_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--mesh", "data=2"], "item 8")])
-def test_unported_flags_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+    (["--mesh", "data"], "expected 'axis=N[,axis=N]'")])
+def test_unported_flags_raise(tmp_path, capsys, flag, item):
+    # --mesh is ported: a malformed axes spec is the JAX CLI's ap.error
+    with pytest.raises(SystemExit):
         main([str(tmp_path / "none.mdl"), str(tmp_path), "--cpu"] + flag)
+    assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "space=1"],
+                                   ["--mesh", "data=1,space=1",
+                                    "--slab-batch", "2", "--tune"]])
+def test_predict_cli_mesh_of_one_matches_unsharded(tmp_path, flags):
+    # a mesh of one in this process (a gloo group started and destroyed by
+    # the CLI): the sharded sweep equals the unsharded CLI's; --tune is
+    # skipped under --mesh, as in the JAX CLI
+    import torch.distributed as dist
+    mdl, _ = save_jax(tmp_path, mfp_graph)
+    _, kdir = _knossos(tmp_path, (24, 32, 32), 4)
+    outs = []
+    for name, extra in (("plain", []), ("mesh", flags)):
+        out = str(tmp_path / f"{name}.h5")
+        assert main([mdl, kdir, "-o", out, "--cpu", "--step", "12,16,16"]
+                    + extra) == 0
+        outs.append(h5load(out, "prediction"))
+    assert not dist.is_initialized()
+    np.testing.assert_allclose(outs[1], outs[0], rtol=0, atol=1e-6)
 
 
 def mfp_graph(nm):

@@ -228,9 +228,28 @@ def test_quantized_conv_worst_case_is_exact():
 
 
 def test_quantized_conv_sharded_scale_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        quantized_conv(torch.rand(1, 1, 5, 5), torch.rand(2, 1, 3, 3),
-                       axis_name="space")
+    # the sharded scale (ported): on a mesh of one, the all_reduce(MAX) of
+    # the dynamic scale over one axis or a tuple of axes leaves the result
+    # bit for bit the unsharded one, a masked scale given as a tensor is
+    # reduced too, and a number (a calibrated scale) is taken as it is; an
+    # axis name without its mesh, or one the mesh lacks, raises
+    from torch_dp_workers import mesh_of_one
+    r = np.random.RandomState(2)
+    x = torch.from_numpy(r.randn(1, 3, 6, 7, 8).astype(np.float32))
+    w = torch.from_numpy(r.randn(4, 3, 3, 3, 3).astype(np.float32))
+    want = quantized_conv(x, w)
+    with mesh_of_one({"data": 1, "space": 1}) as mesh:
+        for axes in ("space", ("data", "space")):
+            assert torch.equal(quantized_conv(x, w, axis_name=axes,
+                                              mesh=mesh), want)
+        s = torch.tensor(0.5)
+        assert torch.equal(
+            quantized_conv(x, w, x_absmax=s, axis_name="space", mesh=mesh),
+            quantized_conv(x, w, x_absmax=0.5))
+        with pytest.raises(ValueError, match="no axis 'model'"):
+            quantized_conv(x, w, axis_name="model", mesh=mesh)
+    with pytest.raises(ValueError, match="needs the mesh"):
+        quantized_conv(x, w, axis_name="space")
 
 
 # ------------------------------------------------------ the dense modes

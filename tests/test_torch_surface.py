@@ -238,6 +238,68 @@ def test_package_level_exports():
         assert getattr(ops, name) is getattr(conv, name)
 
 
+# ------------------------------------------------------ sharded serving
+
+#: the sharded-serving names (ROADMAP.md item 8b/8c): (JAX module, port
+#: module, name, the port's names for the JAX parameters it renames)
+SHARDED = [
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv",
+     "apply_layer", {}),
+    ("elektronn2_tpu.neuromancer.inference",
+     "elektronn2_tpu_torch.neuromancer.inference", "predict_dense_sharded",
+     {}),
+    ("elektronn2_tpu.neuromancer.inference",
+     "elektronn2_tpu_torch.neuromancer.inference",
+     "predict_dense_sharded_batch", {}),
+    ("elektronn2_tpu.parallel", "elektronn2_tpu_torch.parallel",
+     "halo_gather", {"axis_name": "group"}),
+    ("elektronn2_tpu.parallel", "elektronn2_tpu_torch.parallel",
+     "cp_conv_z", {"axis_name": "group"}),
+    ("elektronn2_tpu.parallel", "elektronn2_tpu_torch.parallel",
+     "spatial_cp_stack", {}),
+]
+
+
+@pytest.mark.parametrize("jmod, tmod, name, renamed", SHARDED,
+                         ids=[c[2] for c in SHARDED])
+def test_sharded_serving_names_match_jax(jmod, tmod, name, renamed):
+    # each name is exported where the JAX package exports it, with its
+    # parameters (a mesh axis's process group where JAX names the axis)
+    import inspect
+    j = getattr(importlib.import_module(jmod), name)
+    t = getattr(importlib.import_module(tmod), name)
+    want = [renamed.get(p, p) for p in inspect.signature(j).parameters]
+    assert list(inspect.signature(t).parameters) == want
+
+
+@pytest.mark.parametrize("name", ["predict_dense_sharded",
+                                  "predict_dense_sharded_batch",
+                                  "sweep_knossos"])
+def test_sharded_model_methods_take_the_jax_arguments(name):
+    import inspect
+    from elektronn2_tpu.neuromancer.model import Model as JM
+    from elektronn2_tpu_torch.neuromancer.model import Model as TM
+    want = list(inspect.signature(getattr(JM, name)).parameters)
+    got = list(inspect.signature(getattr(TM, name)).parameters)
+    assert got[:len(want)] == want, (got, want)
+
+
+@pytest.mark.parametrize("pool, act", [(None, "relu"), ((1, 2, 2), "tanh"),
+                                       ((2, 2, 2), None)])
+def test_apply_layer_matches_jax(pool, act):
+    from elektronn2_tpu.ops.conv import apply_layer as japply
+    from elektronn2_tpu_torch.ops.conv import apply_layer
+    r = np.random.RandomState(4)
+    x = r.randn(1, 2, 8, 10, 10).astype(np.float32)
+    w = r.randn(3, 2, 3, 3, 3).astype(np.float32) * 0.2
+    b = r.randn(3).astype(np.float32)
+    want = np.asarray(japply(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                             act, pool))
+    got = apply_layer(torch.from_numpy(x), torch.from_numpy(w),
+                      torch.from_numpy(b), act, pool).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------------------ config loader
 
 def test_port_import_maps_reference_names():

@@ -270,11 +270,35 @@ def test_sweep_into_memmap_with_timings(sweep_pair, dataset, tmp_path):
     assert np.array_equal(np.load(str(tmp_path / "out.npy")), want)
     assert sum(t["slabs"]) == 4 and len(t["stage_s"]) == 2 \
         and len(t["write_s"]) == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.sweep_knossos(KnossosArray(path), mesh=object())
+    # a mesh without a 'data' axis under slab_batch sweeps slab by slab,
+    # z-sharded over 'space', with a warning
+    from torch_dp_workers import mesh_of_one
+    from elektronn2_tpu_torch.log import logger
+    with mesh_of_one({"space": 1}) as mesh, _records(logger) as logs:
+        sharded = tm.sweep_knossos(KnossosArray(path), region=REGION,
+                                   step=[8, 16, 16], slab_batch=2, mesh=mesh)
+    assert any("per-slab z-sharded" in m for m in logs)
+    np.testing.assert_allclose(sharded, want, rtol=0, atol=1e-6)
     empty = tm.sweep_knossos(vol, region=[(0, 0), (0, 32), (0, 32)],
                              step=[8, 16, 16])
     assert empty.shape == (2, 0, 32, 32)
+
+
+@contextlib.contextmanager
+def _records(logger):
+    """The messages ``logger`` emits inside the block."""
+    import logging
+    msgs = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            msgs.append(record.getMessage())
+    h = Keep()
+    logger.addHandler(h)
+    try:
+        yield msgs
+    finally:
+        logger.removeHandler(h)
 
 
 # --------------------------------------------------- predict_dense, tiled

@@ -270,7 +270,7 @@ def test_cpu_route_launches_no_kernel(rng):
     (dict(rot_compute_dtype="float16"), None, ValueError,
      "rot_compute_dtype"),
     (dict(rot_precision="hi"), None, ValueError, "rot_precision"),
-    ({}, "mesh", NotImplementedError, "item 8"),
+    ({}, "mesh", ValueError, "no axis 'data'"),
     ({}, "headings", ValueError, "initial_headings"),
 ])
 def test_unported_and_invalid_options_raise(rng, kw, call, exc, match):
@@ -278,8 +278,10 @@ def test_unported_and_invalid_options_raise(rng, kw, call, exc, match):
     vol = rng.rand(1, 20, 20, 20).astype(np.float32)
     with pytest.raises(exc, match=match):
         dt = DeviceTracer(tm, vol, max_steps=2, **kw)
-        if call == "mesh":
-            dt.trace_batch([[10.0, 10.0, 10.0]], mesh=object())
+        if call == "mesh":               # a mesh without the agents' axis
+            from torch_dp_workers import mesh_of_one
+            with mesh_of_one({"space": 1}) as mesh:
+                dt.trace_batch([[10.0, 10.0, 10.0]], mesh=mesh)
         elif call == "headings":
             dt.trace_batch([[10.0, 10.0, 10.0]],
                            initial_headings=np.zeros((2, 3)))

@@ -7,6 +7,7 @@ picklable result per rank. ``run_ranks`` starts the processes and collects
 the results.
 """
 
+import contextlib
 import os
 import pickle
 import socket
@@ -28,7 +29,13 @@ def _entry(rank, world, port, scenario, kwargs, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        res = ("ok", globals()[scenario](rank, **kwargs))
+        if ":" in scenario:                    # another module's scenario
+            import importlib
+            mod, _, name = scenario.partition(":")
+            fn = getattr(importlib.import_module(mod), name)
+        else:
+            fn = globals()[scenario]
+        res = ("ok", fn(rank, **kwargs))
     except BaseException:                       # reported by the parent
         res = ("error", traceback.format_exc())
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -36,9 +43,23 @@ def _entry(rank, world, port, scenario, kwargs, out_dir):
     dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def mesh_of_one(axes):
+    """A CPU mesh of ``axes`` (sizes 1) in this process: a gloo group of
+    one is started where none is up, and destroyed after."""
+    from elektronn2_tpu_torch.parallel import make_mesh
+    started = not dist.is_initialized()
+    try:
+        yield make_mesh(axes, devices="cpu")
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def run_ranks(out_dir, scenario, world=2, **kwargs):
     """Run ``scenario(rank, **kwargs)`` on ``world`` spawned gloo ranks;
-    returns the results by rank, raising a rank's error."""
+    returns the results by rank, raising a rank's error. ``scenario`` names
+    a function of this module, or ``"module:function"`` of another."""
     import torch.multiprocessing as mp
     os.makedirs(out_dir, exist_ok=True)
     mp.start_processes(_entry, args=(world, free_port(), scenario, kwargs,
