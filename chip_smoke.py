@@ -140,7 +140,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     bf16 modes, the same way (no item left unstaged);
 13. tune_batch: candidates 256-2048, 64 steps; the tracer's ``max_steps``
     and kept graph put back, its next ``trace_batch`` a replay;
-14. registry_pool: ``ShotgunRegistry.run(pool=True)`` over 16B seeds, its
+14. registry_pool: ``ShotgunRegistry.run(pool=True)`` over 2B seeds, its
     seconds split into waves, ``register`` and the k.zip, the k.zip read
     back equal to the traces;
 15. train_tracing (run after train_cli): the train CLI on
@@ -319,7 +319,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     phase, reduced-precision serving's entry points: after the flagship's
     timed sweeps ``Model.tune_serving(apply=True)`` over every contender
     (direct, direct + K1, bf16, int8 stored in bf16) at
-    ``DEFAULT_TUNE_STEPS_3D`` clamped to the dataset, slab batches 1 and 2,
+    ``FLAGSHIP_TUNE_STEPS`` clamped to the dataset, slab batches 1 and 2,
     K=4 (``tune_flagship_row``: one line a row, each with its largest map
     and whether it passes 2^31; ``tune_flagship``), then the sweep with the
     winner's step and slab batch beside the default sweep's Mvox/s, its
@@ -371,8 +371,31 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     (``POOL_ATOL``), the ranks' results equal; (d) ``predict --ptail
     --mesh space=1`` against the CLI without ``--mesh`` (uint8 maps at
     most 1 apart). K1's, K2's and K3's launches join the kernels line.
+27. train_scaleout (last, after the sweep, so the profiled windows before
+    it keep a smaller ``profile_margin()``): scale-out training. (a)
+    ``train_spatial_*``: the neuro3d net (``examples/neuro3d.py``'s widths
+    20/30/40/40, then 2) on a (1, 1, 28, 102, 102) input (output z 24),
+    ``make_spatial_dp_trainstep`` on a NCCL mesh ``{data: 1, space: 1}``
+    for 3 steps against the unsharded ``trainingstep`` (losses and
+    parameters within ``SCALE_RTOL``), ms a step against the unsharded
+    step in turns, the halo exchange's share of a step (CUDA events around
+    its forward gathers and backward all_gathers); a fused chunk of 4
+    steps captured as one CUDA graph against 4 per-step calls; (b)
+    ``train_tp_*``: the same net under ``use_mesh(model_axis="model")`` on
+    NCCL ``{data: 1, model: 1}``, 3 trainingsteps against the unsharded
+    run, a graphed ``HostFedFusedLoop`` chunk against the unmeshed one (ms
+    in turns), then K1 serving the gathered TP-trained weights (two
+    launches, each against its plain version; they join the kernels
+    line); (c) ``train_gpipe_pipe_of_one``: ``make_gpipe_trainstep`` on
+    ``examples/neuro3d_pod.py``'s net, 4 microbatches, NCCL ``{pipe: 1}``,
+    against ``trainingstep``, ms a step in turns; (d)
+    ``train_scaleout_two_ranks``: one spawn of two gloo ranks on CUDA
+    tensors running ``{data: 1, space: 2}``, ``{data: 1, model: 2}``,
+    ``{pipe: 2}`` and ``MalisNLL`` (``examples/malis3d.py``'s net, batch 2)
+    on ``{data: 2}``, each against its one-process run, the ranks equal.
 
-Each phase prints JSON lines; then the kernels line (per kernel: launches
+Each phase prints JSON lines and a ``phase_wall`` line with its seconds;
+then the kernels line (per kernel: launches
 on the main paths, the largest error against its plain version, ms,
 plain_ms, bound_ms, bound_by, library_ms; K4's are summed over the
 probe's pool=1 shapes, where one ``F.conv3d`` is its library call; P1's
@@ -1716,6 +1739,7 @@ POOL_QUEUE = 8                          # queue seeds a slot (bench.py:362)
 CHAIN_WAVES = 3                         # full waves before the drain wave
 SUB_B, SUB_N = 16, 48                   # the per-seed check's pool
 POOL_ATOL = 1e-5                        # tests/test_tracing.py:1023
+REGISTRY_SEEDS = 2 * TRACE_B            # the registry drain's seeds
 TUNE_CANDIDATES = (256, 512, 1024, 2048)
 TUNE_STEPS = 64
 
@@ -2048,8 +2072,8 @@ def phase_tune_batch():
 
 
 def phase_registry_pool():
-    """``ShotgunRegistry.run(pool=True)`` over 2N = 16B seeds at B = 1024,
-    K = 256 and the registry's default radius (the chained pool, fed and
+    """``ShotgunRegistry.run(pool=True)`` over ``REGISTRY_SEEDS`` = 2B seeds
+    at B = 1024, K = 256 and the registry's default radius (the chained pool, fed and
     deduped by the registry between waves), then its ``.k.zip`` written and
     read back by the port's NML parser: the nodes are the traces' points,
     in order. The drain's seconds are split into the waves on the card
@@ -2060,7 +2084,7 @@ def phase_registry_pool():
     model.set_params(seeded_tracer_params(model, rng))
     vol = torch.from_numpy(rng.rand(*TRACE_VOL).astype(np.float32)).cuda()
     tracer = make_tracer(model, vol, max_steps=TRACE_K)
-    n = 2 * POOL_QUEUE * TRACE_B
+    n = REGISTRY_SEEDS
     reg = ShotgunRegistry(rng.uniform(*TRACE_SEEDS, (n, 3)))
     spent = {"register": 0.0}
     register = reg.register
@@ -3772,6 +3796,550 @@ def phase_train_dp(smi):
     return launches
 
 
+SCALE_PATCH = (28, 103, 103)   # input (28, 102, 102): z 28, output z 24
+SCALE_STEPS = 3                 # steps held against the unsharded run
+SCALE_K = 4                     # the fused spatial chunk / TP chunk
+SCALE_TIMED = 5                 # steps (chunks) timed in turns, each way
+SCALE_RTOL = 1e-5               # losses and parameters, relative (per leaf)
+SCALE_RANKS = 2                 # gloo ranks on the one card
+PIPE_MICRO = 4                  # GPipe microbatches (neuro3d_pod's batch 4)
+MALIS_RANK_PATCH = (16, 64, 64)     # MalisNLL on two ranks, batch 2
+MALIS_RANK_STEPS = 2
+
+
+def scale_setup():
+    """The neuro3d net (``examples/neuro3d.py``'s widths 20/30/40/40, then
+    2) at ``SCALE_PATCH``, batch 1, with numpy seed ``SEED``'s weights and
+    ``SGD(lr 1e-3, mom 0.9)`` (Adam's normalised step would magnify the
+    float noise of a sharded conv's other summation order in near-zero
+    gradients)."""
+    model = neuro3d_train_model(1, SCALE_PATCH)
+    model.set_params(seeded_params(model, np.random.RandomState(SEED)))
+    model.set_opt("SGD", lr=1e-3, mom=0.9)
+    return model
+
+
+def scale_batches(model, n, seed):
+    """``n`` (data, target) batches of the model's shapes on the card,
+    labelled by thresholding the raw patch's output-sized centre at 0.5."""
+    r = np.random.RandomState(seed)
+    shape = model.input_node.shape.shape
+    zo, xo, yo = model.prediction_node.shape.spatial_shape
+    out = []
+    for _ in range(n):
+        d = r.rand(*shape).astype(np.float32)
+        t = (r.rand(shape[0], zo, xo, yo) > 0.5).astype(np.int32)
+        out.append((torch.from_numpy(d).cuda(), torch.from_numpy(t).cuda()))
+    return out
+
+
+def tree_np(tree):
+    """A numpy copy of a ``{node: {name: tensor}}`` tree."""
+    return {n: {k: v.detach().cpu().numpy().copy() for k, v in d.items()}
+            for n, d in tree.items()}
+
+
+def rel_np_err(a, b):
+    """``rel_tree_err`` of numpy trees."""
+    def t(tree):
+        return {n: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+                for n, d in tree.items()}
+    return rel_tree_err(t(a), t(b))
+
+
+def rel_losses(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def abs_errs(losses, ref_losses, params, ref_params):
+    """The largest absolute loss and parameter differences (numpy trees)."""
+    return (float(np.max(np.abs(np.asarray(losses, np.float64)
+                                - np.asarray(ref_losses, np.float64)))),
+            max(float(np.abs(params[n][k] - ref_params[n][k]).max())
+                for n in ref_params for k in ref_params[n]))
+
+
+def timed_ms(fn, n):
+    """Host ms of ``fn()`` each of ``n`` times, each ending in a
+    synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def halo_step_timed(calls):
+    """Wrap the training halo exchange's forward gather and its backward
+    (``parallel.halo._gather_rows``, ``_HaloGather.backward``) to time each
+    with CUDA events into ``calls``; returns what to put back."""
+    from elektronn2_tpu_torch.parallel import halo
+    fwd, bwd = halo._gather_rows, halo._HaloGather.backward
+
+    def events(fn, *a):
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        y = fn(*a)
+        e.record()
+        calls.append((s, e))
+        return y
+
+    halo._gather_rows = lambda x, h, g: events(fwd, x, h, g)
+    halo._HaloGather.backward = staticmethod(
+        lambda ctx, g: events(bwd, ctx, g))
+    return fwd, bwd
+
+
+def phase_train_spatial(smi, tmp):
+    """Z-sharded DP x SP training (``parallel/spatial_train.py``) at full
+    width on a NCCL mesh ``{data: 1, space: 1}``: (a) ``SCALE_STEPS``
+    spatial steps against the unsharded ``trainingstep`` from the same
+    weights and batches (losses and parameters within ``SCALE_RTOL``), the
+    ms of a step against the unsharded step's in turns, and the halo
+    exchange's share of a step (its forward gathers and backward all_gathers
+    timed with CUDA events); (b) a fused chunk of ``SCALE_K`` steps captured
+    as one CUDA graph (the halo all_gathers and gradient all-reduces
+    inside) against ``SCALE_K`` per-step calls, ms of each in turns. Writes
+    the two-rank case's inputs; returns the reference run."""
+    from elektronn2_tpu_torch.parallel import (make_fused_spatial_trainstep,
+                                               make_mesh,
+                                               make_spatial_dp_trainstep,
+                                               pad_target_for_spatial)
+    from elektronn2_tpu_torch.parallel import halo
+    mesh = make_mesh({"data": 1, "space": 1})
+    ref = scale_setup()
+    w0 = tree_np(ref.params)
+    Z = ref.input_node.shape.spatial_shape[0]
+    batches = scale_batches(ref, SCALE_STEPS, SEED + 40)
+    ref_losses = [float(ref.trainingstep(d, t)[0]) for d, t in batches]
+    ref_params = tree_np(ref.params)
+    m = scale_setup()
+    step = make_spatial_dp_trainstep(m, mesh)
+    hyper = m.optimiser.current_hyper(m.device)
+    padded = [(d, pad_target_for_spatial(t, Z)) for d, t in batches]
+    losses = [float(step(m.params, m.opt_state, m.state, d, t, hyper,
+                         None)[0]) for d, t in padded]
+    loss_err = rel_losses(losses, ref_losses)
+    w_err = rel_tree_err(m.params, ref.params)
+    abs_loss, abs_w = abs_errs(losses, ref_losses, tree_np(m.params),
+                               ref_params)
+    # ms a step in turns, and the halo's share
+    d, t = batches[0]
+    tp_ = padded[0]
+    times = {"unsharded": [], "spatial": []}
+    for _ in range(2):
+        times["unsharded"] += timed_ms(lambda: ref.trainingstep(d, t),
+                                       SCALE_TIMED)
+        times["spatial"] += timed_ms(lambda: step(
+            m.params, m.opt_state, m.state, tp_[0], tp_[1], hyper, None),
+            SCALE_TIMED)
+    calls = []
+    saved = halo_step_timed(calls)
+    try:
+        halo_ms = timed_ms(lambda: step(m.params, m.opt_state, m.state,
+                                        tp_[0], tp_[1], hyper, None),
+                           SCALE_TIMED)
+    finally:
+        halo._gather_rows, halo._HaloGather.backward = saved[0], \
+            staticmethod(saved[1])
+    per_step = sum(s.elapsed_time(e) for s, e in calls) / SCALE_TIMED
+    n_halo = len(calls) // SCALE_TIMED
+    # (b) the fused chunk, graphed, against per-step calls
+    fb = scale_batches(ref, SCALE_K, SEED + 41)
+    data_K = torch.stack([d for d, _ in fb])
+    tgt_K = torch.stack([pad_target_for_spatial(t, Z) for _, t in fb])
+    mf, mp = scale_setup(), scale_setup()
+    chunk = make_fused_spatial_trainstep(mf, mesh, SCALE_K)
+    sp_step = make_spatial_dp_trainstep(mp, mesh)
+    hf, hp = (x.optimiser.current_hyper(x.device) for x in (mf, mp))
+    fused = chunk(mf.params, mf.opt_state, mf.state, data_K, tgt_K, hf,
+                  None)[0].tolist()
+    per = [float(sp_step(mp.params, mp.opt_state, mp.state, data_K[k],
+                         tgt_K[k], hp, None)[0])
+           for k in range(SCALE_K)]
+    graphed = chunk._graph is not None
+    fused_err = rel_losses(fused, per)
+    fused_w_err = rel_tree_err(mf.params, mp.params)
+    ft = {"graphed_chunk": [], "per_step_calls": []}
+    for _ in range(2):
+        ft["graphed_chunk"] += timed_ms(lambda: chunk(
+            mf.params, mf.opt_state, mf.state, data_K, tgt_K, hf, None),
+            SCALE_TIMED)
+        ft["per_step_calls"] += timed_ms(lambda: [sp_step(
+            mp.params, mp.opt_state, mp.state, data_K[k], tgt_K[k], hp,
+            None) for k in range(SCALE_K)], SCALE_TIMED)
+    un_ms = float(np.median(times["unsharded"]))
+    sp_ms = float(np.median(times["spatial"]))
+    emit("train_spatial_mesh_of_one", net="examples/neuro3d.py widths",
+         input=list(ref.input_node.shape.shape),
+         output=list(ref.prediction_node.shape.shape), mesh={"data": 1,
+                                                             "space": 1},
+         backend="nccl", steps=SCALE_STEPS, losses=losses,
+         losses_unsharded=ref_losses, max_rel_loss_err=loss_err,
+         max_rel_param_err=w_err, max_abs_loss_err=abs_loss,
+         max_abs_param_err=abs_w, step_ms_spatial=times["spatial"],
+         step_ms_unsharded=times["unsharded"], median_step_ms_spatial=sp_ms,
+         median_step_ms_unsharded=un_ms, spatial_over_unsharded=sp_ms / un_ms,
+         halo_exchanges_a_step=n_halo, halo_ms_a_step=per_step,
+         halo_share_of_step=per_step / float(np.median(halo_ms)),
+         nvidia_smi=smi)
+    emit("train_spatial_fused", k=SCALE_K, graphed=graphed,
+         capture_seconds=chunk.capture_seconds, fused_losses=fused,
+         per_step_losses=per, max_rel_loss_err=fused_err,
+         max_rel_param_err=fused_w_err, chunk_ms_graphed=ft["graphed_chunk"],
+         chunk_ms_per_step_calls=ft["per_step_calls"],
+         graphed_over_per_step=float(np.median(ft["graphed_chunk"]))
+         / float(np.median(ft["per_step_calls"])), nvidia_smi=smi)
+    if not loss_err <= SCALE_RTOL or not w_err <= SCALE_RTOL:
+        raise AssertionError(f"train_spatial: mesh of one vs unsharded: "
+                             f"losses {loss_err}, params {w_err}")
+    if not graphed or not fused_err <= SCALE_RTOL \
+            or not fused_w_err <= SCALE_RTOL:
+        raise AssertionError(f"train_spatial: fused chunk (graphed "
+                             f"{graphed}) vs per step: losses {fused_err}, "
+                             f"params {fused_w_err}")
+    if n_halo < 2:
+        raise AssertionError(f"train_spatial: {n_halo} halo exchanges a "
+                             "step; the two kz=3 convs each need one, "
+                             "forward and backward")
+    np.savez(os.path.join(tmp, "spatial_inputs.npz"),
+             **{f"w/{n}/{k}": v for n, d in w0.items() for k, v in d.items()},
+             **{f"d{i}": d.cpu().numpy() for i, (d, _) in enumerate(padded)},
+             **{f"t{i}": t.cpu().numpy() for i, (_, t) in enumerate(padded)})
+    return {"losses": ref_losses, "params": ref_params, "w0": w0,
+            "batches": batches}
+
+
+def phase_train_tp(smi, tmp, spatial_ref):
+    """Tensor parallelism (``Model.use_mesh(model_axis="model")``) at full
+    width on a NCCL mesh ``{data: 1, model: 1}``: (a) ``SCALE_STEPS``
+    trainingsteps against the unsharded run of ``phase_train_spatial``
+    (the same net, weights and batches; within ``SCALE_RTOL``); (b) a
+    graphed ``HostFedFusedLoop`` chunk of ``SCALE_K`` steps under TP
+    against the same chunk without a mesh (both graphed), ms in turns;
+    (c) K1 serving the gathered TP-trained weights, each launch held
+    against its plain version, the map against the cuDNN route. Returns
+    K1's launches in (c)."""
+    from elektronn2_tpu_torch.parallel import make_mesh
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    mesh = make_mesh({"data": 1, "model": 1})
+    m = scale_setup()
+    m.use_mesh(mesh, model_axis="model")
+    losses = [float(m.trainingstep(d, t)[0])
+              for d, t in spatial_ref["batches"]]
+    loss_err = rel_losses(losses, spatial_ref["losses"])
+    w_err = rel_np_err(tree_np(m._whole_trees()[0]), spatial_ref["params"])
+    np.savez(os.path.join(tmp, "tp_inputs.npz"),
+             **{f"w/{n}/{k}": v for n, d in spatial_ref["w0"].items()
+                for k, v in d.items()},
+             **{f"d{i}": d.cpu().numpy()
+                for i, (d, _) in enumerate(spatial_ref["batches"])},
+             **{f"t{i}": t.cpu().numpy()
+                for i, (_, t) in enumerate(spatial_ref["batches"])})
+    # (b) graphed host-fed chunks, TP and no mesh, from one host source
+    shape = m.input_node.shape.shape
+    zo, xo, yo = m.prediction_node.shape.spatial_shape
+
+    class Source:
+        def __init__(self):
+            self.rng = np.random.RandomState(SEED + 42)
+
+        def getbatch(self, bs, **kw):
+            return (self.rng.rand(bs, *shape[1:]).astype(np.float32),
+                    (self.rng.rand(bs, zo, xo, yo) > 0.5).astype(np.int32))
+
+    plain = scale_setup()
+    tpm = scale_setup().use_mesh(mesh, model_axis="model")
+    loops = [HostFedFusedLoop(x, Source(), 1, SCALE_K, seed=SEED,
+                              prefetch=False) for x in (plain, tpm)]
+    chunks = [[loop.run_chunk()[0] for loop in loops] for _ in range(2)]
+    chunk_err = max(rel_losses(b, a) for a, b in chunks)
+    chunk_w_err = rel_np_err(tree_np(tpm._whole_trees()[0]),
+                             tree_np(plain.params))
+    times = {"none": [], "tp": []}
+    for _ in range(2):
+        for name, loop in zip(("none", "tp"), loops):
+            times[name] += timed_ms(loop.run_chunk, SCALE_TIMED)
+    for loop in loops:
+        loop.close()
+    # (c) K1 serves the gathered TP-trained weights
+    vol = torch.from_numpy(np.random.RandomState(SEED + 43).rand(
+        *SERVE_SHAPE).astype(np.float32)).cuda()
+    ref_map = serve_request(m, vol, ptail=False)
+    k1, dt, launches, per_launch = k1_serve_recorded(m, vol,
+                                                     "train_tp serve")
+    err = (k1 - ref_map).abs().max().item()
+    whole_new = all(id(v) not in {id(s) for d in m.params.values()
+                                  for s in d.values()}
+                    for d in m._tp_whole[1].values() for v in d.values())
+    emit("train_tp_mesh_of_one", mesh={"data": 1, "model": 1},
+         backend="nccl", steps=SCALE_STEPS, losses=losses,
+         losses_unsharded=spatial_ref["losses"], max_rel_loss_err=loss_err,
+         max_rel_param_err=w_err, sharded=sorted(m._tp_dims),
+         nvidia_smi=smi)
+    emit("train_tp_chunks", k=SCALE_K, chunk_losses=[[a.tolist(), b.tolist()]
+                                                     for a, b in chunks],
+         max_rel_loss_err=chunk_err, max_rel_param_err=chunk_w_err,
+         chunk_ms_no_mesh=times["none"], chunk_ms_tp=times["tp"],
+         tp_over_no_mesh=float(np.median(times["tp"]))
+         / float(np.median(times["none"])),
+         capture_seconds=loops[1].capture_seconds, nvidia_smi=smi)
+    emit("train_tp_serve", request=list(SERVE_SHAPE), seconds=dt,
+         k1_launches=launches, max_abs_vs_cudnn=err,
+         whole_weights_new_tensors=whole_new,
+         k1_launches_vs_plain=per_launch)
+    if not loss_err <= SCALE_RTOL or not w_err <= SCALE_RTOL:
+        raise AssertionError(f"train_tp: mesh of one vs unsharded: losses "
+                             f"{loss_err}, params {w_err}")
+    if not chunk_err <= SCALE_RTOL or not chunk_w_err <= SCALE_RTOL:
+        raise AssertionError(f"train_tp: graphed chunks vs no mesh: losses "
+                             f"{chunk_err}, params {chunk_w_err}")
+    if err > SLICE_ATOL or not whole_new:
+        raise AssertionError(f"train_tp serve: K1 vs cuDNN {err} > "
+                             f"{SLICE_ATOL}, new whole tensors {whole_new}")
+    return launches
+
+
+def pod_batches(model, n, seed):
+    r = np.random.RandomState(seed)
+    shape = model.input_node.shape.shape
+    sp = model.prediction_node.shape.spatial_shape
+    return [(torch.from_numpy(r.rand(*shape).astype(np.float32)).cuda(),
+             torch.from_numpy(r.randint(0, 2, (shape[0], *sp)).astype(
+                 np.int32)).cuda()) for _ in range(n)]
+
+
+def phase_train_gpipe(smi, tmp):
+    """GPipe (``make_gpipe_trainstep``) on ``examples/neuro3d_pod.py``'s net
+    (its seed-0 weights, Adam with clip 10, the unweighted sparse NLL head
+    that ``_model_loss_fn`` takes), ``PIPE_MICRO`` microbatches of 1, on a
+    NCCL mesh ``{pipe: 1}``: ``SCALE_STEPS`` steps against
+    ``trainingstep`` (within ``SCALE_RTOL``), the ms of a step against the
+    unpipelined step's in turns, and the schedule's bubble share
+    ((S - 1) / (M + S - 1) of a stage's ticks). Writes the two-rank case's
+    inputs; returns the reference run."""
+    from elektronn2_tpu_torch.parallel import (make_gpipe_trainstep,
+                                               make_mesh, microbatch)
+    mesh = make_mesh({"pipe": 1})
+    exp, ref, _ = pod_setup()
+    w0 = tree_np(ref.params)
+    batches = pod_batches(ref, SCALE_STEPS, SEED + 44)
+    ref_losses = [float(ref.trainingstep(d, t)[0]) for d, t in batches]
+    ref_params = tree_np(ref.params)
+    _, m, _ = pod_setup()
+    step = make_gpipe_trainstep(m, mesh, PIPE_MICRO, 1)
+    hyper = m.optimiser.current_hyper(m.device)
+    mb = [(microbatch(d, PIPE_MICRO), microbatch(t, PIPE_MICRO))
+          for d, t in batches]
+    losses = [float(step(m.params, m.opt_state, xm, ym, hyper)[0])
+              for xm, ym in mb]
+    loss_err = rel_losses(losses, ref_losses)
+    w_err = rel_tree_err(m.params, ref.params)
+    times = {"trainingstep": [], "gpipe": []}
+    d, t = batches[0]
+    for _ in range(2):
+        times["trainingstep"] += timed_ms(lambda: ref.trainingstep(d, t),
+                                          SCALE_TIMED)
+        times["gpipe"] += timed_ms(lambda: step(m.params, m.opt_state,
+                                                mb[0][0], mb[0][1], hyper),
+                                   SCALE_TIMED)
+    emit("train_gpipe_pipe_of_one", config="examples/neuro3d_pod.py",
+         batch=exp.batch_size, n_micro=PIPE_MICRO, stages=1, backend="nccl",
+         steps=SCALE_STEPS, losses=losses, losses_trainingstep=ref_losses,
+         max_rel_loss_err=loss_err, max_rel_param_err=w_err,
+         step_ms_gpipe=times["gpipe"],
+         step_ms_trainingstep=times["trainingstep"],
+         gpipe_over_trainingstep=float(np.median(times["gpipe"]))
+         / float(np.median(times["trainingstep"])),
+         bubble_share=0.0, nvidia_smi=smi)
+    if not loss_err <= SCALE_RTOL or not w_err <= SCALE_RTOL:
+        raise AssertionError(f"train_gpipe: pipe of one vs trainingstep: "
+                             f"losses {loss_err}, params {w_err}")
+    np.savez(os.path.join(tmp, "gpipe_inputs.npz"),
+             **{f"w/{n}/{k}": v for n, d in w0.items() for k, v in d.items()},
+             **{f"d{i}": d.cpu().numpy() for i, (d, _) in enumerate(batches)},
+             **{f"t{i}": t.cpu().numpy() for i, (_, t) in enumerate(batches)})
+    import torch.distributed as dist
+    if dist.is_initialized():         # the meshes' NCCL group of one
+        dist.destroy_process_group()
+    return {"losses": ref_losses, "params": ref_params}
+
+
+def malis_rank_setup(tmp):
+    """``examples/malis3d.py``'s net at ``MALIS_RANK_PATCH``, batch 2, and
+    ``MALIS_RANK_STEPS`` batches made as the example makes them; the
+    weights and batches written for the ranks. Returns the one-process
+    run."""
+    model = malis3d_model(MALIS_RANK_PATCH, batch=2)
+    model.set_opt("Adam", lr=1e-3)
+    out = tuple(model.prediction_node.shape.spatial_shape)
+    rng = np.random.RandomState(SEED + 45)
+    batches = []
+    for _ in range(MALIS_RANK_STEPS):
+        items = [malis_volume(MALIS_RANK_PATCH, out, rng) for _ in range(2)]
+        batches.append((np.concatenate([i[0] for i in items]),
+                        np.concatenate([i[1] for i in items])))
+    np.savez(os.path.join(tmp, "malis_inputs.npz"),
+             **{f"w/{n}/{k}": v.cpu().numpy() for n, d in model.params.items()
+                for k, v in d.items()},
+             **{f"d{i}": d for i, (d, _) in enumerate(batches)},
+             **{f"t{i}": t for i, (_, t) in enumerate(batches)})
+    losses = [float(model.trainingstep(torch.from_numpy(d).cuda(),
+                                       torch.from_numpy(t).cuda())[0])
+              for d, t in batches]
+    return {"losses": losses, "params": tree_np(model.params)}
+
+
+def _load_inputs(path, model, n):
+    with np.load(path) as z:
+        model.set_params({nn: {k: z[f"w/{nn}/{k}"] for k in model.params[nn]}
+                          for nn in model.params})
+        return [(torch.from_numpy(z[f"d{i}"]).cuda(),
+                 torch.from_numpy(z[f"t{i}"]).cuda()) for i in range(n)]
+
+
+def scaleout_rank(rank, world, port, tmp):
+    """One of ``SCALE_RANKS`` gloo ranks on the one card, CUDA tensors: a
+    ``{data: 1, space: 2}`` spatial run, a ``{data: 1, model: 2}`` TP run,
+    a ``{pipe: 2}`` GPipe run and a ``{data: 2}`` MalisNLL run, each from
+    the inputs its phase wrote; writes each run's losses and whole
+    parameters and seconds."""
+    import torch.distributed as dist
+    from elektronn2_tpu_torch.parallel import (make_gpipe_trainstep,
+                                               make_mesh,
+                                               make_spatial_dp_trainstep,
+                                               microbatch)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    res = {}
+    try:
+        m = scale_setup()
+        b = _load_inputs(os.path.join(tmp, "spatial_inputs.npz"), m,
+                         SCALE_STEPS)
+        step = make_spatial_dp_trainstep(m, make_mesh({"data": 1,
+                                                        "space": world}))
+        hyper = m.optimiser.current_hyper(m.device)
+        t0 = time.perf_counter()
+        res["spatial"] = [float(step(m.params, m.opt_state, m.state, d, t,
+                                     hyper, None)[0]) for d, t in b]
+        res["spatial_s"] = time.perf_counter() - t0
+        res.update({f"spatial/{n}/{k}": v for n, d in tree_np(
+            m.params).items() for k, v in d.items()})
+        m = scale_setup()
+        b = _load_inputs(os.path.join(tmp, "tp_inputs.npz"), m, SCALE_STEPS)
+        m.use_mesh(make_mesh({"data": 1, "model": world}),
+                   model_axis="model")
+        t0 = time.perf_counter()
+        res["tp"] = [float(m.trainingstep(d, t)[0]) for d, t in b]
+        res["tp_s"] = time.perf_counter() - t0
+        res["tp_shard"] = np.asarray(m.params["conv3"]["w"].shape)
+        res.update({f"tp/{n}/{k}": v for n, d in tree_np(
+            m._whole_trees()[0]).items() for k, v in d.items()})
+        exp, m, _ = pod_setup()
+        b = _load_inputs(os.path.join(tmp, "gpipe_inputs.npz"), m,
+                         SCALE_STEPS)
+        step = make_gpipe_trainstep(m, make_mesh({"pipe": world}),
+                                    PIPE_MICRO, 1)
+        hyper = m.optimiser.current_hyper(m.device)
+        t0 = time.perf_counter()
+        res["gpipe"] = [float(step(m.params, m.opt_state,
+                                   microbatch(d, PIPE_MICRO),
+                                   microbatch(t, PIPE_MICRO), hyper)[0])
+                        for d, t in b]
+        res["gpipe_s"] = time.perf_counter() - t0
+        res.update({f"gpipe/{n}/{k}": v for n, d in tree_np(
+            m.params).items() for k, v in d.items()})
+        m = malis3d_model(MALIS_RANK_PATCH, batch=2)
+        m.set_opt("Adam", lr=1e-3)
+        b = _load_inputs(os.path.join(tmp, "malis_inputs.npz"), m,
+                         MALIS_RANK_STEPS)
+        m.use_mesh(make_mesh({"data": world}))
+        t0 = time.perf_counter()
+        res["malis"] = [float(m.trainingstep(d, t)[0]) for d, t in b]
+        res["malis_s"] = time.perf_counter() - t0
+        res.update({f"malis/{n}/{k}": v for n, d in tree_np(
+            m.params).items() for k, v in d.items()})
+        np.savez(os.path.join(tmp, f"scaleout_rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_scaleout_two_ranks(smi, tmp, refs):
+    """The two-rank cases of the scale-out phases in one spawn of
+    ``SCALE_RANKS`` gloo ranks on the one card (CUDA tensors): DP x SP
+    ``{data: 1, space: 2}`` (z 28 split 14 + 14, halos exchanged), TP
+    ``{data: 1, model: 2}`` (every conv's channels split), GPipe ``{pipe:
+    2}`` (4 microbatches over 2 stages: bubble 1/5 of a stage's ticks) and
+    ``MalisNLL`` ``{data: 2}`` (the pair counting on the global batch),
+    each held against its one-process run (``SCALE_RTOL``); the ranks
+    equal each other."""
+    import torch.multiprocessing as mp
+    from elektronn2_tpu_torch.parallel.mesh import free_port
+    refs = dict(refs, malis=malis_rank_setup(tmp))
+    t0 = time.perf_counter()
+    mp.start_processes(scaleout_rank, args=(SCALE_RANKS, free_port(), tmp),
+                       nprocs=SCALE_RANKS, join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [np.load(os.path.join(tmp, f"scaleout_rank{r}.npz"))
+             for r in range(SCALE_RANKS)]
+    rows = {}
+    for case, ref in refs.items():
+        loss_err = max(rel_losses(r[case], ref["losses"]) for r in ranks)
+        w_err = max(rel_np_err({n: {k: r[f"{case}/{n}/{k}"] for k in d}
+                                for n, d in ref["params"].items()},
+                               ref["params"]) for r in ranks)
+        same = all(np.array_equal(ranks[0][f"{case}/{n}/{k}"],
+                                  ranks[1][f"{case}/{n}/{k}"])
+                   for n, d in ref["params"].items() for k in d)
+        abs_loss, abs_w = abs_errs(ranks[0][case], ref["losses"], {
+            n: {k: ranks[0][f"{case}/{n}/{k}"] for k in d}
+            for n, d in ref["params"].items()}, ref["params"])
+        rows[case] = dict(losses=[r[case].tolist() for r in ranks],
+                          losses_one_process=ref["losses"],
+                          max_rel_loss_err=loss_err, max_rel_param_err=w_err,
+                          max_abs_loss_err=abs_loss, max_abs_param_err=abs_w,
+                          ranks_equal=bool(same),
+                          seconds_a_rank=[float(r[f"{case}_s"])
+                                          for r in ranks])
+    emit("train_scaleout_two_ranks", backend="gloo", tensors="cuda",
+         ranks=SCALE_RANKS, meshes={"spatial": {"data": 1, "space": 2},
+                                    "tp": {"data": 1, "model": 2},
+                                    "gpipe": {"pipe": 2},
+                                    "malis": {"data": 2}},
+         tp_conv3_shard=ranks[0]["tp_shard"].tolist(),
+         gpipe_bubble_share=(SCALE_RANKS - 1) / (PIPE_MICRO + SCALE_RANKS
+                                                 - 1),
+         spawn_seconds=spawn_s, nvidia_smi=smi, **rows)
+    for case, row in rows.items():
+        if not row["max_rel_loss_err"] <= SCALE_RTOL \
+                or not row["max_rel_param_err"] <= SCALE_RTOL \
+                or not row["ranks_equal"]:
+            raise AssertionError(f"scaleout {case}: two gloo ranks vs one "
+                                 f"process: {row}")
+
+
+def phase_train_scaleout(smi):
+    """Scale-out training on the card: ``phase_train_spatial``,
+    ``phase_train_tp`` (K1 serving its weights), ``phase_train_gpipe``,
+    then their two-rank cases and ``MalisNLL`` on two ranks
+    (``phase_scaleout_two_ranks``). Returns K1's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial = phase_train_spatial(smi, tmp)
+        k1 = phase_train_tp(smi, tmp, spatial)
+        gpipe = phase_train_gpipe(smi, tmp)
+        torch.cuda.empty_cache()
+        phase_scaleout_two_ranks(smi, tmp, {"spatial": spatial,
+                                            "tp": spatial, "gpipe": gpipe})
+    torch.cuda.empty_cache()
+    return k1
+
+
 SHARD_TURNS = ("unsharded", "sharded", "sharded", "unsharded",
                "unsharded", "sharded")          # (a): requests in turns
 SHARD_SWEEP_SHAPE = (128, 496, 496)     # (b), (d): two slabs at SWEEP_STEP
@@ -4551,14 +5119,15 @@ MALIS_SMALL = (6, 20, 20)               # native core vs the numpy fallback
 MALIS_GRAD_RTOL = 1e-5                  # rel L2, card vs float64 on the CPU
 
 
-def malis3d_model(patch):
+def malis3d_model(patch, batch=1):
     """``examples/malis3d.py``'s ``create_model`` (its layers and widths:
     (1,3,3) 12, (3,3,3) 24, 1x1 3 sigmoid affinities, ``MalisNLL``), loaded
-    as the train CLI loads the file, on an input of ``patch``, on the
-    card."""
+    as the train CLI loads the file, on an input of ``patch`` and a batch
+    of ``batch``, on the card."""
     from elektronn2_tpu_torch.config import ExperimentConfig
     cfg = ExperimentConfig.from_file(os.path.join("examples", "malis3d.py"))
     cfg.create_model.__globals__["PATCH"] = tuple(patch)
+    cfg.create_model.__globals__["batch_size"] = int(batch)
     return cfg.create_model().to("cuda")
 
 
@@ -5147,16 +5716,23 @@ def tune_rows(smi, what, res, seconds):
         raise AssertionError(f"tune {what}: no contender ran")
 
 
+#: the flagship tune's slab sizes: the smallest of
+#: ``inference.DEFAULT_TUNE_STEPS_3D`` and the sweep's default (cut from
+#: its four to keep the script's time; every contender and slab batch is
+#: still tuned)
+FLAGSHIP_TUNE_STEPS = ((64, 384, 384), (112, 496, 496))
+
+
 def tune_flagship(smi, model, path, outs, walls):
     """``Model.tune_serving(apply=True)`` on the sweep's flagship (every
-    contender, ``DEFAULT_TUNE_STEPS_3D`` clamped to the dataset, slab
+    contender, ``FLAGSHIP_TUNE_STEPS`` clamped to the dataset, slab
     batches 1 and 2, K=4), its table one line a row; then the sweep with
     the winner's step and slab batch, timed beside the default sweep's, its
     output held to the default sweep's (1e-5 for a float32 winner, the
     argmax floor of a lossy one). Returns K1's launches in the tune and the
     tuned sweep; the K1 route is put back."""
     steps = [tuple(min(v, r) for v, r in zip(s, SWEEP_SHAPE))
-             for s in inference.DEFAULT_TUNE_STEPS_3D]
+             for s in FLAGSHIP_TUNE_STEPS]
     before = tailconv.launches
     t0 = time.perf_counter()
     res = model.tune_serving(steps=steps, slab_batches=(1, 2), K=4,
@@ -5299,53 +5875,67 @@ def phase_sweep(smi):
     return launches
 
 
+def timed_phase(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds printed as a
+    ``phase_wall`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    emit("phase_wall", name=fn.__name__, args=kwargs,
+         seconds=time.perf_counter() - t0)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
                  "is false); this script runs only on the card")
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    k1 = phase_kernel()
-    k4 = phase_kernel_k4()
-    k2 = phase_kernel_k2()
-    k3 = phase_kernel_k3()
-    k5 = phase_kernel_k5()
-    k1_launches = phase_slice()
-    k4_launches, k1_chain = phase_head_chain()
-    k1_launches += k1_chain + phase_convdense()
-    raw = phase_trace(rotate=False)
-    raw_rot = phase_trace(rotate=True)
-    prelu = phase_trace(rotate=False, prelu_w=TN_PRELU_W)   # tracing_nodes
+    smi = timed_phase(phase_device)
+    timed_phase(phase_build)
+    k1 = timed_phase(phase_kernel)
+    k4 = timed_phase(phase_kernel_k4)
+    k2 = timed_phase(phase_kernel_k2)
+    k3 = timed_phase(phase_kernel_k3)
+    k5 = timed_phase(phase_kernel_k5)
+    k1_launches = timed_phase(phase_slice)
+    k4_launches, k1_chain = timed_phase(phase_head_chain)
+    k1_launches += k1_chain + timed_phase(phase_convdense)
+    raw = timed_phase(phase_trace, rotate=False)
+    raw_rot = timed_phase(phase_trace, rotate=True)
+    prelu = timed_phase(phase_trace, rotate=False,          # tracing_nodes
+                        prelu_w=TN_PRELU_W)
     k2_launches = raw["launches"] + prelu["launches"]
     k3_launches = raw_rot["launches"]
-    phase_trace_kzip()
-    k3b = phase_kernel_k3_bf16()
-    k2_launches += phase_trace_pool(raw)
-    k3_pool, k3b_launches = phase_trace_rot_pool(raw_rot)
+    timed_phase(phase_trace_kzip)
+    k3b = timed_phase(phase_kernel_k3_bf16)
+    k2_launches += timed_phase(phase_trace_pool, raw)
+    k3_pool, k3b_launches = timed_phase(phase_trace_rot_pool, raw_rot)
     k3_launches += k3_pool
-    phase_tune_batch()
-    k2_launches += phase_registry_pool()
-    phase_headk_probe()
-    k5_launches = phase_k5_main()
-    p1_launches, p1 = phase_probe_dot()
-    p2_launches, p2 = phase_probe_ablate()
-    k1_launches += phase_train(smi)
-    phase_train_bn(smi)
-    k1_launches += phase_train_lowering(smi)
-    k1_launches += phase_train_cli(smi)
-    k2_launches += phase_train_tracing(smi)
-    phase_tracing_nodes(smi)
-    phase_malis(smi)
-    phase_reduced_matmuls(smi)
-    k1_launches += phase_train_dp(smi)
-    phase_quant_conv(smi)
-    k1_launches += phase_serve_dtypes(smi)
-    k1_sh, k2_sh, k3_sh = phase_serve_sharded(smi)
+    timed_phase(phase_tune_batch)
+    k2_launches += timed_phase(phase_registry_pool)
+    timed_phase(phase_headk_probe)
+    k5_launches = timed_phase(phase_k5_main)
+    p1_launches, p1 = timed_phase(phase_probe_dot)
+    p2_launches, p2 = timed_phase(phase_probe_ablate)
+    k1_launches += timed_phase(phase_train, smi)
+    timed_phase(phase_train_bn, smi)
+    k1_launches += timed_phase(phase_train_lowering, smi)
+    k1_launches += timed_phase(phase_train_cli, smi)
+    k2_launches += timed_phase(phase_train_tracing, smi)
+    timed_phase(phase_tracing_nodes, smi)
+    timed_phase(phase_malis, smi)
+    timed_phase(phase_reduced_matmuls, smi)
+    k1_launches += timed_phase(phase_train_dp, smi)
+    timed_phase(phase_quant_conv, smi)
+    k1_launches += timed_phase(phase_serve_dtypes, smi)
+    k1_sh, k2_sh, k3_sh = timed_phase(phase_serve_sharded, smi)
     k1_launches += k1_sh
     k2_launches += k2_sh
     k3_launches += k3_sh
-    k1_launches += phase_sweep(smi)
+    k1_launches += timed_phase(phase_sweep, smi)
+    # after every profiled window: profile_margin() grows with the
+    # process's age, and this phase profiles nothing
+    k1_launches += timed_phase(phase_train_scaleout, smi)
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),

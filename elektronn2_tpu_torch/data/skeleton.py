@@ -328,29 +328,43 @@ class _SkelLoss(torch.autograd.Function):
     saved host gradient (the JAX package's custom VJP)."""
 
     @staticmethod
-    def forward(ctx, pred, skel_feed, skeletons):
-        landing = (skel_feed[:, 1:4] + pred).detach().cpu().numpy()
-        ids = skel_feed[:, 0].detach().cpu().numpy().astype(np.int32)
-        d, g = _skel_loss_host(skeletons, landing, ids)
+    def forward(ctx, pred, skel_feed, skeletons, dp):
+        pred, skel_feed = pred.detach(), skel_feed.detach()
+        if dp is not None:                  # the global batch's rows
+            pred = dp.gather(pred, 0)
+            if skel_feed.shape[0] != pred.shape[0]:
+                skel_feed = dp.gather(skel_feed, 0)
+        landing = skel_feed[:, 1:4] + pred
+        ids = skel_feed[:, 0]
+        d, g = _skel_loss_host(skeletons, landing.cpu().numpy(),
+                               ids.cpu().numpy().astype(np.int32))
+        if dp is not None:
+            k = pred.shape[0] // dp.world
+            d, g = (a[dp.rank * k:(dp.rank + 1) * k] for a in (d, g))
         ctx.save_for_backward(torch.from_numpy(g).to(pred.device))
         return torch.from_numpy(d).to(pred.device)
 
     @staticmethod
     def backward(ctx, ct):
         (g,) = ctx.saved_tensors
-        return ct[:, None] * g, None, None
+        return ct[:, None] * g, None, None, None
 
 
-def skel_loss_callback(pred, skel_feed, positions=None, skeletons=None):
+def skel_loss_callback(pred, skel_feed, positions=None, skeletons=None,
+                       dp=None):
     """Differentiable skeleton distance loss: ``pred`` (b, 3) step vectors,
     ``skel_feed`` (b, 4) rows of [skel_id, z, x, y] positions; per sample
     the squared distance of position + step to the nearest node of the
     skeleton (by default from the registry, :func:`register_skeleton`).
-    The query runs on the host, so a call syncs it. Reference:
+    The query runs on the host, so a call syncs it. ``dp``: the data-
+    parallel group of a step under a mesh; ``pred`` holds this rank's rows
+    (``skel_feed`` this rank's or the global batch's), the query runs on
+    the global batch's (gathered over the group) and this rank keeps its
+    rows. Reference:
     ``skeleton.py::skel_loss_callback``."""
     if skeletons is None:
         skeletons = _SKELETON_REGISTRY
-    return _SkelLoss.apply(pred, skel_feed, skeletons)
+    return _SkelLoss.apply(pred, skel_feed, skeletons, dp)
 
 
 #: registry of the skeletons ``SkelLoss`` nodes refer to by integer id

@@ -316,7 +316,8 @@ def _to_device(weights, like):
     return torch.from_numpy(weights).to(like.device)
 
 
-def malis_weighted_nll(pred, aff_gt, seg_gt, nhood, unrestrict_neg=True):
+def malis_weighted_nll(pred, aff_gt, seg_gt, nhood, unrestrict_neg=True,
+                       dp=None):
     """MALIS-weighted binary NLL on affinity predictions.
 
     ``pred``: (b, E, \\*sp) affinity probabilities; ``seg_gt``: (b, \\*sp)
@@ -330,13 +331,23 @@ def malis_weighted_nll(pred, aff_gt, seg_gt, nhood, unrestrict_neg=True):
     ``torch.maximum`` against eps splits the gradient at a tie as
     ``jnp.maximum`` does, and gives none below eps, so a saturated
     prediction (0 or 1) gets the JAX package's gradient.
+
+    ``dp``: the data-parallel group of a step under a mesh
+    (``parallel.DataGroup``): the arguments hold this rank's rows, the
+    host pass runs on the global batch's rows (gathered over the group)
+    and this rank keeps its rows of the weights.
     """
     nhood = np.asarray(nhood, dtype=np.int32)
-    host = _to_host([pred.float(), seg_gt]
-                    + ([] if aff_gt is None else [aff_gt.float()]))
+    rows = [pred.detach().float(), seg_gt] \
+        + ([] if aff_gt is None else [aff_gt.float()])
+    if dp is not None:
+        rows = [dp.gather(t, 0) for t in rows]
+    host = _to_host(rows)
     w = _to_device(batch_weights(host[0], host[1], nhood, unrestrict_neg,
                                  host[2] if aff_gt is not None else None),
                    pred)
+    if dp is not None:
+        w = dp.rows(w, 1)
     eps = pred.new_full((), 1e-10)
     nll = -(w[0] * torch.log(torch.maximum(pred, eps))
             + w[1] * torch.log(torch.maximum(1.0 - pred, eps)))

@@ -253,7 +253,9 @@ class MalisNLL(Node):
     Reference: ``loss.py::MalisNLL``. ``aff_gt`` may be None: the
     ground-truth affinities are then derived from ``seg_gt``. A step with
     this node syncs the host; the fused loops refuse to capture it, and it
-    has no device twin: train it per step (``Model.trainingstep``).
+    has no device twin: train it per step (``Model.trainingstep``). Under
+    a mesh the pair counting runs on the global batch's rows, gathered
+    over the data axis, and each rank keeps its rows of the weights.
     """
 
     host_sync = True
@@ -277,7 +279,7 @@ class MalisNLL(Node):
         else:
             (pred, seg_gt), aff_gt = pv, None
         return malis_weighted_nll(pred, aff_gt, seg_gt, self.nhood,
-                                  self.unrestrict_neg)
+                                  self.unrestrict_neg, dp=ctx.dp)
 
 
 @register_node_class

@@ -35,6 +35,8 @@ mesh (``parallel/``): every rank is fed the global batch and keeps its
 rows, the gradients are averaged with one all-reduce a step, and the
 update runs on every rank; a step under a mesh computes what the unsharded
 step computes on the same global batch (``parallel/data_parallel.py``).
+With ``model_axis`` the Conv, UpConv and Perceptron weights are split over
+that axis as well (``parallel/tensor_parallel.py``).
 
 Not ported (``NotImplementedError`` naming the ROADMAP.md item): orbax
 checkpoints and the TPU lowerings of ``set_dilated_impl`` /
@@ -43,6 +45,8 @@ checkpoints and the TPU lowerings of ``set_dilated_impl`` /
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import io
 import json
 import math
@@ -57,6 +61,16 @@ from ..ops.conv import f32_convs, f32_matmuls
 from .graphmanager import GraphManager
 from .node_basic import TraceCtx
 from .optimiser import Optimiser, get_optimiser, opt_leaves, tree_leaves
+
+
+def _serves_whole(method):
+    """A dense serving entry point: under tensor parallelism it runs on the
+    whole weights (``Model._serving_params``)."""
+    @functools.wraps(method)
+    def serve(self, *args, **kwargs):
+        with self._serving_params():
+            return method(self, *args, **kwargs)
+    return serve
 
 
 class Model:
@@ -108,8 +122,11 @@ class Model:
         self._train_zfold = False
         self._train_skipsum = False
         self._remat = False
-        self._mesh = None                 # use_mesh: the mesh and the
-        self._dp = None                   # group over its data axis
+        self._mesh = None                 # use_mesh: the mesh, the
+        self._dp = None                   # group over its data axis,
+        self._tp = None                   # over its model axis (tensor
+        self._tp_dims = {}                # parallelism) and the sharded
+        self._tp_whole = None             # params' dims; whole weights
         self._node_names = frozenset(self.nodes)
         graph_manager.register_model(self)
 
@@ -310,6 +327,7 @@ class Model:
         return {"bfloat16": torch.bfloat16,
                 "float16": torch.float16}.get(self._compute_dtype)
 
+    @_serves_whole
     def calibrate_int8(self, vol):
         """Record each conv's input max-abs over a calibration volume
         ((f, *spatial) or (b, f, *spatial), a tensor on the model's device
@@ -368,6 +386,7 @@ class Model:
         ctx = TraceCtx(params, feed, rng=rng, train=train, state_in=state,
                        noise_in=noise)
         ctx.dp = dp
+        ctx.tp, ctx.tp_dims = self._tp, self._tp_dims
         ctx.compute_dtype = self._trace_dtype()
         ctx.remat = self._remat and train
         ctx.convdense_zfold = self._train_zfold
@@ -514,11 +533,16 @@ class Model:
                 feed, rng, noise, dp=dp)
             if dp is not None:
                 loss, aux = self._dp_reduce(grads, loss, aux)
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                                   for g in tree_leaves(grads)))
+            # under tensor parallelism the gradients are shards: the
+            # whole gradient's sum of squares
+            sumsq = (self._tp.sumsq(grads, self._tp_dims)
+                     if self._tp is not None else
+                     sum(torch.sum(torch.square(g))
+                         for g in tree_leaves(grads)))
+            gnorm = torch.sqrt(sumsq)
             self.optimiser.update(self._trainable(self.params), grads,
                                   self.opt_state, hyper, self._lr_mults,
-                                  self._wd_mults)
+                                  self._wd_mults, sumsq=sumsq)
         with torch.no_grad():
             for n, d in self.state.items():
                 for k, v in d.items():
@@ -540,59 +564,111 @@ class Model:
     # ------------------------------------------------------------- scale-out
     def use_mesh(self, mesh, data_axis="data", model_axis=None):
         """Train data-parallel over ``mesh`` (``parallel.make_mesh``), the
-        batch sharded over ``data_axis``.
+        batch sharded over ``data_axis``, and with ``model_axis`` tensor-
+        parallel over that axis.
 
         Every rank calls :meth:`trainingstep` (or runs a fused loop) with
         the *global* batch and keeps its rows; batch norm takes the global
         batch's moments and dropout and ``GaussianRV`` the global batch's
-        draws; the gradients are averaged over the axis with one all-reduce
-        a step, then the update runs on every rank, so the parameters and
-        the optimiser state stay equal on every rank (rank 0's values are
-        broadcast here). ``trainingstep`` returns the global batch's loss,
-        error and debug outputs. ``predict`` and the dense paths run
-        unsharded on each rank; :meth:`save` writes from rank 0.
+        draws; the gradients are averaged over the data axis with one
+        all-reduce a step, then the update runs on every rank, so the
+        parameters and the optimiser state stay equal on every rank of the
+        axis (rank 0's values are broadcast here, along every axis of the
+        mesh). ``trainingstep`` returns the global batch's loss, error and
+        debug outputs. A loss with a host pass (``MalisNLL``, ``SkelLoss``)
+        runs it on the global batch's rows, gathered over the data axis.
 
-        ``model_axis`` (tensor parallelism) and meshes with a ``model``,
-        ``space`` or ``pipe`` axis are not ported (ROADMAP.md item 8d/8e).
-        Losses that query the host (``MalisNLL``, ``SkelLoss``) are refused
-        on more than one rank. Reference: ``Model.use_mesh``.
+        ``model_axis`` (tensor parallelism, ``parallel/tensor_parallel.py``):
+        the ``w`` and ``b`` of Conv, UpConv and Perceptron nodes are split
+        over the axis by their output features where it divides them, and
+        each rank keeps only its shards and their optimiser slots; a node
+        computes its slice of the channels and joins them over the axis.
+        ``predict`` runs that forward (every rank of the axis calls it);
+        the dense serving paths (``predict_dense*``, ``sweep_knossos``,
+        ``tune_serving``, ``calibrate_int8``) serve the whole weights,
+        gathered once per update; :meth:`save` writes them whole, and a
+        model loaded from the file and put on a mesh shards them again.
+
+        Other axes of the mesh hold replicas. An axis name the mesh lacks
+        raises ``ValueError``. :meth:`save` writes from the mesh's first
+        rank. Reference: ``Model.use_mesh``.
         """
         from ..parallel import DataGroup
-        if model_axis is not None:
-            raise NotImplementedError(
-                f"use_mesh(model_axis={model_axis!r}): tensor parallelism is "
-                "not ported to elektronn2_tpu_torch (ROADMAP.md item 8d)")
+        from ..parallel.tensor_parallel import ModelGroup, shard_tree, tp_dims
         names = tuple(mesh.mesh_dim_names or ())
-        other = [a for a in names if a in ("model", "space", "pipe")]
-        if other:
-            raise NotImplementedError(
-                f"use_mesh: mesh axes {other} (tensor, spatial or pipeline "
-                "parallelism) are not ported to elektronn2_tpu_torch "
-                "(ROADMAP.md item 8d/8e); give a mesh of a data axis only")
-        if data_axis not in names:
-            raise ValueError(f"data_axis={data_axis!r} is not an axis of the "
-                             f"mesh {names}")
+        for what, ax in (("data_axis", data_axis), ("model_axis",
+                                                    model_axis)):
+            if ax is not None and ax not in names:
+                raise ValueError(f"{what}={ax!r} is not an axis of the "
+                                 f"mesh {names}")
         if mesh.device_type != self.device.type:
             raise ValueError(
                 f"a {mesh.device_type} mesh for a model on {self.device}: "
                 "move the model (Model.to) or make the mesh on its device")
+        if self._tp is not None:          # back to whole tensors first
+            self.params, self.opt_state = self._whole_trees()
+            self._tp, self._tp_dims, self._tp_whole = None, {}, None
         dp = DataGroup(mesh, data_axis)
-        if dp.world > 1 and self.loss_node is not None:
-            sync = sorted((type(n).__name__, n.name)
-                          for n in self.loss_node.all_parents()
-                          if getattr(n, "host_sync", False))
-            if sync:
-                raise NotImplementedError(
-                    "use_mesh over more than one rank: "
-                    + ", ".join(f"{c} node {n!r}" for c, n in sync)
-                    + " queries the host each step, which is not ported "
-                    "under a mesh (ROADMAP.md item 8f)")
+        tp = ModelGroup(mesh, model_axis) if model_axis is not None else None
         self.init_state()
-        dp.broadcast_(tree_leaves(self.params) + tree_leaves(self.state)
-                      + (opt_leaves(self.opt_state)
-                         if self.opt_state is not None else []))
+        leaves = (tree_leaves(self.params) + tree_leaves(self.state)
+                  + (opt_leaves(self.opt_state)
+                     if self.opt_state is not None else []))
+        import torch.distributed as dist
+        for ax in names:
+            group = mesh.get_group(ax)
+            for t in leaves:
+                dist.broadcast(t, src=dist.get_global_rank(group, 0),
+                               group=group)
+        if tp is not None:
+            dims = tp_dims(self.nodes, tp.world)
+            self.params = shard_tree(self.params, dims, tp)
+            if self.opt_state is not None:
+                self.opt_state = {
+                    "step": self.opt_state["step"],
+                    "slots": tuple(shard_tree(sl, dims, tp)
+                                   for sl in self.opt_state["slots"])}
+            self._tp, self._tp_dims = tp, dims
         self._mesh, self._dp = mesh, dp
         return self
+
+    def _whole_trees(self):
+        """(params, optimiser state) with the tensor-parallel shards joined
+        into whole tensors (new ones; a collective over the model axis)."""
+        from ..parallel.tensor_parallel import gather_tree
+        params = gather_tree(self.params, self._tp_dims, self._tp)
+        opt = self.opt_state
+        if opt is not None:
+            opt = {"step": opt["step"],
+                   "slots": tuple(gather_tree(sl, self._tp_dims, self._tp)
+                                  for sl in opt["slots"])}
+        return params, opt
+
+    @contextlib.contextmanager
+    def _serving_params(self):
+        """Dense serving under tensor parallelism: for the call, the whole
+        weights in place of this rank's shards and no model group. They are
+        gathered (a collective over the model axis: every rank of it
+        serves) when the shards changed since the last gather, into new
+        tensors, so K1's packed weights (``ops/tailconv.py::
+        packed_weights``, keyed on the tensor) are packed anew."""
+        if self._tp is None:
+            yield
+            return
+        from ..ops.tailconv import forget_packed
+        from ..parallel.tensor_parallel import gather_tree
+        key = tuple((id(v), v._version) for v in tree_leaves(self.params))
+        if self._tp_whole is None or self._tp_whole[0] != key:
+            if self._tp_whole is not None:
+                forget_packed(tree_leaves(self._tp_whole[1]))
+            self._tp_whole = (key, gather_tree(self.params, self._tp_dims,
+                                               self._tp))
+        shards, tp = self.params, self._tp
+        self.params, self._tp = self._tp_whole[1], None
+        try:
+            yield
+        finally:
+            self.params, self._tp = shards, tp
 
     def _dp_rows(self, feed):
         """This rank's rows of every fed value with a batch axis (a view)."""
@@ -757,6 +833,7 @@ class Model:
                               self._feed(raw, extra=extra), None, train=False)
         return outs[0]
 
+    @_serves_whole
     def predict_dense(self, raw_img, pad_raw=False, as_uint8=False,
                       tile_batch=1, verbose=False, prefer_device=True,
                       device_budget=4 << 30):
@@ -771,6 +848,7 @@ class Model:
                              verbose=verbose, prefer_device=prefer_device,
                              device_budget=device_budget)
 
+    @_serves_whole
     def predict_dense_device(self, vol, pad_raw=False, tile_batch=1):
         """Dense sweep of a device-resident volume: (f, Z, X, Y) float32
         tensor on the model's device in, dense map (f_out, Z', X', Y') out
@@ -779,6 +857,7 @@ class Model:
         return predict_dense_device(self, vol, pad_raw=pad_raw,
                                     tile_batch=tile_batch)
 
+    @_serves_whole
     def predict_dense_sharded(self, vol, mesh, axis_name="space",
                               pad_raw=False):
         """Dense sweep of a (f, Z, X, Y) volume with its z axis split over
@@ -789,6 +868,7 @@ class Model:
         return predict_dense_sharded(self, vol, mesh, axis_name=axis_name,
                                      pad_raw=pad_raw)
 
+    @_serves_whole
     def predict_dense_sharded_batch(self, vols, mesh, axis_name="space",
                                     batch_axis="data"):
         """DP x SP dense serving: the slab batch over ``batch_axis``, each
@@ -799,6 +879,7 @@ class Model:
                                            axis_name=axis_name,
                                            batch_axis=batch_axis)
 
+    @_serves_whole
     def sweep_knossos(self, karr, region=None, step=None, out=None,
                       verbose=False, mesh=None, axis_name="space",
                       slab_batch=1, batch_axis="data", timings=None):
@@ -813,6 +894,7 @@ class Model:
                              slab_batch=slab_batch, batch_axis=batch_axis,
                              timings=timings)
 
+    @_serves_whole
     def tune_serving(self, steps=None, slab_batches=(1, 2), K=4,
                      include_bf16=True, include_int8=True, apply=True,
                      verbose=True):
@@ -898,24 +980,31 @@ class Model:
         statistics), and with an optimiser ``__opt__`` (class, hyperparams,
         nesterov, step count) and its state's leaves ``opt/<i>`` in
         ``jax.tree_util`` order, so either package resumes the other's
-        training. Under :meth:`use_mesh` rank 0 of the data axis writes
-        (every rank holds the same values) and then every rank of the axis
-        waits at a barrier, so the file is whole when ``save`` returns."""
+        training. Under :meth:`use_mesh` the mesh's first rank writes
+        (every rank of an axis holds the same values; tensor-parallel
+        shards are first gathered into whole tensors, a collective every
+        rank of the model axis joins) and then every rank waits at a
+        barrier on each axis, so the file is whole when ``save`` returns."""
         if backend != "npz":
             raise NotImplementedError(
                 f"backend={backend!r}: only 'npz' is ported (orbax is a JAX "
                 "checkpoint format)")
-        if self._dp is None or self._dp.rank == 0:
-            self._write(fname)
-        if self._dp is not None:
+        params, opt = self.params, self.opt_state
+        if self._tp is not None:
+            params, opt = self._whole_trees()
+        mesh = self._mesh
+        if mesh is None or not any(mesh.get_coordinate()):
+            self._write(fname, params, opt)
+        if mesh is not None:
             import torch.distributed as dist
-            dist.barrier(group=self._dp.group)
+            for ax in mesh.mesh_dim_names:
+                dist.barrier(group=mesh.get_group(ax))
 
-    def _write(self, fname):
+    def _write(self, fname, params, opt_state):
         spec_json, arg_arrays = self.gm.spec_json()
         payload = {"__spec__": np.frombuffer(spec_json.encode(), np.uint8)}
         payload.update(arg_arrays)
-        for nname, pdict in self.params.items():
+        for nname, pdict in params.items():
             for pname, v in pdict.items():
                 payload[f"param/{nname}/{pname}"] = v.detach().cpu().numpy()
         for nname, st in self.state.items():
@@ -924,7 +1013,7 @@ class Model:
         if self.optimiser is not None:
             payload["__opt__"] = np.frombuffer(
                 json.dumps(self._opt_meta()).encode(), np.uint8)
-            for i, v in enumerate(opt_leaves(self.opt_state)):
+            for i, v in enumerate(opt_leaves(opt_state)):
                 payload[f"opt/{i}"] = v.detach().cpu().numpy()
         buf = io.BytesIO()
         np.savez_compressed(buf, **payload)
@@ -971,6 +1060,9 @@ class Model:
                     raise ValueError(f"param {nname}/{pname}: shape "
                                      f"{tuple(t.shape)} != graph's {want}")
                 new[nname][pname] = t
+        if self._tp is not None:          # whole in, this rank's shards kept
+            from ..parallel.tensor_parallel import shard_tree
+            new = shard_tree(new, self._tp_dims, self._tp)
         self.params = new
 
     def __repr__(self):

@@ -159,6 +159,22 @@ def _scale(ctx, node):
     return (ctx.quant_scales or {}).get(node.name)
 
 
+def _tp_join(node, ctx, y, tp, f_axis, post):
+    """Tensor parallelism (``ctx.tp_of``): ``y`` is this rank's slice of
+    ``node``'s output channels along ``f_axis``, bias and pool applied. A
+    channel-local activation runs on the slice before the channels are
+    joined over the group; batch norm, prelu, maxout and dropout run after
+    it (``post``), on the whole channels."""
+    local = (not getattr(node, "batch_normalisation", False)
+             and "alpha" not in node.params
+             and _maxout_factor(node.activation_func) == 1
+             and not getattr(node, "dropout_rate", 0))
+    if local:
+        return tp.gather(apply_activation(y, node.activation_func,
+                                          axis=f_axis), f_axis)
+    return post(ctx, tp.gather(y, f_axis))
+
+
 def _norm_spatial(v, nsp, what):
     if np.isscalar(v):
         return (int(v),) * nsp
@@ -217,6 +233,9 @@ class Perceptron(Node, _BNMixin):
             x = x.reshape(x.shape[0], -1)
         w = ctx.param(self, "w")
         b = ctx.param(self, "b")
+        tp = ctx.tp_of(self)
+        if tp is not None:            # w (f_in, n_f / world): column slice
+            x = tp.enter(x)
         # mixed precision: the operands and the product in ``cd`` (as
         # ``preferred_element_type=xm.dtype`` in the JAX package), cast to
         # float32 before the bias, batch norm and the activation
@@ -230,6 +249,13 @@ class Perceptron(Node, _BNMixin):
             b = b.reshape((1,) * ax + (-1,) + (1,) * (x.ndim - ax - 1))
         y = (y.float() if cd is not None else y) + b
         f_ax = 1 if self.flatten else self._f_ax
+        if tp is not None:
+            return _tp_join(self, ctx, y, tp, f_ax,
+                            lambda c, v: self._post(c, v, f_ax))
+        return self._post(ctx, y, f_ax)
+
+    def _post(self, ctx, y, f_ax):
+        """Batch norm, the activation and dropout."""
         if self.batch_normalisation:
             y = self._apply_bn(y, ctx, f_axis=f_ax)
         y = apply_activation(y, self.activation_func,
@@ -356,37 +382,59 @@ class Conv(Node, _BNMixin):
             if any(p > 1 for p in self.pool_shape):
                 y = self._pool(ctx, y)
             return y
+        sp = ctx.halo_axis
+        if sp is not None and len(self.filter_shape) == 3 \
+                and self.filter_shape[0] > 1:
+            # z-sharded training (parallel/spatial_train.py): the filter's
+            # z halo from the next ranks; the output keeps z_local rows
+            x = sp.halo(x, self.filter_shape[0] - 1)
+        tp = ctx.tp_of(self)
+        if tp is not None:
+            x = tp.enter(x)
         _record_absmax(ctx, self, x)
+        cd = ctx.compute_dtype
         if ctx.quant_serving:
             # int8 whole-volume serving: one scale per volume, or the
             # calibrated one (the tiled path never sets the flag: per-tile
             # scales would seam the stitched map)
             y = quantized_conv(x, w, x_absmax=_scale(ctx, self))
             y = y + b.reshape((1, -1) + (1,) * (x.ndim - 2))
-            return self._conv_epilogue(ctx, y)
-        cd = ctx.compute_dtype
-        if cd is not None:
+        elif cd is not None:
             # mixed precision: operands in ``cd``, float32 accumulation,
             # the bias and the epilogue in float32 (as the JAX package)
             y = self._serving_conv_fn(ctx)(x.to(cd), w.to(cd)).float()
             y = y + b.reshape((1, -1) + (1,) * (x.ndim - 2))
-            return self._conv_epilogue(ctx, y)
-        return self._conv_epilogue(ctx, self._serving_conv_fn(ctx)(x, w, b))
+        else:
+            y = self._serving_conv_fn(ctx)(x, w, b)
+        if tp is not None:
+            # tensor parallelism: ``w`` and ``b`` are this rank's shards of
+            # the output channels, pooled, then joined over the group
+            return _tp_join(self, ctx, self._pool_stage(ctx, y), tp, 1,
+                            self._post_pool)
+        return self._conv_epilogue(ctx, y)
 
     def _pool(self, ctx, y):
         if ctx.convdense_poolslice:
             return pooling_slices(y, self.pool_shape)
         return ops_pooling(y, self.pool_shape)
 
-    def _conv_epilogue(self, ctx, y):
-        """Pool (plain or MFP fragment pool), batch norm, the activation and
-        dropout: the tail shared by every conv lowering."""
+    def _pool_stage(self, ctx, y):
+        """The pool, plain or MFP's fragment pool (channel by channel)."""
         if any(p > 1 for p in self.pool_shape):
             if self.mfp:
                 y, _ = fragmentpool(y, self.pool_shape, self._parent_offsets,
                                     self._pre_pool_strides)
             else:
                 y = self._pool(ctx, y)
+        return y
+
+    def _conv_epilogue(self, ctx, y):
+        """Pool (plain or MFP fragment pool), batch norm, the activation and
+        dropout: the tail shared by every conv lowering."""
+        return self._post_pool(ctx, self._pool_stage(ctx, y))
+
+    def _post_pool(self, ctx, y):
+        """Batch norm, the activation and dropout."""
         if self.batch_normalisation:
             y = self._apply_bn(y, ctx)
         y = apply_activation(y, self.activation_func, alpha=_alpha(self, ctx))
@@ -396,6 +444,7 @@ class Conv(Node, _BNMixin):
         """Whether this Conv consumes its FaithlessMerge parent's pieces
         (``set_convdense_impl(skipsum=True)``) instead of their concat."""
         return (ctx.convdense_skipsum and not self.mfp
+                and ctx.halo_axis is None and ctx.tp_of(self) is None
                 and not self.batch_normalisation and not ctx.quant_serving
                 and ctx.quant_calibrate is None
                 and isinstance(self.parents[0], FaithlessMerge)
@@ -530,6 +579,9 @@ class UpConv(Node):
     def _compute(self, ctx, x):
         w = ctx.param(self, "w")
         _record_absmax(ctx, self, x)
+        tp = ctx.tp_of(self)
+        if tp is not None:            # w (n_f / world, f_in, *pool)
+            x = tp.enter(x)
         if ctx.quant_serving:        # int8 serving (see Conv._compute)
             y = quantized_conv(x, w, conv_fn=upconv,
                                pool_shape=self.pool_shape,
@@ -538,6 +590,9 @@ class UpConv(Node):
             fn = upconv_d2s if ctx.convdense_upconv_d2s else upconv
             y = fn(x, w, self.pool_shape)
         y += ctx.param(self, "b").reshape((1, -1) + (1,) * (x.ndim - 2))
+        if tp is not None:
+            return _tp_join(self, ctx, y, tp, 1, lambda c, v:
+                            apply_activation(v, self.activation_func))
         return apply_activation(y, self.activation_func)
 
 

@@ -42,6 +42,17 @@ class TraceCtx:
                step's feed holds this rank's rows, random draws with a batch
                axis are made at the global batch's shape and batch norm
                takes its moments over the group
+      halo_axis : the ``space`` group of a z-sharded training step
+               (``parallel.halo.SpaceGroup``, ``parallel/spatial_train.py``)
+               or None; the feed holds this rank's z block, a Conv with
+               ``kz > 1`` first fetches ``kz - 1`` rows from the next ranks
+               (a differentiable exchange), and random draws are made at
+               the unsharded step's shape and this rank keeps its block
+      tp, tp_dims : the ``model`` group of tensor parallelism
+               (``parallel.tensor_parallel.ModelGroup``) and the sharded
+               parameters' dims by node, or None and ``{}``; a node whose
+               weights are sharded computes its slice of the output
+               channels and joins them over the group (:meth:`tp_of`)
 
     The ``convdense_*`` flags select the conv-dense serving lowerings
     (``Model.set_convdense_impl``); ``inference.convolutional_dense_forward``
@@ -60,6 +71,9 @@ class TraceCtx:
 
     compute_dtype = None
     dp = None
+    halo_axis = None
+    tp = None
+    tp_dims = {}
     quant_serving = False
     quant_scales = None
     quant_calibrate = None
@@ -123,6 +137,13 @@ class TraceCtx:
             raise KeyError(f"missing param {node.name}/{pname}; model params "
                            "out of sync with graph") from None
 
+    def tp_of(self, node):
+        """The ``model`` group when ``node``'s weights are sharded over it
+        in this evaluation, else None."""
+        if self.tp is not None and node.name in self.tp_dims:
+            return self.tp
+        return None
+
     def local_shape(self, ts):
         """The node shape ``ts`` (a TaggedShape) as this rank computes it:
         under a data-parallel step its batch axis holds this rank's rows."""
@@ -156,15 +177,40 @@ class TraceCtx:
                     return None
                 if shape is None:
                     v = fn(self.rng)
-                elif (self.dp is not None and node.shape.hastag("b")
+                elif ((self.dp is not None or self.halo_axis is not None)
+                      and node.shape.hastag("b")
                       and len(shape) == node.shape.ndim):
-                    b = node.shape.tag2index("b")
-                    full = list(shape)
-                    full[b] *= self.dp.world
-                    v = self.dp.rows(fn(self.rng, tuple(full)), b)
+                    v = self._global_draw(node, fn, shape)
                 else:
                     v = fn(self.rng, tuple(shape))
             self.noise_out[node.name] = v
+        return v
+
+    def _global_draw(self, node, fn, shape):
+        """The draw at the unsharded step's shape, of which this rank keeps
+        its rows (``dp``) and its z block (``halo_axis``: the unsharded
+        node's z extent, padded with zeros to the ranks' blocks; those
+        rows are past the valid output and reach no loss)."""
+        b = node.shape.tag2index("b")
+        full = list(shape)
+        if self.dp is not None:
+            full[b] *= self.dp.world
+        sp = self.halo_axis
+        z = node.shape.tag2index("z") if (sp is not None
+                                           and node.shape.hastag("z")) \
+            else None
+        if z is not None:
+            full[z] = int(node.shape.shape[z])
+        v = fn(self.rng, tuple(full))
+        if z is not None:
+            need = shape[z] * sp.world
+            if need > v.shape[z]:
+                pad = list(v.shape)
+                pad[z] = need - v.shape[z]
+                v = torch.cat([v, v.new_zeros(pad)], dim=z)
+            v = sp.block(v.narrow(z, 0, need), z)
+        if self.dp is not None:
+            v = self.dp.rows(v, b)
         return v
 
     def state(self, node, default=None):

@@ -110,20 +110,24 @@ class Optimiser:
 
     @torch.no_grad()
     def update(self, params, grads, state, hyper, lr_mults=None,
-               wd_mults=None):
+               wd_mults=None, sumsq=None):
         """One optimisation step, in place: the tensors of ``params`` and
         of ``state`` (slots and step) get their new values. ``grads`` and the
         mult trees (python floats, or None for 1) are congruent with
         ``params``; ``hyper`` is :meth:`current_hyper`'s dict. When
         ``hyper['clip'] > 0`` the gradients are rescaled to that global norm
-        first, chosen on the device (no host branch)."""
+        first, chosen on the device (no host branch). ``sumsq``: the sum of
+        the squares of the whole gradients where ``grads`` holds shards
+        (tensor parallelism, ``parallel.tensor_parallel.ModelGroup.sumsq``);
+        by default that of ``grads``."""
         state["step"].add_(1)
         step = state["step"]
         names = [(n, p) for n in sorted(params) for p in sorted(params[n])]
         gs = [grads[n][p] for n, p in names]
         clip = hyper["clip"]
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs)
-                           + 1e-12)
+        if sumsq is None:
+            sumsq = sum(torch.sum(torch.square(g)) for g in gs)
+        gnorm = torch.sqrt(sumsq + 1e-12)
         scale = torch.where(clip > 0, torch.clamp(clip / gnorm, max=1.0),
                             torch.ones_like(clip))
         slots = state["slots"]

@@ -124,6 +124,8 @@ class ScanN(Node):
                            train=ctx.train, state_in=ctx.state_in)
             sub.remat = ctx.remat
             sub.compute_dtype = ctx.compute_dtype
+            sub.dp, sub.halo_axis = ctx.dp, ctx.halo_axis
+            sub.tp, sub.tp_dims = ctx.tp, ctx.tp_dims
             for m, c in zip(self.in_memory, carry):
                 sub.values[m.name] = c
             for it, x in zip(self.in_iterate, seqs):
@@ -144,7 +146,8 @@ class SkelLoss(Node):
     [skel_id, z, x, y] (a ``GenericInput``). Reference:
     ``various.py::SkelLoss``. A step with this node syncs the host; the
     fused loops refuse to capture it (``SkelLossField`` is the device
-    version).
+    version). Under a mesh the query runs on the global batch's rows,
+    gathered over the data axis, and each rank keeps its rows.
     """
 
     host_sync = True
@@ -157,7 +160,7 @@ class SkelLoss(Node):
 
     def _compute(self, ctx, pred, skel):
         from ..data.skeleton import skel_loss_callback
-        return skel_loss_callback(pred, skel, **self.loss_kwargs)
+        return skel_loss_callback(pred, skel, dp=ctx.dp, **self.loss_kwargs)
 
 
 def sample_fields(fields, sid, p):

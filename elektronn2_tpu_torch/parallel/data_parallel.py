@@ -56,32 +56,58 @@ class _SumAllReduce(torch.autograd.Function):
         return _SumAllReduce.apply(g, ctx.group), None
 
 
-class DataGroup:
-    """One ``data`` axis of a mesh: its process group, size and this
-    process's rank in it."""
+def axis_group(mesh, axis_name):
+    """The process group of ``mesh``'s axis ``axis_name`` that holds this
+    rank; a name the mesh lacks raises ``ValueError``."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise ValueError(f"mesh has no axis {axis_name!r} (axes {names})")
+    return mesh.get_group(axis_name)
 
-    def __init__(self, mesh, axis="data"):
-        self.axis = axis
-        self.group = mesh.get_group(axis)
+
+class AxisGroup:
+    """One axis of a mesh: its process group, size and this process's rank
+    in it. A subclass adds the collectives of its kind of parallelism and
+    names its default axis (``AXIS``)."""
+
+    AXIS = None
+
+    def __init__(self, mesh, axis=None):
+        self.axis = axis or self.AXIS
+        self.group = axis_group(mesh, self.axis)
         self.world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
-        self.backend = dist.get_backend(self.group)
-        self.src = dist.get_global_rank(self.group, 0)
 
     def key(self):
         """What a captured step depends on: the group, its size, the rank."""
         return (id(self.group), self.world, self.rank)
 
-    def rows(self, v, axis):
-        """This rank's rows of ``v`` along ``axis`` (a view); a batch the
-        group does not divide raises."""
+    def block(self, v, axis, what="an extent of"):
+        """This rank's block of ``v`` along ``axis`` (a view); an extent
+        the group does not divide raises."""
         n = v.shape[axis]
         if n % self.world:
             raise ValueError(
-                f"a batch of {n} does not divide over the {self.world} "
+                f"{what} {n} does not divide over the {self.world} "
                 f"ranks of the mesh's {self.axis!r} axis")
         k = n // self.world
         return v.narrow(axis, self.rank * k, k)
+
+
+class DataGroup(AxisGroup):
+    """One ``data`` axis of a mesh and the collectives of data
+    parallelism."""
+
+    AXIS = "data"
+
+    def __init__(self, mesh, axis=None):
+        super().__init__(mesh, axis)
+        self.backend = dist.get_backend(self.group)
+
+    def rows(self, v, axis):
+        """This rank's rows of ``v`` along ``axis`` (a view); a batch the
+        group does not divide raises."""
+        return self.block(v, axis, "a batch of")
 
     def mean_(self, t):
         """Average ``t`` over the group, in place; returns ``t``."""
@@ -99,8 +125,3 @@ class DataGroup:
     def gather(self, t, axis):
         """Every rank's ``t`` concatenated along ``axis``, rank order."""
         return gather(t, self.group, axis)
-
-    def broadcast_(self, tensors):
-        """Rank 0's values of ``tensors`` on every rank, in place."""
-        for t in tensors:
-            dist.broadcast(t, src=self.src, group=self.group)

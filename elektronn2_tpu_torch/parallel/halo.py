@@ -28,16 +28,7 @@ import torch.distributed as dist
 
 from ..ops.activations import get_activation
 from ..ops.conv import apply_layer, conv as ops_conv
-from .data_parallel import gather
-
-
-def axis_group(mesh, axis_name):
-    """The process group of ``mesh``'s axis ``axis_name`` that holds this
-    rank; a name the mesh lacks raises ``ValueError``."""
-    names = tuple(mesh.mesh_dim_names or ())
-    if axis_name not in names:
-        raise ValueError(f"mesh has no axis {axis_name!r} (axes {names})")
-    return mesh.get_group(axis_name)
+from .data_parallel import AxisGroup, axis_group, gather
 
 
 def shard(x, group, dim):
@@ -58,11 +49,53 @@ def halo_gather(x_loc, halo, group):
     ``x_loc``: this rank's (b, f, z_local, x, y) shard. A halo up to one
     shard takes the next rank's head rows; a wider one (deep dilated stacks
     on many ranks) takes whole shards of the next ``ceil(halo / z_local)``
-    ranks (multi-hop), trimmed to ``halo``. Reference:
-    ``parallel/halo.py::halo_gather``.
+    ranks (multi-hop), trimmed to ``halo``. The collective runs outside
+    autograd (serving); a training step takes :func:`halo_gather_grad`.
+    Reference: ``parallel/halo.py::halo_gather``.
     """
     if halo == 0:
         return x_loc
+    return _gather_rows(x_loc, halo, group)
+
+
+class _HaloGather(torch.autograd.Function):
+    """:func:`halo_gather` with a backward: every halo row's gradient goes
+    back to the rank that owns the row.
+
+    Forward is the multi-hop gather (one ``all_gather`` of the head rows).
+    Backward pads this rank's halo gradient to ``hops`` whole pieces, takes
+    one ``all_gather`` of every rank's, and adds to its own head rows the
+    piece that hop ``h`` of rank ``r - h`` took from them (gloo has no
+    ``reduce_scatter``, hence the gather). The last ranks' zero rows go
+    through the op too, so every rank calls the same collectives in its
+    backward; their gradients have no owner and are dropped."""
+
+    @staticmethod
+    def forward(ctx, x_loc, halo, group):
+        ctx.halo, ctx.group, ctx.z_loc = halo, group, x_loc.shape[2]
+        return _gather_rows(x_loc, halo, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo, group, z_loc = ctx.halo, ctx.group, ctx.z_loc
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        hz = min(halo, z_loc)
+        hops = -(-halo // z_loc)
+        gh = g[:, :, z_loc:]
+        if gh.shape[2] < hops * hz:
+            gh = torch.cat([gh, gh.new_zeros(gh.shape[:2]
+                                             + (hops * hz - gh.shape[2],)
+                                             + gh.shape[3:])], dim=2)
+        parts = [torch.empty_like(gh) for _ in range(n)]
+        dist.all_gather(parts, gh.contiguous(), group=group)
+        gx = g[:, :, :z_loc].clone(memory_format=torch.contiguous_format)
+        for h in range(1, hops + 1):
+            if r - h >= 0:
+                gx[:, :, :hz] += parts[r - h][:, :, (h - 1) * hz:h * hz]
+        return gx, None, None
+
+
+def _gather_rows(x_loc, halo, group):
     n, r = dist.get_world_size(group), dist.get_rank(group)
     z_loc = x_loc.shape[2]
     hops = -(-halo // z_loc)
@@ -73,6 +106,28 @@ def halo_gather(x_loc, halo, group):
     got = [heads[r + h] if r + h < n else torch.zeros_like(heads[0])
            for h in range(1, hops + 1)]
     return torch.cat([x_loc] + got, dim=2)[:, :, :z_loc + halo]
+
+
+def halo_gather_grad(x_loc, halo, group):
+    """:func:`halo_gather` for training: differentiable, the halo rows'
+    gradients summed into the rows they came from (z-sharded training,
+    ``parallel/spatial_train.py``). Every rank of ``group`` must call it,
+    and must then run the backward of its result."""
+    if halo == 0:
+        return x_loc
+    return _HaloGather.apply(x_loc, halo, group)
+
+
+class SpaceGroup(AxisGroup):
+    """One ``space`` axis of a mesh, the z axis of a volume split over
+    it (``TraceCtx.halo_axis`` of a z-sharded training step)."""
+
+    AXIS = "space"
+
+    def halo(self, x_loc, rows):
+        """``rows`` z rows from the next ranks, differentiable
+        (:func:`halo_gather_grad`)."""
+        return halo_gather_grad(x_loc, rows, self.group)
 
 
 def cp_conv_z(x_loc, w, b=None, group=None, activation=None):

@@ -41,9 +41,11 @@ What the graph holds, and why it stays right:
   rank's rows (``Model._train_step``); the gradient all-reduce is inside
   the captured steps (on the card an NCCL collective in the graph: the
   communicator exists since ``use_mesh`` and the capture's eager warm-up
-  step runs the collective once). The mesh's data group is part of
-  :meth:`_ChunkLoop.graph_key`, so a loop whose model moves onto a mesh
-  recaptures.
+  step runs the collective once). Under tensor parallelism
+  (``use_mesh(model_axis=...)``) the channel gathers and their backward
+  all-reduces are in the captured steps too. The mesh's data and model
+  groups are part of :meth:`_ChunkLoop.graph_key`, so a loop whose model
+  moves onto a mesh recaptures.
 
 ``HostFedFusedLoop`` (JAX ``make_fused_hostfed_trainstep`` and
 ``HostFedFusedLoop``) runs the same machinery over a host data source: K
@@ -233,8 +235,8 @@ class _ChunkLoop:
         """The key under which the captured chunk is kept: the loop's own
         head (B, K, switches), cuDNN's deterministic and benchmark flags,
         the model's trace switches (compute dtype, ``set_train_lowering``,
-        ``set_remat``, the mesh's data group: its identity, size and this
-        rank, ``Model.use_mesh``), and for every parameter, optimiser slot
+        ``set_remat``, the mesh's data group and model group: each one's
+        identity, size and this rank, ``Model.use_mesh``), and for every parameter, optimiser slot
         and step counter and input the tensor's identity, ``_version`` and
         address (see ``DeviceTracer.graph_key``). The loop's own replays
         bump the versions and move the kept key along with them."""
@@ -243,7 +245,8 @@ class _ChunkLoop:
         return (self._key_head(), bool(cudnn.deterministic),
                 bool(cudnn.benchmark),
                 (m._compute_dtype, m._train_zfold, m._train_skipsum,
-                 m._remat, m._dp.key() if m._dp is not None else None),
+                 m._remat, m._dp.key() if m._dp is not None else None,
+                 m._tp.key() if m._tp is not None else None),
                 tuple((id(t), t._version, t.data_ptr())
                       for t in self._read()),
                 tuple((id(t), t.data_ptr()) for t in self._owned()))

@@ -29,10 +29,12 @@ What differs from the JAX package:
   ``Model.use_mesh`` over a ``torch.distributed`` mesh: every rank draws
   the same global batch (the same seeds; no background workers on more
   than one rank, whose queue order would differ by rank) and keeps its
-  rows. Checkpoints are npz (orbax is a JAX format) written by rank 0;
-  ``resume=True`` reloads on every rank and meshes again. Logging, the
-  log file and the history come from rank 0 only. Tensor, spatial and
-  pipeline axes are not ported (ROADMAP.md item 8d/8e).
+  rows. A ``"model"`` axis adds tensor parallelism
+  (``use_mesh(model_axis="model")``: each rank keeps its shards of the
+  weights). Checkpoints are npz (orbax is a JAX format), whole tensors
+  written by the mesh's first rank; ``resume=True`` reloads on every rank
+  and meshes again. Logging, the log file and the history come from rank
+  0 only.
 
 ``TracingTrainer`` and ``TracingTrainerRNN`` (the recurrent tracing
 workload over ``AgentData``) are the JAX package's, with the per-step
@@ -123,14 +125,15 @@ class Trainer:
             opt_name = cfg.get("optimiser", "Adam")
             self.model.set_opt(opt_name, **dict(cfg.get("optimiser_params",
                                                         {})))
-        # scale-out from the config surface: mesh_axes = {"data": n}
+        # scale-out from the config surface: mesh_axes = {"data": n}, or
+        # {"data": n, "model": m} (tensor parallelism)
         if cfg.get("mesh_axes"):
             from ..parallel import make_mesh
             axes = dict(cfg["mesh_axes"])
             self.model.use_mesh(
                 make_mesh(axes, devices=self.device.type),
                 model_axis="model" if "model" in axes else None)
-            if self.model._dp.world > 1 and self.n_workers:
+            if self.model._mesh.mesh.numel() > 1 and self.n_workers:
                 logger.info("mesh of more than one rank: no background "
                             "workers (every rank draws the same batches)")
                 self.n_workers = 0

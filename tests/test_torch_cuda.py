@@ -1436,3 +1436,85 @@ def test_sharded_flagship_on_a_mesh_of_one_equals_unsharded(cuda_device):
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_graphed_scaleout_chunks_on_meshes_of_one(cuda_device,
+                                                  deterministic_cudnn):
+    """World-size-1 NCCL meshes: the fused spatial chunk (one CUDA graph
+    of K steps holding the halo all_gathers, forward and backward, and the
+    gradient all-reduces) equals K per-step spatial calls and the
+    unsharded ``trainingstep``; a graphed ``HostFedFusedLoop`` chunk under
+    ``use_mesh(model_axis="model")`` (channel gathers in the graph) equals
+    the chunk without a mesh, bit for bit."""
+    import torch.distributed as dist
+    from elektronn2_tpu_torch.parallel import (make_fused_spatial_trainstep,
+                                               make_mesh,
+                                               make_spatial_dp_trainstep,
+                                               pad_target_for_spatial)
+    from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
+    started = not dist.is_initialized()
+
+    def net():
+        m = neuro3d_train_model(1, (12, 30, 30), widths=(4, 6, 8, 8),
+                                device=cuda_device)
+        m.set_opt("SGD", lr=1e-2, mom=0.9)
+        return m
+
+    try:
+        mesh = make_mesh({"data": 1, "space": 1, "model": 1})
+        ref, per, fused = net(), net(), net()
+        for m in (per, fused):
+            m.set_params(ref.params)
+        g = torch.Generator(cuda_device).manual_seed(0)
+        Z = ref.input_node.shape.spatial_shape[0]
+        zo, xo, yo = ref.prediction_node.shape.spatial_shape
+        d = torch.rand((3,) + tuple(ref.input_node.shape.shape),
+                       generator=g, device=cuda_device)
+        t = (torch.rand((3, 1, zo, xo, yo), generator=g,
+                        device=cuda_device) > 0.5).int()
+        tp = torch.stack([pad_target_for_spatial(x, Z) for x in t])
+        want = [float(ref.trainingstep(d[k], t[k])[0]) for k in range(3)]
+        step = make_spatial_dp_trainstep(per, mesh)
+        hyper = per.optimiser.current_hyper(cuda_device)
+        got = [float(step(per.params, per.opt_state, per.state, d[k],
+                          tp[k], hyper, None)[0]) for k in range(3)]
+        chunk = make_fused_spatial_trainstep(fused, mesh, 3)
+        losses = chunk(fused.params, fused.opt_state, fused.state, d, tp,
+                       fused.optimiser.current_hyper(cuda_device), None)[0]
+        assert chunk._graph is not None            # captured, replayed
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        assert losses.tolist() == got
+        for n, dd in per.params.items():
+            for k, v in dd.items():
+                assert torch.equal(fused.params[n][k], v), (n, k)
+
+        class Source:
+            def __init__(self):
+                self.rng = np.random.RandomState(3)
+
+            def getbatch(self, bs, **kw):
+                return (self.rng.rand(bs, *ref.input_node.shape.shape[1:])
+                        .astype(np.float32),
+                        (self.rng.rand(bs, zo, xo, yo) > 0.5)
+                        .astype(np.int32))
+
+        outs = []
+        for model_axis in (None, "model"):
+            m = net()
+            m.set_params(ref.params)
+            if model_axis:
+                m.use_mesh(mesh, model_axis=model_axis)
+            loop = HostFedFusedLoop(m, Source(), 1, 3, prefetch=False)
+            outs.append((loop.run_chunk()[0], loop.capture_seconds,
+                         m._whole_trees()[0] if model_axis else m.params))
+            loop.close()
+        (a, _, pa), (b, cap, pb) = outs
+        assert cap is not None
+        np.testing.assert_array_equal(a, b)
+        for n, dd in pa.items():
+            for k, v in dd.items():
+                assert torch.equal(pb[n][k], v), (n, k)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

@@ -85,6 +85,9 @@ MODULES = [
     "elektronn2_tpu_torch.parallel.multihost",
     "elektronn2_tpu_torch.parallel.data_parallel",
     "elektronn2_tpu_torch.parallel.halo",
+    "elektronn2_tpu_torch.parallel.spatial_train",
+    "elektronn2_tpu_torch.parallel.tensor_parallel",
+    "elektronn2_tpu_torch.parallel.pipeline",
 ]
 
 #: a meta-path finder that refuses jax, the JAX package and the reference
@@ -698,3 +701,89 @@ def test_neuro3d_pod_loads_and_trains_without_jax(tmp_path):
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_scaleout_training_runs_without_jax():
+    # the scale-out training names import with jax and the JAX package
+    # blocked, and each trains on a mesh of one: a DP x SP step, a fused
+    # chunk, use_mesh(model_axis=) and a GPipe step, each equal to the
+    # unsharded step
+    code = (BLOCK + "import numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "import elektronn2_tpu_torch.neuromancer as nm\n"
+            "from elektronn2_tpu_torch.parallel import (make_mesh,\n"
+            "    make_spatial_dp_trainstep, make_fused_spatial_trainstep,\n"
+            "    pad_target_for_spatial, spatial_tp_shardings, gpipe_stack,\n"
+            "    microbatch, gpipe_reference_loss, make_gpipe_trainstep,\n"
+            "    layers_from_model)\n"
+            "from elektronn2_tpu_torch.parallel.spatial_train import "
+            "conv_supports_halo\n"
+            "from elektronn2_tpu_torch.parallel.halo import "
+            "halo_gather_grad\n"
+            "from elektronn2_tpu_torch.parallel.tensor_parallel import "
+            "tp_dims\n"
+            "def net():\n"
+            "    nm.model_manager.reset(seed=11)\n"
+            "    inp = nm.Input([2, 1, 8, 14, 14], 'b,f,z,x,y', name='raw')\n"
+            "    h = nm.Conv(inp, 4, (3, 3, 3), (1, 2, 2), name='c1')\n"
+            "    pr = nm.Softmax(nm.Conv(h, 2, 1, 1, activation_func='lin'))\n"
+            "    t = nm.Input([2, *pr.shape.spatial_shape], 'b,z,x,y',\n"
+            "                 dtype='int32', name='target')\n"
+            "    m = nm.model_manager.getmodel()\n"
+            "    m.designate_nodes(input_node=inp, target_node=t,\n"
+            "        loss_node=nm.AggregateLoss(nm.MultinoulliNLL(pr, t,\n"
+            "        target_is_sparse=True)), prediction_node=pr)\n"
+            "    m.set_opt('SGD', lr=0.05, mom=0.0)\n"
+            "    return m\n"
+            "r = np.random.RandomState(0)\n"
+            "d = torch.from_numpy(r.rand(2, 1, 8, 14, 14).astype('f4'))\n"
+            "t = torch.from_numpy((r.rand(2, 6, 6, 6) > .5).astype('i4'))\n"
+            "ref = net()\n"
+            "want = float(ref.trainingstep(d, t)[0])\n"
+            "mesh = make_mesh({'data': 1, 'space': 1, 'model': 1},\n"
+            "                 devices='cpu')\n"
+            "m = net()\n"
+            "step = make_spatial_dp_trainstep(m, mesh)\n"
+            "got = float(step(m.params, m.opt_state, m.state, d,\n"
+            "    pad_target_for_spatial(t, 8),\n"
+            "    m.optimiser.current_hyper('cpu'), None)[0])\n"
+            "assert abs(got - want) <= 1e-6 * want, (got, want)\n"
+            "m = net()\n"
+            "chunk = make_fused_spatial_trainstep(m, mesh, 1)\n"
+            "got = chunk(m.params, m.opt_state, m.state, d[None],\n"
+            "    pad_target_for_spatial(t, 8)[None],\n"
+            "    m.optimiser.current_hyper('cpu'), None)[0]\n"
+            "assert abs(float(got[0]) - want) <= 1e-6 * want\n"
+            "m = net().use_mesh(mesh, model_axis='model')\n"
+            "assert m._tp_dims['c1'] == {'w': 0, 'b': 0}\n"
+            "got = float(m.trainingstep(d, t)[0])\n"
+            "assert abs(got - want) <= 1e-6 * want\n"
+            "pipe = make_mesh({'pipe': 1}, devices='cpu')\n"
+            "m = net()\n"
+            "step = make_gpipe_trainstep(m, pipe, 2, 1)\n"
+            "got = float(step(m.params, m.opt_state, microbatch(d, 2),\n"
+            "    microbatch(t, 2), m.optimiser.current_hyper('cpu'))[0])\n"
+            "assert abs(got - want) <= 1e-6 * want, (got, want)\n"
+            "assert not [k for k in sys.modules if k.split('.')[0] in\n"
+            "            ('jax', 'elektronn2_tpu', 'elektronn2')]\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_no_error_cites_items_8d_8e_or_8f():
+    # spatial and tensor-parallel training (8d), GPipe (8e) and host-pass
+    # losses under a mesh (8f) are ported: no line of the package cites
+    # them
+    root = os.path.join(REPO, "elektronn2_tpu_torch")
+    cites = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    cites += [f"{f}:{i}" for i, line in enumerate(fh, 1)
+                              if any(k in line for k in (
+                                  "item 8d", "item 8e", "item 8f", "8d/8e",
+                                  "8d)", "8e)", "8f)"))]
+    assert not cites, cites

@@ -3,7 +3,9 @@ loops, the Trainer's ``mesh_axes``) on two CPU ranks, against the port's
 own unsharded run and the JAX package's unsharded step.
 
 Mirrors the JAX package's ``tests/test_parallel.py`` (:34, :41, :743, :919,
-:1030, :1060, :1117) and ``tests/test_multihost.py`` (:250, :356). The ranks
+:1030, :1060, :1117) and ``tests/test_multihost.py`` (:250, :356), with a
+``{data: 1, model: 2}`` tensor-parallel step and ``MalisNLL`` and
+``SkelLoss`` on two ranks (their host pass on the global batch). The ranks
 are spawned processes joined into one ``gloo`` group on a free port
 (``torch_dp_workers.run_ranks``, jax-free); each is fed the global batch
 and keeps its rows. Tolerances, as the JAX tests state them: a DP run
@@ -183,14 +185,107 @@ def test_batch_not_divisible_raises(spawn_dir):
 
 
 def test_model_axis_raises_citing_item_8d(spawn_dir):
+    # tensor parallelism is ported (the name is kept from when it was
+    # refused): a model axis the mesh lacks is refused, as the JAX package
+    # refuses it (a KeyError there), and on {data: 1, model: 2} a step of
+    # c1's split channels equals the unsharded step
+    from elektronn2_tpu.parallel import make_mesh as jax_mesh
+    jm, tm = jax_and_port()
+    xs, ys = batches(1)
+    tm.set_opt("SGD", lr=0.05)
+    loss = float(tm.trainingstep(torch.from_numpy(xs[0]),
+                                 torch.from_numpy(ys[0]))[0])
     for r in _refusals(spawn_dir):
-        assert r["model_axis"] is not None and "item 8d" in r["model_axis"]
-        assert r["model_mesh"] is not None and "item 8d" in r["model_mesh"]
+        assert "model_axis='model' is not an axis" in r["model_axis"]
+        got = r["model_mesh"]
+        assert got["shard"] == (2, 1, 3, 3)
+        np.testing.assert_allclose(got["loss"], loss, rtol=1e-6)
+        assert_params(got["params"], W.params_np(tm), 0, W_ATOL)
+    jm.set_opt("SGD", lr=0.05)
+    with pytest.raises(KeyError):
+        jm.use_mesh(jax_mesh({"data": 8}), model_axis="model")
+
+
+def _jax_host_pass_steps(jm, batches, extra=False):
+    """The JAX package's steps of ``jm`` on ``batches``: the losses and the
+    parameters."""
+    losses = []
+    for a, b in batches:
+        if extra:
+            losses.append(float(jm.trainingstep(a, None, extra=[b])[0]))
+        else:
+            losses.append(float(jm.trainingstep(a, b)[0]))
+    return {"losses": losses,
+            "params": {n: {p: np.asarray(v) for p, v in d.items()}
+                       for n, d in jm.params.items()}}
+
+
+def _host_pass(spawn_dir):
+    def run():
+        from elektronn2_tpu.data import skeleton as jsk
+        from elektronn2_tpu_torch.data import skeleton as tsk
+        r = np.random.RandomState(5)
+        mb = [(r.rand(2, 1, 6, 6, 6).astype(np.float32),
+               r.randint(0, 3, (2, 6, 6, 6)).astype(np.int32))
+              for _ in range(2)]
+        sb = [(r.randn(4, 8).astype(np.float32),
+               np.array([[0, 5, 5, 5 + k] for k in (3, 6, 9, 12)],
+                        np.float32)) for _ in range(2)]
+        jm, m = W.malis_net(jnm), W.malis_net(tnm)
+        m.set_params(params_from_jax(jm.params, m))
+        jm.set_opt("SGD", lr=0.5)
+        mw = W.params_np(m)
+        ref = {"malis": W.host_pass_steps(m, mb)}
+        jref = {"malis": _jax_host_pass_steps(jm, mb)}
+        for mod in (tsk, jsk):
+            mod.clear_skeleton_registry()
+        tsk.register_skeleton(W.line_skeleton())
+        jsk.register_skeleton(W.line_skeleton(mod=jsk))
+        jm, m = W.skel_net(jnm), W.skel_net(tnm)
+        m.set_params(params_from_jax(jm.params, m))
+        jm.set_opt("Adam", lr=1e-2)
+        sw = W.params_np(m)
+        ref["skel"] = W.host_pass_steps(m, sb, extra=True)
+        jref["skel"] = _jax_host_pass_steps(jm, sb, extra=True)
+        for mod in (tsk, jsk):
+            mod.clear_skeleton_registry()
+        ranks = W.run_ranks(spawn_dir / "host_pass", "host_pass_losses",
+                            malis_w=mw, malis_batches=mb, skel_w=sw,
+                            skel_batches=sb)
+        return ranks, ref, jref
+    return once("host_pass", run)
+
+
+def _assert_host_pass(spawn_dir, loss):
+    ranks, ref, jref = _host_pass(spawn_dir)
+    np.testing.assert_allclose(ref[loss]["losses"], jref[loss]["losses"],
+                               rtol=LOSS_RTOL)              # port = JAX
+    assert_params(ref[loss]["params"], jref[loss]["params"], W_RTOL, W_ATOL,
+                  "port vs JAX")
+    for r in ranks:                         # two ranks = unsharded, both
+        np.testing.assert_allclose(r[loss]["losses"], ref[loss]["losses"],
+                                   rtol=1e-6)
+        assert_params(r[loss]["params"], ref[loss]["params"], 0, W_ATOL,
+                      "two ranks vs port")
+        np.testing.assert_allclose(r[loss]["losses"], jref[loss]["losses"],
+                                   rtol=LOSS_RTOL)
+        assert_params(r[loss]["params"], jref[loss]["params"], W_RTOL,
+                      W_ATOL, "two ranks vs JAX")
 
 
 def test_host_pass_loss_refused_on_two_ranks(spawn_dir):
-    for r in _refusals(spawn_dir):
-        assert r["malis"] is not None and "MalisNLL" in r["malis"]
+    # MalisNLL trains on two ranks (the name is kept from when it was
+    # refused): the pair counting runs on the global batch's rows, each
+    # rank keeps its rows, and two steps equal the port's and the JAX
+    # package's unsharded ones
+    _assert_host_pass(spawn_dir, "malis")
+
+
+def test_skel_loss_two_ranks_equals_unsharded(spawn_dir):
+    # SkelLoss on two ranks: the KD-tree query on the global batch's
+    # landing points, each rank's rows kept; two Adam steps equal one
+    # process's, the port's and the JAX package's
+    _assert_host_pass(spawn_dir, "skel")
 
 
 def test_graph_key_moves_with_the_mesh(spawn_dir):

@@ -318,3 +318,49 @@ def test_port_import_maps_reference_names():
     # sys.modules keeps the real packages
     assert sys.modules["jax"] is not jax
     assert jnp.zeros(1).shape == (1,)
+
+
+# ------------------------------------------------ scale-out training
+
+#: the scale-out training names (ROADMAP.md item 8d-8f): (JAX module, port
+#: module, name)
+SCALEOUT = [
+    ("elektronn2_tpu.parallel.spatial_train",
+     "elektronn2_tpu_torch.parallel.spatial_train", name)
+    for name in ("make_spatial_dp_trainstep", "make_fused_spatial_trainstep",
+                 "pad_target_for_spatial", "spatial_tp_shardings",
+                 "conv_supports_halo")] + [
+    ("elektronn2_tpu.parallel.pipeline",
+     "elektronn2_tpu_torch.parallel.pipeline", name)
+    for name in ("microbatch", "extract_params", "_stage_apply",
+                 "gpipe_stack", "gpipe_reference_loss", "layers_from_model",
+                 "_model_loss_fn", "make_gpipe_trainstep")]
+
+
+def test_parallel_all_holds_the_jax_packages():
+    import elektronn2_tpu.parallel as jp
+    import elektronn2_tpu_torch.parallel as tp
+    assert set(jp.__all__) <= set(tp.__all__), \
+        sorted(set(jp.__all__) - set(tp.__all__))
+    for name in tp.__all__:
+        assert hasattr(tp, name), name
+
+
+@pytest.mark.parametrize("jmod, tmod, name", SCALEOUT,
+                         ids=[c[2] for c in SCALEOUT])
+def test_scaleout_names_match_jax(jmod, tmod, name):
+    # each function of spatial_train.py and pipeline.py under its JAX name
+    # and module, with the JAX parameters
+    import inspect
+    j = getattr(importlib.import_module(jmod), name)
+    t = getattr(importlib.import_module(tmod), name)
+    assert list(inspect.signature(t).parameters) == \
+        list(inspect.signature(j).parameters)
+
+
+def test_use_mesh_takes_the_jax_arguments():
+    import inspect
+    from elektronn2_tpu.neuromancer.model import Model as JM
+    from elektronn2_tpu_torch.neuromancer.model import Model as TM
+    assert list(inspect.signature(TM.use_mesh).parameters) == \
+        list(inspect.signature(JM.use_mesh).parameters)

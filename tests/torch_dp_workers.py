@@ -4,18 +4,28 @@ Each scenario runs in processes started with ``spawn`` (never ``fork``
 after torch has threads), joined into one ``gloo`` group on a free local
 port; it imports only torch, numpy and the port (no jax), and returns a
 picklable result per rank. ``run_ranks`` starts the processes and collects
-the results.
+the results. A collective waits at most ``COLLECTIVE_TIMEOUT`` seconds and
+a spawn at most its ``deadline``, so a rank that hangs fails its test
+instead of stopping the suite.
 """
 
 import contextlib
+import datetime
 import os
 import pickle
 import socket
+import time
 import traceback
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+#: seconds a gloo collective may wait before it raises
+COLLECTIVE_TIMEOUT = 120
+#: seconds a spawn may run before its ranks are ended and it fails
+SPAWN_DEADLINE = 300
 
 
 def free_port():
@@ -26,8 +36,9 @@ def free_port():
 
 def _entry(rank, world, port, scenario, kwargs, out_dir):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
     try:
         if ":" in scenario:                    # another module's scenario
             import importlib
@@ -56,15 +67,28 @@ def mesh_of_one(axes):
             dist.destroy_process_group()
 
 
-def run_ranks(out_dir, scenario, world=2, **kwargs):
+def run_ranks(out_dir, scenario, world=2, deadline=SPAWN_DEADLINE,
+              **kwargs):
     """Run ``scenario(rank, **kwargs)`` on ``world`` spawned gloo ranks;
     returns the results by rank, raising a rank's error. ``scenario`` names
-    a function of this module, or ``"module:function"`` of another."""
+    a function of this module, or ``"module:function"`` of another. Ranks
+    still running ``deadline`` seconds after the start are ended and the
+    spawn fails."""
     import torch.multiprocessing as mp
     os.makedirs(out_dir, exist_ok=True)
-    mp.start_processes(_entry, args=(world, free_port(), scenario, kwargs,
-                                     str(out_dir)),
-                       nprocs=world, join=True, start_method="spawn")
+    ctx = mp.start_processes(_entry, args=(world, free_port(), scenario,
+                                           kwargs, str(out_dir)),
+                             nprocs=world, join=False, start_method="spawn")
+    end = time.monotonic() + deadline
+    while not ctx.join(timeout=1):
+        if time.monotonic() > end:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ctx.processes:
+                p.join(10)
+            raise AssertionError(f"{scenario}: {world} ranks still running "
+                                 f"after {deadline} s; ended")
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
@@ -183,8 +207,8 @@ def dp_steps(rank, weights, xs, ys, optimiser, hyper, n_steps=3, bn=False,
 
 
 def refusals(rank, weights, x, y):
-    """The errors a mesh raises, and the fused loop's key across
-    ``use_mesh``."""
+    """The errors a mesh raises, a tensor-parallel step on ``{data: 1,
+    model: 2}``, and the fused loop's key across ``use_mesh``."""
     import elektronn2_tpu_torch.neuromancer as nm
     from elektronn2_tpu_torch.parallel import make_mesh
     from elektronn2_tpu_torch.training.fused_loop import HostFedFusedLoop
@@ -192,15 +216,22 @@ def refusals(rank, weights, x, y):
     m = build_model(nm, x.shape[0])
     m.set_params(weights)
     m.set_opt("SGD", lr=0.05)
-    for what, call in [
-            ("model_axis", lambda: m.use_mesh(_mesh(), model_axis="model")),
-            ("model_mesh", lambda: m.use_mesh(make_mesh(
-                {"data": 1, "model": 2}, devices="cpu")))]:
-        try:
-            call()
-            out[what] = None
-        except NotImplementedError as e:
-            out[what] = str(e)
+    try:                          # a model axis the mesh lacks
+        m.use_mesh(_mesh(), model_axis="model")
+        out["model_axis"] = None
+    except ValueError as e:
+        out["model_axis"] = str(e)
+    tp = build_model(nm, x.shape[0])
+    tp.set_params(weights)
+    tp.set_opt("SGD", lr=0.05)
+    tp.use_mesh(make_mesh({"data": 1, "model": 2}, devices="cpu"),
+                model_axis="model")
+    out["model_mesh"] = {
+        "loss": float(tp.trainingstep(torch.from_numpy(x),
+                                      torch.from_numpy(y))[0]),
+        "shard": tuple(tp.params["c1"]["w"].shape),
+        "params": {n: {p: v.numpy().copy() for p, v in d.items()}
+                   for n, d in tp._whole_trees()[0].items()}}
     loop = HostFedFusedLoop(m, HostBatches(shape=(16, 16), tshape=(7, 7)),
                             4, 2, prefetch=False)
     key0 = loop.graph_key()
@@ -213,21 +244,80 @@ def refusals(rank, weights, x, y):
     except ValueError as e:
         out["batch"] = str(e)
     loop.close()
-    # a loss that queries the host each step is refused on two ranks
-    from elektronn2_tpu_torch.neuromancer import loss as loss_mod
+    return out
+
+
+def malis_net(nm):
+    """A 1x1 sigmoid affinity conv trained on ``MalisNLL`` (batch 2), in
+    the package ``nm`` (the port's or the JAX package's)."""
     nm.model_manager.reset(seed=1)
     inp = nm.Input([2, 1, 6, 6, 6], "b,f,z,x,y", name="raw")
     aff = nm.Conv(inp, 3, 1, 1, activation_func="sigmoid", name="aff")
     seg = nm.Input([2, 6, 6, 6], "b,z,x,y", dtype="int32", name="seg")
-    mal = loss_mod.MalisNLL(aff, None, seg, name="malis")
-    mm = nm.model_manager.getmodel()
-    mm.designate_nodes(input_node=inp, target_node=seg,
-                       loss_node=nm.AggregateLoss(mal), prediction_node=aff)
-    try:
-        mm.use_mesh(_mesh())
-        out["malis"] = None
-    except NotImplementedError as e:
-        out["malis"] = str(e)
+    mal = nm.MalisNLL(aff, None, seg, name="malis")
+    m = nm.model_manager.getmodel()
+    m.designate_nodes(input_node=inp, target_node=seg,
+                      loss_node=nm.AggregateLoss(mal), prediction_node=aff)
+    m.set_opt("SGD", lr=0.5)
+    return m
+
+
+def skel_net(nm):
+    """A Perceptron step head trained on ``SkelLoss`` (batch 4), the
+    skeleton rows a GenericInput, in the package ``nm``."""
+    nm.model_manager.reset(seed=2)
+    feat = nm.Input([4, 8], "b,f", name="feat")
+    skel = nm.GenericInput(name="skel")
+    pred = nm.Perceptron(feat, 3, activation_func="lin", name="step")
+    m = nm.model_manager.getmodel()
+    m.designate_nodes(input_node=feat, loss_node=nm.AggregateLoss(
+        nm.SkelLoss(pred, skel, name="skel_loss")), prediction_node=pred,
+        extra_inputs=[skel])
+    m.set_opt("Adam", lr=1e-2)
+    return m
+
+
+def line_skeleton(n=20, mod=None):
+    """A straight skeleton of ``n`` nodes, of ``mod``'s ``SkeletonMFK``
+    (the port's by default)."""
+    if mod is None:
+        from elektronn2_tpu_torch.data import skeleton as mod
+    pos = np.stack([np.zeros(n), np.zeros(n), np.arange(n) * 1.0],
+                   axis=1) + 5.0
+    return mod.SkeletonMFK(pos, [(i, i + 1) for i in range(n - 1)])
+
+
+def host_pass_steps(m, batches, extra=False):
+    """Steps of ``m`` on ``batches``: the losses and the parameters."""
+    losses = []
+    for a, b in batches:
+        if extra:
+            loss, _ = m.trainingstep(torch.from_numpy(a), None,
+                                     extra=[torch.from_numpy(b)])
+        else:
+            loss, _ = m.trainingstep(torch.from_numpy(a),
+                                     torch.from_numpy(b))
+        losses.append(float(loss))
+    return {"losses": losses, "params": params_np(m)}
+
+
+def host_pass_losses(rank, malis_w, malis_batches, skel_w, skel_batches):
+    """``MalisNLL`` and ``SkelLoss`` trained on two ranks: each rank keeps
+    its rows, the host pass runs on the global batch's."""
+    import elektronn2_tpu_torch.neuromancer as nm
+    from elektronn2_tpu_torch.data.skeleton import (clear_skeleton_registry,
+                                                    register_skeleton)
+    out = {}
+    m = malis_net(nm)
+    m.set_params(malis_w)
+    m.use_mesh(_mesh())
+    out["malis"] = host_pass_steps(m, malis_batches)
+    clear_skeleton_registry()
+    register_skeleton(line_skeleton())
+    m = skel_net(nm)
+    m.set_params(skel_w)
+    m.use_mesh(_mesh())
+    out["skel"] = host_pass_steps(m, skel_batches, extra=True)
     return out
 
 
