@@ -33,10 +33,11 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
 1. device: the card's name, capability, ``nvidia-smi`` name and power limit,
    and the float32 flags (cuDNN and cuBLAS TF32 off, a conv and a matmul
    checked against float64);
-2. build: K1, K4, K2, K3, K5, P1 and P2 compiled with ``nvcc`` from the
-   checkout's sources, one nvcc per source, all started together; ptxas
-   registers and spills, and SASS op counts (``cuobjdump -sass``): every
-   instance of K1 and of K4's tensor-core body must hold HGMMAs (the
+2. build: K1, K1's bf16 mode, K4, K2, K3, K5, P1 and P2 compiled with
+   ``nvcc`` from the checkout's sources, one nvcc per source, all started
+   together; ptxas registers and spills, and SASS op counts (``cuobjdump
+   -sass``): every instance of K1, of its bf16 mode and of K4's
+   tensor-core body must hold HGMMAs (the
    tensor-core ``wgmma``) and no library's ptxas report may carry C7514
    (``wgmma`` serialized); both P1 kernels must hold HGMMAs and no HMMA
    and no FFMA loop; per P2 probe, HGMMAs (at least the 9 a stage) exactly
@@ -76,6 +77,19 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
    and its pad channels exactly 0, at its benchmark's perf case (timed, with
    one ``F.conv3d`` as its library call) and correctness case, the JAX
    test's case and a ragged case (Cout 45, Yo 37, Y over-padded);
+3b. kernel (``conv3x3_dilated(compute_dtype="bfloat16")``): K1's bf16 mode
+   (``csrc/tailconv_bf16.cu``: x and w rounded to bf16, float32 sums, bias
+   and ReLU fused), which no serving route takes, as in the JAX package:
+   its main path is the direct call at the flagship's conv2 and conv3 (two
+   launches, counted alone); each of ``K1_BF16_CASES`` (those two, the wide
+   U-Net's d1, two ragged shapes) within 1e-5 of the output's largest
+   magnitude of its plain version (a float32 conv of the bf16-rounded
+   operands), and at the three main-path shapes its and the plain
+   version's error against float64 of the same rounded operands, timed in
+   turns with the plain version, its library call (one ``F.conv3d`` of the
+   bf16 operands with the bf16 bias, then float32 and ReLU) and the float32
+   K1; its bound: the
+   larger of the float32 bytes at 3.35 TB/s and the FLOPs at 989 TFLOP/s;
 4. slice: the MFP route (``predict`` + ``fragments2dense``) against
    ``predict_dense_device`` on a patch-sized volume (atol 1e-5), then three
    requests of distinct random 120x496x496 volumes through
@@ -306,7 +320,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     finite, channel sums 1 within 1e-5; (d) no out-of-memory fallback; (e)
     two K1 launches per chunk (each over slab_batch slabs). The predict
     CLI (``scripts/predict.main([... "--ptail", "--knossos-out", ...])``)
-    over a 112x496x496 dataset, its uint8 maps read back with
+    over a 64x384x384 dataset (``CLI_SHAPE``), its uint8 maps read back with
     ``KnossosArray`` equal to clip(sweep x 255) byte for byte; where h5py
     does not import, the CLI's own two calls (``sweep_knossos``,
     ``save_knossos``) run in its place and the line says so. The wide U-Net
@@ -318,7 +332,8 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     the timed sweeps and the CLI join the kernels line. Inside the sweep
     phase, reduced-precision serving's entry points: after the flagship's
     timed sweeps ``Model.tune_serving(apply=True)`` over every contender
-    (direct, direct + K1, bf16, int8 stored in bf16) at
+    (the JAX package's six: direct, s2bg, direct + zfold + K1, s2bg bf16,
+    s2bg + zfold bf16, s2bg + zfold int8 stored in bf16) at
     ``FLAGSHIP_TUNE_STEPS`` clamped to the dataset, slab batches 1 and 2,
     K=4 (``tune_flagship_row``: one line a row, each with its largest map
     and whether it passes 2^31; ``tune_flagship``), then the sweep with the
@@ -345,6 +360,18 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     p99.9 abs deviation from the first mode, argmax agreement (above
     ``ARGMAX_FLOOR``: bf16 0.95, int8 0.97), finite maps, K1's launches
     (2 / 4 in the K1 modes, which join the kernels line, 0 in the others);
+24b. dilated_lowering (after serve_dtypes): the flagship request of 4.
+    (weights as there) through each of ``LOWERINGS``, the dilated path's
+    lowerings of ``Model.set_dilated_impl`` (direct, zfold, zfold + K1,
+    s2b, s2bg, s2bg + zfold, + ztap native, s2bg + ztap concat, zmajor,
+    zmajor + ztap fatn, direct + zmajor + ztap conv3d, poolslice, and
+    s2bg + zfold in bf16 (``examples/serve_knossos.py``'s recipe) and in
+    int8 stored in bf16): one warm-up and one timed request each (ms,
+    Mvox/s, peak, K1's launches, the largest map and whether it passes
+    2^31); the float32 lowerings within ``SLICE_ATOL`` of the direct cuDNN
+    route, bf16 and int8 within 5e-2 and above their argmax floor; K1's
+    launches 2 on the K1 row (into the kernels line) and 0 on the rows
+    with ``pallas_tail`` set where the JAX package ignores it;
 25. train_dp (after reduced_matmuls): ``examples/neuro3d_pod.py``
     through the train CLI under a mesh of one (NCCL, graphed chunks of 8),
     a mesh of one against no mesh (eager steps and graphed chunks, equal
@@ -395,7 +422,7 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
     on ``{data: 2}``, each against its one-process run, the ranks equal.
 
 Each phase prints JSON lines and a ``phase_wall`` line with its seconds;
-then the kernels line (per kernel: launches
+then the kernels line (K1 bf16 beside K1; per kernel: launches
 on the main paths, the largest error against its plain version, ms,
 plain_ms, bound_ms, bound_by, library_ms; K4's are summed over the
 probe's pool=1 shapes, where one ``F.conv3d`` is its library call; P1's
@@ -442,6 +469,7 @@ from elektronn2_tpu_torch.utils.convert import (flagship_model,
                                                 wide_unet_model)
 from elektronn2_tpu_torch.utils.cuda_build import find_nvcc
 from elektronn2_tpu_torch.utils.device_timing import (best_ms, bound_ms,
+                                                      conv3x3_bf16_bound,
                                                       conv3x3_bound, graph_ms,
                                                       in_turns, palindrome_ms,
                                                       time_ms)
@@ -579,6 +607,7 @@ def phase_build():
     """One nvcc per kernel source, all started together; each library's
     ptxas report and SASS op counts, the probes' checked."""
     builds = {"conv3x3_dilated": tailconv.build,
+              "conv3x3_dilated_bf16": tailconv.build_bf16,
               "conv1x3x3_pool_dilated": tailconv.build_head,
               "trilinear_patches": extract.build,
               "rotated_patches": extract_rot.build,
@@ -599,11 +628,13 @@ def phase_build():
              sass=sass)
         if k in ("ptail_dot", "ptail_ablate"):
             check_probe_sass(k, sass)
-        # the tensor-core kernels (every instance of K1, K4's tc body): no
+        # the tensor-core kernels (every instance of K1, of its bf16 mode,
+        # K4's tc body): no
         # instance may have lost its wgmma; and ptxas must not have
         # serialized a wgmma (warning C7514: non-wgmma code reads live
         # accumulators) in any library
         tc = {"conv3x3_dilated": "tailconv_tc_kernel",
+              "conv3x3_dilated_bf16": "tailconv_bf16_kernel",
               "conv1x3x3_pool_dilated": "headconv_tc_kernel"}.get(k)
         if tc is not None:
             inst = [c["HGMMA"] for f, c in sass.items() if tc in f]
@@ -744,6 +775,114 @@ def phase_kernel():
         del x, w, b
     torch.cuda.empty_cache()
     return max_err, ms_sum, plain_sum, bound_sum, by, lib_sum
+
+
+#: K1's bf16 mode: its main path's shapes (the flagship's conv2 and conv3
+#: of one 120x496x496 request, the wide U-Net's d1 at one 128x448x448
+#: slab) and two ragged ones; name, N, Cin, Cout, (Z, X, Y), dil
+K1_BF16_CASES = [
+    ("conv2", 1, 30, 40, (124, 512, 512), (1, 4, 4)),
+    ("conv3", 1, 40, 40, (122, 504, 504), (1, 4, 4)),
+    ("wide_d1", 1, 256, 128, (130, 230, 230), (1, 1, 1)),
+    ("ragged_d23", 2, 3, 5, (5, 20, 30), (1, 2, 3)),
+    ("ragged_cout45", 1, 30, 45, (5, 40, 300), (1, 4, 4)),
+]
+#: K1 bf16 against its plain version: of the output's largest magnitude
+#: (exact bf16 products, float32 sums in another order)
+K1_BF16_REL = 1e-5
+
+
+def phase_kernel_k1_bf16():
+    """K1's bfloat16 mode (``conv3x3_dilated(compute_dtype="bfloat16")``,
+    ``csrc/tailconv_bf16.cu``). No serving route takes it, as in the JAX
+    package: its main path is the direct call at the flagship's conv2 and
+    conv3, counted with ``bf16_launches`` set to 0 just before; then each
+    case against its plain version (``K1_BF16_REL`` of the output's largest
+    magnitude, a hard gate) and, at the timed shapes, against a float64
+    conv of the same bf16-rounded operands on ``F64_PLANES`` input planes
+    beside the plain version's error; timed in turns with its plain
+    version and its library call (one ``F.conv3d`` of the bf16 operands
+    with the bf16 bias, its output taken to float32 and ReLU'd in place),
+    and the float32 K1 beside it.
+    Returns (launches, (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)) with the times summed over conv2 + conv3."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    data = []
+    for name, N, cin, cout, sp, dil in K1_BF16_CASES:
+        x = torch.rand((N, cin) + sp, device="cuda", generator=g) - 0.5
+        w = (torch.rand(cout, cin, 3, 3, 3, device="cuda", generator=g)
+             - 0.5) * (2.0 / (27 * cin)) ** 0.5
+        b = torch.rand(cout, device="cuda", generator=g) * 0.2 - 0.1
+        data.append((x, w, b))
+    # the main path: the direct calls a user makes at the flagship's shapes
+    tailconv.bf16_launches = 0
+    outs = [tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
+            for (name, *_, dil), (x, w, b) in zip(K1_BF16_CASES, data)
+            if name in ("conv2", "conv3")]
+    torch.cuda.synchronize()
+    launches = tailconv.bf16_launches
+    if launches != 2:
+        raise AssertionError(f"K1 bf16: {launches} launches, expected 2")
+    del outs
+    max_err = ms_sum = plain_sum = bound_sum = lib_sum = 0.0
+    by = None
+    for (name, N, cin, cout, sp, dil), (x, w, b) in zip(K1_BF16_CASES,
+                                                         data):
+        got = tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
+        ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        max_err = max(max_err, err)
+        rec = dict(case=name, kernel="conv3x3_dilated_bf16", x=[N, cin, *sp],
+                   cout=cout, dil=list(dil), max_abs_err=err,
+                   max_abs_ref=scale, tol=K1_BF16_REL * scale)
+        del got, ref
+        if sp[0] > 8:
+            xs = x[:, :, :F64_PLANES].contiguous()
+            xr, wr = xs.bfloat16().double(), w.bfloat16().double()
+            r64 = torch.relu(F.conv3d(xr, wr, b.double(), dilation=dil))
+            del xr
+            k = tailconv.conv3x3_dilated(xs, w, b, dil,
+                                         compute_dtype="bfloat16").double()
+            p = tailconv.conv3x3_dilated_bf16_reference(xs, w, b,
+                                                        dil).double()
+            f32 = tailconv.conv3x3_dilated_reference(xs, w, b, dil).double()
+            rec.update(f64_max_abs=(k - r64).abs().max().item(),
+                       plain_f64_max_abs=(p - r64).abs().max().item(),
+                       bf16_vs_f32_max_abs=(k - f32).abs().max().item())
+            del xs, r64, k, p, f32
+            xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+            # in turns: plain, kernel, library, float32 K1, then reversed
+            pms, ms, lms, f32ms = palindrome_ms([
+                lambda: tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil),
+                lambda: tailconv.conv3x3_dilated(x, w, b, dil,
+                                                 compute_dtype="bfloat16"),
+                lambda: F.conv3d(xb, wb, bb, dilation=dil).float().relu_(),
+                lambda: tailconv.conv3x3_dilated(x, w, b, dil)])
+            del xb, wb, bb
+            zo, xo, yo = sp[0] - 2, sp[1] - 2 * dil[1], sp[2] - 2 * dil[2]
+            flop = 2.0 * N * cout * cin * 27 * zo * xo * yo
+            bound, by_ = conv3x3_bf16_bound(cin, cout, x.numel(),
+                                            N * cout * zo * xo * yo)
+            rec.update(ms=ms, plain_ms=pms, library_ms=lms, f32_k1_ms=f32ms,
+                       bound_ms=bound, bound_by=by_,
+                       kernel_tflop_s=flop / ms / 1e9,
+                       library_tflop_s=flop / lms / 1e9)
+            if name in ("conv2", "conv3"):      # the flagship's main path
+                ms_sum += ms
+                plain_sum += pms
+                bound_sum += bound
+                lib_sum += lms
+                by = by_
+        emit("kernel", **rec)
+        if err > K1_BF16_REL * scale:
+            raise AssertionError(f"K1 bf16 {name}: {err} from its plain "
+                                 f"version, over {K1_BF16_REL} x {scale}")
+    del data
+    torch.cuda.empty_cache()
+    return launches, (max_err, ms_sum, plain_sum, bound_sum, by, lib_sum)
 
 
 K4_CASES = [  # name, N, Cin, Cout, (Z, X, Y), d, pool, timed (N=1)
@@ -4804,6 +4943,10 @@ SWEEP_STEP = (112, 496, 496)            # sweep_knossos' default under ptail
 UNET_SWEEP_SHAPE = (256, 512, 512)      # the U-Net sweep's dataset
 UNET_SWEEP_STEP = (128, 512, 512)
 SWEEP_TURNS = (1, 2, 2, 1)              # slab_batch of the timed sweeps
+#: the predict CLI's dataset (``sweep_cli``, ``cli_modes``): one slab of the
+#: tuner's smallest default size, so that ``--tune``'s slab sizes all clamp
+#: to it and its six-contender grid times one size
+CLI_SHAPE = (64, 384, 384)
 KNOSSOS_EDGE = 128
 
 
@@ -5067,14 +5210,14 @@ def phase_sweep_unet(smi, tmp):
 
 
 def phase_sweep_cli(smi, model, tmp):
-    """``elektronn2_tpu_torch.scripts.predict.main`` over a 112x496x496
-    KNOSSOS dataset (one slab, ``SWEEP_STEP``) with ``--ptail
+    """``elektronn2_tpu_torch.scripts.predict.main`` over a ``CLI_SHAPE``
+    KNOSSOS dataset (one slab) with ``--ptail
     --knossos-out``: the uint8 maps read back
     must equal clip(sweep * 255) of the same dataset byte for byte. Where
     h5py does not import, the CLI's own two calls (``Model.sweep_knossos``,
     then ``save_knossos``) run in its place. Returns K1's launches."""
     kdir, kout = os.path.join(tmp, "cli_raw"), os.path.join(tmp, "cli_out")
-    write_dataset(kdir, SWEEP_STEP, SEED + 2)
+    write_dataset(kdir, CLI_SHAPE, SEED + 2)
     mdl = os.path.join(tmp, "flagship.mdl")
     model.save(mdl)
     want = model.sweep_knossos(KnossosArray(kdir))
@@ -5102,7 +5245,7 @@ def phase_sweep_cli(smi, model, tmp):
         for c in range(u8.shape[0])]
     emit("sweep_cli", h5py=h5, ran="predict.main" if h5 else
          "h5py does not import: sweep_knossos + save_knossos in its place",
-         dataset=list(SWEEP_STEP), seconds=dt, k1_launches=launches,
+         dataset=list(CLI_SHAPE), seconds=dt, k1_launches=launches,
          maps_equal_sweep=equal, nvidia_smi=smi)
     if not all(equal):
         raise AssertionError("CLI KNOSSOS maps differ from the sweep's")
@@ -5513,15 +5656,19 @@ UNET_TUNE_STEP = (128, 448, 448)
 def int8_operands(x, w):
     """The int8 values and the dequantising scale ``quantized_conv`` uses,
     computed here on their own (per-output-channel weight scales, one
-    activation scale, half-to-even rounding, +-127)."""
-    c = torch.full((), 127.0, device=x.device)
-    s_x = torch.clamp(x.abs().max(), min=1e-12) / c
+    activation scale, half-to-even rounding, +-127; each ``/ 127`` a
+    multiply by float32(1/127) and the product of the scales one multiply
+    by float32(1/127**2), as XLA compiles the reference's)."""
+    r = torch.full((), 1 / 127, device=x.device)
+    m_x = torch.clamp(x.abs().max(), min=1e-12)
     red = tuple(range(1, w.ndim))
-    s_w = torch.clamp(w.abs().amax(dim=red), min=1e-12) / c
+    m_w = torch.clamp(w.abs().amax(dim=red), min=1e-12)
+    s_x, s_w = m_x * r, m_w * r
     xq = torch.clamp(torch.round(x / s_x), -127, 127)
     wq = torch.clamp(torch.round(w / s_w.reshape((-1,) + (1,) * (w.ndim - 1))),
                      -127, 127)
-    return xq, wq, (s_x * s_w).reshape((1, -1) + (1,) * (x.ndim - 2))
+    scale = m_w * (m_x * torch.full((), 1 / 127 ** 2, device=x.device))
+    return xq, wq, scale.reshape((1, -1) + (1,) * (x.ndim - 2))
 
 
 def quant_f64_equal(x, w, got, kw, up):
@@ -5707,6 +5854,115 @@ def phase_serve_dtypes(smi):
     return launches
 
 
+#: the dilated path's lowerings, one flagship request each (name,
+#: ``set_dilated_impl`` arguments, serving dtype); ``pallas_tail`` is set
+#: wherever the JAX package ignores it (phase space, s2b, zmajor, bf16,
+#: int8), so that each such row checks that K1 stays off
+LOWERINGS = [
+    ("direct", dict(impl="direct"), None),
+    ("direct_zfold", dict(impl="direct", zfold=True), None),
+    ("direct_zfold_k1", dict(impl="direct", zfold=True, pallas_tail=True),
+     None),
+    ("s2b", dict(impl="s2b", pallas_tail=True), None),
+    ("s2bg", dict(impl="s2bg", pallas_tail=True), None),
+    ("s2bg_zfold", dict(impl="s2bg", zfold=True, pallas_tail=True), None),
+    ("s2bg_zfold_ztap_native", dict(impl="s2bg", zfold=True, ztap="native",
+                                    pallas_tail=True), None),
+    ("s2bg_ztap_concat", dict(impl="s2bg", ztap="concat", pallas_tail=True),
+     None),
+    ("s2bg_zmajor", dict(impl="s2bg", zmajor=True, pallas_tail=True), None),
+    ("s2bg_zmajor_ztap_fatn", dict(impl="s2bg", zmajor=True, ztap="fatn",
+                                   pallas_tail=True), None),
+    ("direct_zmajor_ztap_conv3d", dict(impl="direct", zmajor=True,
+                                       ztap="conv3d", pallas_tail=True),
+     None),
+    ("direct_poolslice", dict(impl="direct", poolslice=True), None),
+    # examples/serve_knossos.py's recipe
+    ("s2bg_zfold_bf16", dict(impl="s2bg", zfold=True, pallas_tail=True),
+     "bfloat16"),
+    ("s2bg_zfold_int8_act", dict(impl="s2bg", zfold=True, pallas_tail=True),
+     "int8"),
+]
+#: the largest deviation of a lossy lowering from the float32 route
+#: (tests/test_torch_quant.py's bf16 and int8 bounds)
+LOSSY_ATOL = 5e-2
+
+
+def phase_dilated_lowerings(smi):
+    """The flagship (weights as in ``phase_slice``) on one 120x496x496
+    request (``pad_raw``) through each of ``LOWERINGS``: one warm-up, then
+    one request timed on the host's clock ending in a synchronize; ms,
+    Mvox/s, peak GiB, K1's launches, the largest activation map in elements
+    (``inference._largest_map``; the concatenated or Cout*kz-channel map of
+    ``ztap='concat'``/``'fatn'`` included, which the port builds in
+    z-chunks) and whether it passes 2^31. The float32 lowerings must be
+    within ``SLICE_ATOL`` of the first (the direct cuDNN route); bf16 and
+    int8 within ``LOSSY_ATOL`` and above their argmax floor; K1 launches 2
+    on the K1 row and 0 on every other, ``pallas_tail`` set on the rows
+    where the JAX package ignores it. Returns K1's launches."""
+    rng = np.random.RandomState(SEED)
+    model = flagship_model(mfp=True, patch=[23, 103, 103])
+    model.set_params(seeded_params(model, rng))
+    vol = torch.from_numpy(rng.rand(*REQ_SHAPE).astype(np.float32)).cuda()
+    mvox = np.prod(REQ_SHAPE[1:]) / 1e6
+    fov = model.prediction_node.shape.fov
+    ext = tuple(s + f - 1 for s, f in zip(REQ_SHAPE[1:], fov))
+    ref, launches = None, 0
+    for name, kw, dtype in LOWERINGS:
+        kw = dict(kw)
+        model.set_compute_dtype(None)
+        model.set_dilated_impl(kw.pop("impl"), **kw)
+        model.set_compute_dtype(dtype, activations=dtype == "int8")
+        model.predict_dense_device(vol, pad_raw=True)           # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = tailconv.launches
+        t0 = time.perf_counter()
+        out = model.predict_dense_device(vol, pad_raw=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k1 = tailconv.launches - before
+        big = inference._largest_map(model, "dilated", ext, 1)
+        rec = dict(lowering=name, knobs=kw, dtype=dtype,
+                   activations=dtype == "int8", ms=dt * 1e3,
+                   mvox_s=mvox / dt, k1_launches=k1,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   largest_map=big, past_2_31=big > INT32_ELEMS,
+                   finite=bool(torch.isfinite(out).all()),
+                   out=list(out.shape), nvidia_smi=smi)
+        want_k1 = 2 if name == "direct_zfold_k1" else 0
+        if ref is None:
+            ref = out
+            rec["reference"] = True
+        else:
+            mx, p999, agree = deviation(out, ref)
+            rec.update(max_abs_vs_direct=mx, p999_abs_vs_direct=p999,
+                       argmax_agreement=agree,
+                       argmax_floor=ARGMAX_FLOOR.get(dtype),
+                       tol=LOSSY_ATOL if dtype else SLICE_ATOL)
+        emit("dilated_lowering", **rec)
+        if not rec["finite"]:
+            raise AssertionError(f"lowering {name}: non-finite output")
+        if k1 != want_k1:
+            raise AssertionError(f"lowering {name}: {k1} K1 launches, "
+                                 f"expected {want_k1}")
+        if "tol" in rec and not rec["max_abs_vs_direct"] <= rec["tol"]:
+            raise AssertionError(f"lowering {name}: "
+                                 f"{rec['max_abs_vs_direct']} from the "
+                                 f"direct route, over {rec['tol']}")
+        floor = ARGMAX_FLOOR.get(dtype)
+        if floor is not None and not rec["argmax_agreement"] > floor:
+            raise AssertionError(f"lowering {name}: argmax agreement "
+                                 f"{rec['argmax_agreement']} <= {floor}")
+        launches += k1
+        del out
+        torch.cuda.empty_cache()
+    model.set_compute_dtype(None)
+    del ref, model, vol
+    torch.cuda.empty_cache()
+    return launches
+
+
 def tune_rows(smi, what, res, seconds):
     for row in res["table"]:
         emit(f"tune_{what}_row", nvidia_smi=smi, **row)
@@ -5716,11 +5972,11 @@ def tune_rows(smi, what, res, seconds):
         raise AssertionError(f"tune {what}: no contender ran")
 
 
-#: the flagship tune's slab sizes: the smallest of
-#: ``inference.DEFAULT_TUNE_STEPS_3D`` and the sweep's default (cut from
-#: its four to keep the script's time; every contender and slab batch is
-#: still tuned)
-FLAGSHIP_TUNE_STEPS = ((64, 384, 384), (112, 496, 496))
+#: the flagship tune's slab size: the sweep's default (cut from
+#: ``inference.DEFAULT_TUNE_STEPS_3D``'s four, and since the grid grew to
+#: six contenders from two, to keep the script's time; every contender and
+#: slab batch is still tuned)
+FLAGSHIP_TUNE_STEPS = ((112, 496, 496),)
 
 
 def tune_flagship(smi, model, path, outs, walls):
@@ -5893,6 +6149,7 @@ def main():
     smi = timed_phase(phase_device)
     timed_phase(phase_build)
     k1 = timed_phase(phase_kernel)
+    k1b_launches, k1b = timed_phase(phase_kernel_k1_bf16)
     k4 = timed_phase(phase_kernel_k4)
     k2 = timed_phase(phase_kernel_k2)
     k3 = timed_phase(phase_kernel_k3)
@@ -5928,6 +6185,7 @@ def main():
     k1_launches += timed_phase(phase_train_dp, smi)
     timed_phase(phase_quant_conv, smi)
     k1_launches += timed_phase(phase_serve_dtypes, smi)
+    k1_launches += timed_phase(phase_dilated_lowerings, smi)
     k1_sh, k2_sh, k3_sh = timed_phase(phase_serve_sharded, smi)
     k1_launches += k1_sh
     k2_launches += k2_sh
@@ -5939,6 +6197,8 @@ def main():
     emit("wall", seconds=time.perf_counter() - t0)
     rows = [("conv3x3_dilated", "tailconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:318", k1_launches, k1),
+            ("conv3x3_dilated_bf16", "tailconv_bf16.cu",
+             "elektronn2_tpu/ops/pallas_tailconv.py:318", k1b_launches, k1b),
             ("conv1x3x3_pool_dilated", "headconv.cu",
              "elektronn2_tpu/ops/pallas_tailconv.py:547", k4_launches, k4),
             ("trilinear_patches", "extract.cu",

@@ -2,20 +2,19 @@
 
 Port of ``elektronn2_tpu/neuromancer/computations.py``: the op functions
 live in ``ops/conv.py`` and ``ops/mfp.py``; this module re-exports them
-under the reference's path. Same objects, not copies. ``conv_s2b`` (a TPU
-lowering, ROADMAP.md §1 item 7) is not ported.
+under the reference's path. Same objects, not copies.
 """
 
 from ..ops.conv import (  # noqa: F401
-    apply_activation, conv, dot, maxout, pooling, quantized_conv, softmax,
-    unpooling, upconv, upsampling,
+    apply_activation, conv, conv_s2b, dot, maxout, pooling, quantized_conv,
+    softmax, unpooling, upconv, upsampling,
 )
 from ..ops.mfp import (  # noqa: F401
     fragmentpool, fragments2dense, mfp_offsets_product,
 )
 
 __all__ = [
-    "conv", "quantized_conv", "upconv", "dot", "pooling", "unpooling",
-    "upsampling", "maxout", "softmax", "apply_activation", "fragmentpool",
-    "fragments2dense", "mfp_offsets_product",
+    "conv", "conv_s2b", "quantized_conv", "upconv", "dot", "pooling",
+    "unpooling", "upsampling", "maxout", "softmax", "apply_activation",
+    "fragmentpool", "fragments2dense", "mfp_offsets_product",
 ]

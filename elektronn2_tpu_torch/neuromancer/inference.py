@@ -7,7 +7,7 @@ Port of ``dilated_dense_forward``, ``convolutional_dense_forward``,
 ``predict_dense`` and ``sweep_knossos`` in
 ``elektronn2_tpu/neuromancer/inference.py``.
 
-*Dilated path* (``direct`` lowering only). MFP (fragment pooling +
+*Dilated path*. MFP (fragment pooling +
 restitch) computes the network at every pooling offset; the identical dense
 form runs each conv dilated by the cumulative pool stride and each pool as a
 stride-1 dilated max window, over the whole volume, with no fragments and no
@@ -16,7 +16,13 @@ stitching. Batch norm with running statistics is a per-channel affine there
 the identity. Under ``Model.set_dilated_impl(pallas_tail=True)`` every conv
 that passes ``_ptail_node_ok`` (kernel (3,3,3), ReLU, no pooling, no batch
 norm, no prelu) and sits at z-dilation 1 runs through the CUDA kernel
-``ops.tailconv.conv3x3_dilated`` (K1).
+``ops.tailconv.conv3x3_dilated`` (K1). ``Model.set_dilated_impl`` picks
+the lowering, each the same function up to the order of float sums:
+``direct`` (cuDNN's dilated convs and pools), ``s2b`` and ``s2bg``
+(space-to-batch around each op, or once at the dilation plateau with one
+merge at the output), ``zfold`` (kz=1 convs as 2-D convs), ``ztap`` (kz>1
+convs as z-shifted 2-D convs), ``zmajor`` (the (B, Z, C, X, Y) layout) and
+``poolslice`` (pools as maxima of shifted slices).
 
 *Convolutional path*. A valid-mode encoder/decoder graph whose UpConvs bring
 the output stride back to 1 is dense by construction on a larger input:
@@ -56,11 +62,8 @@ mesh axis, with halo exchange before every conv and pool
 (``parallel/halo.py``), and a slab batch over a ``data`` axis; decoder graphs
 take one input-level halo and the whole conv-dense program per rank. Every
 rank is given the whole input and returns the whole result, equal to the
-unsharded call (int8 bit for bit).
-
-Not in this slice (``NotImplementedError``): the s2b/s2bg/ztap/zmajor/
-poolslice lowerings of the dilated path (ROADMAP.md §1 item 7's TPU
-lowerings).
+unsharded call (int8 bit for bit); the dilated path's lowerings fall back
+to ``direct`` there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..log import logger
+from ..ops.conv import INT32_ELEMENTS
 
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
@@ -235,6 +239,22 @@ def _pad_raw_front(pred, g, fov, nsp):
     return lo, hi, delta
 
 
+def _pool_slices(y, pool, dil, axes, op=torch.maximum):
+    """``op`` (max, or add for a sum) over a stride-1 pool window dilated
+    by ``dil`` along ``axes`` of ``y``, folded over the window's shifted
+    slices; VALID extent ``s - d*(p-1)`` per axis. Reference:
+    ``inference.py::dilated_dense_forward._pool_slices``."""
+    outs = [y.shape[a] - d * (p - 1) for a, d, p in zip(axes, dil, pool)]
+    acc = None
+    for offs in itertools.product(*(range(p) for p in pool)):
+        idx = [slice(None)] * y.ndim
+        for a, o, d, e in zip(axes, offs, dil, outs):
+            idx[a] = slice(o * d, o * d + e)
+        s = y[tuple(idx)]
+        acc = s if acc is None else op(acc, s)
+    return acc
+
+
 def dilated_pool(y, pool, dil, mode="max"):
     """Stride-1 pooling with window dilation ``dil`` over the spatial axes
     of ``y`` (b, f, *sp); VALID extent ``s - d*(p-1)`` per dim."""
@@ -246,12 +266,7 @@ def dilated_pool(y, pool, dil, mode="max"):
     if mode not in ("sum", "avg", "mean"):
         raise ValueError(f"unknown pooling mode {mode!r}")
     # no dilated average pool in torch: sum the window's shifted slices
-    outs = [s - d * (p - 1) for s, d, p in zip(y.shape[2:], dil, pool)]
-    acc = None
-    for offs in itertools.product(*(range(p) for p in pool)):
-        idx = (slice(None), slice(None)) + tuple(
-            slice(o * d, o * d + e) for o, d, e in zip(offs, dil, outs))
-        acc = y[idx] if acc is None else acc + y[idx]
+    acc = _pool_slices(y, pool, dil, range(2, y.ndim), torch.add)
     return acc / float(np.prod(pool)) if mode in ("avg", "mean") else acc
 
 
@@ -331,16 +346,85 @@ def _dilated_unsupported(pred, state):
     return None
 
 
-def _bn_affine(params, state, node, y):
-    """Evaluation-mode batch norm of the (b, f, ...) map ``y`` from the
-    node's running statistics: a per-channel affine, so it commutes with
-    the dilated form. Reference: ``inference.py::_bn_affine``."""
-    shape = (1, -1) + (1,) * (y.ndim - 2)
+def _bn_affine(params, state, node, y, ch_ax=1):
+    """Evaluation-mode batch norm of the map ``y`` (channels on axis
+    ``ch_ax``) from the node's running statistics: a per-channel affine, so
+    it commutes with the dilated form. Reference: ``inference.py::
+    _bn_affine``."""
+    shape = [1] * y.ndim
+    shape[ch_ax] = -1
+    shape = tuple(shape)
     st = state[node.name]
     gamma = params[node.name]["bn_gamma"].reshape(shape)
     beta = params[node.name]["bn_beta"].reshape(shape)
     return (gamma * (y - st["mean"].reshape(shape))
             * torch.rsqrt(st["var"].reshape(shape) + 1e-5) + beta)
+
+
+
+
+def _zmajor_conv(xi, wc, dil, mode):
+    """The conv of ``wc`` (Cout, C, kz, kx, ky) over z-major activations
+    ``xi`` (B, Z, C, X, Y) at dilation ``dil``, without the bias, as
+    (B, Zo, Cout, X', Y'). kz = 1 folds z into the batch of one 2-D conv; a
+    kz > 1 conv takes ``mode``: ``'fatn'`` (one 2-D conv to Cout*kz
+    channels, the taps added by shifted slices), ``'conv3d'`` (one 3-D
+    conv of the channel-major view), or ``ops.conv.conv_ztap``'s
+    ``'native'``, ``'f32'`` and ``'concat'`` on the channel-major view,
+    whose z fold is then a free reshape. fatn's output z rows run in
+    chunks wherever its conv would pass 2^31 elements (``ops.conv.
+    z_chunks``). Reference: ``inference.py::dilated_dense_forward``'s
+    z-major branch."""
+    from ..ops.conv import (conv as ops_conv, conv_zfold2d, conv_ztap,
+                            z_chunks)
+    B, Z, C, X, Y = xi.shape
+    Cout, kz = wc.shape[0], wc.shape[2]
+    dz, dxy = dil[0], tuple(dil[1:])
+    Xo = X - dxy[0] * (wc.shape[3] - 1)
+    Yo = Y - dxy[1] * (wc.shape[4] - 1)
+    if kz == 1:                      # the fold of the z-major layout is free
+        return conv_zfold2d(xi.transpose(1, 2), wc,
+                            dilation=dxy).transpose(1, 2)
+    if mode == "conv3d":
+        return ops_conv(xi.transpose(1, 2), wc, dilation=dil).transpose(1, 2)
+    if mode != "fatn":
+        return conv_ztap(xi.transpose(1, 2), wc, dil,
+                         accum=mode).transpose(1, 2)
+    zo = Z - dz * (kz - 1)
+    halo = dz * (kz - 1)
+    w2 = wc.permute(2, 0, 1, 3, 4).reshape(kz * Cout, C, *wc.shape[3:])
+    parts = []
+    for z0, z1 in z_chunks(zo, B * max(C * X * Y, kz * Cout * Xo * Yo),
+                           halo=halo):
+        zc, n = z1 - z0, z1 - z0 + halo
+        c = ops_conv(xi[:, z0:z0 + n].reshape(B * n, C, X, Y), w2,
+                     dilation=dxy).reshape(B, n, kz, Cout, Xo, Yo)
+        y = c[:, 0:zc, 0]
+        for t in range(1, kz):
+            y = y + c[:, t * dz:t * dz + zc, t]
+        del c
+        parts.append(y)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _dilation_plateau(pred, nsp):
+    """The dilation of ``pred``'s output along its first parents, the
+    product of every pool shape on the way: the last value the dilation
+    takes (it only grows along the graph, so every value's divides it)."""
+    from . import neural
+    from .node_basic import Input
+    dil = {}
+    for node in pred.all_parents():
+        d = ((1,) * nsp if isinstance(node, Input)
+             else dil[node.parents[0].name])
+        if isinstance(node, (neural.Conv, neural.Pool)):
+            d = tuple(a * p for a, p in zip(d, node.pool_shape))
+        dil[node.name] = d
+    return dil[pred.name]
+
+
+_PLATEAU = ("dilated dense path (s2bg): pooling past the dilation plateau "
+            "— dilation schedule is inconsistent")
 
 
 def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
@@ -356,28 +440,41 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
     with ``batch=True``, (b, f, Z, X, Y). Call under ``torch.no_grad()`` and
     ``ops.conv.f32_convs()`` (``predict_dense_device`` does).
 
+    The lowering is the model's (``Model.set_dilated_impl``): ``'direct'``,
+    ``'s2b'`` (space-to-batch around every dilated conv and pool),
+    ``'s2bg'`` (one split at the dilation plateau, the tail undilated on
+    the batch of phases, one merge at the output; a pool past the plateau
+    raises ``UnsupportedGraphError``), with ``zfold``, ``ztap``, ``zmajor``
+    and ``poolslice``: each the same function up to the order of float
+    sums.
+
     The model's serving precision (``Model.set_compute_dtype``): bf16 or
     float16 Conv operands; int8 through ``ops.conv.quantized_conv``, with
     the calibrated scales where there are some; with ``activations=True``
     the values between layers stored in the compute type (bf16 under int8),
     epilogues and the softmax in float32. The result is float32. K1 runs
-    at float32 only. ``quant_calibrate``, a dict, gets each Conv's input
-    max-abs from a float32 evaluation (``Model.calibrate_int8``).
+    at float32 outside phase space, and not under s2b or zmajor, where the
+    JAX package ignores its kernel too. ``quant_calibrate``, a dict, gets
+    each Conv's input max-abs from a float32 evaluation
+    (``Model.calibrate_int8``).
 
     With ``halo_axis`` (a z-sharded volume: ``vol`` is this rank's shard of
-    ``mesh``'s ``halo_axis``), every conv and pool first fetches its
-    ``dilation·(k-1)`` z rows from the next ranks (``parallel.halo.
-    halo_gather``), K1 included, which then runs per shard on the gathered
-    input; each rank keeps z_local output rows, and the global trailing
-    ``fov_z - 1`` rows are invalid (the caller trims them). int8 scales are
-    reduced over ``quant_scale_axes`` (default ``halo_axis``); a dynamic
-    scale leaves out the rows past the global valid extent and the z pad
-    rows (``quant_shard``: ``{"n_z": axis size, "pad_z": pad rows}``), so
-    the result is the unsharded int8 program's bit for bit.
+    ``mesh``'s ``halo_axis``) every lowering is ``'direct'``, as in the JAX
+    package, and every conv and pool first fetches its ``dilation·(k-1)`` z
+    rows from the next ranks (``parallel.halo.halo_gather``), K1 included,
+    which then runs per shard on the gathered input; each rank keeps
+    z_local output rows, and the global trailing ``fov_z - 1`` rows are
+    invalid (the caller trims them). int8 scales are reduced over
+    ``quant_scale_axes`` (default ``halo_axis``); a dynamic scale leaves out
+    the rows past the global valid extent and the z pad rows
+    (``quant_shard``: ``{"n_z": axis size, "pad_z": pad rows}``), so the
+    result is the unsharded int8 program's bit for bit.
     """
     from . import loss as loss_mod, neural
     from .node_basic import ApplyFunc, Concat, Input
-    from ..ops.conv import (absmax, apply_activation, conv as ops_conv,
+    from ..ops.conv import (_s2b_merge, _s2b_split, _s2b_split_zmajor,
+                            absmax, apply_activation, conv as ops_conv,
+                            conv_s2b, conv_ztap, conv_zfold2d, pool_s2b,
                             quantized_conv)
     from ..ops.tailconv import conv3x3_dilated
     from ..parallel.halo import axis_group, halo_gather
@@ -392,25 +489,44 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
             f"{nsp}-d model), got shape {tuple(vol.shape)}")
     pred = model.prediction_node
     params, state = model.params, model.state
+    sharded = halo_axis is not None
+    use_s2b = model._dilated_impl == "s2b" and not sharded
+    use_s2bg = model._dilated_impl == "s2bg" and not sharded
+    use_zfold = model._dilated_zfold and not sharded and not use_s2b
+    ztap_mode = "native" if model._dilated_ztap is True \
+        else model._dilated_ztap
+    use_ztap = (bool(ztap_mode) and not sharded and not use_s2b
+                and nsp == 3)
+    use_zmajor = (model._dilated_zmajor and not sharded and not use_s2b
+                  and nsp == 3)
+    if use_zmajor and not ztap_mode:
+        ztap_mode = "native"
     quant = model._compute_dtype == "int8" and quant_calibrate is None
+    if (quant or quant_calibrate is not None) and (use_ztap or use_zmajor):
+        raise ValueError("int8 serving: ztap/zmajor unsupported")
     scales = (model._quant_scales or {}) if quant else {}
     cdtype = (None if quant or quant_calibrate is not None
               else model._trace_dtype())
     sdtype = None                       # narrow inter-layer storage
     if model._compute_act:
         sdtype = torch.bfloat16 if quant else cdtype
-    use_ptail = (model._dilated_ptail and nsp == 3 and not quant
+    use_ptail = (bool(model._dilated_ptail) and not use_s2b
+                 and not use_zmajor and nsp == 3 and not quant
                  and quant_calibrate is None and cdtype is None
                  and sdtype is None)
+    use_poolslice = model._dilated_poolslice and not sharded and not use_s2b
+    ch_ax = 2 if use_zmajor else 1       # (B, Z, C, X, Y) under zmajor
     bad = _dilated_unsupported(pred, state)
     if bad is not None:
         raise NotImplementedError(
             f"dilated dense path: node type {type(bad).__name__} is not "
             "taken; decoder graphs take convolutional_dense_forward, and "
             + _TILED)
+    d_max = _dilation_plateau(pred, nsp) if use_s2bg else None
+    if use_s2bg and all(v == 1 for v in d_max):
+        use_s2bg = False                 # no pooling: nothing to split
     order = pred.all_parents()           # parents before children
-    group = (axis_group(mesh, halo_axis)
-             if halo_axis is not None and nsp == 3 else None)
+    group = axis_group(mesh, halo_axis) if sharded and nsp == 3 else None
     q_axes = quant_scale_axes if quant_scale_axes is not None else halo_axis
     # z rows consumed before each node's output: under the halo the last
     # ranks' trailing rows past the global valid extent hold what the zero
@@ -421,8 +537,26 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
         return y if group is None or n_rows == 0 else \
             halo_gather(y, n_rows, group)
 
+    def maybe_split(y, dil, ph):
+        """Enter phase space at the dilation plateau (s2bg only)."""
+        if use_s2bg and ph is None and dil == d_max:
+            split = _s2b_split_zmajor if use_zmajor else _s2b_split
+            return split(y, d_max), d_max
+        return y, ph
+
     def pool(y, pool_shape, dil, mode="max"):
-        y = halo(y, dil[0] * (pool_shape[0] - 1))
+        if use_poolslice and mode == "max":
+            axes = ((1,) + tuple(range(3, y.ndim))
+                    if use_zmajor and y.ndim == nsp + 2
+                    else tuple(range(y.ndim - len(pool_shape), y.ndim)))
+            return _pool_slices(y, pool_shape, dil, axes)
+        if use_zmajor:
+            return dilated_pool(y.transpose(1, 2), pool_shape, dil,
+                                mode=mode).transpose(1, 2)
+        if y.ndim == nsp + 2:
+            y = halo(y, dil[0] * (pool_shape[0] - 1))
+        if use_s2b:
+            return pool_s2b(y, pool_shape, dil, mode=mode)
         return dilated_pool(y, pool_shape, dil, mode=mode)
 
     def masked_absmax(y, zl, consumed):
@@ -453,66 +587,150 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
     def store(y):
         return y if sdtype is None else y.to(sdtype)
 
+    def conv_bias(xin, w, b, dil, cfn=ops_conv):
+        """``cfn``'s conv of xin in the serving precision, plus the bias
+        (float32)."""
+        bias = b.reshape((1, -1) + (1,) * (w.ndim - 2))
+        if cdtype is not None:
+            return cfn(xin.to(cdtype), w.to(cdtype), dilation=dil).float() \
+                + bias
+        if cfn is ops_conv:
+            return ops_conv(xin, w, b, dilation=dil)
+        return cfn(xin, w, dilation=dil) + bias
+
+    def conv_node(node, xin, dil, ph, vin):
+        """A Conv's output, dilation, phase state and dense-space valid
+        extent."""
+        w = params[node.name]["w"]
+        b = params[node.name]["b"]
+        pool_shape = node.pool_shape
+        pooled = any(p > 1 for p in pool_shape)
+        kz = w.shape[2]
+        if quant_calibrate is not None:
+            quant_calibrate[node.name] = float(absmax(xin))
+        xin, ph = maybe_split(xin, dil, ph)
+        if ph is not None and pooled:
+            raise UnsupportedGraphError(_PLATEAU)
+        eff = (1,) * nsp if ph is not None else dil
+        v = tuple(s - d * (k - 1) for s, d, k in zip(vin, dil, w.shape[2:]))
+        if use_zmajor:
+            # every conv folded: kz=1 a free reshape, kz>1 by z-slices
+            if cdtype is not None:
+                y = _zmajor_conv(xin.to(cdtype), w.to(cdtype), eff,
+                                 ztap_mode).float()
+            else:
+                y = _zmajor_conv(xin, w, eff, ztap_mode)
+            y = y + b.reshape(1, 1, -1, 1, 1)
+            if pooled:
+                y = pool(y, pool_shape, dil)
+        elif use_zfold and nsp == 3 and kz == 1 and pool_shape[0] == 1:
+            # z never mixes (kz=1, pz=1): z folded into the batch, conv +
+            # bias + pool as 2-D ops, unfolded after
+            def fold(x2, w2, dilation):
+                if quant:
+                    y2 = quantized_conv(x2, w2, dilation=dilation,
+                                        x_absmax=scales.get(node.name)) \
+                        + b.reshape(1, -1, 1, 1)
+                else:
+                    y2 = conv_bias(x2, w2, b, dilation)
+                del x2                   # the folded copy, before the pool
+                return pool(y2, pool_shape[1:], dilation) if pooled else y2
+            y = conv_zfold2d(xin, w, dilation=eff[1:], conv_fn=fold)
+        elif (use_ptail and ph is None and eff[0] == 1
+                and _ptail_node_ok(node)):
+            # bias + ReLU fused in the kernel; eligible convs never pool;
+            # the input may be the caller's strided view
+            xin = halo(xin, kz - 1)
+            return (conv3x3_dilated(xin.contiguous(), w, b,
+                                    dil=(1, eff[1], eff[2])), dil, ph, v)
+        else:
+            zl = int(xin.shape[2])
+            if nsp == 3:
+                xin = halo(xin, eff[0] * (kz - 1))
+            if quant:
+                sx = scales.get(node.name)
+                if sx is None and group is not None:
+                    sx = masked_absmax(xin, zl, zcons[node.parents[0].name])
+                y = quantized_conv(
+                    xin, w, conv_fn=conv_s2b if use_s2b else ops_conv,
+                    dilation=eff, x_absmax=sx,
+                    axis_name=q_axes if group is not None else None,
+                    mesh=mesh) + b.reshape((1, -1) + (1,) * nsp)
+            elif use_ztap and kz > 1:
+                y = conv_bias(xin, w, b, eff, lambda a, w_, dilation:
+                              conv_ztap(a, w_, dilation, accum=ztap_mode))
+            else:
+                y = conv_bias(xin, w, b, eff,
+                              conv_s2b if use_s2b else ops_conv)
+            if pooled:
+                y = pool(y, pool_shape, dil)
+        if pooled:
+            v = tuple(s - d * (p - 1) for s, d, p in zip(v, dil, pool_shape))
+            dil = tuple(d * p for d, p in zip(dil, pool_shape))
+        if node.batch_normalisation:
+            y = _bn_affine(params, state, node, y, ch_ax)
+        y = store(apply_activation(y, node.activation_func,
+                                   alpha=params[node.name].get("alpha"),
+                                   axis=ch_ax))
+        return y, dil, ph, v
+
     x = vol if batch else vol[None]
-    values = {}    # node name -> (tensor, dilation tuple)
+    if use_zmajor:
+        x = x.transpose(1, 2)
+    values = {}    # node name -> (tensor, dilation, phase tuple or None)
+    vext = {}      # node name -> dense-space valid spatial extent
 
     def evaluate(node):
         if isinstance(node, Input):
             zcons[node.name] = 0
-            return x, (1,) * nsp
-        xin, dil = values[node.parents[0].name]
-        zin = zcons[node.parents[0].name]
-        zcons[node.name] = zin
+            vext[node.name] = (((x.shape[1],) + tuple(x.shape[3:]))
+                               if use_zmajor else tuple(x.shape[2:]))
+            return x, (1,) * nsp, None
+        xin, dil, ph = values[node.parents[0].name]
+        vin = vext[node.parents[0].name]
+        vext[node.name] = vin
+        zcons[node.name] = zcons[node.parents[0].name]
         if isinstance(node, (neural.Conv, neural.Pool)):
             zcons[node.name] += dil[0] * (node.pool_shape[0] - 1)
         if isinstance(node, neural.Conv):
-            w = params[node.name]["w"]
-            b = params[node.name]["b"]
-            zcons[node.name] += dil[0] * (w.shape[2] - 1)
-            if quant_calibrate is not None:
-                quant_calibrate[node.name] = float(absmax(xin))
-            zl = int(xin.shape[2])
-            xin = halo(xin, dil[0] * (w.shape[2] - 1))
-            if use_ptail and dil[0] == 1 and _ptail_node_ok(node):
-                # bias + ReLU fused in the kernel; eligible convs never pool;
-                # the input may be the caller's strided view
-                return conv3x3_dilated(xin.contiguous(), w, b,
-                                       dil=(1, dil[1], dil[2])), dil
-            bias = b.reshape((1, -1) + (1,) * nsp)
-            if quant:
-                sx = scales.get(node.name)
-                if sx is None and group is not None:
-                    sx = masked_absmax(xin, zl, zin)
-                y = quantized_conv(
-                    xin, w, dilation=dil, x_absmax=sx,
-                    axis_name=q_axes if group is not None else None,
-                    mesh=mesh) + bias
-            elif cdtype is not None:
-                y = ops_conv(xin.to(cdtype), w.to(cdtype),
-                             dilation=dil).float() + bias
-            else:
-                y = ops_conv(xin, w, b, dilation=dil)
-            if any(p > 1 for p in node.pool_shape):
-                y = pool(y, node.pool_shape, dil)
-                dil = tuple(d * p for d, p in zip(dil, node.pool_shape))
-            if node.batch_normalisation:
-                y = _bn_affine(params, state, node, y)
-            return store(apply_activation(
-                y, node.activation_func,
-                alpha=params[node.name].get("alpha"))), dil
+            zcons[node.name] += dil[0] * (params[node.name]["w"].shape[2]
+                                          - 1)
+            y, dil, ph, vext[node.name] = conv_node(node, xin, dil, ph, vin)
+            return y, dil, ph
         if isinstance(node, neural.Pool):
-            y = pool(xin, node.pool_shape, dil, mode=node.mode)
-            return y, tuple(d * p for d, p in zip(dil, node.pool_shape))
+            if ph is not None:
+                raise UnsupportedGraphError(_PLATEAU)
+            vext[node.name] = tuple(s - d * (p - 1) for s, d, p in
+                                    zip(vin, dil, node.pool_shape))
+            return (pool(xin, node.pool_shape, dil, mode=node.mode),
+                    tuple(d * p for d, p in zip(dil, node.pool_shape)), ph)
         if isinstance(node, loss_mod.Softmax):
-            return loss_mod.grouped_softmax(xin.float(), node.n_indep, 1), dil
+            return (loss_mod.grouped_softmax(xin.float(), node.n_indep,
+                                             ch_ax), dil, ph)
         if isinstance(node, neural.BatchNorm):
-            return store(_bn_affine(params, state, node, xin)), dil
+            return store(_bn_affine(params, state, node, xin, ch_ax)), dil, ph
         if isinstance(node, Concat):
-            return torch.cat([values[p.name][0] for p in node.parents],
-                             dim=1), dil
+            parts = [values[p.name] for p in node.parents]
+            if any(p[2] is not None for p in parts):
+                # mixed phase states (one branch split, another not yet):
+                # every parent into phase space before the concat
+                arrs = []
+                for a, d, p_ph in parts:
+                    a, p_ph = maybe_split(a, d, p_ph)
+                    if p_ph is None:
+                        raise UnsupportedGraphError(
+                            "dilated dense path (s2bg): Concat parents at "
+                            "mismatched phase states")
+                    arrs.append(a)
+                return torch.cat(arrs, dim=ch_ax), dil, d_max
+            return torch.cat([p[0] for p in parts], dim=ch_ax), dil, ph
         if isinstance(node, ApplyFunc):
-            return node.functor(xin, *node.args, **node.kwargs), dil
-        return xin, dil      # FragmentsToDense: already dense; Dropout
+            if use_zmajor:     # functors take the (B, C, *sp) layout
+                return (node.functor(xin.transpose(1, 2), *node.args,
+                                     **node.kwargs).transpose(1, 2),
+                        dil, ph)
+            return node.functor(xin, *node.args, **node.kwargs), dil, ph
+        return xin, dil, ph  # FragmentsToDense: already dense; Dropout
 
     # drop each value after its last consumer: eager PyTorch keeps every
     # live intermediate in device memory (several GB each at 120x496x496)
@@ -526,8 +744,13 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
             uses[p.name] -= 1
             if uses[p.name] == 0:
                 del values[p.name]
-    y, _ = values.pop(pred.name)
+    y, _, ph = values.pop(pred.name)
     y = y.float()                        # callers get float32 maps
+    if use_zmajor:
+        y = y.transpose(1, 2)            # channel-major for the merge
+    if ph is not None:
+        y = _s2b_merge(y, ph, x.shape[0], vext[pred.name])
+    y = y.contiguous()
     return y if batch else y[0]
 
 
@@ -800,32 +1023,37 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
             f"volume spatial shape {tuple(vol.shape[1:])} smaller than "
             f"the model fov {tuple(fov)}; pad_raw=True may help")
 
-    if _dilated_unsupported(pred, model.state) is not None:
-        if _conv_dense_rejection(pred) is None:
-            try:
-                return convolutional_dense_forward(model, vol,
-                                                   pad_raw=pad_raw)
-            except ConvDenseShapeError:
-                pass    # refused for the volume's shape: the tiled fallback
-        if model._compute_dtype == "int8" and not getattr(
-                model, "_warned_int8_tiled", False):
-            # int8 covers the whole-volume paths only: say so rather than
-            # let the user believe the tiled map is quantised
-            model._warned_int8_tiled = True
-            logger.warning(
-                "int8 serving requested, but this graph/volume routes to "
-                "the overlap-tiled fallback, which runs float32 (per-tile "
-                "scales would seam the stitched output)")
-        return _tiled_sweep(model, vol, pad_raw, tile_batch)
-
-    with torch.no_grad(), f32_convs():
-        if pad_raw:
-            # F.pad lists (lo, hi) pairs from the LAST axis backwards
-            pads = []
-            for f in reversed(fov):
-                pads += [(f - 1) // 2, f - 1 - (f - 1) // 2]
-            vol = F.pad(vol[None], pads, mode="reflect")[0]
-        return dilated_dense_forward(model, vol)
+    if _dilated_unsupported(pred, model.state) is None:
+        try:
+            with torch.no_grad(), f32_convs():
+                vol_p = vol
+                if pad_raw:
+                    # F.pad lists (lo, hi) pairs from the LAST axis
+                    # backwards
+                    pads = []
+                    for f in reversed(fov):
+                        pads += [(f - 1) // 2, f - 1 - (f - 1) // 2]
+                    vol_p = F.pad(vol[None], pads, mode="reflect")[0]
+                return dilated_dense_forward(model, vol_p)
+        except UnsupportedGraphError:
+            # a lowering that cannot take this graph (s2bg's plateau
+            # checks): the tiled path serves it, as in the JAX package
+            pass
+    elif _conv_dense_rejection(pred) is None:
+        try:
+            return convolutional_dense_forward(model, vol, pad_raw=pad_raw)
+        except ConvDenseShapeError:
+            pass    # refused for the volume's shape: the tiled fallback
+    if model._compute_dtype == "int8" and not getattr(
+            model, "_warned_int8_tiled", False):
+        # int8 covers the whole-volume paths only: say so rather than
+        # let the user believe the tiled map is quantised
+        model._warned_int8_tiled = True
+        logger.warning(
+            "int8 serving requested, but this graph/volume routes to "
+            "the overlap-tiled fallback, which runs float32 (per-tile "
+            "scales would seam the stitched output)")
+    return _tiled_sweep(model, vol, pad_raw, tile_batch)
 
 
 def _tiled_sweep(model, vol, pad_raw, tile_batch, verbose=False):
@@ -1421,6 +1649,9 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
                 f"sweep_knossos: slab_batch={slab_batch} exhausted device "
                 f"memory — falling back to per-slab sweeps (use a smaller "
                 f"step= or slab_batch for batched serving)")
+        except UnsupportedGraphError:
+            logger.warning("sweep_knossos: graph unsupported by the "
+                           "dilated batch path — falling back to per-slab")
     run(1, _sweep_forward(model, False, mesh, axis_name))
     return out
 
@@ -1432,15 +1663,16 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
 DEFAULT_TUNE_STEPS_3D = ((64, 384, 384), (96, 512, 512), (112, 496, 496),
                          (128, 512, 512))
 
-#: the most elements a map may hold and keep cuDNN's int32-indexed kernels
-INT32_ELEMENTS = 2**31 - 1
-
 
 def _largest_map(model, path, ext, sb):
     """Elements of the largest activation map (a Conv's output before its
     pool included) of one forward over ``sb`` staged slabs of spatial
     extent ``ext`` on ``path`` ('dilated' or 'convdense'), from the shapes
-    alone; a skip merge that ``skipsum`` never builds is not counted."""
+    alone; a skip merge that ``skipsum`` never builds is not counted. On
+    the dilated path under ``ztap='concat'`` or ``'fatn'`` the map a kz>1
+    conv builds (its taps concatenated into channels, or its Cout*kz
+    channels before the taps are added) counts too, whole, though the
+    port runs it in z-chunks under 2^31 elements."""
     from .neural import Conv, Pool
     from .node_basic import Concat, Input
     pred = model.prediction_node
@@ -1470,9 +1702,15 @@ def _largest_map(model, path, ext, sb):
             p = node.parents[0].name
             e, d, c = list(ext_of[p]), list(dil_of[p]), ch_of[p]
             if isinstance(node, Conv):
+                kz = node.filter_shape[0] if len(ext) == 3 else 1
+                ein = e
                 e = [v - a * (k - 1) for v, a, k in zip(e, d,
                                                          node.filter_shape)]
                 big = max(big, node.n_f * math.prod(e))
+                if kz > 1 and model._dilated_ztap == "concat":
+                    big = max(big, kz * c * e[0] * ein[1] * ein[2])
+                elif kz > 1 and model._dilated_ztap == "fatn":
+                    big = max(big, kz * node.n_f * ein[0] * e[1] * e[2])
             if isinstance(node, (Conv, Pool)):
                 e = [v - a * (q - 1) for v, a, q in zip(e, d,
                                                          node.pool_shape)]
@@ -1518,13 +1756,14 @@ def _tune_measure_grid(model, steps, halo, slab_batches, K, configs,
     whether it passes 2^31 (``past_2_31``: cuDNN leaves its int32 kernels
     there).
 
-    Only three failures become a row (``failed``): the device running out
-    of memory, a contender the port does not have (``NotImplementedError``
-    naming its ROADMAP.md item), and a non-finite checksum from a bf16,
-    float16 or int8 contender. Anything else, a K1 launch error or a
-    non-finite float32 result included, reaches the caller. Reference:
-    ``inference.py::_tune_measure_grid``, which makes a row of every
-    exception."""
+    Only two failures become a row (``failed``): the device running out of
+    memory, and a non-finite checksum from a bf16, float16 or int8
+    contender. A contender whose lowering cannot take the graph
+    (``UnsupportedGraphError``) ends the grid, as in the JAX package: the
+    second value returned is then True. Anything else, a K1 launch error
+    or a non-finite float32 result included, reaches the caller.
+    Returns (rows, stopped). Reference: ``inference.py::
+    _tune_measure_grid``, which makes a row of every other exception."""
     dev = model.device
     f_in = int(model.input_node.shape["f"])
     table = []
@@ -1561,8 +1800,8 @@ def _tune_measure_grid(model, steps, halo, slab_batches, K, configs,
                         failed = f"non-finite checksum ({checksum})"
                 except torch.cuda.OutOfMemoryError as e:
                     failed = oom = f"out of memory: {e}"[:200]
-                except NotImplementedError as e:
-                    failed = str(e)[:200]
+                except UnsupportedGraphError:
+                    return table, True
                 if oom is not None:       # the traceback's tensors are gone
                     _free_device(dev)
                 if failed is not None:
@@ -1577,7 +1816,7 @@ def _tune_measure_grid(model, steps, halo, slab_batches, K, configs,
                                 "Mvox/s")
             del vol
             _free_device(dev)
-    return table
+    return table, False
 
 
 def _tune_sweep_convdense(model, steps, halo, slab_batches=(1, 2), K=4,
@@ -1634,17 +1873,23 @@ def _tune_sweep_convdense(model, steps, halo, slab_batches=(1, 2), K=4,
                 f"{'+act' if cfg['act'] else ''}")
 
     try:
-        table = _tune_measure_grid(
+        table, stopped = _tune_measure_grid(
             model, steps, halo, slab_batches, K, configs, _apply_cfg,
             lambda cfg, sb: _sweep_forward(model, sb > 1), _tag,
             "tune_sweep[convdense]", verbose, "convdense")
     finally:
         _apply_cfg(saved, with_scales=True)
-    return _tune_result(table, apply, _apply_cfg, "tune_sweep[convdense]",
-                        verbose)
+    return _tune_result(table, stopped, apply, _apply_cfg,
+                        "tune_sweep[convdense]", verbose)
 
 
-def _tune_result(table, apply, apply_cfg, log_prefix, verbose):
+def _tune_result(table, stopped, apply, apply_cfg, log_prefix, verbose):
+    if stopped:
+        if verbose:
+            logger.info(f"{log_prefix}: graph unsupported by a contender's "
+                        "lowering — nothing to tune (the tiled fallback "
+                        "has no lowering knobs)")
+        return {"best": None, "table": table}
     ok = [r for r in table if "mvox_s" in r]
     if not ok:
         return {"best": None, "table": table}
@@ -1672,15 +1917,16 @@ def tune_sweep(model, steps=None, slab_batches=(1, 2), K=4,
     settings are restored, the int8 calibration kept) never leaves the
     model slower than it was, as measured.
 
-    The dilated grid is the JAX package's mapped to what the port has:
-    its only dilated lowering is 'direct' (``'s2b'``/``'s2bg'`` stay
-    unported, ROADMAP.md §1 item 7, and ``zfold`` changes nothing there),
-    so 's2bg' reads as 'direct' and the duplicates go, leaving four
-    contenders: direct, direct + K1 (``pallas_tail``), direct bf16, and
-    direct int8 with ``activations=True``. ``lowerings`` gives others as
-    (impl, zfold, dtype[, ztap, zmajor, poolslice, act, ptail]) tuples; a
-    lowering the port lacks becomes a failed row naming its item.
-    ``include_bf16`` / ``include_int8`` drop the lossy contenders.
+    The dilated grid is the JAX package's, six contenders in its order:
+    direct, s2bg, direct + zfold + K1 (``pallas_tail``), s2bg bf16, s2bg +
+    zfold bf16, and s2bg + zfold int8 with ``activations=True``; every
+    contender carries the whole knob set (``ztap``, ``zmajor``,
+    ``poolslice`` at their defaults), and the incumbent competes with its
+    own. ``lowerings`` gives others as (impl, zfold, dtype[, ztap, zmajor,
+    poolslice, act, ptail]) tuples. ``include_bf16`` / ``include_int8``
+    drop the lossy contenders. A contender whose lowering cannot take the
+    graph (``UnsupportedGraphError``) ends the tune with ``best`` None, as
+    in the JAX package.
 
     Decoder (UpConv) graphs take the conv-dense leg
     (:func:`_tune_sweep_convdense`; ``best["path"] == "convdense"``). A
@@ -1721,19 +1967,23 @@ def tune_sweep(model, steps=None, slab_batches=(1, 2), K=4,
         return {"impl": impl, "zfold": bool(zfold), "dtype": dtype,
                 "ztap": ztap, "zmajor": bool(zmajor),
                 "poolslice": bool(poolslice), "act": bool(act),
-                "ptail": ptail}
+                "ptail": (dict(ptail) if isinstance(ptail, dict)
+                          else bool(ptail))}
 
     if lowerings is None:
-        configs = [_cfg("direct", False, None),
+        configs = [_cfg("direct", False, None), _cfg("s2bg", False, None),
                    _cfg("direct", True, None, ptail=True)]
         if include_bf16:
-            configs += [_cfg("direct", False, "bfloat16")]
+            configs += [_cfg("s2bg", False, "bfloat16"),
+                        _cfg("s2bg", True, "bfloat16")]
         if include_int8:
-            configs += [_cfg("direct", True, "int8", act=True)]
+            configs += [_cfg("s2bg", True, "int8", act=True)]
     else:
         configs = [_cfg(*low) for low in lowerings]
     saved = _cfg(model._dilated_impl, model._dilated_zfold,
-                 model._compute_dtype, act=model._compute_act,
+                 model._compute_dtype, ztap=model._dilated_ztap,
+                 zmajor=model._dilated_zmajor,
+                 poolslice=model._dilated_poolslice, act=model._compute_act,
                  ptail=model._dilated_ptail)
     saved_scales = model._quant_scales
     if saved not in configs:
@@ -1759,10 +2009,14 @@ def tune_sweep(model, steps=None, slab_batches=(1, 2), K=4,
                 f"{'+' + cfg['dtype'] if cfg['dtype'] else ''}")
 
     try:
-        table = _tune_measure_grid(
+        # the batched dilated forward at every slab batch: at one slab it
+        # is what predict_dense_device runs, and a lowering's
+        # UnsupportedGraphError reaches the grid instead of the tiled path
+        table, stopped = _tune_measure_grid(
             model, steps, halo, slab_batches, K, configs, _apply_cfg,
-            lambda cfg, sb: _sweep_forward(model, sb > 1), _tag,
+            lambda cfg, sb: _sweep_forward(model, True), _tag,
             "tune_sweep", verbose, "dilated")
     finally:
         _apply_cfg(saved, with_scales=True)
-    return _tune_result(table, apply, _apply_cfg, "tune_sweep", verbose)
+    return _tune_result(table, stopped, apply, _apply_cfg, "tune_sweep",
+                        verbose)

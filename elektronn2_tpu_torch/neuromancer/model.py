@@ -38,9 +38,8 @@ step computes on the same global batch (``parallel/data_parallel.py``).
 With ``model_axis`` the Conv, UpConv and Perceptron weights are split over
 that axis as well (``parallel/tensor_parallel.py``).
 
-Not ported (``NotImplementedError`` naming the ROADMAP.md item): orbax
-checkpoints and the TPU lowerings of ``set_dilated_impl`` /
-``set_convdense_impl``.
+Not ported (``NotImplementedError`` naming the reason): orbax checkpoint
+directories, whose reader is a JAX library.
 """
 
 from __future__ import annotations
@@ -112,7 +111,10 @@ class Model:
         self._compute_act = False
         self._quant_scales = None         # calibrate_int8's {node: max-abs}
         self._dilated_impl = "direct"
-        self._dilated_zfold = False        # accepted, changes nothing
+        self._dilated_zfold = False
+        self._dilated_ztap = False
+        self._dilated_zmajor = False
+        self._dilated_poolslice = False
         self._dilated_ptail = False
         self._convdense_upconv = "dilate"
         self._convdense_zfold = False
@@ -189,38 +191,66 @@ class Model:
     def set_dilated_impl(self, impl="direct", zfold=False, ztap=False,
                          zmajor=False, poolslice=False, pallas_tail=False):
         """Choose the lowering of the dilated dense path
-        (``neuromancer/inference.py::dilated_dense_forward``).
+        (``neuromancer/inference.py::dilated_dense_forward``); every choice
+        computes the same function, up to the order of float sums.
 
-        ``impl='direct'``: each conv runs dilated by the cumulative pool
-        stride and each pool as a stride-1 dilated max window.
-        ``pallas_tail=True``: every (3,3,3) ReLU conv without pooling runs
-        through the hand-written CUDA kernel ``ops.tailconv.conv3x3_dilated``
-        (K1; bias and ReLU fused) instead of cuDNN. Equal up to float
-        reassociation.
-        ``zfold`` is accepted and changes nothing: in the JAX package it
-        rewrites kz=1 convs as 2D convs with z folded into the batch, an
-        exact rewrite that XLA on the TPU needed; whether folding pays on
-        cuDNN is a later measurement.
+        ``impl``: ``'direct'`` runs each conv dilated by the cumulative pool
+        stride and each pool as a stride-1 dilated max window; ``'s2b'``
+        wraps every dilated conv and pool in space-to-batch
+        (``ops.conv.conv_s2b``, ``pool_s2b``: the phases run undilated as a
+        batch and interleave back); ``'s2bg'`` splits once, where the
+        dilation reaches its last value (after the last pool), runs the
+        tail undilated on the batch of phases, and merges once at the
+        output.
+        ``zfold``: every kz=1, pz=1 conv as a 2-D conv with z folded into
+        the batch (``'direct'``/``'s2bg'``).
+        ``ztap``: every kz>1 conv as a sum of kz z-shifted 2-D convs
+        (``ops.conv.conv_ztap``): True or ``'native'`` (the taps summed in
+        their own type), ``'f32'`` (summed in float32), ``'concat'`` (the
+        taps concatenated into channels, one 2-D conv); with ``zmajor``
+        also ``'conv3d'`` (one 3-D conv on the z-major layout) and
+        ``'fatn'`` (one 2-D conv to Cout*kz channels, its taps added by
+        shifted slices).
+        ``zmajor``: the activations kept as (B, Z, C, X, Y), every conv
+        folded (``ztap`` defaults to ``'native'``); one transpose in, one
+        out.
+        ``poolslice``: stride-1 dilated max pools as maxima of shifted
+        slices.
+        ``pallas_tail``: every (3,3,3) ReLU conv without pooling at
+        z-dilation 1 runs through the CUDA kernel
+        ``ops.tailconv.conv3x3_dilated`` (K1; bias and ReLU fused) instead
+        of cuDNN, on the ``'direct'`` lowering at float32; s2b, zmajor, the
+        phase space of s2bg and the bf16/int8 modes keep cuDNN, as the JAX
+        package ignores its kernel there. A dict turns K1 on as a non-empty
+        dict does in the JAX package and is kept as given: its ``variant``,
+        ``z_block`` and ``prefetch`` schedule the TPU kernel's grid and have
+        no counterpart in K1, which reads none of them.
 
-        The other lowerings of the JAX package are not ported:
-        ``impl='s2b'``/``'s2bg'``, ``ztap``, ``zmajor``, ``poolslice``, and
-        ``pallas_tail`` as a dict of TPU kernel knobs.
+        Refused as in the JAX package: ``ztap='conv3d'``/``'fatn'``
+        without ``zmajor``, and ``ztap``/``zmajor`` under int8 serving.
+        Reference: ``Model.set_dilated_impl``.
         """
         if impl not in ("direct", "s2b", "s2bg"):
             raise ValueError(f"impl={impl!r}: expected 'direct', 's2b' "
                              "or 's2bg'")
-        left_out = {"impl": impl != "direct", "ztap": bool(ztap),
-                    "zmajor": bool(zmajor), "poolslice": bool(poolslice),
-                    "pallas_tail knobs": isinstance(pallas_tail, dict)}
-        bad = [k for k, v in left_out.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"set_dilated_impl: {', '.join(bad)} not ported to "
-                "elektronn2_tpu_torch (XLA/TPU lowerings; ROADMAP.md §1 "
-                "item 7)")
+        if ztap not in (False, True, "native", "f32", "concat", "conv3d",
+                        "fatn"):
+            raise ValueError(f"ztap={ztap!r}: expected bool, 'native', "
+                             "'f32', 'concat', 'conv3d' or 'fatn' "
+                             "('conv3d'/'fatn' require zmajor=True)")
+        if ztap in ("conv3d", "fatn") and not zmajor:
+            raise ValueError(f"ztap={ztap!r} requires zmajor=True")
+        if (ztap or zmajor) and self._compute_dtype == "int8":
+            raise ValueError("ztap/zmajor lowerings are not available in "
+                             "int8 serving mode (set_compute_dtype)")
         self._dilated_impl = impl
         self._dilated_zfold = bool(zfold)
-        self._dilated_ptail = bool(pallas_tail)
+        self._dilated_ztap = ztap
+        self._dilated_zmajor = bool(zmajor)
+        self._dilated_poolslice = bool(poolslice)
+        self._dilated_ptail = (dict(pallas_tail)
+                               if isinstance(pallas_tail, dict)
+                               else bool(pallas_tail))
         return self
 
     def set_convdense_impl(self, upconv="dilate", zfold=False, ptail=False,
@@ -235,7 +265,10 @@ class Model:
         (``ops.conv.conv_zfold2d``); 3D graphs only.
         ``ptail``: every (3,3,3) ReLU Conv without MFP, pooled ones included,
         runs through the CUDA kernel ``ops.tailconv.conv3x3_dilated`` (K1;
-        bias and ReLU fused, the max pool after it).
+        bias and ReLU fused, the max pool after it). A dict turns K1 on as
+        a non-empty dict does in the JAX package and is kept as given; its
+        ``variant``/``z_block``/``prefetch`` schedule the TPU kernel's grid
+        and have no counterpart in K1.
         ``poolslice``: non-overlapping pools as maxima of strided slices
         (``ops.conv.pooling_slices``).
         ``skipsum``: a Conv fed by a FaithlessMerge sums the convs of the
@@ -243,20 +276,15 @@ class Model:
         that Conv).
 
         The knobs touch the conv-dense path only; ``predict`` and the
-        dilated path keep their lowerings. ``ptail`` as a dict of TPU kernel
-        knobs is not ported.
+        dilated path keep their lowerings.
         """
         if upconv not in ("dilate", "d2s"):
             raise ValueError(f"upconv={upconv!r}: expected 'dilate' "
                              "or 'd2s'")
-        if isinstance(ptail, dict):
-            raise NotImplementedError(
-                "set_convdense_impl: ptail knobs not ported to "
-                "elektronn2_tpu_torch (TPU kernel variants; ROADMAP.md §1 "
-                "item 7)")
         self._convdense_upconv = upconv
         self._convdense_zfold = bool(zfold)
-        self._convdense_ptail = bool(ptail)
+        self._convdense_ptail = (dict(ptail) if isinstance(ptail, dict)
+                                 else bool(ptail))
         self._convdense_poolslice = bool(poolslice)
         self._convdense_skipsum = bool(skipsum)
         return self
@@ -314,6 +342,11 @@ class Model:
         if dtype not in (None, "bfloat16", "float16", "float32", "int8"):
             raise ValueError(f"dtype={dtype!r}: expected None, 'bfloat16',"
                              " 'float16', 'float32' or 'int8'")
+        if dtype == "int8" and (self._dilated_ztap or self._dilated_zmajor):
+            raise ValueError(
+                "int8 serving supports the 'direct'/'s2bg' lowerings "
+                "(+zfold); disable ztap/zmajor first "
+                "(set_dilated_impl)")
         dtype = None if dtype == "float32" else dtype
         from ..ops.tailconv import forget_packed
         forget_packed(v for d in self.params.values() for v in d.values())
@@ -1143,12 +1176,12 @@ def modelload(fname, override_mfp_to_active=False, imposed_patch_size=None,
 
 def params_from_model_file(fname):
     """The parameter arrays of a model file (the npz of ``Model.save``):
-    ``{node: {name: ndarray}}``. Orbax checkpoint directories are a JAX
-    format and not ported (ROADMAP.md §1 item 7)."""
+    ``{node: {name: ndarray}}``. Orbax checkpoint directories are not
+    ported: their reader is a JAX library."""
     if os.path.isdir(fname):
         raise NotImplementedError(
             f"{fname!r} is a directory: orbax checkpoints are not ported "
-            "(ROADMAP.md §1 item 7); save as npz")
+            "(their reader is a JAX library); save as npz")
     params = {}
     with np.load(fname, allow_pickle=False) as z:
         for k in z.files:
@@ -1271,7 +1304,8 @@ def rebuild_model(model, override_mfp_to_active=False,
                     if o.shape == n.shape:
                         n.copy_(o)
     new._seed = model._seed
-    for knob in ("_dilated_impl", "_dilated_zfold", "_dilated_ptail",
+    for knob in ("_dilated_impl", "_dilated_zfold", "_dilated_ztap",
+                 "_dilated_zmajor", "_dilated_poolslice", "_dilated_ptail",
                  "_convdense_upconv", "_convdense_zfold", "_convdense_ptail",
                  "_convdense_poolslice", "_convdense_skipsum",
                  "_train_zfold", "_train_skipsum", "_remat",

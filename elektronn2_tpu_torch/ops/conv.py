@@ -1,6 +1,8 @@
 """Convolution / pooling / dense / softmax primitives.
 
 Port of ``conv``, ``upconv``, ``upconv_d2s``, ``conv_zfold2d``,
+``conv_s2b``, ``pool_s2b`` (with the space-to-batch ``_s2b_split``,
+``_s2b_split_zmajor`` and ``_s2b_merge``), ``conv_ztap``,
 ``quantized_conv``, ``dot``, ``pooling``, ``pooling_slices``, ``unpooling``
 (alias ``upsampling``), ``maxout``, ``softmax``, ``apply_activation`` and
 ``apply_layer`` in ``elektronn2_tpu/ops/conv.py``. The JAX package
@@ -155,11 +157,12 @@ def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None,
     no-op for a direct algorithm) and the groups are added in int32, as the
     reference's int32 accumulation does.
 
-    ``conv_fn``: :func:`conv` (default) or :func:`upconv` (the UpConv, whose
-    output takes one tap per input channel); ``kw`` goes to it (``dilation``,
-    ``pool_shape``). ``x_absmax`` replaces the activation's own max-abs: a
-    number (the calibrated static scales of ``Model.calibrate_int8``) or a
-    0-d tensor (the sharded dense path's masked max). ``x`` may be bf16
+    ``conv_fn``: :func:`conv` (default), :func:`conv_s2b` or :func:`upconv`
+    (the UpConv, whose output takes one tap per input channel); ``kw`` goes
+    to it (``dilation``, ``pool_shape``). ``x_absmax`` replaces the
+    activation's own max-abs: a number (the calibrated static scales of
+    ``Model.calibrate_int8``) or a 0-d tensor (the sharded dense path's
+    masked max). ``x`` may be bf16
     (narrow inter-layer storage): the scale arithmetic is float32.
 
     ``axis_name``, a name or a tuple of names of ``mesh``'s axes (sharded
@@ -171,10 +174,15 @@ def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None,
     """
     conv_fn = conv_fn or conv
     x = x.float()
-    # every divisor is a tensor on x's device: PyTorch's CUDA division by a
-    # host scalar multiplies by its reciprocal, one bit off the quotient;
-    # ``full`` writes its value on the device, with no host copy
-    c127 = torch.full((), 127.0, device=x.device)
+    # the scales as the reference's compiled program computes them: XLA
+    # turns each ``/ 127`` into a multiply by float32(1/127) and folds the
+    # two of ``s_x * s_w`` into one, float32(1/127**2), so a value on a
+    # rounding boundary quantises as it does there. ``full`` writes each
+    # constant on the device, with no host copy, and the quantising divisor
+    # is a tensor: PyTorch's CUDA division by a host scalar multiplies by
+    # its reciprocal, one bit off the quotient
+    r127 = torch.full((), 1 / 127, device=x.device)
+    r127sq = torch.full((), 1 / 127 ** 2, device=x.device)
     if x_absmax is None or isinstance(x_absmax, torch.Tensor):
         s_x = (absmax(x) if x_absmax is None
                else x_absmax.float().reshape(()).clone())
@@ -190,9 +198,11 @@ def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None,
                                 group=axis_group(mesh, name))
     else:
         s_x = torch.full((), float(x_absmax), device=x.device)
-    s_x = torch.clamp(s_x, min=1e-12) / c127
+    m_x = torch.clamp(s_x, min=1e-12)
+    s_x = m_x * r127
     red = tuple(range(1, w.ndim))
-    s_w = torch.clamp(torch.amax(torch.abs(w), dim=red), min=1e-12) / c127
+    m_w = torch.clamp(torch.amax(torch.abs(w), dim=red), min=1e-12)
+    s_w = m_w * r127
     xq = torch.div(x, s_x).round_().clamp_(-127, 127)    # one map's copy
     del x
     wq = torch.clamp(torch.round(w / s_w.reshape((-1,) + (1,) * (w.ndim - 1))),
@@ -212,7 +222,7 @@ def quantized_conv(x, w, conv_fn=None, x_absmax=None, axis_name=None,
             else:
                 yq += part.to(torch.int32)
             del part
-    scale = (s_x * s_w).reshape((1, -1) + (1,) * (yq.ndim - 2))
+    scale = (m_w * (m_x * r127sq)).reshape((1, -1) + (1,) * (yq.ndim - 2))
     return yq.float().mul_(scale)
 
 
@@ -238,17 +248,191 @@ def upconv_d2s(x, w, pool_shape):
     return y.permute(perm).reshape((b, co) + tuple(s * v for s, v in zip(sp, p)))
 
 
-def conv_zfold2d(x, w, b=None):
+#: cuDNN keeps its 32-bit-indexed kernels while every tensor of a call has at
+#: most this many elements; past it a call takes its 64-bit-indexed kernels,
+#: several times slower on the H100 (PERF.md section 5)
+INT32_ELEMENTS = 2**31 - 1
+
+
+def _s2b_split(x, d, pad_val=0.0):
+    """(B, C, *sp) -> (B*prod(d), C, *(sp/d)): the phase sub-volumes (the
+    positions congruent to each phase mod d) folded into the batch axis,
+    batch index ``((b*d0 + p0)*d1 + p1)*d2 + p2``; the spatial dims are
+    tail-padded with ``pad_val`` to multiples of d first. Reference:
+    ``ops/conv.py::_s2b_split``."""
+    nsp = _nsp(x)
+    d = tuple(int(v) for v in d)
+    B, C = x.shape[:2]
+    pads = []
+    for s, dv in reversed(list(zip(x.shape[2:], d))):
+        pads += [0, (-s) % dv]
+    if any(pads):
+        x = F.pad(x, pads, value=pad_val)
+    spp = x.shape[2:]
+    split = []
+    for s, dv in zip(spp, d):
+        split += [s // dv, dv]
+    x = x.reshape((B, C) + tuple(split))
+    phase_axes = tuple(3 + 2 * i for i in range(nsp))
+    keep_axes = tuple(2 + 2 * i for i in range(nsp))
+    x = x.permute((0,) + phase_axes + (1,) + keep_axes)
+    return x.reshape((B * math.prod(d), C)
+                     + tuple(s // dv for s, dv in zip(spp, d)))
+
+
+def _s2b_split_zmajor(x, d, pad_val=0.0):
+    """:func:`_s2b_split` for z-major activations: (B, Z, C, X, Y) ->
+    (B*prod(d), Z/dz, C, X/dx, Y/dy) in the same phase order, so that
+    :func:`_s2b_merge` inverts it after a transpose back to channel-major.
+    Reference: ``ops/conv.py::_s2b_split_zmajor``."""
+    B, Z, C, X, Y = x.shape
+    dz, dx, dy = (int(v) for v in d)
+    pads = [0, (-Y) % dy, 0, (-X) % dx, 0, 0, 0, (-Z) % dz]
+    if any(pads):
+        x = F.pad(x, pads, value=pad_val)
+    Zp, Xp, Yp = x.shape[1], x.shape[3], x.shape[4]
+    x = x.reshape(B, Zp // dz, dz, C, Xp // dx, dx, Yp // dy, dy)
+    x = x.permute(0, 2, 5, 7, 1, 3, 4, 6)
+    return x.reshape(B * dz * dx * dy, Zp // dz, C, Xp // dx, Yp // dy)
+
+
+def _s2b_merge(y, d, B, valid):
+    """The inverse of :func:`_s2b_split` on an op's output: the phases
+    interleaved back, trimmed to the dilated valid extent ``valid``.
+    Reference: ``ops/conv.py::_s2b_merge``."""
+    nsp = y.ndim - 2
+    d = tuple(int(v) for v in d)
+    C = y.shape[1]
+    out_pp = y.shape[2:]
+    y = y.reshape((B,) + d + (C,) + tuple(out_pp))
+    inv = (0, 1 + nsp)
+    for i in range(nsp):
+        inv += (2 + nsp + i, 1 + i)
+    y = y.permute(inv).reshape((B, C) + tuple(o * dv
+                                              for o, dv in zip(out_pp, d)))
+    return y[(slice(None), slice(None))
+             + tuple(slice(0, int(v)) for v in valid)]
+
+
+def conv_s2b(x, w, dilation):
+    """Dilated valid conv through space-to-batch, the same function as
+    ``conv(x, w, dilation=dilation)``: a dilation-d conv mixes only
+    positions congruent mod d, so the volume splits into prod(d) phase
+    sub-volumes, which run one undilated conv as a batch and interleave
+    back; the outputs fed by the split's zero pad lie past the valid
+    extent and are trimmed. Reference: ``ops/conv.py::conv_s2b``."""
+    d = tuple(int(v) for v in dilation)
+    if all(v == 1 for v in d):
+        return conv(x, w)
+    valid = tuple(s - dv * (kv - 1)
+                  for s, dv, kv in zip(x.shape[2:], d, w.shape[2:]))
+    return _s2b_merge(conv(_s2b_split(x, d), w), d, x.shape[0], valid)
+
+
+def pool_s2b(x, pool, dilation, mode="max"):
+    """Stride-1 pooling with window dilation ``dilation`` through
+    space-to-batch (the phases padded with -inf before a max, 0 before a
+    sum), the same function as the dilated window. Reference:
+    ``ops/conv.py::pool_s2b``."""
+    nsp = _nsp(x)
+    d = tuple(int(v) for v in dilation)
+    pool = tuple(int(v) for v in pool)
+    if all(v == 1 for v in d):
+        return pooling(x, pool, mode=mode, stride=(1,) * nsp)
+    valid = tuple(s - dv * (pv - 1)
+                  for s, dv, pv in zip(x.shape[2:], d, pool))
+    y = pooling(_s2b_split(x, d, pad_val=-math.inf if mode == "max" else 0.0),
+                pool, mode=mode, stride=(1,) * nsp)
+    return _s2b_merge(y, d, x.shape[0], valid)
+
+
+def z_chunks(n_out, per_row, halo=0):
+    """``[(z0, z1), ...]`` covering ``n_out`` output z rows in chunks as
+    long as they can be while a chunk's folded 2-D conv keeps each tensor
+    within :data:`INT32_ELEMENTS`: a chunk of k output rows holds
+    ``(k + halo) * per_row`` elements in its largest tensor. One chunk
+    where nothing passes the limit."""
+    k = n_out
+    while k > 1 and (k + halo) * per_row > INT32_ELEMENTS:
+        k = -(-k // 2)
+    return [(z0, min(n_out, z0 + k)) for z0 in range(0, n_out, k)]
+
+
+def conv_ztap(x, w, dilation=None, accum="native"):
+    """3-D valid conv as a sum of ``kz`` z-shifted 2-D convs with z folded
+    into the batch axis: ``y[:, :, z] = sum_t conv2d(x[:, :, z + t*dz],
+    w[:, :, t])``, the same function up to the order of the sums.
+    Reference: ``ops/conv.py::conv_ztap``.
+
+    ``accum``: ``"native"`` sums the taps' outputs in their own type;
+    ``"f32"`` sums them in float32 (a bf16 tap's output is rounded to bf16
+    first: PyTorch's bf16 conv returns bf16); ``"concat"`` concatenates the
+    taps into channels (Cin*kz) and runs one 2-D conv. The output z rows
+    run in chunks wherever a folded conv would pass
+    :data:`INT32_ELEMENTS` elements (:func:`z_chunks`), as cuDNN leaves its
+    32-bit kernels there. x: (B, C, Z, X, Y); w: (Cout, C, kz, kx, ky);
+    ``dilation`` (dz, dx, dy)."""
+    if x.ndim != 5 or w.ndim != 5:
+        raise ValueError("conv_ztap expects 3D inputs (B, C, Z, X, Y)")
+    d = (1, 1, 1) if dilation is None else tuple(int(v) for v in dilation)
+    B, C, Z, X, Y = x.shape
+    Cout, kz = w.shape[0], w.shape[2]
+    dz = d[0]
+    zo = Z - dz * (kz - 1)
+    Xo, Yo = X - d[1] * (w.shape[3] - 1), Y - d[2] * (w.shape[4] - 1)
+    cin2 = C * kz if accum == "concat" else C
+    chunks = z_chunks(zo, B * max(cin2 * X * Y, Cout * Xo * Yo))
+    w2 = (w.transpose(1, 2).reshape(Cout, C * kz, *w.shape[3:])
+          if accum == "concat" else None)
+    out = None
+    for z0, z1 in chunks:
+        zc = z1 - z0
+
+        def fold(t):
+            xt = x[:, :, z0 + t * dz:z1 + t * dz]
+            return xt.transpose(1, 2).reshape(B * zc, C, X, Y)
+        if accum == "concat":
+            x2 = torch.cat([fold(t) for t in range(kz)], dim=1)
+            acc = conv(x2, w2, dilation=d[1:])
+            del x2
+        else:
+            acc = None
+            for t in range(kz):
+                yt = conv(fold(t), w[:, :, t], dilation=d[1:])
+                if accum == "f32":
+                    yt = yt.float()
+                acc = yt if acc is None else acc + yt
+        acc = acc.reshape(B, zc, Cout, Xo, Yo).transpose(1, 2)
+        if len(chunks) == 1:
+            return acc
+        if out is None:
+            out = acc.new_empty((B, Cout, zo, Xo, Yo))
+        out[:, :, z0:z1] = acc
+        del acc
+    return out
+
+
+def conv_zfold2d(x, w, b=None, dilation=None, conv_fn=None):
     """A kz=1 3D conv as a 2D conv with z folded into the batch axis: the
-    same contraction. x (b, c, Z, X, Y); w (f_out, c, 1, kx, ky).
+    same contraction. x (b, c, Z, X, Y); w (f_out, c, 1, kx, ky);
+    ``dilation`` (dx, dy).
+
+    ``conv_fn(x2, w2, dilation)``, where given, takes the place of the 2D
+    conv and bias on the folded (b*Z, c, X, Y) input ``x2`` and holds its
+    only reference: the dense path's conv in its serving precision or int8,
+    with its bias and a pool over x and y.
 
     Reference: ``ops/conv.py::conv_zfold2d``. Returns a (b, f_out, Z, X',
-    Y') view of the 2D conv's (b*Z, f_out, X', Y') output.
+    Y') view of the 2D (b*Z, f_out, X', Y') output.
     """
+    def plain(x2, w2, dilation):
+        return conv(x2, w2, b, dilation=dilation)
+
     n, c, z = x.shape[:3]
-    x2 = x.transpose(1, 2).reshape(n * z, c, x.shape[3], x.shape[4])
-    y = F.conv2d(x2, w[:, :, 0], b)
-    return y.reshape(n, z, w.shape[0], y.shape[2], y.shape[3]).transpose(1, 2)
+    y = (conv_fn or plain)(
+        x.transpose(1, 2).reshape(n * z, c, x.shape[3], x.shape[4]),
+        w[:, :, 0], dilation)
+    return y.reshape((n, z) + tuple(y.shape[1:])).transpose(1, 2)
 
 
 def dot(x, w, axis=1):

@@ -12,6 +12,13 @@ conv-dense path, the U-Net's (3,3,3) ReLU convs. Kernel:
 for it by :func:`pack_weights` (once per weight tensor:
 :func:`packed_weights`), the input is split inside the kernel.
 
+K1's bfloat16 mode (``conv3x3_dilated(..., compute_dtype="bfloat16")``)
+ports the same kernel's bf16 mode: x and w rounded to bf16, their products
+summed in float32, float32 out. Kernel: ``csrc/tailconv_bf16.cu``, K1's
+implicit GEMM with one bf16 ``wgmma`` a ky shift, weights packed by
+:func:`pack_weights_bf16`. As in the JAX package only a direct call
+reaches it.
+
 K4 ports ``conv1x3x3_pool_dilated`` of the same module: a valid (1,3,3)
 conv with isotropic xy-dilation d, bias, an optional stride-1 (2,2) max
 window dilated by d, and ReLU, fused; the flagship's head units conv0+pool0
@@ -23,14 +30,17 @@ weights packed by :func:`pack_weights` too), and exact float32 FFMA
 
 Both read and write NCDHW with a batch dimension, so a K4 output chains into
 K1 as it is; the TPU kernels' ``xzcy`` layout, ``z_block``, ``valid_y`` and
-per-slab loop have no counterpart here, and neither do their TPU variants.
+per-slab loop have no counterpart here, and neither do their TPU grid
+variants (``variant``, ``prefetch``): they are TPU lane and sublane
+schedules with no function of their own.
 Each source's head note says what bounds it on the card and how.
 
 Dispatch: a CPU tensor runs the plain PyTorch version
-(:func:`conv3x3_dilated_reference`, :func:`conv1x3x3_pool_reference`); a
-CUDA tensor launches the kernel or raises. ``launches`` counts K1's kernel
-launches, ``head_launches`` K4's (both bodies) and ``head_tc_launches``
-those of K4's tensor-core body.
+(:func:`conv3x3_dilated_reference`, :func:`conv3x3_dilated_bf16_reference`,
+:func:`conv1x3x3_pool_reference`); a CUDA tensor launches the kernel or
+raises. ``launches`` counts K1's kernel launches, ``bf16_launches`` those
+of its bf16 mode, ``head_launches`` K4's (both bodies) and
+``head_tc_launches`` those of K4's tensor-core body.
 """
 
 from __future__ import annotations
@@ -43,14 +53,17 @@ import torch.nn.functional as F
 from ..utils.cuda_build import load_cuda_library
 from .conv import f32_convs
 
-#: kernel launches made by :func:`conv3x3_dilated` in this process
+#: kernel launches of K1's float32 mode (:func:`conv3x3_dilated`)
 launches = 0
+#: kernel launches of K1's bf16 mode (``compute_dtype="bfloat16"``)
+bf16_launches = 0
 #: kernel launches made by :func:`conv1x3x3_pool_dilated` in this process
 head_launches = 0
 #: of those, launches of the tensor-core body (:func:`head_tc`)
 head_tc_launches = 0
 
 _fn = None
+_bf16_fn = None
 _head_fns = None
 _head_cout_tile = None
 
@@ -66,6 +79,20 @@ def build():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
+    return lib
+
+
+def build_bf16():
+    """Build (on first use) and load K1's bf16 library; returns the
+    ``CudaLibrary``."""
+    global _bf16_fn
+    lib = load_cuda_library("tailconv_bf16")
+    if _bf16_fn is None:
+        fn = lib.cdll.e2t_tailconv_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bf16_fn = fn
     return lib
 
 
@@ -227,34 +254,61 @@ def regroup_weights(w, T, b=None):
     return wt, None if b is None else F.pad(b, (0, G * T - Cout)).contiguous()
 
 
-def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True):
+def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True,
+                    compute_dtype="float32"):
     """Valid (3,3,3) conv, z-dilation 1, xy-dilation (dx, dy), fused bias
     and ReLU.
 
     x: (N, Cin, Z, X, Y) float32, contiguous; w: (Cout, Cin, 3, 3, 3);
-    b: (Cout,). Returns (N, Cout, Z-2, X-2dx, Y-2dy) float32. On the card
-    the sums are 3xTF32 products accumulated in float32 (float32-grade).
+    b: (Cout,). Returns (N, Cout, Z-2, X-2dx, Y-2dy) float32.
+    ``compute_dtype="float32"``: on the card the sums are 3xTF32 products
+    accumulated in float32 (float32-grade). ``"bfloat16"``: x and w rounded
+    to bf16 (nearest even), their products summed in float32, the bias
+    added in float32; on the card the kernel of ``csrc/tailconv_bf16.cu``
+    (``wgmma`` m64nNk16, bf16 operands, float32 sums; weights packed once
+    per weight tensor by :func:`pack_weights_bf16`), counted in
+    ``bf16_launches``, on the CPU its plain version
+    :func:`conv3x3_dilated_bf16_reference`; no serving route takes it, as
+    in the JAX package.
     """
-    global launches
+    global launches, bf16_launches
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"tail conv: compute_dtype={compute_dtype!r}: "
+                         "expected 'float32' or 'bfloat16'")
+    bf16 = compute_dtype == "bfloat16"
     dx, dy = _check_args(x, w, b, dil, relu)
     if x.device.type == "cpu":
-        return conv3x3_dilated_reference(x, w, b, dil)
+        return (conv3x3_dilated_bf16_reference if bf16
+                else conv3x3_dilated_reference)(x, w, b, dil)
     if x.device.type != "cuda":
         raise ValueError(f"tail conv: no kernel for device {x.device}")
+    if bf16:
+        build_bf16()
+        y = _launch_tail(_bf16_fn, pack_weights_bf16, x, w, b, dx, dy,
+                         "tail conv (bf16)")
+        bf16_launches += 1
+        return y
     build()
+    y = _launch_tail(_fn, pack_weights, x, w, b, dx, dy, "tail conv")
+    launches += 1
+    return y
+
+
+def _launch_tail(fn, pack, x, w, b, dx, dy, what):
+    """Launch K1's kernel ``fn`` (either mode) on a validated call, with
+    the weights packed by ``pack`` (cached); returns the output."""
     N, Cin, Z, X, Y = x.shape
     Cout = w.shape[0]
     NP = n_tile(Cout)
-    wp = packed_weights(w, NP)
+    wp = packed_weights(w, NP, pack)
     y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
-                  N, Cin, Z, X, Y, Cout, NP, dx, dy, stream)
+        err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 N, Cin, Z, X, Y, Cout, NP, dx, dy, stream)
     if err != 0:
-        raise RuntimeError(f"tail conv kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     return y
 
 
@@ -263,6 +317,39 @@ def conv3x3_dilated_reference(x, w, b, dil=(1, 1, 1)):
     in full float32 (cuDNN's TF32 off) on the card."""
     with f32_convs():
         return torch.relu(F.conv3d(x, w, b, dilation=tuple(int(d) for d in dil)))
+
+
+#: input channels per k step of the bf16 kernel (one bf16 ``wgmma`` k)
+K_CHUNK_BF16 = 16
+
+
+def pack_weights_bf16(w, NP):
+    """(Cout, Cin, 3, 3, 3) float32 weights -> the bf16 kernel's packed
+    weights for N tile ``NP`` (:func:`n_tile`): rounded to bf16 (nearest
+    even), shape (G, CC, 3, 3, 3, NP/8, 2, 8, 8) with G = ceil(Cout/NP),
+    CC = ceil(Cin/16), Cout and Cin zero-padded.
+
+    Dims: channel group, 16-channel chunk of Cin, kz, kx, ky, 8-row group
+    of output channels, k half, row (output channel), 8 input channels.
+    One (group, chunk, kz, kx) is the kernel's stage; each ky slice in it
+    is the K-major, unswizzled tile a ``wgmma`` descriptor reads: core
+    matrices of 8 output channels x 8 bf16 input channels (128 bytes), the
+    two k halves 128 bytes apart, the 8-channel groups 256 bytes apart (the
+    byte geometry of :func:`pack_weights`' TF32 tiles)."""
+    Cout, Cin, kz = w.shape[:3]
+    G, CC = -(-Cout // NP), -(-Cin // K_CHUNK_BF16)
+    wp = F.pad(w, (0, 0, 0, 0, 0, 0, 0, CC * K_CHUNK_BF16 - Cin,
+                   0, G * NP - Cout)).to(torch.bfloat16)
+    wp = wp.reshape(G, NP // 8, 8, CC, 2, 8, kz, 3, 3)
+    return wp.permute(0, 3, 6, 7, 8, 1, 4, 2, 5).contiguous()
+
+
+def conv3x3_dilated_bf16_reference(x, w, b, dil=(1, 1, 1)):
+    """The bf16 mode's plain PyTorch version: ``relu(conv3d(x.bfloat16()
+    .float(), w.bfloat16().float(), b))``, in full float32 (cuDNN's TF32
+    off) on the card: the bf16 products are exact in float32."""
+    return conv3x3_dilated_reference(x.bfloat16().float(),
+                                     w.bfloat16().float(), b, dil)
 
 
 def _check_head_args(x, w, b, dil, pool, relu):

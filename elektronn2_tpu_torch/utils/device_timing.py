@@ -85,3 +85,14 @@ def conv3x3_bound(cin, cout, x_numel, out_numel):
     bound, by = bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
                          3 * 2.0 * cin * 27 * out_numel, TF32_FLOP_S)
     return bound, by if by == "bytes" else "operations (3xTF32)"
+
+
+def conv3x3_bf16_bound(cin, cout, x_numel, out_numel):
+    """(bound ms, 'bytes' or 'operations (bf16)') of K1's bf16 mode, a valid
+    (3,3,3) conv with bias of bf16-rounded operands: its float32 input and
+    weights read once and its float32 output written once over the memory
+    rate, against its FLOPs (one bf16 product per multiply-add) over the
+    bf16 tensor-core peak."""
+    bound, by = bound_ms(4.0 * (x_numel + out_numel + cout * (cin * 27 + 1)),
+                         2.0 * cin * 27 * out_numel, BF16_FLOP_S)
+    return bound, by if by == "bytes" else "operations (bf16)"

@@ -360,8 +360,12 @@ def test_routing_and_errors():
     jm, tm = _pair(faithless_unet3d)
     vol = torch.rand(1, 11, 21, 23)
     tinf.check_conv_dense_supported(tm.prediction_node)
-    with pytest.raises(NotImplementedError, match="ptail knobs"):
-        tm.set_convdense_impl(ptail={"z_block": 4})
+    # a dict of the TPU kernel's knobs turns K1 on and is kept as given,
+    # as in the JAX package (K1 reads none of its keys)
+    for m in (jm, tm):
+        m.set_convdense_impl(ptail={"z_block": 4})
+        assert m._convdense_ptail == {"z_block": 4}
+        m.set_convdense_impl()
     with pytest.raises(ValueError, match="upconv"):
         tm.set_convdense_impl(upconv="bogus")
     with pytest.raises(ValueError, match="rank"):

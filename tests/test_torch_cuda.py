@@ -123,6 +123,40 @@ def test_k1_every_n_tile(cuda_device, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, cin, cout, sp, dil", [
+    (1, 30, 40, (6, 64, 300), (1, 4, 4)),     # conv2-like, ragged y
+    (1, 40, 40, (5, 40, 520), (1, 4, 4)),     # conv3-like, y > one block
+    (2, 3, 5, (5, 20, 30), (1, 2, 3)),        # batch, anisotropic dilation
+    (2, 256, 128, (5, 23, 30), (1, 1, 1)),    # the U-Net's d1, a batch
+    (1, 20, 7, (4, 9, 70), (1, 1, 1)),        # Cin padded 20 -> 32
+])
+def test_k1_bf16_matches_plain(cuda_device, n, cin, cout, sp, dil):
+    """K1's bf16 mode against its plain version (a float32 conv of the
+    bf16-rounded operands): within 1e-5 of the output's largest magnitude
+    (exact bf16 products, float32 sums in another order)."""
+    x, w, b = _inputs(18, n, cin, cout, sp, cuda_device)
+    w = w * (2.0 / (27 * cin)) ** 0.5
+    before = tailconv.bf16_launches
+    got = tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
+    ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
+    torch.cuda.synchronize()
+    assert tailconv.bf16_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [1, 16, 24, 32, 40, 56, 64, 200])
+def test_k1_bf16_every_n_tile(cuda_device, cout):
+    x, w, b = _inputs(19, 1, 11, cout, (4, 9, 70), cuda_device)
+    w = w * (2.0 / (27 * 11)) ** 0.5
+    got = tailconv.conv3x3_dilated(x, w, b, compute_dtype="bfloat16")
+    ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n, cin, cout, sp, d, pool", [
     (1, 1, 20, (3, 40, 45), 1, 2),     # flagship conv0, ragged Y
     (1, 20, 30, (2, 37, 300), 2, 2),   # flagship conv1, two channel groups
@@ -1295,14 +1329,17 @@ def test_modelload_puts_bn_state_on_the_card(cuda_device, tmp_path):
 def _int8_operands(x, w):
     """The int8 values and scales ``quantized_conv`` takes, computed here
     on their own: per-output-channel weight scales, one activation scale,
-    half-to-even rounding, +-127."""
-    c = torch.full((), 127.0, device=x.device)
-    s_x = torch.clamp(torch.amax(torch.abs(x)), min=1e-12) / c
-    s_w = torch.clamp(torch.amax(torch.abs(w), dim=(1, 2, 3, 4)),
-                      min=1e-12) / c
+    half-to-even rounding, +-127; each ``/ 127`` a multiply by
+    float32(1/127) and the product of the scales one multiply by
+    float32(1/127**2), as XLA compiles the reference's."""
+    r = torch.full((), 1 / 127, device=x.device)
+    m_x = torch.clamp(torch.amax(torch.abs(x)), min=1e-12)
+    m_w = torch.clamp(torch.amax(torch.abs(w), dim=(1, 2, 3, 4)), min=1e-12)
+    s_x, s_w = m_x * r, m_w * r
     xq = torch.clamp(torch.round(x / s_x), -127, 127)
     wq = torch.clamp(torch.round(w / s_w.reshape(-1, 1, 1, 1, 1)), -127, 127)
-    return xq, wq, (s_x * s_w).reshape(1, -1, 1, 1, 1)
+    scale = m_w * (m_x * torch.full((), 1 / 127 ** 2, device=x.device))
+    return xq, wq, scale.reshape(1, -1, 1, 1, 1)
 
 
 @pytest.mark.cuda

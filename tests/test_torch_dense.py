@@ -204,17 +204,22 @@ def test_error_paths(port_model):
     with pytest.raises(ValueError, match="model's parameters are on"):
         port_model.predict_dense_device(torch.rand(1, 9, 40, 40,
                                                    device="meta"))
+    # every lowering the JAX package takes is taken, and serves the
+    # float32 route's map (tests/test_torch_lowerings.py holds each against
+    # JAX); an unknown one names the ones there are
+    vol = torch.rand(1, 9, 40, 40)
+    ref = port_model.predict_dense_device(vol)
     for kw in (dict(impl="s2b"), dict(impl="s2bg"), dict(ztap=True),
                dict(zmajor=True), dict(poolslice=True),
                dict(pallas_tail={"variant": "mstack"})):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_model.set_dilated_impl(**kw)
+        port_model.set_dilated_impl(**kw)
+        torch.testing.assert_close(port_model.predict_dense_device(vol),
+                                   ref, rtol=0, atol=ATOL)
+    port_model.set_dilated_impl("direct")
     with pytest.raises(ValueError, match="impl"):
         port_model.set_dilated_impl("nope")
     # every serving precision serves: finite float32 maps of the float32
     # route's shape, and an unknown dtype names the ones there are
-    vol = torch.rand(1, 9, 40, 40)
-    ref = port_model.predict_dense_device(vol)
     try:
         for dt, act in (("bfloat16", False), ("float16", False),
                         ("int8", False), ("int8", True)):

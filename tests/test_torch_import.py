@@ -543,16 +543,13 @@ def test_malis_and_reduced_matmuls_run_without_jax():
 
 
 def test_no_unported_error_cites_items_6_or_7_outside_the_tpu_lowerings():
-    # MALIS (item 6) and the reduced-precision matmuls (item 7) are ported:
-    # no line of the package cites item 6, and item 7 is cited only where
-    # its do-not-port list is (the TPU lowerings of set_dilated_impl /
-    # set_convdense_impl, orbax checkpoints, the dilated path's docs)
+    # MALIS (item 6), the reduced-precision matmuls and the dilated path's
+    # TPU lowerings (item 7) are ported: no line of the package cites item
+    # 6 or item 7, and no lowering setter raises NotImplementedError
     import inspect
     from elektronn2_tpu_torch.neuromancer.model import Model
-    allowed7 = {os.path.join("neuromancer", f) for f in (
-        "model.py", "inference.py", "computations.py")}
     root = os.path.join(REPO, "elektronn2_tpu_torch")
-    cites6, cites7 = [], []
+    cites = []
     for dirpath, _, files in os.walk(root):
         for f in files:
             if not f.endswith(".py"):
@@ -561,13 +558,49 @@ def test_no_unported_error_cites_items_6_or_7_outside_the_tpu_lowerings():
             rel = os.path.relpath(p, root)
             with open(p) as fh:
                 for i, line in enumerate(fh, 1):
-                    if "item 6" in line:
-                        cites6.append(f"{rel}:{i}")
-                    if "item 7" in line and rel not in allowed7:
-                        cites7.append(f"{rel}:{i}")
-    assert not cites6 and not cites7, (cites6, cites7)
-    src = inspect.getsource(Model.set_compute_dtype)
-    assert "NotImplementedError" not in src and "item 7" not in src
+                    if "item 6" in line or "item 7" in line:
+                        cites.append(f"{rel}:{i}")
+    assert not cites, cites
+    for name in ("set_compute_dtype", "set_dilated_impl",
+                 "set_convdense_impl"):
+        src = inspect.getsource(getattr(Model, name))
+        assert "NotImplementedError" not in src and "item 7" not in src
+
+
+def test_lowerings_run_without_jax():
+    # the lowering ops, K1's bf16 mode and an s2bg / zmajor / ztap request
+    # import and run with jax and the JAX package blocked, equal to direct
+    code = (BLOCK + "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from elektronn2_tpu_torch.neuromancer.computations import "
+            "conv_s2b\n"
+            "from elektronn2_tpu_torch.ops.conv import (conv_ztap, pool_s2b,\n"
+            "    _s2b_split, _s2b_split_zmajor, _s2b_merge)\n"
+            "from elektronn2_tpu_torch.ops.tailconv import "
+            "conv3x3_dilated\n"
+            "from elektronn2_tpu_torch.utils.convert import flagship_model\n"
+            "m = flagship_model(mfp=True, patch=[9, 41, 41], device='cpu')\n"
+            "v = torch.rand(1, 7, 30, 30)\n"
+            "ref = m.predict_dense_device(v, pad_raw=True)\n"
+            "for impl, kw in (('s2bg', dict(zfold=True)), ('s2b', {}),\n"
+            "                 ('s2bg', dict(zmajor=True, ztap='fatn')),\n"
+            "                 ('direct', dict(ztap='concat', "
+            "poolslice=True))):\n"
+            "    m.set_dilated_impl(impl, **kw)\n"
+            "    got = m.predict_dense_device(v, pad_raw=True)\n"
+            "    assert (got - ref).abs().max() < 1e-5, (impl, kw)\n"
+            "x = torch.rand(1, 3, 5, 12, 12)\n"
+            "w = torch.rand(4, 3, 3, 3, 3)\n"
+            "b = torch.rand(4)\n"
+            "y = conv3x3_dilated(x, w, b, (1, 2, 2), "
+            "compute_dtype='bfloat16')\n"
+            "assert y.shape == (1, 4, 3, 8, 8)\n"
+            "assert not [k for k in sys.modules if k.split('.')[0] in\n"
+            "            ('jax', 'elektronn2_tpu', 'elektronn2')]\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_new_surface_names_import_without_jax():

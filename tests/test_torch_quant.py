@@ -4,12 +4,14 @@ float16, int8, ``activations=True``), ``Model.calibrate_int8`` and the int8
 sweep's calibration.
 
 Tolerances, port against JAX on the same inputs and weights:
-- ``quantized_conv``: bit for bit (the same int8 values, exact integer
-  sums, one float32 multiply in both).
+- ``quantized_conv``: bit for bit against the jitted JAX function (the
+  same int8 values, exact integer sums, one float32 multiply in both, the
+  scales as XLA compiles them).
 - int8 dense maps: 5e-2 max-abs on probabilities (the JAX package's own
   int8-vs-float32 bound, tests/test_inference_device.py:396) and argmax
   agreement > 0.99. The float32 activations of the two packages differ by
-  float32 sums in another order, so now and then a value on a rounding
+  one rounding (XLA fuses the dequantising multiply and the bias add into
+  one FMA, the port rounds twice), so now and then a value on a rounding
   boundary quantises one step (1/127 of the layer's max-abs) apart, and
   that step reaches the probabilities; with ``activations=True`` the bf16
   store absorbs those differences (1e-5).
@@ -32,6 +34,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,7 +158,11 @@ def _qconv_pair(x, w, jkw=None, tkw=None, bf16=False):
     if bf16:
         jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
     got = quantized_conv(tx, torch.from_numpy(w), **(tkw or {})).numpy()
-    want = np.asarray(jax_qconv(jx, jnp.asarray(w), **(jkw or {})))
+    # jitted, as the JAX package's dense paths run it: XLA's scale
+    # arithmetic (``* float32(1/127)``, one folded ``1/127**2``) is the
+    # reference's
+    want = np.asarray(jax.jit(lambda a, b: jax_qconv(a, b, **(jkw or {})))(
+        jx, jnp.asarray(w)))
     return got, want
 
 
@@ -191,19 +198,24 @@ def test_quantized_conv_bit_exact_vs_jax(case):
 
 def test_quantized_conv_matches_manual():
     """tests/test_inference_device.py:927 on the port: the manual int8
-    quantisation, an exact (float64) integer conv and one float32
+    quantisation with the scales as XLA compiles the reference's (each
+    ``/ 127`` a multiply by float32(1/127), ``s_x * s_w`` one multiply by
+    float32(1/127**2)), an exact (float64) integer conv and one float32
     multiply; and it tracks the float32 conv within quantisation error."""
     rng = np.random.RandomState(11)
     x = rng.randn(2, 3, 8, 9).astype(np.float32)
     w = rng.randn(5, 3, 3, 3).astype(np.float32)
     got = quantized_conv(torch.from_numpy(x), torch.from_numpy(w)).numpy()
-    s_x = np.float32(np.abs(x).max()) / np.float32(127.0)
-    s_w = np.abs(w).max(axis=(1, 2, 3)) / np.float32(127.0)
+    m_x = np.float32(np.abs(x).max())
+    m_w = np.abs(w).max(axis=(1, 2, 3))
+    s_x = m_x * np.float32(1 / 127)
+    s_w = m_w * np.float32(1 / 127)
     xq = np.clip(np.round(x / s_x), -127, 127)
     wq = np.clip(np.round(w / s_w[:, None, None, None]), -127, 127)
     yq = torch.nn.functional.conv2d(torch.from_numpy(xq).double(),
                                     torch.from_numpy(wq).double()).numpy()
-    want = yq.astype(np.float32) * (s_x * s_w)[None, :, None, None]
+    want = yq.astype(np.float32) * (m_w * (m_x * np.float32(1 / 127 ** 2))
+                                    )[None, :, None, None]
     np.testing.assert_array_equal(got, want)
     ref = torch.nn.functional.conv2d(torch.from_numpy(x),
                                      torch.from_numpy(w)).numpy()
@@ -358,18 +370,34 @@ def test_int8_bf16_store_deviation_bound(tmp_path):
 
 
 def test_int8_mode_guards(tmp_path):
-    """:949 on the port: an unknown dtype names the known ones; the TPU
-    lowerings the JAX guard is about (ztap/zmajor) are not ported at all,
-    so the port's one lowering, 'direct', serves every mode."""
-    _, m = saved_pair(tmp_path, int8_probe)
+    """:949 on the port: an unknown dtype names the known ones; int8 and
+    the ztap/zmajor lowerings refuse each other both ways, with the JAX
+    package's ValueErrors; int8 takes 'direct' and 's2bg' with zfold."""
+    jm, m = saved_pair(tmp_path, int8_probe)
     with pytest.raises(ValueError, match="expected None"):
         m.set_compute_dtype("float8")
-    for kw in (dict(impl="s2bg"), dict(ztap="native"), dict(zmajor=True)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            m.set_dilated_impl(**kw)
-    m.set_compute_dtype("int8")
-    m.set_dilated_impl("direct", zfold=True)
-    assert m._compute_dtype == "int8" and m._dilated_impl == "direct"
+    for model in (jm, m):
+        model.set_dilated_impl("direct", ztap="native")
+        with pytest.raises(ValueError, match="disable ztap/zmajor first"):
+            model.set_compute_dtype("int8")
+        model.set_dilated_impl("direct", zmajor=True)
+        with pytest.raises(ValueError, match="disable ztap/zmajor first"):
+            model.set_compute_dtype("int8")
+        model.set_dilated_impl("direct")
+        model.set_compute_dtype("int8")
+        for kw in (dict(ztap="native"), dict(zmajor=True)):
+            with pytest.raises(ValueError, match="not available in int8"):
+                model.set_dilated_impl("s2bg", **kw)
+        for impl in ("direct", "s2bg"):
+            model.set_dilated_impl(impl, zfold=True)
+            assert model._compute_dtype == "int8"
+            assert model._dilated_impl == impl
+    vol = torch.from_numpy(
+        np.random.RandomState(3).rand(1, 16, 28, 28).astype(np.float32))
+    got = m.predict_dense_device(vol, pad_raw=True).numpy()
+    want = np.asarray(jm.predict_dense_device(jnp.asarray(vol.numpy()),
+                                              pad_raw=True))
+    assert float(np.abs(got - want).max()) < INT8_ATOL
 
 
 def test_k1_steps_aside_off_float32(monkeypatch):

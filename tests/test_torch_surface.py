@@ -364,3 +364,59 @@ def test_use_mesh_takes_the_jax_arguments():
     from elektronn2_tpu_torch.neuromancer.model import Model as TM
     assert list(inspect.signature(TM.use_mesh).parameters) == \
         list(inspect.signature(JM.use_mesh).parameters)
+
+
+LOWERINGS = [  # (JAX module, port module, name, JAX-only parameters)
+    ("elektronn2_tpu.neuromancer.computations",
+     "elektronn2_tpu_torch.neuromancer.computations", "conv_s2b",
+     ("precision", "preferred_element_type")),
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv", "conv_s2b",
+     ("precision", "preferred_element_type")),
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv", "conv_ztap",
+     ("precision",)),
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv", "pool_s2b",
+     ()),
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv",
+     "_s2b_split", ()),
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv",
+     "_s2b_split_zmajor", ()),
+    ("elektronn2_tpu.ops.conv", "elektronn2_tpu_torch.ops.conv",
+     "_s2b_merge", ()),
+]
+
+
+@pytest.mark.parametrize("jmod, tmod, name, jax_only", LOWERINGS,
+                         ids=[f"{c[1].split('.')[-1]}.{c[2]}"
+                              for c in LOWERINGS])
+def test_lowering_names_match_jax(jmod, tmod, name, jax_only):
+    # the dilated path's lowering ops are exported where the JAX package
+    # exports them, with its parameters (XLA's precision knobs aside: the
+    # port's convs are float32 under f32_convs)
+    import inspect
+    j = getattr(importlib.import_module(jmod), name)
+    t = getattr(importlib.import_module(tmod), name)
+    want = [p for p in inspect.signature(j).parameters if p not in jax_only]
+    got = list(inspect.signature(t).parameters)
+    assert got[:len(want)] == want, (got, want)
+
+
+@pytest.mark.parametrize("name", ["set_dilated_impl", "set_convdense_impl"])
+def test_lowering_setters_take_the_jax_arguments(name):
+    import inspect
+    from elektronn2_tpu.neuromancer.model import Model as JM
+    from elektronn2_tpu_torch.neuromancer.model import Model as TM
+    j = inspect.signature(getattr(JM, name)).parameters
+    t = inspect.signature(getattr(TM, name)).parameters
+    assert [(k, v.default) for k, v in t.items()] == \
+        [(k, v.default) for k, v in j.items()]
+
+
+def test_tail_conv_takes_compute_dtype():
+    import inspect
+    from elektronn2_tpu.ops.pallas_tailconv import conv3x3_dilated as jk1
+    from elektronn2_tpu_torch.ops.tailconv import conv3x3_dilated
+    want = inspect.signature(jk1).parameters["compute_dtype"].default
+    got = inspect.signature(conv3x3_dilated).parameters
+    assert list(got)[:5] == ["x", "w", "b", "dil", "relu"]
+    assert got["compute_dtype"].default == want == "float32"
+
