@@ -78,18 +78,22 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
    one ``F.conv3d`` as its library call) and correctness case, the JAX
    test's case and a ragged case (Cout 45, Yo 37, Y over-padded);
 3b. kernel (``conv3x3_dilated(compute_dtype="bfloat16")``): K1's bf16 mode
-   (``csrc/tailconv_bf16.cu``: x and w rounded to bf16, float32 sums, bias
-   and ReLU fused), which no serving route takes, as in the JAX package:
-   its main path is the direct call at the flagship's conv2 and conv3 (two
+   (``csrc/tailconv_bf16.cu``: x cast to a bf16 copy, then a persistent,
+   TMA-fed ``wgmma`` GEMM; x and w rounded to bf16, float32 sums, bias and
+   ReLU fused), which no serving route takes, as in the JAX package: its
+   main path is the direct call at the flagship's conv2 and conv3 (two
    launches, counted alone); each of ``K1_BF16_CASES`` (those two, the wide
-   U-Net's d1, two ragged shapes) within 1e-5 of the output's largest
-   magnitude of its plain version (a float32 conv of the bf16-rounded
-   operands), and at the three main-path shapes its and the plain
-   version's error against float64 of the same rounded operands, timed in
-   turns with the plain version, its library call (one ``F.conv3d`` of the
-   bf16 operands with the bf16 bias, then float32 and ReLU) and the float32
-   K1; its bound: the
-   larger of the float32 bytes at 3.35 TB/s and the FLOPs at 989 TFLOP/s;
+   U-Net's d1, three ragged shapes, one with Y % 4 != 0) within 1e-5 of
+   the output's largest magnitude of its plain version (a float32 conv of
+   the bf16-rounded operands), with the bytes it staged into shared memory
+   (its own count) equal to ``bf16_plan``'s; at the three main-path shapes
+   its error against float64 of the same rounded operands no larger than
+   the plain version's (both hard gates), timed in turns with the plain
+   version, its library call (one ``F.conv3d`` of the bf16 operands with
+   the bf16 bias, then float32 and ReLU) and the float32 K1, its cast alone
+   timed beside it; its bound: the larger of the float32 bytes at 3.35 TB/s
+   and the FLOPs at 989 TFLOP/s, with its share of it, its TFLOP/s and its
+   staging rate;
 4. slice: the MFP route (``predict`` + ``fragments2dense``) against
    ``predict_dense_device`` on a patch-sized volume (atol 1e-5), then three
    requests of distinct random 120x496x496 volumes through
@@ -786,6 +790,8 @@ K1_BF16_CASES = [
     ("wide_d1", 1, 256, 128, (130, 230, 230), (1, 1, 1)),
     ("ragged_d23", 2, 3, 5, (5, 20, 30), (1, 2, 3)),
     ("ragged_cout45", 1, 30, 45, (5, 40, 300), (1, 4, 4)),
+    # Y % 4 != 0: no float32 tensor map could stage it; Yo 295, 4-byte stores
+    ("ragged_y301", 1, 20, 24, (6, 40, 301), (1, 2, 3)),
 ]
 #: K1 bf16 against its plain version: of the output's largest magnitude
 #: (exact bf16 products, float32 sums in another order)
@@ -798,12 +804,14 @@ def phase_kernel_k1_bf16():
     package: its main path is the direct call at the flagship's conv2 and
     conv3, counted with ``bf16_launches`` set to 0 just before; then each
     case against its plain version (``K1_BF16_REL`` of the output's largest
-    magnitude, a hard gate) and, at the timed shapes, against a float64
-    conv of the same bf16-rounded operands on ``F64_PLANES`` input planes
-    beside the plain version's error; timed in turns with its plain
-    version and its library call (one ``F.conv3d`` of the bf16 operands
-    with the bf16 bias, its output taken to float32 and ReLU'd in place),
-    and the float32 K1 beside it.
+    magnitude, a hard gate), the bytes it staged (its own count,
+    ``bf16_staging_stats``) against ``bf16_plan`` (a hard gate) and, at the
+    timed shapes, against a float64 conv of the same bf16-rounded operands
+    on ``F64_PLANES`` input planes: no further off than the plain version
+    (a hard gate); timed in turns with its plain version and its library
+    call (one ``F.conv3d`` of the bf16 operands with the bf16 bias, its
+    output taken to float32 and ReLU'd in place), and the float32 K1
+    beside it; its first kernel (the cast, ``bf16_layout``) timed alone.
     Returns (launches, (max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms)) with the times summed over conv2 + conv3."""
     F = torch.nn.functional
@@ -827,17 +835,30 @@ def phase_kernel_k1_bf16():
     del outs
     max_err = ms_sum = plain_sum = bound_sum = lib_sum = 0.0
     by = None
+    props = torch.cuda.get_device_properties(0)
+    stats = tailconv.bf16_staging_stats("cuda")
     for (name, N, cin, cout, sp, dil), (x, w, b) in zip(K1_BF16_CASES,
                                                          data):
+        stats.zero_()
         got = tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
         ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         max_err = max(max_err, err)
+        plan = tailconv.bf16_plan(
+            N, cin, cout, *sp, dil[1], dil[2],
+            smem=getattr(props, "shared_memory_per_block_optin",
+                         tailconv.H100_SMEM_OPTIN),
+            sms=props.multi_processor_count)
+        staged = int(stats.item())
         rec = dict(case=name, kernel="conv3x3_dilated_bf16", x=[N, cin, *sp],
                    cout=cout, dil=list(dil), max_abs_err=err,
-                   max_abs_ref=scale, tol=K1_BF16_REL * scale)
+                   max_abs_ref=scale, tol=K1_BF16_REL * scale,
+                   staged_bytes=staged,
+                   plan={k: plan[k] for k in ("NP", "R", "resident",
+                                              "stages", "ntiles",
+                                              "staged_bytes")})
         del got, ref
         if sp[0] > 8:
             xs = x[:, :, :F64_PLANES].contiguous()
@@ -853,6 +874,10 @@ def phase_kernel_k1_bf16():
                        plain_f64_max_abs=(p - r64).abs().max().item(),
                        bf16_vs_f32_max_abs=(k - f32).abs().max().item())
             del xs, r64, k, p, f32
+            if rec["f64_max_abs"] > rec["plain_f64_max_abs"]:
+                emit("kernel", **rec)
+                raise AssertionError(f"K1 bf16 {name}: further from float64 "
+                                     "than its plain version")
             xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
             # in turns: plain, kernel, library, float32 K1, then reversed
             pms, ms, lms, f32ms = palindrome_ms([
@@ -866,10 +891,14 @@ def phase_kernel_k1_bf16():
             flop = 2.0 * N * cout * cin * 27 * zo * xo * yo
             bound, by_ = conv3x3_bf16_bound(cin, cout, x.numel(),
                                             N * cout * zo * xo * yo)
+            cast_ms = best_ms(lambda: tailconv.bf16_layout(x), 3)
             rec.update(ms=ms, plain_ms=pms, library_ms=lms, f32_k1_ms=f32ms,
-                       bound_ms=bound, bound_by=by_,
+                       cast_ms=cast_ms, bound_ms=bound, bound_by=by_,
+                       share_of_bound=bound / ms,
+                       library_ratio=ms / lms,
                        kernel_tflop_s=flop / ms / 1e9,
-                       library_tflop_s=flop / lms / 1e9)
+                       library_tflop_s=flop / lms / 1e9,
+                       staging_tb_s=staged / ms / 1e9)
             if name in ("conv2", "conv3"):      # the flagship's main path
                 ms_sum += ms
                 plain_sum += pms
@@ -880,6 +909,9 @@ def phase_kernel_k1_bf16():
         if err > K1_BF16_REL * scale:
             raise AssertionError(f"K1 bf16 {name}: {err} from its plain "
                                  f"version, over {K1_BF16_REL} x {scale}")
+        if staged != plan["staged_bytes"]:
+            raise AssertionError(f"K1 bf16 {name}: staged {staged} bytes, "
+                                 f"its plan {plan['staged_bytes']}")
     del data
     torch.cuda.empty_cache()
     return launches, (max_err, ms_sum, plain_sum, bound_sum, by, lib_sum)

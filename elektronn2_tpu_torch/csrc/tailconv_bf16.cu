@@ -2,7 +2,8 @@
 // z-dilation 1, xy-dilation (dx, dy), bias and ReLU fused, float32 in and
 // out, the input and the weights rounded to bf16 (round to nearest even)
 // and their products summed in float32 on the tensor cores: an implicit
-// GEMM on `wgmma` m64nNk16 with bf16 operands.
+// GEMM on `wgmma` m64nNk16 with both bf16 operands read from shared memory
+// by descriptor.
 //
 // Replaces the bf16 mode of the Pallas TPU kernel elektronn2_tpu/ops/
 // pallas_tailconv.py::conv3x3_dilated (compute_dtype="bfloat16", its
@@ -10,305 +11,640 @@
 // As in the JAX package no serving route takes it: it is reached by a direct
 // call (ops/tailconv.py::conv3x3_dilated(..., compute_dtype="bfloat16")).
 //
-// What bounds it on this card: at the flagship's conv2/conv3 the bytes and
-// the bf16 operations are close (float32 in and out at 3.35 TB/s against
-// the products at 989 TFLOP/s), at the wide U-Net's d1 the operations.
+// What bounds it on this card: at the flagship's conv2/conv3 (Cin 30/40,
+// Cout 40) the bytes (float32 in and out at 3.35 TB/s), at the wide U-Net's
+// d1 (Cin 256, Cout 128) the bf16 operations (989 TFLOP/s). What a design
+// must not do is stage, from L2, many times the bytes the bound counts: the
+// first design of this mode staged every weight stage again for each 128
+// outputs and each float32 input row 9 times, by 4-byte copies, and ran at
+// 7.6% of the bound at the flagship and 0.36x cuDNN's rate at d1.
 //
-// The design is K1's (tailconv.cu, tailconv_tc_body.cuh) with one bf16
-// `wgmma` a ky shift where K1 issues three TF32 ones:
-//  - GEMM: M = output voxels along y of a (n, zo, xo) row, N = output
-//    channels (one block owns Cout padded to a multiple of 8 up to 64, else
-//    a 128-channel group), K = 27 taps x Cin walked as stages of (16-channel
-//    chunk of Cin, kz, kx), each stage 3 ky shifts of one m64nNk16 `wgmma`.
-//    Cin is zero-filled up to a multiple of 16, as the JAX kernel's c_align.
-//  - A (the input) comes from registers: the three ky taps read one staged
-//    row at offsets 0, dy, 2dy, where a shared-memory descriptor (plain or
-//    swizzled, as P1's bf16 kernel takes its operands) cannot start. So the
-//    input is staged as float32 by cp.async, as K1 stages it, and each
-//    thread rounds its fragment to bf16 with cvt.rn when it loads it. The
-//    other choice, a bf16 copy of the input made by a pass before the
-//    kernel (as K3's bf16 mode stages bf16 windows), would halve the
-//    staged bytes but add a pass that reads 4 and writes 2 bytes a value
-//    of the whole input, about a third of the bytes bound at the
-//    flagship's shapes, and a buffer of half the input; the staging reads
-//    come from L2 after the first of the 9 (kz, kx) stages that read a row.
-//    Rounding in the kernel also makes the bf16 values exactly those of
-//    the plain version's x.bfloat16().
-//  - The staged row stride is 4 mod 32 words: a fragment load reads
-//    channels 2q (+1, +8, +9) at rows m0 (+8), so the 32 lanes of one load
-//    hit 32 banks.
-//  - B (the weights) comes from shared memory by descriptor: packed on the
-//    host (ops/tailconv.py::pack_weights_bf16) as the K-major, unswizzled
-//    core-matrix tile K1's TF32 descriptor reads, 8 output channels x 8
-//    bf16 channels (16 bytes) a core matrix row: the same byte geometry, so
-//    the same descriptor (LBO 128, SBO 256).
-//  - A ring of STAGES shared-memory stages filled STAGES - 2 ahead; every
-//    PROMOTE stages the partial sums are added into float32 totals with a
-//    round-to-nearest FADD (the tensor cores' accumulation truncates, as
-//    K1's note says); bias and ReLU on the totals; stores along y in NCDHW
-//    with 64-bit offsets.
+// Two kernels a call:
+//  1. `bf16_cast_layout_kernel`: x -> a bf16 copy `xb`, laid out (N, Z, X,
+//     CG, Y, 8) with CG = 2 ceil(Cin/16) groups of 8 channels, the channels
+//     past Cin zero: each value read once (4 bytes) and written once (2).
+//     Every global stride of xb is a multiple of 16 bytes whatever Y is, so
+//     one TMA tensor map serves every shape; a group's 8 channels of one y
+//     are one 16-byte row, the K-major row of a `wgmma` core matrix. (The
+//     other way, float32 tiles by TMA converted in shared memory, needs
+//     Y % 4 == 0 for its tensor map and spends shared-memory bandwidth that
+//     the descriptor-fed `wgmma` already takes most of: PERF.md.)
+//  2. `tailconv_bf16_kernel`: persistent (one block per SM, walking output
+//     tiles), warp-specialised: one thread of a producer warpgroup keeps a
+//     ring of shared-memory stages full by TMA (`cp.async.bulk.tensor` /
+//     `cp.async.bulk` into `mbarrier`s); two consumer warpgroups run `wgmma`
+//     on them, with the registers the producer gives up (`setmaxnreg`).
+//
+// The GEMM of a block tile: M = R = 2T output rows of one (n, zo, x phase)
+// times 64 y outputs (one m64 tile a row; T rows a warpgroup), N = one group
+// of up to NP output channels, K = 27 taps x Cin. A dilated x axis splits
+// into dx phases: the tile's rows are xo = px + dx (i0 + i), so their kx
+// taps read the R + 2 input rows px + dx (i0 + j), not R + 2dx.
+//  - A stage is one (16-channel chunk cc, kz): the R + 2 input rows of the
+//    chunk at plane zo + kz, each one TMA box of 2 x (64 + 2dy) x 8 bf16
+//    ([group][y][8 channels]), staged once and read by all 9 (kx, ky) taps:
+//    tap (kx, ky) of row i is the descriptor at row i + kx, y start ky dy,
+//    so a ky shift is a start 16 dy bytes on (the descriptor counts its
+//    start in 16-byte units: any dy), its core matrices 8 consecutive
+//    16-byte rows (SBO 128), the chunk's two channel groups 16 (64 + 2dy)
+//    bytes apart (LBO). The nine `wgmma`s of a tile issue back to back.
+//  - B, the weights (ops/tailconv.py::pack_weights_bf16: one stage's 9 taps
+//    contiguous, each tap the K-major core-matrix tile of LBO 128, SBO
+//    256), comes from shared memory too: held for the whole launch when one
+//    channel group's weights fit beside the ring (the flagship: 69 KB at
+//    conv2, 104 KB at conv3), else streamed with each stage (d1: 36 KB a
+//    stage, shared by 4 m64 tiles, where the first design shared it by 2).
+//  - Tile order: zo fastest, then the channel group, y tile, x tile, n: the
+//    blocks in flight walk one (x, y) column, so the kz planes a tile
+//    stages again are still in L2.
+//  - Promotion: the tensor cores' float32 accumulation truncates (the head
+//    note of tailconv_tc_body.cuh), so a tile's 9 `wgmma`s of a stage (144
+//    products a sum) go into fresh partials, which are then added into the
+//    tile's float32 totals with a round-to-nearest FADD: one promotion a
+//    stage, 9 `wgmma`s, the cadence of the first design (which promoted every
+//    3 of its (cc, kz, kx) stages). One set of partials serves a warpgroup's
+//    T tiles in turn, so each turn waits for its `wgmma`s; the other
+//    warpgroup's keep the tensor cores busy meanwhile. Registers: NP/2
+//    partials + T NP/2 totals a thread (T = 4 up to NP = 64, else 2).
+//  - Epilogue: bias and ReLU on the totals, the tile staged through shared
+//    memory 32 channels at a time and written as runs of 64 y per channel,
+//    16-byte streaming stores where Yo % 4 == 0, else 4-byte ones; the
+//    producer meanwhile stages the next tile.
+//  - The kernel allocates nothing: xb is the caller's scratch, the tensor
+//    map travels as a __grid_constant__ parameter (so a CUDA graph captures
+//    it), and `cuTensorMapEncodeTiled` is found with
+//    cudaGetDriverEntryPoint, so the library links no libcuda. The producer
+//    adds the bytes it staged to `staged` (one atomic a block).
+//  - A wait that outlasts 2^34 clocks (about 9 s) traps: a fault in the
+//    pipeline ends the launch with an error instead of hanging the card.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int KB = 16;             // input channels per stage: one bf16 k
-constexpr int WG = 2;              // warpgroups per block
-constexpr int THREADS = WG * 128;
-constexpr int STAGES = 5;          // shared-memory ring depth
-constexpr int PROMOTE = 3;         // stages summed into one set of partials
+constexpr int CONSUMERS = 2;             // consumer warpgroups
+// + the producer warpgroup: one thread of it issues every copy; it gives
+// registers up to the consumers (setmaxnreg), whose totals need them
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(CONSUMERS * CONSUMER_REGS + PRODUCER_REGS
+              <= (CONSUMERS + 1) * (65536 / THREADS / 8 * 8),
+              "setmaxnreg: the consumers take what the producer gives up");
+constexpr int MAX_STAGES = 8;
+constexpr int HDR = 256;                 // the barriers' bytes
+constexpr int EPC = 32;                  // channels an epilogue pass stages
+constexpr int EPS = 68;                  // its row stride, floats
+constexpr int EPI_BYTES = CONSUMERS * EPC * EPS * 4;
+constexpr long long HANG_CYCLES = 1ll << 34;
 
-// D(64 x N, float32, in registers) += A(64 x 16, bf16 fragment in
-// registers) * B(16 x N, bf16 in shared memory at descriptor b, K-major):
-// `wgmma` m64nNk16, one specialization per N the kernel takes. The operand
-// numbering is wgmma_tf32.cuh's (A %0-%3, b %4, the scale flag %5, D from
-// %6 on), so its WGMMA_D / WGMMA_C lists serve here too.
+// m64 tiles (output rows) a consumer warpgroup holds totals for at N tile NP
+template <int NP>
+__host__ __device__ constexpr int tiles_per_wg() { return NP <= 64 ? 4 : 2; }
+
+// `wgmma` m64nNk16, bf16 A and B from shared memory (descriptors a, b, both
+// K-major), float32 D in registers; operands numbered a %0, b %1, the
+// scale flag %2, D from %3 (a, b and the flag are tied in-out operands only
+// to come first; the asm does not change them).
+#define SS_D4 "%3, %4, %5, %6"
+#define SS_D8 SS_D4 ", %7, %8, %9, %10"
+#define SS_D12 SS_D8 ", %11, %12, %13, %14"
+#define SS_D16 SS_D12 ", %15, %16, %17, %18"
+#define SS_D20 SS_D16 ", %19, %20, %21, %22"
+#define SS_D24 SS_D20 ", %23, %24, %25, %26"
+#define SS_D28 SS_D24 ", %27, %28, %29, %30"
+#define SS_D32 SS_D28 ", %31, %32, %33, %34"
+#define SS_D64                                                          \
+  SS_D32 ", %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46" \
+         ", %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58"  \
+         ", %59, %60, %61, %62, %63, %64, %65, %66"
+
 template <int N>
-struct MmaBf16;
+struct MmaSS;
 
-#define WGMMA_BF16(N, R)                                                   \
-  template <>                                                              \
-  struct MmaBf16<N> {                                                      \
-    static_assert(2 * (R) == (N), "R must be N / 2");                      \
-    static __device__ __forceinline__ void run(float (&d)[R],              \
-                                               const uint32_t (&a)[4],     \
-                                               uint64_t b, int scale_d) {  \
-      uint32_t a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];                 \
-      asm volatile(                                                        \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                        \
-        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"       \
-        WGMMA_D##R "}, {%0, %1, %2, %3}, %4, p, 1, 1, 0;\n}\n"             \
-          : "+r"(a0), "+r"(a1), "+r"(a2), "+r"(a3), "+l"(b),               \
-            "+r"(scale_d), WGMMA_C##R);                                    \
-    }                                                                      \
+#define WGMMA_BF16_SS(N, R)                                              \
+  template <>                                                            \
+  struct MmaSS<N> {                                                      \
+    static_assert(2 * (R) == (N), "R must be N / 2");                    \
+    static __device__ __forceinline__ void run(float (&d)[R], uint64_t a, \
+                                               uint64_t b, int scale_d) { \
+      asm volatile(                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"                      \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"     \
+        SS_D##R "}, %0, %1, p, 1, 1, 0, 0;\n}\n"                         \
+          : "+l"(a), "+l"(b), "+r"(scale_d), WGMMA_C##R);                \
+    }                                                                    \
   };
 
-WGMMA_BF16(8, 4)
-WGMMA_BF16(16, 8)
-WGMMA_BF16(24, 12)
-WGMMA_BF16(32, 16)
-WGMMA_BF16(40, 20)
-WGMMA_BF16(48, 24)
-WGMMA_BF16(56, 28)
-WGMMA_BF16(64, 32)
-WGMMA_BF16(128, 64)
+WGMMA_BF16_SS(8, 4)
+WGMMA_BF16_SS(16, 8)
+WGMMA_BF16_SS(24, 12)
+WGMMA_BF16_SS(32, 16)
+WGMMA_BF16_SS(40, 20)
+WGMMA_BF16_SS(48, 24)
+WGMMA_BF16_SS(56, 28)
+WGMMA_BF16_SS(64, 32)
+WGMMA_BF16_SS(128, 64)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A no-swizzle shared-memory matrix descriptor: start address (16-byte
+// units) | LBO, SBO in `hi`.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint64_t hi) {
+  return hi | static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+}
+
+__host__ __device__ constexpr uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
+  return (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// arrive, and expect `bytes` more of asynchronous copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of parity `parity` of `bar` to complete.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > HANG_CYCLES) __trap();
+}
+
+// One TMA box of the 5-D tensor map into shared memory at dst.
+__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory at dst.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// the 128 threads of consumer warpgroup `wg`
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
 
 // two float32 values rounded to bf16 (nearest even), the first in the low
-// half: one 32-bit register of an A fragment (lower k first)
+// half (the lower channel at the lower address)
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// One ky shift of a stage: this thread's A fragment at p (rows m0, m0 + 8,
-// channels 2q, 2q+1, 2q+8, 2q+9 of a staged block of stride RS) rounded to
-// bf16, then one wgmma into `part` (fresh partials when `first`). The
-// group three back, whose fragment registers these reuse, is waited for
-// first.
-template <int NP>
-__device__ __forceinline__ void mma_ky(float (&part)[NP / 2], const float* p,
-                                       int RS, uint64_t bdesc, bool first) {
-  wgmma_wait<2>();
-  uint32_t a[4];
-  a[0] = bf16x2(p[0], p[RS]);
-  a[1] = bf16x2(p[8], p[RS + 8]);
-  a[2] = bf16x2(p[8 * RS], p[9 * RS]);
-  a[3] = bf16x2(p[8 * RS + 8], p[9 * RS + 8]);
-  wgmma_fence();
-  MmaBf16<NP>::run(part, a, bdesc, first ? 0 : 1);
-  wgmma_commit();
+// x (N, Cin, Z, X, Y) float32 -> xb (N, Z, X, CG, Y, 8) bf16, channels past
+// Cin zero. A block is 128 y of one (n, z, x) row, a thread one y: its reads
+// of a channel and its 16-byte writes of a group are coalesced across the
+// warp.
+__global__ void __launch_bounds__(128)
+bf16_cast_layout_kernel(const float* __restrict__ x, uint4* __restrict__ xb,
+                        int Cin, int CG, int ZX, int Y, int yblocks) {
+  const int64_t b = blockIdx.x;
+  const int64_t row = b / yblocks;                 // (n, z, x)
+  const int y = static_cast<int>(b - row * yblocks) * 128 + threadIdx.x;
+  if (y >= Y) return;
+  const int64_t n = row / ZX;
+  const int64_t plane = static_cast<int64_t>(ZX) * Y;   // one channel
+  const float* src = x + (n * Cin * ZX + (row - n * ZX)) * Y + y;
+  uint4* dst = xb + row * CG * Y + y;
+#pragma unroll 2
+  for (int cg = 0; cg < CG; ++cg) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = cg * 8 + k;
+      v[k] = c < Cin ? __ldg(src + c * plane) : 0.f;
+    }
+    dst[static_cast<int64_t>(cg) * Y] =
+        make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]),
+                   bf16x2(v[4], v[5]), bf16x2(v[6], v[7]));
+  }
 }
 
-// One block: its two warpgroups' 64-output tiles cover R = 2 / tpr output
-// rows (n, zo, xo0 .. xo0+R-1) of tpr tiles (64 tpr y outputs) each, as in
-// K1. `RS` is the staged row stride (>= 64 tpr + 2dy, 4 mod 32).
+// The launch's geometry; byte offsets are from the 128-aligned base of the
+// dynamic shared memory.
+struct Params {
+  const unsigned char* wp;      // packed bf16 weights
+  const float* bias;
+  float* y;
+  unsigned long long* staged;   // += the bytes this launch staged
+  int Z, Cout, CC, G, Zo, Xo, Yo, dx, dy;
+  int xtp;                      // block tiles per x phase
+  int ytiles, ntiles, stages, resident;
+  uint32_t rsb;                 // shared-memory stride of a staged row
+  uint32_t ys;                  // staged y values of a row: 64 + 2dy
+  uint32_t slot_bytes, wres_bytes, ring, epi;
+};
+
+struct Tile {
+  int n, g, zo, px, i0, y0;
+};
+
+// tile t: zo fastest, then the channel group, y tile, x tile (phase
+// fastest), n
+__device__ __forceinline__ Tile decode(int t, const Params& p, int R) {
+  Tile tl;
+  tl.zo = t % p.Zo;
+  int r = t / p.Zo;
+  tl.g = r % p.G;
+  r /= p.G;
+  tl.y0 = (r % p.ytiles) * 64;
+  r /= p.ytiles;
+  const int xtiles = p.dx * p.xtp;
+  const int xt = r % xtiles;
+  tl.n = r / xtiles;
+  tl.px = xt % p.dx;
+  tl.i0 = (xt / p.dx) * R;
+  return tl;
+}
+
 template <int NP>
 __global__ void __launch_bounds__(THREADS, 1)
-tailconv_bf16_kernel(const float* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ wp,
-                     const float* __restrict__ bias, float* __restrict__ y,
-                     int Cin, int Z, int X, int Y, int Cout, int Zo, int Xo,
-                     int Yo, int dx, int dy, int tpr, int RS) {
-  constexpr int WB = 3 * NP * KB * 2;      // weight bytes per stage
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int R = WG / tpr;
-  const int SB = WB + R * KB * RS * 4;     // bytes per stage
+tailconv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ Params p) {
+  constexpr int T = tiles_per_wg<NP>();
+  constexpr int R = CONSUMERS * T;           // output rows of a block tile
+  constexpr uint32_t TAPB = NP * 32;         // one tap: NP x 16 bf16
+  constexpr uint32_t WSTAGE = 9 * TAPB;      // one (cc, kz) stage's taps
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 127) & ~127u;
+  const uint32_t full0 = base, empty0 = base + 8 * MAX_STAGES;
+  const uint32_t wbar = base + 16 * MAX_STAGES;
+  const uint32_t wres = base + HDR, ring = base + p.ring;
+  const int nsteps = p.CC * 3;               // stages a tile
 
-  const int xblocks = (Xo + R - 1) / R;
-  const int64_t bx = blockIdx.x;           // (n, zo, x block), x fastest
-  const int xo0 = static_cast<int>(bx % xblocks) * R;
-  const int64_t rz = bx / xblocks;
-  const int zo = static_cast<int>(rz % Zo);
-  const int64_t n = rz / Zo;
-  const int y0 = blockIdx.y * tpr * 64;
-  const int g = blockIdx.z;                // output-channel group
-  const int CC = (Cin + KB - 1) / KB;
-  const int nsteps = CC * 9;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);    // each consumer warp
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // this thread's staging copies: elements tid, tid + THREADS, ... of the
-  // R*KB rows of `cols` columns; (rc, j) advance by (qd, rm) per step
-  const int cols = tpr * 64 + 2 * dy;
-  const int total = R * KB * cols;
-  const int qd = THREADS / cols, rm = THREADS % cols;
-  const int rc0 = threadIdx.x / cols, j0 = threadIdx.x % cols;
-
-  const int64_t plane = static_cast<int64_t>(X) * Y;
-  const float* xn = x + n * Cin * Z * plane + zo * plane + y0;
-
-  // stage s = (channel chunk cc, tap kz, kx) into ring slot `slot`: its
-  // packed weights (16-byte copies) and the R x 16 input rows (4-byte
-  // copies, which start at any y; zero-filled past Cin and Y)
-  auto load_stage = [&](int s, int slot) {
-    unsigned char* sw = smem + slot * SB;
-    float* si = reinterpret_cast<float*>(sw + WB);
-    const int cc = s / 9, tap = s - cc * 9;
-    const int kz = tap / 3, kx = tap - kz * 3;
-    const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wp)
-        + (static_cast<int64_t>(g * CC + cc) * 9 + tap) * WB;
-    for (int i = threadIdx.x; i < WB / 16; i += THREADS)
-      cp_async16(reinterpret_cast<float*>(sw + 16 * i),
-                 reinterpret_cast<const float*>(wsrc + 16 * i));
-    const float* xs = xn + kz * plane + static_cast<int64_t>(kx) * dx * Y;
-    int rc = rc0, j = j0;
-    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
-      const int ci = cc * KB + rc % KB;
-      const int xr = min(xo0 + rc / KB, Xo - 1);
-      const float* src = xs + min(ci, Cin - 1) * Z * plane
-                         + static_cast<int64_t>(xr) * Y;
-      const bool ok = ci < Cin && y0 + j < Y;
-      cp_async4(si + rc * RS + j, ok ? src + j : src, ok ? 4 : 0);
-      rc += qd;
-      j += rm;
-      if (j >= cols) {
-        j -= cols;
-        ++rc;
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // the producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x != CONSUMERS * 128) return;
+    unsigned long long staged = 0;
+    if (p.resident) {
+      mbar_expect_tx(wbar, p.wres_bytes);
+      for (uint32_t off = 0; off < p.wres_bytes; off += 32768)
+        bulk_load(wres + off, p.wp + off, min(32768u, p.wres_bytes - off),
+                  wbar);
+      staged += p.wres_bytes;
+    }
+    const uint32_t box = 32 * p.ys;
+    const uint32_t tx = (R + 2) * box + (p.resident ? 0 : WSTAGE);
+    int slot = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+      const Tile tl = decode(t, p, R);
+      for (int s = 0; s < nsteps; ++s) {
+        const int cc = s / 3, kz = s - 3 * cc;
+        mbar_wait(empty0 + 8 * slot, ph ^ 1);
+        const uint32_t full = full0 + 8 * slot;
+        const uint32_t dst = ring + slot * p.slot_bytes;
+        mbar_expect_tx(full, tx);
+        for (int j = 0; j < R + 2; ++j)
+          tma_load5(dst + j * p.rsb, &xmap, full, 0, tl.y0, 2 * cc,
+                    tl.px + p.dx * (tl.i0 + j), tl.n * p.Z + tl.zo + kz);
+        if (!p.resident)
+          bulk_load(dst + (R + 2) * p.rsb,
+                    p.wp + (static_cast<int64_t>(tl.g) * nsteps + s) * WSTAGE,
+                    WSTAGE, full);
+        staged += tx;
+        if (++slot == p.stages) {
+          slot = 0;
+          ph ^= 1;
+        }
       }
     }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 2; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    cp_async_commit();
+    atomicAdd(p.staged, staged);
+    return;
   }
 
-  float acc[NP / 2], part[NP / 2];
-#pragma unroll
-  for (int i = 0; i < NP / 2; ++i) acc[i] = part[i] = 0.f;
+  // the consumers: warpgroup wg holds rows wg T .. wg T + T - 1 of a tile;
+  // this thread's accumulators 4j + 2h + e: row m0 + 8h, channel 8j + 2q + e
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int q = lane & 3;
+  const int m0 = 16 * (tid >> 5) + (lane >> 2);
+  const uint64_t a_hi = desc_hi(16 * p.ys, 128);
+  constexpr uint64_t b_hi = desc_hi(128, 256);
+  const uint32_t dy16 = 16 * p.dy;
+  float* epis = reinterpret_cast<float*>(smem_raw + (base - raw) + p.epi)
+                + wg * EPC * EPS;
+  const int64_t plane = static_cast<int64_t>(p.Xo) * p.Yo;
+  const int64_t cstride = static_cast<int64_t>(p.Zo) * plane;
+  if (p.resident) mbar_wait(wbar, 0);
 
-  // this warpgroup's tile (staged row wg / tpr, y tile wg % tpr); this
-  // thread's fragment rows 16 * warp + lane / 4 (+ 8), channels 2 (lane %
-  // 4) (+ 1, + 8, + 9)
-  const int wg = threadIdx.x / 128;
-  const int warp = (threadIdx.x / 32) % 4;
-  const int lane = threadIdx.x % 32;
-  const int q = lane % 4;
-  const int m0 = 16 * warp + lane / 4;
-  const int toff = (wg / tpr) * KB * RS + (wg % tpr) * 64 + 2 * q * RS + m0;
+  float part[NP / 2];
+  float tot[T][NP / 2];
+  int slot = 0;
+  uint32_t ph = 0;
+  for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+    const Tile tl = decode(t, p, R);
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+#pragma unroll
+      for (int k = 0; k < NP / 2; ++k) tot[i][k] = 0.f;
 
-  for (int s = 0; s < nsteps; ++s) {
-    cp_async_wait<STAGES - 3>();           // this thread's copies of s landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();                       // everyone's; s-2's math done
-    if (s + STAGES - 2 < nsteps)
-      load_stage(s + STAGES - 2, (s + STAGES - 2) % STAGES);
-    cp_async_commit();
-    const unsigned char* sw = smem + (s % STAGES) * SB;
-    const float* si = reinterpret_cast<const float*>(sw + WB) + toff;
-    const bool fresh = s % PROMOTE == 0;
+    for (int s = 0; s < nsteps; ++s) {
+      mbar_wait(full0 + 8 * slot, ph);
+      const uint32_t in = ring + slot * p.slot_bytes;
+      const uint32_t w = p.resident ? wres + s * WSTAGE
+                                    : in + (R + 2) * p.rsb;
 #pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-      mma_ky<NP>(part, si + ky * dy, RS,
-                 smem_desc(reinterpret_cast<const float*>(
-                     sw + ky * NP * KB * 2)),
-                 ky == 0 && fresh);
-    if (s % PROMOTE == PROMOTE - 1 || s == nsteps - 1) {
-      wgmma_wait<0>();
-      fence_regs(part);
+      for (int i = 0; i < T; ++i) {
+        const uint32_t a = in + (wg * T + i) * p.rsb;
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < NP / 2; ++i) acc[i] += part[i];
+        for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky)
+            MmaSS<NP>::run(part, desc(a + kx * p.rsb + ky * dy16, a_hi),
+                           desc(w + (kx * 3 + ky) * TAPB, b_hi), kx + ky);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int k = 0; k < NP / 2; ++k) tot[i][k] += part[k];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);   // this warp is done
+      if (++slot == p.stages) {
+        slot = 0;
+        ph ^= 1;
+      }
     }
-  }
-  cp_async_wait<0>();
 
-  // epilogue: bias + ReLU; accumulator 4j+e holds tile row m0 + 8 (e / 2),
-  // channel 8j + 2q + e % 2
-  const int xo = xo0 + wg / tpr;
-  if (xo >= Xo) return;
-  const int64_t ostride = static_cast<int64_t>(Zo) * Xo * Yo;  // per channel
-  float* yrow = y + n * Cout * ostride + static_cast<int64_t>(zo) * Xo * Yo
-                + static_cast<int64_t>(xo) * Yo;
-  const int yb = y0 + (wg % tpr) * 64 + m0;
+    // epilogue: bias + ReLU into shared memory, EPC channels a pass as rows
+    // of 64 y, then runs of y per channel into y (NCDHW)
+    const int cbase = tl.g * NP;
 #pragma unroll
-  for (int j = 0; j < NP / 8; ++j) {
+    for (int i = 0; i < T; ++i) {
+      const int xo = tl.px + p.dx * (tl.i0 + wg * T + i);
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      const int co = g * NP + 8 * j + 2 * q + e2;
-      if (co >= Cout) continue;
-      const float bv = __ldg(bias + co);
+      for (int pass = 0; pass < (NP + EPC - 1) / EPC; ++pass) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int yo = yb + 8 * h;
-        if (yo < Yo)
-          yrow[co * ostride + yo] = fmaxf(acc[4 * j + 2 * h + e2] + bv, 0.f);
+        for (int j = 0; j < NP / 8; ++j) {
+          if (j / (EPC / 8) != pass) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * q + e;
+            const float bv = cbase + c < p.Cout ? __ldg(p.bias + cbase + c)
+                                                : 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              epis[(c - pass * EPC) * EPS + m0 + 8 * h] =
+                  fmaxf(tot[i][4 * j + 2 * h + e] + bv, 0.f);
+          }
+        }
+        wg_sync(wg);
+        const int nc = min(EPC, p.Cout - cbase - pass * EPC);
+        const int yv = min(64, p.Yo - tl.y0);
+        if (xo < p.Xo && nc > 0) {
+          float* out = p.y
+              + (static_cast<int64_t>(tl.n) * p.Cout + cbase + pass * EPC)
+                    * cstride
+              + tl.zo * plane + static_cast<int64_t>(xo) * p.Yo + tl.y0;
+          if ((p.Yo & 3) == 0) {
+            for (int it = tid; it < nc * 16; it += 128) {
+              const int c = it >> 4, y4 = (it & 15) * 4;
+              if (y4 < yv)
+                __stcs(reinterpret_cast<float4*>(out + c * cstride + y4),
+                       *reinterpret_cast<const float4*>(epis + c * EPS + y4));
+            }
+          } else {
+            for (int it = tid; it < nc * 64; it += 128) {
+              const int c = it >> 6, yy = it & 63;
+              if (yy < yv) __stcs(out + c * cstride + yy, epis[c * EPS + yy]);
+            }
+          }
+        }
+        wg_sync(wg);
       }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// x -> xb, the bf16 copy (bf16_cast_layout_kernel)
+cudaError_t cast(const float* x, void* xb, int N, int Cin, int Z, int X,
+                 int Y, cudaStream_t stream) {
+  const int yblocks = (Y + 127) / 128;
+  const int64_t blocks = static_cast<int64_t>(N) * Z * X * yblocks;
+  bf16_cast_layout_kernel<<<static_cast<unsigned>(blocks), 128, 0,
+                            stream>>>(x, static_cast<uint4*>(xb), Cin,
+                                      2 * ((Cin + 15) / 16), Z * X, Y,
+                                      yblocks);
+  return cudaGetLastError();
+}
+
+// The host side of a launch: the shared-memory plan (ops/tailconv.py::
+// bf16_plan computes the same), the cast, the tensor map, the kernel.
 template <int NP>
-int launch(const float* x, const __nv_bfloat16* wp, const float* bias,
-           float* y, int N, int Cin, int Z, int X, int Y, int Cout, int dx,
-           int dy, cudaStream_t stream) {
-  const int Zo = Z - 2, Xo = X - 2 * dx, Yo = Y - 2 * dy;
-  // tiles per row: both of the block's, or one where a tile covers a row
-  const int tpr = Yo > 64 ? WG : 1;
-  const int R = WG / tpr;
-  const int RS = (tpr * 64 + 2 * dy + 27) / 32 * 32 + 4;
-  const size_t smem = static_cast<size_t>(STAGES)
-                      * (3 * NP * KB * 2 + R * KB * RS * 4);
-  cudaError_t err = cudaFuncSetAttribute(
-      tailconv_bf16_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int launch(const float* x, void* xb, const unsigned char* wp,
+           const float* bias, float* y, unsigned long long* staged, int N,
+           int Cin, int Z, int X, int Y, int Cout, int dx, int dy,
+           cudaStream_t stream) {
+  constexpr int T = tiles_per_wg<NP>();
+  constexpr int R = CONSUMERS * T;
+  Params p;
+  p.wp = wp;
+  p.bias = bias;
+  p.y = y;
+  p.staged = staged;
+  p.Z = Z;
+  p.Cout = Cout;
+  p.CC = (Cin + 15) / 16;
+  p.G = (Cout + NP - 1) / NP;
+  p.Zo = Z - 2;
+  p.Xo = X - 2 * dx;
+  p.Yo = Y - 2 * dy;
+  p.dx = dx;
+  p.dy = dy;
+  p.ys = 64 + 2 * dy;
+  if (p.ys > 256) return static_cast<int>(cudaErrorInvalidValue);
+  p.rsb = (32 * p.ys + 127) / 128 * 128;
+  const int xp = (p.Xo + dx - 1) / dx;        // rows of the longest phase
+  p.xtp = (xp + R - 1) / R;
+  p.ytiles = (p.Yo + 63) / 64;
+  const int64_t ntiles = static_cast<int64_t>(N) * dx * p.xtp * p.ytiles
+                         * p.G * p.Zo;
+  if (ntiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  p.ntiles = static_cast<int>(ntiles);
+
+  int dev = 0, optin = 0, nsm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(
-      static_cast<unsigned>(static_cast<int64_t>(N) * Zo * ((Xo + R - 1) / R)),
-      static_cast<unsigned>((Yo + tpr * 64 - 1) / (tpr * 64)),
-      static_cast<unsigned>((Cout + NP - 1) / NP));
-  tailconv_bf16_kernel<NP><<<grid, THREADS, smem, stream>>>(
-      x, wp, bias, y, Cin, Z, X, Y, Cout, Zo, Xo, Yo, dx, dy, tpr, RS);
+  const uint32_t slot_in = (R + 2) * p.rsb;
+  const uint32_t wstage = 9 * NP * 32;
+  const int64_t fixed = 128 + HDR + EPI_BYTES;
+  const int64_t wres = static_cast<int64_t>(p.CC) * 3 * wstage;
+  p.resident = p.G == 1 && fixed + wres + 3 * slot_in <= optin;
+  p.wres_bytes = p.resident ? static_cast<uint32_t>(wres) : 0;
+  p.slot_bytes = slot_in + (p.resident ? 0 : wstage);
+  const int64_t stages = (optin - fixed - p.wres_bytes) / p.slot_bytes;
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  p.stages = static_cast<int>(stages < MAX_STAGES ? stages : MAX_STAGES);
+  p.ring = HDR + p.wres_bytes;
+  p.epi = p.ring + p.stages * p.slot_bytes;
+  const size_t smem = 128 + p.epi + EPI_BYTES;
+
+  // 1. the bf16 copy
+  const int CG = 2 * p.CC;
+  err = cast(x, xb, N, Cin, Z, X, Y, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // 2. its tensor map: (8 channels, Y, CG, X, N Z), boxes of (8, 64 + 2dy,
+  // 2, 1, 1); coordinates past an edge read as zeros
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(Y),
+                              static_cast<cuuint64_t>(CG),
+                              static_cast<cuuint64_t>(X),
+                              static_cast<cuuint64_t>(N) * Z};
+  const cuuint64_t strides[4] = {16, 16ull * Y, 16ull * Y * CG,
+                                 16ull * Y * CG * X};
+  const cuuint32_t box[5] = {8, p.ys, 2, 1, 1};
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, xb, dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  // 3. the GEMM: one persistent block per SM
+  err = cudaFuncSetAttribute(tailconv_bf16_kernel<NP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = p.ntiles < nsm ? p.ntiles : nsm;
+  tailconv_bf16_kernel<NP><<<grid, THREADS, smem, stream>>>(map, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.
-//   x    (N, Cin, Z, X, Y) float32, contiguous
-//   wp   the weights (Cout, Cin, 3, 3, 3) rounded to bf16 and packed by
-//        ops/tailconv.py::pack_weights_bf16 for N tile `np` (8, 16, ...,
-//        64 or 128; Cout runs as ceil(Cout/np) groups), Cout and Cin
-//        zero-padded
-//   bias (Cout,) float32
-//   y    (N, Cout, Z-2, X-2dx, Y-2dy) float32, written
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int e2t_tailconv_bf16(const float* x, const void* wp,
-                                 const float* bias, float* y, int N, int Cin,
+//   x      (N, Cin, Z, X, Y) float32, contiguous
+//   xb     scratch of N Z X 2 ceil(Cin/16) Y 16 bytes, 16-byte aligned: the
+//          bf16 copy of x (ops/tailconv.py::bf16_scratch_bytes)
+//   wp     the weights (Cout, Cin, 3, 3, 3) rounded to bf16 and packed by
+//          ops/tailconv.py::pack_weights_bf16 for N tile `np` (8, 16, ...,
+//          64 or 128; Cout runs as ceil(Cout/np) groups), Cout and Cin
+//          zero-padded
+//   bias   (Cout,) float32
+//   y      (N, Cout, Z-2, X-2dx, Y-2dy) float32, written
+//   staged one uint64 the kernel adds the bytes it staged to
+// Launches on `stream` and returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue for a shape it refuses (dy > 96: a staged row is
+// at most 256 values).
+extern "C" int e2t_tailconv_bf16(const float* x, void* xb, const void* wp,
+                                 const float* bias, float* y,
+                                 unsigned long long* staged, int N, int Cin,
                                  int Z, int X, int Y, int Cout, int np,
                                  int dx, int dy, void* stream) {
   if (N < 1 || Cin < 1 || Cout < 1 || Z - 2 < 1 || X - 2 * dx < 1
       || Y - 2 * dy < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wp);
-#define E2T_CASE(NP)                                                     \
-  case NP:                                                               \
-    return launch<NP>(x, w, bias, y, N, Cin, Z, X, Y, Cout, dx, dy, s);
+  const unsigned char* w = static_cast<const unsigned char*>(wp);
+#define E2T_CASE(NP)                                                      \
+  case NP:                                                                \
+    return launch<NP>(x, xb, w, bias, y, staged, N, Cin, Z, X, Y, Cout,   \
+                      dx, dy, s);
   switch (np) {
     E2T_CASE(8) E2T_CASE(16) E2T_CASE(24) E2T_CASE(32) E2T_CASE(40)
     E2T_CASE(48) E2T_CASE(56) E2T_CASE(64) E2T_CASE(128)
   }
 #undef E2T_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The first of the two kernels alone (x -> xb, arguments as above), for
+// timing its share of a call.
+extern "C" int e2t_tailconv_bf16_cast(const float* x, void* xb, int N,
+                                      int Cin, int Z, int X, int Y,
+                                      void* stream) {
+  if (N < 1 || Cin < 1 || Z < 1 || X < 1 || Y < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cast(x, xb, N, Cin, Z, X, Y, static_cast<cudaStream_t>(stream)));
 }

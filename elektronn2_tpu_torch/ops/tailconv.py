@@ -14,9 +14,12 @@ for it by :func:`pack_weights` (once per weight tensor:
 
 K1's bfloat16 mode (``conv3x3_dilated(..., compute_dtype="bfloat16")``)
 ports the same kernel's bf16 mode: x and w rounded to bf16, their products
-summed in float32, float32 out. Kernel: ``csrc/tailconv_bf16.cu``, K1's
-implicit GEMM with one bf16 ``wgmma`` a ky shift, weights packed by
-:func:`pack_weights_bf16`. As in the JAX package only a direct call
+summed in float32, float32 out. Kernel: ``csrc/tailconv_bf16.cu``, a cast of
+x into a bf16 scratch copy (:func:`bf16_scratch_bytes`), then a persistent,
+warp-specialised implicit GEMM fed by TMA, both ``wgmma`` operands read from
+shared memory by descriptor; its tile by :func:`bf16_plan`, the weights
+packed by :func:`pack_weights_bf16`, its staged bytes counted in
+:func:`bf16_staging_stats`. As in the JAX package only a direct call
 reaches it.
 
 K4 ports ``conv1x3x3_pool_dilated`` of the same module: a valid (1,3,3)
@@ -64,6 +67,7 @@ head_tc_launches = 0
 
 _fn = None
 _bf16_fn = None
+_bf16_cast_fn = None
 _head_fns = None
 _head_cout_tile = None
 
@@ -85,14 +89,17 @@ def build():
 def build_bf16():
     """Build (on first use) and load K1's bf16 library; returns the
     ``CudaLibrary``."""
-    global _bf16_fn
+    global _bf16_fn, _bf16_cast_fn
     lib = load_cuda_library("tailconv_bf16")
     if _bf16_fn is None:
         fn = lib.cdll.e2t_tailconv_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _bf16_fn = fn
+        cast = lib.cdll.e2t_tailconv_bf16_cast
+        cast.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        fn.restype = cast.restype = ctypes.c_int
+        _bf16_fn, _bf16_cast_fn = fn, cast
     return lib
 
 
@@ -264,10 +271,11 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True,
     ``compute_dtype="float32"``: on the card the sums are 3xTF32 products
     accumulated in float32 (float32-grade). ``"bfloat16"``: x and w rounded
     to bf16 (nearest even), their products summed in float32, the bias
-    added in float32; on the card the kernel of ``csrc/tailconv_bf16.cu``
-    (``wgmma`` m64nNk16, bf16 operands, float32 sums; weights packed once
-    per weight tensor by :func:`pack_weights_bf16`), counted in
-    ``bf16_launches``, on the CPU its plain version
+    added in float32; on the card the kernels of ``csrc/tailconv_bf16.cu``
+    (a bf16 copy of x, then ``wgmma`` m64nNk16 on TMA-staged tiles, float32
+    sums; weights packed once per weight tensor by
+    :func:`pack_weights_bf16`), counted once a call in ``bf16_launches``,
+    on the CPU its plain version
     :func:`conv3x3_dilated_bf16_reference`; no serving route takes it, as
     in the JAX package.
     """
@@ -283,9 +291,7 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True,
     if x.device.type != "cuda":
         raise ValueError(f"tail conv: no kernel for device {x.device}")
     if bf16:
-        build_bf16()
-        y = _launch_tail(_bf16_fn, pack_weights_bf16, x, w, b, dx, dy,
-                         "tail conv (bf16)")
+        y = _launch_bf16(x, w, b, dx, dy)
         bf16_launches += 1
         return y
     build()
@@ -323,16 +329,170 @@ def conv3x3_dilated_reference(x, w, b, dil=(1, 1, 1)):
 K_CHUNK_BF16 = 16
 
 
+#: the H100's opt-in shared memory a block (bytes) and SM count: the
+#: defaults :func:`bf16_plan` plans for (the kernel reads its card's)
+H100_SMEM_OPTIN = 232448
+H100_SMS = 132
+#: the bf16 kernel's shared memory besides its ring: alignment slack, the
+#: barriers, two warpgroups' epilogue buffers (32 channels x 68 floats)
+_BF16_FIXED = 128 + 256 + 2 * 32 * 68 * 4
+_BF16_MAX_STAGES = 8
+
+
+def bf16_plan(n, cin, cout, Z, X, Y, dx, dy, smem=H100_SMEM_OPTIN,
+              sms=H100_SMS):
+    """The bf16 kernel's launch plan (``csrc/tailconv_bf16.cu::launch``
+    computes the same) for x (n, cin, Z, X, Y), Cout ``cout`` and
+    xy-dilation (dx, dy), on a card with ``smem`` opt-in shared bytes a
+    block and ``sms`` SMs. A dict:
+
+    - ``NP``, ``G``: N tile (output channels of a block tile, one
+      ``wgmma`` N: Cout rounded up to a multiple of 8 up to 64, else 128)
+      and channel groups; ``T``, ``R``: m64 tiles a consumer warpgroup
+      holds float32 totals for (4 up to N 64, 2 above: the registers of
+      totals and partials) and output rows a block tile (64 y each, rows
+      of one x phase: xo = px + dx (i0 + i));
+    - ``ys``, ``rsb``: staged y values of an input row (64 + 2dy) and its
+      shared-memory stride; ``ntiles``, ``grid`` (one block per SM);
+    - ``resident``: the weights of the (single) channel group held in
+      shared memory for the launch, else streamed with each stage;
+      ``stages``: ring depth; ``smem``: dynamic shared bytes;
+    - ``staged_bytes``: what the launch stages into shared memory (the
+      kernel's own count, :func:`bf16_staging_stats`): R + 2 input rows of
+      2 x ys x 16 bytes a (tile, 16-channel chunk, kz), the stage's weights
+      too when streamed, the whole group's once a block when resident.
+
+    Raises ``ValueError`` for a shape the kernel refuses: dy > 96 (a staged
+    row holds at most 256 values)."""
+    NP = -(-cout // 8) * 8 if cout <= 64 else 128
+    G, CC = -(-cout // NP), -(-cin // K_CHUNK_BF16)
+    T = 4 if NP <= 64 else 2
+    R = 2 * T
+    ys = 64 + 2 * dy
+    if ys > 256:
+        raise ValueError(f"tail conv (bf16): y-dilation {dy} > 96 (a staged "
+                         "row holds at most 256 values)")
+    rsb = -(-32 * ys // 128) * 128
+    Zo, Xo, Yo = Z - 2, X - 2 * dx, Y - 2 * dy
+    xtp = -(-(-(-Xo // dx)) // R)
+    ytiles = -(-Yo // 64)
+    ntiles = n * dx * xtp * ytiles * G * Zo
+    slot_in = (R + 2) * rsb
+    wstage = 9 * NP * 32
+    wres = CC * 3 * wstage
+    resident = G == 1 and _BF16_FIXED + wres + 3 * slot_in <= smem
+    wres_bytes = wres if resident else 0
+    slot = slot_in + (0 if resident else wstage)
+    stages = min(_BF16_MAX_STAGES, (smem - _BF16_FIXED - wres_bytes) // slot)
+    if stages < 2:
+        raise ValueError(f"tail conv (bf16): N tile {NP} does not fit "
+                         f"{smem} bytes of shared memory")
+    grid = min(ntiles, sms)
+    tx = (R + 2) * 32 * ys + (0 if resident else wstage)
+    return dict(NP=NP, G=G, T=T, R=R, ys=ys, rsb=rsb, ntiles=ntiles,
+                grid=grid, resident=resident, stages=stages,
+                smem=_BF16_FIXED + wres_bytes + stages * slot,
+                staged_bytes=ntiles * CC * 3 * tx + grid * wres_bytes)
+
+
+def bf16_scratch_bytes(n, cin, Z, X, Y):
+    """Bytes of the bf16 kernel's scratch: x as bf16 in (n, Z, X, CG, Y, 8)
+    with CG = 2 ceil(Cin/16) groups of 8 channels."""
+    return n * Z * X * 2 * -(-cin // K_CHUNK_BF16) * Y * 16
+
+
+def bf16_layout_reference(x):
+    """The plain version of the bf16 mode's first kernel: x (N, Cin, Z, X,
+    Y) float32 -> (N, Z, X, CG, Y, 8) bf16 (round to nearest even), CG = 2
+    ceil(Cin/16) groups of 8 channels, the channels past Cin zero."""
+    n, cin, Z, X, Y = x.shape
+    cg = 2 * -(-cin // K_CHUNK_BF16)
+    xp = F.pad(x, (0, 0, 0, 0, 0, 0, 0, 8 * cg - cin)).bfloat16()
+    return xp.reshape(n, cg, 8, Z, X, Y).permute(0, 3, 4, 1, 5, 2)
+
+
+def bf16_layout(x):
+    """x (N, Cin, Z, X, Y) float32, contiguous -> the bf16 copy the bf16
+    kernel stages from (:func:`bf16_layout_reference`'s values and shape,
+    contiguous): on the card the first of the mode's two kernels alone
+    (counted in no launch count: it is timed and checked on its own), on
+    the CPU its plain version."""
+    if (x.dtype != torch.float32 or x.ndim != 5
+            or not x.is_contiguous()):
+        raise ValueError("tail conv (bf16): x must be a contiguous float32 "
+                         f"(N, Cin, Z, X, Y), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return bf16_layout_reference(x).contiguous()
+    n, cin, Z, X, Y = x.shape
+    build_bf16()
+    xb = torch.empty((n, Z, X, 2 * -(-cin // K_CHUNK_BF16), Y, 8),
+                     dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _bf16_cast_fn(x.data_ptr(), xb.data_ptr(), n, cin, Z, X, Y,
+                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tail conv (bf16) cast launch failed: CUDA "
+                           f"error {err}")
+    return xb
+
+
+_bf16_stats = {}     # device -> bf16_staging_stats(device)
+
+
+def bf16_staging_stats(device):
+    """The bf16 kernel's running count on ``device``, an int64 tensor of
+    one, added to by every launch: the bytes it staged into shared memory
+    (TMA boxes of input rows and bulk copies of packed weights).
+    ``zero_()`` it to start a count. Made on the first call: keep that
+    outside a CUDA graph capture (the first launch makes it)."""
+    key = torch.device(device)
+    if key.type == "cuda" and key.index is None:
+        key = torch.device("cuda", torch.cuda.current_device())
+    got = _bf16_stats.get(key)
+    if got is None:
+        got = _bf16_stats[key] = torch.zeros(1, dtype=torch.int64,
+                                             device=key)
+    return got
+
+
+def _launch_bf16(x, w, b, dx, dy):
+    """Launch K1's bf16 kernels on a validated CUDA call: the bf16 copy of
+    x into a scratch from ``torch.empty``, then the GEMM; returns the
+    output."""
+    N, Cin, Z, X, Y = x.shape
+    Cout = w.shape[0]
+    NP = bf16_plan(N, Cin, Cout, Z, X, Y, dx, dy)["NP"]
+    build_bf16()
+    wp = packed_weights(w, NP, pack_weights_bf16)
+    xb = torch.empty(bf16_scratch_bytes(N, Cin, Z, X, Y), dtype=torch.uint8,
+                     device=x.device)
+    y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
+                    dtype=torch.float32, device=x.device)
+    stats = bf16_staging_stats(x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bf16_fn(x.data_ptr(), xb.data_ptr(), wp.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), stats.data_ptr(), N, Cin,
+                       Z, X, Y, Cout, NP, dx, dy, stream)
+    if err != 0:
+        raise RuntimeError(f"tail conv (bf16) kernel launch failed: CUDA "
+                           f"error {err}")
+    return y
+
+
 def pack_weights_bf16(w, NP):
     """(Cout, Cin, 3, 3, 3) float32 weights -> the bf16 kernel's packed
-    weights for N tile ``NP`` (:func:`n_tile`): rounded to bf16 (nearest
-    even), shape (G, CC, 3, 3, 3, NP/8, 2, 8, 8) with G = ceil(Cout/NP),
-    CC = ceil(Cin/16), Cout and Cin zero-padded.
+    weights for N tile ``NP`` (:func:`bf16_plan`): rounded to bf16
+    (nearest even), shape (G, CC, 3, 3, 3, NP/8, 2, 8, 8) with G =
+    ceil(Cout/NP), CC = ceil(Cin/16), Cout and Cin zero-padded.
 
     Dims: channel group, 16-channel chunk of Cin, kz, kx, ky, 8-row group
     of output channels, k half, row (output channel), 8 input channels.
-    One (group, chunk, kz, kx) is the kernel's stage; each ky slice in it
-    is the K-major, unswizzled tile a ``wgmma`` descriptor reads: core
+    One (group, chunk, kz) is the kernel's stage, its 9 (kx, ky) taps one
+    contiguous run of 9 NP 32 bytes (one bulk copy when streamed; a
+    group's stages are one run, held in shared memory when they fit); each
+    tap is the K-major, unswizzled tile a ``wgmma`` descriptor reads: core
     matrices of 8 output channels x 8 bf16 input channels (128 bytes), the
     two k halves 128 bytes apart, the 8-channel groups 256 bytes apart (the
     byte geometry of :func:`pack_weights`' TF32 tiles)."""

@@ -10,7 +10,11 @@ up to 27*Cin and 9*Cin products in another order), 1e-5 on the flagship's probab
 an ulp of 1.5e-5, which moves a sample by about that much); K3's ``ok``
 flags must be equal. Both patch kernels avoid FMA contraction and are
 expected to agree with their plain versions bit for bit. K5: 1e-4 (K1's
-reason), its pad channels exactly 0. P2's ``full`` is K1's own body and
+reason), its pad channels exactly 0. K1's bf16 mode: 1e-5 of the
+output's largest magnitude (exact bf16 products, float32 sums in another
+order), the bytes it staged equal to ``bf16_plan``'s, its cast bit for
+bit, a CUDA graph replay equal to the eager call bit for bit (it is
+deterministic). P2's ``full`` is K1's own body and
 must equal K1 bit for bit (and its plain version within 1e-4); ``noepi``,
 the bare conv summed in one float32 accumulator, within
 ``exp_ptail_ablate.noepi_tol`` (its error grows with the products summed).
@@ -122,6 +126,17 @@ def test_k1_every_n_tile(cuda_device, cout):
     torch.testing.assert_close(got, ref, **TOL)
 
 
+def _device_plan(x, cout, dil):
+    """``bf16_plan`` for this call on this card (its opt-in shared memory
+    and SM count)."""
+    props = torch.cuda.get_device_properties(x.device)
+    return tailconv.bf16_plan(
+        x.shape[0], x.shape[1], cout, *x.shape[2:], dil[1], dil[2],
+        smem=getattr(props, "shared_memory_per_block_optin",
+                     tailconv.H100_SMEM_OPTIN),
+        sms=props.multi_processor_count)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, cin, cout, sp, dil", [
     (1, 30, 40, (6, 64, 300), (1, 4, 4)),     # conv2-like, ragged y
@@ -129,31 +144,124 @@ def test_k1_every_n_tile(cuda_device, cout):
     (2, 3, 5, (5, 20, 30), (1, 2, 3)),        # batch, anisotropic dilation
     (2, 256, 128, (5, 23, 30), (1, 1, 1)),    # the U-Net's d1, a batch
     (1, 20, 7, (4, 9, 70), (1, 1, 1)),        # Cin padded 20 -> 32
+    (1, 20, 24, (6, 40, 301), (1, 2, 3)),     # Y % 4 != 0, Yo 295 (4-byte
+                                              # stores), dx != dy
+    (1, 30, 40, (4, 30, 40), (1, 4, 4)),      # Yo 32, below one tile
+    (1, 16, 16, (4, 12, 67), (1, 1, 1)),      # Yo 65, one past a tile
+    (1, 16, 16, (4, 7, 90), (1, 1, 1)),       # Xo 5 < a block's 8 rows
+    (1, 16, 128, (3, 9, 70), (1, 2, 1)),      # Xo 5 < a block's 4 rows
+    (1, 256, 64, (4, 10, 70), (1, 1, 2)),     # Cin 256, weights streamed
+    (1, 3, 45, (5, 40, 300), (1, 4, 4)),      # Cout 45 (N tile 48), Cin 3
+    (2, 20, 200, (4, 12, 70), (1, 3, 2)),     # Cout 200: two groups, N = 2
 ])
 def test_k1_bf16_matches_plain(cuda_device, n, cin, cout, sp, dil):
     """K1's bf16 mode against its plain version (a float32 conv of the
     bf16-rounded operands): within 1e-5 of the output's largest magnitude
-    (exact bf16 products, float32 sums in another order)."""
+    (exact bf16 products, float32 sums in another order); one launch
+    counted; the bytes it staged are ``bf16_plan``'s."""
     x, w, b = _inputs(18, n, cin, cout, sp, cuda_device)
     w = w * (2.0 / (27 * cin)) ** 0.5
     before = tailconv.bf16_launches
+    stats = tailconv.bf16_staging_stats(cuda_device)
+    stats.zero_()
     got = tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
     ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
     torch.cuda.synchronize()
     assert tailconv.bf16_launches == before + 1
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert int(stats.item()) == _device_plan(x, cout, dil)["staged_bytes"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cout", [1, 16, 24, 32, 40, 56, 64, 200])
+@pytest.mark.parametrize("cout", [1, 16, 24, 32, 40, 56, 64, 72, 96, 128,
+                                  200])
 def test_k1_bf16_every_n_tile(cuda_device, cout):
+    """Each N tile of the bf16 kernel (8 .. 64 and 128, Cout 72 and 96 in a
+    ragged 128 tile; Cout 200 as two 128-channel groups, the second
+    ragged)."""
     x, w, b = _inputs(19, 1, 11, cout, (4, 9, 70), cuda_device)
     w = w * (2.0 / (27 * 11)) ** 0.5
     got = tailconv.conv3x3_dilated(x, w, b, compute_dtype="bfloat16")
     ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin, sp", [(30, (3, 5, 70)), (20, (2, 3, 301)),
+                                     (256, (2, 4, 129))])
+def test_k1_bf16_cast_matches_plain(cuda_device, cin, sp):
+    """The bf16 mode's first kernel (x -> its bf16 copy) equals its plain
+    version bit for bit: round to nearest even, the channels past Cin
+    zero, any Y."""
+    x = _inputs(20, 2, cin, 1, sp, cuda_device)[0]
+    got = tailconv.bf16_layout(x)
+    torch.cuda.synchronize()
+    ref = tailconv.bf16_layout_reference(x)
+    assert got.shape == ref.shape
+    assert torch.equal(got.view(torch.int16),
+                       ref.contiguous().view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_k1_bf16_graph_replay_equals_eager(cuda_device):
+    """The bf16 kernels captured in a CUDA graph (the tensor map travels as
+    a kernel parameter, the scratch comes from the graph's pool) replay to
+    the eager output bit for bit, also on new input copied into the
+    captured buffer."""
+    x, w, b = _inputs(21, 1, 30, 40, (5, 40, 300), cuda_device)
+    w = w * (2.0 / (27 * 30)) ** 0.5
+    dil = (1, 4, 4)
+    eager = tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = tailconv.bf16_launches
+    with torch.cuda.graph(g, stream=side):
+        out = tailconv.conv3x3_dilated(x, w, b, dil,
+                                       compute_dtype="bfloat16")
+    assert tailconv.bf16_launches == before + 1
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2 = _inputs(22, 1, 30, 40, (5, 40, 300), cuda_device)[0]
+    x.copy_(x2)
+    g.replay()
+    want = tailconv.conv3x3_dilated(x2, w, b, dil, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_k1_bf16_reads_nothing_outside_x(cuda_device):
+    """x as one batch item, a contiguous slice of a buffer whose other items
+    are NaN: the output is finite and equal to the plain version's."""
+    n, cin, cout, sp, dil = 3, 20, 24, (5, 30, 301), (1, 2, 3)
+    buf = torch.full((n, cin) + sp, float("nan"), device=cuda_device)
+    x, w, b = _inputs(23, 1, cin, cout, sp, cuda_device)
+    w = w * (2.0 / (27 * cin)) ** 0.5
+    buf[1:2] = x
+    xs = buf[1:2]
+    assert xs.is_contiguous() and xs.data_ptr() != buf.data_ptr()
+    got = tailconv.conv3x3_dilated(xs, w, b, dil, compute_dtype="bfloat16")
+    ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k1_bf16_refuses_a_row_past_256(cuda_device):
+    """dy > 96: a staged row would pass 256 values; the wrapper raises and
+    counts no launch."""
+    x, w, b = _inputs(24, 1, 4, 4, (3, 5, 200), cuda_device)
+    before = tailconv.bf16_launches
+    with pytest.raises(ValueError, match="y-dilation"):
+        tailconv.conv3x3_dilated(x, w, b, (1, 1, 97),
+                                 compute_dtype="bfloat16")
+    assert tailconv.bf16_launches == before
 
 
 @pytest.mark.cuda

@@ -14,9 +14,16 @@ and ReLU fused. These tests hold what runs here:
   float32, so the two differ only by float32 sums in another order; both
   within 1e-6 of a float64 sum of the same rounded operands);
 - ``pack_weights_bf16``: the bf16 values of w, zero-padded, at the places
-  the kernel's descriptor reads, and a plain emulation of the kernel's
-  stage loop over the packed tiles (16-channel chunks, 3 ky shifts a stage,
-  partials added into the totals every 3 stages) within 1e-6 of float64;
+  the kernel's descriptor reads, each (chunk, kz) stage's 9 taps one
+  contiguous run; and a plain emulation of the kernel's data flow (the
+  bf16 copy of x in its (N, Z, X, CG, Y, 8) layout, the tile walk of
+  ``bf16_plan``, R + 2 staged rows of one x phase a (tile, 16-channel
+  chunk, kz) stage with zeros past every edge, the 9 (kx, ky) taps of a
+  row read at row + kx and y start ky dy, the stage's partials added into
+  float32-rounded totals) within 1e-6 of float64 and 1e-5 of the plain
+  version;
+- ``bf16_plan``: every output of every shape covered once by the tiles,
+  the staged bytes the kernel counts, the tile choice, the refusals;
 - the dispatch: ``compute_dtype`` is checked, the CPU runs the plain
   version and counts no launch.
 """
@@ -48,6 +55,11 @@ def _inputs(seed, n, cin, cout, sp):
          * (2.0 / (27 * cin)) ** 0.5).astype(np.float32)
     b = (rng.rand(cout) * 0.2 - 0.1).astype(np.float32)
     return x, w, b
+
+
+def n_tile(cout):
+    """The bf16 kernel's N tile for ``cout`` (``bf16_plan``'s)."""
+    return tailconv.bf16_plan(1, 16, cout, 4, 9, 70, 1, 1)["NP"]
 
 
 def f64_of_rounded(x, w, b, dil):
@@ -92,7 +104,7 @@ def unpack_bf16(wp, cout, cin):
                                        (5, 3)])
 def test_pack_weights_bf16_layout(cout, cin):
     w = torch.from_numpy(_inputs(22, 1, cin, cout, (3, 3, 3))[1])
-    NP = tailconv.n_tile(cout)
+    NP = n_tile(cout)
     wp = tailconv.pack_weights_bf16(w, NP)
     G, CC = -(-cout // NP), -(-cin // 16)
     assert wp.dtype == torch.bfloat16
@@ -103,15 +115,16 @@ def test_pack_weights_bf16_layout(cout, cin):
     pad = full.clone()
     pad[:cout, :cin] = 0
     assert not pad.float().abs().sum()
-    # the bytes of one ky tile: core matrices of 8 rows x 16 bytes, the two
-    # k halves 128 bytes apart, the 8-row groups 256 bytes apart
+    # the bytes of one tap: core matrices of 8 rows x 16 bytes, the two k
+    # halves 128 bytes apart, the 8-row groups 256 bytes apart; a (group,
+    # chunk, kz) stage's 9 taps one run of 9 NP 32 bytes, (kx, ky) in order
     flat = wp.reshape(-1).view(torch.int16)
     g, cc, kz, kx, ky, co, ci = 0, CC - 1, 1, 2, 0, min(cout, NP) - 1, 3
     cc_ci = (CC - 1) * 16 + ci
     if cc_ci < cin:
-        tile = (((g * CC + cc) * 3 + kz) * 3 + kx) * 3 + ky
-        off = (tile * NP * 16 + (co // 8) * 128 + (ci // 8) * 64
-               + (co % 8) * 8 + ci % 8)
+        stage = (g * CC + cc) * 3 + kz
+        off = (stage * 9 * NP * 16 + (kx * 3 + ky) * NP * 16
+               + (co // 8) * 128 + (ci // 8) * 64 + (co % 8) * 8 + ci % 8)
         assert flat[off] == w[co, cc_ci, kz, kx, ky].bfloat16().view(
             torch.int16)
     # the packed copy is cached per weight tensor, apart from the TF32 one
@@ -120,49 +133,174 @@ def test_pack_weights_bf16_layout(cout, cin):
     assert tailconv.packed_weights(w, NP).dtype == torch.float32
 
 
+def stage_rows(xb, n, z, xs, y0, ys, cc):
+    """The R + 2 TMA boxes of a stage as the kernel stages them: for each x
+    in ``xs``, channel groups 2cc, 2cc + 1, y0 .. y0 + ys - 1 of plane z,
+    zeros past X and Y; (rows, 2, ys, 8) float64."""
+    _, _, X, _, Y, _ = xb.shape
+    out = torch.zeros(len(xs), 2, ys, 8, dtype=torch.float64)
+    hi = min(Y, y0 + ys)
+    for j, x in enumerate(xs):
+        if x < X and hi > y0:
+            out[j, :, :hi - y0] = xb[n, z, x, 2 * cc:2 * cc + 2, y0:hi].double()
+    return out
+
+
 def emulate_kernel(x, wp, b, dil, cout):
-    """The kernel's stage loop in plain PyTorch (float64 sums): per
-    16-channel chunk, kz, kx (a stage) and ky, the bf16 input rows times the
-    packed tile; the partials of 3 stages added into the totals; bias,
-    ReLU."""
+    """The kernel's data flow in plain PyTorch (float64 products, float32
+    totals): the tiles of ``bf16_plan`` in its order, per tile and (chunk,
+    kz) stage the R + 2 staged rows of the tile's x phase, per output row i
+    the 9 taps (A = staged row i + kx from y ky dy: a 64 x 16 tile, K-major
+    by channel group; B = the packed tap) summed into fresh partials, then
+    added into the row's totals, rounded to float32 as the kernel's FADD
+    does; bias, ReLU; only outputs inside the volume written."""
     n, cin, Z, X, Y = x.shape
     _, dx, dy = dil
-    zo, xo, yo = Z - 2, X - 2 * dx, Y - 2 * dy
-    G, CC = wp.shape[:2]
-    NP = wp.shape[5] * 8
-    xb = F.pad(x.bfloat16().double(), (0, 0, 0, 0, 0, 0, 0, CC * 16 - cin))
-    tiles = wp.double().permute(0, 1, 2, 3, 4, 6, 8, 5, 7).reshape(
+    zo_n, xo_n, yo_n = Z - 2, X - 2 * dx, Y - 2 * dy
+    plan = tailconv.bf16_plan(n, cin, cout, Z, X, Y, dx, dy)
+    NP, R, G = plan["NP"], plan["R"], plan["G"]
+    assert tuple(wp.shape[:2]) == (G, -(-cin // 16))
+    CC = wp.shape[1]
+    taps = wp.double().permute(0, 1, 2, 3, 4, 6, 8, 5, 7).reshape(
         G, CC, 3, 3, 3, 16, NP)                 # (..., k, n)
-    out = torch.zeros(n, G * NP, zo, xo, yo, dtype=torch.float64)
-    for g in range(G):
-        acc = torch.zeros(n, NP, zo, xo, yo, dtype=torch.float64)
-        part = torch.zeros_like(acc)
-        steps = CC * 9
-        for s in range(steps):
-            cc, tap = divmod(s, 9)
-            kz, kx = divmod(tap, 3)
-            for ky in range(3):
-                a = xb[:, cc * 16:(cc + 1) * 16, kz:kz + zo,
-                       kx * dx:kx * dx + xo, ky * dy:ky * dy + yo]
-                part += torch.einsum("bkzxy,kn->bnzxy", a,
-                                     tiles[g, cc, kz, kx, ky])
-            if s % 3 == 2 or s == steps - 1:
-                acc += part
-                part.zero_()
-        out[:, g * NP:(g + 1) * NP] = acc
-    return torch.relu(out[:, :cout] + b.double().view(1, -1, 1, 1, 1))
+    xb = tailconv.bf16_layout(x)
+    ys = plan["ys"]
+    xtp = -(-(-(-xo_n // dx)) // R)
+    ytiles = -(-yo_n // 64)
+    out = torch.full((n, cout, zo_n, xo_n, yo_n), float("nan"),
+                     dtype=torch.float64)
+    for t in range(plan["ntiles"]):
+        zo, r = t % zo_n, t // zo_n
+        g, r = r % G, r // G
+        y0, r = (r % ytiles) * 64, r // ytiles
+        xt, nn = r % (dx * xtp), r // (dx * xtp)
+        px, i0 = xt % dx, (xt // dx) * R
+        tot = torch.zeros(R, 64, NP, dtype=torch.float32)
+        for s in range(CC * 3):
+            cc, kz = divmod(s, 3)
+            rows = stage_rows(xb, nn, zo + kz,
+                              [px + dx * (i0 + j) for j in range(R + 2)],
+                              y0, ys, cc)
+            for i in range(R):
+                part = torch.zeros(64, NP, dtype=torch.float64)
+                for kx in range(3):
+                    for ky in range(3):
+                        a = rows[i + kx, :, ky * dy:ky * dy + 64]
+                        a = a.permute(1, 0, 2).reshape(64, 16)
+                        part += a @ taps[g, cc, kz, kx, ky]
+                tot[i] += part.float()
+        co = slice(g * NP, min(cout, (g + 1) * NP))
+        nco = co.stop - co.start
+        for i in range(R):
+            xo = px + dx * (i0 + i)
+            yv = min(64, yo_n - y0)
+            if xo < xo_n:
+                v = tot[i, :yv, :nco].double() + b[co].double()
+                out[nn, co, zo, xo, y0:y0 + yv] = torch.relu(v).T
+    assert not torch.isnan(out).any(), "an output no tile wrote"
+    return out
 
 
 @pytest.mark.parametrize("n, cin, cout, sp, dil", CASES)
 def test_kernel_emulation_matches_f64(n, cin, cout, sp, dil):
     x, w, b = (torch.from_numpy(a) for a in _inputs(23, n, cin, cout, sp))
-    wp = tailconv.pack_weights_bf16(w, tailconv.n_tile(cout))
+    wp = tailconv.pack_weights_bf16(w, n_tile(cout))
     got = emulate_kernel(x, wp, b, dil, cout)
     ref = f64_of_rounded(x.numpy(), w.numpy(), b.numpy(), dil)
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= F64_REL * scale
     plain = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
     assert float((plain.double() - got).abs().max()) <= REL * scale
+
+
+@pytest.mark.parametrize("cout, want", [(1, 8), (5, 8), (40, 40), (64, 64),
+                                        (65, 128), (96, 128), (128, 128),
+                                        (200, 128)])
+def test_bf16_plan_tile_choice(cout, want):
+    """The N tile: Cout rounded up to 8 up to 64, else 128-channel groups;
+    4 m64 tiles a warpgroup up to N 64, 2 above (8 or 4 rows a block)."""
+    plan = tailconv.bf16_plan(1, 16, cout, 4, 9, 70, 1, 1)
+    assert plan["NP"] == want and plan["G"] == -(-cout // want)
+    assert plan["T"] == (4 if want <= 64 else 2) and plan["R"] == 2 * plan["T"]
+
+
+PLAN_SHAPES = [  # n, cin, cout, (Z, X, Y), (dx, dy)
+    (1, 30, 40, (124, 512, 512), (4, 4)),      # the flagship's conv2
+    (1, 40, 40, (122, 504, 504), (4, 4)),      # conv3
+    (1, 256, 128, (130, 230, 230), (1, 1)),    # the wide U-Net's d1
+    (2, 3, 5, (5, 20, 30), (2, 3)),
+    (1, 30, 45, (5, 40, 300), (4, 4)),
+    (1, 11, 200, (4, 9, 70), (1, 1)),
+    (1, 20, 24, (6, 40, 301), (2, 3)),
+]
+
+
+@pytest.mark.parametrize("n, cin, cout, sp, dil", PLAN_SHAPES)
+def test_bf16_plan_covers_every_output_once(n, cin, cout, sp, dil):
+    Z, X, Y = sp
+    dx, dy = dil
+    plan = tailconv.bf16_plan(n, cin, cout, Z, X, Y, dx, dy)
+    R, G = plan["R"], plan["G"]
+    zo_n, xo_n, yo_n = Z - 2, X - 2 * dx, Y - 2 * dy
+    xtp = -(-(-(-xo_n // dx)) // R)
+    ytiles = -(-yo_n // 64)
+    assert plan["ntiles"] == n * dx * xtp * ytiles * G * zo_n
+    # a tile's rows: one x phase, R apart in the phase; counted per
+    # (n, zo, xo, y tile, group)
+    hits = np.zeros((n, zo_n, xo_n, ytiles, G), dtype=np.int64)
+    for xt in range(dx * xtp):
+        px, i0 = xt % dx, (xt // dx) * R
+        for i in range(R):
+            xo = px + dx * (i0 + i)
+            if xo < xo_n:
+                hits[:, :, xo] += 1
+        # the staged rows: R + 2 of the same phase, the last one the kx = 2
+        # tap of the last row
+        assert px + dx * (i0 + R + 1) == px + dx * (i0 + R - 1) + 2 * dx
+    assert (hits == 1).all()
+    # shared memory within the card's opt-in, the ring at least 2 deep
+    assert plan["smem"] <= tailconv.H100_SMEM_OPTIN and plan["stages"] >= 2
+    assert plan["rsb"] % 128 == 0 and plan["rsb"] >= 32 * plan["ys"]
+
+
+def test_bf16_plan_main_path_shapes():
+    """The flagship's weights are held in shared memory for the launch and
+    staged once a block; d1's (1.77 MB) are streamed a stage at a time, each
+    stage shared by 4 m64 tiles; the staged bytes are what the kernel
+    counts: R + 2 rows a (tile, chunk, kz) stage, plus the weights."""
+    c2 = tailconv.bf16_plan(1, 30, 40, 124, 512, 512, 4, 4)
+    assert c2["resident"] and c2["NP"] == 40 and c2["R"] == 8
+    wres = 2 * 27 * 40 * 32
+    box = 32 * c2["ys"]
+    assert c2["staged_bytes"] == (c2["ntiles"] * 6 * (c2["R"] + 2) * box
+                                  + c2["grid"] * wres)
+    d1 = tailconv.bf16_plan(1, 256, 128, 130, 230, 230, 1, 1)
+    assert not d1["resident"] and d1["R"] == 4 and d1["NP"] == 128
+    assert d1["staged_bytes"] == d1["ntiles"] * 48 * (
+        6 * 32 * 66 + 9 * 128 * 32)
+    # the first design staged 52.6 GB at conv2 and 165.7 GB at d1 (its own
+    # count on an H100); this one a sixth and under half of that
+    assert c2["staged_bytes"] < 52.6e9 / 6
+    assert d1["staged_bytes"] < 165.7e9 / 2
+
+
+def test_bf16_plan_refusals_and_scratch():
+    with pytest.raises(ValueError, match="y-dilation"):
+        tailconv.bf16_plan(1, 4, 4, 5, 10, 300, 1, 97)
+    assert tailconv.bf16_plan(1, 4, 4, 5, 10, 300, 1, 96)["ys"] == 256
+    # the scratch: (n, Z, X, CG, Y, 8) bf16
+    assert tailconv.bf16_scratch_bytes(2, 30, 5, 7, 9) == 2 * 5 * 7 * 4 * 9 * 16
+    # the bf16 copy of x (the first kernel; on the CPU its plain version)
+    x = torch.from_numpy(_inputs(25, 2, 20, 4, (3, 4, 5))[0])
+    xb = tailconv.bf16_layout(x)
+    assert xb.dtype == torch.bfloat16 and xb.is_contiguous()
+    assert tuple(xb.shape) == (2, 3, 4, 4, 5, 8)
+    assert xb.numel() * 2 == tailconv.bf16_scratch_bytes(2, 20, 3, 4, 5)
+    assert torch.equal(xb, tailconv.bf16_layout_reference(x))
+    assert torch.equal(xb[1, 2, 3, 1, 4], x[1, 8:16, 2, 3, 4].bfloat16())
+    assert not xb[:, :, :, 2, :, 4:].float().abs().sum()   # channels 20-23
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tailconv.bf16_layout(x.transpose(3, 4))
 
 
 def test_dispatch_and_launch_count():
@@ -182,3 +320,9 @@ def test_dispatch_and_launch_count():
     with pytest.raises(TypeError, match="float32"):
         tailconv.conv3x3_dilated(x.bfloat16(), w, b,
                                  compute_dtype="bfloat16")
+    # a y-dilation past the staged row: refused on the card, run on the CPU
+    xw = torch.from_numpy(_inputs(26, 1, 2, 2, (3, 4, 200))[0])
+    wy = torch.from_numpy(_inputs(26, 1, 2, 2, (3, 4, 200))[1])
+    bw = torch.zeros(2)
+    assert tailconv.conv3x3_dilated(xw, wy, bw, (1, 1, 97),
+                                    compute_dtype="bfloat16").shape[-1] == 6
