@@ -83,7 +83,9 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
    ReLU fused), which no serving route takes, as in the JAX package: its
    main path is the direct call at the flagship's conv2 and conv3 (two
    launches, counted alone); each of ``K1_BF16_CASES`` (those two, the wide
-   U-Net's d1, three ragged shapes, one with Y % 4 != 0) within 1e-5 of
+   U-Net's d1, three ragged shapes, one with Y % 4 != 0, and dy 97, 128
+   and 200, past one TMA box a row: three boxes of 64, one per ky) within
+   1e-5 of
    the output's largest magnitude of its plain version (a float32 conv of
    the bf16-rounded operands), with the bytes it staged into shared memory
    (its own count) equal to ``bf16_plan``'s; at the three main-path shapes
@@ -139,13 +141,15 @@ legs removed one at a time, ``csrc/ptail_ablate.cu``). Phases:
 9. trace_kzip: ``trace_batch(save_kzip=...)`` on a few agents, read back by
    the port's NML parser; then ``ShotgunRegistry.run`` drains 2*B seeds;
 10. kernel (``rotated_patches_bf16``): K3's bf16 mode against its plain
-    version (the same bf16 arithmetic in PyTorch; atol ``K3_ATOL``, bit
-    for bit expected and reported, ``ok`` equal except near a bound) at
-    the rotated tracer's shape, an anisotropic patch (Y % 8 == 0), the ok
-    boundary and a ragged Y; at the tracer's shape timed with its plain
-    version and the float32 mode (``graph_ms``), its bound (bf16 windows),
-    the values it stages (its own count, 2 bytes each) and both modes'
-    error against float64 (50th / 99th percentile, max);
+    version (the same bf16 arithmetic in PyTorch; bit for bit, a hard
+    gate, ``ok`` equal to the float32 kernel's, a hard gate, and to the
+    plain version's except near a bound) at the rotated tracer's shape, an
+    anisotropic patch (Y % 8 == 0), the ok boundary and a ragged Y; no
+    item left unstaged; at the tracer's shape timed with its plain version
+    and the float32 mode in the same graph replays (``graph_ms``), its
+    bound (bf16 windows), the values it stages (its own count: two a pair
+    word written, 2 bytes each) and both modes' error against float64
+    (50th / 99th percentile, max);
 11. trace_pool: the translation pools at B=1024, K=256, a queue of 8B
     seeds (``trace_pool`` through its entry point under ``torch.profiler``:
     the device counts K2's launches; every consumed seed decoded once), the
@@ -792,6 +796,10 @@ K1_BF16_CASES = [
     ("ragged_cout45", 1, 30, 45, (5, 40, 300), (1, 4, 4)),
     # Y % 4 != 0: no float32 tensor map could stage it; Yo 295, 4-byte stores
     ("ragged_y301", 1, 20, 24, (6, 40, 301), (1, 2, 3)),
+    # dy > 96: a row staged as three TMA boxes of 64 values, one per ky
+    ("dy97", 1, 30, 40, (6, 24, 260), (1, 4, 97)),
+    ("dy128", 1, 30, 40, (6, 24, 320), (1, 4, 128)),
+    ("dy200", 1, 20, 24, (5, 20, 471), (1, 2, 200)),
 ]
 #: K1 bf16 against its plain version: of the output's largest magnitude
 #: (exact bf16 products, float32 sums in another order)
@@ -857,8 +865,8 @@ def phase_kernel_k1_bf16():
                    max_abs_ref=scale, tol=K1_BF16_REL * scale,
                    staged_bytes=staged,
                    plan={k: plan[k] for k in ("NP", "R", "resident",
-                                              "stages", "ntiles",
-                                              "staged_bytes")})
+                                              "stages", "ntiles", "ys",
+                                              "segmented", "staged_bytes")})
         del got, ref
         if sp[0] > 8:
             xs = x[:, :, :F64_PLANES].contiguous()
@@ -2441,16 +2449,17 @@ def k3_errors_vs_f64(vol, pos, F, patch, got_f32, got_bf16):
 
 def phase_kernel_k3_bf16():
     """K3's bf16 mode against its plain version (the same bf16 arithmetic in
-    PyTorch; ``assert_close`` atol ``K3_ATOL``, bit for bit expected and
-    reported, ``ok`` as in ``phase_kernel_k3``) on ``k3_cases`` (the rotated
+    PyTorch; bit for bit, a hard gate; ``ok`` equal to the float32
+    kernel's, a hard gate, and as in ``phase_kernel_k3``) on ``k3_cases``
+    (the rotated
     tracer's shape, B = 512 at 16^3, an anisotropic patch with two channels
     and Y % 8 == 0, the ok boundary) and a case with Y % 8 != 0 (the
     unaligned instance). At the tracer's shape: device ms per launch from
     graph replays (``graph_ms``: the plain version, the bf16 kernel and the
     float32 kernel in turns), its bound (bf16 windows, float32 patches and
     inputs at 3.35 TB/s against its FLOPs at the FP32 peak), the values it
-    stages (its own count, 2 bytes each) and both modes' errors against
-    float64 (``k3_errors_vs_f64``). No single PyTorch call computes it:
+    stages (its own count: two a pair word written, 2 bytes each) and both
+    modes' errors against float64 (``k3_errors_vs_f64``). No single PyTorch call computes it:
     ``grid_sample`` has no ``ok`` and no bf16 rounding of its operands.
     Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)."""
     rng = np.random.RandomState(SEED + 12)
@@ -2470,6 +2479,7 @@ def phase_kernel_k3_bf16():
         ref, ok_ref = extract_rot.rotated_patches_bf16_reference(vb, pos, F,
                                                                  patch)
         unstaged, staged = stats.tolist()
+        _, ok32 = extract_rot.rotated_patches(vol, pos, F, patch)
         if extract_rot.launches_bf16 != before + 1:
             raise AssertionError(f"K3 bf16 {name}: the wrapper did not count "
                                  "its launch")
@@ -2477,6 +2487,12 @@ def phase_kernel_k3_bf16():
             raise AssertionError(f"K3 bf16 {name}: {unstaged} items not "
                                  "staged")
         torch.testing.assert_close(got, ref, atol=K3_ATOL, rtol=0)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 bf16 {name}: not bit for bit its plain "
+                                 "version")
+        if not torch.equal(ok, ok32):
+            raise AssertionError(f"K3 bf16 {name}: ok differs from the "
+                                 "float32 kernel's")
         near = near_bound_agents(vol.shape, pos, F, patch)
         differ = (ok != ok_ref).cpu().numpy()
         if (differ & ~near).any():

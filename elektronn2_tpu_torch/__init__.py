@@ -6,20 +6,21 @@ modelload``, ``Model.predict_dense_device``, ``ops.mfp.fragments2dense``, …)
 so a reader finds each counterpart. It imports ``torch`` and never ``jax``,
 and never the JAX package: jax-free host code is copied.
 
-Ported so far, with their kernels hand-written in CUDA for Hopper: the dense
-MFP inference slice of the flagship net, with the tail-conv kernel K1
-(``ops/tailconv.py`` + ``csrc/tailconv.cu``), and fused agent tracing
-(``data/tracing_utils.py``), with the patch kernels K2 (``ops/extract.py`` +
-``csrc/extract.cu``) and K3 (``ops/extract_rot.py`` +
-``csrc/extract_rot.cu``); U-Net conv-dense serving with K1 and the head-unit
-kernel K4; training (``neuromancer/optimiser.py``, ``Model.trainingstep``,
-on-device augmentation in ``ops/warp.py`` and ``training/fused_loop.py``,
-one CUDA graph per chunk of K steps), whose convs stay cuDNN's as the JAX
-package leaves them to XLA; the training entry point (``scripts/train.py``
-on the example configs through ``config.py``, ``training/trainer.py``, the
-host data pipeline in ``data/`` and ``HostFedFusedLoop``); data-parallel
-training over a ``torch.distributed`` mesh (``parallel/``,
-``Model.use_mesh``). ROADMAP.md lists what is still to come.
+It does all that the JAX package does: neuromancer node graphs and the
+``Model`` API; MFP dense inference, the dilated dense sweep and its
+lowerings; U-Net conv-dense serving; bf16, float16 and int8 serving and the
+serving tuner; training with on-device augmentation (``ops/warp.py``,
+``training/fused_loop.py``, one CUDA graph per chunk of K steps) and the
+training entry point (``scripts/train.py``, ``training/trainer.py``);
+recurrent agent tracing (``data/tracing_utils.py``); KNOSSOS sweeps, MALIS
+and the CLIs; data, tensor, spatial and pipeline parallelism over a
+``torch.distributed`` mesh (``parallel/``, ``Model.use_mesh``). Every
+Pallas kernel of the JAX package has a hand-written Hopper counterpart in
+``csrc/`` behind a wrapper in ``ops/``: the tail conv K1 (float32 and bf16,
+``ops/tailconv.py``), the head-unit conv K4, the patch kernels K2
+(``ops/extract.py``) and K3 (float32 and bf16, ``ops/extract_rot.py``),
+the dilated conv K5 and the probes P1 and P2. Work the JAX package leaves to
+XLA runs as plain PyTorch (cuDNN, cuBLAS).
 """
 
 __version__ = "0.1.0"

@@ -48,6 +48,11 @@
 //    start in 16-byte units: any dy), its core matrices 8 consecutive
 //    16-byte rows (SBO 128), the chunk's two channel groups 16 (64 + 2dy)
 //    bytes apart (LBO). The nine `wgmma`s of a tile issue back to back.
+//    A box holds at most 256 values a dimension, so past dy = 96 a row is
+//    staged segmented: three boxes of 2 x 64 x 8, one per ky, from y0 +
+//    ky dy, 2048 bytes apart; tap (kx, ky) then starts at segment ky of
+//    row i + kx and the groups lie 1024 bytes apart. That stages 192
+//    values a row, not 64 + 2dy.
 //  - B, the weights (ops/tailconv.py::pack_weights_bf16: one stage's 9 taps
 //    contiguous, each tap the K-major core-matrix tile of LBO 128, SBO
 //    256), comes from shared memory too: held for the whole launch when one
@@ -270,7 +275,10 @@ struct Params {
   int xtp;                      // block tiles per x phase
   int ytiles, ntiles, stages, resident;
   uint32_t rsb;                 // shared-memory stride of a staged row
-  uint32_t ys;                  // staged y values of a row: 64 + 2dy
+  uint32_t ys;                  // staged y values of a row: 64 + 2dy, or
+                                // 192 segmented (3 boxes of 64)
+  uint32_t bys;                 // y values of one TMA box (ys, or 64)
+  uint32_t kyoff;               // bytes from tap ky to ky + 1 in a row
   uint32_t slot_bytes, wres_bytes, ring, epi;
 };
 
@@ -347,9 +355,17 @@ tailconv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
         const uint32_t full = full0 + 8 * slot;
         const uint32_t dst = ring + slot * p.slot_bytes;
         mbar_expect_tx(full, tx);
-        for (int j = 0; j < R + 2; ++j)
-          tma_load5(dst + j * p.rsb, &xmap, full, 0, tl.y0, 2 * cc,
-                    tl.px + p.dx * (tl.i0 + j), tl.n * p.Z + tl.zo + kz);
+        for (int j = 0; j < R + 2; ++j) {
+          const int xr = tl.px + p.dx * (tl.i0 + j);
+          const int zr = tl.n * p.Z + tl.zo + kz;
+          if (p.bys == p.ys) {
+            tma_load5(dst + j * p.rsb, &xmap, full, 0, tl.y0, 2 * cc, xr, zr);
+          } else {
+            for (int ky = 0; ky < 3; ++ky)
+              tma_load5(dst + j * p.rsb + ky * p.kyoff, &xmap, full, 0,
+                        tl.y0 + ky * p.dy, 2 * cc, xr, zr);
+          }
+        }
         if (!p.resident)
           bulk_load(dst + (R + 2) * p.rsb,
                     p.wp + (static_cast<int64_t>(tl.g) * nsteps + s) * WSTAGE,
@@ -373,9 +389,9 @@ tailconv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
   const int lane = tid & 31;
   const int q = lane & 3;
   const int m0 = 16 * (tid >> 5) + (lane >> 2);
-  const uint64_t a_hi = desc_hi(16 * p.ys, 128);
+  const uint64_t a_hi = desc_hi(16 * p.bys, 128);
   constexpr uint64_t b_hi = desc_hi(128, 256);
-  const uint32_t dy16 = 16 * p.dy;
+  const uint32_t kyoff = p.kyoff;
   float* epis = reinterpret_cast<float*>(smem_raw + (base - raw) + p.epi)
                 + wg * EPC * EPS;
   const int64_t plane = static_cast<int64_t>(p.Xo) * p.Yo;
@@ -406,7 +422,7 @@ tailconv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
           for (int ky = 0; ky < 3; ++ky)
-            MmaSS<NP>::run(part, desc(a + kx * p.rsb + ky * dy16, a_hi),
+            MmaSS<NP>::run(part, desc(a + kx * p.rsb + ky * kyoff, a_hi),
                            desc(w + (kx * 3 + ky) * TAPB, b_hi), kx + ky);
         wgmma_commit();
         wgmma_wait<0>();
@@ -533,8 +549,12 @@ int launch(const float* x, void* xb, const unsigned char* wp,
   p.Yo = Y - 2 * dy;
   p.dx = dx;
   p.dy = dy;
-  p.ys = 64 + 2 * dy;
-  if (p.ys > 256) return static_cast<int>(cudaErrorInvalidValue);
+  // a TMA box holds at most 256 values a dimension: past dy = 96 a row is
+  // three boxes of 64, one per ky
+  const bool segmented = 64 + 2 * dy > 256;
+  p.bys = segmented ? 64 : 64 + 2 * dy;
+  p.ys = segmented ? 3 * 64 : p.bys;
+  p.kyoff = segmented ? 32 * 64 : 16 * dy;
   p.rsb = (32 * p.ys + 127) / 128 * 128;
   const int xp = (p.Xo + dx - 1) / dx;        // rows of the longest phase
   p.xtp = (xp + R - 1) / R;
@@ -572,7 +592,8 @@ int launch(const float* x, void* xb, const unsigned char* wp,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // 2. its tensor map: (8 channels, Y, CG, X, N Z), boxes of (8, 64 + 2dy,
-  // 2, 1, 1); coordinates past an edge read as zeros
+  // 2, 1, 1), or (8, 64, 2, 1, 1) segmented; coordinates past an edge read
+  // as zeros
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map;
@@ -582,7 +603,7 @@ int launch(const float* x, void* xb, const unsigned char* wp,
                               static_cast<cuuint64_t>(N) * Z};
   const cuuint64_t strides[4] = {16, 16ull * Y, 16ull * Y * CG,
                                  16ull * Y * CG * X};
-  const cuuint32_t box[5] = {8, p.ys, 2, 1, 1};
+  const cuuint32_t box[5] = {8, p.bys, 2, 1, 1};
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
   if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, xb, dims, strides,
              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -614,8 +635,8 @@ int launch(const float* x, void* xb, const unsigned char* wp,
 //   y      (N, Cout, Z-2, X-2dx, Y-2dy) float32, written
 //   staged one uint64 the kernel adds the bytes it staged to
 // Launches on `stream` and returns a cudaError_t (0 on success);
-// cudaErrorInvalidValue for a shape it refuses (dy > 96: a staged row is
-// at most 256 values).
+// cudaErrorInvalidValue for a shape it refuses (an empty output, a ring of
+// two stages that does not fit the card's shared memory).
 extern "C" int e2t_tailconv_bf16(const float* x, void* xb, const void* wp,
                                  const float* bias, float* y,
                                  unsigned long long* staged, int N, int Cin,

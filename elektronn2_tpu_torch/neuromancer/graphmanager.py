@@ -128,6 +128,11 @@ class GraphManager:
         graph: seeded by :meth:`reset`)."""
         return self._rng
 
+    @property
+    def sinks(self):
+        """Nodes nobody consumes (graph outputs), in registration order."""
+        return [n for n in self.nodes.values() if not n.children]
+
     def getmodel(self, name=None):
         from .model import Model
         return Model(self, name=name or self.name)
@@ -154,10 +159,12 @@ class GraphManager:
         return descriptors, arrays
 
     @classmethod
-    def replay(cls, descriptors, arrays):
+    def replay(cls, descriptors, arrays, batch_size_override=None):
         """Reconstruct a graph by re-running node constructors (the model
-        loading mechanism). A node class this port does not have yet raises
-        ``NotImplementedError`` naming it."""
+        loading mechanism). An unknown node class raises
+        ``NotImplementedError`` naming it. ``batch_size_override`` is
+        accepted and ignored, as in the JAX package: a node's batch size
+        comes from its replayed constructor arguments."""
         gm = cls()
         push_manager(gm)
         try:
@@ -165,9 +172,8 @@ class GraphManager:
                 klass = NODE_CLASSES.get(d["cls"])
                 if klass is None:
                     raise NotImplementedError(
-                        f"node class {d['cls']!r} (node {d['name']!r}) is not "
-                        f"ported to elektronn2_tpu_torch yet (ROADMAP.md §1); "
-                        f"ported: {sorted(NODE_CLASSES)}")
+                        f"unknown node class {d['cls']!r} (node "
+                        f"{d['name']!r}); known: {sorted(NODE_CLASSES)}")
                 args = [_decode_arg(a, arrays, gm.nodes) for a in d["args"]]
                 kwargs = {k: _decode_arg(v, arrays, gm.nodes)
                           for k, v in d["kwargs"].items()}

@@ -23,6 +23,11 @@ from .graphmanager import register_node_class
 from .graphutils import TaggedShape
 
 
+#: ``TraceCtx(compute_dtype=...)`` by name -> the Conv operands' dtype
+_TRACE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                 "float32": None, "int8": None}
+
+
 class TraceCtx:
     """Per-evaluation context threaded through ``Node._compute``.
 
@@ -59,7 +64,8 @@ class TraceCtx:
     sets them on its own context, every other evaluation leaves them off.
     ``compute_dtype`` (``Model.set_compute_dtype``) is the torch dtype of the
     Conv operands, or None for float32; the int8 mode is dense serving only
-    and leaves it None. ``Model.set_train_lowering`` sets
+    and leaves it None. The constructor also takes it by name, as the JAX
+    package's does ("bfloat16", "float16"; "int8" and "float32" give None). ``Model.set_train_lowering`` sets
     ``convdense_zfold`` and ``convdense_skipsum`` on the node trace too.
     The ``quant_*`` fields belong to int8 whole-volume serving
     (``inference.convolutional_dense_forward``): ``quant_serving`` runs the
@@ -85,7 +91,10 @@ class TraceCtx:
     convdense_ptail = False
 
     def __init__(self, params, feed, rng=None, train=False, state_in=None,
-                 noise_in=None):
+                 noise_in=None, compute_dtype=None):
+        if compute_dtype is not None:
+            self.compute_dtype = _TRACE_DTYPES.get(compute_dtype,
+                                                   compute_dtype)
         self.params = params or {}
         self.feed = feed or {}
         self.values = {}

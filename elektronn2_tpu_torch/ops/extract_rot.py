@@ -26,9 +26,10 @@ The bf16 mode (:func:`rotated_patches_bf16`) is the TPU kernel's
 axis are non-zero, so a sample is ``sum_y wy[y] * sum_{z,x} bf16(wz*wx) *
 v[z,x,y]`` with bf16 volume values, products exact in float32 and float32
 sums. It reads a bf16 copy of the volume (the caller makes it once) and
-stages half-width values; its coordinates, weights and ``ok`` are the
-float32 mode's. :func:`rotated_patches_bf16_reference` is its plain
-version, bit for bit the kernel's arithmetic.
+stages each box as pair words (both dy corners of a row in one 32-bit word,
+:func:`pair_pitches`); its coordinates, weights and ``ok`` are the float32
+mode's. :func:`rotated_patches_bf16_reference` is its plain version, bit
+for bit the kernel's arithmetic.
 
 Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. ``launches`` and ``launches_bf16`` count
@@ -66,8 +67,8 @@ def build():
         c = lib.cdll
         P, I = ctypes.c_void_p, ctypes.c_int
         c.e2t_rotated_patches_init.argtypes = [P]
-        for fn in (c.e2t_rotated_patches_f32, c.e2t_rotated_patches_bf16):
-            fn.argtypes = [P] * 6 + [I] * 9 + [P]
+        c.e2t_rotated_patches_f32.argtypes = [P] * 6 + [I] * 9 + [P]
+        c.e2t_rotated_patches_bf16.argtypes = [P] * 6 + [I] * 11 + [P]
         for fn in (c.e2t_rotated_patches_init, c.e2t_rotated_patches_f32,
                    c.e2t_rotated_patches_bf16):
             fn.restype = I
@@ -84,11 +85,40 @@ def box_edge(patch):
 
 
 def row_values(n, elem_bytes=4):
-    """Values a staged row of ``n`` voxels takes in shared memory: the
-    16-byte pieces (4 floats or 8 bf16 values) that cover n values from any
-    offset within 16 bytes (``stage_rows16`` in ``csrc/cp_async.cuh``)."""
+    """Values a staged row of ``n`` voxels takes in the float32 mode's
+    window: the 16-byte pieces (4 floats; 8 values of 2 bytes) that cover n
+    values from any offset within 16 bytes (``stage_rows16`` in
+    ``csrc/cp_async.cuh``)."""
     per = 16 // elem_bytes
     return per * ((n + 2 * per - 2) // per)
+
+
+def pair_pitches(patch, vol_shape):
+    """``(row_words, plane_words, planes)`` of the bf16 mode's pair window
+    for ``patch`` in a volume of ``vol_shape`` (f, Z, X, Y): word j of a
+    staged row holds the bf16 values at y and y + 1 (``csrc/extract_rot.cu``,
+    "the pair window"). A row takes the box's y edge + 1 words (the last
+    8-byte pair of words may run one past the last word read), rounded up
+    to even and then to 2 mod 4; a plane the x edge's rows and 6 words; the
+    window ``planes`` planes. The pitches spread the rows a warp's samples
+    touch over the shared-memory banks. Edges are ``box_edge`` clipped to
+    the volume."""
+    ez, ex, ey = (min(box_edge(patch), d) for d in vol_shape[1:])
+    row = (ey + 2) & ~1
+    if row % 4 == 0:
+        row += 2
+    return row, ex * row + 6, ez
+
+
+def pair_words(ext_y, par, aligned):
+    """Words of the pair window a staged row of ``ext_y`` voxels gets (each
+    two bf16 values of K3's count): the ``ext_y - 1`` a sample can read, and
+    in the aligned instance (Y % 8 == 0), which stores whole 8-byte pairs of
+    words, the one after the last when ``ext_y - 2 + par`` is even; ``par``
+    is the parity of the box's row start within its 16-byte piece."""
+    if not aligned:
+        return ext_y - 1
+    return 2 * ((ext_y - 2 + par) // 2 + 1)
 
 
 def staging_stats(device, dtype=torch.float32):
@@ -96,10 +126,11 @@ def staging_stats(device, dtype=torch.float32):
     or bfloat16), an int64 tensor of two, added to by every launch of that
     mode: the items whose box outgrew the window, so their corners were read
     from device memory (right, but slow; none for an orthonormal frame), and
-    the values staged into shared memory (4 bytes each in float32, 2 in
-    bf16). ``zero_()`` it to start a count. Made on the first call for the
-    pair: keep that outside a CUDA graph capture (the first launch makes
-    it)."""
+    the values staged into shared memory: floats in float32, and in bf16 two
+    values for every word of the pair window written (``pair_words``), so
+    2 bytes a value in both counts of bytes written there. ``zero_()`` it to
+    start a count. Made on the first call for the pair: keep that outside a
+    CUDA graph capture (the first launch makes it)."""
     key = (torch.device(device), dtype)
     got = _stats.get(key)
     if got is None:
@@ -108,21 +139,25 @@ def staging_stats(device, dtype=torch.float32):
 
 
 def window_values(device, patch, vol_shape, dtype=torch.float32):
-    """Values of the kernel's window for ``patch`` in a volume of
-    ``vol_shape`` (f, Z, X, Y) on ``device``, in the mode of ``dtype``: the
-    largest box of an orthonormal frame (``box_edge``, rows of
-    ``row_values``), or what the opt-in allows. Queries the card on the
-    first call for its key: keep that call outside a CUDA graph capture."""
+    """4-byte slots of the kernel's window for ``patch`` in a volume of
+    ``vol_shape`` (f, Z, X, Y) on ``device``, in the mode of ``dtype``:
+    floats, or the bf16 mode's pair words. They hold the largest box of an
+    orthonormal frame (``box_edge``; float32 rows of ``row_values``, the
+    bf16 mode's of ``pair_pitches``), or what the opt-in allows. Queries
+    the card on the first call for its key: keep that call outside a CUDA
+    graph capture."""
     key = (device, patch, tuple(vol_shape[1:]), dtype)
     got = _caps.get(key)
     if got is None:
-        elem = 2 if dtype == torch.bfloat16 else 4
-        per = 16 // elem
         optin = shared_optin(_fns.e2t_rotated_patches_init, device)
-        ez, ex, ey = (min(box_edge(patch), d) for d in vol_shape[1:])
         staging_stats(device, dtype)
-        got = _caps[key] = min(ez * ex * row_values(ey, elem),
-                               optin // elem) // per * per
+        if dtype == torch.bfloat16:
+            _, plane, planes = pair_pitches(patch, vol_shape)
+            got = min(planes, optin // (4 * plane)) * plane // 8 * 8
+        else:
+            ez, ex, ey = (min(box_edge(patch), d) for d in vol_shape[1:])
+            got = min(ez * ex * row_values(ey), optin // 4) // 4 * 4
+        _caps[key] = got
     return got
 
 
@@ -195,12 +230,14 @@ def _launch(fn, vol, pos, frames, patch, dtype):
         # of the volume: a view that starts mid-piece is copied first
         vol = vol.clone()
     cap = window_values(vol.device, patch, vol.shape, dtype)
+    pitches = pair_pitches(patch, vol.shape)[:2] \
+        if dtype == torch.bfloat16 else ()
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(vol.data_ptr(), pos.data_ptr(), frames.data_ptr(),
                  out.data_ptr(), ok.data_ptr(),
                  _stats[(vol.device, dtype)].data_ptr(), B, f, Z, X, Y,
-                 *patch, cap, stream)
+                 *patch, cap, *pitches, stream)
     if err != 0:
         raise RuntimeError(f"rotated patch kernel launch failed: CUDA error "
                            f"{err}")

@@ -352,8 +352,11 @@ def bf16_plan(n, cin, cout, Z, X, Y, dx, dy, smem=H100_SMEM_OPTIN,
       holds float32 totals for (4 up to N 64, 2 above: the registers of
       totals and partials) and output rows a block tile (64 y each, rows
       of one x phase: xo = px + dx (i0 + i));
-    - ``ys``, ``rsb``: staged y values of an input row (64 + 2dy) and its
-      shared-memory stride; ``ntiles``, ``grid`` (one block per SM);
+    - ``ys``, ``rsb``: staged y values of an input row and its
+      shared-memory stride: 64 + 2dy as one TMA box while that is at most
+      256 (a box's limit), else ``segmented``: three boxes of 64, one per
+      ky, from y0, y0 + dy and y0 + 2dy (192 values); ``ntiles``, ``grid``
+      (one block per SM);
     - ``resident``: the weights of the (single) channel group held in
       shared memory for the launch, else streamed with each stage;
       ``stages``: ring depth; ``smem``: dynamic shared bytes;
@@ -362,16 +365,13 @@ def bf16_plan(n, cin, cout, Z, X, Y, dx, dy, smem=H100_SMEM_OPTIN,
       2 x ys x 16 bytes a (tile, 16-channel chunk, kz), the stage's weights
       too when streamed, the whole group's once a block when resident.
 
-    Raises ``ValueError`` for a shape the kernel refuses: dy > 96 (a staged
-    row holds at most 256 values)."""
+    Raises ``ValueError`` when a ring of two stages does not fit ``smem``."""
     NP = -(-cout // 8) * 8 if cout <= 64 else 128
     G, CC = -(-cout // NP), -(-cin // K_CHUNK_BF16)
     T = 4 if NP <= 64 else 2
     R = 2 * T
-    ys = 64 + 2 * dy
-    if ys > 256:
-        raise ValueError(f"tail conv (bf16): y-dilation {dy} > 96 (a staged "
-                         "row holds at most 256 values)")
+    segmented = 64 + 2 * dy > 256
+    ys = 3 * 64 if segmented else 64 + 2 * dy
     rsb = -(-32 * ys // 128) * 128
     Zo, Xo, Yo = Z - 2, X - 2 * dx, Y - 2 * dy
     xtp = -(-(-(-Xo // dx)) // R)
@@ -389,7 +389,8 @@ def bf16_plan(n, cin, cout, Z, X, Y, dx, dy, smem=H100_SMEM_OPTIN,
                          f"{smem} bytes of shared memory")
     grid = min(ntiles, sms)
     tx = (R + 2) * 32 * ys + (0 if resident else wstage)
-    return dict(NP=NP, G=G, T=T, R=R, ys=ys, rsb=rsb, ntiles=ntiles,
+    return dict(NP=NP, G=G, T=T, R=R, ys=ys, rsb=rsb, segmented=segmented,
+                ntiles=ntiles,
                 grid=grid, resident=resident, stages=stages,
                 smem=_BF16_FIXED + wres_bytes + stages * slot,
                 staged_bytes=ntiles * CC * 3 * tx + grid * wres_bytes)

@@ -699,17 +699,22 @@ class DeviceBatchAugmenter:
         self.gen = torch.Generator(dev).manual_seed(self._seed0)
         self._host_rng = np.random.RandomState(seed)
 
-    def _batch_fn(self, gen, cube_idx, positions, warp_on, grey_on, flip_on):
+    def _batch_fn(self, gen, cube_idx, positions, warp_on, grey_on, flip_on,
+                  raws=None, labels=None):
         """Cut, warp, flip and grey-augment one batch on the card: draws
         from ``gen``; ``cube_idx`` (B,), ``positions`` (B, 3) and
         ``warp_on`` (B,) are tensors on the card, ``grey_on`` and
-        ``flip_on`` python bools. The matmul passes run in full float32
-        (no TF32)."""
+        ``flip_on`` python bools; ``raws``/``labels`` replace the cube
+        stacks when given. The matmul passes run in full float32 (no
+        TF32)."""
         with f32_matmuls():
             return self._batch(gen, cube_idx, positions, warp_on, grey_on,
-                               flip_on)
+                               flip_on,
+                               self.raws if raws is None else raws,
+                               self.labels if labels is None else labels)
 
-    def _batch(self, gen, cube_idx, positions, warp_on, grey_on, flip_on):
+    def _batch(self, gen, cube_idx, positions, warp_on, grey_on, flip_on,
+               raws, labels):
         B = cube_idx.shape[0]
         dev = self.device
         Ms = random_warp_matrices(gen, B, amount=self.warp_amount,
@@ -730,11 +735,11 @@ class DeviceBatchAugmenter:
                   target_strides=self.target_strides, elastic=fields)
         if self._separable:
             data, tgt = _warp_separable_b(
-                self.raws, self.labels, cube_idx, Ms, positions,
+                raws, labels, cube_idx, Ms, positions,
                 self.patch_size, amount_bound=self.warp_amount,
                 elastic_margin=self._elastic_margin, **kw)
         else:
-            data, tgt = _warp_gather_b(self.raws, self.labels, cube_idx, Ms,
+            data, tgt = _warp_gather_b(raws, labels, cube_idx, Ms,
                                        positions, self.patch_size, **kw)
         if self.grey_channels and grey_on:
             data = grey_augment(gen, data, self.grey_channels)
@@ -785,15 +790,27 @@ class DeviceBatchAugmenter:
             pos = torch.cat([torch.zeros_like(pos[:, :1]), pos[:, 1:]], 1)
         return idx, pos, warp_on
 
-    def device_batch(self, gen, batch_size, warp=0.5, grey=True, flip=True):
+    def device_batch(self, gen, batch_size, warp=0.5, grey=True, flip=True,
+                     raws=None, labels=None):
         """Sampling and augmentation of one batch on the card, all drawn
         from ``gen`` (a ``torch.Generator`` on the augmenter's device): no
         host sync, so a CUDA graph can capture it. Returns (data, target)
-        with the shapes of ``getbatch(source='train')``."""
+        with the shapes of ``getbatch(source='train')``.
+
+        ``raws``/``labels``, when given, replace the augmenter's cube stacks
+        (``self.raws``, ``self.labels``: the same layout, padding included)
+        for this call, as in the JAX package. They must already lie on the
+        augmenter's device: nothing is copied here, so the call stays
+        capturable."""
+        for name, stack in (("raws", raws), ("labels", labels)):
+            if stack is not None and stack.device != self.device:
+                raise ValueError(f"device_batch: {name} lie on "
+                                 f"{stack.device}, the augmenter on "
+                                 f"{self.device}; move them first")
         wp = 1.0 if warp is True else float(warp or 0.0)
         idx, pos, warp_on = self._sample_device(gen, batch_size, wp)
         data, tgt = self._batch_fn(gen, idx, pos, warp_on, bool(grey),
-                                   bool(flip))
+                                   bool(flip), raws, labels)
         return self._squeeze_2d(data, tgt)
 
     def _squeeze_2d(self, data, tgt):

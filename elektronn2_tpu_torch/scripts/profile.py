@@ -18,6 +18,32 @@ from __future__ import annotations
 
 import argparse
 import csv
+import time
+
+
+def _synchronize(out):
+    """Wait for the card when any tensor in ``out`` (a tensor, or a tuple,
+    list or dict of them) lies on it."""
+    import torch
+    leaves = out.values() if isinstance(out, dict) else (
+        out if isinstance(out, (tuple, list)) else (out,))
+    if any(isinstance(t, torch.Tensor) and t.is_cuda for t in leaves):
+        torch.cuda.synchronize()
+
+
+def time_fn(fn, n_warmup=2, n_runs=5):
+    """Mean seconds of ``fn()`` over ``n_runs`` calls on the host clock,
+    after ``n_warmup`` calls, as the JAX package's ``time_fn``: where it
+    blocks on ``fn``'s output, this synchronizes the card when the output
+    lies there."""
+    for _ in range(n_warmup):
+        _synchronize(fn())
+    t0 = time.perf_counter()
+    out = None
+    for _ in range(n_runs):
+        out = fn()
+    _synchronize(out)
+    return (time.perf_counter() - t0) / n_runs
 
 
 def main(argv=None):

@@ -81,12 +81,16 @@ def flops_per_second(fn, flops, *args, **bench_kwargs):
     return flops / dt, dt
 
 
-def enable_compile_cache(cache_dir=None):
+def enable_compile_cache(cache_dir=None, min_compile_secs=2.0):
     """Point the port's kernel builds (``utils/cuda_build.py``'s ``nvcc``
     libraries and ``utils/native_build.py``'s host cores) at ``cache_dir``,
     else ``$ELEKTRONN2_COMPILE_CACHE``, else the package's ``_build``
     directory (the default). A library whose source is unchanged loads
-    from there without a build. Returns the directory."""
+    from there without a build. Returns the directory.
+
+    ``min_compile_secs`` is the JAX package's threshold below which a
+    compiled program is not cached. It is accepted and has no effect here:
+    every kernel build is kept, however short it took."""
     from . import cuda_build, native_build
     cache_dir = (cache_dir or os.environ.get("ELEKTRONN2_COMPILE_CACHE")
                  or cuda_build.BUILD_DIR)

@@ -253,15 +253,32 @@ def test_k1_bf16_reads_nothing_outside_x(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k1_bf16_refuses_a_row_past_256(cuda_device):
-    """dy > 96: a staged row would pass 256 values; the wrapper raises and
-    counts no launch."""
-    x, w, b = _inputs(24, 1, 4, 4, (3, 5, 200), cuda_device)
+@pytest.mark.parametrize("dy, cin, cout, sp", [
+    (97, 4, 4, (3, 5, 200)),          # the smallest segmented dy, Yo 6
+    (128, 30, 40, (4, 12, 330)),      # the flagship's widths, Yo 74
+    (200, 20, 24, (3, 9, 471)),       # Yo 71, Y odd
+])
+def test_k1_bf16_refuses_a_row_past_256(cuda_device, dy, cin, cout, sp):
+    """dy > 96, where one TMA box would pass 256 values a row: the kernel
+    stages each row as three segments of 64 values, one per ky (it refused
+    these shapes before). Against its plain version within 1e-5 of the
+    output's largest magnitude, one launch counted, the bytes it staged
+    ``bf16_plan``'s segmented count."""
+    x, w, b = _inputs(24, 1, cin, cout, sp, cuda_device)
+    w = w * (2.0 / (27 * cin)) ** 0.5
+    dil = (1, 1, dy)
     before = tailconv.bf16_launches
-    with pytest.raises(ValueError, match="y-dilation"):
-        tailconv.conv3x3_dilated(x, w, b, (1, 1, 97),
-                                 compute_dtype="bfloat16")
-    assert tailconv.bf16_launches == before
+    stats = tailconv.bf16_staging_stats(cuda_device)
+    stats.zero_()
+    got = tailconv.conv3x3_dilated(x, w, b, dil, compute_dtype="bfloat16")
+    ref = tailconv.conv3x3_dilated_bf16_reference(x, w, b, dil)
+    torch.cuda.synchronize()
+    assert tailconv.bf16_launches == before + 1
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    plan = _device_plan(x, cout, dil)
+    assert plan["segmented"] and plan["ys"] == 192
+    assert int(stats.item()) == plan["staged_bytes"]
 
 
 @pytest.mark.cuda
@@ -1094,10 +1111,11 @@ def test_k3_bf16_matches_plain(cuda_device, f, shape, patch, B):
 @pytest.mark.parametrize("heading", ["random", "axis", "diagonal"])
 def test_k3_bf16_staged_windows(cuda_device, heading, Y):
     """The NaN trap in the bf16 mode: a volume NaN everywhere outside the
-    agents' staged boxes (bf16 rows of 8 values to a 16-byte piece, Y % 8
-    == 0 and not), half the agents at the ok bound: finite patches equal to
-    the plain version's, equal ok flags, every item staged, and the values
-    staged the boxes' own count."""
+    agents' staged boxes (pair words of two bf16 values, read from 16-byte
+    pieces, Y % 8 == 0 and not), half the agents at the ok bound: finite
+    patches equal to the plain version's, equal ok flags, every item
+    staged, and the values staged the boxes' own count (two a pair word,
+    ``extract_rot.pair_words`` a row)."""
     rng = np.random.RandomState(27)
     B, patch, shape = 64, (16, 16, 16), (2, 60, 66, Y)
     h = torch.from_numpy(_k3_headings(heading, B, rng).astype(np.float32))
@@ -1114,8 +1132,11 @@ def test_k3_bf16_staged_windows(cuda_device, heading, Y):
     lo, hi = _staged_box(shape, pos, F, patch)
     edges = (hi - lo + 1).cpu()
     assert int(edges.max()) <= extract_rot.box_edge(patch)
-    values = shape[0] * int((edges[:, 0] * edges[:, 1] * (
-        (edges[:, 2] + 14) // 8 * 8)).sum())
+    aligned = Y % 8 == 0
+    values = shape[0] * sum(
+        2 * int(e[0] * e[1]) * extract_rot.pair_words(
+            int(e[2]), int(l[2]) & 1, aligned)
+        for e, l in zip(edges.tolist(), lo.tolist()))
     keep = torch.zeros(shape[1:], dtype=torch.bool)
     for a, b in zip(lo.tolist(), hi.tolist()):
         keep[a[0]:b[0] + 1, a[1]:b[1] + 1, a[2]:b[2] + 1] = True

@@ -420,3 +420,301 @@ def test_tail_conv_takes_compute_dtype():
     assert list(got)[:5] == ["x", "w", "b", "dil", "relu"]
     assert got["compute_dtype"].default == want == "float32"
 
+
+
+# ------------------------------------ every public function and method
+
+#: the JAX package's Pallas modules and the port's modules that hold their
+#: counterparts: a hand-written kernel's wrapper, plain version and plan
+#: take the card's arguments, not the TPU kernel's tiling, layout and
+#: interpret knobs (``xzcy``, ``variant``, ``z_block``, ``interpret``, ...),
+#: so their names and parameters differ by design; each counterpart module
+#: exists
+PALLAS_COUNTERPARTS = {
+    "elektronn2_tpu.ops.pallas_tailconv": "elektronn2_tpu_torch.ops.tailconv",
+    "elektronn2_tpu.ops.pallas_extract": "elektronn2_tpu_torch.ops.extract",
+    "elektronn2_tpu.ops.pallas_extract_rot":
+        "elektronn2_tpu_torch.ops.extract_rot",
+    "elektronn2_tpu.ops.experimental.pallas_dilated_conv":
+        "elektronn2_tpu_torch.ops.experimental.dilated_conv",
+}
+#: the JAX package's compiled C++ cores: shared libraries loaded with
+#: ctypes, not Python modules; the port builds its own from the same
+#: sources on first use (``data/*.cpp``, ``malis/malis_core.cpp``)
+COMPILED_CORES = {"elektronn2_tpu.data._knossos_core",
+                  "elektronn2_tpu.data._warp_core",
+                  "elektronn2_tpu.malis._malis_core"}
+#: JAX parameter names the port renames everywhere, with the reason:
+#: ``jax.random`` keys become a ``torch.Generator`` (the two draw different
+#: streams from one seed)
+RENAMED = {"key": "gen", "rng": "gen"}
+#: JAX parameters the port drops everywhere: XLA's precision knobs; the
+#: port's convs and matmuls run in float32 under ``f32_convs`` /
+#: ``f32_matmuls`` and take their reduced precision from the model's
+#: compute dtype
+DROPPED = {"precision", "preferred_element_type"}
+#: (JAX module, qualified name) -> (JAX parameters the port renames or
+#: drops there, as {name: port name or None}, the reason); a qualified name
+#: mapped to None is a method the port leaves out
+BY_DESIGN = {
+    ("elektronn2_tpu.neuromancer.inference", "dilated_dense_forward"): (
+        {"params": None, "state": None, "impl": None},
+        "the traced forwards read the model's own parameters and state (no "
+        "functional jit); impl was removed in favour of set_dilated_impl"),
+    ("elektronn2_tpu.neuromancer.inference", "convolutional_dense_forward"): (
+        {"params": None, "state": None},
+        "the traced forwards read the model's own parameters and state"),
+    ("elektronn2_tpu.parallel.halo", "halo_gather"): (
+        {"axis_name": "group"},
+        "a mesh axis is a torch.distributed process group"),
+    ("elektronn2_tpu.parallel.halo", "cp_conv_z"): (
+        {"axis_name": "group"},
+        "a mesh axis is a torch.distributed process group"),
+    ("elektronn2_tpu.neuromancer.node_basic", "TraceCtx.__init__"): (
+        {"node_index": None},
+        "random streams: a trace draws from the step's one generator in "
+        "evaluation order; JAX folds each node's index into its key"),
+    ("elektronn2_tpu.neuromancer.node_basic", "TraceCtx.rng_for"): (
+        None, "random streams: JAX's per-node key (fold_in of the node "
+              "index); the port's nodes draw through TraceCtx.draw"),
+}
+
+
+def _port_of(jname):
+    return "elektronn2_tpu_torch" + jname[len("elektronn2_tpu"):]
+
+
+def _jax_modules():
+    import pkgutil
+    import elektronn2_tpu
+    return sorted(m.name for m in pkgutil.walk_packages(
+        elektronn2_tpu.__path__, "elektronn2_tpu."))
+
+
+def _params(fn):
+    import inspect
+    try:
+        return list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+def _surface_gaps(jname, jfn, pfn, qual):
+    """The JAX parameters of ``jfn`` that ``pfn`` lacks, after the renames
+    and drops by design."""
+    if pfn is None:
+        return [f"{qual} missing"]
+    jp, pp = _params(jfn), _params(pfn)
+    if jp is None or pp is None:
+        return []
+    local = BY_DESIGN.get((jname, qual), ({}, ""))[0] or {}
+    gaps = []
+    for p in jp:
+        if p in DROPPED or (p in local and local[p] is None):
+            continue
+        want = local.get(p) or RENAMED.get(p, p)
+        if want not in pp and p not in pp:
+            gaps.append(f"{qual}({p})")
+    return gaps
+
+
+@pytest.mark.parametrize("jname", _jax_modules())
+def test_port_surface_has_every_jax_function_and_method(jname):
+    """Every public function and class method (``__init__`` too) that a JAX
+    module defines exists in the port's module of the same path, with every
+    JAX parameter name, the differences by design aside (``RENAMED``,
+    ``DROPPED``, ``BY_DESIGN``, the Pallas modules' counterparts, the
+    compiled cores), each listed above with its reason."""
+    import inspect
+    if jname in COMPILED_CORES:
+        return
+    if jname in PALLAS_COUNTERPARTS:
+        importlib.import_module(PALLAS_COUNTERPARTS[jname])
+        return
+    jm = importlib.import_module(jname)
+    pm = importlib.import_module(_port_of(jname))
+    gaps = []
+    for name, obj in vars(jm).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != jname:
+            continue
+        if inspect.isfunction(obj):
+            gaps += _surface_gaps(jname, obj, getattr(pm, name, None), name)
+        elif inspect.isclass(obj):
+            pc = getattr(pm, name, None)
+            if pc is None:
+                gaps.append(f"class {name} missing")
+                continue
+            for mname, mobj in vars(obj).items():
+                if mname.startswith("_") and mname != "__init__":
+                    continue
+                qual = f"{name}.{mname}"
+                if (jname, qual) in BY_DESIGN and \
+                        BY_DESIGN[(jname, qual)][0] is None:
+                    assert not hasattr(pc, mname), f"{qual} is ported now"
+                    continue
+                if isinstance(mobj, property):
+                    if not hasattr(pc, mname):
+                        gaps.append(f"{qual} missing")
+                    continue
+                if isinstance(mobj, (staticmethod, classmethod)):
+                    mobj = mobj.__func__
+                if not callable(mobj):
+                    continue
+                pobj = inspect.getattr_static(pc, mname, None)
+                if isinstance(pobj, (staticmethod, classmethod)):
+                    pobj = pobj.__func__
+                gaps += _surface_gaps(jname, mobj, pobj, qual)
+    assert not gaps, f"{_port_of(jname)} lacks {gaps}"
+
+
+def test_by_design_differences_still_differ():
+    """Each difference listed by design is still one: a listed parameter
+    is still absent from the port's function (a port that gains it should
+    drop it from the list)."""
+    for (jname, qual), (local, _) in BY_DESIGN.items():
+        obj = importlib.import_module(_port_of(jname))
+        for part in qual.split("."):
+            obj = getattr(obj, part, None)
+        if local is None:
+            assert obj is None, qual
+            continue
+        got = _params(obj)
+        for p in local:
+            assert p not in got, (qual, p)
+
+
+# ------------------------------------------------ the surface repairs
+
+def _branching_graph(nm):
+    nm.model_manager.reset(seed=0)
+    a = nm.Input([2, 1, 10, 10], "b,f,x,y", name="a")
+    c = nm.Conv(a, 4, 3, 1, name="c1")
+    nm.Softmax(nm.Conv(c, 2, 1, 1, activation_func="lin", name="head"),
+               name="probs")
+    nm.Conv(c, 3, 1, 1, name="aux")
+    return nm.model_manager
+
+
+def test_graphmanager_sinks_match_jax():
+    # the nodes nobody consumes, in registration order, a property in both
+    want = [n.name for n in _branching_graph(jnm).sinks]
+    got = [n.name for n in _branching_graph(tnm).sinks]
+    assert got == want == ["probs", "aux"]
+    assert all(isinstance(n, tnm.Node) for n in _branching_graph(tnm).sinks)
+
+
+def test_graphmanager_replay_takes_batch_size_override():
+    # accepted and ignored, as in the JAX package: the replayed graph is
+    # the one the descriptors describe
+    from elektronn2_tpu.neuromancer.graphmanager import GraphManager as JGM
+    from elektronn2_tpu_torch.neuromancer.graphmanager import \
+        GraphManager as TGM
+    desc, arrays = _branching_graph(jnm).get_descriptors()
+    j = JGM.replay(desc, arrays, batch_size_override=7)
+    t = TGM.replay(desc, arrays, batch_size_override=7)
+    assert [(n, tuple(v.shape)) for n, v in t.nodes.items()] == \
+        [(n, tuple(v.shape)) for n, v in j.nodes.items()]
+    assert [n.name for n in t.sinks] == [n.name for n in j.sinks]
+    with pytest.raises(NotImplementedError, match="unknown node class"):
+        TGM.replay([dict(desc[0], cls="NoSuchNode")], arrays)
+
+
+def test_enable_compile_cache_takes_min_compile_secs(tmp_path):
+    import inspect
+    from elektronn2_tpu.utils import profiling as jp
+    from elektronn2_tpu_torch.utils import cuda_build, native_build
+    from elektronn2_tpu_torch.utils import profiling as tp
+    want = inspect.signature(jp.enable_compile_cache).parameters
+    got = inspect.signature(tp.enable_compile_cache).parameters
+    assert [(k, v.default) for k, v in got.items()] == \
+        [(k, v.default) for k, v in want.items()]
+    saved = cuda_build.BUILD_DIR, native_build.BUILD_DIR
+    try:
+        d = str(tmp_path / "kernels")
+        assert tp.enable_compile_cache(d, min_compile_secs=0.5) == d
+        assert cuda_build.BUILD_DIR == native_build.BUILD_DIR == d
+    finally:
+        cuda_build.BUILD_DIR, native_build.BUILD_DIR = saved
+
+
+def test_time_fn_matches_jax():
+    # the same warm-up and mean: n_warmup + n_runs calls, the mean seconds
+    # of the timed ones
+    from elektronn2_tpu.scripts.profile import time_fn as jtime
+    from elektronn2_tpu_torch.scripts.profile import time_fn as ttime
+    counts = {}
+
+    def fn_of(pkg, make):
+        def fn():
+            counts[pkg] = counts.get(pkg, 0) + 1
+            return make()
+        return fn
+    for kw, calls in (({}, 7), (dict(n_warmup=1, n_runs=3), 4)):
+        counts.clear()
+        js = jtime(fn_of("jax", lambda: jnp.ones(4) * 2), **kw)
+        ts = ttime(fn_of("torch", lambda: (torch.ones(4) * 2,
+                                           {"x": torch.zeros(1)})), **kw)
+        assert counts == {"jax": calls, "torch": calls}
+        assert js > 0 and ts > 0
+
+
+def _augmenters():
+    import jax
+    import elektronn2_tpu.ops.warp as jw
+    import elektronn2_tpu_torch.ops.warp as tw
+    rng = np.random.RandomState(8)
+    raws = [rng.rand(1, 20, 30, 30).astype(np.float32) for _ in range(2)]
+    labs = [(r[0] > 0.5).astype(np.int16) for r in raws]
+    kw = dict(patch_size=(6, 10, 10), target_size=(4, 6, 6))
+    return (jw.DeviceBatchAugmenter(raws, labs, **kw), jax.random.PRNGKey(3),
+            tw.DeviceBatchAugmenter(raws, labs, device="cpu", **kw))
+
+
+def test_device_batch_takes_given_stacks():
+    """``device_batch(raws=, labels=)``: the given stacks replace the
+    augmenter's for the call, in both packages: constant stacks give
+    constant batches of the same shapes, and doubled raws (with the same
+    draws) give doubled data and the same targets."""
+    jaug, key, taug = _augmenters()
+    jd, jt = jaug.device_batch(key, 3, warp=0.5, grey=False,
+                               raws=jnp.full_like(jaug.raws, 7.0),
+                               labels=jnp.ones_like(jaug.labels))
+    gen = torch.Generator().manual_seed(3)
+    td, tt = taug.device_batch(gen, 3, warp=0.5, grey=False,
+                               raws=torch.full_like(taug.raws, 7.0),
+                               labels=torch.ones_like(taug.labels))
+    assert td.shape == jd.shape and tt.shape == jt.shape
+    np.testing.assert_allclose(td.numpy(), 7.0, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(jd), 7.0, rtol=1e-6)
+    assert (tt.numpy() == 1).all() and (np.asarray(jt) == 1).all()
+    # the given stacks are the ones sampled: doubled raws, doubled data
+    d0, t0 = taug.device_batch(torch.Generator().manual_seed(5), 3,
+                               warp=0.5, grey=False)
+    d1, t1 = taug.device_batch(torch.Generator().manual_seed(5), 3,
+                               warp=0.5, grey=False, raws=taug.raws * 2)
+    assert torch.equal(d1, 2 * d0) and torch.equal(t1, t0)
+    j0, jt0 = jaug.device_batch(key, 3, warp=0.5, grey=False)
+    j1, jt1 = jaug.device_batch(key, 3, warp=0.5, grey=False,
+                                raws=jaug.raws * 2)
+    np.testing.assert_array_equal(np.asarray(j1), 2 * np.asarray(j0))
+    np.testing.assert_array_equal(np.asarray(jt1), np.asarray(jt0))
+    # stacks elsewhere than the augmenter's device are refused (nothing is
+    # copied inside a call a graph may capture)
+    with pytest.raises(ValueError, match="device"):
+        taug.device_batch(gen, 3, raws=torch.empty(taug.raws.shape,
+                                                   device="meta"))
+
+
+def test_trace_ctx_takes_compute_dtype_by_name():
+    # JAX's TraceCtx(compute_dtype=...) by name, int8 a serving-only mode
+    # the node trace leaves float32
+    from elektronn2_tpu.neuromancer.node_basic import TraceCtx as JCtx
+    from elektronn2_tpu_torch.neuromancer.node_basic import TraceCtx as TCtx
+    for name, want in (("bfloat16", torch.bfloat16),
+                       ("float16", torch.float16), ("int8", None),
+                       (None, None)):
+        j = JCtx({}, {}, compute_dtype=name).compute_dtype
+        assert (j is None) == (want is None)
+        assert TCtx({}, {}, compute_dtype=name).compute_dtype is want
+    assert TCtx({}, {}, compute_dtype=torch.bfloat16).compute_dtype is \
+        torch.bfloat16

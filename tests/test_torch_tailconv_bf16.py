@@ -23,7 +23,9 @@ and ReLU fused. These tests hold what runs here:
   float32-rounded totals) within 1e-6 of float64 and 1e-5 of the plain
   version;
 - ``bf16_plan``: every output of every shape covered once by the tiles,
-  the staged bytes the kernel counts, the tile choice, the refusals;
+  the staged bytes the kernel counts, the tile choice, the segmented rows
+  past dy = 96 (three TMA boxes of 64 values, one per ky; the emulation
+  above runs them at dy 97 and 128), the refusal;
 - the dispatch: ``compute_dtype`` is checked, the CPU runs the plain
   version and counts no launch.
 """
@@ -45,6 +47,10 @@ CASES = [  # N, Cin, Cout, (Z, X, Y), dil
     (1, 20, 12, (6, 21, 26), (1, 2, 2)),     # Cin padded 20 -> 32
     (1, 30, 40, (5, 22, 24), (1, 4, 4)),     # the flagship's conv2 widths
     (1, 3, 5, (4, 11, 14), (1, 1, 1)),       # one ragged chunk
+    # past dy = 96 a staged row is three segments of 64, one per ky: the
+    # smallest Y that dy allows
+    (1, 3, 5, (3, 4, 196), (1, 1, 97)),
+    (1, 3, 5, (3, 4, 258), (1, 1, 128)),
 ]
 
 
@@ -133,16 +139,20 @@ def test_pack_weights_bf16_layout(cout, cin):
     assert tailconv.packed_weights(w, NP).dtype == torch.float32
 
 
-def stage_rows(xb, n, z, xs, y0, ys, cc):
-    """The R + 2 TMA boxes of a stage as the kernel stages them: for each x
-    in ``xs``, channel groups 2cc, 2cc + 1, y0 .. y0 + ys - 1 of plane z,
-    zeros past X and Y; (rows, 2, ys, 8) float64."""
+def stage_rows(xb, n, z, xs, starts, width, cc):
+    """The TMA boxes of a stage as the kernel stages them: for each x in
+    ``xs`` (the R + 2 rows) and each y start in ``starts`` (one box a row,
+    or three segments, one per ky), channel groups 2cc, 2cc + 1, y start ..
+    y start + width - 1 of plane z, zeros past X and Y; (rows, boxes, 2,
+    width, 8) float64."""
     _, _, X, _, Y, _ = xb.shape
-    out = torch.zeros(len(xs), 2, ys, 8, dtype=torch.float64)
-    hi = min(Y, y0 + ys)
+    out = torch.zeros(len(xs), len(starts), 2, width, 8, dtype=torch.float64)
     for j, x in enumerate(xs):
-        if x < X and hi > y0:
-            out[j, :, :hi - y0] = xb[n, z, x, 2 * cc:2 * cc + 2, y0:hi].double()
+        for k, y0 in enumerate(starts):
+            hi = min(Y, y0 + width)
+            if x < X and hi > y0:
+                out[j, k, :, :hi - y0] = xb[n, z, x, 2 * cc:2 * cc + 2,
+                                            y0:hi].double()
     return out
 
 
@@ -150,10 +160,11 @@ def emulate_kernel(x, wp, b, dil, cout):
     """The kernel's data flow in plain PyTorch (float64 products, float32
     totals): the tiles of ``bf16_plan`` in its order, per tile and (chunk,
     kz) stage the R + 2 staged rows of the tile's x phase, per output row i
-    the 9 taps (A = staged row i + kx from y ky dy: a 64 x 16 tile, K-major
-    by channel group; B = the packed tap) summed into fresh partials, then
-    added into the row's totals, rounded to float32 as the kernel's FADD
-    does; bias, ReLU; only outputs inside the volume written."""
+    the 9 taps (A = staged row i + kx from y ky dy, or its segment ky when
+    the plan is ``segmented``: a 64 x 16 tile, K-major by channel group;
+    B = the packed tap) summed into fresh partials, then added into the
+    row's totals, rounded to float32 as the kernel's FADD does; bias, ReLU;
+    only outputs inside the volume written."""
     n, cin, Z, X, Y = x.shape
     _, dx, dy = dil
     zo_n, xo_n, yo_n = Z - 2, X - 2 * dx, Y - 2 * dy
@@ -164,7 +175,8 @@ def emulate_kernel(x, wp, b, dil, cout):
     taps = wp.double().permute(0, 1, 2, 3, 4, 6, 8, 5, 7).reshape(
         G, CC, 3, 3, 3, 16, NP)                 # (..., k, n)
     xb = tailconv.bf16_layout(x)
-    ys = plan["ys"]
+    ys, seg = plan["ys"], plan["segmented"]
+    assert ys == (192 if seg else 64 + 2 * dy) and seg == (dy > 96)
     xtp = -(-(-(-xo_n // dx)) // R)
     ytiles = -(-yo_n // 64)
     out = torch.full((n, cout, zo_n, xo_n, yo_n), float("nan"),
@@ -178,14 +190,18 @@ def emulate_kernel(x, wp, b, dil, cout):
         tot = torch.zeros(R, 64, NP, dtype=torch.float32)
         for s in range(CC * 3):
             cc, kz = divmod(s, 3)
-            rows = stage_rows(xb, nn, zo + kz,
-                              [px + dx * (i0 + j) for j in range(R + 2)],
-                              y0, ys, cc)
+            xs = [px + dx * (i0 + j) for j in range(R + 2)]
+            if seg:
+                rows = stage_rows(xb, nn, zo + kz, xs,
+                                  [y0 + ky * dy for ky in range(3)], 64, cc)
+            else:
+                rows = stage_rows(xb, nn, zo + kz, xs, [y0], ys, cc)
             for i in range(R):
                 part = torch.zeros(64, NP, dtype=torch.float64)
                 for kx in range(3):
                     for ky in range(3):
-                        a = rows[i + kx, :, ky * dy:ky * dy + 64]
+                        a = (rows[i + kx, ky] if seg else
+                             rows[i + kx, 0, :, ky * dy:ky * dy + 64])
                         a = a.permute(1, 0, 2).reshape(64, 16)
                         part += a @ taps[g, cc, kz, kx, ky]
                 tot[i] += part.float()
@@ -232,6 +248,7 @@ PLAN_SHAPES = [  # n, cin, cout, (Z, X, Y), (dx, dy)
     (1, 30, 45, (5, 40, 300), (4, 4)),
     (1, 11, 200, (4, 9, 70), (1, 1)),
     (1, 20, 24, (6, 40, 301), (2, 3)),
+    (1, 16, 24, (4, 10, 470), (1, 200)),       # segmented rows
 ]
 
 
@@ -285,9 +302,17 @@ def test_bf16_plan_main_path_shapes():
 
 
 def test_bf16_plan_refusals_and_scratch():
-    with pytest.raises(ValueError, match="y-dilation"):
-        tailconv.bf16_plan(1, 4, 4, 5, 10, 300, 1, 97)
-    assert tailconv.bf16_plan(1, 4, 4, 5, 10, 300, 1, 96)["ys"] == 256
+    # a staged row is one TMA box up to dy = 96 (256 values, a box's most),
+    # past it three boxes of 64, one per ky: 192 values, 6144 bytes
+    p96 = tailconv.bf16_plan(1, 4, 4, 5, 10, 300, 1, 96)
+    assert p96["ys"] == 256 and not p96["segmented"]
+    for dy in (97, 128, 200):
+        p = tailconv.bf16_plan(1, 4, 4, 5, 10, 2 * dy + 70, 1, dy)
+        assert p["segmented"] and p["ys"] == 192 and p["rsb"] == 6144
+        assert p["staged_bytes"] == (p["ntiles"] * 3 * (p["R"] + 2) * 6144
+                                     + p["grid"] * 3 * 9 * 8 * 32)
+    with pytest.raises(ValueError, match="does not fit"):
+        tailconv.bf16_plan(1, 4, 4, 5, 10, 300, 1, 4, smem=20000)
     # the scratch: (n, Z, X, CG, Y, 8) bf16
     assert tailconv.bf16_scratch_bytes(2, 30, 5, 7, 9) == 2 * 5 * 7 * 4 * 9 * 16
     # the bf16 copy of x (the first kernel; on the CPU its plain version)
@@ -320,7 +345,7 @@ def test_dispatch_and_launch_count():
     with pytest.raises(TypeError, match="float32"):
         tailconv.conv3x3_dilated(x.bfloat16(), w, b,
                                  compute_dtype="bfloat16")
-    # a y-dilation past the staged row: refused on the card, run on the CPU
+    # a y-dilation past one box a row (segmented on the card)
     xw = torch.from_numpy(_inputs(26, 1, 2, 2, (3, 4, 200))[0])
     wy = torch.from_numpy(_inputs(26, 1, 2, 2, (3, 4, 200))[1])
     bw = torch.zeros(2)
