@@ -1523,7 +1523,6 @@ def profile_slab(model, vol, top=12):
     """One warm K1-route slab under ``torch.profiler``: the device kernels
     by total time, K1's share and the share outside it, and the device
     idle share of the slab's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     model.predict_dense_device(vol, pad_raw=True)           # warm
     torch.cuda.synchronize()
@@ -1535,8 +1534,7 @@ def profile_slab(model, vol, top=12):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(profile_margin())
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    kernels = sorted(device_events(prof),
                      key=lambda e: e.self_device_time_total, reverse=True)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_ms = sum(e.self_device_time_total for e in kernels
@@ -1642,6 +1640,16 @@ def profile_margin():
     return PROFILE_MARGIN_S + PROFILE_DRIFT * (time.monotonic() - T_IMPORT)
 
 
+def device_events(prof):
+    """A profile's device activities by name (``key_averages``), without
+    the device-side copies of host spans (the program's and these
+    phases'), which would count their kernels twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 #: the host calls that launch one kernel, which the device records under
 #: the same correlation id
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -1673,7 +1681,6 @@ def profile_once(fn, kernel, top=10):
     short as the process aged: a late ``trace_batch`` profile lacked its
     first rollout step's kernels, a late ``serve_sharded`` profile one of
     its two K1 launches); the wall is the call's alone."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1684,9 +1691,8 @@ def profile_once(fn, kernel, top=10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(profile_margin())
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+    kernels = sorted((e for e in device_events(prof)
+                      if e.self_device_time_total > 0),
                      key=lambda e: e.self_device_time_total, reverse=True)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     mine = [e for e in kernels if kernel in e.key]
@@ -3499,10 +3505,8 @@ class CliProbe:
     def window_profile(self, top=6):
         """Device ms a step (kernels; host-to-device copies apart), the
         copies' ms a step, and the device's idle share of the window."""
-        from torch.autograd import DeviceType
-        dev = [e for e in self.prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+        dev = [e for e in device_events(self.prof)
+               if e.self_device_time_total > 0]
         h2d = [e for e in dev if e.key.startswith("Memcpy HtoD")]
         kern = sorted((e for e in dev if not e.key.startswith("Memcpy")
                        and not e.key.startswith("Memset")),
@@ -3765,11 +3769,9 @@ NCCL_KERNEL_KEYS = ("nccl", "onerank")
 
 def device_kernels(prof):
     """``{kernel name: (launches, device ms)}`` of a profile."""
-    from torch.autograd import DeviceType
     return {e.key: (e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+            for e in device_events(prof)
+            if e.self_device_time_total > 0}
 
 
 def nccl_kernels(kernels):
@@ -5037,8 +5039,9 @@ def sweep_timeline(prof):
     the union of the kernels' intervals (all streams) within the sweep's
     span (``chip_smoke.sweep``): the idle time before the first kernel
     (``lead_ms``), after the last (``tail_ms``), and between them, summed
-    by the sweep's host span on the main thread (``sweep_knossos.enqueue``,
-    else "other") that was running when each gap began."""
+    by the sweep's host span on the main thread (``sweep_knossos.wait_stage``,
+    ``.enqueue``, ``.wait_write`` or ``.drain``, else "other") that was
+    running when each gap began."""
     with tempfile.TemporaryDirectory() as d:
         f = os.path.join(d, "trace.json")
         prof.export_chrome_trace(f)
@@ -5074,7 +5077,6 @@ def profile_sweep(model, path, slab_batch, step=None, top=8):
     (all streams; copies apart) per slab, K1's share, the idle share of
     the sweep's wall (1 - kernel time / wall) and where the idle time
     falls (``sweep_timeline``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     t = {}
     with profile(activities=[ProfilerActivity.CPU,
@@ -5087,9 +5089,7 @@ def profile_sweep(model, path, slab_batch, step=None, top=8):
         wall_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         time.sleep(profile_margin())
-    # the spans' device-side annotations would count their kernels twice
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and not e.key.startswith(("chip_smoke.", "sweep_knossos."))]
+    dev = device_events(prof)
     copies = [e for e in dev if e.key.startswith(("Memcpy", "Memset"))]
     kernels = sorted((e for e in dev if e not in copies),
                      key=lambda e: e.self_device_time_total, reverse=True)
@@ -5431,7 +5431,6 @@ def phase_malis(smi):
     with the update (``MalisSplit``); the device's idle share over the
     steps; the loss first and last (finite); the loss's gradient in the
     prediction against float64 (``MALIS_GRAD_RTOL``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from elektronn2_tpu_torch import malis
     if not malis.HAVE_NATIVE or malis._malis_cpp is None:
@@ -5469,8 +5468,8 @@ def phase_malis(smi):
     finally:
         for o, a, f in saved:
             setattr(o, a, f)
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA) / 1e3
+    busy_ms = sum(e.self_device_time_total
+                  for e in device_events(prof)) / 1e3
     mean = {k: float(np.mean([r[k] for r in split.rows]))
             for k in split.rows[0]}
     edges = sum(int(np.prod([s - abs(int(o)) for s, o in zip(out, off)]))

@@ -49,6 +49,10 @@ NCDHW, so the prediction is always (f, Z, X, Y).
 runs them through those paths one or ``slab_batch`` at a time, and reads
 each chunk back while the next one computes.
 
+Under a profiler the paths open host spans (``utils/profiling.py``):
+``predict_dense_device`` over the call, ``dense/<node name>`` over each
+node's evaluation, ``dense.pool`` over each pool, and the sweep's own.
+
 Every path serves the model's precision (``Model.set_compute_dtype``):
 float32, bf16 or float16 Conv operands, or int8 convs on the whole-volume
 paths (``ops.conv.quantized_conv``), with narrow inter-layer storage under
@@ -77,10 +81,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..log import logger
 from ..ops.conv import INT32_ELEMENTS
+from ..utils.profiling import NODE_SPAN, POOL_SPAN, span
 
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
@@ -545,6 +549,10 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
         return y, ph
 
     def pool(y, pool_shape, dil, mode="max"):
+        with span(POOL_SPAN):
+            return pool_op(y, pool_shape, dil, mode)
+
+    def pool_op(y, pool_shape, dil, mode):
         if use_poolslice and mode == "max":
             axes = ((1,) + tuple(range(3, y.ndim))
                     if use_zmajor and y.ndim == nsp + 2
@@ -739,7 +747,8 @@ def dilated_dense_forward(model, vol, batch=False, quant_calibrate=None,
         for p in n.parents:
             uses[p.name] += 1
     for node in order:
-        values[node.name] = evaluate(node)
+        with span(NODE_SPAN + node.name):
+            values[node.name] = evaluate(node)
         for p in node.parents:
             uses[p.name] -= 1
             if uses[p.name] == 0:
@@ -885,7 +894,8 @@ def _walk_freeing(ctx, pred):
     for node in order:
         if uses[node.name] == 0 and node is not pred:
             continue                     # a merge that every consumer fuses
-        ctx.get(node)
+        with span(NODE_SPAN + node.name):
+            ctx.get(node)
         for p in consumed(node):
             uses[p.name] -= 1
             if uses[p.name] == 0:
@@ -996,7 +1006,13 @@ def predict_dense_device(model, vol, pad_raw=False, tile_batch=1):
     refuses for its shape (:class:`ConvDenseShapeError`), takes the
     overlap-tiled fallback (:func:`_tiled_sweep`, ``tile_batch`` tiles per
     forward). Any other error, a kernel's included, reaches the caller.
+    Under a profiler the call is the span ``predict_dense_device``.
     """
+    with span("predict_dense_device"):
+        return _predict_dense_device(model, vol, pad_raw, tile_batch)
+
+
+def _predict_dense_device(model, vol, pad_raw, tile_batch):
     from ..ops.conv import f32_convs
 
     inp, pred = model.input_node, model.prediction_node
@@ -1421,9 +1437,20 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     pinned memory on a side stream with an event, and one writer thread
     waits on that event and writes the slabs into ``out`` while the next
     chunks compute (up to :data:`WRITE_DEPTH` behind). No host sync
-    otherwise. Under ``torch.profiler`` the main thread's part shows as
-    the span ``sweep_knossos.enqueue``; the worker threads' parts are
-    timed by ``timings`` (the profiler's trace holds no span of theirs).
+    otherwise.
+
+    Under a profiler the call is the span ``sweep_knossos``; on the main
+    thread ``sweep_knossos.wait_stage`` waits for a chunk's staging,
+    ``sweep_knossos.enqueue`` copies it to the card and enqueues its
+    forward and read-back, ``sweep_knossos.wait_write`` waits for the
+    writer (more than ``WRITE_DEPTH`` chunks behind) and
+    ``sweep_knossos.drain`` for the last write-backs; the staging thread's
+    ``sweep_knossos.stage`` and the writer's ``sweep_knossos.write`` (after
+    the read-back's event) cover what ``timings`` times. Each worker is
+    one thread taking chunks in order, so the n-th ``stage`` or ``write``
+    span on its thread is chunk n's. The worker threads' spans are
+    recorded by a profiler that records every thread
+    (``utils.profiling.trace`` does).
 
     ``slab_batch`` > 1 runs that many slabs per forward through
     ``dilated_dense_forward(batch=True)`` (``convolutional_dense_forward``
@@ -1452,6 +1479,13 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     output; if that pass runs out of device memory the sweep goes on with
     per-dispatch scales and a warning (any other error reaches the caller).
     """
+    with span("sweep_knossos"):
+        return _sweep_knossos(model, karr, region, step, out, verbose, mesh,
+                              axis_name, slab_batch, batch_axis, timings)
+
+
+def _sweep_knossos(model, karr, region, step, out, verbose, mesh, axis_name,
+                   slab_batch, batch_axis, timings):
     global sweep_oom_fallbacks
     pred = model.prediction_node
     if region is None:
@@ -1530,15 +1564,16 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
     def stage(chunk, B):
         """The chunk's slabs stacked into one (pinned, on the card) host
         tensor; a short chunk repeats its final slab."""
-        t0 = time.perf_counter()
-        slabs = [read(o) for o in chunk]
-        slabs += [slabs[-1]] * (B - len(slabs))
-        buf = torch.empty((B,) + slabs[0].shape, pin_memory=cuda,
-                          dtype=torch.uint8 if slabs[0].dtype == np.uint8
-                          else torch.float32)
-        np.stack(slabs, out=buf.numpy())
-        if timings is not None:
-            timings["stage_s"].append(time.perf_counter() - t0)
+        with span("sweep_knossos.stage"):
+            t0 = time.perf_counter()
+            slabs = [read(o) for o in chunk]
+            slabs += [slabs[-1]] * (B - len(slabs))
+            buf = torch.empty((B,) + slabs[0].shape, pin_memory=cuda,
+                              dtype=torch.uint8 if slabs[0].dtype == np.uint8
+                              else torch.float32)
+            np.stack(slabs, out=buf.numpy())
+            if timings is not None:
+                timings["stage_s"].append(time.perf_counter() - t0)
         return buf
 
     def readback(dense, chunk):
@@ -1561,14 +1596,15 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
         arr, done, chunk = pending
         if done is not None:
             done.synchronize()
-        t0 = time.perf_counter()
-        for j, o in enumerate(chunk):
-            n = [min(step[d], rshape[d] - o[d]) for d in range(3)]
-            out[:, o[0]:o[0] + n[0], o[1]:o[1] + n[1],
-                o[2]:o[2] + n[2]] = arr[j, :, :n[0], :n[1], :n[2]]
-        if timings is not None:
-            timings["write_s"].append(time.perf_counter() - t0)
-            timings["slabs"].append(len(chunk))
+        with span("sweep_knossos.write"):
+            t0 = time.perf_counter()
+            for j, o in enumerate(chunk):
+                n = [min(step[d], rshape[d] - o[d]) for d in range(3)]
+                out[:, o[0]:o[0] + n[0], o[1]:o[1] + n[1],
+                    o[2]:o[2] + n[2]] = arr[j, :, :n[0], :n[1], :n[2]]
+            if timings is not None:
+                timings["write_s"].append(time.perf_counter() - t0)
+                timings["slabs"].append(len(chunk))
         if verbose:
             logger.info(f"sweep_knossos: slab {chunk[-1]} done "
                         f"({len(chunk)} in the chunk)")
@@ -1600,10 +1636,11 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
                 ThreadPoolExecutor(max_workers=1) as writer:
             fut = stager.submit(stage, chunks[0], B)
             for ci, chunk in enumerate(chunks):
-                buf = fut.result()
+                with span("sweep_knossos.wait_stage"):
+                    buf = fut.result()
                 if ci + 1 < len(chunks):
                     fut = stager.submit(stage, chunks[ci + 1], B)
-                with record_function("sweep_knossos.enqueue"):
+                with span("sweep_knossos.enqueue"):
                     x = buf.to(dev, non_blocking=True)
                     x = lut[x.int()] if x.dtype == torch.uint8 else x
                     pending = readback(forward(x), chunk)
@@ -1612,10 +1649,12 @@ def sweep_knossos(model, karr, region=None, step=None, out=None,
                 # write-back that first touches the pages of ``out`` takes
                 # longer than a slab computes
                 if len(writes) >= WRITE_DEPTH:
-                    writes.pop(0).result()
+                    with span("sweep_knossos.wait_write"):
+                        writes.pop(0).result()
                 writes.append(writer.submit(write_back, pending))
-            for w in writes:
-                w.result()
+            with span("sweep_knossos.drain"):
+                for w in writes:
+                    w.result()
 
     use_batch = slab_batch > 1
     if use_batch and mesh is not None:

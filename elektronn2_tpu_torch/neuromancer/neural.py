@@ -48,6 +48,7 @@ from ..ops.conv import (absmax, apply_activation, conv as ops_conv,
                         pooling_slices, quantized_conv, upconv, upconv_d2s)
 from ..ops.mfp import fragmentpool, fragments2dense, mfp_offsets_product
 from ..ops.tailconv import conv3x3_dilated
+from ..utils.profiling import POOL_SPAN, span
 
 
 def _maxout_factor(activation_func):
@@ -414,9 +415,10 @@ class Conv(Node, _BNMixin):
         return self._conv_epilogue(ctx, y)
 
     def _pool(self, ctx, y):
-        if ctx.convdense_poolslice:
-            return pooling_slices(y, self.pool_shape)
-        return ops_pooling(y, self.pool_shape)
+        with span(POOL_SPAN):
+            if ctx.convdense_poolslice:
+                return pooling_slices(y, self.pool_shape)
+            return ops_pooling(y, self.pool_shape)
 
     def _pool_stage(self, ctx, y):
         """The pool, plain or MFP's fragment pool (channel by channel)."""
@@ -529,11 +531,12 @@ class Pool(Node):
     def _compute(self, ctx, x):
         if all(p == 1 for p in self.pool_shape):
             return x
-        if self.mfp:
-            y, _ = fragmentpool(x, self.pool_shape, self._parent_offsets,
-                                self._pre_pool_strides, mode=self.mode)
-            return y
-        return ops_pooling(x, self.pool_shape, mode=self.mode)
+        with span(POOL_SPAN):
+            if self.mfp:
+                y, _ = fragmentpool(x, self.pool_shape, self._parent_offsets,
+                                    self._pre_pool_strides, mode=self.mode)
+                return y
+            return ops_pooling(x, self.pool_shape, mode=self.mode)
 
 
 @register_node_class

@@ -43,7 +43,9 @@ Dispatch: a CPU tensor runs the plain PyTorch version
 :func:`conv1x3x3_pool_reference`); a CUDA tensor launches the kernel or
 raises. ``launches`` counts K1's kernel launches, ``bf16_launches`` those
 of its bf16 mode, ``head_launches`` K4's (both bodies) and
-``head_tc_launches`` those of K4's tensor-core body.
+``head_tc_launches`` those of K4's tensor-core body. Under a profiler each
+launch is the host op ``tailconv.launch`` (``utils.profiling.launch_op``),
+to which the profiler links the kernel.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.cuda_build import load_cuda_library
+from ..utils.profiling import launch_op
 from .conv import f32_convs
 
 #: kernel launches of K1's float32 mode (:func:`conv3x3_dilated`)
@@ -64,6 +67,9 @@ bf16_launches = 0
 head_launches = 0
 #: of those, launches of the tensor-core body (:func:`head_tc`)
 head_tc_launches = 0
+
+#: the host op around each launch of K1 and K4
+LAUNCH_OP = "tailconv.launch"
 
 _fn = None
 _bf16_fn = None
@@ -309,7 +315,7 @@ def _launch_tail(fn, pack, x, w, b, dx, dy, what):
     wp = packed_weights(w, NP, pack)
     y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
                     dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with launch_op(LAUNCH_OP), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
                  N, Cin, Z, X, Y, Cout, NP, dx, dy, stream)
@@ -429,7 +435,7 @@ def bf16_layout(x):
     build_bf16()
     xb = torch.empty((n, Z, X, 2 * -(-cin // K_CHUNK_BF16), Y, 8),
                      dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
+    with launch_op(LAUNCH_OP), torch.cuda.device(x.device):
         err = _bf16_cast_fn(x.data_ptr(), xb.data_ptr(), n, cin, Z, X, Y,
                             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -471,7 +477,7 @@ def _launch_bf16(x, w, b, dx, dy):
     y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
                     dtype=torch.float32, device=x.device)
     stats = bf16_staging_stats(x.device)
-    with torch.cuda.device(x.device):
+    with launch_op(LAUNCH_OP), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bf16_fn(x.data_ptr(), xb.data_ptr(), wp.data_ptr(),
                        b.data_ptr(), y.data_ptr(), stats.data_ptr(), N, Cin,
@@ -615,7 +621,7 @@ def _launch_head(body, x, w, w4, b, d, pool):
     dp = d * (pool - 1)
     y = torch.empty((N, Cout, Z, X - 2 * d - dp, Y - 2 * d - dp),
                     dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with launch_op(LAUNCH_OP), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _head_fns[body](x.data_ptr(), wt.data_ptr(), bp.data_ptr(),
                               y.data_ptr(), N, Cin, Z, X, Y, Cout, *extra, d,
