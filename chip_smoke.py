@@ -588,8 +588,9 @@ def check_probe_sass(kernel, counts):
     dot-only instance) hold HGMMAs (``wgmma``), no HMMA (``mma.sync``) and
     fewer than 64 FFMAs (the FFMA dot of before had 512 a k step); in P2,
     at each N tile of ``exp_ptail_ablate.N_TILES``, every probe with the dot
-    leg holds at least K1's 9 HGMMAs a stage and the others none, and every
-    probe with the dma leg holds LDGSTS (``cp.async``)."""
+    leg holds at least K1's 27 HGMMAs a (tile, stage) row and the others
+    none, and every probe with the dma leg holds LDGSTS (its producer's
+    ``cp.async`` route)."""
     if kernel == "ptail_dot":
         for key in ("dot_tf32_kernel", "dot_bf16_kernel"):
             got = [c for f, c in counts.items() if key in f]
@@ -606,7 +607,7 @@ def check_probe_sass(kernel, counts):
         raise AssertionError(f"ptail_ablate: instances {sorted(inst)}")
     for (nt, i), c in inst.items():
         name = exp_ptail_ablate.PROBES[i]
-        if ((c["HGMMA"] < 9 if name in P2_DOT else c["HGMMA"] > 0)
+        if ((c["HGMMA"] < 27 if name in P2_DOT else c["HGMMA"] > 0)
                 or (name in P2_DMA and c["LDGSTS"] < 1)):
             raise AssertionError(f"ptail_ablate {name} N {nt}: SASS {c}")
 
@@ -702,7 +703,8 @@ def phase_kernel():
     path's conv2 + conv3 shapes; the library call is one ``F.conv3d`` with
     the bias (no ReLU), in full float32. At the timed shapes and the U-Net
     sweep's (``unet512_*``, untimed) K1 is also held against float64
-    (``f64_errors``)."""
+    (``f64_errors``); at every shape the bytes it staged (its own count,
+    ``tc_staging_stats``) must be ``tc_plan``'s."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # name, N, Cin, Cout, (Z, X, Y), dil
         ("conv2", 1, 30, 40, (124, 512, 512), (1, 4, 4)),
@@ -729,11 +731,14 @@ def phase_kernel():
     ]
     max_err, ms_sum, plain_sum, bound_sum, lib_sum = 0.0, 0.0, 0.0, 0.0, 0.0
     by = None
+    props = torch.cuda.get_device_properties(0)
+    stats = tailconv.tc_staging_stats("cuda")
     for name, N, cin, cout, sp, dil in cases:
         x = torch.rand((N, cin) + sp, device="cuda", generator=g) - 0.5
         w = (torch.rand(cout, cin, 3, 3, 3, device="cuda", generator=g)
              - 0.5) * (2.0 / (27 * cin)) ** 0.5
         b = torch.rand(cout, device="cuda", generator=g) * 0.2 - 0.1
+        stats.zero_()
         got = tailconv.conv3x3_dilated(x, w, b, dil)
         ref = k1_plain(x, w, b, dil)
         torch.cuda.synchronize()
@@ -741,8 +746,22 @@ def phase_kernel():
         err = (got - ref).abs().max().item()
         max_err = max(max_err, err)
         del ref
+        # the bytes K1 staged (its own count) are its plan's (a hard gate)
+        plan = tailconv.tc_plan(
+            N, cin, cout, *sp, dil[1], dil[2],
+            smem=getattr(props, "shared_memory_per_block_optin",
+                         tailconv.H100_SMEM_OPTIN),
+            sms=props.multi_processor_count)
+        staged = int(stats.item())
         rec = dict(case=name, x=[N, cin, *sp], cout=cout, dil=list(dil),
-                   max_abs_err=err)
+                   max_abs_err=err, staged_bytes=staged,
+                   plan={k: plan[k] for k in ("NP", "G", "stages", "W",
+                                              "segmented", "route",
+                                              "staged_bytes")})
+        if staged != plan["staged_bytes"]:
+            emit("kernel", **rec)
+            raise AssertionError(f"K1 {name}: staged {staged} bytes, its "
+                                 f"plan {plan['staged_bytes']}")
         if name.startswith("sweep"):    # each item as its N = 1 launch
             rec["items_equal_n1"] = all(
                 torch.equal(got[i], tailconv.conv3x3_dilated(
@@ -773,7 +792,8 @@ def phase_kernel():
             rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
                        bound_by=by, kernel_tflop_s=flop / ms / 1e9,
                        library_tflop_s=flop / lms / 1e9,
-                       plain_tflop_s=flop / pms / 1e9)
+                       plain_tflop_s=flop / pms / 1e9,
+                       staging_tb_s=staged / ms / 1e9)
             if name in ("conv2", "conv3"):      # the flagship's main path
                 ms_sum += ms
                 plain_sum += pms

@@ -12,9 +12,9 @@
 //
 // Instances: the eight probes at the N tiles the probe's runs and tests
 // use, 40 (the flagship's Cout 40), 48 (Cout 45) and 128 (the U-Net's
-// Cout 128 and 256): 24 instances. Each holds 9 wgmmas a stage when it has
-// the dot leg and none without; the build counts against chip_smoke.py's
-// time, so the other six N tiles of K1 are not built here.
+// Cout 128 and 256): 24 instances. Each holds 27 wgmmas a (tile, stage)
+// when it has the dot leg and none without; the build counts against
+// chip_smoke.py's time, so K1's other N tiles are not built here.
 //
 // What bounds it on this card: K1's bound, three TF32 products per
 // multiply-add at 495 TFLOP/s; a probe's time against `full`'s says what
@@ -25,8 +25,8 @@
 namespace {
 
 using ProbeLaunch = int (*)(const float*, const float*, const float*, float*,
-                            int, int, int, int, int, int, int, int,
-                            cudaStream_t);
+                            unsigned long long*, int, int, int, int, int,
+                            int, int, int, cudaStream_t);
 
 // one launch per probe, in Probe order, for N tile NP
 template <int NP>
@@ -38,7 +38,7 @@ constexpr ProbeLaunch PROBE_LAUNCH[N_PROBES] = {
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. The arguments are K1's
-// (e2t_tailconv_tc) with the probe's index first:
+// (e2t_tailconv_tc) with the probe's index first and no staging count:
 //   probe 0..7 = full, nodot, nostage, noepi, dotonly, none, dmaonly, outonly
 //   x    (N, Cin, Z, X, Y) float32, contiguous
 //   wp   the weights packed for N tile `np` by ops/tailconv.py::pack_weights
@@ -57,8 +57,8 @@ extern "C" int e2t_ptail_ablate(int probe, const float* x, const float* wp,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define E2T_CASE(NP)                                                       \
   case NP:                                                                 \
-    return PROBE_LAUNCH<NP>[probe](x, wp, bias, y, N, Cin, Z, X, Y, Cout,  \
-                                   dx, dy, s);
+    return PROBE_LAUNCH<NP>[probe](x, wp, bias, y, nullptr, N, Cin, Z, X,  \
+                                   Y, Cout, dx, dy, s);
   switch (np) {
     E2T_CASE(40) E2T_CASE(48) E2T_CASE(128)
   }
@@ -66,5 +66,5 @@ extern "C" int e2t_ptail_ablate(int probe, const float* x, const float* wp,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Floats in dmaonly's shared output block.
-extern "C" int e2t_ptail_ablate_tiny() { return THREADS; }
+// Floats in dmaonly's shared output block: one a consumer thread.
+extern "C" int e2t_ptail_ablate_tiny() { return CONSUMERS * 128; }

@@ -86,6 +86,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 
+#include "mbarrier_tma.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
@@ -104,7 +105,6 @@ constexpr int HDR = 256;                 // the barriers' bytes
 constexpr int EPC = 32;                  // channels an epilogue pass stages
 constexpr int EPS = 68;                  // its row stride, floats
 constexpr int EPI_BYTES = CONSUMERS * EPC * EPS * 4;
-constexpr long long HANG_CYCLES = 1ll << 34;
 
 // m64 tiles (output rows) a consumer warpgroup holds totals for at N tile NP
 template <int NP>
@@ -154,10 +154,6 @@ WGMMA_BF16_SS(56, 28)
 WGMMA_BF16_SS(64, 32)
 WGMMA_BF16_SS(128, 64)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // A no-swizzle shared-memory matrix descriptor: start address (16-byte
 // units) | LBO, SBO in `hi`.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint64_t hi) {
@@ -167,60 +163,6 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint64_t hi) {
 __host__ __device__ constexpr uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
   return (static_cast<uint64_t>(lbo >> 4) << 16)
          | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// arrive, and expect `bytes` more of asynchronous copies in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n.reg .pred p;\n"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-               "selp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of parity `parity` of `bar` to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > HANG_CYCLES) __trap();
-}
-
-// One TMA box of the 5-D tensor map into shared memory at dst.
-__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int c0, int c1,
-                                          int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) contiguous bytes into shared memory at dst.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // the 128 threads of consumer warpgroup `wg`
@@ -486,32 +428,6 @@ tailconv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, looked up once (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // x -> xb, the bf16 copy (bf16_cast_layout_kernel)

@@ -7,10 +7,14 @@ xy-dilation (dx, dy), bias and ReLU fused, at float32 accuracy. On the dense
 MFP path (``neuromancer/inference.py``) it runs the flagship's conv2 and
 conv3, which hold 93% of the multiply-adds per output voxel; on the
 conv-dense path, the U-Net's (3,3,3) ReLU convs. Kernel:
-``csrc/tailconv.cu``, a 3xTF32 implicit GEMM on the tensor cores
-(``wgmma``): the weights are split into TF32 hi and lo parts and packed
-for it by :func:`pack_weights` (once per weight tensor:
-:func:`packed_weights`), the input is split inside the kernel.
+``csrc/tailconv.cu``, a persistent, warp-specialised 3xTF32 implicit GEMM
+on the tensor cores (``wgmma``), its input staged straight from x by TMA
+(or ``cp.async`` where no tensor map can describe x) once per (8-channel
+chunk, kz) for all 9 taps: the weights are split into TF32 hi and lo parts
+and packed for it by :func:`pack_weights` (once per weight tensor:
+:func:`packed_weights`), the input is split inside the kernel; its tile,
+ring and route by :func:`tc_plan`, its staged bytes counted in
+:func:`tc_staging_stats`.
 
 K1's bfloat16 mode (``conv3x3_dilated(..., compute_dtype="bfloat16")``)
 ports the same kernel's bf16 mode: x and w rounded to bf16, their products
@@ -41,9 +45,10 @@ Each source's head note says what bounds it on the card and how.
 Dispatch: a CPU tensor runs the plain PyTorch version
 (:func:`conv3x3_dilated_reference`, :func:`conv3x3_dilated_bf16_reference`,
 :func:`conv1x3x3_pool_reference`); a CUDA tensor launches the kernel or
-raises. ``launches`` counts K1's kernel launches, ``bf16_launches`` those
-of its bf16 mode, ``head_launches`` K4's (both bodies) and
-``head_tc_launches`` those of K4's tensor-core body. Under a profiler each
+raises. ``launches`` counts K1's kernel launches (``tc_cp_async_launches``
+those of them on the ``cp.async`` route), ``bf16_launches`` those of its
+bf16 mode, ``head_launches`` K4's (both bodies) and ``head_tc_launches``
+those of K4's tensor-core body. Under a profiler each
 launch is the host op ``tailconv.launch`` (``utils.profiling.launch_op``),
 to which the profiler links the kernel.
 """
@@ -61,6 +66,9 @@ from .conv import f32_convs
 
 #: kernel launches of K1's float32 mode (:func:`conv3x3_dilated`)
 launches = 0
+#: of those, launches that staged x by ``cp.async`` (:func:`tc_plan`'s
+#: route ``"cp_async"``)
+tc_cp_async_launches = 0
 #: kernel launches of K1's bf16 mode (``compute_dtype="bfloat16"``)
 bf16_launches = 0
 #: kernel launches made by :func:`conv1x3x3_pool_dilated` in this process
@@ -85,7 +93,7 @@ def build():
     lib = load_cuda_library("tailconv")
     if _fn is None:
         fn = lib.cdll.e2t_tailconv_tc
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -176,9 +184,10 @@ K_CHUNK = 8
 
 
 def n_tile(cout):
-    """The kernel's N tile (output channels of one block, one ``wgmma`` N)
-    for ``cout``: Cout rounded up to a multiple of 8 up to 64, else 128
-    (wider Cout runs as more 128-channel groups in the grid)."""
+    """The tensor-core N tile (output channels of one block tile, one
+    ``wgmma`` N) of K1 and K4 for ``cout``: Cout rounded up to a multiple of
+    8 up to 64, else 128 (wider Cout runs as more 128-channel groups in the
+    grid)."""
     return -(-cout // 8) * 8 if cout <= 64 else 128
 
 
@@ -285,7 +294,7 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True,
     :func:`conv3x3_dilated_bf16_reference`; no serving route takes it, as
     in the JAX package.
     """
-    global launches, bf16_launches
+    global bf16_launches
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"tail conv: compute_dtype={compute_dtype!r}: "
                          "expected 'float32' or 'bfloat16'")
@@ -300,28 +309,136 @@ def conv3x3_dilated(x, w, b, dil=(1, 1, 1), relu=True,
         y = _launch_bf16(x, w, b, dx, dy)
         bf16_launches += 1
         return y
-    build()
-    y = _launch_tail(_fn, pack_weights, x, w, b, dx, dy, "tail conv")
-    launches += 1
-    return y
+    return _launch_tc(x, w, b, dx, dy)
 
 
-def _launch_tail(fn, pack, x, w, b, dx, dy, what):
-    """Launch K1's kernel ``fn`` (either mode) on a validated call, with
-    the weights packed by ``pack`` (cached); returns the output."""
+def _launch_tc(x, w, b, dx, dy):
+    """Launch K1's float32 kernel on a validated CUDA call, its N tile and
+    route from :func:`tc_plan`, the weights packed by :func:`pack_weights`
+    (cached); counts the launch and returns the output."""
+    global launches, tc_cp_async_launches
     N, Cin, Z, X, Y = x.shape
     Cout = w.shape[0]
-    NP = n_tile(Cout)
-    wp = packed_weights(w, NP, pack)
+    plan = tc_plan(N, Cin, Cout, Z, X, Y, dx, dy,
+                   aligned=x.data_ptr() % 16 == 0)
+    build()
+    wp = packed_weights(w, plan["NP"])
     y = torch.empty((N, Cout, Z - 2, X - 2 * dx, Y - 2 * dy),
                     dtype=torch.float32, device=x.device)
+    stats = tc_staging_stats(x.device)
     with launch_op(LAUNCH_OP), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 N, Cin, Z, X, Y, Cout, NP, dx, dy, stream)
+        err = _fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+                  stats.data_ptr(), N, Cin, Z, X, Y, Cout, plan["NP"], dx, dy,
+                  stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"tail conv kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    if plan["route"] == "cp_async":
+        tc_cp_async_launches += 1
     return y
+
+
+#: the H100's opt-in shared memory a block (bytes) and SM count: the
+#: defaults :func:`tc_plan` and :func:`bf16_plan` plan for (the kernels
+#: read their card's)
+H100_SMEM_OPTIN = 232448
+H100_SMS = 132
+#: K1's float32 kernel: shared memory besides its ring (alignment slack,
+#: the barriers), most ring stages, and the y values of a staged row
+#: segment (64 padded to 8 mod 16)
+_TC_FIXED = 128 + 256
+_TC_MAX_STAGES = 8
+_TC_SEG_W = 72
+
+
+def tc_plan(n, cin, cout, Z, X, Y, dx, dy, smem=H100_SMEM_OPTIN,
+            sms=H100_SMS, aligned=True):
+    """K1's float32 launch plan (``csrc/tailconv_tc_body.cuh::launch``
+    computes the same) for x (n, cin, Z, X, Y), Cout ``cout`` and
+    xy-dilation (dx, dy), on a card with ``smem`` opt-in shared bytes a
+    block and ``sms`` SMs (an H100's by default); ``aligned``: x's address
+    is a multiple of 16 bytes. A dict:
+
+    - ``NP``, ``G``: N tile (:func:`n_tile`: output channels of a block
+      tile, one ``wgmma`` N) and channel groups, ceil(Cout / NP); ``T``,
+      ``R``: m64 tiles a consumer warpgroup holds float32 totals for (4 up
+      to N 64, 1 at N 128) and output rows of a block tile (2T, 64 y each,
+      rows of one x phase: xo = px + dx (i0 + i)); ``acc_regs``: the totals
+      and the one set of partials, registers a consumer thread ((T + 1)
+      NP / 2);
+    - ``W``, ``segmented``, ``rowb``: the y values of a staged row (64 + 2dy,
+      3 more where Y % 4 != 0, padded to 8 mod 16, the fragment loads' bank
+      rule), or, where that would pass 3 x 72, three segments of 72, one
+      per ky, from y0 + ky dy; a staged row's bytes (8 channels). A TMA box
+      starts at the 16-byte boundary at or before its row's first value;
+    - ``ntiles``, ``grid`` (one persistent block per SM), ``stages``: ring
+      depth (a stage: R + 2 rows and the stage's 9 taps of weights,
+      ``slot_bytes``), ``smem``: dynamic shared bytes;
+    - ``route``: ``"tma"`` where a float32 tensor map of x as (Z X Y, Cin,
+      N) exists (Z X Y % 4 == 0, x aligned, Z X Y <= 2^30), else
+      ``"cp_async"``;
+    - ``staged_bytes``: what the launch stages into shared memory (the
+      kernel's own count, :func:`tc_staging_stats`): ``slot_bytes`` a
+      (tile, 8-channel chunk, kz).
+
+    Raises ``ValueError`` for an empty output, more than 2^31 - 1 tiles,
+    or a ring of two stages that does not fit ``smem``."""
+    NP = n_tile(cout)
+    G = -(-cout // NP)
+    CC = -(-cin // K_CHUNK)
+    T = 4 if NP <= 64 else 1
+    R = 2 * T
+    w1 = (64 + 2 * dy + (3 if Y % 4 else 0) + 7) // 16 * 16 + 8
+    segmented = w1 > 3 * _TC_SEG_W
+    W = _TC_SEG_W if segmented else w1
+    rowb = (3 if segmented else 1) * 32 * W
+    Zo, Xo, Yo = Z - 2, X - 2 * dx, Y - 2 * dy
+    if min(Zo, Xo, Yo) < 1:
+        raise ValueError(f"tail conv: empty output for {(Z, X, Y)}")
+    xtp = -(-(-(-Xo // dx)) // R)
+    ntiles = n * dx * xtp * -(-Yo // 64) * G * Zo
+    if ntiles > 2**31 - 1:
+        raise ValueError(f"tail conv: {ntiles} tiles, past 2^31 - 1")
+    slot = (R + 2) * rowb + 9 * 2 * NP * K_CHUNK * 4
+    stages = min(_TC_MAX_STAGES, (smem - _TC_FIXED) // slot)
+    if stages < 2:
+        raise ValueError(f"tail conv: N tile {NP} does not fit {smem} bytes "
+                         "of shared memory")
+    zxy = Z * X * Y
+    route = ("tma" if aligned and zxy % 4 == 0 and zxy <= 2**30
+             else "cp_async")
+    return dict(NP=NP, G=G, T=T, R=R, acc_regs=(T + 1) * NP // 2, W=W,
+                segmented=segmented, rowb=rowb, ntiles=ntiles,
+                grid=min(ntiles, sms), stages=stages, slot_bytes=slot,
+                smem=_TC_FIXED + stages * slot, route=route,
+                staged_bytes=ntiles * CC * 3 * slot)
+
+
+_tc_stats = {}       # device -> tc_staging_stats(device)
+
+
+def _device_counter(table, device):
+    """``table``'s int64 counter of one on ``device`` (the current CUDA
+    device for a bare ``"cuda"``), made on first use."""
+    key = torch.device(device)
+    if key.type == "cuda" and key.index is None:
+        key = torch.device("cuda", torch.cuda.current_device())
+    got = table.get(key)
+    if got is None:
+        got = table[key] = torch.zeros(1, dtype=torch.int64, device=key)
+    return got
+
+
+def tc_staging_stats(device):
+    """K1's float32 kernel's running count on ``device``, an int64 tensor
+    of one, added to by every launch: the bytes it staged into shared
+    memory (input rows and packed weights; :func:`tc_plan`'s
+    ``staged_bytes`` a launch). ``zero_()`` it to start a count. Made on the
+    first call: keep that outside a CUDA graph capture (the first launch
+    makes it)."""
+    return _device_counter(_tc_stats, device)
 
 
 def conv3x3_dilated_reference(x, w, b, dil=(1, 1, 1)):
@@ -335,10 +452,6 @@ def conv3x3_dilated_reference(x, w, b, dil=(1, 1, 1)):
 K_CHUNK_BF16 = 16
 
 
-#: the H100's opt-in shared memory a block (bytes) and SM count: the
-#: defaults :func:`bf16_plan` plans for (the kernel reads its card's)
-H100_SMEM_OPTIN = 232448
-H100_SMS = 132
 #: the bf16 kernel's shared memory besides its ring: alignment slack, the
 #: barriers, two warpgroups' epilogue buffers (32 channels x 68 floats)
 _BF16_FIXED = 128 + 256 + 2 * 32 * 68 * 4
@@ -453,14 +566,7 @@ def bf16_staging_stats(device):
     (TMA boxes of input rows and bulk copies of packed weights).
     ``zero_()`` it to start a count. Made on the first call: keep that
     outside a CUDA graph capture (the first launch makes it)."""
-    key = torch.device(device)
-    if key.type == "cuda" and key.index is None:
-        key = torch.device("cuda", torch.cuda.current_device())
-    got = _bf16_stats.get(key)
-    if got is None:
-        got = _bf16_stats[key] = torch.zeros(1, dtype=torch.int64,
-                                             device=key)
-    return got
+    return _device_counter(_bf16_stats, device)
 
 
 def _launch_bf16(x, w, b, dx, dy):

@@ -4,20 +4,22 @@ Port of ``scripts/exp_ptail_ablate.py``, which is the production tail body
 with legs removed. So is this: ``csrc/ptail_ablate.cu`` builds K1's own
 kernel body (``csrc/tailconv_tc_body.cuh``, the one ``csrc/tailconv.cu``
 builds) once per probe, the probe a template parameter (WRONG VALUES except
-for ``full`` and ``noepi``: timing only). The body's legs on the card are
-the ``cp.async`` ring of input rows and packed weights with its waits and
-barriers (dma), the A fragment's ``ld.shared`` and TF32 split (stage), the
-9 ``wgmma``s a stage (dot), the promotion of the partials every 3 stages
-then bias and ReLU (epi) and the stores (out); the probes, named as in the
-JAX script:
+for ``full`` and ``noepi``: timing only). The body is a producer
+warpgroup feeding a ring of (8-channel chunk, kz) stages to two consumer
+warpgroups; its legs on the card are the producer's copies into the ring
+(TMA boxes or ``cp.async`` rows of input, a bulk copy of the stage's packed
+weights) with its waits for free slots (dma), and the consumers' A
+fragment ``ld.shared`` and TF32 split (stage), 27 ``wgmma``s a (tile,
+stage) (dot), promotion of the partials once a (tile, stage) then bias and
+ReLU (epi) and the stores (out); the probes, named as in the JAX script:
 
   full     every leg: K1 itself (equal to K1 bit for bit)
   nodot    dma, stage, epi, out; each split fragment folded into the
            partials by one add, no wgmma
   nostage  dma, dot, epi, out; the A fragments loaded and split once,
            before the loop
-  noepi    dma, stage, dot, out; one accumulator over all stages, no
-           promotion, no bias and no ReLU (the bare conv)
+  noepi    dma, stage, dot, out; one accumulator a tile over all stages,
+           no promotion, no bias and no ReLU (the bare conv)
   dotonly  dot only, from a stage filled once; raw stores
   none     dma and out
   dmaonly  dma; every block writes one shared tiny block
@@ -35,9 +37,10 @@ order); ``noepi`` to the conv without bias and ReLU within
 float32 accumulator). Their rows carry ``max_abs_err`` (``noepi``'s also
 its ``atol``), and ``full``'s also K1's plain time, one ``F.conv3d`` with
 the bias (``library_ms``), K1's bound on an H100 (3 x the FLOPs at 495
-TFLOP/s, "operations (3xTF32)") and the bytes K1's blocks stage
+TFLOP/s, "operations (3xTF32)") and the bytes K1's producer stages
 (:func:`k1_staged_bytes`: ``staged_weight_bytes``,
-``staged_input_bytes``), which ``dmaonly`` copies too. The other six are checked for shape and finite values only.
+``staged_input_bytes``), which ``dmaonly`` copies too. The other six are
+checked for shape and finite values only.
 The z-block (``ZB``) of the JAX script has no counterpart: K1 on the card
 has none.
 
@@ -109,22 +112,17 @@ def build():
 
 
 def k1_staged_bytes(shape, cout, dil):
-    """(packed-weight bytes, input-row bytes) that K1's blocks copy into
-    shared memory in one call at ``shape`` (N, Cin, Z, X, Y), ``cout`` and
-    ``dil``: K1's launch geometry (``csrc/tailconv_tc_body.cuh::launch``),
-    each block staging every 8-channel chunk and (kz, kx) tap of the packed
-    weights of its channel group and its input rows, 64 tpr + 2dy wide."""
+    """(packed-weight bytes, input-row bytes) that K1's producer copies
+    into shared memory in one call at ``shape`` (N, Cin, Z, X, Y), ``cout``
+    and ``dil``: K1's plan (``tailconv.tc_plan``), each tile staging every
+    (8-channel chunk, kz) stage once: the stage's 9 taps of packed weights
+    of its channel group and its R + 2 input rows."""
     N, Cin, Z, X, Y = shape
     _, dx, dy = dil
-    Zo, Xo, Yo = Z - 2, X - 2 * dx, Y - 2 * dy
-    NP = tailconv.n_tile(cout)
-    tpr = 2 if Yo > 64 else 1
-    R = 2 // tpr
-    blocks = (N * Zo * -(-Xo // R) * -(-Yo // (64 * tpr))
-              * -(-cout // NP))
-    stages = blocks * -(-Cin // 8) * 9
-    return (stages * 4 * 3 * 2 * NP * 8,
-            stages * 4 * R * 8 * (64 * tpr + 2 * dy))
+    plan = tailconv.tc_plan(N, Cin, cout, Z, X, Y, dx, dy)
+    stages = plan["ntiles"] * -(-Cin // tailconv.K_CHUNK) * 3
+    return (stages * 9 * 2 * plan["NP"] * tailconv.K_CHUNK * 4,
+            stages * (plan["R"] + 2) * plan["rowb"])
 
 
 def _noepi_reference(x, w, b, dil):

@@ -126,6 +126,141 @@ def test_k1_every_n_tile(cuda_device, cout):
     torch.testing.assert_close(got, ref, **TOL)
 
 
+def _tc_plan(x, cout, dil):
+    """``tc_plan`` for this call on this card (its opt-in shared memory, SM
+    count and x's alignment)."""
+    props = torch.cuda.get_device_properties(x.device)
+    return tailconv.tc_plan(
+        x.shape[0], x.shape[1], cout, *x.shape[2:], dil[1], dil[2],
+        smem=getattr(props, "shared_memory_per_block_optin",
+                     tailconv.H100_SMEM_OPTIN),
+        sms=props.multi_processor_count, aligned=x.data_ptr() % 16 == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, cin, cout, sp, dil, route", [
+    # Y % 4 == 0, ragged X (Xo 56 of 8-row tiles by phase) and Y (Yo 292)
+    (1, 30, 40, (6, 64, 300), (1, 4, 4), "tma"),
+    # Y % 4 != 0 with Z X Y % 4 == 0: rows run on into the next one
+    (1, 30, 40, (6, 62, 301), (1, 4, 4), "tma"),
+    (2, 256, 128, (4, 23, 30), (1, 1, 1), "tma"),      # d1: N tile 128
+    (1, 128, 256, (5, 20, 117), (1, 1, 1), "tma"),     # bott: two groups
+    # Z X Y % 4 != 0: cp.async
+    (1, 30, 40, (5, 41, 70), (1, 4, 4), "cp_async"),
+    (2, 256, 128, (5, 23, 30), (1, 1, 1), "cp_async"),
+    (1, 64, 256, (3, 13, 75), (1, 2, 1), "cp_async"),
+    # dy > 96: three segments of 72 a row, one per ky
+    (1, 30, 40, (4, 12, 330), (1, 4, 128), "tma"),
+    (1, 20, 24, (3, 9, 471), (1, 1, 200), "cp_async"),
+])
+def test_k1_staging_routes_match_plain(cuda_device, n, cin, cout, sp, dil,
+                                       route):
+    """Both staging routes against the plain version: one launch, counted
+    as cp.async where it is, and the bytes the kernel staged (its own count,
+    ``tc_staging_stats``) equal to ``tc_plan``'s."""
+    x, w, b = _inputs(31, n, cin, cout, sp, cuda_device)
+    w = w * (2.0 / (27 * cin)) ** 0.5
+    plan = _tc_plan(x, cout, dil)
+    assert plan["route"] == route
+    assert plan["segmented"] == (dil[2] > 76)
+    stats = tailconv.tc_staging_stats(cuda_device)
+    stats.zero_()
+    before = (tailconv.launches, tailconv.tc_cp_async_launches)
+    got = tailconv.conv3x3_dilated(x, w, b, dil)
+    ref = tailconv.conv3x3_dilated_reference(x, w, b, dil)
+    torch.cuda.synchronize()
+    assert (tailconv.launches, tailconv.tc_cp_async_launches) == (
+        before[0] + 1, before[1] + (route == "cp_async"))
+    torch.testing.assert_close(got, ref, **TOL)
+    assert int(stats.item()) == plan["staged_bytes"]
+
+
+@pytest.mark.cuda
+def test_k1_unaligned_x_takes_cp_async(cuda_device):
+    """An x whose address is not a multiple of 16 bytes (no tensor map can
+    hold it): the cp.async route, equal to the aligned call's output bit
+    for bit (the same sums in the same order)."""
+    x, w, b = _inputs(32, 1, 30, 40, (5, 40, 300), cuda_device)
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 and _tc_plan(xs, 40, (1, 4, 4))["route"] \
+        == "cp_async"
+    before = tailconv.tc_cp_async_launches
+    got = tailconv.conv3x3_dilated(xs, w, b, (1, 4, 4))
+    want = tailconv.conv3x3_dilated(x, w, b, (1, 4, 4))
+    torch.cuda.synchronize()
+    assert tailconv.tc_cp_async_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k1_reads_nothing_outside_x(cuda_device):
+    """x as one batch item, a contiguous slice of a buffer whose other items
+    are NaN: the TMA route reads x flattened, past a row's end into the
+    next, but never past x; the output is finite and matches the plain
+    version."""
+    n, cin, cout, sp, dil = 3, 20, 24, (5, 30, 302), (1, 2, 3)
+    buf = torch.full((n, cin) + sp, float("nan"), device=cuda_device)
+    x, w, b = _inputs(33, 1, cin, cout, sp, cuda_device)
+    buf[1:2] = x
+    xs = buf[1:2]
+    assert xs.is_contiguous() and _tc_plan(xs, cout, dil)["route"] == "tma"
+    got = tailconv.conv3x3_dilated(xs, w, b, dil)
+    ref = tailconv.conv3x3_dilated_reference(x, w, b, dil)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+def test_k1_graph_replay_equals_eager(cuda_device):
+    """K1 captured in a CUDA graph (the tensor map travels as a kernel
+    parameter) replays to the eager output bit for bit, also on new input
+    copied into the captured buffer."""
+    x, w, b = _inputs(34, 1, 30, 40, (5, 40, 300), cuda_device)
+    dil = (1, 4, 4)
+    eager = tailconv.conv3x3_dilated(x, w, b, dil)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = tailconv.launches
+    with torch.cuda.graph(g, stream=side):
+        out = tailconv.conv3x3_dilated(x, w, b, dil)
+    assert tailconv.launches == before + 1
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2 = _inputs(35, 1, 30, 40, (5, 40, 300), cuda_device)[0]
+    x.copy_(x2)
+    g.replay()
+    want = tailconv.conv3x3_dilated(x2, w, b, dil)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_k1_one_kernel_a_launch_in_a_profile(cuda_device):
+    """One ``tailconv_tc_kernel*`` in a profile per ``tailconv.launches``
+    step, and no other kernel under the launch's host op: K1 is one kernel
+    a call (no prep or cast kernel beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, b = _inputs(36, 1, 40, 40, (5, 40, 200), cuda_device)
+    tailconv.conv3x3_dilated(x, w, b, (1, 4, 4))       # packed and built
+    torch.cuda.synchronize()
+    before = tailconv.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            tailconv.conv3x3_dilated(x, w, b, (1, 4, 4))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1 = [nm for nm in names if "tailconv_tc_kernel" in nm]
+    assert tailconv.launches - before == 3 == len(k1)
+
+
 def _device_plan(x, cout, dil):
     """``bf16_plan`` for this call on this card (its opt-in shared memory
     and SM count)."""

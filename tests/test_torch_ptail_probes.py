@@ -218,15 +218,17 @@ def test_ablate_takes_built_n_tiles(cout):
 
 
 @pytest.mark.parametrize("shape, cout, dil, want", [
-    # Yo 7 <= 64: one tile a row, two rows a block: Xo 5 -> 3 x blocks,
-    # 2 z rows, 1 group; Cin 9 -> 2 chunks x 9 taps; rows of 64 + 2 wide
+    # 8 rows a tile: Xo 5 -> 1 x tile, Yo 7 -> 1 y tile, 2 z planes, 1
+    # group: 2 tiles; Cin 9 -> 2 chunks x 3 kz = 6 stages a tile, each the
+    # 9 taps' hi/lo weights (N 40) and 10 rows of 8 x 72 floats (64 + 2
+    # padded to 8 mod 16)
     ((1, 9, 4, 7, 9), 40, (1, 1, 1),
-     (2 * 3 * 18 * 4 * 3 * 2 * 40 * 8, 2 * 3 * 18 * 4 * 2 * 8 * 66)),
-    # Yo 92 > 64: two tiles a row, one row a block: one y block of 128,
-    # rows 128 + 8 wide; Cout 128 at N tile 128, Cin 8 -> 1 chunk
+     (2 * 6 * 9 * 2 * 40 * 8 * 4, 2 * 6 * 10 * 8 * 72 * 4)),
+    # N tile 128: 2 rows a tile; 2 items x 2 x phases (3 rows each, 2 x
+    # tiles) x 2 y tiles (Yo 92) x 1 group x 1 z plane: 16 tiles; Cin 8 ->
+    # 3 stages a tile, each the 9 taps' weights (N 128) and 4 rows of 64 + 8
     ((2, 8, 3, 10, 100), 128, (1, 2, 4),
-     (2 * 1 * 6 * 1 * 9 * 4 * 3 * 2 * 128 * 8,
-      2 * 1 * 6 * 1 * 9 * 4 * 1 * 8 * 136)),
+     (16 * 3 * 9 * 2 * 128 * 8 * 4, 16 * 3 * 4 * 8 * 72 * 4)),
 ])
 def test_k1_staged_bytes(shape, cout, dil, want):
     assert P2.k1_staged_bytes(shape, cout, dil) == want
