@@ -9,7 +9,9 @@ a short window (``--seconds``); then for ``--control`` seeds the same run
 with the precision control (the plain reference with TF32 operands) in the
 program's place, and for a training cell with half of the batch left out
 and with the float64 reference in the program's place (``float64``: how far
-rounding alone carries a chunk; a witness, not a fault). Each is judged by
+rounding alone carries a chunk; a witness, not a fault), for a tracing
+cell with a recorded position moved, a trace cut short and a NaN planted:
+the list ``FAULTS`` of the cell's driver. Each is judged by
 the harness's own comparison and printed as one JSON object a line with
 its ``correct``, the numbers it compared and, for training, every reading.
 It runs on the card the cell asks for; the benchmark's own runs never run
@@ -17,15 +19,13 @@ it.
 """
 
 import argparse
+import importlib
 import json
 import os
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: what each driver puts in the program's place, beside the program itself
-FAULTS = {"dense": ["control"], "sweep": ["control"],
-          "train": ["control", "half_batch", "float64"]}
 
 
 def main(argv=None):
@@ -44,9 +44,10 @@ def main(argv=None):
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2
     cell = harness.find_cell(harness.load_bench(), args.workload)
-    driver = harness.load_traffic(cell["traffic"])["driver"]
+    driver = importlib.import_module("perfbench.drivers." + harness.
+                                     load_traffic(cell["traffic"])["driver"])
     runs = [(None, args.first + k) for k in range(args.seeds)]
-    runs += [(f, args.first + k) for f in FAULTS[driver]
+    runs += [(f, args.first + k) for f in driver.FAULTS
              for k in range(args.control)]
     for fault, seed in runs:
         t0 = time.perf_counter()

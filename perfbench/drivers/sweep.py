@@ -33,6 +33,9 @@ from .. import build, trace, weights
 from ..reference.nets import Reference, no_tf32
 from . import common
 
+#: what ``calibrate.py`` puts in the program's place, beside the program
+FAULTS = ["control"]
+
 
 def make_dataset(seed, shape, device):
     g = weights.generator(seed, "dataset", device)

@@ -32,6 +32,9 @@ from ..reference.nets import no_tf32
 from ..reference.train import train_chunk
 from . import common
 
+#: what ``calibrate.py`` puts in the program's place, beside the program
+FAULTS = ["control", "half_batch", "float64"]
+
 
 def leaf_gaps(prog, ref, keep):
     """Each kept leaf's gap between the norms of ``prog`` and ``ref``

@@ -19,9 +19,12 @@ FAULTS = [("neuro3d.dense_request", "answer"),
           ("neuro3d.sweep", "answer"),
           ("neuro3d.sweep", "stale"),
           ("neuro3d.train_fused", "frozen"),
-          ("neuro3d.train_fused", "half_batch")]
+          ("neuro3d.train_fused", "half_batch"),
+          ("tracer.rollout", "answer"),
+          ("tracer.rollout", "nan_pick"),
+          ("tracer.rollout", "truncated")]
 CONTROLS = ["neuro3d.dense_request", "unet3d_wide.dense_slab",
-            "neuro3d.sweep", "neuro3d.train_fused"]
+            "neuro3d.sweep", "neuro3d.train_fused", "tracer.rollout"]
 
 
 @pytest.mark.parametrize("workload,fault", FAULTS)
@@ -54,3 +57,13 @@ def test_tf32_round_keeps_ten_mantissa_bits():
                       1.0 + 2 ** -12, -3.0])
     assert tf32_round(x).tolist() == [1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0,
                                       -3.0]
+
+
+@pytest.mark.parametrize("workload", CONTROLS)
+def test_each_driver_names_the_runs_calibrate_makes(workload):
+    import importlib
+    cell = harness.find_cell(harness.load_bench(), workload)
+    driver = importlib.import_module("perfbench.drivers." + harness.
+                                     load_traffic(cell["traffic"])["driver"])
+    # the precision control first: every cell's upper reading starts there
+    assert driver.FAULTS[0] == "control"

@@ -23,14 +23,17 @@ def loaded_after(code):
 def test_run_and_reference_import_no_jax():
     mods = loaded_after("import perfbench.run, perfbench.harness, "
                         "perfbench.calibrate, perfbench.reference.nets, "
-                        "perfbench.reference.train")
+                        "perfbench.reference.train, "
+                        "perfbench.reference.tracer, "
+                        "perfbench.drivers.tracer")
     assert not mods & set(FORBIDDEN)
 
 
 def test_reference_imports_nothing_of_the_program():
     mods = loaded_after("import perfbench.reference.nets, "
                         "perfbench.reference.train, "
-                        "perfbench.reference.augment")
+                        "perfbench.reference.augment, "
+                        "perfbench.reference.tracer")
     assert "elektronn2_tpu_torch" not in mods
     assert not mods & set(FORBIDDEN)
 

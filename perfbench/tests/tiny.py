@@ -11,5 +11,7 @@ TINY = {
     "neuro3d.sweep": {"dataset": [16, 150, 140], "cube_edge": 64,
                       "step": [8, 72, 64],
                       "check": {"blocks": 3, "block": [4, 32, 32]}},
+    "tracer.rollout": {"volume": [1, 40, 40, 40], "agents": 8, "steps": 6,
+                       "check": {"within": 3}},
 }
 SEED = 2 ** 31 + 11
